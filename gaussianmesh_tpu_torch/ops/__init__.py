@@ -1,0 +1,7 @@
+from gaussianmesh_tpu_torch.ops import (  # noqa: F401
+    binning,
+    oracle,
+    preprocess,
+    rasterize,
+    tile_blend,
+)

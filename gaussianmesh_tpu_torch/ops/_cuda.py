@@ -1,0 +1,96 @@
+"""Builds and loads the port's CUDA kernels at first use.
+
+Each source `csrc/<name>.cu` exports plain C entry points and is compiled by
+`nvcc` into its own shared library, loaded with `ctypes` (no PyTorch
+headers, so a build takes seconds). Libraries go into `_build/` under the
+package (listed in `.gitignore`), named by a hash of their source and
+flags, so an edited source is rebuilt and a stale library never loads.
+`build()` starts one `nvcc` per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# library -> {C entry point: argtypes}; every entry point returns the
+# cudaError_t of its launch as an int
+KERNELS = {
+    "tile_blend_fwd": {
+        # feat, sorted_gid, starts, counts, num_tiles, grid_x, width,
+        # height, color, final_t, n_contrib, stream
+        "gm_tile_blend_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    },
+}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named kernel libraries (default: all) that are not built
+    yet, one `nvcc` process per source, all started together.
+    -> {name: nvcc's output (the `-Xptxas -v` register/shared-memory lines)}
+    for the libraries built by this call."""
+    names = list(KERNELS) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
+    build([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for fn, argtypes in KERNELS[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib

@@ -1,0 +1,104 @@
+"""Tile rasterizer, forward: preprocess -> binning -> blend -> background.
+
+Port of `gaussianmesh_tpu/ops/rasterize.py::rasterize` (the reference's
+rasterizer_impl.cu:198-511). Binning is index work with no gradient; the
+blend is `tile_blend.blend_forward`, which runs the CUDA kernel K1 for CUDA
+tensors and its plain PyTorch version for CPU tensors — the tensors' device
+decides, there is no flag. The plain CPU path stays differentiable through
+autograd; the CUDA path is forward-only until the training slice brings the
+backward kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from gaussianmesh_tpu_torch.ops import binning, preprocess as prep_mod, tile_blend
+from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterizerConfig:
+    width: int
+    height: int
+    max_per_tile: int = 512
+    # capacity headroom over measured live counts; overflow is counted and
+    # reported, never silent
+    pair_capacity_per_gaussian: int = 10
+    row_capacity_per_gaussian: int = 4
+
+    def expand_capacity(self, n: int) -> int:
+        return n * self.pair_capacity_per_gaussian
+
+    def row_capacity(self, n: int) -> int:
+        return n * self.row_capacity_per_gaussian
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return prep_mod.tile_grid(self.width, self.height)
+
+    @property
+    def num_tiles(self) -> int:
+        gx, gy = self.grid
+        return gx * gy
+
+
+class RasterizeOut(NamedTuple):
+    color: torch.Tensor          # (3, H, W)
+    final_t: torch.Tensor        # (H, W)
+    n_contrib: torch.Tensor      # (H, W) int32
+    radii: torch.Tensor          # (N,) int32
+    mean2d: torch.Tensor         # (N, 2)
+    visibility: torch.Tensor     # (N,) bool (radii > 0)
+    num_rendered: torch.Tensor   # () int32
+    tile_overflow: torch.Tensor  # () int32
+    rect_overflow: torch.Tensor  # () int32
+    pair_overflow: torch.Tensor  # () int32, always 0 (see binning.TileLists)
+
+
+def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
+              rgb: torch.Tensor, bg: torch.Tensor, cam: CameraArrays,
+              cfg: RasterizerConfig,
+              active_mask: torch.Tensor | None = None) -> RasterizeOut:
+    """Render N Gaussians (world means, 3D covariance uppers, activated
+    opacity in [0, 1], per-view RGB) over the background color `bg` (3,).
+    `active_mask` (N,) culls dead capacity rows. On CUDA the blend is
+    forward-only: call under `torch.no_grad()`."""
+    gx, gy = cfg.grid
+    prep = prep_mod.preprocess(means3d, cov6, cam, cfg.width, cfg.height,
+                               opacity=opacity)
+    if active_mask is not None:
+        prep = prep._replace(
+            valid=prep.valid & active_mask,
+            radius=torch.where(active_mask, prep.radius, 0),
+            tiles_touched=torch.where(active_mask, prep.tiles_touched, 0))
+
+    n = means3d.shape[0]
+    with torch.no_grad():
+        tiles = binning.build_tile_lists(
+            prep, gx, gy, cfg.max_per_tile,
+            expand_capacity=cfg.expand_capacity(n), opacity=opacity,
+            row_capacity=cfg.row_capacity(n))
+
+    feat = tile_blend.pack_features(prep.mean2d, prep.conic, opacity.reshape(-1),
+                                    rgb, prep.valid)
+    color, final_t, n_contrib = tile_blend.blend_forward(
+        feat, tiles.sorted_gid, tiles.starts, tiles.counts, gx,
+        cfg.width, cfg.height)
+    color = color + final_t[None] * bg[:, None, None]
+
+    return RasterizeOut(
+        color=color,
+        final_t=final_t,
+        n_contrib=n_contrib,
+        radii=prep.radius,
+        mean2d=prep.mean2d,
+        visibility=prep.radius > 0,
+        num_rendered=tiles.num_rendered,
+        tile_overflow=tiles.tile_overflow,
+        rect_overflow=tiles.rect_overflow,
+        pair_overflow=tiles.pair_overflow,
+    )

@@ -1,0 +1,49 @@
+"""The port stands alone: no module of it imports JAX or the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import gaussianmesh_tpu_torch
+
+PKG = pathlib.Path(gaussianmesh_tpu_torch.__file__).parent
+ROOT = PKG.parent
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_every_module_leaves_out_jax():
+    mods = list(_modules())
+    assert "gaussianmesh_tpu_torch.ops.rasterize" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'flax', 'gaussianmesh_tpu.')) or m == 'gaussianmesh_tpu')\n"
+            "print(bad)\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_names(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "gaussianmesh_tpu"), (path, name)
