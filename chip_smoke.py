@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path on one CUDA card and check it.
+"""Drive the PyTorch port's render and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is not 0):
 
-1. card: needs CUDA; prints torch, the card's name and power limit.
+1. card: needs CUDA; prints torch, the card's name and power limit; checks
+   that float32 matmuls and cuDNN convolutions stay out of TF32.
 2. build: compiles every CUDA kernel of the port from `csrc/` (one nvcc per
    source, in parallel) and prints nvcc's register / shared-memory lines.
 3. oracle: a small scene rendered on the card through `rasterize` agrees
@@ -18,9 +20,25 @@ Phases (any failure raises, so the exit code is not 0):
    launched there (launch counters set to 0 just before, read just after).
    A profiled pass over 3 more frames prints device time by kernel and the
    device's idle share.
-5. kernels: each kernel against its plain PyTorch version on the slice's own
-   inputs (and an overflow-clamped config), timed with CUDA events, with
-   its bound (bytes or operations) computed from this run's data.
+5. kernels: K1 against its plain PyTorch version on the slice's own inputs
+   (and an overflow-clamped config); then K2 and K3 on the same pair
+   domains with seeded cotangents, against their plain versions, twice for
+   bit-identity; each timed with CUDA events, with its bound (bytes or
+   operations) computed from this run's data.
+6. train: config-2 training at full width. The slice model renders 24
+   ground-truth views at 800x800; `MeshTrainer` trains a student from an
+   icosphere-2 proxy (320 faces -> 327,680 Gaussians after the init
+   subdivision, SH degree 3 from the first step) for 60 iterations with a
+   shrunk schedule: the white-background opacity reset at 10, densify at 20
+   and 30 (threshold lowered to 1e-5), an interval opacity reset at 20,
+   then 30 iterations with no event. K1, K2 and K3 must each launch once per step (counters set to 0
+   just before `train`, read just after); loss and parameters stay finite,
+   no overflow, densify splits, the loss falls over the event-free steps.
+   Step ms per event-free step; a profiled pass over 3 more steps. Then
+   one more step with the kernels' wrappers recording their arguments, and
+   K1, K2 and K3 held against their plain versions on those (the table at
+   training capacity with its dead rows, cotangents from the real loss),
+   timed and bounded as in phase 5; K2's rows must equal the step's.
 
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
@@ -45,6 +63,14 @@ N_VIEWS = 8
 SUBDIV = 7             # 20 * 4**7 = 327,680 faces
 SH_DEGREE = 3
 TIMED_LAUNCHES = 20
+PLAIN_LAUNCHES = 3     # the plain K1 and K2 walk each pair of the largest tile in Python
+
+# training phase: config 2 at the NeRF-synthetic size
+TRAIN_SIZE = 800
+TRAIN_VIEWS = 24
+TRAIN_ITERS = 60
+PROXY_SUBDIV = 2       # 320 faces
+INIT_TARGET = 100_000  # config 2: subdivide past 100K (train_mesh_gaussian.py:60)
 
 # H100 SXM peaks (NVIDIA data sheet; the CUDA programming guide's throughput
 # table for the special-function unit: 16 exp2 results / clock / SM) at the
@@ -56,6 +82,10 @@ PEAK_MUFU_S = 132 * 16 * 1.98e9
 # K1 tolerances against its plain version (the same operation order, so
 # they should agree to rounding; these are the acceptance bars)
 MAX_ABS, MEAN_ABS, SHARE_OFF, NCONTRIB_EQ = 4e-3, 1e-5, 1e-4, 0.999
+# K2 rows: max |kernel - plain| over each column's largest |row| (the same
+# per-pixel chain, the 256-pixel sum in another order); K3 against a
+# float64 index_add_: max |diff| over each column's largest |sum|
+K2_REL, K3_REL = 1e-5, 1e-6
 
 
 def log(*a):
@@ -88,9 +118,10 @@ def icosphere(subdiv: int):
     return v.astype(np.float32), f.astype(np.int32)
 
 
-def orbit_camera(graphics, azimuth, device, distance=4.0, elevation=0.3):
+def orbit_camera(graphics, azimuth, device, distance=4.0, elevation=0.3,
+                 width=WIDTH, height=HEIGHT):
     fovx = math.radians(60.0)
-    fovy = graphics.focal2fov(graphics.fov2focal(fovx, WIDTH), HEIGHT)
+    fovy = graphics.focal2fov(graphics.fov2focal(fovx, width), height)
     pos = distance * np.array([math.cos(elevation) * math.sin(azimuth),
                                math.sin(elevation),
                                math.cos(elevation) * math.cos(azimuth)])
@@ -102,6 +133,18 @@ def orbit_camera(graphics, azimuth, device, distance=4.0, elevation=0.3):
     P = graphics.projection_matrix(0.01, 100.0, fovx, fovy)
     return graphics.CameraArrays.from_numpy(V, P @ V, pos, math.tan(fovx / 2),
                                             math.tan(fovy / 2), device=device)
+
+
+def reset_launches(port):
+    for fn in (port.tile_blend.blend_forward, port.tile_blend.blend_backward,
+               port.segsum.segment_sum):
+        fn.launches = 0
+
+
+def read_launches(port):
+    return {"K1": port.tile_blend.blend_forward.launches,
+            "K2": port.tile_blend.blend_backward.launches,
+            "K3": port.segsum.segment_sum.launches}
 
 
 def cuda_ms(torch, fn, n):
@@ -117,21 +160,25 @@ def cuda_ms(torch, fn, n):
     return start.elapsed_time(end) / n
 
 
-def k1_evaluations(torch, tile_blend, feat, tiles, grid_x):
-    """(pair, pixel) evaluations the sequential walk needs on this data:
-    each pixel evaluates its tile's pairs up to and including the one that
-    ends it (T * (1 - alpha) < 1e-4), all of them if none does; pixels
-    outside the image need none."""
-    lists = tile_blend.tile_id_lists(tiles.sorted_gid, tiles.starts,
-                                     tiles.counts, feat.shape[0] - 1)
+def walk_counts(torch, tile_blend, feat, sorted_gid, starts, counts, grid_x,
+                width, height):
+    """(pair, pixel) work of the sequential walk on this data: K1's
+    evaluations (each pixel evaluates its tile's pairs up to and including
+    the one that ends it, T * (1 - alpha) < 1e-4, all of them if none does;
+    pixels outside the image need none) and the blended (pair, pixel)
+    events among them. K2 evaluates each pixel's pairs before its last
+    blended one: the sum of n_contrib."""
+    lists = tile_blend.tile_id_lists(sorted_gid, starts, counts,
+                                     feat.shape[0] - 1)
     tf = feat[lists]                                          # (T, K, FEAT)
     num_tiles = tf.shape[0]
     px, py = tile_blend._pixel_coords(torch.arange(num_tiles, device=feat.device),
                                       grid_x)
-    done = (px >= WIDTH) | (py >= HEIGHT)
+    done = (px >= width) | (py >= height)
     T = torch.ones_like(px)
     evals = torch.zeros_like(px, dtype=torch.int64)
-    counts = tiles.counts.long()[:, None]
+    blended = torch.zeros_like(evals)
+    counts = counts.long()[:, None]
     for j in range(tf.shape[1]):
         live = ~done & (j < counts)
         evals += live
@@ -139,21 +186,24 @@ def k1_evaluations(torch, tile_blend, feat, tiles, grid_x):
         test_t = T * (1.0 - alpha)
         fire = live & (alpha > 0.0)
         term = fire & (test_t < tile_blend.T_EPS)
+        blended += fire & ~term
         T = torch.where(fire & ~term, test_t, T)
         done = done | term
-    return int(evals.sum())
+    return int(evals.sum()), int(blended.sum())
 
 
 def phase_card(torch):
     if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; the port's render path "
-                         "runs on the card")
+        raise SystemExit("chip_smoke: no CUDA device; the port's render and "
+                         "training paths run on the card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}; devices {torch.cuda.device_count()}")
+    import gaussianmesh_tpu_torch  # noqa: F401  (sets both TF32 switches)
     assert torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls on"
+    assert torch.backends.cudnn.allow_tf32 is False, "TF32 convolutions on"
     return smi
 
 
@@ -235,51 +285,52 @@ def make_model(torch, port, tmpdir):
     return loaded
 
 
-def size_capacities(torch, port, model, cams):
+def size_capacities(torch, port, model, cams, width, height, sh_degree,
+                    label):
     """max_per_tile and the pair capacities large enough that no view of
     this model overflows, from 1024 and the defaults up; and each view's
     largest per-tile pair count."""
-    cfg = port.rasterize.RasterizerConfig(WIDTH, HEIGHT, max_per_tile=1024)
+    cfg = port.rasterize.RasterizerConfig(width, height, max_per_tile=1024)
     gx, gy = cfg.grid
     n = model.bc.shape[0]
     while True:
         largest, rect_over = [], 0
         for cam in cams:
-            a = port.render.mesh_model_arrays(model, cam, SH_DEGREE)
-            prep = port.preprocess.preprocess(a.xyz, a.cov6, cam, WIDTH, HEIGHT,
+            a = port.render.mesh_model_arrays(model, cam, sh_degree)
+            prep = port.preprocess.preprocess(a.xyz, a.cov6, cam, width, height,
                                               opacity=a.opacity)
             prep = prep._replace(valid=prep.valid & a.active)
             tiles = port.binning.build_tile_lists(
                 prep, gx, gy, 1 << 30, cfg.expand_capacity(n), opacity=a.opacity,
-                row_capacity=cfg.row_capacity(n))
+                row_capacity=cfg.row_capacity(n), with_grouped_pos=False)
             largest.append(int(tiles.counts.max()))
             rect_over += int(tiles.rect_overflow)
         if rect_over == 0:
             break
-        log(f"[slice] rect_overflow {rect_over}: doubling the pair capacities")
+        log(f"[{label}] rect_overflow {rect_over}: doubling the pair capacities")
         cfg = port.rasterize.RasterizerConfig(
-            WIDTH, HEIGHT, cfg.max_per_tile, 2 * cfg.pair_capacity_per_gaussian,
+            width, height, cfg.max_per_tile, 2 * cfg.pair_capacity_per_gaussian,
             2 * cfg.row_capacity_per_gaussian)
     mpt = cfg.max_per_tile
     while mpt < max(largest):
         mpt *= 2
     if mpt != cfg.max_per_tile:
-        log(f"[slice] largest tile holds {max(largest)} pairs: max_per_tile "
+        log(f"[{label}] largest tile holds {max(largest)} pairs: max_per_tile "
             f"{cfg.max_per_tile} -> {mpt}")
     return port.rasterize.RasterizerConfig(
-        WIDTH, HEIGHT, mpt, cfg.pair_capacity_per_gaussian,
+        width, height, mpt, cfg.pair_capacity_per_gaussian,
         cfg.row_capacity_per_gaussian), largest
 
 
-def phase_profile(torch, frame, cams, n=3):
-    """Device time by kernel over n frames (torch.profiler), and the share
-    of the profiled frame's wall time in which the device was idle."""
+def phase_profile(torch, run, n, unit, label):
+    """Device time by kernel over n calls of run() (torch.profiler), and the
+    share of the profiled wall time in which the device was idle."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for cam in cams[:n]:
-            frame(cam)
+        for i in range(n):
+            run(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     rows = []
@@ -289,10 +340,10 @@ def phase_profile(torch, frame, cams, n=3):
             rows.append((us / 1e3 / n, e.count / n, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[profile] {n} frames under torch.profiler: wall {wall:.3f} ms/frame, "
-        f"device busy {busy:.3f} ms/frame, idle share {1 - busy / wall:.3f}")
+    log(f"[{label}] {n} {unit}s under torch.profiler: wall {wall:.3f} ms/{unit}, "
+        f"device busy {busy:.3f} ms/{unit}, idle share {1 - busy / wall:.3f}")
     for ms, count, name in rows[:15]:
-        log(f"[profile] {ms:8.3f} ms/frame x{count:g} {name[:100]}")
+        log(f"[{label}] {ms:8.3f} ms/{unit} x{count:g} {name[:100]}")
 
 
 def phase_slice(torch, port, tmpdir):
@@ -301,7 +352,8 @@ def phase_slice(torch, port, tmpdir):
             for i in range(N_VIEWS)]
     bg = torch.ones(3, device="cuda")
     with torch.no_grad():
-        cfg, largest = size_capacities(torch, port, model, cams)
+        cfg, largest = size_capacities(torch, port, model, cams, WIDTH, HEIGHT,
+                                       SH_DEGREE, "slice")
         log(f"[slice] config: max_per_tile {cfg.max_per_tile}, pair capacity "
             f"{cfg.pair_capacity_per_gaussian}/Gaussian, row capacity "
             f"{cfg.row_capacity_per_gaussian}/Gaussian")
@@ -312,7 +364,7 @@ def phase_slice(torch, port, tmpdir):
 
         frame(cams[0])                                   # warm frame
         torch.cuda.synchronize()
-        port.tile_blend.blend_forward.launches = 0       # main path starts
+        reset_launches(port)                             # main path starts
         frames, outs = [], []
         for i, cam in enumerate(cams):
             t0 = time.perf_counter()
@@ -320,8 +372,8 @@ def phase_slice(torch, port, tmpdir):
             torch.cuda.synchronize()
             frames.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
-        launches = port.tile_blend.blend_forward.launches  # main path ends
-        phase_profile(torch, frame, cams)
+        launches = read_launches(port)                   # main path ends
+        phase_profile(torch, lambda i: frame(cams[i]), 3, "frame", "profile")
     for i, out in enumerate(outs):
         covered = (out.final_t < 0.5).float().mean().item()
         log(f"[slice] view {i}: {frames[i]:.2f} ms, num_rendered "
@@ -335,103 +387,385 @@ def phase_slice(torch, port, tmpdir):
         assert covered >= 0.05, covered
     log(f"[slice] 1080p frame ms: mean {np.mean(frames):.2f}, median "
         f"{np.median(frames):.2f}, all {[round(x, 2) for x in frames]}")
-    assert launches == N_VIEWS, f"K1 launched {launches} times for {N_VIEWS} frames"
-    return model, cams[0], cfg, launches, frames
+    assert launches == {"K1": N_VIEWS, "K2": 0, "K3": 0}, launches
+    return model, cams[0], cfg, launches["K1"], frames
 
 
-def phase_kernels(torch, port, model, cam, cfg, launches):
-    """K1 against its plain version on view 0's binned pair domain, at the
-    slice's max_per_tile and clamped to 64."""
+def bound(bytes_, fp32_ops=0, mufu_ops=0):
+    bytes_ms = bytes_ / PEAK_BYTES_S * 1e3
+    ops_ms = max(fp32_ops / PEAK_FP32_S, mufu_ops / PEAK_MUFU_S) * 1e3
+    return dict(bytes=bytes_, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_k1(torch, tb, args, mpt=None):
+    """K1 against its plain version on K1's arguments (feat, sorted_gid,
+    starts, counts, grid_x, width, height): errors, times, bound."""
+    feat, sorted_gid, starts, counts, gx, width, height = args
+    kc, kt, kn = tb.blend_forward(*args)
+    pc, pt, pn = tb.blend_forward_plain(*args)
+    torch.cuda.synchronize()
+    dc = (kc - pc).abs()
+    dt = (kt - pt).abs()
+    r = dict(
+        max_per_tile=mpt, pairs=int(counts.sum()), table_rows=feat.shape[0],
+        largest_tile=int(counts.max()),
+        max_abs=max(dc.max().item(), dt.max().item()),
+        color_max_abs=dc.max().item(), color_mean_abs=dc.mean().item(),
+        final_t_max_abs=dt.max().item(), final_t_mean_abs=dt.mean().item(),
+        share_off=(dc.amax(0) > 1e-4).float().mean().item(),
+        n_contrib_equal=(kn == pn).float().mean().item())
+    r["ms"] = cuda_ms(torch, lambda: tb.blend_forward(*args), TIMED_LAUNCHES)
+    r["plain_ms"] = cuda_ms(torch, lambda: tb.blend_forward_plain(*args),
+                            PLAIN_LAUNCHES)
+    evals, blended = walk_counts(torch, tb, feat, sorted_gid, starts, counts,
+                                 gx, width, height)
+    r.update(evaluations=evals, blended=blended, **bound(
+        r["pairs"] * (4 + 36) + 8 * counts.shape[0] + 20 * width * height,
+        fp32_ops=evals * 12, mufu_ops=evals))
+    assert r["color_max_abs"] <= MAX_ABS and r["final_t_max_abs"] <= MAX_ABS, r
+    assert r["color_mean_abs"] <= MEAN_ABS, r
+    assert r["share_off"] <= SHARE_OFF, r
+    assert r["n_contrib_equal"] >= NCONTRIB_EQ, r
+    return r, kt, kn, blended
+
+
+def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
+                step_rows=None):
+    """K2 on its arguments (feat, sorted_gid, starts, counts, final_t,
+    n_contrib, g_color, g_final_t) and K3 on K2's rows: against their plain
+    versions, bit-identical over two runs (and to the rows a training step
+    produced, where given), timed, bounded by this data's work."""
+    tb, seg = port.tile_blend, port.segsum
+    feat, _, starts, counts, final_t, n_contrib, _, _ = k2_args
+    height, width = final_t.shape
+    gx = -(-width // tb.TILE)
+    rows = tb.blend_backward(*k2_args)
+    plain_rows = tb.blend_backward_plain(*k2_args)
+    d_feat = seg.segment_sum(rows, grouped_pos, seg_starts)
+    ref64 = seg.segment_sum_plain(rows, grouped_pos, seg_starts)
+    again = seg.segment_sum(tb.blend_backward(*k2_args), grouped_pos, seg_starts)
+    torch.cuda.synchronize()
+    m, n = rows.shape[0], seg_starts.shape[0] - 1
+    d2 = (rows - plain_rows).abs()
+    d3 = (d_feat - ref64).abs()
+    k2 = dict(pairs=m, table_rows=feat.shape[0],
+              rows_nonzero=int((rows != 0).any(1).sum()),
+              max_abs=d2.max().item(),
+              rel=(d2 / plain_rows.abs().amax(0).clamp(min=1e-30)).max().item(),
+              zero_rows_equal=bool(torch.equal(rows == 0, plain_rows == 0)))
+    if step_rows is not None:
+        k2["same_as_step"] = bool(torch.equal(rows, step_rows))
+    k3 = dict(gaussians=n, max_abs=d3.max().item(),
+              rel=(d3 / ref64.abs().amax(0).clamp(min=1e-30)).max().item(),
+              bit_identical=bool(torch.equal(d_feat, again)))
+    k2["ms"] = cuda_ms(torch, lambda: tb.blend_backward(*k2_args), TIMED_LAUNCHES)
+    k2["plain_ms"] = cuda_ms(torch, lambda: tb.blend_backward_plain(*k2_args),
+                             PLAIN_LAUNCHES)
+    # each tile stages (gid + 9 feature floats) only for pairs [0, walk),
+    # walk its pixels' largest n_contrib; rows past it are written as zeros
+    staged = int(tb._tile_blocks(n_contrib[None], gx)[:, 0].amax(1).sum())
+    evals = int(n_contrib.sum())      # pairs each pixel walks back over
+    k2.update(evaluations=evals, blended=blended, staged_pairs=staged, **bound(
+        staged * (4 + 36) + 4 * (counts.shape[0] + 1)
+        + 24 * width * height + 64 * m,
+        fp32_ops=evals * 12 + blended * 40, mufu_ops=evals + 2 * blended))
+    lengths = (seg_starts[1:] - seg_starts[:-1]).long()
+    k3["ms"] = cuda_ms(torch, lambda: seg.segment_sum(rows, grouped_pos, seg_starts),
+                       TIMED_LAUNCHES)
+    k3["plain_ms"] = cuda_ms(torch, lambda: seg.segment_sum_plain(
+        rows, grouped_pos, seg_starts), TIMED_LAUNCHES)
+    k3["library_ms"] = cuda_ms(torch, lambda: torch.segment_reduce(
+        rows[grouped_pos.long()], "sum", lengths=lengths), TIMED_LAUNCHES)
+    k3.update(**bound(m * (64 + 4) + (n + 1) * (4 + 64)))
+    assert k2["rel"] <= K2_REL and k2["zero_rows_equal"], k2
+    assert k2.get("same_as_step", True), k2
+    assert k3["rel"] <= K3_REL and k3["bit_identical"], k3
+    assert k2["rows_nonzero"] > 0
+    return k2, k3
+
+
+def phase_kernels(torch, port, model, cam, cfg):
+    """K1, then K2 and K3 with seeded cotangents, against their plain
+    versions on view 0's binned pair domain, at the slice's max_per_tile and
+    clamped to 64."""
     tb = port.tile_blend
     gx, gy = cfg.grid
     n = model.bc.shape[0]
+    results = {}
     with torch.no_grad():
         a = port.render.mesh_model_arrays(model, cam, SH_DEGREE)
         prep = port.preprocess.preprocess(a.xyz, a.cov6, cam, WIDTH, HEIGHT,
                                           opacity=a.opacity)
         prep = prep._replace(valid=prep.valid & a.active)
         feat = tb.pack_features(prep.mean2d, prep.conic, a.opacity, a.rgb, prep.valid)
-        results = {}
+        rng = np.random.default_rng(SEED + 2)
+        g_color = torch.tensor(rng.normal(size=(3, HEIGHT, WIDTH)).astype(np.float32),
+                               device="cuda")
+        g_final_t = torch.tensor(rng.normal(size=(HEIGHT, WIDTH)).astype(np.float32),
+                                 device="cuda")
         for label, mpt in (("slice", cfg.max_per_tile), ("clamped", 64)):
             tiles = port.binning.build_tile_lists(
                 prep, gx, gy, mpt, cfg.expand_capacity(n), opacity=a.opacity,
                 row_capacity=cfg.row_capacity(n))
-            args = (feat, tiles.sorted_gid, tiles.starts, tiles.counts, gx,
-                    WIDTH, HEIGHT)
-            kc, kt, kn = tb.blend_forward(*args)
-            pc, pt, pn = tb.blend_forward_plain(*args)
-            torch.cuda.synchronize()
-            dc = (kc - pc).abs()
-            dt = (kt - pt).abs()
-            r = dict(
-                max_per_tile=mpt, pairs=int(tiles.counts.sum()),
-                tile_overflow=int(tiles.tile_overflow),
-                largest_tile=int(tiles.counts.max()),
-                color_max_abs=dc.max().item(), color_mean_abs=dc.mean().item(),
-                final_t_max_abs=dt.max().item(), final_t_mean_abs=dt.mean().item(),
-                share_off=(dc.amax(0) > 1e-4).float().mean().item(),
-                n_contrib_equal=(kn == pn).float().mean().item())
-            r["ms"] = cuda_ms(torch, lambda: tb.blend_forward(*args), TIMED_LAUNCHES)
-            r["plain_ms"] = cuda_ms(torch, lambda: tb.blend_forward_plain(*args),
-                                    TIMED_LAUNCHES)
-            evals = k1_evaluations(torch, tb, feat, tiles, gx)
-            n_tiles = gx * gy
-            bytes_ = (r["pairs"] * (4 + 36) + 8 * n_tiles + 20 * WIDTH * HEIGHT)
-            bytes_ms = bytes_ / PEAK_BYTES_S * 1e3
-            ops_ms = max(evals * 12 / PEAK_FP32_S, evals / PEAK_MUFU_S) * 1e3
-            r.update(evaluations=evals, bytes=bytes_, bytes_ms=bytes_ms,
-                     ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
-                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-            log(f"[kernels] K1 {label}: " + json.dumps(r))
-            if label == "clamped":
-                assert r["tile_overflow"] > 0
-            assert r["color_max_abs"] <= MAX_ABS and r["final_t_max_abs"] <= MAX_ABS
-            assert r["color_mean_abs"] <= MEAN_ABS, r
-            assert r["share_off"] <= SHARE_OFF, r
-            assert r["n_contrib_equal"] >= NCONTRIB_EQ, r
-            results[label] = r
-    s = results["slice"]
-    max_abs = max(max(r["color_max_abs"], r["final_t_max_abs"])
-                  for r in results.values())
-    return [{
-        "name": "tile_blend_fwd (K1, blend forward)",
-        "route": "cuda",
-        "source": "gaussianmesh_tpu_torch/csrc/tile_blend_fwd.cu",
-        "replaces": "gaussianmesh_tpu/ops/tile_blend.py:1111",
-        "launches": launches,
-        "max_abs_err": max_abs, "max_abs": max_abs,
-        "ms": s["ms"], "kernel_ms": s["ms"],
-        "plain_ms": s["plain_ms"],
-        "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-        "library_ms": None,
-        "clamped_ms": results["clamped"]["ms"],
-        "clamped_plain_ms": results["clamped"]["plain_ms"],
-    }]
+            assert (int(tiles.tile_overflow) > 0) == (label == "clamped")
+            k1, final_t, n_contrib, blended = check_k1(
+                torch, tb, (feat, tiles.sorted_gid, tiles.starts, tiles.counts,
+                            gx, WIDTH, HEIGHT), mpt)
+            log(f"[kernels] K1 {label}: " + json.dumps(k1))
+            k2_args = (feat, tiles.sorted_gid, tiles.starts, tiles.counts,
+                       final_t, n_contrib, g_color, g_final_t)
+            k2, k3 = check_k2_k3(torch, port, k2_args, tiles.grouped_pos,
+                                 port.segsum.segment_starts(tiles.gid_counts),
+                                 blended)
+            log(f"[kernels] K2 {label}: " + json.dumps(k2))
+            log(f"[kernels] K3 {label}: " + json.dumps(k3))
+            results[label] = (k1, k2, k3)
+    return results
+
+
+KERNELS = (
+    ("K1", "tile_blend_fwd (K1, blend forward)", "tile_blend_fwd.cu",
+     "gaussianmesh_tpu/ops/tile_blend.py:1111"),
+    ("K2", "tile_blend_bwd (K2, blend backward)", "tile_blend_bwd.cu",
+     "gaussianmesh_tpu/ops/tile_blend.py:1187"),
+    ("K3", "segment_sum (K3, per-Gaussian gradient reduction)", "segment_sum.cu",
+     "gaussianmesh_tpu/ops/segsum.py:132"),
+)
+
+
+def kernel_line(results, launches):
+    """The `kernels` JSON entries: times and bounds at the slice config,
+    beside them those at the clamped config and at a training step's
+    shapes; errors over all three; launches from the main paths."""
+    line = []
+    for i, (key, name, source, replaces) in enumerate(KERNELS):
+        r = {label: res[i] for label, res in results.items()}
+        s = r["slice"]
+        err = max(x["max_abs"] for x in r.values())
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"gaussianmesh_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches["render"][key] + launches["train"][key],
+            "render_launches": launches["render"][key],
+            "train_launches": launches["train"][key],
+            "max_abs_err": err, "max_abs": err,
+            "ms": s["ms"], "kernel_ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+            "library_ms": s.get("library_ms"),
+        }
+        if "rel" in s:
+            entry["max_rel_err"] = max(x["rel"] for x in r.values())
+        for label in ("clamped", "train"):
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                if k in r[label]:
+                    entry[f"{label}_{k}"] = r[label][k]
+        line.append(entry)
+    return line
+
+
+def capture_step(torch, port, trainer):
+    """One more training step (`MeshTrainer.step` on view 0) with the
+    wrappers of K1, K2 and K3 recording the arguments the step hands them.
+    -> {"K1": args, "K2": args, "K3": args}. A wrapper bumps its counter
+    through its module's name, so each stand-in carries a `launches` of its
+    own (functools.wraps copies it); the real counters stay as they were."""
+    import functools
+
+    wrappers = {"K1": (port.tile_blend, "blend_forward"),
+                "K2": (port.tile_blend, "blend_backward"),
+                "K3": (port.segsum, "segment_sum")}
+    seen, kept = {}, {}
+    for key, (mod, attr) in wrappers.items():
+        kept[key] = getattr(mod, attr)
+
+        @functools.wraps(kept[key])
+        def record(*args, _fn=kept[key], _key=key):
+            seen[_key] = tuple(a.clone() if torch.is_tensor(a) else a
+                               for a in args)
+            return _fn(*args)
+
+        setattr(mod, attr, record)
+    try:
+        trainer.step(0, trainer.bg_const)
+    finally:
+        for key, (mod, attr) in wrappers.items():
+            setattr(mod, attr, kept[key])
+    assert sorted(seen) == ["K1", "K2", "K3"], sorted(seen)
+    return seen
+
+
+def train_dataset(torch, port, model):
+    """TRAIN_VIEWS orbit views of the slice model at TRAIN_SIZE^2 over a
+    white background, rendered by the port's forward -> DeviceDataset."""
+    size = TRAIN_SIZE
+    cams = [orbit_camera(port.graphics, 2 * math.pi * i / TRAIN_VIEWS, "cuda",
+                         elevation=0.3 + 0.4 * math.sin(i), width=size, height=size)
+            for i in range(TRAIN_VIEWS)]
+    with torch.no_grad():
+        cfg, largest = size_capacities(torch, port, model, cams, size, size,
+                                       SH_DEGREE, "train")
+        bg = torch.ones(3, device="cuda")
+        images = []
+        for cam in cams:
+            out = port.render.render(port.render.mesh_model_arrays(
+                model, cam, SH_DEGREE), cam, cfg, bg)
+            assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+            images.append((out.color.clamp(0, 1) * 255).round().to(torch.uint8))
+    log(f"[train] ground truth: {TRAIN_VIEWS} views at {size}x{size}, largest "
+        f"tile {max(largest)}")
+    stack = lambda k: torch.stack([getattr(c, k) for c in cams])  # noqa: E731
+    return port.trainer.DeviceDataset(
+        view=stack("viewmatrix"), proj=stack("projmatrix"), campos=stack("campos"),
+        tanfovx=stack("tanfovx"), tanfovy=stack("tanfovy"),
+        images=torch.stack(images), masks=None, width=size, height=size)
+
+
+def phase_train(torch, port, model):
+    """Config-2 training at full width through MeshTrainer.train."""
+    import dataclasses
+
+    ds = train_dataset(torch, port, model)
+    v, f = icosphere(PROXY_SUBDIV)
+    # shrunk schedule: reset (white background) at 10, densify at 20 and
+    # 30, interval reset at 20; iterations 31-60 have no event. The default
+    # densify threshold 2e-4 splits nothing this early (grads_avg at
+    # iteration 20 on an H100: median 2.1e-5, max 9.1e-5; at 30 max 1.9e-5),
+    # so the smoke lowers it to 1e-5.
+    opt = port.config.OptimizationParams(
+        densify_from_iter=10, densification_interval=10, densify_until_iter=35,
+        opacity_reset_interval=20, densify_grad_threshold=1e-5)
+    t0 = time.perf_counter()
+    trainer = port.trainer.MeshTrainer(
+        v, f, ds, opt, port.config.RuntimeParams(), spatial_lr_scale=4.4,
+        init_target=INIT_TARGET, max_sh_degree=SH_DEGREE)
+    torch.cuda.synchronize()
+    n0 = int(trainer.model.alive.sum())
+    log(f"[train] MeshTrainer: {f.shape[0]} faces -> {n0} Gaussians after the "
+        f"init subdivision (capacity {trainer.model.capacity}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        cfg, largest = size_capacities(
+            torch, port, trainer.model, [ds.camera(i) for i in range(TRAIN_VIEWS)],
+            TRAIN_SIZE, TRAIN_SIZE, SH_DEGREE, "train")
+    # headroom: scales move while training
+    trainer.rt = dataclasses.replace(
+        trainer.rt, max_per_tile=2 * cfg.max_per_tile,
+        pair_capacity_per_gaussian=2 * cfg.pair_capacity_per_gaussian,
+        row_capacity_per_gaussian=2 * cfg.row_capacity_per_gaussian)
+    log(f"[train] student's largest tile {max(largest)} pairs; config "
+        f"{trainer.rt}")
+    trainer.sh_degree = SH_DEGREE   # the state after iteration 3000
+
+    densify = trainer.densify
+
+    def densify_logged():
+        g = port.densify.grads_avg(trainer.model.state)[trainer.model.alive]
+        q = torch.quantile(g, torch.tensor([0.5, 0.9, 0.99, 0.999], device=g.device))
+        log(f"[train] iteration {trainer.global_it}: grads_avg over alive rows: "
+            f"median/p90/p99/p99.9 {[f'{x:.3g}' for x in q.tolist()]}, max "
+            f"{g.max().item():.3g}, >= threshold "
+            f"{int((g >= opt.densify_grad_threshold).sum())}")
+        return densify()
+
+    trainer.densify = densify_logged
+    psnr0 = trainer.eval_psnr(range(0, TRAIN_VIEWS, 6))
+
+    step_ms, log_rows = [], []
+    clock = [0.0]
+
+    def on_step(m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - clock[0]) * 1e3)
+        clock[0] = now
+        log_rows.append(m)
+
+    torch.cuda.synchronize()
+    reset_launches(port)                                 # main path starts
+    clock[0] = time.perf_counter()
+    trainer.train(TRAIN_ITERS, log_every=1, callback=on_step)
+    launches = read_launches(port)                       # main path ends
+    phase_profile(torch, lambda i: trainer.train(1, log_every=1000), 3, "step",
+                  "train profile")
+    psnr1 = trainer.eval_psnr(range(0, TRAIN_VIEWS, 6))
+
+    for it, kind, info in trainer.events:
+        log(f"[train] iteration {it}: {kind} {json.dumps(info)}")
+    last_event = max(it for it, _, _ in trainer.events)
+    free = [i for i, m in enumerate(log_rows) if m["iter"] > last_event]
+    free_ms = [step_ms[i] for i in free]
+    losses = [log_rows[i]["loss"] for i in free]
+    log(f"[train] loss by iteration: "
+        f"{[round(m['loss'], 5) for m in log_rows]}")
+    log(f"[train] event-free step ms ({len(free)} steps, iterations "
+        f"{last_event + 1}-{TRAIN_ITERS}): median {np.median(free_ms):.3f}, "
+        f"mean {np.mean(free_ms):.3f}, all {[round(x, 3) for x in free_ms]}")
+    log(f"[train] launches over {TRAIN_ITERS} steps: {launches}; n_alive "
+        f"{n0} -> {int(trainer.model.alive.sum())}; PSNR (4 views) "
+        f"{psnr0:.3f} -> {psnr1:.3f}")
+
+    assert launches == {"K1": TRAIN_ITERS, "K2": TRAIN_ITERS,
+                        "K3": TRAIN_ITERS}, launches
+    assert all(math.isfinite(m["loss"]) for m in log_rows)
+    assert all(m["tile_overflow"] == 0 and m["rect_overflow"] == 0
+               for m in log_rows), "overflow while training"
+    for name, p in trainer.model.named_parameters():
+        assert torch.isfinite(p).all(), name
+    kinds = [(it, kind) for it, kind, _ in trainer.events]
+    assert kinds == [(10, "opacity_reset"), (20, "densify"), (20, "opacity_reset"),
+                     (30, "densify")], kinds
+    assert any(info["n_split"] >= 1 for _, kind, info in trainer.events
+               if kind == "densify"), "densify split nothing"
+    assert len(free) >= 20
+    assert np.mean(losses[-10:]) < np.mean(losses[:10]), losses
+
+    # the kernels on the arguments of one more (event-free) step: the
+    # step's table (capacity rows, dead ones included), pair domain and
+    # cotangents from the real loss
+    seen = capture_step(torch, port, trainer)
+    k1, _, _, blended = check_k1(torch, port.tile_blend, seen["K1"],
+                                 trainer.rt.max_per_tile)
+    log("[train] K1 at the step's shapes: " + json.dumps(k1))
+    rows, grouped_pos, seg_starts = seen["K3"]
+    k2, k3 = check_k2_k3(torch, port, seen["K2"], grouped_pos, seg_starts,
+                         blended, step_rows=rows)
+    log("[train] K2 at the step's shapes: " + json.dumps(k2))
+    log("[train] K3 at the step's shapes: " + json.dumps(k3))
+    return launches, free_ms, (k1, k2, k3)
 
 
 def main() -> int:
     import torch
 
     smi = phase_card(torch)
+    from gaussianmesh_tpu_torch import config
     from gaussianmesh_tpu_torch.io import gaussian_ply
     from gaussianmesh_tpu_torch.models import mesh_gaussians, render
     from gaussianmesh_tpu_torch.ops import (_cuda, binning, oracle, preprocess,
-                                            rasterize, tile_blend)
+                                            rasterize, segsum, tile_blend)
+    from gaussianmesh_tpu_torch.train import densify, trainer
     from gaussianmesh_tpu_torch.utils import graphics, maths
 
     port = types.SimpleNamespace(
         gaussian_ply=gaussian_ply, mesh_gaussians=mesh_gaussians, render=render,
         binning=binning, oracle=oracle, preprocess=preprocess,
-        rasterize=rasterize, tile_blend=tile_blend, graphics=graphics,
-        maths=maths)
+        rasterize=rasterize, segsum=segsum, tile_blend=tile_blend,
+        graphics=graphics, maths=maths, config=config, trainer=trainer,
+        densify=densify)
     t_start = time.perf_counter()
     phase_build(_cuda)
     phase_oracle(torch, port)
     with tempfile.TemporaryDirectory() as tmpdir:
-        model, cam, cfg, launches, frames = phase_slice(torch, port, tmpdir)
-    kernels = phase_kernels(torch, port, model, cam, cfg, launches)
+        model, cam, cfg, render_k1, frames = phase_slice(torch, port, tmpdir)
+    results = phase_kernels(torch, port, model, cam, cfg)
+    train_launches, step_ms, results["train"] = phase_train(torch, port, model)
+    kernels = kernel_line(results, {"render": {"K1": render_k1, "K2": 0, "K3": 0},
+                                    "train": train_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
-        f"{np.mean(frames):.3f}")
+        f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,10 @@ __version__ = "0.1.0"
 
 # Geometry (projection, KNN distances) needs true f32 matmuls: TF32 keeps
 # ~3 decimal digits. This is PyTorch's default; the JAX package pins the
-# same ("jax_default_matmul_precision" = highest).
+# same ("jax_default_matmul_precision" = highest). cuDNN convolutions
+# (SSIM's grouped blurs) default to TF32 on the card: off as well.
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -1,0 +1,65 @@
+"""Host-side cameras (port of `gaussianmesh_tpu/data/cameras.py`, without
+image IO: reading datasets from disk comes with the command-line slice).
+
+A `Camera` carries the (R, T, fov) extrinsics in the COLMAP/3DGS convention,
+the ground-truth image (float32 CHW in [0, 1]) and an optional mask, and
+gives the device-side `CameraArrays` the rasterizer takes.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from gaussianmesh_tpu_torch import resolve_device
+from gaussianmesh_tpu_torch.utils import graphics
+from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
+
+Z_NEAR, Z_FAR = 0.01, 100.0  # scene/cameras.py:33-34
+
+
+@dataclass
+class Camera:
+    uid: int
+    R: np.ndarray              # (3, 3) cam-to-world rotation
+    T: np.ndarray              # (3,) world-to-cam translation
+    fovx: float
+    fovy: float
+    image: np.ndarray | None   # (3, H, W) float32 in [0, 1]
+    image_name: str = ""
+    mask: np.ndarray | None = None  # (1, H, W) float32
+    width: int = 0
+    height: int = 0
+    translate: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if self.image is not None:
+            self.height, self.width = self.image.shape[-2:]
+
+    @property
+    def world_view(self) -> np.ndarray:
+        return graphics.world_to_view(self.R, self.T, self.translate, self.scale)
+
+    @property
+    def projection(self) -> np.ndarray:
+        return graphics.projection_matrix(Z_NEAR, Z_FAR, self.fovx, self.fovy)
+
+    @property
+    def camera_center(self) -> np.ndarray:
+        return graphics.camera_center_from_w2v(self.world_view)
+
+    def arrays_np(self) -> tuple:
+        """Stackable numpy form (V, P @ V, campos, tanfovx, tanfovy)."""
+        V = self.world_view
+        return (V, (self.projection @ V).astype(np.float32), self.camera_center,
+                np.float32(math.tan(self.fovx / 2)),
+                np.float32(math.tan(self.fovy / 2)))
+
+    def arrays(self, device=None) -> CameraArrays:
+        """The rasterizer's view of this camera, on `device` (CUDA unless
+        the caller asks for the CPU)."""
+        return CameraArrays.from_numpy(*self.arrays_np(),
+                                       device=resolve_device(device))

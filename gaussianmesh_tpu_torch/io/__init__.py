@@ -1,1 +1,1 @@
-from gaussianmesh_tpu_torch.io import gaussian_ply, ply  # noqa: F401
+from gaussianmesh_tpu_torch.io import gaussian_ply, mesh, ply  # noqa: F401

@@ -12,11 +12,15 @@ with alpha_distance = 4 and r the face's mean edge length.
 `MeshGaussianModel` is an `nn.Module`: the trainable leaves (the JAX
 `MeshGaussianParams` fields) are `nn.Parameter`s, the attachment state (the
 JAX `MeshBinding` fields) is registered buffers. Capacity rows past the
-live ones carry `alive = False`. The vertex pool and densification state
-come with the training slice.
+live ones carry `alive = False`. Beside them the model carries the proxy
+mesh's vertex pool (`mesh_v`, which densification appends midpoints to)
+and the densification statistics (`state`), as plain attributes: the
+trainer replaces them whole.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,20 +38,60 @@ BINDING_FIELDS = ("vertex1", "vertex2", "vertex3", "vertex_index", "fid",
                   "normal", "r", "alive")
 
 
+STATE_FIELDS = ("max_radii2d", "grad_accum", "denom")
+
+
+class MeshVertices(NamedTuple):
+    """The (subdividing) proxy-mesh vertex pool, fixed capacity."""
+    v: torch.Tensor   # (VC, 3) f32
+    count: int        # valid prefix length
+
+
+class MeshGaussianState(NamedTuple):
+    """Densification statistics, one entry per capacity row."""
+    max_radii2d: torch.Tensor  # (C,) f32
+    grad_accum: torch.Tensor   # (C,) f32 accumulated ||dL/d mean2d||
+    denom: torch.Tensor        # (C,) f32 views in which the row was visible
+
+
+def empty_state(capacity: int, device) -> MeshGaussianState:
+    return MeshGaussianState(*(torch.zeros(capacity, dtype=torch.float32,
+                                           device=device)
+                               for _ in STATE_FIELDS))
+
+
 class MeshGaussianModel(nn.Module):
     """Parameters (capacity C rows): bc (C, 3), distance (C, 1),
     features_dc (C, 1, 3), features_rest (C, K-1, 3), scaling (C, 3)
     log-scale, rotation (C, 4), opacity (C, 1) pre-sigmoid.
     Buffers: vertex1..3 (C, 3), vertex_index (C, 3) int32, fid (C, 1)
-    int32, normal (C, 3), r (C, 1), alive (C,) bool."""
+    int32, normal (C, 3), r (C, 1), alive (C,) bool.
+    Attributes: mesh_v (`MeshVertices`, None when the model was loaded
+    without its mesh), state (`MeshGaussianState`)."""
 
     def __init__(self, params: dict[str, torch.Tensor],
-                 binding: dict[str, torch.Tensor]):
+                 binding: dict[str, torch.Tensor],
+                 mesh_v: MeshVertices | None = None,
+                 state: MeshGaussianState | None = None):
         super().__init__()
         for name in PARAM_FIELDS:
             setattr(self, name, nn.Parameter(params[name]))
         for name in BINDING_FIELDS:
             self.register_buffer(name, binding[name])
+        self.mesh_v = mesh_v
+        self.state = (empty_state(binding["alive"].shape[0],
+                                  binding["alive"].device)
+                      if state is None else state)
+
+    @property
+    def capacity(self) -> int:
+        return self.alive.shape[0]
+
+    def params(self) -> dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in PARAM_FIELDS}
+
+    def binding(self) -> dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in BINDING_FIELDS}
 
     def get_bc(self) -> torch.Tensor:
         return torch.softmax(self.bc, dim=1)
@@ -77,10 +121,13 @@ class MeshGaussianModel(nn.Module):
 
 
 def from_numpy(params: dict, binding: dict,
-               device: str | torch.device | None = None) -> MeshGaussianModel:
+               device: str | torch.device | None = None,
+               mesh_v: dict | None = None,
+               state: dict | None = None) -> MeshGaussianModel:
     """Build the model from numpy leaves named as the JAX dataclasses'
-    fields (`MeshGaussianParams`, `MeshBinding`) — e.g. a JAX model's state
-    moved over as numpy."""
+    fields (`MeshGaussianParams`, `MeshBinding`, and optionally
+    `MeshVertices` and `MeshGaussianState`) — e.g. a JAX model's state moved
+    over as numpy."""
     dev = resolve_device(device)
     int_fields = ("vertex_index", "fid")
 
@@ -91,18 +138,27 @@ def from_numpy(params: dict, binding: dict,
         dtype = np.int32 if name in int_fields else np.float32
         return torch.as_tensor(x.astype(dtype), device=dev)
 
+    pool = None
+    if mesh_v is not None:
+        pool = MeshVertices(v=t("v", mesh_v["v"]), count=int(mesh_v["count"]))
+    stats = None
+    if state is not None:
+        stats = MeshGaussianState(*(t(k, state[k]) for k in STATE_FIELDS))
     return MeshGaussianModel({k: t(k, params[k]) for k in PARAM_FIELDS},
-                             {k: t(k, binding[k]) for k in BINDING_FIELDS})
+                             {k: t(k, binding[k]) for k in BINDING_FIELDS},
+                             mesh_v=pool, state=stats)
 
 
 def create_from_mesh(vertices, triangles, capacity: int | None = None,
                      max_sh_degree: int = 3,
                      device: str | torch.device | None = None,
-                     generator: torch.Generator | None = None) -> MeshGaussianModel:
+                     generator: torch.Generator | None = None,
+                     vertex_capacity: int | None = None) -> MeshGaussianModel:
     """One Gaussian per face (mesh_based_gaussian_model.py:183-241): bc
     logits 1/3 (uniform), distance 0 (on-surface), random DC color from
     `generator`, scale from the mean 3-NN distance of the face centroids,
-    opacity 0.1."""
+    opacity 0.1. The vertex pool holds the mesh's vertices padded with
+    zeros to `vertex_capacity` (default: no room to split)."""
     dev = resolve_device(device)
     vertices = torch.tensor(np.asarray(vertices, np.float32), device=dev)
     triangles = torch.tensor(np.asarray(triangles, np.int64), device=dev)
@@ -110,6 +166,10 @@ def create_from_mesh(vertices, triangles, capacity: int | None = None,
     capacity = n if capacity is None else capacity
     if capacity < n:
         raise ValueError(f"capacity {capacity} < {n} faces")
+    n_v = vertices.shape[0]
+    vertex_capacity = n_v if vertex_capacity is None else vertex_capacity
+    if vertex_capacity < n_v:
+        raise ValueError(f"vertex_capacity {vertex_capacity} < {n_v} vertices")
     k = (max_sh_degree + 1) ** 2
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -143,4 +203,6 @@ def create_from_mesh(vertices, triangles, capacity: int | None = None,
         "normal": cap(normals), "r": cap(r),
         "alive": torch.arange(capacity, device=dev) < n,
     }
-    return MeshGaussianModel(params, binding)
+    pool = MeshVertices(v=torch.cat([vertices, vertices.new_zeros(
+        vertex_capacity - n_v, 3)]), count=n_v)
+    return MeshGaussianModel(params, binding, mesh_v=pool)

@@ -55,6 +55,8 @@ def concat_arrays(a: GaussianArrays, b: GaussianArrays) -> GaussianArrays:
 
 
 def render(arrays: GaussianArrays, cam: CameraArrays, cfg: RasterizerConfig,
-           bg_color: torch.Tensor) -> RasterizeOut:
+           bg_color: torch.Tensor,
+           mean2d_offset: torch.Tensor | None = None) -> RasterizeOut:
     return rasterize(arrays.xyz, arrays.cov6, arrays.opacity, arrays.rgb,
-                     bg_color, cam, cfg, active_mask=arrays.active)
+                     bg_color, cam, cfg, mean2d_offset=mean2d_offset,
+                     active_mask=arrays.active)

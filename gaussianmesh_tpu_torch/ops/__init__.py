@@ -3,5 +3,6 @@ from gaussianmesh_tpu_torch.ops import (  # noqa: F401
     oracle,
     preprocess,
     rasterize,
+    segsum,
     tile_blend,
 )

@@ -34,6 +34,15 @@ KERNELS = {
         # height, color, final_t, n_contrib, stream
         "gm_tile_blend_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     },
+    "tile_blend_bwd": {
+        # feat, sorted_gid, starts, final_t, n_contrib, g_color, g_final_t,
+        # num_tiles, grid_x, width, height, rows, stream
+        "gm_tile_blend_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    },
+    "segment_sum": {
+        # rows, grouped_pos, seg_starts, n, out, stream
+        "gm_segment_sum": [_P, _P, _P, _I, _P, _P],
+    },
 }
 
 

@@ -15,6 +15,12 @@ same semantics and without the TPU layout:
    groups the pairs by tile, depth-ordered within each tile.
 5. Per-tile `starts` / `counts` (clamped to `max_per_tile`) and the
    overflow counters.
+6. `grouped_pos`, the inverse of the sort's permutation: the sorted
+   position of each emission-order pair. Emission is Gaussian-major, so
+   Gaussian g's pairs are the run [seg_starts[g], seg_starts[g + 1]) of it
+   (seg_starts the exclusive cumsum of `gid_counts`): the per-Gaussian
+   gradient reduction (`ops/segsum.py`) needs no second sort. Only a
+   backward needs it, so a render without gradients skips it.
 
 The capacity accounting replicates the JAX package's slot model exactly,
 so `rect_overflow` is equal between the two: in the JAX expansion every
@@ -64,6 +70,9 @@ class TileLists(NamedTuple):
                                  # the JAX package's aligned pair domain,
                                  # which this port does not build
     gid_counts: torch.Tensor     # (N,) int32 exact pairs per Gaussian
+    grouped_pos: torch.Tensor | None  # (M,) int32 — sorted position of
+                                 # each emission-order (Gaussian-major)
+                                 # pair; None unless asked for
 
 
 def _row_x_extent(my, ca, cb, cc, qcut, ty):
@@ -164,20 +173,28 @@ def expand_pairs(prep: Preprocessed, grid_x: int, grid_y: int,
 
 
 def sort_pairs(pair_tile: torch.Tensor, pair_depth: torch.Tensor,
-               pair_gid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+               pair_gid: torch.Tensor, with_grouped_pos: bool = True
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """One stable sort by (tile, depth), ties in emission order. Depths are
     positive f32 (near cull at 0.2), so their int bits order like the
-    floats. -> (sorted_tile int64, sorted_gid int32)."""
+    floats. -> (sorted_tile int64, sorted_gid int32, grouped_pos int32: the
+    sorted position of each emission-order pair, or None when not asked
+    for)."""
     depth_bits = pair_depth.contiguous().view(torch.int32).long()
     key = (pair_tile << 32) | depth_bits
     _, order = torch.sort(key, stable=True)
-    return pair_tile[order], pair_gid[order].to(torch.int32)
+    grouped_pos = None
+    if with_grouped_pos:
+        grouped_pos = torch.empty_like(order, dtype=torch.int32)
+        grouped_pos[order] = torch.arange(order.shape[0], dtype=torch.int32,
+                                          device=order.device)
+    return pair_tile[order], pair_gid[order].to(torch.int32), grouped_pos
 
 
 def finish_tile_lists(sorted_tile: torch.Tensor, sorted_gid: torch.Tensor,
                       rect_overflow: torch.Tensor, num_tiles: int,
-                      max_per_tile: int,
-                      gid_counts: torch.Tensor) -> TileLists:
+                      max_per_tile: int, gid_counts: torch.Tensor,
+                      grouped_pos: torch.Tensor | None = None) -> TileLists:
     raw_counts = torch.bincount(sorted_tile, minlength=num_tiles)
     starts = torch.zeros(num_tiles + 1, dtype=torch.int64,
                          device=sorted_tile.device)
@@ -194,17 +211,22 @@ def finish_tile_lists(sorted_tile: torch.Tensor, sorted_gid: torch.Tensor,
         rect_overflow=rect_overflow.to(i32),
         pair_overflow=torch.zeros((), dtype=i32, device=sorted_gid.device),
         gid_counts=gid_counts,
+        grouped_pos=grouped_pos,
     )
 
 
 def build_tile_lists(prep: Preprocessed, grid_x: int, grid_y: int,
                      max_per_tile: int, expand_capacity: int,
                      opacity: torch.Tensor | None = None,
-                     row_capacity: int | None = None) -> TileLists:
+                     row_capacity: int | None = None,
+                     with_grouped_pos: bool = True) -> TileLists:
+    """`with_grouped_pos=False` leaves `grouped_pos` None: a render that
+    will not be differentiated needs no reduction map."""
     exp = expand_pairs(prep, grid_x, grid_y, expand_capacity,
                        opacity=opacity, row_capacity=row_capacity)
-    sorted_tile, sorted_gid = sort_pairs(exp.pair_tile, exp.pair_depth,
-                                         exp.pair_gid)
+    sorted_tile, sorted_gid, grouped_pos = sort_pairs(
+        exp.pair_tile, exp.pair_depth, exp.pair_gid, with_grouped_pos)
     return finish_tile_lists(sorted_tile, sorted_gid, exp.rect_overflow,
-                             grid_x * grid_y, max_per_tile, exp.gid_counts)
+                             grid_x * grid_y, max_per_tile, exp.gid_counts,
+                             grouped_pos)
 

@@ -1,12 +1,14 @@
-"""Tile rasterizer, forward: preprocess -> binning -> blend -> background.
+"""Differentiable tile rasterizer: preprocess -> binning -> blend -> background.
 
 Port of `gaussianmesh_tpu/ops/rasterize.py::rasterize` (the reference's
 rasterizer_impl.cu:198-511). Binning is index work with no gradient; the
-blend is `tile_blend.blend_forward`, which runs the CUDA kernel K1 for CUDA
-tensors and its plain PyTorch version for CPU tensors — the tensors' device
-decides, there is no flag. The plain CPU path stays differentiable through
-autograd; the CUDA path is forward-only until the training slice brings the
-backward kernel.
+blend is `tile_blend.blend` (`BlendFunction`): forward K1, backward K2 then
+the per-Gaussian reduction K3, as CUDA kernels for CUDA tensors and as their
+plain PyTorch versions for CPU tensors — the tensors' device decides, there
+is no flag. A render that will not be differentiated (no grad mode, or no
+input that requires grad) runs the forward `blend_forward` alone and skips
+the reduction map `grouped_pos`. Preprocess gradients (mean2d, conic, rgb -> means3d, cov6, SH)
+come from autograd of `ops/preprocess.py`.
 """
 
 from __future__ import annotations
@@ -62,11 +64,15 @@ class RasterizeOut(NamedTuple):
 def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
               rgb: torch.Tensor, bg: torch.Tensor, cam: CameraArrays,
               cfg: RasterizerConfig,
+              mean2d_offset: torch.Tensor | None = None,
               active_mask: torch.Tensor | None = None) -> RasterizeOut:
     """Render N Gaussians (world means, 3D covariance uppers, activated
     opacity in [0, 1], per-view RGB) over the background color `bg` (3,).
-    `active_mask` (N,) culls dead capacity rows. On CUDA the blend is
-    forward-only: call under `torch.no_grad()`."""
+
+    `mean2d_offset` (N, 2), when given, is added to the projected pixel
+    means: a zero input whose gradient is the screen-space positional
+    gradient of the densification statistics (the reference's
+    `screenspace_points`). `active_mask` (N,) culls dead capacity rows."""
     gx, gy = cfg.grid
     prep = prep_mod.preprocess(means3d, cov6, cam, cfg.width, cfg.height,
                                opacity=opacity)
@@ -76,18 +82,29 @@ def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
             radius=torch.where(active_mask, prep.radius, 0),
             tiles_touched=torch.where(active_mask, prep.tiles_touched, 0))
 
+    mean2d = prep.mean2d
+    if mean2d_offset is not None:
+        mean2d = mean2d + mean2d_offset
+    feat = tile_blend.pack_features(mean2d, prep.conic, opacity.reshape(-1),
+                                    rgb, prep.valid)
+    # only a render that will be differentiated pays for the reduction map
+    # and the autograd function
+    grad = torch.is_grad_enabled() and feat.requires_grad
+
     n = means3d.shape[0]
     with torch.no_grad():
         tiles = binning.build_tile_lists(
             prep, gx, gy, cfg.max_per_tile,
             expand_capacity=cfg.expand_capacity(n), opacity=opacity,
-            row_capacity=cfg.row_capacity(n))
+            row_capacity=cfg.row_capacity(n), with_grouped_pos=grad)
 
-    feat = tile_blend.pack_features(prep.mean2d, prep.conic, opacity.reshape(-1),
-                                    rgb, prep.valid)
-    color, final_t, n_contrib = tile_blend.blend_forward(
-        feat, tiles.sorted_gid, tiles.starts, tiles.counts, gx,
-        cfg.width, cfg.height)
+    if grad:
+        color, final_t, n_contrib = tile_blend.blend(feat, tiles, gx, cfg.width,
+                                                     cfg.height)
+    else:
+        color, final_t, n_contrib = tile_blend.blend_forward(
+            feat, tiles.sorted_gid, tiles.starts, tiles.counts, gx, cfg.width,
+            cfg.height)
     color = color + final_t[None] * bg[:, None, None]
 
     return RasterizeOut(

@@ -1,7 +1,7 @@
-"""Per-tile alpha blending — the rasterizer hot loop.
+"""Per-tile alpha blending — the rasterizer hot loop, forward and backward.
 
-Port of `gaussianmesh_tpu/ops/tile_blend.py`, forward only. Per pixel, over
-its tile's depth-sorted pairs, front to back (the reference's renderCUDA,
+Port of `gaussianmesh_tpu/ops/tile_blend.py`. Per pixel, over its tile's
+depth-sorted pairs, front to back (the reference's renderCUDA,
 forward.cu:261-374):
 
     skip the pair if power > 0 or alpha = min(0.99, op * e^power) < 1/255
@@ -9,7 +9,10 @@ forward.cu:261-374):
     color += alpha * T * rgb ;  T *= 1 - alpha
     n_contrib = 1-based rank of the last blended pair
 
-Two implementations of that one function:
+and back to front for the gradient (backward.cu:399-557; see
+`blend_backward_plain`).
+
+Forward, two implementations of one function:
 
 * `blend_tiles` — the plain PyTorch version on dense per-tile lists
   (T, FEAT, K). It walks the K axis with the reference's sequential
@@ -22,15 +25,22 @@ Two implementations of that one function:
   directly. CPU tensors go to the plain version (`blend_forward_plain`);
   CUDA tensors go to the kernel or raise.
 
+Backward, likewise: `blend_backward_plain` and `blend_backward`, the
+wrapper of `csrc/tile_blend_bwd.cu` (K2, replaces `_make_sorted_bwd_kernel`),
+which write one gradient row per sorted pair. `BlendFunction` joins K1, K2
+and the per-Gaussian reduction K3 (`ops/segsum.py`) into one autograd
+function of the (N + 1, FEAT) feature table; `blend` applies it.
+
 Feature-row layout (FEAT=16): 0=x, 1=y, 2..4=conic(a,b,c), 5=opacity,
-6..8=rgb, 9=real-entry flag, 10..15 padding.
+6..8=rgb, 9=real-entry flag, 10..15 padding. Gradient rows use the same
+layout (9 = real flag has no gradient).
 """
 
 from __future__ import annotations
 
 import torch
 
-from gaussianmesh_tpu_torch.ops import _cuda
+from gaussianmesh_tpu_torch.ops import _cuda, segsum
 
 TILE = 16
 PIX = TILE * TILE          # 256 pixels per tile
@@ -162,18 +172,17 @@ def blend_forward(feat: torch.Tensor, sorted_gid: torch.Tensor,
     `sorted_gid` (indices into the (N+1, FEAT) `feat` table).
     -> color (3, H, W), final_t (H, W), n_contrib (H, W) int32.
 
-    CPU tensors run `blend_forward_plain`; CUDA tensors launch the kernel.
-    Forward only: the backward kernel comes with the training slice."""
+    CPU tensors run `blend_forward_plain`; CUDA tensors launch the kernel,
+    which records no autograd graph: differentiate through `blend`."""
     _check_inputs(feat, sorted_gid, starts, counts, grid_x, width, height)
     if feat.device.type == "cpu":
         return blend_forward_plain(feat, sorted_gid, starts, counts, grid_x,
                                    width, height)
     if feat.device.type != "cuda":
         raise ValueError(f"blend_forward runs on cpu or cuda, not {feat.device}")
-    if feat.requires_grad:
-        raise NotImplementedError(
-            "the CUDA blend is forward-only: its backward kernel (K2) comes "
-            "with the training slice of the port")
+    if feat.requires_grad and torch.is_grad_enabled():
+        raise ValueError("blend_forward's kernel is not differentiable by "
+                         "autograd: call `blend` (BlendFunction) for gradients")
     feat, sorted_gid = feat.contiguous(), sorted_gid.contiguous()
     starts, counts = starts.contiguous(), counts.contiguous()
     dev = feat.device
@@ -194,3 +203,178 @@ def blend_forward(feat: torch.Tensor, sorted_gid: torch.Tensor,
 
 
 blend_forward.launches = 0  # kernel launches since the last reset
+
+
+def _tile_blocks(img: torch.Tensor, grid_x: int) -> torch.Tensor:
+    """(C, H, W) -> (num_tiles, C, PIX) row-major tile blocks, zero outside
+    the image — the inverse of `_assemble`."""
+    c, height, width = img.shape
+    gy = -(-height // TILE)
+    pad = img.new_zeros(c, gy * TILE, grid_x * TILE)
+    pad[:, :height, :width] = img
+    blocks = pad.reshape(c, gy, TILE, grid_x, TILE).permute(1, 3, 0, 2, 4)
+    return blocks.reshape(gy * grid_x, c, PIX)
+
+
+def blend_backward_plain(feat, sorted_gid, starts, counts, final_t, n_contrib,
+                         g_color, g_final_t) -> torch.Tensor:
+    """The plain version of K2 on K2's inputs -> rows (M, FEAT).
+
+    An explicit reverse walk over the K axis of the dense per-tile lists,
+    in the kernel's operation order, vectorized over tiles and pixels; no
+    autograd graph, so it fits a 1080p step. Each pixel starts from its
+    final T and its last blended pair (`n_contrib`) and recovers the
+    transmittance in front of each blended pair as T / (1 - alpha). Per
+    blended pair and pixel:
+
+        dL/dw     = rgb . g_color
+        dL/dalpha = dL/dw * T - q / (1 - alpha), q = the sum of dL/dw * w
+                    over the later blended pairs + g_final_t * final_t
+        dL/dpower = dL/dalpha * alpha, d opacity = dL/dalpha * e^power,
+                    both 0 where the 0.99 cap is active
+        d(x, y, conic) = dL/dpower * d power / d(x, y, conic)
+        d rgb     = w * g_color
+
+    summed over the tile's 256 pixels. Rows of pairs no pixel blends,
+    and of pairs `max_per_tile` dropped, are zero."""
+    height, width = final_t.shape
+    grid_x = -(-width // TILE)
+    with torch.no_grad():
+        lists = tile_id_lists(sorted_gid, starts, counts, feat.shape[0] - 1)
+        num_tiles, k = lists.shape
+        px, py = _pixel_coords(torch.arange(num_tiles, device=feat.device), grid_x)
+        last = _tile_blocks(n_contrib[None], grid_x)[:, 0]       # 0 outside
+        gc = _tile_blocks(g_color, grid_x)                       # (T, 3, PIX)
+        gr, gg, gb = gc[:, 0], gc[:, 1], gc[:, 2]
+        inside = (px < width) & (py < height)
+        T = torch.where(inside, _tile_blocks(final_t[None], grid_x)[:, 0], 1.0)
+        q = _tile_blocks(g_final_t[None], grid_x)[:, 0] * T
+        out = feat.new_zeros(num_tiles, k, 9)
+        for j in range(k - 1, -1, -1):
+            f = feat[lists[:, j]]                                # (T, FEAT)
+            x, y, ca, cb, cc, op, r, g, b = (f[:, i, None] for i in range(9))
+            dx = x - px
+            dy = y - py
+            qa = (ca * dx) * dx
+            qc = (cc * dy) * dy
+            qb = (cb * dx) * dy
+            power = -0.5 * (qa + qc) - qb
+            e = torch.exp(power)
+            raw = op * e
+            alpha = torch.clamp(raw, max=ALPHA_MAX)
+            blended = (j < last) & (power <= 0.0) & (alpha >= ALPHA_MIN)
+            om = 1.0 - alpha
+            T = torch.where(blended, T / om, T)
+            w = alpha * T
+            dldw = (r * gr + g * gg) + b * gb
+            dalpha = dldw * T - q / om
+            q = torch.where(blended, q + dldw * w, q)
+            live = blended & (raw <= ALPHA_MAX)
+            dpower = dalpha * alpha
+            cols = [dpower * -(ca * dx + cb * dy),
+                    dpower * -(cc * dy + cb * dx),
+                    dpower * (-0.5 * (dx * dx)),
+                    dpower * -(dx * dy),
+                    dpower * (-0.5 * (dy * dy)),
+                    dalpha * e]
+            cols = [torch.where(live, c, 0.0) for c in cols]
+            cols += [torch.where(blended, w * gch, 0.0) for gch in (gr, gg, gb)]
+            out[:, j] = torch.stack(cols, dim=-1).sum(dim=1)
+        rows = feat.new_zeros(sorted_gid.shape[0], FEAT)
+        rank = torch.arange(k, device=feat.device)
+        kept = rank[None, :] < counts.long()[:, None]
+        src = starts[:-1].long()[:, None] + rank[None, :]
+        rows[src[kept], :9] = out[kept]
+    return rows
+
+
+def _check_bwd_inputs(feat, sorted_gid, starts, counts, final_t, n_contrib,
+                      g_color, g_final_t):
+    height, width = final_t.shape
+    _check_inputs(feat, sorted_gid, starts, counts, -(-width // TILE), width,
+                  height)
+    for name, x, shape, dtype in (
+            ("n_contrib", n_contrib, (height, width), torch.int32),
+            ("g_color", g_color, (3, height, width), torch.float32),
+            ("g_final_t", g_final_t, (height, width), torch.float32),
+            ("final_t", final_t, (height, width), torch.float32)):
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.device != feat.device:
+            raise ValueError("blend_backward inputs lie on different devices")
+
+
+def blend_backward(feat: torch.Tensor, sorted_gid: torch.Tensor,
+                   starts: torch.Tensor, counts: torch.Tensor,
+                   final_t: torch.Tensor, n_contrib: torch.Tensor,
+                   g_color: torch.Tensor, g_final_t: torch.Tensor
+                   ) -> torch.Tensor:
+    """K2: one gradient row per sorted pair -> rows (M, FEAT) f32, from K1's
+    inputs, its outputs final_t and n_contrib (H, W), and the cotangents
+    g_color (3, H, W) and g_final_t (H, W).
+
+    CPU tensors run `blend_backward_plain`; CUDA tensors launch the kernel."""
+    _check_bwd_inputs(feat, sorted_gid, starts, counts, final_t, n_contrib,
+                      g_color, g_final_t)
+    if feat.device.type == "cpu":
+        return blend_backward_plain(feat, sorted_gid, starts, counts, final_t,
+                                    n_contrib, g_color, g_final_t)
+    if feat.device.type != "cuda":
+        raise ValueError(f"blend_backward runs on cpu or cuda, not {feat.device}")
+    height, width = final_t.shape
+    args = [x.contiguous() for x in (feat, sorted_gid, starts, final_t,
+                                     n_contrib, g_color, g_final_t)]
+    rows = torch.empty((sorted_gid.shape[0], FEAT), dtype=torch.float32,
+                       device=feat.device)
+    lib = _cuda.library("tile_blend_bwd")
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        err = lib.gm_tile_blend_bwd(*(x.data_ptr() for x in args),
+                                    counts.shape[0], -(-width // TILE), width,
+                                    height, rows.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"tile_blend_bwd launch failed: cudaError {err}")
+    blend_backward.launches += 1
+    return rows
+
+
+blend_backward.launches = 0  # kernel launches since the last reset
+
+
+class BlendFunction(torch.autograd.Function):
+    """The blend as one autograd function of the (N + 1, FEAT) feature
+    table: forward K1 (`blend_forward`), backward K2 (`blend_backward`)
+    then K3 (`segsum.segment_sum` over `grouped_pos` and the exclusive
+    cumsum of the per-Gaussian pair counts). Outputs color (3, H, W),
+    final_t (H, W) and n_contrib (H, W) int32 (not differentiable)."""
+
+    @staticmethod
+    def forward(ctx, feat, sorted_gid, starts, counts, grouped_pos, seg_starts,
+                grid_x, width, height):
+        color, final_t, n_contrib = blend_forward(
+            feat, sorted_gid, starts, counts, grid_x, width, height)
+        ctx.save_for_backward(feat, sorted_gid, starts, counts, grouped_pos,
+                              seg_starts, final_t, n_contrib)
+        ctx.mark_non_differentiable(n_contrib)
+        return color, final_t, n_contrib
+
+    @staticmethod
+    def backward(ctx, g_color, g_final_t, _g_n_contrib):
+        (feat, sorted_gid, starts, counts, grouped_pos, seg_starts, final_t,
+         n_contrib) = ctx.saved_tensors
+        rows = blend_backward(feat, sorted_gid, starts, counts, final_t,
+                              n_contrib, g_color.contiguous(),
+                              g_final_t.contiguous())
+        d_feat = segsum.segment_sum(rows, grouped_pos, seg_starts)
+        return d_feat, None, None, None, None, None, None, None, None
+
+
+def blend(feat: torch.Tensor, tiles, grid_x: int, width: int, height: int
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable blend of the binned pair domain `tiles`
+    (`binning.TileLists`) -> color (3, H, W), final_t (H, W), n_contrib
+    (H, W) int32, through `BlendFunction`."""
+    return BlendFunction.apply(
+        feat, tiles.sorted_gid, tiles.starts, tiles.counts, tiles.grouped_pos,
+        segsum.segment_starts(tiles.gid_counts), grid_x, width, height)

@@ -1,0 +1,198 @@
+"""Densification of the mesh model as masked compaction.
+
+Port of the mesh part of `gaussianmesh_tpu/train/densify.py` (reference
+scene/mesh_based_gaussian_model.py:411-563). The model lives in
+fixed-capacity tensors with an `alive` mask. `densify_and_split` picks the
+highest-gradient Gaussians, midpoint-subdivides their triangles (1->4, or
+1->5 keeping a parent copy), writes the children into free (dead) slots,
+retires the parents, zeroes the Adam moments at the new slots and appends
+three midpoint vertices per split face to the vertex pool. Quirks kept from
+the reference: children inherit the parent's `r`, `fid` and normal; scale is
+divided by 4 * 0.8; bc logits reset to 1/3 and distance to 0; the
+densification statistics reset to zero afterwards. `split_all_for_init` is
+the same pass with every Gaussian selected and 4 children (the init loop,
+densify_and_split_for_init:596-647).
+
+Running out of room is reported (`dropped`), never silent: the trainer grows
+the capacities and retries. The background model's densification is a later
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gaussianmesh_tpu_torch.models.mesh_gaussians import (
+    MeshGaussianModel, MeshGaussianState, MeshVertices, empty_state)
+from gaussianmesh_tpu_torch.utils.subdivision import CHILD_IDX_CODE, CHILD_W
+
+
+class SplitResult(NamedTuple):
+    model: MeshGaussianModel      # new parameters, binding, vertex pool, state
+    mu: dict[str, torch.Tensor]   # Adam first moments
+    nu: dict[str, torch.Tensor]   # Adam second moments
+    n_split: int                  # parents split
+    dropped: int                  # selected parents with no room
+
+
+def _select_parents(alive, grads_avg, threshold, n_children, max_split, vroom):
+    """Up to `max_split` highest-gradient parents (ties in index order, as
+    `jax.lax.top_k`) with room for their children in dead slots and for
+    their 3 midpoints in the vertex pool (`vroom` free vertex slots)."""
+    c = alive.shape[0]
+    if max_split > c:
+        raise ValueError(f"max_split {max_split} exceeds the capacity {c}")
+    dev = alive.device
+    scores = torch.where(alive & (grads_avg >= threshold), grads_avg,
+                         float("-inf"))
+    top_scores, sel_idx = torch.sort(scores, descending=True, stable=True)
+    top_scores, sel_idx = top_scores[:max_split], sel_idx[:max_split]
+    sel_ok = top_scores > float("-inf")
+
+    # only slots dead now: a parent that is selected but dropped keeps its
+    # row, so no parent's slot is reused in the same pass
+    size = max_split * n_children
+    free_idx = torch.nonzero(~alive).flatten()[:size]
+    free_idx = torch.cat([free_idx, free_idx.new_full((size - free_idx.shape[0],), c)])
+
+    # free_idx ascends, so the last child's slot decides the room
+    ranks = torch.arange(max_split, device=dev)
+    last_slot = free_idx[ranks * n_children + (n_children - 1)]
+    vertex_ok = 3 * (ranks + 1) <= vroom
+    parent_ok = sel_ok & (last_slot < c) & vertex_ok
+    n_split = int(parent_ok.sum())
+    return sel_idx, parent_ok, free_idx, n_split, int(sel_ok.sum()) - n_split
+
+
+def densify_and_split(model: MeshGaussianModel, mu: dict, nu: dict,
+                      grads_avg: torch.Tensor, threshold: float,
+                      n_children: int, max_split: int) -> SplitResult:
+    """Split the selected Gaussians' faces; -> a new model (the input model
+    is not modified) with its moments."""
+    with torch.no_grad():
+        return _densify_and_split(model, mu, nu, grads_avg, threshold,
+                                  n_children, max_split)
+
+
+def _densify_and_split(model, mu, nu, grads_avg, threshold, n_children,
+                       max_split):
+    alive = model.alive
+    c = alive.shape[0]
+    dev = alive.device
+    nch = n_children
+    pool = model.mesh_v
+    sel_idx, parent_ok, free_idx, n_split, dropped = _select_parents(
+        alive, grads_avg, threshold, nch, max_split,
+        vroom=pool.v.shape[0] - pool.count)
+
+    # --- child geometry ----------------------------------------------------
+    k_ids = torch.arange(max_split * nch, device=dev)
+    pj = k_ids // nch                                  # parent rank
+    cid = k_ids % nch                                  # child index
+    parent = sel_idx[pj]
+    ok = parent_ok[pj]
+    dest = free_idx[ok]                                # children written
+    src = parent[ok]
+
+    pv1, pv2, pv3 = model.vertex1[src], model.vertex2[src], model.vertex3[src]
+    corners = torch.stack([pv1, pv2, pv3], dim=1)      # (K, 3 corners, 3)
+    w = torch.as_tensor(CHILD_W, device=dev)[cid[ok]]  # (K, 3 verts, 3 corners)
+    child = torch.einsum("kvc,kcd->kvd", w, corners)   # (K, 3 verts, 3)
+
+    # new vertices: 3 per split parent, packed after the pool's count
+    vbase = pool.count + 3 * pj[ok]
+    code = torch.as_tensor(CHILD_IDX_CODE, device=dev)[cid[ok]].long()
+    parent_vidx = model.vertex_index[src].long()
+    child_vidx = torch.where(
+        code < 3, torch.gather(parent_vidx, 1, torch.clamp(code, 0, 2)),
+        vbase[:, None] + torch.clamp(code - 3, 0, 2)).to(torch.int32)
+
+    def scat(arr, vals):
+        out = arr.clone()
+        out[dest] = vals.to(arr.dtype)
+        return out
+
+    p = model.params()
+    k = dest.shape[0]
+    shrink = torch.log(torch.tensor(4.0 * 0.8, dtype=torch.float32, device=dev))
+    params = {
+        "bc": scat(p["bc"], torch.full((k, 3), 1.0 / 3.0, device=dev)),
+        "distance": scat(p["distance"], torch.zeros((k, 1), device=dev)),
+        "features_dc": scat(p["features_dc"], p["features_dc"][src]),
+        "features_rest": scat(p["features_rest"], p["features_rest"][src]),
+        "scaling": scat(p["scaling"], p["scaling"][src] - shrink),
+        "rotation": scat(p["rotation"], p["rotation"][src]),
+        "opacity": scat(p["opacity"], p["opacity"][src]),
+    }
+
+    kill = torch.zeros(c, dtype=torch.bool, device=dev)
+    kill[sel_idx[parent_ok]] = True
+    new_alive = alive & ~kill
+    new_alive[dest] = True
+    binding = {
+        "vertex1": scat(model.vertex1, child[:, 0]),
+        "vertex2": scat(model.vertex2, child[:, 1]),
+        "vertex3": scat(model.vertex3, child[:, 2]),
+        "vertex_index": scat(model.vertex_index, child_vidx),
+        "fid": scat(model.fid, model.fid[src]),
+        "normal": scat(model.normal, model.normal[src]),
+        "r": scat(model.r, model.r[src]),
+        "alive": new_alive,
+    }
+
+    # midpoints, reference layout m_ab, m_ac, m_bc, one triple per parent
+    split = sel_idx[parent_ok]
+    a, b, cc = model.vertex1[split], model.vertex2[split], model.vertex3[split]
+    mids = torch.stack([(a + b) * 0.5, (a + cc) * 0.5, (b + cc) * 0.5],
+                       dim=1).reshape(-1, 3)
+    v = pool.v.clone()
+    v[pool.count:pool.count + mids.shape[0]] = mids
+    mesh_v = MeshVertices(v=v, count=pool.count + 3 * n_split)
+
+    def zero_at_dest(m):
+        out = m.clone()
+        out[dest] = 0.0
+        return out
+
+    new_model = MeshGaussianModel(params, binding, mesh_v=mesh_v,
+                                  state=empty_state(c, dev))
+    return SplitResult(model=new_model,
+                       mu={n: zero_at_dest(m) for n, m in mu.items()},
+                       nu={n: zero_at_dest(m) for n, m in nu.items()},
+                       n_split=n_split, dropped=dropped)
+
+
+def split_all_for_init(model: MeshGaussianModel, mu: dict, nu: dict,
+                       max_split: int) -> SplitResult:
+    """1->4 split of every alive Gaussian (the init loop until > 100K)."""
+    grads = torch.where(model.alive, 1.0, 0.0)
+    return densify_and_split(model, mu, nu, grads, 0.5, 4, max_split)
+
+
+def reset_opacity(opacity: torch.Tensor) -> torch.Tensor:
+    """opacity <- min(opacity, 0.01) in activated space
+    (mesh_based_gaussian_model.py:334-339). The reference also zeroes the
+    opacity's Adam moments (replace_tensor_to_optimizer,
+    gaussian_model.py:290-301); the trainer does that."""
+    op = torch.clamp(torch.sigmoid(opacity), max=0.01)
+    return torch.log(op / (1.0 - op))
+
+
+def add_densification_stats(state: MeshGaussianState, mean2d_grad: torch.Tensor,
+                            visibility: torch.Tensor, width: int,
+                            height: int) -> MeshGaussianState:
+    """Accumulate ||dL/d mean2d|| in the reference's NDC-half units
+    (pixel gradient x (W/2, H/2), backward.cu:460-461), visible rows only."""
+    scale = torch.tensor([0.5 * width, 0.5 * height], dtype=mean2d_grad.dtype,
+                         device=mean2d_grad.device)
+    norm = torch.linalg.vector_norm(mean2d_grad * scale, dim=-1)
+    return state._replace(
+        grad_accum=state.grad_accum + torch.where(visibility, norm, 0.0),
+        denom=state.denom + visibility.to(torch.float32))
+
+
+def grads_avg(state: MeshGaussianState) -> torch.Tensor:
+    g = state.grad_accum / torch.clamp(state.denom, min=1.0)
+    return torch.nan_to_num(g, nan=0.0)

@@ -1,1 +1,1 @@
-from gaussianmesh_tpu_torch.utils import graphics, maths, sh, subdivision  # noqa: F401
+from gaussianmesh_tpu_torch.utils import graphics, lr, maths, sh, subdivision  # noqa: F401

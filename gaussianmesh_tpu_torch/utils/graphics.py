@@ -81,3 +81,8 @@ def focal2fov(focal: float, pixels: float) -> float:
 def ndc_to_pix(v: torch.Tensor, size: int) -> torch.Tensor:
     """auxiliary.h:40-43 — pixel-center convention of the reference."""
     return ((v + 1.0) * size - 1.0) * 0.5
+
+
+def camera_center_from_w2v(V: np.ndarray) -> np.ndarray:
+    """Camera position in world space from the 4x4 world->view matrix."""
+    return np.linalg.inv(V)[:3, 3].astype(np.float32)

@@ -1,9 +1,39 @@
-"""Per-face mesh quantities (port of `gaussianmesh_tpu/utils/subdivision.py`,
-the part the render path needs; subdivision itself comes with training)."""
+"""Per-face mesh quantities and the midpoint-split tables (port of
+`gaussianmesh_tpu/utils/subdivision.py`, the parts the render path and the
+densifier need).
+
+A split face (a, b, c) gets the midpoint children (reference
+utils/general_utils.py:133-212)
+
+    0: (a,   m_ab, m_ac)    1: (m_ab, b,   m_bc)
+    2: (m_ac, m_bc, c)      3: (m_ab, m_bc, m_ac)
+
+and, in the 1->5 variant, a fifth child equal to the parent. Three new
+vertices (m_ab, m_ac, m_bc) are appended per split face, not deduplicated
+across neighbours.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# child -> its three corners as fixed weights of the parent corners (a, b, c)
+CHILD_W = np.array(
+    [
+        [[1.0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5]],    # child 0
+        [[0.5, 0.5, 0], [0, 1.0, 0], [0, 0.5, 0.5]],    # child 1
+        [[0.5, 0, 0.5], [0, 0.5, 0.5], [0, 0, 1.0]],    # child 2
+        [[0.5, 0.5, 0], [0, 0.5, 0.5], [0.5, 0, 0.5]],  # child 3
+        [[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]],        # child 4 (parent copy)
+    ],
+    dtype=np.float32,
+)
+
+# child -> vertex index code per corner: 0..2 the parent corners a, b, c;
+# 3..5 the new midpoints m_ab, m_ac, m_bc
+CHILD_IDX_CODE = np.array(
+    [[0, 3, 4], [3, 1, 5], [4, 5, 2], [3, 5, 4], [0, 1, 2]], dtype=np.int32)
 
 
 def face_mean_edge_length(v1: torch.Tensor, v2: torch.Tensor,

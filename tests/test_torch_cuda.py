@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from gaussianmesh_tpu_torch.ops import binning, preprocess, tile_blend
+from gaussianmesh_tpu_torch.ops import binning, preprocess, segsum, tile_blend
 from gaussianmesh_tpu_torch.ops.rasterize import RasterizerConfig, rasterize
 from gaussianmesh_tpu_torch.utils import graphics, maths
 from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
@@ -94,6 +94,80 @@ def test_rasterize_on_cuda_matches_cpu(cuda):
     d = (out.color.cpu() - ref.color).abs()
     assert d.max().item() <= 1e-3 and d.mean().item() <= 1e-5
     assert int(out.num_rendered) == int(ref.num_rendered)
-    with pytest.raises(NotImplementedError):
-        rasterize(sc["means"], sc["cov6"], sc["opacity"].requires_grad_(),
-                  sc["rgb"], bg, _camera(width, height, cuda), cfg)
+
+
+def _k2_inputs(device, width, height, max_per_tile):
+    """A 5000-Gaussian scene binned and blended by K1, with seeded
+    cotangents: K2's and K3's inputs."""
+    sc = _scene(5000, device)
+    cam = _camera(width, height, device)
+    gx, gy = preprocess.tile_grid(width, height)
+    prep = preprocess.preprocess(sc["means"], sc["cov6"], cam, width, height,
+                                 opacity=sc["opacity"])
+    tiles = binning.build_tile_lists(prep, gx, gy, max_per_tile, 50000,
+                                     opacity=sc["opacity"], row_capacity=20000)
+    feat = tile_blend.pack_features(prep.mean2d, prep.conic, sc["opacity"],
+                                    sc["rgb"], prep.valid)
+    _, final_t, n_contrib = tile_blend.blend_forward(
+        feat, tiles.sorted_gid, tiles.starts, tiles.counts, gx, width, height)
+    rng = np.random.default_rng(11)
+    g_color = torch.tensor(rng.normal(size=(3, height, width)).astype(np.float32),
+                           device=device)
+    g_final_t = torch.tensor(rng.normal(size=(height, width)).astype(np.float32),
+                             device=device)
+    return (feat, tiles.sorted_gid, tiles.starts, tiles.counts, final_t,
+            n_contrib, g_color, g_final_t), tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("height,max_per_tile", [(256, 1024), (256, 64), (200, 1024)])
+def test_k2_k3_match_plain(cuda, height, max_per_tile):
+    """K2 rows against `blend_backward_plain` (the same chain per pixel,
+    only the 256-pixel sum in another order): max-abs over each column's
+    largest |row| <= 1e-5, zero rows equal. K3 against a float64
+    index_add_ of the same rows, relative 1e-6."""
+    args, tiles = _k2_inputs(cuda, 256, height, max_per_tile)
+    assert (int(tiles.tile_overflow) > 0) == (max_per_tile == 64)
+    before = (tile_blend.blend_backward.launches, segsum.segment_sum.launches)
+    rows = tile_blend.blend_backward(*args)
+    ref = tile_blend.blend_backward_plain(*args)
+    torch.cuda.synchronize()
+    scale = ref.abs().amax(0).clamp(min=1e-30)
+    assert ((rows - ref).abs() / scale).max().item() <= 1e-5
+    assert torch.equal(rows == 0, ref == 0)
+    starts = segsum.segment_starts(tiles.gid_counts)
+    d_feat = segsum.segment_sum(rows, tiles.grouped_pos, starts)
+    ref64 = segsum.segment_sum_plain(rows, tiles.grouped_pos, starts)
+    col = ref64.abs().amax(0).clamp(min=1e-30)
+    assert ((d_feat - ref64).abs() / col).max().item() <= 1e-6
+    assert (tile_blend.blend_backward.launches, segsum.segment_sum.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def _rasterize_grads(device, sc, bg, cfg, width, height):
+    leaves = [sc[k].detach().to(device).requires_grad_()
+              for k in ("means", "cov6", "opacity", "rgb")]
+    out = rasterize(*leaves, bg.to(device), _camera(width, height, device), cfg)
+    target = torch.linspace(0, 1, 3 * height * width, device=device).reshape(
+        3, height, width)
+    loss = ((out.color - target) ** 2).sum() + 0.1 * out.final_t.sum()
+    return [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+@pytest.mark.cuda
+def test_rasterize_backward_on_cuda(cuda):
+    """Through BlendFunction (K1, K2, K3): bit-identical over two runs, and
+    within the normalized 2e-4 of the plain path on the CPU."""
+    width, height = 256, 200
+    sc = _scene(5000, cuda, seed=5)
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    cfg = RasterizerConfig(width=width, height=height, max_per_tile=1024)
+    ga = _rasterize_grads(cuda, sc, bg, cfg, width, height)
+    gb = _rasterize_grads(cuda, sc, bg, cfg, width, height)
+    for a, b in zip(ga, gb):
+        assert torch.equal(a, b)
+    gc = _rasterize_grads("cpu", {k: v.cpu() for k, v in sc.items()}, bg, cfg,
+                          width, height)
+    for a, c in zip(ga, gc):
+        scale = c.abs().max()
+        assert ((a - c).abs() / scale).max().item() <= 2e-4
