@@ -9,7 +9,8 @@ Phases (any failure raises, so the exit code is not 0):
 1. card: needs CUDA; prints torch, the card's name and power limit; checks
    that float32 matmuls and cuDNN convolutions stay out of TF32.
 2. build: compiles every CUDA kernel of the port from `csrc/` (one nvcc per
-   source, in parallel) and prints nvcc's register / shared-memory lines.
+   source, in parallel) and prints nvcc's register / shared-memory lines
+   and each kernel's threads, shared memory and resident blocks per SM.
 3. oracle: a small scene rendered on the card through `rasterize` agrees
    with the port's sequential oracle renderer.
 4. slice: a mesh-bound model at the size of a trained config-2 model
@@ -24,7 +25,8 @@ Phases (any failure raises, so the exit code is not 0):
    (and an overflow-clamped config); then K2 and K3 on the same pair
    domains with seeded cotangents, against their plain versions, twice for
    bit-identity; each timed with CUDA events, with its bound (bytes or
-   operations) computed from this run's data.
+   operations) computed from this run's data; K2's also with the (pair,
+   warp) iterations its walk takes and the warp reductions it needs.
 6. train: config-2 training at full width. The slice model renders 24
    ground-truth views at 800x800; `MeshTrainer` trains a student from an
    icosphere-2 proxy (320 faces -> 327,680 Gaussians after the init
@@ -192,6 +194,54 @@ def walk_counts(torch, tile_blend, feat, sorted_gid, starts, counts, grid_x,
     return int(evals.sum()), int(blended.sum())
 
 
+def reaches_rows(torch, f, y0, y1):
+    """csrc/blend_common.cuh::reaches_rows in PyTorch, for counting: can
+    the pairs f (T, FEAT) pass the gate on rows [y0, y1] ((T, W) each)?"""
+    ca, cb, cc, op = (f[:, i, None] for i in (2, 3, 4, 5))
+    det = ca * cc - cb * cb
+    m = torch.maximum(ca, cc)
+    well = (ca > 0) & (cc > 0) & (det > 2e-4 * m * m)
+    qmax = 1.05 * 2.0 * torch.log(255.0 * op) + 0.5
+    reach = torch.sqrt(qmax * ca / det) + 0.5
+    y = f[:, 1, None]
+    inside = ~((y + reach < y0) | (y - reach > y1))
+    return ~(op < 1.0 / 255.0) & (~well | inside)
+
+
+def k2_walk_counts(torch, tile_blend, k2_args, warps):
+    """(pair, warp) work of K2's walk on this data, plain PyTorch, for a
+    block of `warps` warps of 16 / warps pixel rows each:
+    pair_warp_walked_tile_bound, the iterations if every warp walked every
+    pair up to its tile's largest n_contrib; pair_warp_walked, those K2
+    walks (each warp the pairs below its own pixels' largest n_contrib that
+    can reach its rows); pair_warp_reductions, (pair, warp) with a blended
+    lane, each summed over the warp."""
+    feat, sorted_gid, starts, counts, final_t, n_contrib, _, _ = k2_args
+    gx = -(-final_t.shape[1] // tile_blend.TILE)
+    last = tile_blend._tile_blocks(n_contrib[None], gx)[:, 0]       # (T, 256)
+    nt = last.shape[0]
+    walk = last.amax(1)
+    kmax = int(walk.max()) if nt else 0
+    lists = tile_blend.tile_id_lists(sorted_gid, starts, counts,
+                                     feat.shape[0] - 1)[:, :kmax]
+    tiles = torch.arange(nt, device=feat.device)
+    px, py = tile_blend._pixel_coords(tiles, gx)
+    wlast = last.view(nt, warps, -1).amax(2)
+    rows = tile_blend.TILE // warps
+    y0 = ((tiles // gx) * tile_blend.TILE)[:, None] + rows * torch.arange(
+        warps, device=feat.device)[None, :]
+    y0 = y0.to(torch.float32)
+    walked, red = (torch.zeros((), dtype=torch.int64, device=feat.device)
+                   for _ in range(2))
+    for j in range(kmax):
+        f = feat[lists[:, j]]
+        bl = (j < last) & (tile_blend._alphas(f, px, py) > 0)
+        red += bl.view(nt, warps, -1).any(2).sum()
+        walked += ((j < wlast) & reaches_rows(torch, f, y0, y0 + rows - 1)).sum()
+    return dict(pair_warp_walked_tile_bound=int(walk.sum()) * warps,
+                pair_warp_walked=int(walked), pair_warp_reductions=int(red))
+
+
 def phase_card(torch):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's render and "
@@ -215,6 +265,10 @@ def phase_build(_cuda):
         for line in text.splitlines():
             if "ptxas" in line and ("registers" in line or "bytes" in line):
                 log(f"[build] {name}: {line.strip()}")
+    for name in _cuda.KERNELS:
+        shape = _cuda.occupancy(name)
+        log(f"[build] {name}: {shape['threads']} threads, {shape['smem_bytes']} B "
+            f"shared memory per block, {shape['blocks_per_sm']} blocks per SM")
 
 
 def phase_oracle(torch, port):
@@ -467,6 +521,8 @@ def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
     # walk its pixels' largest n_contrib; rows past it are written as zeros
     staged = int(tb._tile_blocks(n_contrib[None], gx)[:, 0].amax(1).sum())
     evals = int(n_contrib.sum())      # pairs each pixel walks back over
+    k2.update(k2_walk_counts(torch, tb, k2_args,
+                             port._cuda.occupancy("tile_blend_bwd")["threads"] // 32))
     k2.update(evaluations=evals, blended=blended, staged_pairs=staged, **bound(
         staged * (4 + 36) + 4 * (counts.shape[0] + 1)
         + 24 * width * height + 64 * m,
@@ -754,7 +810,7 @@ def main() -> int:
         binning=binning, oracle=oracle, preprocess=preprocess,
         rasterize=rasterize, segsum=segsum, tile_blend=tile_blend,
         graphics=graphics, maths=maths, config=config, trainer=trainer,
-        densify=densify)
+        densify=densify, _cuda=_cuda)
     t_start = time.perf_counter()
     phase_build(_cuda)
     phase_oracle(torch, port)

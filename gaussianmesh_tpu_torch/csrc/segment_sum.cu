@@ -71,3 +71,13 @@ extern "C" int gm_segment_sum(const float* rows, const int32_t* grouped_pos,
       rows, grouped_pos, seg_starts, n, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The launch shape of K3 on the current device: threads per block, shared
+// memory per block and resident blocks per SM. Returns a cudaError_t.
+extern "C" int gm_segment_sum_occupancy(int* threads, int* smem_bytes,
+                                        int* blocks_per_sm) {
+  *threads = kWarps * 32;
+  *smem_bytes = 0;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, segment_sum_kernel, kWarps * 32, 0));
+}

@@ -3,8 +3,9 @@
 Each source `csrc/<name>.cu` exports plain C entry points and is compiled by
 `nvcc` into its own shared library, loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds). Libraries go into `_build/` under the
-package (listed in `.gitignore`), named by a hash of their source and
-flags, so an edited source is rebuilt and a stale library never loads.
+package (listed in `.gitignore`), named by a hash of their source, the
+shared headers `csrc/*.cuh` and the flags, so an edited source is rebuilt
+and a stale library never loads.
 `build()` starts one `nvcc` per source, all at once.
 """
 
@@ -26,22 +27,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# library -> {C entry point: argtypes}; every entry point returns the
-# cudaError_t of its launch as an int
+# library -> {C entry point: argtypes}; every entry point returns a
+# cudaError_t as an int. `<library>_occupancy` entry points write threads
+# per block, shared memory per block and resident blocks per SM.
+_OCC = [_P, _P, _P]
 KERNELS = {
     "tile_blend_fwd": {
         # feat, sorted_gid, starts, counts, num_tiles, grid_x, width,
         # height, color, final_t, n_contrib, stream
         "gm_tile_blend_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "gm_tile_blend_fwd_occupancy": _OCC,
     },
     "tile_blend_bwd": {
         # feat, sorted_gid, starts, final_t, n_contrib, g_color, g_final_t,
-        # num_tiles, grid_x, width, height, rows, stream
-        "gm_tile_blend_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+        # order, num_tiles, grid_x, width, height, rows, stream
+        "gm_tile_blend_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P, _P],
+        "gm_tile_blend_bwd_occupancy": _OCC,
     },
     "segment_sum": {
         # rows, grouped_pos, seg_starts, n, out, stream
         "gm_segment_sum": [_P, _P, _P, _I, _P, _P],
+        "gm_segment_sum_occupancy": _OCC,
     },
 }
 
@@ -61,6 +68,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # the sources' shared pieces
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -103,3 +112,16 @@ def library(name: str) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def occupancy(name: str) -> dict[str, int]:
+    """Launch shape of library `name`'s kernel on the current CUDA device:
+    {"threads": per block, "smem_bytes": per block, "blocks_per_sm": how
+    many blocks of it an SM holds at once}."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = getattr(library(name), f"gm_{name}_occupancy")(
+        *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"{name} occupancy query failed: cudaError {err}")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))

@@ -164,6 +164,20 @@ def _check_inputs(feat, sorted_gid, starts, counts, grid_x, width, height):
             raise ValueError("blend_forward inputs lie on different devices")
 
 
+def tile_order(counts: torch.Tensor) -> torch.Tensor:
+    """K2's block order: tiles by descending pair count, ties in tile order
+    (a stable sort) -> (num_tiles,) int32 permutation. Block b takes tile
+    order[b], so the longest walks start first; the rows do not depend on
+    it. (K1 gains less from it than the sort costs.)"""
+    return torch.sort(counts, descending=True, stable=True).indices.to(torch.int32)
+
+
+def _aligned(feat: torch.Tensor) -> torch.Tensor:
+    """The kernels copy feature rows in 16-B pieces: a table whose storage
+    does not start on 16 B is copied."""
+    return feat if feat.data_ptr() % 16 == 0 else feat.clone()
+
+
 def blend_forward(feat: torch.Tensor, sorted_gid: torch.Tensor,
                   starts: torch.Tensor, counts: torch.Tensor, grid_x: int,
                   width: int, height: int
@@ -183,7 +197,7 @@ def blend_forward(feat: torch.Tensor, sorted_gid: torch.Tensor,
     if feat.requires_grad and torch.is_grad_enabled():
         raise ValueError("blend_forward's kernel is not differentiable by "
                          "autograd: call `blend` (BlendFunction) for gradients")
-    feat, sorted_gid = feat.contiguous(), sorted_gid.contiguous()
+    feat, sorted_gid = _aligned(feat.contiguous()), sorted_gid.contiguous()
     starts, counts = starts.contiguous(), counts.contiguous()
     dev = feat.device
     color = torch.empty((3, height, width), dtype=torch.float32, device=dev)
@@ -325,14 +339,17 @@ def blend_backward(feat: torch.Tensor, sorted_gid: torch.Tensor,
     height, width = final_t.shape
     args = [x.contiguous() for x in (feat, sorted_gid, starts, final_t,
                                      n_contrib, g_color, g_final_t)]
+    args[0] = _aligned(args[0])
     rows = torch.empty((sorted_gid.shape[0], FEAT), dtype=torch.float32,
                        device=feat.device)
     lib = _cuda.library("tile_blend_bwd")
     with torch.cuda.device(feat.device):
+        order = tile_order(counts.contiguous())
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         err = lib.gm_tile_blend_bwd(*(x.data_ptr() for x in args),
-                                    counts.shape[0], -(-width // TILE), width,
-                                    height, rows.data_ptr(), stream)
+                                    order.data_ptr(), counts.shape[0],
+                                    -(-width // TILE), width, height,
+                                    rows.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"tile_blend_bwd launch failed: cudaError {err}")
     blend_backward.launches += 1

@@ -144,6 +144,100 @@ def test_k2_k3_match_plain(cuda, height, max_per_tile):
         before[0] + 1, before[1] + 1)
 
 
+def _edge_tiles(seed=7):
+    """A hand-built pair domain on a 64x40 image (4x3 tiles; the last tile
+    row is 8 px high) that reaches the kernels' edges:
+      tile 0: 3,001 faint wide splats, none ending a pixel, so every pixel
+              walks them all (K1's and K2's staging rings wrap many times;
+              3,001 is no multiple of a batch or a group);
+      tile 1: empty;
+      tile 2: 777 faint splats squeezed into its top 4 rows, so the pixels of
+              its lower 8 rows blend nothing (n_contrib 0: their warps idle)
+              while the upper ones walk far;
+      tile 3: 100 listed pairs of which max_per_tile kept 60 (K2 writes
+              zero rows for the other 40);
+      tiles 4-11: 0 to 300 ordinary splats, one tile of the short last row
+              1,500.
+    -> feat (N + 1, FEAT), sorted_gid, starts, counts, width, height."""
+    rng = np.random.default_rng(seed)
+    width, height, gx = 64, 40, 4
+    counts = [3001, 0, 777, 60] + list(rng.integers(0, 300, 8))
+    counts[9] = 1500
+    ranges = list(counts)
+    ranges[3] = 100
+    rows = []
+    for tile, m in enumerate(ranges):
+        x0, y0 = (tile % gx) * 16, (tile // gx) * 16
+        f = np.zeros((m, tile_blend.FEAT), np.float32)
+        f[:, 0] = x0 + rng.uniform(0, 16, m)
+        f[:, 1] = y0 + rng.uniform(0, 16, m)
+        sx, sy = rng.uniform(1.0, 5.0, m), rng.uniform(1.0, 5.0, m)
+        op = rng.uniform(0.05, 0.9, m)
+        if tile == 0:
+            sx, sy = rng.uniform(8, 20, m), rng.uniform(8, 20, m)
+            op = rng.uniform(0.001, 0.006, m)
+        elif tile == 2:
+            f[:, 1] = y0 + rng.uniform(0, 4, m)
+            sx, sy = rng.uniform(4, 10, m), rng.uniform(0.5, 1.0, m)
+            op = rng.uniform(0.004, 0.012, m)
+        rho = rng.uniform(-0.3, 0.3, m)
+        det = (sx * sy) ** 2 * (1 - rho ** 2)
+        f[:, 2] = sy ** 2 / det
+        f[:, 3] = -rho * sx * sy / det
+        f[:, 4] = sx ** 2 / det
+        f[:, 5] = op
+        f[:, 6:9] = rng.uniform(0.05, 0.95, (m, 3))
+        f[:, 9] = 1.0
+        rows.append(f)
+    table = np.concatenate(rows)
+    perm = rng.permutation(len(table))           # scatter the rows
+    feat = np.zeros((len(table) + 1, tile_blend.FEAT), np.float32)
+    feat[perm] = table
+    starts = np.concatenate([[0], np.cumsum(ranges)]).astype(np.int32)
+    return (feat, perm.astype(np.int32), starts, np.array(counts, np.int32),
+            width, height)
+
+
+@pytest.mark.cuda
+def test_k1_k2_edge_tiles_match_plain(cuda):
+    """K1 bit-equal to `blend_forward_plain`, K2 within 1e-5 of each
+    column's largest |row| of `blend_backward_plain` with its zero rows
+    equal, both bit-identical over two runs, on `_edge_tiles`."""
+    feat, gid, starts, counts, width, height = (
+        torch.tensor(x, device=cuda) if isinstance(x, np.ndarray) else x
+        for x in _edge_tiles())
+    gx = -(-width // 16)
+    k1_args = (feat, gid, starts, counts, gx, width, height)
+    color, final_t, n_contrib = tile_blend.blend_forward(*k1_args)
+    again = tile_blend.blend_forward(*k1_args)
+    pc, pt, pn = tile_blend.blend_forward_plain(*k1_args)
+    torch.cuda.synchronize()
+    for a, b, p in zip((color, final_t, n_contrib), again, (pc, pt, pn)):
+        assert torch.equal(a, b) and torch.equal(a, p)
+    # the data reaches the edges it is built for
+    nc = n_contrib.cpu()
+    assert int(nc[:16, :16].min()) > 2900                # every pixel walks far
+    assert (nc[8:16, 32:48] == 0).all() and int(nc[:4, 32:48].max()) > 500
+    assert int(nc[:, 48:64][:16].max()) <= 60
+
+    rng = np.random.default_rng(12)
+    g_color = torch.tensor(rng.normal(size=(3, height, width)).astype(np.float32),
+                           device=cuda)
+    g_final_t = torch.tensor(rng.normal(size=(height, width)).astype(np.float32),
+                             device=cuda)
+    k2_args = (feat, gid, starts, counts, final_t, n_contrib, g_color, g_final_t)
+    rows = tile_blend.blend_backward(*k2_args)
+    rows2 = tile_blend.blend_backward(*k2_args)
+    ref = tile_blend.blend_backward_plain(*k2_args)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rows2)
+    scale = ref.abs().amax(0).clamp(min=1e-30)
+    assert ((rows - ref).abs() / scale).max().item() <= 1e-5
+    assert torch.equal(rows == 0, ref == 0)
+    assert (rows[int(starts[3]) + 60:int(starts[4])] == 0).all()
+    assert (rows[:int(starts[1])] != 0).any(1).float().mean().item() > 0.3
+
+
 def _rasterize_grads(device, sc, bg, cfg, width, height):
     leaves = [sc[k].detach().to(device).requires_grad_()
               for k in ("means", "cov6", "opacity", "rgb")]

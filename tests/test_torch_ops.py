@@ -215,6 +215,24 @@ def test_blend_forward_checks_inputs(small):
     assert (n_contrib == 0).all() and tile_blend.blend_forward.launches == 0
 
 
+@pytest.mark.parametrize("kind", ["ties", "random", "empty_tiles", "no_tiles"])
+def test_tile_order_is_stable_descending_permutation(kind):
+    """K2's block order: a permutation of the tiles, counts descending,
+    equal counts in tile order."""
+    rng = np.random.default_rng(4)
+    counts = {"ties": np.array([3, 7, 3, 7, 0, 7, 1, 3]),
+              "random": rng.integers(0, 5000, 2500),
+              "empty_tiles": np.where(rng.random(300) < 0.7, 0,
+                                      rng.integers(1, 9, 300)),
+              "no_tiles": np.zeros(0, np.int64)}[kind].astype(np.int32)
+    order = tile_blend.tile_order(torch.tensor(counts))
+    assert order.dtype == torch.int32 and order.shape == counts.shape
+    o = order.numpy()
+    np.testing.assert_array_equal(np.sort(o), np.arange(len(counts)))
+    np.testing.assert_array_equal(o, np.argsort(-counts.astype(np.int64),
+                                                kind="stable"))
+
+
 def test_mean_sq_dist3_matches_jax():
     pts = np.random.default_rng(0).normal(size=(1500, 3)).astype(np.float32)
     dj = np.asarray(jknn.mean_sq_dist3(jnp.asarray(pts)))
