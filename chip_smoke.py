@@ -26,7 +26,11 @@ Phases (any failure raises, so the exit code is not 0):
    domains with seeded cotangents, against their plain versions, twice for
    bit-identity; each timed with CUDA events, with its bound (bytes or
    operations) computed from this run's data; K2's also with the (pair,
-   warp) iterations its walk takes and the warp reductions it needs.
+   warp) iterations its walk takes and the warp reductions it needs, K3's
+   with the segment-length statistics of each shape. Then K3 alone on the
+   full-screen case: view 0's pair counts with 8 Gaussians set to one pair
+   per tile of the image (8,160), seeded rows and a seeded permutation for
+   `grouped_pos`.
 6. train: config-2 training at full width. The slice model renders 24
    ground-truth views at 800x800; `MeshTrainer` trains a student from an
    icosphere-2 proxy (320 faces -> 327,680 Gaussians after the init
@@ -65,6 +69,7 @@ N_VIEWS = 8
 SUBDIV = 7             # 20 * 4**7 = 327,680 faces
 SH_DEGREE = 3
 TIMED_LAUNCHES = 20
+SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's clock, before timed launches
 PLAIN_LAUNCHES = 3     # the plain K1 and K2 walk each pair of the largest tile in Python
 
 # training phase: config 2 at the NeRF-synthetic size
@@ -150,16 +155,35 @@ def read_launches(port):
 
 
 def cuda_ms(torch, fn, n):
-    """Mean device ms of fn() over n launches, after 3 warm ones."""
+    """Mean device ms of fn() over n launches, after 3 warm ones. The card
+    first sleeps long enough for the host to queue the n calls, so a call
+    whose host path takes longer than its kernels is timed on the device,
+    not on the host."""
     for _ in range(3):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(n):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def host_ms(torch, fn, n):
+    """Mean host ms to issue fn() (its wrapper's Python and launch calls),
+    over n calls issued while the card sleeps, so none waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
 
 
 def walk_counts(torch, tile_blend, feat, sorted_gid, starts, counts, grid_x,
@@ -377,8 +401,9 @@ def size_capacities(torch, port, model, cams, width, height, sh_degree,
 
 
 def phase_profile(torch, run, n, unit, label):
-    """Device time by kernel over n calls of run() (torch.profiler), and the
-    share of the profiled wall time in which the device was idle."""
+    """Device time by kernel over n calls of run() (torch.profiler): the 15
+    largest and the port's own kernels; and the share of the profiled wall
+    time in which the device was idle."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -396,8 +421,9 @@ def phase_profile(torch, run, n, unit, label):
     busy = sum(r[0] for r in rows)
     log(f"[{label}] {n} {unit}s under torch.profiler: wall {wall:.3f} ms/{unit}, "
         f"device busy {busy:.3f} ms/{unit}, idle share {1 - busy / wall:.3f}")
-    for ms, count, name in rows[:15]:
-        log(f"[{label}] {ms:8.3f} ms/{unit} x{count:g} {name[:100]}")
+    for i, (ms, count, name) in enumerate(rows):    # the port's kernels too
+        if i < 15 or "segment_sum" in name or "tile_blend" in name:
+            log(f"[{label}] {ms:8.3f} ms/{unit} x{count:g} {name[:100]}")
 
 
 def phase_slice(torch, port, tmpdir):
@@ -485,6 +511,67 @@ def check_k1(torch, tb, args, mpt=None):
     return r, kt, kn, blended
 
 
+def segment_stats(torch, seg, seg_starts):
+    """Segment-length statistics of one K3 shape: max, p99, mean, share of
+    zero-length segments and count of segments the kernel's long pass
+    takes (more than `segsum.LONG_SEGMENT` rows)."""
+    lengths = (seg_starts[1:] - seg_starts[:-1]).double()
+    return dict(seg_len_max=int(lengths.max()),
+                seg_len_p99=torch.quantile(lengths, 0.99).item(),
+                seg_len_mean=lengths.mean().item(),
+                seg_zero_share=(lengths == 0).double().mean().item(),
+                seg_long=int((lengths > seg.LONG_SEGMENT).sum()))
+
+
+def check_k3(torch, seg, rows, grouped_pos, seg_starts, again=None):
+    """K3 against its plain version (a float64 index_add_) and bit-identical
+    over two runs (`again()` gives the second result; by default K3 on the
+    same rows again), timed beside the plain version and
+    `torch.segment_reduce` with its row gather, bounded by bytes, with the
+    segment-length statistics of the shape."""
+    d_feat = seg.segment_sum(rows, grouped_pos, seg_starts)
+    second = (again or (lambda: seg.segment_sum(rows, grouped_pos,
+                                                seg_starts)))()
+    ref64 = seg.segment_sum_plain(rows, grouped_pos, seg_starts)
+    torch.cuda.synchronize()
+    m, n = rows.shape[0], seg_starts.shape[0] - 1
+    d3 = (d_feat - ref64).abs()
+    k3 = dict(gaussians=n, pairs=m, max_abs=d3.max().item(),
+              rel=(d3 / ref64.abs().amax(0).clamp(min=1e-30)).max().item(),
+              bit_identical=bool(torch.equal(d_feat, second)),
+              **segment_stats(torch, seg, seg_starts))
+    lengths = (seg_starts[1:] - seg_starts[:-1]).long()
+    k3["ms"] = cuda_ms(torch, lambda: seg.segment_sum(rows, grouped_pos, seg_starts),
+                       TIMED_LAUNCHES)
+    k3["host_ms"] = host_ms(torch, lambda: seg.segment_sum(rows, grouped_pos,
+                                                           seg_starts), TIMED_LAUNCHES)
+    k3["plain_ms"] = cuda_ms(torch, lambda: seg.segment_sum_plain(
+        rows, grouped_pos, seg_starts), TIMED_LAUNCHES)
+    k3["library_ms"] = cuda_ms(torch, lambda: torch.segment_reduce(
+        rows[grouped_pos.long()], "sum", lengths=lengths), TIMED_LAUNCHES)
+    k3.update(**bound(m * (64 + 4) + (n + 1) * (4 + 64)))
+    assert k3["rel"] <= K3_REL and k3["bit_identical"], k3
+    return k3
+
+
+def fullscreen_case(torch, seg, gid_counts, tiles_total, seed):
+    """K3's inputs with 8 full-screen splats: the given per-Gaussian pair
+    counts with Gaussians 0, N - 1 and six spread between set to
+    `tiles_total` pairs (one per tile of the image); rows N(0, 1) and
+    `grouped_pos` a permutation of the M pairs, both from `seed`.
+    -> rows, grouped_pos, seg_starts."""
+    counts = gid_counts.to(torch.int64)
+    n = counts.shape[0]
+    ids = torch.linspace(0, n - 1, 8, device=counts.device).round().long()
+    counts[ids] = tiles_total
+    seg_starts = seg.segment_starts(counts)
+    m = int(seg_starts[-1])
+    gen = torch.Generator(device=counts.device).manual_seed(seed)
+    rows = torch.randn((m, seg.FEAT), generator=gen, device=counts.device)
+    grouped_pos = torch.randperm(m, generator=gen, device=counts.device)
+    return rows, grouped_pos.to(torch.int32), seg_starts
+
+
 def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
                 step_rows=None):
     """K2 on its arguments (feat, sorted_gid, starts, counts, final_t,
@@ -497,13 +584,11 @@ def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
     gx = -(-width // tb.TILE)
     rows = tb.blend_backward(*k2_args)
     plain_rows = tb.blend_backward_plain(*k2_args)
-    d_feat = seg.segment_sum(rows, grouped_pos, seg_starts)
-    ref64 = seg.segment_sum_plain(rows, grouped_pos, seg_starts)
-    again = seg.segment_sum(tb.blend_backward(*k2_args), grouped_pos, seg_starts)
-    torch.cuda.synchronize()
-    m, n = rows.shape[0], seg_starts.shape[0] - 1
+    k3 = check_k3(torch, seg, rows, grouped_pos, seg_starts,
+                  again=lambda: seg.segment_sum(tb.blend_backward(*k2_args),
+                                                grouped_pos, seg_starts))
+    m = rows.shape[0]
     d2 = (rows - plain_rows).abs()
-    d3 = (d_feat - ref64).abs()
     k2 = dict(pairs=m, table_rows=feat.shape[0],
               rows_nonzero=int((rows != 0).any(1).sum()),
               max_abs=d2.max().item(),
@@ -511,9 +596,6 @@ def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
               zero_rows_equal=bool(torch.equal(rows == 0, plain_rows == 0)))
     if step_rows is not None:
         k2["same_as_step"] = bool(torch.equal(rows, step_rows))
-    k3 = dict(gaussians=n, max_abs=d3.max().item(),
-              rel=(d3 / ref64.abs().amax(0).clamp(min=1e-30)).max().item(),
-              bit_identical=bool(torch.equal(d_feat, again)))
     k2["ms"] = cuda_ms(torch, lambda: tb.blend_backward(*k2_args), TIMED_LAUNCHES)
     k2["plain_ms"] = cuda_ms(torch, lambda: tb.blend_backward_plain(*k2_args),
                              PLAIN_LAUNCHES)
@@ -527,17 +609,8 @@ def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
         staged * (4 + 36) + 4 * (counts.shape[0] + 1)
         + 24 * width * height + 64 * m,
         fp32_ops=evals * 12 + blended * 40, mufu_ops=evals + 2 * blended))
-    lengths = (seg_starts[1:] - seg_starts[:-1]).long()
-    k3["ms"] = cuda_ms(torch, lambda: seg.segment_sum(rows, grouped_pos, seg_starts),
-                       TIMED_LAUNCHES)
-    k3["plain_ms"] = cuda_ms(torch, lambda: seg.segment_sum_plain(
-        rows, grouped_pos, seg_starts), TIMED_LAUNCHES)
-    k3["library_ms"] = cuda_ms(torch, lambda: torch.segment_reduce(
-        rows[grouped_pos.long()], "sum", lengths=lengths), TIMED_LAUNCHES)
-    k3.update(**bound(m * (64 + 4) + (n + 1) * (4 + 64)))
     assert k2["rel"] <= K2_REL and k2["zero_rows_equal"], k2
     assert k2.get("same_as_step", True), k2
-    assert k3["rel"] <= K3_REL and k3["bit_identical"], k3
     assert k2["rows_nonzero"] > 0
     return k2, k3
 
@@ -545,7 +618,8 @@ def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
 def phase_kernels(torch, port, model, cam, cfg):
     """K1, then K2 and K3 with seeded cotangents, against their plain
     versions on view 0's binned pair domain, at the slice's max_per_tile and
-    clamped to 64."""
+    clamped to 64; then K3 on the full-screen case built from view 0's pair
+    counts. -> ({"slice" | "clamped": (k1, k2, k3)}, full-screen k3)"""
     tb = port.tile_blend
     gx, gy = cfg.grid
     n = model.bc.shape[0]
@@ -578,7 +652,12 @@ def phase_kernels(torch, port, model, cam, cfg):
             log(f"[kernels] K2 {label}: " + json.dumps(k2))
             log(f"[kernels] K3 {label}: " + json.dumps(k3))
             results[label] = (k1, k2, k3)
-    return results
+            if label == "slice":
+                case = fullscreen_case(torch, port.segsum, tiles.gid_counts,
+                                       gx * gy, SEED + 3)
+        fullscreen = check_k3(torch, port.segsum, *case)
+        log("[kernels] K3 full-screen case: " + json.dumps(fullscreen))
+    return results, fullscreen
 
 
 KERNELS = (
@@ -591,13 +670,16 @@ KERNELS = (
 )
 
 
-def kernel_line(results, launches):
+def kernel_line(results, fullscreen, launches):
     """The `kernels` JSON entries: times and bounds at the slice config,
     beside them those at the clamped config and at a training step's
-    shapes; errors over all three; launches from the main paths."""
+    shapes, and K3's on the full-screen case; errors over all of them;
+    launches from the main paths."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items()}
+        if key == "K3":
+            r["fullscreen"] = fullscreen
         s = r["slice"]
         err = max(x["max_abs"] for x in r.values())
         entry = {
@@ -614,9 +696,9 @@ def kernel_line(results, launches):
         }
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
-        for label in ("clamped", "train"):
+        for label in ("clamped", "train", "fullscreen"):
             for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
-                if k in r[label]:
+                if k in r.get(label, {}):
                     entry[f"{label}_{k}"] = r[label][k]
         line.append(entry)
     return line
@@ -816,10 +898,11 @@ def main() -> int:
     phase_oracle(torch, port)
     with tempfile.TemporaryDirectory() as tmpdir:
         model, cam, cfg, render_k1, frames = phase_slice(torch, port, tmpdir)
-    results = phase_kernels(torch, port, model, cam, cfg)
+    results, fullscreen = phase_kernels(torch, port, model, cam, cfg)
     train_launches, step_ms, results["train"] = phase_train(torch, port, model)
-    kernels = kernel_line(results, {"render": {"K1": render_k1, "K2": 0, "K3": 0},
-                                    "train": train_launches})
+    kernels = kernel_line(results, fullscreen,
+                          {"render": {"K1": render_k1, "K2": 0, "K3": 0},
+                           "train": train_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
         f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
     print(json.dumps({"kernels": kernels}))

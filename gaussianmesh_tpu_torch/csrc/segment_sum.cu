@@ -12,72 +12,293 @@
 // is Gaussian-major) to its sorted position, so Gaussian g's rows are one
 // contiguous run of grouped_pos and no sort is needed.
 //
-// Design: one warp per Gaussian. Lane = (sub, column): columns 0..15 of the
-// row, sub 0 or 1 takes the segment's even or odd entries, so each load
-// instruction of the warp reads two whole 64-byte rows. Each lane sums its
-// column in float64 in segment order, one __shfl_xor_sync joins the two
-// halves, and the f32 result is written once. The order is fixed, so the
-// result is the same bits on every run (no atomics), and float64 keeps it
-// within one f32 rounding of the exact sum for any segment length: there is
-// no length cap (the TPU version's extra-head scatter is capped,
-// segsum.py:194-199, and drops gradient for long segments at high ids).
-//
 // Bound: bytes. It reads each row once (64 B) plus its grouped_pos entry
 // (4 B), reads seg_starts and writes the (n + 1, 16) table; the float64 adds
-// (16 per row) are far below the card's float64 rate.
+// (16 per row) are far below the card's float64 rate. What holds a simple
+// kernel back is latency: each row sits behind a chain of three dependent
+// loads (seg_starts -> grouped_pos -> the row), most segments hold 0 to a
+// few rows, and a splat near the camera holds one row per tile it reaches
+// (up to 8,160 at 1080p).
+//
+// Design, two passes on the stream (one wrapper call):
+// 1. Short pass, 4 lanes per Gaussian. Each lane owns one float4 quad of
+//    columns, so a warp sums 8 Gaussians; the warp loads their 9 segment
+//    starts with one coalesced load and shares them by shuffle. A group
+//    fetches the next K3_UNROLL grouped_pos entries, then their rows, and
+//    (K3_PREFETCH) the following entries before it adds: U rows and the
+//    next indices are in flight at once. The adds run in segment order into
+//    float64, so the bits are fixed. A zero-length Gaussian reads no row.
+//    The warp writes its 8 output rows as 16-byte stores, 512 contiguous
+//    bytes. A segment longer than long_min is left to pass 2: the group
+//    reserves ceil(len / chunk) chunk slots with one integer atomicAdd on a
+//    work counter and lists (g, chunk index) in them.
+// 2. Long pass (launched only when some segment can exceed long_min), one
+//    persistent 256-thread block per SM; one warp per listed chunk of
+//    `chunk` rows, its 8 groups interleaved (group j takes rows j, j + 8,
+//    ...), each with the same loads ahead, then a fixed xor butterfly over
+//    the groups. The warp writes the chunk's float64 partial to its slot;
+//    the warp that finishes a segment's last chunk (an integer atomicAdd on
+//    the segment's first slot) adds the partials in chunk order and writes
+//    the row. With 128-row chunks no lane walks more than 16 rows of a
+//    full-screen segment. Work list: an integer atomicAdd list written by
+//    the short pass (its counter zeroed by a 4-byte memset), read by the
+//    long pass; its order may differ from run to run, but no sum depends on
+//    it: every sum runs in an order fixed by the data. The long pass is a
+//    programmatic dependent launch (K3_PDL): it is scheduled while the short
+//    pass drains and waits for it with griddepcontrol.wait, which hides its
+//    launch gap. When no segment is long, the memset and the empty grid
+//    still cost ~2 us on an H100.
+// No float atomics, float64 accumulation, no cap on segment length; the
+// same bits on every run. K3_UNROLL, K3_PREFETCH and K3_PDL exist for
+// timing variants (tools/torch_kernel_variants.py); the defaults are the
+// measured best.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef K3_UNROLL
+#define K3_UNROLL 4
+#endif
+#ifndef K3_PREFETCH
+#define K3_PREFETCH 1
+#endif
+#ifndef K3_PDL
+#define K3_PDL 1
+#endif
+
 namespace {
 
 constexpr int kFeat = 16;
-constexpr int kWarps = 8;  // Gaussians per 256-thread block
+constexpr int kQuads = kFeat / 4;                  // lanes per Gaussian
+constexpr int kGroups = 32 / kQuads;               // Gaussians per warp
+constexpr int kThreads = 256;
+constexpr int kPerBlock = kThreads / kQuads;       // Gaussians per block
+constexpr int kUnroll = K3_UNROLL;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kWarps * 32)
-segment_sum_kernel(const float* __restrict__ rows,
-                   const int32_t* __restrict__ grouped_pos,
-                   const int32_t* __restrict__ seg_starts, int n,
-                   float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int g = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (g > n) return;  // whole warps leave together
-  const int col = lane & (kFeat - 1);
-  const int sub = lane >> 4;
-  double acc = 0.0;
-  if (g < n) {
-    const int begin = seg_starts[g];
-    const int end = seg_starts[g + 1];
-#pragma unroll 4
-    for (int e = begin + sub; e < end; e += 2) {
-      acc += static_cast<double>(
-          rows[static_cast<size_t>(grouped_pos[e]) * kFeat + col]);
+struct Acc {
+  double x = 0.0, y = 0.0, z = 0.0, w = 0.0;
+};
+
+__device__ __forceinline__ void add(Acc& a, const float4& v) {
+  a.x += static_cast<double>(v.x);
+  a.y += static_cast<double>(v.y);
+  a.z += static_cast<double>(v.z);
+  a.w += static_cast<double>(v.w);
+}
+
+// Adds quad q of rows[grouped_pos[e]] for e = e0, e0 + stride, ... < end
+// into a, in that order, with kUnroll rows (and, with K3_PREFETCH, the next
+// kUnroll indices) in flight.
+__device__ __forceinline__ void walk(const float4* __restrict__ rows,
+                                     const int32_t* __restrict__ grouped_pos,
+                                     int e, int end, int stride, int q,
+                                     Acc& a) {
+  int pos[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int i = e + u * stride;
+    pos[u] = i < end ? __ldg(grouped_pos + i) : -1;
+  }
+  for (; e < end; e += kUnroll * stride) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      v[u] = pos[u] >= 0
+                 ? __ldg(rows + static_cast<size_t>(pos[u]) * kQuads + q)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const int next = e + kUnroll * stride;
+#if K3_PREFETCH
+    int nxt[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = next + u * stride;
+      nxt[u] = i < end ? __ldg(grouped_pos + i) : -1;
+    }
+#endif
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (pos[u] >= 0) add(a, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#if K3_PREFETCH
+      pos[u] = nxt[u];
+#else
+      const int i = next + u * stride;
+      pos[u] = i < end ? __ldg(grouped_pos + i) : -1;
+#endif
     }
   }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 16);
-  if (sub == 0) out[static_cast<size_t>(g) * kFeat + col] = static_cast<float>(acc);
+}
+
+__device__ __forceinline__ float4 to_float4(const Acc& a) {
+  return make_float4(static_cast<float>(a.x), static_cast<float>(a.y),
+                     static_cast<float>(a.z), static_cast<float>(a.w));
+}
+
+// work: [0] chunks listed so far, then three arrays of `cap` ints: the
+// chunk's Gaussian, its index in the segment, and (at a segment's first
+// slot) the count of the segment's chunks summed so far.
+__global__ void __launch_bounds__(kThreads)
+segment_sum_short(const float4* __restrict__ rows,
+                  const int32_t* __restrict__ grouped_pos,
+                  const int32_t* __restrict__ seg_starts, int n, int long_min,
+                  int chunk, int cap, int32_t* __restrict__ work,
+                  float4* __restrict__ out) {
+#if K3_PDL
+  asm volatile("griddepcontrol.launch_dependents;");
+#endif
+  const int lane = threadIdx.x & 31;
+  const int g0 = blockIdx.x * kPerBlock + (threadIdx.x >> 5) * kGroups;
+  const int s = (lane <= kGroups && g0 + lane <= n)
+                    ? __ldg(seg_starts + g0 + lane) : 0;
+  const int grp = lane / kQuads, q = lane % kQuads;
+  const int g = g0 + grp;
+  const int begin = __shfl_sync(kFull, s, grp);
+  int end = __shfl_sync(kFull, s, grp + 1);
+  if (g > n) return;
+  if (g == n) end = begin;                      // the dummy row
+  const int len = end - begin;
+  if (len > long_min) {                         // pass 2 writes this row
+    if (q == 0) {
+      const int nch = (len - 1) / chunk + 1;
+      const int base = atomicAdd(work, nch);
+      if (base + nch <= cap) {                  // always, by cap's size
+        int32_t* gid = work + 1;
+        int32_t* idx = gid + cap;
+        int32_t* done = idx + cap;
+        for (int k = 0; k < nch; ++k) {
+          gid[base + k] = g;
+          idx[base + k] = k;
+        }
+        done[base] = 0;
+      }
+    }
+    return;
+  }
+  Acc a;
+  walk(rows, grouped_pos, begin, end, 1, q, a);
+  out[static_cast<size_t>(g) * kQuads + q] = to_float4(a);
+}
+
+__global__ void __launch_bounds__(kThreads)
+segment_sum_long(const float4* __restrict__ rows,
+                 const int32_t* __restrict__ grouped_pos,
+                 const int32_t* __restrict__ seg_starts, int chunk, int cap,
+                 int32_t* __restrict__ work, double* __restrict__ partial,
+                 float* __restrict__ out) {
+#if K3_PDL
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / kQuads, q = lane % kQuads;
+  const int warps = gridDim.x * (kThreads / 32);
+  const int count = min(work[0], cap);
+  const int32_t* gid = work + 1;
+  const int32_t* idx = gid + cap;
+  int32_t* done = work + 1 + 2 * cap;
+  for (int c = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5); c < count;
+       c += warps) {
+    const int g = gid[c], k = idx[c];
+    const int begin = __ldg(seg_starts + g), end = __ldg(seg_starts + g + 1);
+    const int c0 = begin + k * chunk;
+    Acc a;
+    walk(rows, grouped_pos, c0 + grp, min(c0 + chunk, end), kGroups, q, a);
+#pragma unroll
+    for (int off = kQuads; off < 32; off <<= 1) {
+      a.x += __shfl_xor_sync(kFull, a.x, off);
+      a.y += __shfl_xor_sync(kFull, a.y, off);
+      a.z += __shfl_xor_sync(kFull, a.z, off);
+      a.w += __shfl_xor_sync(kFull, a.w, off);
+    }
+    if (lane < kQuads) {
+      double2* p = reinterpret_cast<double2*>(partial + static_cast<size_t>(c) * kFeat);
+      p[2 * q] = make_double2(a.x, a.y);
+      p[2 * q + 1] = make_double2(a.z, a.w);
+    }
+    __threadfence();
+    __syncwarp();
+    const int base = c - k;
+    const int nch = (end - begin - 1) / chunk + 1;
+    int last = 0;
+    if (lane == 0) last = atomicAdd(done + base, 1) == nch - 1;
+    if (__shfl_sync(kFull, last, 0)) {          // every chunk is in: sum them
+      __threadfence();
+      if (lane < kFeat) {
+        double t = 0.0;
+        for (int j = 0; j < nch; ++j) {
+          t += __ldcg(partial + static_cast<size_t>(base + j) * kFeat + lane);
+        }
+        out[static_cast<size_t>(g) * kFeat + lane] = static_cast<float>(t);
+      }
+    }
+  }
 }
 
 }  // namespace
 
-// Launches K3 on `stream`: n Gaussians (seg_starts holds n + 1 entries),
-// out (n + 1, 16). Returns the cudaError_t of the launch.
+// Launches K3 on `stream`: n Gaussians (seg_starts holds n + 1 entries,
+// seg_starts[n] = m rows), out (n + 1, 16). Segments longer than long_min
+// rows go to the long pass in chunks of `chunk` rows; cap >= the chunks
+// they can need (m / chunk + m / (long_min + 1) + 1), work holds
+// 1 + 3 cap ints and partial cap x 16 doubles (both unused when cap is 0,
+// which the caller passes when m <= long_min). Returns a cudaError_t.
 extern "C" int gm_segment_sum(const float* rows, const int32_t* grouped_pos,
-                              const int32_t* seg_starts, int n, float* out,
-                              void* stream) {
-  const int blocks = (n + 1 + kWarps - 1) / kWarps;
-  segment_sum_kernel<<<blocks, kWarps * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      rows, grouped_pos, seg_starts, n, out);
-  return static_cast<int>(cudaGetLastError());
+                              const int32_t* seg_starts, int n, int long_min,
+                              int chunk, int cap, int32_t* work,
+                              double* partial, float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* rows4 = reinterpret_cast<const float4*>(rows);
+  if (cap > 0) {
+    cudaError_t err = cudaMemsetAsync(work, 0, sizeof(int32_t), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = n / kPerBlock + 1;         // n + 1 rows
+  segment_sum_short<<<blocks, kThreads, 0, st>>>(
+      rows4, grouped_pos, seg_starts, n, cap > 0 ? long_min : INT32_MAX,
+      chunk, cap, work, reinterpret_cast<float4*>(out));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || cap == 0) return static_cast<int>(err);
+  static int sms = 0;                           // persistent grid of pass 2
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return static_cast<int>(err);
+    }
+  }
+  const int wanted = (cap - 1) / (kThreads / 32) + 1;   // a warp per chunk
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(wanted < sms ? wanted : sms);  // one block per SM
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+#if K3_PDL
+  // Programmatic dependent launch: pass 2 is scheduled while pass 1's last
+  // blocks run and waits (griddepcontrol.wait) until pass 1 has finished
+  // and its writes are visible.
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+#endif
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, segment_sum_long, rows4, grouped_pos, seg_starts, chunk, cap,
+      work, partial, out));
 }
 
-// The launch shape of K3 on the current device: threads per block, shared
-// memory per block and resident blocks per SM. Returns a cudaError_t.
+// The launch shape of K3's short pass on the current device: threads per
+// block, shared memory per block and resident blocks per SM. Returns a
+// cudaError_t.
 extern "C" int gm_segment_sum_occupancy(int* threads, int* smem_bytes,
                                         int* blocks_per_sm) {
-  *threads = kWarps * 32;
+  *threads = kThreads;
   *smem_bytes = 0;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, segment_sum_kernel, kWarps * 32, 0));
+      blocks_per_sm, segment_sum_short, kThreads, 0));
 }

@@ -15,6 +15,8 @@ from gaussianmesh_tpu_torch.ops import binning, preprocess, segsum, tile_blend
 from gaussianmesh_tpu_torch.ops.rasterize import RasterizerConfig, rasterize
 from gaussianmesh_tpu_torch.utils import graphics, maths
 from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
+# pytest puts tests/ on sys.path
+from test_torch_segsum import LAYOUTS, assert_column_close, k3_layout
 
 
 @pytest.fixture
@@ -236,6 +238,45 @@ def test_k1_k2_edge_tiles_match_plain(cuda):
     assert torch.equal(rows == 0, ref == 0)
     assert (rows[int(starts[3]) + 60:int(starts[4])] == 0).all()
     assert (rows[:int(starts[1])] != 0).any(1).float().mean().item() > 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_k3_layouts_match_plain(cuda, name):
+    """K3 against `segment_sum_plain` (a float64 index_add_) within 1e-6 of
+    each column's largest sum, on layouts that reach its short pass, its
+    long pass (lengths LONG_SEGMENT + 1, CHUNK + 1, 8,160, a 40,000-pair
+    run at the highest destination) and the empty cases; bit-identical
+    over two runs; one launch counted per call."""
+    rows, gp, starts, lengths = (torch.tensor(x, device=cuda)
+                                 for x in k3_layout(name))
+    before = segsum.segment_sum.launches
+    out = segsum.segment_sum(rows, gp, starts)
+    again = segsum.segment_sum(rows, gp, starts)
+    ref = segsum.segment_sum_plain(rows, gp, starts)
+    torch.cuda.synchronize()
+    assert segsum.segment_sum.launches == before + 2
+    assert out.shape == (lengths.shape[0] + 1, segsum.FEAT)
+    assert torch.equal(out, again)
+    assert (out[-1] == 0).all()
+    assert_column_close(out.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_k3_adds_no_host_sync(cuda):
+    """A K3 call reads no size back from the card: it runs under
+    `set_sync_debug_mode("error")`, which raises on a synchronising op."""
+    rows, gp, starts, _ = (torch.tensor(x, device=cuda)
+                           for x in k3_layout("edges"))
+    segsum.segment_sum(rows, gp, starts)            # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = segsum.segment_sum(rows, gp, starts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert_column_close(out.cpu().numpy(),
+                        segsum.segment_sum_plain(rows, gp, starts).cpu().numpy())
 
 
 def _rasterize_grads(device, sc, bg, cfg, width, height):

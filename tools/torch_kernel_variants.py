@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time variants of the port's blend kernels on the arguments of
+"""Time variants of the port's kernels on the arguments of
 `chip_smoke.py`'s main paths, on one CUDA card.
 
     python3 tools/torch_kernel_variants.py SPEC.json [--counts] [--plain]
 
 It runs `chip_smoke.py`'s slice, kernels and train phases with their
-checks replaced by recorders, which keeps K1's and K2's arguments at the
-three shapes the smoke measures: view 0 of the 1080p slice, the same
-clamped to `max_per_tile` 64, and one captured training step. Then it
+checks replaced by recorders, which keeps K1's, K2's and K3's arguments at
+the three shapes the smoke measures: view 0 of the 1080p slice, the same
+clamped to `max_per_tile` 64, and one captured training step; and K3's on
+the smoke's full-screen case (K3 variants only). Then it
 builds every variant with `nvcc` (one process per source, in parallel)
 and, at each shape, times it with CUDA events (mean of 20 launches after
 3 warm ones), times the heaviest tile alone (`num_tiles` 1 with the
@@ -19,13 +20,22 @@ counts (`chip_smoke.k2_walk_counts`) for 8- and 4-warp layouts.
 SPEC.json maps a variant name to
     {"source": a .cu file (relative to SPEC.json's directory),
      "defines": ["NAME" or "NAME=VALUE", ...] (optional),
-     "kernel": "k1" or "k2", "entry": the C entry point (default
+     "kernel": "k1", "k2" or "k3", "entry": the C entry point (default
      gm_tile_blend_fwd / gm_tile_blend_bwd),
      "order": "none" (the entry point takes no order argument),
-              "ordered" (heaviest first) or "identity" (0, 1, ...)}
+              "ordered" (heaviest first) or "identity" (0, 1, ...)
+              (K1 and K2),
+     "long_min", "chunk": K3's long-pass threshold and chunk rows (default
+              `segsum.LONG_SEGMENT` and `segsum.CHUNK`; a long_min of null
+              turns the long pass off),
+     "work": false for a K3 source whose entry point takes
+             (rows, grouped_pos, seg_starts, n, out, stream), as the
+             one-warp-per-Gaussian K3 of the first port did}
 with the argument lists of `ops/_cuda.py`, `order` (when taken) placed
-after `counts` for K1 and after `g_final_t` for K2. Results go to
-chiprun_out/kernel_variants.json and standard output.
+after `counts` for K1 and after `g_final_t` for K2. K3 variants are held
+against `segment_sum_plain` at each column's largest sum and run twice for
+bit-identity. Results go to standard output and to kernel_variants.json
+in the repository's gitignored output directory (`out_dir` in `main`).
 """
 
 from __future__ import annotations
@@ -68,8 +78,9 @@ def port_namespace():
 
 
 def capture(torch, port):
-    """-> {"1080p" | "clamped" | "step": (K1 arguments, K2 arguments)}"""
-    got, k1_args = {}, {}
+    """-> {"1080p" | "clamped" | "step": (K1 arguments, K2 arguments,
+    K3's (grouped_pos, seg_starts))}, {"fullscreen": K3 arguments}"""
+    got, k1_args, k3_only = {}, {}, {}
 
     def record_k1(torch_, tb, args, mpt=None):
         _, final_t, n_contrib = tb.blend_forward(*args)
@@ -80,16 +91,20 @@ def capture(torch, port):
                   step_rows=None):
         label = ("step" if step_rows is not None
                  else "clamped" if "1080p" in got else "1080p")
-        got[label] = (k1_args["last"], k2_args)
+        got[label] = (k1_args["last"], k2_args, (grouped_pos, seg_starts))
         return {}, {}
 
-    cs.check_k1, cs.check_k2_k3 = record_k1, record_k2
+    def record_k3(torch_, seg, *k3_args, again=None):
+        k3_only["fullscreen"] = k3_args
+        return {}
+
+    cs.check_k1, cs.check_k2_k3, cs.check_k3 = record_k1, record_k2, record_k3
     cs.phase_profile = lambda *a, **k: None
     with tempfile.TemporaryDirectory() as tmpdir:
         model, cam, cfg, _, _ = cs.phase_slice(torch, port, tmpdir)
     cs.phase_kernels(torch, port, model, cam, cfg)
     cs.phase_train(torch, port, model)
-    return got
+    return got, k3_only
 
 
 def build(port, spec, spec_dir, out_dir):
@@ -131,14 +146,22 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     port._cuda.build()
     t0 = time.perf_counter()
-    got = capture(torch, port)
+    got, k3_only = capture(torch, port)
     log(f"[variants] arguments captured in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as build_dir:
         libs = build(port, spec, args.spec.resolve().parent, Path(build_dir))
+        blend = {k: v for k, v in libs.items() if spec[k]["kernel"] != "k3"}
+        segment = {k: v for k, v in libs.items() if spec[k]["kernel"] == "k3"}
         results = {"card": smi}
-        for label, (k1a, k2a) in got.items():
-            results[label] = measure(torch, tb, spec, libs, k1a, k2a, args)
-            log(f"[variants] {label}: {json.dumps(results[label])}")
+        for label, (k1a, k2a, (gp, ss)) in got.items():
+            results[label] = measure(torch, tb, spec, blend, k1a, k2a, args)
+            k3_only[label] = (tb.blend_backward(*k2a), gp, ss)
+        for label, k3a in k3_only.items():
+            results.setdefault(label, {}).update(
+                measure_k3(torch, port.segsum, spec, segment, *k3a))
+        for label, r in results.items():
+            if label != "card":
+                log(f"[variants] {label}: {json.dumps(r)}")
     (out_dir / "kernel_variants.json").write_text(json.dumps(results, indent=1))
     return 0
 
@@ -207,6 +230,50 @@ def measure(torch, tb, spec, libs, k1a, k2a, args):
                 e[f"rel_{key}"] = d.max().item()
                 e[f"zero_rows_equal_{key}"] = bool(torch.equal(rows == 0, base == 0))
         r[name] = e
+    return r
+
+
+def measure_k3(torch, seg, spec, libs, rows, grouped_pos, seg_starts):
+    """K3 variants on one shape: ms (CUDA events, mean of 20 after 3 warm
+    launches), repeat_equal, rel (against `segment_sum_plain`, over each
+    column's largest sum) and equal_wrapper (bits of the port's K3)."""
+    n = seg_starts.shape[0] - 1
+    ref64 = seg.segment_sum_plain(rows, grouped_pos, seg_starts)
+    mine = seg.segment_sum(rows, grouped_pos, seg_starts)
+    r = {"K3_wrapper_ms": cs.cuda_ms(torch, lambda: seg.segment_sum(
+        rows, grouped_pos, seg_starts), 20), "K3_pairs": rows.shape[0],
+         **cs.segment_stats(torch, seg, seg_starts)}
+    for name, lib in libs.items():
+        v = spec[name]
+        if v.get("work", True):
+            lib.gm_segment_sum.argtypes = seg._cuda.KERNELS["segment_sum"][
+                "gm_segment_sum"]
+            long_min = v.get("long_min", seg.LONG_SEGMENT)
+            long_min = 2**31 - 1 if long_min is None else long_min
+            chunk = v.get("chunk", seg.CHUNK)
+
+            def launch():
+                return seg.launch(lib, rows, grouped_pos, seg_starts,
+                                  long_min, chunk)
+        else:
+            def launch():
+                out = torch.empty((n + 1, seg.FEAT), device=rows.device)
+                err = lib.gm_segment_sum(
+                    *(ctypes.c_void_p(x.data_ptr()) for x in
+                      (rows, grouped_pos, seg_starts)), n,
+                    ctypes.c_void_p(out.data_ptr()),
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+                if err != 0:
+                    raise RuntimeError(f"{name}: cudaError {err}")
+                return out
+
+        first, second = launch(), launch()
+        torch.cuda.synchronize()
+        d = (first - ref64).abs() / ref64.abs().amax(0).clamp(min=1e-30)
+        r[name] = {"ms": cs.cuda_ms(torch, launch, 20),
+                   "repeat_equal": bool(torch.equal(first, second)),
+                   "rel": d.max().item(),
+                   "equal_wrapper": bool(torch.equal(first, mine))}
     return r
 
 
