@@ -27,7 +27,9 @@ Phases (any failure raises, so the exit code is not 0):
    bit-identity; each timed with CUDA events, with its bound (bytes or
    operations) computed from this run's data; K2's also with the (pair,
    warp) iterations its walk takes and the warp reductions it needs, K3's
-   with the segment-length statistics of each shape. Then K3 alone on the
+   with the segment-length statistics of each shape, its time with the
+   calls queued behind a sleep of the card (`queued_ms`) and its wrapper's
+   host time per call (`host_ms`). Then K3 alone on the
    full-screen case: view 0's pair counts with 8 Gaussians set to one pair
    per tile of the image (8,160), seeded rows and a seeded permutation for
    `grouped_pos`.
@@ -69,7 +71,7 @@ N_VIEWS = 8
 SUBDIV = 7             # 20 * 4**7 = 327,680 faces
 SH_DEGREE = 3
 TIMED_LAUNCHES = 20
-SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's clock, before timed launches
+SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's clock (queued_ms, host_ms)
 PLAIN_LAUNCHES = 3     # the plain K1 and K2 walk each pair of the largest tile in Python
 
 # training phase: config 2 at the NeRF-synthetic size
@@ -155,10 +157,22 @@ def read_launches(port):
 
 
 def cuda_ms(torch, fn, n):
-    """Mean device ms of fn() over n launches, after 3 warm ones. The card
-    first sleeps long enough for the host to queue the n calls, so a call
-    whose host path takes longer than its kernels is timed on the device,
-    not on the host."""
+    """Mean device ms of fn() over n launches, after 3 warm ones."""
+    for _ in range(3):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def queued_ms(torch, fn, n):
+    """As cuda_ms, but the card first sleeps long enough for the host to
+    queue the n calls: the kernels' own time, where `cuda_ms` of a call
+    whose host path is as long as its kernels reads the host's pace."""
     for _ in range(3):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -513,8 +527,8 @@ def check_k1(torch, tb, args, mpt=None):
 
 def segment_stats(torch, seg, seg_starts):
     """Segment-length statistics of one K3 shape: max, p99, mean, share of
-    zero-length segments and count of segments the kernel's long pass
-    takes (more than `segsum.LONG_SEGMENT` rows)."""
+    zero-length segments and count of segments a whole block of the kernel
+    sums (more than `segsum.LONG_SEGMENT` rows)."""
     lengths = (seg_starts[1:] - seg_starts[:-1]).double()
     return dict(seg_len_max=int(lengths.max()),
                 seg_len_p99=torch.quantile(lengths, 0.99).item(),
@@ -541,10 +555,10 @@ def check_k3(torch, seg, rows, grouped_pos, seg_starts, again=None):
               bit_identical=bool(torch.equal(d_feat, second)),
               **segment_stats(torch, seg, seg_starts))
     lengths = (seg_starts[1:] - seg_starts[:-1]).long()
-    k3["ms"] = cuda_ms(torch, lambda: seg.segment_sum(rows, grouped_pos, seg_starts),
-                       TIMED_LAUNCHES)
-    k3["host_ms"] = host_ms(torch, lambda: seg.segment_sum(rows, grouped_pos,
-                                                           seg_starts), TIMED_LAUNCHES)
+    call = lambda: seg.segment_sum(rows, grouped_pos, seg_starts)  # noqa: E731
+    k3["ms"] = cuda_ms(torch, call, TIMED_LAUNCHES)
+    k3["queued_ms"] = queued_ms(torch, call, TIMED_LAUNCHES)
+    k3["host_ms"] = host_ms(torch, call, TIMED_LAUNCHES)
     k3["plain_ms"] = cuda_ms(torch, lambda: seg.segment_sum_plain(
         rows, grouped_pos, seg_starts), TIMED_LAUNCHES)
     k3["library_ms"] = cuda_ms(torch, lambda: torch.segment_reduce(
@@ -694,10 +708,12 @@ def kernel_line(results, fullscreen, launches):
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s.get("library_ms"),
         }
+        entry.update({k: s[k] for k in ("queued_ms", "host_ms") if k in s})
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
         for label in ("clamped", "train", "fullscreen"):
-            for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            for k in ("ms", "queued_ms", "host_ms", "plain_ms", "bound_ms",
+                      "library_ms"):
                 if k in r.get(label, {}):
                     entry[f"{label}_{k}"] = r[label][k]
         line.append(entry)

@@ -20,51 +20,30 @@
 // few rows, and a splat near the camera holds one row per tile it reaches
 // (up to 8,160 at 1080p).
 //
-// Design, two passes on the stream (one wrapper call):
-// 1. Short pass, 4 lanes per Gaussian. Each lane owns one float4 quad of
-//    columns, so a warp sums 8 Gaussians; the warp loads their 9 segment
-//    starts with one coalesced load and shares them by shuffle. A group
-//    fetches the next K3_UNROLL grouped_pos entries, then their rows, and
-//    (K3_PREFETCH) the following entries before it adds: U rows and the
-//    next indices are in flight at once. The adds run in segment order into
-//    float64, so the bits are fixed. A zero-length Gaussian reads no row.
-//    The warp writes its 8 output rows as 16-byte stores, 512 contiguous
-//    bytes. A segment longer than long_min is left to pass 2: the group
-//    reserves ceil(len / chunk) chunk slots with one integer atomicAdd on a
-//    work counter and lists (g, chunk index) in them.
-// 2. Long pass (launched only when some segment can exceed long_min), one
-//    persistent 256-thread block per SM; one warp per listed chunk of
-//    `chunk` rows, its 8 groups interleaved (group j takes rows j, j + 8,
-//    ...), each with the same loads ahead, then a fixed xor butterfly over
-//    the groups. The warp writes the chunk's float64 partial to its slot;
-//    the warp that finishes a segment's last chunk (an integer atomicAdd on
-//    the segment's first slot) adds the partials in chunk order and writes
-//    the row. With 128-row chunks no lane walks more than 16 rows of a
-//    full-screen segment. Work list: an integer atomicAdd list written by
-//    the short pass (its counter zeroed by a 4-byte memset), read by the
-//    long pass; its order may differ from run to run, but no sum depends on
-//    it: every sum runs in an order fixed by the data. The long pass is a
-//    programmatic dependent launch (K3_PDL): it is scheduled while the short
-//    pass drains and waits for it with griddepcontrol.wait, which hides its
-//    launch gap. When no segment is long, the memset and the empty grid
-//    still cost ~2 us on an H100.
-// No float atomics, float64 accumulation, no cap on segment length; the
-// same bits on every run. K3_UNROLL, K3_PREFETCH and K3_PDL exist for
-// timing variants (tools/torch_kernel_variants.py); the defaults are the
-// measured best.
+// Design, one launch of 256-thread blocks, 64 Gaussians per block:
+// 1. 4 lanes per Gaussian. Each lane owns one float4 quad of columns, so a
+//    warp sums 8 Gaussians; the warp loads their 9 segment starts with one
+//    coalesced load and shares them by shuffle. A group fetches the next 4
+//    grouped_pos entries, then their rows, and the following 4 entries
+//    before it adds: 4 rows and the next 4 indices are in flight at once.
+//    The adds run in segment order into float64, so the bits are fixed. A
+//    zero-length Gaussian reads no row. The warp writes its 8 output rows as
+//    16-byte stores, 512 contiguous bytes.
+// 2. A segment of more than kLongSegment (32) rows is left to its block.
+//    Each warp publishes a ballot of its long groups in shared memory; after
+//    one barrier (__syncthreads_or, which also tells a block with no long
+//    segment to stop) the whole block sums its long segments one after
+//    another in id order: group j of the block's 64 takes rows j, j + 64,
+//    ... with the same loads ahead, a fixed xor butterfly sums each warp's 8
+//    groups, and one thread per column adds the 8 warp partials in warp
+//    order. A full-screen segment (8,160 rows) is 128 rows per lane. No work
+//    list, no scratch, no second launch, no atomics: every sum runs in an
+//    order fixed by the data.
+// Float64 accumulation, no cap on segment length; the same bits on every
+// run. ops/segsum.py's LONG_SEGMENT mirrors kLongSegment.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef K3_UNROLL
-#define K3_UNROLL 4
-#endif
-#ifndef K3_PREFETCH
-#define K3_PREFETCH 1
-#endif
-#ifndef K3_PDL
-#define K3_PDL 1
-#endif
 
 namespace {
 
@@ -72,8 +51,10 @@ constexpr int kFeat = 16;
 constexpr int kQuads = kFeat / 4;                  // lanes per Gaussian
 constexpr int kGroups = 32 / kQuads;               // Gaussians per warp
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kPerBlock = kThreads / kQuads;       // Gaussians per block
-constexpr int kUnroll = K3_UNROLL;
+constexpr int kUnroll = 4;                         // rows in flight per lane
+constexpr int kLongSegment = 32;                   // longer: the whole block
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Acc {
@@ -88,8 +69,8 @@ __device__ __forceinline__ void add(Acc& a, const float4& v) {
 }
 
 // Adds quad q of rows[grouped_pos[e]] for e = e0, e0 + stride, ... < end
-// into a, in that order, with kUnroll rows (and, with K3_PREFETCH, the next
-// kUnroll indices) in flight.
+// into a, in that order, with kUnroll rows and the next kUnroll indices in
+// flight.
 __device__ __forceinline__ void walk(const float4* __restrict__ rows,
                                      const int32_t* __restrict__ grouped_pos,
                                      int e, int end, int stride, int q,
@@ -109,196 +90,104 @@ __device__ __forceinline__ void walk(const float4* __restrict__ rows,
                  : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     const int next = e + kUnroll * stride;
-#if K3_PREFETCH
     int nxt[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int i = next + u * stride;
       nxt[u] = i < end ? __ldg(grouped_pos + i) : -1;
     }
-#endif
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (pos[u] >= 0) add(a, v[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#if K3_PREFETCH
       pos[u] = nxt[u];
-#else
-      const int i = next + u * stride;
-      pos[u] = i < end ? __ldg(grouped_pos + i) : -1;
-#endif
     }
   }
 }
 
-__device__ __forceinline__ float4 to_float4(const Acc& a) {
-  return make_float4(static_cast<float>(a.x), static_cast<float>(a.y),
-                     static_cast<float>(a.z), static_cast<float>(a.w));
-}
-
-// work: [0] chunks listed so far, then three arrays of `cap` ints: the
-// chunk's Gaussian, its index in the segment, and (at a segment's first
-// slot) the count of the segment's chunks summed so far.
 __global__ void __launch_bounds__(kThreads)
-segment_sum_short(const float4* __restrict__ rows,
-                  const int32_t* __restrict__ grouped_pos,
-                  const int32_t* __restrict__ seg_starts, int n, int long_min,
-                  int chunk, int cap, int32_t* __restrict__ work,
-                  float4* __restrict__ out) {
-#if K3_PDL
-  asm volatile("griddepcontrol.launch_dependents;");
-#endif
-  const int lane = threadIdx.x & 31;
-  const int g0 = blockIdx.x * kPerBlock + (threadIdx.x >> 5) * kGroups;
+segment_sum_kernel(const float4* __restrict__ rows,
+                   const int32_t* __restrict__ grouped_pos,
+                   const int32_t* __restrict__ seg_starts, int n,
+                   float4* __restrict__ out) {
+  __shared__ unsigned long_groups[kWarps];
+  __shared__ double part[kWarps][kFeat];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g0 = blockIdx.x * kPerBlock + warp * kGroups;
   const int s = (lane <= kGroups && g0 + lane <= n)
                     ? __ldg(seg_starts + g0 + lane) : 0;
   const int grp = lane / kQuads, q = lane % kQuads;
   const int g = g0 + grp;
   const int begin = __shfl_sync(kFull, s, grp);
   int end = __shfl_sync(kFull, s, grp + 1);
-  if (g > n) return;
-  if (g == n) end = begin;                      // the dummy row
-  const int len = end - begin;
-  if (len > long_min) {                         // pass 2 writes this row
-    if (q == 0) {
-      const int nch = (len - 1) / chunk + 1;
-      const int base = atomicAdd(work, nch);
-      if (base + nch <= cap) {                  // always, by cap's size
-        int32_t* gid = work + 1;
-        int32_t* idx = gid + cap;
-        int32_t* done = idx + cap;
-        for (int k = 0; k < nch; ++k) {
-          gid[base + k] = g;
-          idx[base + k] = k;
-        }
-        done[base] = 0;
-      }
-    }
-    return;
-  }
-  Acc a;
-  walk(rows, grouped_pos, begin, end, 1, q, a);
-  out[static_cast<size_t>(g) * kQuads + q] = to_float4(a);
-}
-
-__global__ void __launch_bounds__(kThreads)
-segment_sum_long(const float4* __restrict__ rows,
-                 const int32_t* __restrict__ grouped_pos,
-                 const int32_t* __restrict__ seg_starts, int chunk, int cap,
-                 int32_t* __restrict__ work, double* __restrict__ partial,
-                 float* __restrict__ out) {
-#if K3_PDL
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-#endif
-  const int lane = threadIdx.x & 31;
-  const int grp = lane / kQuads, q = lane % kQuads;
-  const int warps = gridDim.x * (kThreads / 32);
-  const int count = min(work[0], cap);
-  const int32_t* gid = work + 1;
-  const int32_t* idx = gid + cap;
-  int32_t* done = work + 1 + 2 * cap;
-  for (int c = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5); c < count;
-       c += warps) {
-    const int g = gid[c], k = idx[c];
-    const int begin = __ldg(seg_starts + g), end = __ldg(seg_starts + g + 1);
-    const int c0 = begin + k * chunk;
+  if (g >= n) end = begin;                      // the dummy row and past it
+  const bool is_long = end - begin > kLongSegment;
+  const unsigned ballot = __ballot_sync(kFull, is_long && q == 0);
+  if (!is_long && g <= n) {
     Acc a;
-    walk(rows, grouped_pos, c0 + grp, min(c0 + chunk, end), kGroups, q, a);
+    walk(rows, grouped_pos, begin, end, 1, q, a);
+    out[static_cast<size_t>(g) * kQuads + q] = make_float4(
+        static_cast<float>(a.x), static_cast<float>(a.y),
+        static_cast<float>(a.z), static_cast<float>(a.w));
+  }
+  if (lane == 0) long_groups[warp] = ballot;
+  if (!__syncthreads_or(ballot != 0)) return;
+  float* out_cols = reinterpret_cast<float*>(out);
+  for (int w = 0; w < kWarps; ++w) {
+    for (unsigned b = long_groups[w]; b != 0; b &= b - 1) {
+      const int gl = blockIdx.x * kPerBlock + w * kGroups +
+                     (__ffs(b) - 1) / kQuads;
+      Acc a;
+      walk(rows, grouped_pos,
+           __ldg(seg_starts + gl) + static_cast<int>(threadIdx.x) / kQuads,
+           __ldg(seg_starts + gl + 1), kPerBlock, q, a);
 #pragma unroll
-    for (int off = kQuads; off < 32; off <<= 1) {
-      a.x += __shfl_xor_sync(kFull, a.x, off);
-      a.y += __shfl_xor_sync(kFull, a.y, off);
-      a.z += __shfl_xor_sync(kFull, a.z, off);
-      a.w += __shfl_xor_sync(kFull, a.w, off);
-    }
-    if (lane < kQuads) {
-      double2* p = reinterpret_cast<double2*>(partial + static_cast<size_t>(c) * kFeat);
-      p[2 * q] = make_double2(a.x, a.y);
-      p[2 * q + 1] = make_double2(a.z, a.w);
-    }
-    __threadfence();
-    __syncwarp();
-    const int base = c - k;
-    const int nch = (end - begin - 1) / chunk + 1;
-    int last = 0;
-    if (lane == 0) last = atomicAdd(done + base, 1) == nch - 1;
-    if (__shfl_sync(kFull, last, 0)) {          // every chunk is in: sum them
-      __threadfence();
-      if (lane < kFeat) {
-        double t = 0.0;
-        for (int j = 0; j < nch; ++j) {
-          t += __ldcg(partial + static_cast<size_t>(base + j) * kFeat + lane);
-        }
-        out[static_cast<size_t>(g) * kFeat + lane] = static_cast<float>(t);
+      for (int off = kQuads; off < 32; off <<= 1) {
+        a.x += __shfl_xor_sync(kFull, a.x, off);
+        a.y += __shfl_xor_sync(kFull, a.y, off);
+        a.z += __shfl_xor_sync(kFull, a.z, off);
+        a.w += __shfl_xor_sync(kFull, a.w, off);
       }
+      if (lane < kQuads) {
+        part[warp][4 * q] = a.x;
+        part[warp][4 * q + 1] = a.y;
+        part[warp][4 * q + 2] = a.z;
+        part[warp][4 * q + 3] = a.w;
+      }
+      __syncthreads();
+      if (threadIdx.x < kFeat) {
+        double t = 0.0;
+        for (int k = 0; k < kWarps; ++k) t += part[k][threadIdx.x];
+        out_cols[static_cast<size_t>(gl) * kFeat + threadIdx.x] =
+            static_cast<float>(t);
+      }
+      __syncthreads();                          // part is free again
     }
   }
 }
 
 }  // namespace
 
-// Launches K3 on `stream`: n Gaussians (seg_starts holds n + 1 entries,
-// seg_starts[n] = m rows), out (n + 1, 16). Segments longer than long_min
-// rows go to the long pass in chunks of `chunk` rows; cap >= the chunks
-// they can need (m / chunk + m / (long_min + 1) + 1), work holds
-// 1 + 3 cap ints and partial cap x 16 doubles (both unused when cap is 0,
-// which the caller passes when m <= long_min). Returns a cudaError_t.
+// Launches K3 on `stream`: n Gaussians (seg_starts holds n + 1 entries),
+// out (n + 1, 16); rows 16-byte aligned. Returns a cudaError_t.
 extern "C" int gm_segment_sum(const float* rows, const int32_t* grouped_pos,
-                              const int32_t* seg_starts, int n, int long_min,
-                              int chunk, int cap, int32_t* work,
-                              double* partial, float* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float4* rows4 = reinterpret_cast<const float4*>(rows);
-  if (cap > 0) {
-    cudaError_t err = cudaMemsetAsync(work, 0, sizeof(int32_t), st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+                              const int32_t* seg_starts, int n, float* out,
+                              void* stream) {
   const int blocks = n / kPerBlock + 1;         // n + 1 rows
-  segment_sum_short<<<blocks, kThreads, 0, st>>>(
-      rows4, grouped_pos, seg_starts, n, cap > 0 ? long_min : INT32_MAX,
-      chunk, cap, work, reinterpret_cast<float4*>(out));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || cap == 0) return static_cast<int>(err);
-  static int sms = 0;                           // persistent grid of pass 2
-  if (sms == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) {
-      sms = 0;
-      return static_cast<int>(err);
-    }
-  }
-  const int wanted = (cap - 1) / (kThreads / 32) + 1;   // a warp per chunk
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(wanted < sms ? wanted : sms);  // one block per SM
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = st;
-#if K3_PDL
-  // Programmatic dependent launch: pass 2 is scheduled while pass 1's last
-  // blocks run and waits (griddepcontrol.wait) until pass 1 has finished
-  // and its writes are visible.
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-#endif
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, segment_sum_long, rows4, grouped_pos, seg_starts, chunk, cap,
-      work, partial, out));
+  segment_sum_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(rows), grouped_pos, seg_starts, n,
+      reinterpret_cast<float4*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The launch shape of K3's short pass on the current device: threads per
-// block, shared memory per block and resident blocks per SM. Returns a
-// cudaError_t.
+// The launch shape of K3 on the current device: threads per block, shared
+// memory per block and resident blocks per SM. Returns a cudaError_t.
 extern "C" int gm_segment_sum_occupancy(int* threads, int* smem_bytes,
                                         int* blocks_per_sm) {
   *threads = kThreads;
-  *smem_bytes = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, segment_sum_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem_bytes = static_cast<int>(attr.sharedSizeBytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, segment_sum_short, kThreads, 0));
+      blocks_per_sm, segment_sum_kernel, kThreads, 0));
 }

@@ -46,9 +46,8 @@ KERNELS = {
         "gm_tile_blend_bwd_occupancy": _OCC,
     },
     "segment_sum": {
-        # rows, grouped_pos, seg_starts, n, long_min, chunk, cap, work,
-        # partial, out, stream
-        "gm_segment_sum": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        # rows, grouped_pos, seg_starts, n, out, stream
+        "gm_segment_sum": [_P, _P, _P, _I, _P, _P],
         "gm_segment_sum_occupancy": _OCC,
     },
 }

@@ -20,9 +20,9 @@ Two implementations of that one function:
   tensors use it.
 * `segment_sum` — the wrapper of the CUDA kernel `csrc/segment_sum.cu`.
   CUDA tensors launch it or raise. The kernel sums segments of up to
-  `LONG_SEGMENT` rows with 4 lanes per Gaussian and hands longer ones to a
-  second pass that splits them into chunks of `CHUNK` rows, one warp each
-  (the source's note gives the design).
+  `LONG_SEGMENT` rows with 4 lanes per Gaussian; the block that holds a
+  longer one sums it with all its threads (the source's note gives the
+  design).
 """
 
 from __future__ import annotations
@@ -32,8 +32,7 @@ import torch
 from gaussianmesh_tpu_torch.ops import _cuda
 
 FEAT = 16
-LONG_SEGMENT = 32   # rows; a longer segment goes to the kernel's long pass
-CHUNK = 128         # rows per warp of the long pass
+LONG_SEGMENT = 32   # csrc/segment_sum.cu's kLongSegment: longer, the block sums it
 
 
 def segment_starts(gid_counts: torch.Tensor) -> torch.Tensor:
@@ -73,43 +72,6 @@ def _check_inputs(rows, grouped_pos, seg_starts):
                          f"{rows.shape[0]} rows")
 
 
-def long_pass_slots(m: int, long_min: int = LONG_SEGMENT,
-                    chunk: int = CHUNK) -> int:
-    """Chunk slots the kernel's long pass can need for m rows: segments of
-    more than long_min rows, in chunks of `chunk` rows, number at most
-    m / chunk + m / (long_min + 1); 0 when no segment can be that long."""
-    return 0 if m <= long_min else m // chunk + m // (long_min + 1) + 1
-
-
-def launch(lib, rows, grouped_pos, seg_starts, long_min=LONG_SEGMENT,
-           chunk=CHUNK) -> torch.Tensor:
-    """One call of `gm_segment_sum` from the loaded library `lib` on CUDA
-    tensors that `_check_inputs` accepted: allocates the output and the
-    long pass's scratch, raises if a launch fails."""
-    rows, grouped_pos = rows.contiguous(), grouped_pos.contiguous()
-    seg_starts = seg_starts.contiguous()
-    if rows.data_ptr() % 16:                    # the kernel reads float4s
-        rows = rows.clone()
-    n = seg_starts.shape[0] - 1
-    cap = long_pass_slots(rows.shape[0], long_min, chunk)
-    dev = rows.device
-    out = torch.empty((n + 1, FEAT), dtype=torch.float32, device=dev)
-    # one scratch buffer: cap x FEAT float64 partials, then the work list's
-    # 1 + 3 cap int32s
-    scratch = torch.empty(cap * FEAT + (1 + 3 * cap + 1) // 2,
-                          dtype=torch.float64, device=dev)
-    partial = scratch.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gm_segment_sum(rows.data_ptr(), grouped_pos.data_ptr(),
-                                 seg_starts.data_ptr(), n, long_min, chunk,
-                                 cap, partial + cap * FEAT * 8, partial,
-                                 out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"segment_sum launch failed: cudaError {err}")
-    return out
-
-
 def segment_sum(rows: torch.Tensor, grouped_pos: torch.Tensor,
                 seg_starts: torch.Tensor) -> torch.Tensor:
     """K3: rows (M, FEAT) f32 in sorted-pair order, grouped_pos (M,) int32,
@@ -122,7 +84,20 @@ def segment_sum(rows: torch.Tensor, grouped_pos: torch.Tensor,
         return segment_sum_plain(rows, grouped_pos, seg_starts)
     if rows.device.type != "cuda":
         raise ValueError(f"segment_sum runs on cpu or cuda, not {rows.device}")
-    out = launch(_cuda.library("segment_sum"), rows, grouped_pos, seg_starts)
+    rows, grouped_pos = rows.contiguous(), grouped_pos.contiguous()
+    seg_starts = seg_starts.contiguous()
+    if rows.data_ptr() % 16:                    # the kernel reads float4s
+        rows = rows.clone()
+    n = seg_starts.shape[0] - 1
+    out = torch.empty((n + 1, FEAT), dtype=torch.float32, device=rows.device)
+    lib = _cuda.library("segment_sum")
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = lib.gm_segment_sum(rows.data_ptr(), grouped_pos.data_ptr(),
+                                 seg_starts.data_ptr(), n, out.data_ptr(),
+                                 stream)
+    if err != 0:
+        raise RuntimeError(f"segment_sum launch failed: cudaError {err}")
     segment_sum.launches += 1
     return out
 

@@ -244,10 +244,11 @@ def test_k1_k2_edge_tiles_match_plain(cuda):
 @pytest.mark.parametrize("name", LAYOUTS)
 def test_k3_layouts_match_plain(cuda, name):
     """K3 against `segment_sum_plain` (a float64 index_add_) within 1e-6 of
-    each column's largest sum, on layouts that reach its short pass, its
-    long pass (lengths LONG_SEGMENT + 1, CHUNK + 1, 8,160, a 40,000-pair
-    run at the highest destination) and the empty cases; bit-identical
-    over two runs; one launch counted per call."""
+    each column's largest sum, on layouts that reach its 4-lane groups,
+    its block-wide sums of long segments (lengths LONG_SEGMENT + 1, 65,
+    8,160, a 40,000-pair run at the highest destination, a block of long
+    segments) and the empty cases; bit-identical over two runs; one launch
+    counted per call."""
     rows, gp, starts, lengths = (torch.tensor(x, device=cuda)
                                  for x in k3_layout(name))
     before = segsum.segment_sum.launches

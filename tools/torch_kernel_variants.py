@@ -3,12 +3,16 @@
 `chip_smoke.py`'s main paths, on one CUDA card.
 
     python3 tools/torch_kernel_variants.py SPEC.json [--counts] [--plain]
+        [--dense] [--train-more STEPS]
 
 It runs `chip_smoke.py`'s slice, kernels and train phases with their
 checks replaced by recorders, which keeps K1's, K2's and K3's arguments at
 the three shapes the smoke measures: view 0 of the 1080p slice, the same
 clamped to `max_per_tile` 64, and one captured training step; and K3's on
-the smoke's full-screen case (K3 variants only). Then it
+the smoke's full-screen case (K3 variants only). --dense adds a K3 shape
+of view 0's Gaussian count with every segment 0-128 rows long (seeded).
+--train-more trains the smoke's student STEPS more steps and prints the
+segment-length statistics K3 met on them. Then it
 builds every variant with `nvcc` (one process per source, in parallel)
 and, at each shape, times it with CUDA events (mean of 20 launches after
 3 warm ones), times the heaviest tile alone (`num_tiles` 1 with the
@@ -25,23 +29,25 @@ SPEC.json maps a variant name to
      "order": "none" (the entry point takes no order argument),
               "ordered" (heaviest first) or "identity" (0, 1, ...)
               (K1 and K2),
-     "long_min", "chunk": K3's long-pass threshold and chunk rows (default
-              `segsum.LONG_SEGMENT` and `segsum.CHUNK`; a long_min of null
-              turns the long pass off),
-     "work": false for a K3 source whose entry point takes
-             (rows, grouped_pos, seg_starts, n, out, stream), as the
-             one-warp-per-Gaussian K3 of the first port did}
+     "wrapper": the K3 wrapper module that drives the source (a copy of an
+             `ops/segsum.py`, relative to SPEC.json's directory; default
+             the port's own), loaded on its own with its `_cuda.library`
+             pointed at the variant}
 with the argument lists of `ops/_cuda.py`, `order` (when taken) placed
-after `counts` for K1 and after `g_final_t` for K2. K3 variants are held
-against `segment_sum_plain` at each column's largest sum and run twice for
-bit-identity. Results go to standard output and to kernel_variants.json
-in the repository's gitignored output directory (`out_dir` in `main`).
+after `counts` for K1 and after `g_final_t` for K2. K3 variants are called
+through their wrappers, timed three ways (`chip_smoke.cuda_ms`,
+`queued_ms` and the wrapper's `host_ms`), held against `segment_sum_plain`
+at each column's largest sum and run twice for bit-identity. Results go
+to standard output and to kernel_variants.json in the repository's
+gitignored output directory (`out_dir` in `main`).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -50,6 +56,8 @@ import tempfile
 import time
 import types
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -79,8 +87,9 @@ def port_namespace():
 
 def capture(torch, port):
     """-> {"1080p" | "clamped" | "step": (K1 arguments, K2 arguments,
-    K3's (grouped_pos, seg_starts))}, {"fullscreen": K3 arguments}"""
-    got, k1_args, k3_only = {}, {}, {}
+    K3's (grouped_pos, seg_starts))}, {"fullscreen": K3 arguments}, the
+    smoke's trainer"""
+    got, k1_args, k3_only, kept = {}, {}, {}, {}
 
     def record_k1(torch_, tb, args, mpt=None):
         _, final_t, n_contrib = tb.blend_forward(*args)
@@ -98,13 +107,57 @@ def capture(torch, port):
         k3_only["fullscreen"] = k3_args
         return {}
 
+    capture_step = cs.capture_step
+
+    def keep_trainer(torch_, port_, trainer):
+        kept["trainer"] = trainer
+        return capture_step(torch_, port_, trainer)
+
     cs.check_k1, cs.check_k2_k3, cs.check_k3 = record_k1, record_k2, record_k3
+    cs.capture_step = keep_trainer
     cs.phase_profile = lambda *a, **k: None
     with tempfile.TemporaryDirectory() as tmpdir:
         model, cam, cfg, _, _ = cs.phase_slice(torch, port, tmpdir)
     cs.phase_kernels(torch, port, model, cam, cfg)
     cs.phase_train(torch, port, model)
-    return got, k3_only
+    return got, k3_only, kept["trainer"]
+
+
+def dense_case(torch, seg, n, seed):
+    """K3's inputs with every one of n segments 0-128 rows long (seeded),
+    rows N(0, 1), `grouped_pos` a seeded permutation."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    counts = torch.randint(0, 129, (n,), generator=gen, device="cuda")
+    seg_starts = seg.segment_starts(counts)
+    m = int(seg_starts[-1])
+    rows = torch.randn((m, seg.FEAT), generator=gen, device="cuda")
+    grouped_pos = torch.randperm(m, generator=gen, device="cuda")
+    return rows, grouped_pos.to(torch.int32), seg_starts
+
+
+def train_more(torch, port, trainer, steps):
+    """Train `steps` more steps, recording the segment lengths K3 is handed
+    at each; -> their statistics over the steps."""
+    seg = port.segsum
+    kernel, seen = seg.segment_sum, []
+
+    @functools.wraps(kernel)   # the wrapper bumps `launches` by its name
+    def record(rows, grouped_pos, seg_starts):
+        lengths = seg_starts[1:] - seg_starts[:-1]
+        seen.append((lengths.max(), (lengths > seg.LONG_SEGMENT).sum()))
+        return kernel(rows, grouped_pos, seg_starts)
+
+    seg.segment_sum = record
+    try:
+        trainer.train(steps, log_every=1000)
+    finally:
+        seg.segment_sum = kernel
+    longest = [int(a) for a, _ in seen]
+    return {"steps": steps, "first_iteration": trainer.global_it - steps + 1,
+            "seg_len_max": max(longest),
+            "seg_len_max_median": float(np.median(longest)),
+            "steps_with_long": sum(int(b) > 0 for _, b in seen),
+            "long_segments": sum(int(b) for _, b in seen)}
 
 
 def build(port, spec, spec_dir, out_dir):
@@ -135,6 +188,8 @@ def main() -> int:
     ap.add_argument("spec", type=Path)
     ap.add_argument("--counts", action="store_true")
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--dense", action="store_true")
+    ap.add_argument("--train-more", type=int, default=0)
     args = ap.parse_args()
     import torch
 
@@ -146,13 +201,22 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     port._cuda.build()
     t0 = time.perf_counter()
-    got, k3_only = capture(torch, port)
+    got, k3_only, trainer = capture(torch, port)
     log(f"[variants] arguments captured in {time.perf_counter() - t0:.1f} s")
+    results = {"card": smi}
+    if args.train_more:
+        results["train_more"] = train_more(torch, port, trainer, args.train_more)
+        log(f"[variants] train_more: {json.dumps(results['train_more'])}")
+    del trainer
+    if args.dense:
+        k3_only["dense"] = dense_case(torch, port.segsum,
+                                      got["1080p"][2][1].shape[0] - 1, cs.SEED + 4)
+    spec_dir = args.spec.resolve().parent
     with tempfile.TemporaryDirectory() as build_dir:
-        libs = build(port, spec, args.spec.resolve().parent, Path(build_dir))
+        libs = build(port, spec, spec_dir, Path(build_dir))
         blend = {k: v for k, v in libs.items() if spec[k]["kernel"] != "k3"}
-        segment = {k: v for k, v in libs.items() if spec[k]["kernel"] == "k3"}
-        results = {"card": smi}
+        segment = {k: (v, k3_wrapper(port, spec_dir, k, spec[k], v))
+                   for k, v in libs.items() if spec[k]["kernel"] == "k3"}
         for label, (k1a, k2a, (gp, ss)) in got.items():
             results[label] = measure(torch, tb, spec, blend, k1a, k2a, args)
             k3_only[label] = (tb.blend_backward(*k2a), gp, ss)
@@ -233,44 +297,41 @@ def measure(torch, tb, spec, libs, k1a, k2a, args):
     return r
 
 
+def k3_wrapper(port, spec_dir, name, v, lib):
+    """The K3 wrapper module of variant v (its "wrapper" file, default the
+    port's `ops/segsum.py`), loaded as a module of its own whose
+    `_cuda.library` returns the variant's library `lib`."""
+    path = (spec_dir / v["wrapper"] if "wrapper" in v
+            else Path(port.segsum.__file__))
+    mod_spec = importlib.util.spec_from_file_location(f"k3_wrapper_{name}", path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    lib.gm_segment_sum.argtypes = port._cuda.KERNELS["segment_sum"]["gm_segment_sum"]
+    lib.gm_segment_sum.restype = ctypes.c_int
+    mod._cuda = types.SimpleNamespace(library=lambda _name: lib)
+    return mod
+
+
 def measure_k3(torch, seg, spec, libs, rows, grouped_pos, seg_starts):
-    """K3 variants on one shape: ms (CUDA events, mean of 20 after 3 warm
-    launches), repeat_equal, rel (against `segment_sum_plain`, over each
-    column's largest sum) and equal_wrapper (bits of the port's K3)."""
-    n = seg_starts.shape[0] - 1
+    """K3 variants on one shape, each called through its wrapper: ms
+    (`chip_smoke.cuda_ms`, mean of 20 after 3 warm calls), queued_ms (the
+    calls queued behind a sleep of the card), host_ms (the wrapper's host
+    time per call), repeat_equal, rel (against `segment_sum_plain`, over
+    each column's largest sum) and equal_wrapper (bits of the port's K3)."""
     ref64 = seg.segment_sum_plain(rows, grouped_pos, seg_starts)
     mine = seg.segment_sum(rows, grouped_pos, seg_starts)
-    r = {"K3_wrapper_ms": cs.cuda_ms(torch, lambda: seg.segment_sum(
-        rows, grouped_pos, seg_starts), 20), "K3_pairs": rows.shape[0],
-         **cs.segment_stats(torch, seg, seg_starts)}
-    for name, lib in libs.items():
-        v = spec[name]
-        if v.get("work", True):
-            lib.gm_segment_sum.argtypes = seg._cuda.KERNELS["segment_sum"][
-                "gm_segment_sum"]
-            long_min = v.get("long_min", seg.LONG_SEGMENT)
-            long_min = 2**31 - 1 if long_min is None else long_min
-            chunk = v.get("chunk", seg.CHUNK)
-
-            def launch():
-                return seg.launch(lib, rows, grouped_pos, seg_starts,
-                                  long_min, chunk)
-        else:
-            def launch():
-                out = torch.empty((n + 1, seg.FEAT), device=rows.device)
-                err = lib.gm_segment_sum(
-                    *(ctypes.c_void_p(x.data_ptr()) for x in
-                      (rows, grouped_pos, seg_starts)), n,
-                    ctypes.c_void_p(out.data_ptr()),
-                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-                if err != 0:
-                    raise RuntimeError(f"{name}: cudaError {err}")
-                return out
+    r = {"K3_pairs": rows.shape[0], **cs.segment_stats(torch, seg, seg_starts),
+         **cs.bound(rows.shape[0] * (64 + 4) + seg_starts.shape[0] * (4 + 64))}
+    for name, (_, mod) in libs.items():
+        def launch(_mod=mod):
+            return _mod.segment_sum(rows, grouped_pos, seg_starts)
 
         first, second = launch(), launch()
         torch.cuda.synchronize()
         d = (first - ref64).abs() / ref64.abs().amax(0).clamp(min=1e-30)
         r[name] = {"ms": cs.cuda_ms(torch, launch, 20),
+                   "queued_ms": cs.queued_ms(torch, launch, 20),
+                   "host_ms": cs.host_ms(torch, launch, 20),
                    "repeat_equal": bool(torch.equal(first, second)),
                    "rel": d.max().item(),
                    "equal_wrapper": bool(torch.equal(first, mine))}
