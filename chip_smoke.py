@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's render, training and playback paths on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -47,6 +47,21 @@ Phases (any failure raises, so the exit code is not 0):
    K1, K2 and K3 held against their plain versions on those (the table at
    training capacity with its dead rows, cotangents from the real loss),
    timed and bounded as in phase 5; K2's rows must equal the step's.
+7. playback: configs 3 and 5 of `tools/bench_playback.py` at 1920x1080.
+   Config 3: the slice model bound to its icosphere-7 mesh (PLY + OBJ)
+   through `ObjectDeformer`, view 0, 32 frames of the benchmark's twist
+   through `make_playback_fn`; the identity frame against the slice's
+   render, a rigid frame against the rigid motion (positions, Q cov Q^T),
+   then frame ms, the deformation alone (`deformed_object_arrays`) and
+   profiles of both. Config 5: the same object among two static
+   icosphere-4 objects and a 100,000-Gaussian background PLY (437,920
+   Gaussians) through `make_composite_playback_fn`; frames 0 and 8 equal
+   to `SceneEditor.render` of the same deformed scene (max-abs <= 1e-6),
+   K1 held against its plain version on frame 0's composite arguments,
+   static precompute ms, frame ms, a profile. K1 once per frame, no
+   overflow, finite images (counters set to 0 just before each frame loop,
+   read just after). Then `cli.edit.main(..., "--device", "cuda")` on a
+   small model directory: its two PNGs decode to the editor's frames.
 
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
@@ -54,6 +69,7 @@ The last three lines: the `kernels` JSON, the card's name and power limit
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -73,6 +89,21 @@ SH_DEGREE = 3
 TIMED_LAUNCHES = 20
 SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's clock (queued_ms, host_ms)
 PLAIN_LAUNCHES = 3     # the plain K1 and K2 walk each pair of the largest tile in Python
+
+# playback phase: configs 3 and 5 (tools/bench_playback.py) at 1080p
+PLAYBACK_FRAMES = 32
+TWIST_AMP = 0.6
+SIDE_SUBDIV = 4        # two static icosphere-4 objects (5,120 faces each)
+SIDE_OFFSETS = ((2.2, 0.6, 0.0), (-2.2, -0.6, 0.3))
+BG_GAUSSIANS = 100_000
+CONFIG5_GAUSSIANS = 20 * 4 ** SUBDIV + 2 * 20 * 4 ** SIDE_SUBDIV + BG_GAUSSIANS
+CLI_SUBDIV = 5         # 20,480 faces
+# identity frame against the slice's render (K1's bars, mean 1e-4); rigid
+# frame: positions, covariances over each Gaussian's largest entry; the
+# composite frame against the editor's render of the concatenated scene
+IDENTITY_MAX, IDENTITY_MEAN = 4e-3, 1e-4
+RIGID_POS, RIGID_COV_REL = 1e-4, 2e-2
+COMPOSITE_MAX = 1e-6
 
 # training phase: config 2 at the NeRF-synthetic size
 TRAIN_SIZE = 800
@@ -378,17 +409,19 @@ def make_model(torch, port, tmpdir):
 
 
 def size_capacities(torch, port, model, cams, width, height, sh_degree,
-                    label):
+                    label, arrays=None):
     """max_per_tile and the pair capacities large enough that no view of
-    this model overflows, from 1024 and the defaults up; and each view's
-    largest per-tile pair count."""
+    this model (or of the Gaussians `arrays(cam)` gives) overflows, from
+    1024 and the defaults up; and each view's largest per-tile pair count."""
     cfg = port.rasterize.RasterizerConfig(width, height, max_per_tile=1024)
     gx, gy = cfg.grid
-    n = model.bc.shape[0]
+    arrays = arrays or (lambda cam: port.render.mesh_model_arrays(model, cam,
+                                                                  sh_degree))
     while True:
         largest, rect_over = [], 0
         for cam in cams:
-            a = port.render.mesh_model_arrays(model, cam, sh_degree)
+            a = arrays(cam)
+            n = a.xyz.shape[0]
             prep = port.preprocess.preprocess(a.xyz, a.cov6, cam, width, height,
                                               opacity=a.opacity)
             prep = prep._replace(valid=prep.valid & a.active)
@@ -435,9 +468,13 @@ def phase_profile(torch, run, n, unit, label):
     busy = sum(r[0] for r in rows)
     log(f"[{label}] {n} {unit}s under torch.profiler: wall {wall:.3f} ms/{unit}, "
         f"device busy {busy:.3f} ms/{unit}, idle share {1 - busy / wall:.3f}")
+    log(f"[{label}] {sum(r[1] for r in rows):g} device operations (kernels, "
+        f"copies, fills) per {unit}")
     for i, (ms, count, name) in enumerate(rows):    # the port's kernels too
         if i < 15 or "segment_sum" in name or "tile_blend" in name:
             log(f"[{label}] {ms:8.3f} ms/{unit} x{count:g} {name[:100]}")
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                launches=sum(r[1] for r in rows))
 
 
 def phase_slice(torch, port, tmpdir):
@@ -686,12 +723,13 @@ KERNELS = (
 
 def kernel_line(results, fullscreen, launches):
     """The `kernels` JSON entries: times and bounds at the slice config,
-    beside them those at the clamped config and at a training step's
-    shapes, and K3's on the full-screen case; errors over all of them;
-    launches from the main paths."""
+    beside them those at the clamped config, at a training step's shapes
+    and (K1) at a composite playback frame's, and K3's on the full-screen
+    case; errors over all of them; launches from the main paths (render,
+    train, playback)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
-        r = {label: res[i] for label, res in results.items()}
+        r = {label: res[i] for label, res in results.items() if res[i] is not None}
         if key == "K3":
             r["fullscreen"] = fullscreen
         s = r["slice"]
@@ -700,9 +738,10 @@ def kernel_line(results, fullscreen, launches):
             "name": name, "route": "cuda",
             "source": f"gaussianmesh_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches["render"][key] + launches["train"][key],
+            "launches": sum(n[key] for n in launches.values()),
             "render_launches": launches["render"][key],
             "train_launches": launches["train"][key],
+            "playback_launches": launches["playback"][key],
             "max_abs_err": err, "max_abs": err,
             "ms": s["ms"], "kernel_ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
@@ -711,7 +750,7 @@ def kernel_line(results, fullscreen, launches):
         entry.update({k: s[k] for k in ("queued_ms", "host_ms") if k in s})
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
-        for label in ("clamped", "train", "fullscreen"):
+        for label in ("clamped", "train", "fullscreen", "composite"):
             for k in ("ms", "queued_ms", "host_ms", "plain_ms", "bound_ms",
                       "library_ms"):
                 if k in r.get(label, {}):
@@ -779,8 +818,6 @@ def train_dataset(torch, port, model):
 
 def phase_train(torch, port, model):
     """Config-2 training at full width through MeshTrainer.train."""
-    import dataclasses
-
     ds = train_dataset(torch, port, model)
     v, f = icosphere(PROXY_SUBDIV)
     # shrunk schedule: reset (white background) at 10, densify at 20 and
@@ -891,6 +928,312 @@ def phase_train(torch, port, model):
     return launches, free_ms, (k1, k2, k3)
 
 
+def twist_frames(v, n_frames, amp=TWIST_AMP):
+    """tools/bench_playback.py::_twist_frames: a twist about z by
+    amp * sin(2 pi i / n) * z, frame i of n."""
+    out = []
+    for i in range(n_frames):
+        a = amp * np.sin(2 * np.pi * i / n_frames)
+        ang = a * v[:, 2]
+        c, s = np.cos(ang), np.sin(ang)
+        out.append(np.stack([c * v[:, 0] - s * v[:, 1],
+                             s * v[:, 0] + c * v[:, 1], v[:, 2]], axis=-1))
+    return np.stack(out).astype(np.float32)
+
+
+def rotation(axis, angle):
+    axis = np.asarray(axis, float) / np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+
+
+def write_object(torch, port, tmpdir, name, subdiv, offset=(0.0, 0.0, 0.0)):
+    """tools/bench_playback.py::_make_object on the port: one Gaussian per
+    face of an icosphere, colour by position, opacity logit 4, saved as
+    PLY + OBJ -> (PLY path, OBJ path, vertices)."""
+    v, f = icosphere(subdiv)
+    v = (v + np.asarray(offset, np.float32)).astype(np.float32)
+    model = port.mesh_gaussians.create_from_mesh(v, f, max_sh_degree=SH_DEGREE,
+                                                 device="cuda")
+    with torch.no_grad():
+        cent = model.get_xyz()
+        lo, hi = cent.amin(0), cent.amax(0)
+        model.features_dc.copy_(port.sh.rgb_to_sh((cent - lo) / (hi - lo + 1e-6))[:, None])
+        model.opacity.fill_(4.0)
+    ply, obj = (os.path.join(tmpdir, f"{name}.{ext}") for ext in ("ply", "obj"))
+    port.gaussian_ply.save_mesh_gaussian_ply(ply, model)
+    port.mesh_io.write_triangle_mesh(obj, v, f)
+    return ply, obj, v
+
+
+def write_background(port, tmpdir, n, seed):
+    """tools/bench_playback.py's background: n vanilla Gaussians at U(-6, 6)
+    positions and U(0, 1) colours from `seed`, log-scale ln 0.05, opacity
+    0.1, SH degree 1, saved as a PLY."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-6, 6, (n, 3))
+    dc = (rng.uniform(0, 1, (n, 3)) - 0.5) / port.sh.C0
+    params = dict(xyz=xyz, features_dc=dc[:, None], features_rest=np.zeros((n, 3, 3)),
+                  scaling=np.full((n, 3), math.log(0.05)),
+                  rotation=np.tile([1.0, 0, 0, 0], (n, 1)),
+                  opacity=np.full((n, 1), math.log(0.1 / 0.9)))
+    path = os.path.join(tmpdir, "bg.ply")
+    port.gaussian_ply.save_gaussian_ply(
+        path, port.gaussians.from_numpy(params, np.ones(n, bool), device="cuda"))
+    return path
+
+
+def record_k1(port):
+    """A stand-in for K1's wrapper that keeps the arguments of its calls
+    (its `launches` its own, as in `capture_step`) -> (stand-in, calls)."""
+    import functools
+
+    real, calls = port.tile_blend.blend_forward, []
+
+    @functools.wraps(real)
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    record.launches = 0
+    return record, calls
+
+
+def timed_frames(torch, run, n):
+    """Host ms of run(i) ending in synchronize(), i < n -> (times, outputs)."""
+    times, outs = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        outs.append(run(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, outs
+
+
+def check_frames(torch, outs, label):
+    for i, o in enumerate(outs):
+        assert torch.isfinite(o.color).all(), (label, i)
+        assert int(o.tile_overflow) == 0 and int(o.rect_overflow) == 0, (label, i, o)
+
+
+def phase_playback(torch, port, model, cam, cfg, tmpdir):
+    """Configs 3 and 5 at 1080p, then the edit command line."""
+    rt = port.runtime
+    v, f = icosphere(SUBDIV)
+    ply = os.path.join(tmpdir, "point_cloud.ply")            # the slice model
+    origin = os.path.join(tmpdir, "origin.obj")
+    port.mesh_io.write_triangle_mesh(origin, v, f)
+    t0 = time.perf_counter()
+    obj = rt.ObjectDeformer(ply, origin, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[playback] ObjectDeformer: {obj.n} Gaussians on {v.shape[0]} vertices, "
+        f"{time.perf_counter() - t0:.2f} s (one-ring {obj.deformer.setup_s:.2f} s, "
+        f"{obj.deformer.neighbors.shape[1]} slots)")
+    frames = torch.tensor(twist_frames(v, PLAYBACK_FRAMES), device="cuda")
+    bg = torch.ones(3, device="cuda")
+    # headroom: the twist moves splats between tiles
+    cfg3 = dataclasses.replace(cfg, max_per_tile=2 * cfg.max_per_tile)
+    res = {}
+
+    with torch.no_grad():
+        # config 3 checks: the identity frame against the slice's render,
+        # a rigid frame against the rigid motion
+        ident = rt.make_playback_fn(obj, cam, cfg3, bg)(obj.deformer.v_ref)
+        ref = port.render.render(port.render.mesh_model_arrays(model, cam, SH_DEGREE),
+                                 cam, cfg3, bg)
+        d = (ident.color - ref.color).abs()
+        q = rotation([0.3, 1.0, 0.2], 0.7)
+        qt, tt = (torch.tensor(x, dtype=torch.float32, device="cuda")
+                  for x in (q, [0.5, -0.2, 0.1]))
+        pos, cov6, r_hat = obj.transfer(obj.deformer.v_ref @ qt.T + tt)
+        want_pos = obj.pos0 + obj.proj0 @ qt.T + tt - obj.proj0
+        cov0 = port.maths.unstrip_symmetric(obj.cov6_0)
+        want_cov = qt @ cov0 @ qt.T
+        cov_err = ((port.maths.unstrip_symmetric(cov6) - want_cov).abs().amax((1, 2))
+                   / cov0.abs().amax((1, 2)))
+        checks = dict(identity_max_abs=d.max().item(), identity_mean_abs=d.mean().item(),
+                      rigid_pos_max_abs=(pos - want_pos).abs().max().item(),
+                      rigid_cov_rel=cov_err.max().item(),
+                      rigid_r_max_abs=(r_hat - qt).abs().max().item())
+        log("[playback] config 3 checks: " + json.dumps(checks))
+        assert checks["identity_max_abs"] <= IDENTITY_MAX, checks
+        assert checks["identity_mean_abs"] <= IDENTITY_MEAN, checks
+        assert checks["rigid_pos_max_abs"] <= RIGID_POS, checks
+        assert checks["rigid_cov_rel"] <= RIGID_COV_REL, checks
+
+        # config 3: the frame loop (main path), the deformation alone, a profile
+        frame_fn = rt.make_playback_fn(obj, cam, cfg3, bg)
+        frame_fn(frames[1])                                  # warm frame
+        torch.cuda.synchronize()
+        reset_launches(port)                                 # main path starts
+        times, outs = timed_frames(torch, lambda i: frame_fn(frames[i]),
+                                   PLAYBACK_FRAMES)
+        launches3 = read_launches(port)                      # main path ends
+        check_frames(torch, outs, "config 3")
+        seq = rt.playback_sequence(obj, cam, cfg3, frames[:2], bg)
+        assert all(torch.equal(seq.color[i], outs[i].color) for i in range(2))
+        del outs, seq
+        deform_ms, _ = timed_frames(
+            torch, lambda i: rt.deformed_object_arrays(obj, frames[i], cam),
+            PLAYBACK_FRAMES)
+        prof_d = phase_profile(torch, lambda i: rt.deformed_object_arrays(
+            obj, frames[i], cam), 3, "frame", "deformation profile")
+        prof = phase_profile(torch, lambda i: frame_fn(frames[i]), 3, "frame",
+                             "playback profile")
+        res["config3"] = dict(gaussians=obj.n, frames=PLAYBACK_FRAMES,
+                              frame_ms_mean=float(np.mean(times)),
+                              frame_ms_median=float(np.median(times)),
+                              deform_ms_mean=float(np.mean(deform_ms)),
+                              deform_ms_median=float(np.median(deform_ms)),
+                              deform_device_ms=prof_d["busy_ms"],
+                              deform_launches=prof_d["launches"],
+                              k1_per_frame=launches3["K1"] / PLAYBACK_FRAMES,
+                              device_launches_per_frame=prof["launches"],
+                              device_busy_ms=prof["busy_ms"],
+                              idle_share=prof["idle_share"], **checks)
+        log("[playback] config 3: " + json.dumps(res["config3"]))
+        log(f"[playback] config 3 frame ms: {[round(x, 2) for x in times]}")
+        assert launches3 == {"K1": PLAYBACK_FRAMES, "K2": 0, "K3": 0}, launches3
+
+        # config 5: the slice object deforming among two static objects
+        # and a background
+        editor = rt.SceneEditor(bg_ply_path=write_background(port, tmpdir, BG_GAUSSIANS,
+                                                             SEED + 5),
+                                max_sh_degree=None, device="cuda")
+        editor.add_object(ply, origin, name="main")
+        for i, off in enumerate(SIDE_OFFSETS):
+            p2, o2, _ = write_object(torch, port, tmpdir, f"side{i}", SIDE_SUBDIV, off)
+            editor.add_object(p2, o2, name=f"side{i}")
+        n_total = editor.arrays(cam).xyz.shape[0]
+        assert n_total == CONFIG5_GAUSSIANS, n_total
+        # max_per_tile from the whole scene (twice, as config 3's); the
+        # static set's pair capacities from its own load (the main object
+        # is the first obj.n rows of the scene)
+        scene_cfg, largest = size_capacities(torch, port, None, [cam], WIDTH, HEIGHT,
+                                             SH_DEGREE, "playback",
+                                             arrays=editor.arrays)
+        cfg5 = dataclasses.replace(cfg3, max_per_tile=2 * scene_cfg.max_per_tile)
+        static_cfg, _ = size_capacities(
+            torch, port, None, [cam], WIDTH, HEIGHT, SH_DEGREE, "playback",
+            arrays=lambda c: port.render.GaussianArrays(
+                *(x[obj.n:] for x in editor.arrays(c))))
+        log(f"[playback] config 5: max_per_tile {cfg5.max_per_tile}; static pair / "
+            f"row capacity {static_cfg.pair_capacity_per_gaussian} / "
+            f"{static_cfg.row_capacity_per_gaussian} per Gaussian")
+        t0 = time.perf_counter()
+        frame5 = rt.make_composite_playback_fn(editor, "main", cam, cfg5,
+                                               static_cfg=static_cfg)
+        torch.cuda.synchronize()
+        static_ms = (time.perf_counter() - t0) * 1e3
+        # frames 0 and 8 (the largest twist) against the editor's render of
+        # the same deformed scene; K1's arguments of frame 0 recorded
+        record, calls = record_k1(port)
+        kept = port.tile_blend.blend_forward
+        port.tile_blend.blend_forward = record
+        try:
+            comp = [frame5(frames[i]) for i in (0, PLAYBACK_FRAMES // 4)]
+        finally:
+            port.tile_blend.blend_forward = kept
+        equal = []
+        for i, c in zip((0, PLAYBACK_FRAMES // 4), comp):
+            editor.deform_object("main", frames[i])
+            r = editor.render(cam, cfg5)
+            equal.append((c.color - r.color).abs().max().item())
+            assert all(torch.equal(getattr(c, k), getattr(r, k))
+                       for k in ("tile_overflow", "rect_overflow", "num_rendered"))
+        editor.objects["main"].reset()
+        frame5(frames[1])                                    # warm frame
+        torch.cuda.synchronize()
+        reset_launches(port)                                 # main path starts
+        times5, outs5 = timed_frames(torch, lambda i: frame5(frames[i]),
+                                     PLAYBACK_FRAMES)
+        launches5 = read_launches(port)                      # main path ends
+        check_frames(torch, outs5, "config 5")
+        num_rendered = int(outs5[0].num_rendered)
+        del outs5
+        deform5, _ = timed_frames(
+            torch, lambda i: rt.deformed_object_arrays(editor.objects["main"],
+                                                       frames[i], cam),
+            PLAYBACK_FRAMES)
+        prof5 = phase_profile(torch, lambda i: frame5(frames[i]), 3, "frame",
+                              "composite profile")
+        res["config5"] = dict(gaussians=n_total, frames=PLAYBACK_FRAMES,
+                              max_per_tile=cfg5.max_per_tile,
+                              largest_tile=max(largest), num_rendered=num_rendered,
+                              static_precompute_ms=static_ms,
+                              frame_ms_mean=float(np.mean(times5)),
+                              frame_ms_median=float(np.median(times5)),
+                              deform_ms_mean=float(np.mean(deform5)),
+                              deform_ms_median=float(np.median(deform5)),
+                              k1_per_frame=launches5["K1"] / PLAYBACK_FRAMES,
+                              device_launches_per_frame=prof5["launches"],
+                              device_busy_ms=prof5["busy_ms"],
+                              idle_share=prof5["idle_share"],
+                              render_max_abs=equal)
+        log("[playback] config 5: " + json.dumps(res["config5"]))
+        log(f"[playback] config 5 frame ms: {[round(x, 2) for x in times5]}")
+        assert launches5 == {"K1": PLAYBACK_FRAMES, "K2": 0, "K3": 0}, launches5
+        assert max(equal) <= COMPOSITE_MAX, equal
+
+        # K1 on frame 0's composite arguments
+        assert len(calls) == 2 and record.launches == 2, calls
+        k1, _, _, _ = check_k1(torch, port.tile_blend, calls[0], cfg5.max_per_tile)
+        log("[playback] K1 at the composite frame's shapes: " + json.dumps(k1))
+    res["cli"] = phase_cli(torch, port, tmpdir)
+    launches = {k: launches3[k] + launches5[k] for k in launches3}
+    return res, k1, launches
+
+
+def phase_cli(torch, port, tmpdir):
+    """`cli.edit.main` on the card: a small model directory (an icosphere-5
+    object, one orbit camera at 1920x1080 in cameras.json, cfg_args.json),
+    two twisted meshes -> two PNGs, each decoding to the editor's render of
+    that mesh, quantised."""
+    root = os.path.join(tmpdir, "cli_model")
+    os.makedirs(root)
+    ply, origin, v = write_object(torch, port, root, "object", CLI_SUBDIV)
+    meshes = []
+    for i, vd in enumerate(twist_frames(v, 8)[1:3]):
+        meshes.append(os.path.join(root, f"frame{i}.obj"))
+        port.mesh_io.write_triangle_mesh(meshes[-1], vd, icosphere(CLI_SUBDIV)[1])
+    fovx = math.radians(60.0)
+    fovy = port.graphics.focal2fov(port.graphics.fov2focal(fovx, WIDTH), HEIGHT)
+    cam = port.pose_paths.ellipse_path(1, np.zeros(3), (4 * math.cos(0.3),) * 2,
+                                       4 * math.sin(0.3), fovx, fovy, WIDTH, HEIGHT)[0]
+    with open(os.path.join(root, "cameras.json"), "w") as fh:
+        json.dump([port.cameras.camera_to_json(0, cam)], fh)
+    # capacities for the object's splats (~20 pairs each at 1080p)
+    rt = port.config.RuntimeParams(max_per_tile=4096, pair_capacity_per_gaussian=32,
+                                   row_capacity_per_gaussian=8)
+    port.config.save_cfg(root, {"model": port.config.ModelParams(model_path=root),
+                                "runtime": rt})
+    out = os.path.join(root, "out")
+    t0 = time.perf_counter()
+    port.cli_edit.main(["-m", root, "--gaussian_ply", ply, "--origin_mesh", origin,
+                        "--frames", *meshes, "--out", out, "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    editor = port.runtime.SceneEditor(device="cuda")
+    editor.add_object(ply, origin, name="object")
+    cfg = port.rasterize.RasterizerConfig(WIDTH, HEIGHT, rt.max_per_tile,
+                                          rt.pair_capacity_per_gaussian,
+                                          rt.row_capacity_per_gaussian)
+    diffs = []
+    for i, m in enumerate(meshes):
+        img = port.cli_common.read_png(os.path.join(out, f"f{i:04d}_c000.png"))
+        editor.deform_object("object", m)
+        ref = editor.render(cam, cfg)
+        assert int(ref.tile_overflow) == 0 and int(ref.rect_overflow) == 0
+        want = port.cli_common.to_uint8(ref.color)
+        assert img.shape == (HEIGHT, WIDTH, 3) and want.max() > 50
+        diffs.append(int(np.abs(img.astype(int) - want).max()))
+    r = dict(pngs=len(meshes), seconds=cli_s, max_abs_levels=diffs)
+    log("[cli] edit on the card: " + json.dumps(r))
+    assert max(diffs) <= 1, diffs
+    return r
+
+
+
 def main() -> int:
     import torch
 
@@ -903,24 +1246,41 @@ def main() -> int:
     from gaussianmesh_tpu_torch.train import densify, trainer
     from gaussianmesh_tpu_torch.utils import graphics, maths
 
+    from gaussianmesh_tpu_torch.cli import common as cli_common, edit as cli_edit
+    from gaussianmesh_tpu_torch.data import cameras
+    from gaussianmesh_tpu_torch.edit import pose_paths, runtime
+    from gaussianmesh_tpu_torch.io import mesh as mesh_io
+    from gaussianmesh_tpu_torch.models import gaussians
+    from gaussianmesh_tpu_torch.utils import sh
+
     port = types.SimpleNamespace(
         gaussian_ply=gaussian_ply, mesh_gaussians=mesh_gaussians, render=render,
         binning=binning, oracle=oracle, preprocess=preprocess,
         rasterize=rasterize, segsum=segsum, tile_blend=tile_blend,
         graphics=graphics, maths=maths, config=config, trainer=trainer,
-        densify=densify, _cuda=_cuda)
+        densify=densify, _cuda=_cuda, runtime=runtime, pose_paths=pose_paths,
+        cameras=cameras, mesh_io=mesh_io, gaussians=gaussians, sh=sh,
+        cli_common=cli_common, cli_edit=cli_edit)
     t_start = time.perf_counter()
     phase_build(_cuda)
     phase_oracle(torch, port)
     with tempfile.TemporaryDirectory() as tmpdir:
         model, cam, cfg, render_k1, frames = phase_slice(torch, port, tmpdir)
-    results, fullscreen = phase_kernels(torch, port, model, cam, cfg)
-    train_launches, step_ms, results["train"] = phase_train(torch, port, model)
+        results, fullscreen = phase_kernels(torch, port, model, cam, cfg)
+        train_launches, step_ms, results["train"] = phase_train(torch, port, model)
+        t_play = time.perf_counter()
+        playback, k1_composite, playback_launches = phase_playback(
+            torch, port, model, cam, cfg, tmpdir)
+        t_play = time.perf_counter() - t_play
+    results["composite"] = (k1_composite, None, None)
     kernels = kernel_line(results, fullscreen,
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
-                           "train": train_launches})
+                           "train": train_launches, "playback": playback_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
         f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
+    log(f"[done] playback phase {t_play:.1f} s; 1080p playback frame ms mean: "
+        f"config 3 {playback['config3']['frame_ms_mean']:.3f}, config 5 "
+        f"{playback['config5']['frame_ms_mean']:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,53 @@
-"""Parameter groups and defaults (port of `gaussianmesh_tpu/config.py`).
+"""Parameter groups, their argparse reflection and `cfg_args.json` (port of
+`gaussianmesh_tpu/config.py`).
 
-The same names and defaults as the reference (arguments/__init__.py:47-114)
-and the JAX package, for the fields the training step reads. Left out,
-because nothing in the port reads them yet: the model group
-(`ModelParams`: dataset paths, resolution, background, eval split; the
-command-line tools read it) and the pipeline group,
+The same group names, field names, shorthands and defaults as the reference
+(arguments/__init__.py:47-114) and the JAX package. Every field becomes a
+`--name` flag (`-m`, `-s`, ... for the reference's shorthands); a training
+run stores the merged groups as JSON `cfg_args.json` in its model directory
+and `load_combined` overlays the command line on it.
+
+Left out, because nothing in the port reads them:
 `OptimizationParams.random_background` (the background trainer) and
 `percent_dense`, `RuntimeParams.blend_chunk` and `use_pallas` (TPU kernel
 options), and the device-mesh fields `data_axis`, `tile_axis` and
-`shard_gaussians` (multi-device training). The argparse reflection comes
-with the command-line tools.
+`shard_gaussians` (multi-device training). `load_combined` skips those keys
+in a `cfg_args.json` the JAX package wrote, so a model directory trained by
+either package loads here.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
+import os
 from dataclasses import dataclass
+
+
+def _short(name: str) -> str | None:
+    # the reference's leading-underscore attributes get one-letter flags
+    return {"source_path": "s", "model_path": "m", "images": "i",
+            "resolution": "r", "white_background": "w"}.get(name)
+
+
+@dataclass
+class ModelParams:
+    sh_degree: int = 3
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = True
+    eval: bool = False
+
+
+@dataclass
+class PipelineParams:
+    # kept for the reference's command line; both paths are PyTorch here
+    convert_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    debug: bool = False
 
 
 @dataclass
@@ -47,3 +80,63 @@ class RuntimeParams:
     pair_capacity_per_gaussian: int = 10
     row_capacity_per_gaussian: int = 4
     seed: int = 0
+
+
+GROUPS = {"model": ModelParams, "pipeline": PipelineParams,
+          "optimization": OptimizationParams, "runtime": RuntimeParams}
+
+# fields of the JAX package's groups that the port leaves out (see above)
+JAX_ONLY = {"optimization": ("percent_dense", "random_background"),
+            "runtime": ("blend_chunk", "use_pallas", "data_axis", "tile_axis",
+                        "shard_gaussians")}
+
+
+def add_group(parser: argparse.ArgumentParser, cls) -> None:
+    g = parser.add_argument_group(cls.__name__)
+    for f in dataclasses.fields(cls):
+        names = [f"--{f.name}"]
+        if _short(f.name):
+            names.append(f"-{_short(f.name)}")
+        if f.type in ("bool", bool):
+            # --no-<flag> disables a default-True boolean (white_background)
+            g.add_argument(*names, action=argparse.BooleanOptionalAction,
+                           default=None)
+        else:
+            typ = {"int": int, "float": float}.get(f.type, str)
+            g.add_argument(*names, type=typ, default=None)
+
+
+def extract(cls, args: argparse.Namespace):
+    """The group `cls` from the flags given (None: not given)."""
+    return cls(**{f.name: getattr(args, f.name) for f in dataclasses.fields(cls)
+                  if getattr(args, f.name, None) is not None})
+
+
+def save_cfg(model_path: str, groups: dict) -> None:
+    os.makedirs(model_path, exist_ok=True)
+    blob = {name: dataclasses.asdict(g) for name, g in groups.items()}
+    with open(os.path.join(model_path, "cfg_args.json"), "w") as f:
+        json.dump(blob, f, indent=2)
+
+
+def load_cfg(model_path: str) -> dict:
+    path = os.path.join(model_path, "cfg_args.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def load_combined(model_path: str, args: argparse.Namespace) -> dict:
+    """The training run's groups (`cfg_args.json`, JAX-only keys skipped)
+    overlaid with the flags given: {"model", "pipeline", "optimization",
+    "runtime"} -> dataclass. An unknown key raises."""
+    saved = load_cfg(model_path)
+    out = {}
+    for name, cls in GROUPS.items():
+        kw = {k: v for k, v in saved.get(name, {}).items()
+              if k not in JAX_ONLY.get(name, ())}
+        kw.update({f.name: getattr(args, f.name) for f in dataclasses.fields(cls)
+                   if getattr(args, f.name, None) is not None})
+        out[name] = cls(**kw)
+    return out

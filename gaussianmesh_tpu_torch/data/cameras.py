@@ -3,7 +3,9 @@ image IO: reading datasets from disk comes with the command-line slice).
 
 A `Camera` carries the (R, T, fov) extrinsics in the COLMAP/3DGS convention,
 the ground-truth image (float32 CHW in [0, 1]) and an optional mask, and
-gives the device-side `CameraArrays` the rasterizer takes.
+gives the device-side `CameraArrays` the rasterizer takes. `cameras.json`
+entries (the layout of the reference's utils/camera_utils.py:64-83) convert
+both ways, so a file written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -63,3 +65,33 @@ class Camera:
         the caller asks for the CPU)."""
         return CameraArrays.from_numpy(*self.arrays_np(),
                                        device=resolve_device(device))
+
+
+def camera_to_json(cam_id: int, cam: Camera) -> dict:
+    """cameras.json entry: camera-to-world position and rotation, focal
+    lengths in pixels."""
+    c2w = np.linalg.inv(graphics.world_to_view(cam.R, cam.T).astype(np.float64))
+    return {
+        "id": cam_id,
+        "img_name": cam.image_name,
+        "width": cam.width,
+        "height": cam.height,
+        "position": c2w[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in c2w[:3, :3]],
+        "fy": graphics.fov2focal(cam.fovy, cam.height),
+        "fx": graphics.fov2focal(cam.fovx, cam.width),
+    }
+
+
+def camera_from_json(entry: dict) -> Camera:
+    """Inverse of `camera_to_json`: the edit runtime's camera source."""
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.array(entry["rotation"])
+    c2w[:3, 3] = np.array(entry["position"])
+    w2c = np.linalg.inv(c2w)
+    w, h = entry["width"], entry["height"]
+    return Camera(
+        uid=entry.get("id", 0), R=w2c[:3, :3].T, T=w2c[:3, 3],
+        fovx=graphics.focal2fov(entry["fx"], w),
+        fovy=graphics.focal2fov(entry["fy"], h),
+        image=None, image_name=entry.get("img_name", ""), width=w, height=h)

@@ -172,6 +172,19 @@ def expand_pairs(prep: Preprocessed, grid_x: int, grid_y: int,
     )
 
 
+def concat_expansions(first: PairExpansion, second: PairExpansion,
+                      n_first: int) -> PairExpansion:
+    """The pair domain of the Gaussians [first's n_first | second's], in
+    emission order: `second`'s ids shift by n_first, overflow adds up."""
+    return PairExpansion(
+        pair_tile=torch.cat([first.pair_tile, second.pair_tile]),
+        pair_gid=torch.cat([first.pair_gid, second.pair_gid + n_first]),
+        pair_depth=torch.cat([first.pair_depth, second.pair_depth]),
+        rect_overflow=first.rect_overflow + second.rect_overflow,
+        gid_counts=torch.cat([first.gid_counts, second.gid_counts]),
+    )
+
+
 def sort_pairs(pair_tile: torch.Tensor, pair_depth: torch.Tensor,
                pair_gid: torch.Tensor, with_grouped_pos: bool = True
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
@@ -219,11 +232,16 @@ def build_tile_lists(prep: Preprocessed, grid_x: int, grid_y: int,
                      max_per_tile: int, expand_capacity: int,
                      opacity: torch.Tensor | None = None,
                      row_capacity: int | None = None,
-                     with_grouped_pos: bool = True) -> TileLists:
+                     with_grouped_pos: bool = True,
+                     extra: PairExpansion | None = None) -> TileLists:
     """`with_grouped_pos=False` leaves `grouped_pos` None: a render that
-    will not be differentiated needs no reduction map."""
+    will not be differentiated needs no reduction map. `extra`, a pair
+    domain expanded earlier (composite playback's static set), joins after
+    this set's pairs (`concat_expansions`) before the sort."""
     exp = expand_pairs(prep, grid_x, grid_y, expand_capacity,
                        opacity=opacity, row_capacity=row_capacity)
+    if extra is not None:
+        exp = concat_expansions(exp, extra, prep.depth.shape[0])
     sorted_tile, sorted_gid, grouped_pos = sort_pairs(
         exp.pair_tile, exp.pair_depth, exp.pair_gid, with_grouped_pos)
     return finish_tile_lists(sorted_tile, sorted_gid, exp.rect_overflow,

@@ -53,10 +53,18 @@ def preprocess(means3d: torch.Tensor, cov6: torch.Tensor, cam: CameraArrays,
     V = cam.viewmatrix
     grid_x, grid_y = tile_grid(width, height)
 
-    t = means3d @ V[:3, :3].T + V[:3, 3]                    # (N, 3) view space
+    # view space and homogeneous projection in one affine map (7 rows: V's
+    # 3, then P's 4), written out per coordinate: a matmul's result for a
+    # row can depend on how many rows it is given, and the composite
+    # playback frame must equal the render of the concatenated scene
     P = cam.projmatrix
-    p_hom = means3d @ P[:3, :3].T + P[:3, 3]
-    w_hom = means3d @ P[3, :3] + P[3, 3]
+    m = torch.cat([V[:3], P])                              # (7, 4)
+    x = means3d
+    affine = (x[:, 0:1] * m[:, 0] + x[:, 1:2] * m[:, 1]
+              + x[:, 2:3] * m[:, 2] + m[:, 3])             # (N, 7)
+    t = affine[:, :3]                                      # (N, 3) view space
+    p_hom = affine[:, 3:6]
+    w_hom = affine[:, 6]
     p_w = 1.0 / (w_hom + 1e-7)
     p_proj = p_hom * p_w[:, None]                           # (N, 3) NDC
 

@@ -9,6 +9,11 @@ is no flag. A render that will not be differentiated (no grad mode, or no
 input that requires grad) runs the forward `blend_forward` alone and skips
 the reduction map `grouped_pos`. Preprocess gradients (mean2d, conic, rgb -> means3d, cov6, SH)
 come from autograd of `ops/preprocess.py`.
+
+`precompute_static_pairs` and `rasterize(..., static=)` (forward only;
+`rasterize_composite` under the JAX package's name) serve composite
+playback: a static set's pair domain is expanded once per camera and merged
+into each frame's expansion of the dynamic set before the sort.
 """
 
 from __future__ import annotations
@@ -61,26 +66,53 @@ class RasterizeOut(NamedTuple):
     pair_overflow: torch.Tensor  # () int32, always 0 (see binning.TileLists)
 
 
+def _preprocess(means3d, cov6, opacity, cam, cfg, active_mask):
+    prep = prep_mod.preprocess(means3d, cov6, cam, cfg.width, cfg.height,
+                               opacity=opacity)
+    if active_mask is None:
+        return prep
+    # capacity + mask models: dead rows are culled entirely
+    return prep._replace(
+        valid=prep.valid & active_mask,
+        radius=torch.where(active_mask, prep.radius, 0),
+        tiles_touched=torch.where(active_mask, prep.tiles_touched, 0))
+
+
+class StaticPairs(NamedTuple):
+    """The pair domain of a static Gaussian set seen from one camera, for
+    composite playback (one object deforms in a scene of static objects
+    and a background): expanded once by `precompute_static_pairs`, merged
+    by `rasterize(..., static=)` into every frame's expansion of the
+    deforming set, so the static part never runs preprocess or expansion
+    again."""
+    feat: torch.Tensor                 # (Ns + 1, FEAT) feature table, dummy last
+    pairs: binning.PairExpansion       # live pairs, local ids, emission order
+
+
 def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
               rgb: torch.Tensor, bg: torch.Tensor, cam: CameraArrays,
               cfg: RasterizerConfig,
               mean2d_offset: torch.Tensor | None = None,
-              active_mask: torch.Tensor | None = None) -> RasterizeOut:
+              active_mask: torch.Tensor | None = None,
+              static: StaticPairs | None = None) -> RasterizeOut:
     """Render N Gaussians (world means, 3D covariance uppers, activated
     opacity in [0, 1], per-view RGB) over the background color `bg` (3,).
 
     `mean2d_offset` (N, 2), when given, is added to the projected pixel
     means: a zero input whose gradient is the screen-space positional
     gradient of the densification statistics (the reference's
-    `screenspace_points`). `active_mask` (N,) culls dead capacity rows."""
+    `screenspace_points`). `active_mask` (N,) culls dead capacity rows.
+
+    `static`, when given, is a static set's cached pair domain, merged after
+    this set's pairs (ids shifted by N; the feature table is [this set |
+    static | dummy]) before the one stable (tile, depth) sort: composite
+    playback, forward only. Expansion is Gaussian-major, so this is the
+    emission order of the concatenated scene [this set | static]: without
+    capacity clipping the frame equals the render of that scene bit for
+    bit. `rect_overflow` then counts both expansions; `radii`, `mean2d` and
+    `visibility` report this set."""
     gx, gy = cfg.grid
-    prep = prep_mod.preprocess(means3d, cov6, cam, cfg.width, cfg.height,
-                               opacity=opacity)
-    if active_mask is not None:
-        prep = prep._replace(
-            valid=prep.valid & active_mask,
-            radius=torch.where(active_mask, prep.radius, 0),
-            tiles_touched=torch.where(active_mask, prep.tiles_touched, 0))
+    prep = _preprocess(means3d, cov6, opacity, cam, cfg, active_mask)
 
     mean2d = prep.mean2d
     if mean2d_offset is not None:
@@ -90,13 +122,19 @@ def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
     # only a render that will be differentiated pays for the reduction map
     # and the autograd function
     grad = torch.is_grad_enabled() and feat.requires_grad
+    if grad and static is not None:
+        raise ValueError("rasterize: a render with a static pair domain is "
+                         "forward only; run it under torch.no_grad()")
 
     n = means3d.shape[0]
     with torch.no_grad():
         tiles = binning.build_tile_lists(
             prep, gx, gy, cfg.max_per_tile,
             expand_capacity=cfg.expand_capacity(n), opacity=opacity,
-            row_capacity=cfg.row_capacity(n), with_grouped_pos=grad)
+            row_capacity=cfg.row_capacity(n), with_grouped_pos=grad,
+            extra=None if static is None else static.pairs)
+    if static is not None:
+        feat = torch.cat([feat[:n], static.feat])
 
     if grad:
         color, final_t, n_contrib = tile_blend.blend(feat, tiles, gx, cfg.width,
@@ -119,3 +157,31 @@ def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
         rect_overflow=tiles.rect_overflow,
         pair_overflow=tiles.pair_overflow,
     )
+
+
+@torch.no_grad()
+def precompute_static_pairs(means3d: torch.Tensor, cov6: torch.Tensor,
+                            opacity: torch.Tensor, rgb: torch.Tensor,
+                            cam: CameraArrays, cfg: RasterizerConfig,
+                            active_mask: torch.Tensor | None = None
+                            ) -> StaticPairs:
+    gx, gy = cfg.grid
+    n = means3d.shape[0]
+    prep = _preprocess(means3d, cov6, opacity, cam, cfg, active_mask)
+    pairs = binning.expand_pairs(prep, gx, gy, cfg.expand_capacity(n),
+                                 opacity=opacity, row_capacity=cfg.row_capacity(n))
+    feat = tile_blend.pack_features(prep.mean2d, prep.conic, opacity.reshape(-1),
+                                    rgb, prep.valid)
+    return StaticPairs(feat=feat, pairs=pairs)
+
+
+@torch.no_grad()
+def rasterize_composite(means3d: torch.Tensor, cov6: torch.Tensor,
+                        opacity: torch.Tensor, rgb: torch.Tensor,
+                        bg: torch.Tensor, cam: CameraArrays,
+                        cfg: RasterizerConfig, static: StaticPairs,
+                        active_mask: torch.Tensor | None = None) -> RasterizeOut:
+    """The JAX package's `rasterize_composite`: `rasterize` of the dynamic
+    set with `static` merged in, without autograd."""
+    return rasterize(means3d, cov6, opacity, rgb, bg, cam, cfg,
+                     active_mask=active_mask, static=static)

@@ -11,11 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from gaussianmesh_tpu_torch.edit import runtime
+from gaussianmesh_tpu_torch.io import gaussian_ply, mesh as mesh_io
+from gaussianmesh_tpu_torch.models import gaussians, mesh_gaussians
 from gaussianmesh_tpu_torch.ops import binning, preprocess, segsum, tile_blend
 from gaussianmesh_tpu_torch.ops.rasterize import RasterizerConfig, rasterize
 from gaussianmesh_tpu_torch.utils import graphics, maths
 from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
 # pytest puts tests/ on sys.path
+from meshes import icosphere
 from test_torch_segsum import LAYOUTS, assert_column_close, k3_layout
 
 
@@ -307,3 +311,90 @@ def test_rasterize_backward_on_cuda(cuda):
     for a, c in zip(ga, gc):
         scale = c.abs().max()
         assert ((a - c).abs() / scale).max().item() <= 2e-4
+
+
+def _write_object(dirpath, name, subdiv, offset, seed):
+    """A mesh-Gaussian object (PLY + OBJ) moved off its faces, SH degree 3."""
+    v, f = icosphere(subdiv)
+    v = (v + np.asarray(offset, np.float32)).astype(np.float32)
+    model = mesh_gaussians.create_from_mesh(v, f, device="cpu")
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p, scale, shift in ((model.bc, 0.5, 0), (model.distance, 0.5, 0),
+                                (model.rotation, 0.5, 0), (model.opacity, 1.0, 3),
+                                (model.features_rest, 0.1, 0)):
+            p.add_(torch.tensor(rng.normal(shift, scale, p.shape), dtype=torch.float32))
+    ply, obj = str(dirpath / f"{name}.ply"), str(dirpath / f"{name}.obj")
+    gaussian_ply.save_mesh_gaussian_ply(ply, model)
+    mesh_io.write_triangle_mesh(obj, v, f)
+    return ply, obj, v
+
+
+def _composite_editor(tmp_path, device):
+    """A twisting icosphere-3 object, a static icosphere-2 one and a
+    2,000-Gaussian background (SH degree 1) -> (editor, object vertices)."""
+    main = _write_object(tmp_path, "main", 3, (0, 0, 0), 1)
+    side = _write_object(tmp_path, "side", 2, (1.4, 0.3, -0.2), 2)
+    rng = np.random.default_rng(3)
+    n = 2000
+    bg = gaussians.from_numpy(dict(
+        xyz=rng.uniform(-3, 3, (n, 3)), features_dc=rng.normal(0, 1, (n, 1, 3)),
+        features_rest=rng.normal(0, 0.1, (n, 3, 3)),
+        scaling=np.full((n, 3), np.log(0.08)), rotation=rng.normal(size=(n, 4)),
+        opacity=rng.normal(0, 1, (n, 1))), np.ones(n, bool), device="cpu")
+    gaussian_ply.save_gaussian_ply(str(tmp_path / "bg.ply"), bg)
+    editor = runtime.SceneEditor(str(tmp_path / "bg.ply"), max_sh_degree=None,
+                                 device=device)
+    editor.add_object(*main[:2], name="main")
+    editor.add_object(*side[:2], name="side")
+    return editor, main[2]
+
+
+def _twist(v, amp=0.6):
+    ang = amp * v[:, 2]
+    c, s = np.cos(ang), np.sin(ang)
+    return np.stack([c * v[:, 0] - s * v[:, 1], s * v[:, 0] + c * v[:, 1],
+                     v[:, 2]], -1).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_composite_frame_k1_and_render_bits(cuda, tmp_path):
+    """A composite playback frame on the card: one K1 launch, K1 within 1e-6
+    of `blend_forward_plain` on the frame's arguments, and the frame equal
+    to `SceneEditor.render` of the same deformed scene bit for bit."""
+    import functools
+
+    editor, v = _composite_editor(tmp_path, cuda)
+    width, height = 256, 200
+    cam = _camera(width, height, cuda)
+    # the static set alone needs more rows per Gaussian than the scene's mean
+    cfg = RasterizerConfig(width, height, max_per_tile=2048,
+                           pair_capacity_per_gaussian=40, row_capacity_per_gaussian=16)
+    frame_fn = runtime.make_composite_playback_fn(editor, "main", cam, cfg,
+                                                  [0.1, 0.2, 0.3])
+    v_def = torch.tensor(_twist(v), device=cuda)
+    real, calls = tile_blend.blend_forward, []
+
+    @functools.wraps(real)
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    record.launches = 0
+    tile_blend.blend_forward = record
+    try:
+        out = frame_fn(v_def)
+    finally:
+        tile_blend.blend_forward = real
+    torch.cuda.synchronize()
+    assert len(calls) == 1 and record.launches == 1
+    assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+    color, final_t, _ = tile_blend.blend_forward(*calls[0])
+    pc, pt, _ = tile_blend.blend_forward_plain(*calls[0])
+    torch.testing.assert_close(color, pc, atol=1e-6, rtol=0)
+    torch.testing.assert_close(final_t, pt, atol=1e-6, rtol=0)
+    editor.deform_object("main", v_def)
+    want = editor.render(cam, cfg, bg_color=[0.1, 0.2, 0.3])
+    assert torch.equal(out.color, want.color)
+    assert int(out.num_rendered) == int(want.num_rendered) > 0
+    assert (want.final_t < 0.5).float().mean().item() > 0.05
