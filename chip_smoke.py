@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render, training and playback paths on one CUDA
-card and check them.
+"""Drive the PyTorch port's render, training, playback and command-line
+training paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -62,6 +62,30 @@ Phases (any failure raises, so the exit code is not 0):
    overflow, finite images (counters set to 0 just before each frame loop,
    read just after). Then `cli.edit.main(..., "--device", "cuda")` on a
    small model directory: its two PNGs decode to the editor's frames.
+8. pipeline: configs 2 and 4 trained from disk through the command lines,
+   at 800x800. Config 2: a Blender set (24 train and 3 test views of the
+   slice model, RGBA PNGs through the port's codec with alpha = 1 - final
+   T, an icosphere-2 proxy); `cli.train_mesh` at full width (100,000 ->
+   327,680 Gaussians, phase 6's shrunk schedule as flags) for 100
+   iterations with a checkpoint at 50, then a second run from that
+   checkpoint to 100, which must end with the first run's bits (checkpoint
+   size and save / load seconds printed). Config 4: a COLMAP set (binary
+   model through `io/colmap.write_model_binary`) of the slice model inside
+   phase 7's 100,000-Gaussian background, masks the object's alpha,
+   points3D the background's centres plus 1,000 of the object's Gaussians;
+   `cli.train_mesh --is_exist_bg` for 100 iterations, `cli.train_bg` for
+   500 (the neighbour prune at 50 must retire and the densify at 500 must
+   add Gaussians), `cli.render --with_bg` on the test views, whose PNGs
+   must equal an in-process render of the saved PLYs. K1, K2 and K3 once
+   per step of each trainer and K1 once per rendered view (counters set to
+   0 just before each command line, read just after); finite losses and
+   parameters, no overflow. Step ms medians, dataset load seconds, and a
+   profile of 3 more background steps (device operations, idle share).
+   Then one more background step with the kernels' wrappers recording
+   their arguments (the concatenated ~0.9 M-row table, background rows
+   first, its pair domain, cotangents from the real loss), and K1, K2 and
+   K3 held against their plain versions on those, timed and bounded as in
+   phase 5; K2's rows must equal the step's.
 
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
@@ -69,10 +93,13 @@ The last three lines: the `kernels` JSON, the card's name and power limit
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -111,6 +138,16 @@ TRAIN_VIEWS = 24
 TRAIN_ITERS = 60
 PROXY_SUBDIV = 2       # 320 faces
 INIT_TARGET = 100_000  # config 2: subdivide past 100K (train_mesh_gaussian.py:60)
+
+# pipeline phase: configs 2 and 4 trained from disk through the command lines
+PIPE_SIZE = 800
+PIPE_FOVX = math.radians(60.0)
+PIPE_VIEWS, PIPE_TEST_VIEWS = 24, 3
+PIPE_ITERS = 100       # train_mesh runs; the checkpoint at half
+BG_ITERS = 500         # train_bg: one densify (every 500 iterations)
+BG_DENSIFY_FROM = 100
+BG_PRUNE_AT = 50       # the neighbour prune
+BG_SURFACE_POINTS = 1000
 
 # H100 SXM peaks (NVIDIA data sheet; the CUDA programming guide's throughput
 # table for the special-function unit: 16 exp2 results / clock / SM) at the
@@ -723,10 +760,10 @@ KERNELS = (
 
 def kernel_line(results, fullscreen, launches):
     """The `kernels` JSON entries: times and bounds at the slice config,
-    beside them those at the clamped config, at a training step's shapes
-    and (K1) at a composite playback frame's, and K3's on the full-screen
-    case; errors over all of them; launches from the main paths (render,
-    train, playback)."""
+    beside them those at the clamped config, at a mesh training step's and
+    a background step's shapes ("pipeline"), (K1) at a composite playback
+    frame's, and K3's on the full-screen case; errors over all of them; launches from the
+    main paths (render, train, playback, pipeline)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -739,9 +776,7 @@ def kernel_line(results, fullscreen, launches):
             "source": f"gaussianmesh_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": sum(n[key] for n in launches.values()),
-            "render_launches": launches["render"][key],
-            "train_launches": launches["train"][key],
-            "playback_launches": launches["playback"][key],
+            **{f"{path}_launches": n[key] for path, n in launches.items()},
             "max_abs_err": err, "max_abs": err,
             "ms": s["ms"], "kernel_ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
@@ -750,9 +785,9 @@ def kernel_line(results, fullscreen, launches):
         entry.update({k: s[k] for k in ("queued_ms", "host_ms") if k in s})
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
-        for label in ("clamped", "train", "fullscreen", "composite"):
+        for label in ("clamped", "train", "fullscreen", "composite", "pipeline"):
             for k in ("ms", "queued_ms", "host_ms", "plain_ms", "bound_ms",
-                      "library_ms"):
+                      "library_ms", "max_abs"):
                 if k in r.get(label, {}):
                     entry[f"{label}_{k}"] = r[label][k]
         line.append(entry)
@@ -760,8 +795,9 @@ def kernel_line(results, fullscreen, launches):
 
 
 def capture_step(torch, port, trainer):
-    """One more training step (`MeshTrainer.step` on view 0) with the
-    wrappers of K1, K2 and K3 recording the arguments the step hands them.
+    """One more training step (`step` of a `MeshTrainer` or a `BgTrainer`,
+    on view 0 over its constant background) with the wrappers of K1, K2 and
+    K3 recording the arguments the step hands them.
     -> {"K1": args, "K2": args, "K3": args}. A wrapper bumps its counter
     through its module's name, so each stand-in carries a `launches` of its
     own (functools.wraps copies it); the real counters stay as they were."""
@@ -925,7 +961,7 @@ def phase_train(torch, port, model):
                          blended, step_rows=rows)
     log("[train] K2 at the step's shapes: " + json.dumps(k2))
     log("[train] K3 at the step's shapes: " + json.dumps(k3))
-    return launches, free_ms, (k1, k2, k3)
+    return launches, free_ms, (k1, k2, k3), trainer.rt
 
 
 def twist_frames(v, n_frames, amp=TWIST_AMP):
@@ -1233,11 +1269,379 @@ def phase_cli(torch, port, tmpdir):
     return r
 
 
+@contextlib.contextmanager
+def clocked(torch, owner, name, rows, sync=False):
+    """owner.name replaced, for the block, by a wrapper that appends
+    (host ms of the call, ending in synchronize() when `sync`; its result)
+    to `rows`."""
+    raw = owner.__dict__[name]
+    fn = raw.__func__ if isinstance(raw, staticmethod) else raw
 
-def main() -> int:
-    import torch
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        rows.append(((time.perf_counter() - t0) * 1e3, out))
+        return out
 
-    smi = phase_card(torch)
+    setattr(owner, name, staticmethod(timed) if isinstance(raw, staticmethod) else timed)
+    try:
+        yield rows
+    finally:
+        setattr(owner, name, raw)
+
+
+def pipeline_cameras(port):
+    """PIPE_VIEWS + PIPE_TEST_VIEWS orbit poses at PIPE_SIZE^2: phase 6's
+    training orbit, then test views between its azimuths -> [(R, pos)]."""
+    poses = []
+    for i in range(PIPE_VIEWS + PIPE_TEST_VIEWS):
+        az = 2 * math.pi * (i if i < PIPE_VIEWS else i - PIPE_VIEWS + 0.5) / (
+            PIPE_VIEWS if i < PIPE_VIEWS else PIPE_TEST_VIEWS)
+        el = 0.3 + 0.4 * math.sin(i)
+        pos = 4.0 * np.array([math.cos(el) * math.sin(az), math.sin(el),
+                              math.cos(el) * math.cos(az)])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        poses.append((np.stack([right, np.cross(fwd, right), fwd], axis=1), pos))
+    return poses
+
+
+def pose_camera(port, R, pos):
+    """A port Camera at PIPE_SIZE^2 with fov 60 degrees."""
+    return port.cameras.Camera(uid=0, R=R, T=-R.T @ pos, fovx=PIPE_FOVX, fovy=PIPE_FOVX,
+                               image=None, width=PIPE_SIZE, height=PIPE_SIZE)
+
+
+def rotmat2qvec(R):
+    """COLMAP's rotation matrix -> unit quaternion (w, x, y, z), w >= 0."""
+    rxx, ryx, rzx, rxy, ryy, rzy, rxz, ryz, rzz = R.flat
+    k = np.array([[rxx - ryy - rzz, 0, 0, 0], [ryx + rxy, ryy - rxx - rzz, 0, 0],
+                  [rzx + rxz, rzy + ryz, rzz - rxx - ryy, 0],
+                  [ryz - rzy, rzx - rxz, rxy - ryx, rxx + ryy + rzz]]) / 3.0
+    vals, vecs = np.linalg.eigh(k)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return q if q[0] >= 0 else -q
+
+
+def write_blender_set(torch, port, model, root, poses, cfg):
+    """Config 2's dataset: the slice model at PIPE_SIZE^2 from `poses` (the
+    last PIPE_TEST_VIEWS the test split), RGBA PNGs through the port's
+    codec (alpha = 1 - final T, color un-premultiplied), transforms_*.json
+    in the OpenGL convention, and the icosphere-PROXY_SUBDIV proxy."""
+    frames = []
+    os.makedirs(os.path.join(root, "views"))
+    for i, (R, pos) in enumerate(poses):
+        cam = pose_camera(port, R, pos).arrays("cuda")
+        with torch.no_grad():
+            out = port.render.render(port.render.mesh_model_arrays(model, cam, SH_DEGREE),
+                                     cam, cfg, torch.zeros(3, device="cuda"))
+        assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+        alpha = (1.0 - out.final_t)[None]
+        rgba = torch.cat([(out.color / alpha.clamp(min=1e-6)).clamp(0, 1), alpha])
+        port.png.write_png(os.path.join(root, "views", f"r_{i:03d}.png"), (
+            rgba * 255).round().to(torch.uint8).permute(1, 2, 0).cpu().numpy())
+        c2w = np.eye(4)
+        c2w[:3, :3], c2w[:3, 3] = R, pos
+        c2w[:3, 1:3] *= -1
+        frames.append({"file_path": f"views/r_{i:03d}", "transform_matrix": c2w.tolist()})
+    for split, fr in (("train", frames[:PIPE_VIEWS]), ("test", frames[PIPE_VIEWS:])):
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as fh:
+            json.dump({"camera_angle_x": PIPE_FOVX, "frames": fr}, fh)
+    proxy = os.path.join(root, "proxy.obj")
+    port.mesh_io.write_triangle_mesh(proxy, *icosphere(PROXY_SUBDIV))
+    return proxy
+
+
+def write_colmap_set(torch, port, model, bg, root, poses, cfg):
+    """Config 4's dataset: the slice model inside phase 7's background at
+    PIPE_SIZE^2 over white, RGB PNGs in images/, the object's alpha (1 -
+    final T of the object alone) as gray PNGs in masks/, a binary COLMAP
+    model (one PINHOLE camera) whose points3D are the background's centres
+    plus BG_SURFACE_POINTS of the object's Gaussians (seeded), colored."""
+    for d in ("images", "masks"):
+        os.makedirs(os.path.join(root, d))
+    white = torch.ones(3, device="cuda")
+    images = {}
+    for i, (R, pos) in enumerate(poses):
+        cam = pose_camera(port, R, pos).arrays("cuda")
+        with torch.no_grad():
+            obj = port.render.mesh_model_arrays(model, cam, SH_DEGREE)
+            alone = port.render.render(obj, cam, cfg, white)
+            both = port.render.render(port.render.concat_arrays(
+                obj, port.render.gaussian_model_arrays(bg, cam, 1)), cam, cfg, white)
+        for out in (alone, both):
+            assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+        name = f"{i:03d}.png"
+        port.png.write_png(os.path.join(root, "images", name),
+                           port.cli_common.to_uint8(both.color))
+        port.png.write_png(os.path.join(root, "masks", name), (
+            (1.0 - alone.final_t) * 255).round().to(torch.uint8).cpu().numpy())
+        images[i + 1] = port.colmap.ColmapImage(i + 1, rotmat2qvec(R.T), -R.T @ pos, 1,
+                                                name)
+    focal = port.graphics.fov2focal(PIPE_FOVX, PIPE_SIZE)
+    cams = {1: port.colmap.ColmapCamera(1, "PINHOLE", PIPE_SIZE, PIPE_SIZE,
+                                        np.array([focal, focal, PIPE_SIZE / 2,
+                                                  PIPE_SIZE / 2]))}
+    rng = np.random.default_rng(SEED + 6)
+    with torch.no_grad():
+        alive = torch.nonzero(model.alive).flatten()
+        pick = alive[torch.tensor(rng.choice(alive.numel(), BG_SURFACE_POINTS,
+                                             replace=False), device="cuda")]
+        xyz = torch.cat([bg.xyz, model.get_xyz()[pick]]).cpu().numpy().astype(np.float64)
+        rgb = torch.cat([port.sh.sh_to_rgb(bg.features_dc[:, 0]),
+                         port.sh.sh_to_rgb(model.features_dc[pick, 0])])
+        rgb = (rgb.clamp(0, 1) * 255).round().cpu().numpy()
+    port.colmap.write_model_binary(os.path.join(root, "sparse", "0"), cams, images,
+                                   xyz, rgb, np.zeros(len(xyz)))
+    return len(xyz)
+
+
+def pipeline_flags(cfg):
+    return ["--max_per_tile", str(cfg.max_per_tile), "--pair_capacity_per_gaussian",
+            str(cfg.pair_capacity_per_gaussian), "--row_capacity_per_gaussian",
+            str(cfg.row_capacity_per_gaussian), "--device", "cuda"]
+
+
+def run_cli(torch, port, main, argv, trainer_cls=None):
+    """One command line with the launch counters set to 0 just before it
+    and read just after, its trainer's steps timed (host clock ending in
+    synchronize()) and kept, its dataset load and checkpoint IO timed.
+    -> (its return value, launches, {"steps" | "load" | ...: [(ms, out)]})."""
+    rows = {k: [] for k in ("steps", "scene", "upload", "save_ckpt", "load_ckpt")}
+    with contextlib.ExitStack() as stack:
+        if trainer_cls is not None:
+            stack.enter_context(clocked(torch, trainer_cls, "step", rows["steps"],
+                                        sync=True))
+        stack.enter_context(clocked(torch, port.scene.Scene, "__init__", rows["scene"]))
+        stack.enter_context(clocked(torch, port.trainer.DeviceDataset, "from_cameras",
+                                    rows["upload"], sync=True))
+        for name in ("save_ckpt", "load_ckpt"):
+            stack.enter_context(clocked(torch, port.trainer.MeshTrainer, name,
+                                        rows[name], sync=True))
+        torch.cuda.synchronize()
+        reset_launches(port)                                 # main path starts
+        out = main(argv)
+        torch.cuda.synchronize()
+        launches = read_launches(port)                       # main path ends
+    return out, launches, rows
+
+
+def step_summary(rows, label):
+    """Median step ms, finite losses and no overflow over a run's steps."""
+    ms = [t for t, _ in rows]
+    m = [{k: float(v) for k, v in out.items()} for _, out in rows]
+    assert all(math.isfinite(x["loss"]) for x in m), label
+    assert all(x["tile_overflow"] == 0 and x["rect_overflow"] == 0 for x in m), (
+        label, [(i, x["tile_overflow"], x["rect_overflow"]) for i, x in enumerate(m)
+                if x["tile_overflow"] or x["rect_overflow"]][:5])
+    return dict(steps=len(ms), step_ms_median=float(np.median(ms)),
+                step_ms_mean=float(np.mean(ms)), loss_first=m[0]["loss"],
+                loss_last=m[-1]["loss"])
+
+
+def state_max_abs(torch, a, b):
+    """Largest |difference| between two trainers' parameters and moments
+    (inf where shapes differ)."""
+    worst = 0.0
+    for group in ("params", "binding", "mu", "nu", "state"):
+        x, y = a.capture()[group], b.capture()[group]
+        for k in x:
+            worst = max(worst, float("inf") if x[k].shape != y[k].shape else
+                        (x[k].double() - y[k].double()).abs().max().item())
+    return worst
+
+
+def phase_pipeline(torch, port, model, train_rt, tmpdir):
+    """Configs 2 and 4 trained from disk through the command lines on the
+    card; see the module docstring. -> (results, launches, (K1, K2, K3
+    checks at a background step's shapes))."""
+    res, launches, failures = {}, {}, []
+    poses = pipeline_cameras(port)
+    sched = ["--densify_from_iter", "10", "--densification_interval", "10",
+             "--densify_until_iter", "35", "--opacity_reset_interval", "20",
+             "--densify_grad_threshold", "1e-5"]
+
+    # capacities for the datasets' renders and every run: the object inside
+    # the background over all poses, doubled as phase 6 doubles (scales move
+    # while training, the background grows), and no smaller than phase 6's
+    bg = port.gaussian_ply.load_gaussian_ply(
+        write_background(port, tmpdir, BG_GAUSSIANS, SEED + 5), device="cuda")
+    cams = [pose_camera(port, R, pos).arrays("cuda") for R, pos in poses]
+    scene_arrays = lambda c: port.render.concat_arrays(  # noqa: E731
+        port.render.mesh_model_arrays(model, c, SH_DEGREE),
+        port.render.gaussian_model_arrays(bg, c, 1))
+    with torch.no_grad():
+        cfg, largest = size_capacities(torch, port, None, cams, PIPE_SIZE, PIPE_SIZE,
+                                       SH_DEGREE, "pipeline", arrays=scene_arrays)
+    cfg = port.rasterize.RasterizerConfig(
+        PIPE_SIZE, PIPE_SIZE, max(2 * cfg.max_per_tile, train_rt.max_per_tile),
+        max(2 * cfg.pair_capacity_per_gaussian, train_rt.pair_capacity_per_gaussian),
+        max(2 * cfg.row_capacity_per_gaussian, train_rt.row_capacity_per_gaussian))
+    log(f"[pipeline] largest tile of the object in the background {max(largest)}; "
+        f"{cfg}")
+
+    # ---- config 2 from disk: uninterrupted, then resumed from the checkpoint
+    data2 = os.path.join(tmpdir, "blender")
+    t0 = time.perf_counter()
+    proxy = write_blender_set(torch, port, model, data2, poses, cfg)
+    log(f"[pipeline] config 2 dataset: {len(poses)} RGBA PNGs at {PIPE_SIZE}x{PIPE_SIZE} "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    base = ["-s", data2, "--input_mesh", proxy, "--init_target", str(INIT_TARGET),
+            "--eval", "--iterations", str(PIPE_ITERS), "--save_iterations",
+            str(PIPE_ITERS), "--test_iterations", str(PIPE_ITERS), *sched,
+            *pipeline_flags(cfg)]
+    model_a, model_b = (os.path.join(tmpdir, n) for n in ("model_a", "model_b"))
+    half = PIPE_ITERS // 2
+    tr_a, la, rows_a = run_cli(torch, port, port.cli_train_mesh.main, base + [
+        "-m", model_a, "--checkpoint_iterations", str(half)], port.trainer.MeshTrainer)
+    ckpt = os.path.join(model_a, f"chkpnt{half}.ckpt")
+    tr_b, lb, rows_b = run_cli(torch, port, port.cli_train_mesh.main, base + [
+        "-m", model_b, "--start_checkpoint", ckpt], port.trainer.MeshTrainer)
+    resume_max_abs = state_max_abs(torch, tr_a, tr_b)
+    res["config2"] = dict(
+        **step_summary(rows_a["steps"], "config 2"), gaussians=int(tr_a.model.alive.sum()),
+        capacity=tr_a.model.capacity, load_s=(rows_a["scene"][0][0]
+                                              + rows_a["upload"][0][0]) / 1e3,
+        checkpoint_mb=os.path.getsize(ckpt) / 1e6,
+        checkpoint_save_s=rows_a["save_ckpt"][0][0] / 1e3,
+        checkpoint_load_s=rows_b["load_ckpt"][0][0] / 1e3,
+        resumed_steps=len(rows_b["steps"]), resume_max_abs=resume_max_abs,
+        resume_global_it=(tr_a.global_it, tr_b.global_it))
+    log("[pipeline] config 2: " + json.dumps(res["config2"]))
+    launches["config2"] = {k: la[k] + lb[k] for k in la}
+    want_a = {"K1": PIPE_ITERS + PIPE_TEST_VIEWS, "K2": PIPE_ITERS, "K3": PIPE_ITERS}
+    want_b = {"K1": half + PIPE_TEST_VIEWS, "K2": half, "K3": half}
+    assert (la, lb) == (want_a, want_b), (la, lb)
+    for name, p in tr_a.model.named_parameters():
+        assert torch.isfinite(p).all(), name
+    if resume_max_abs != 0 or tr_a.global_it != tr_b.global_it:
+        failures.append(f"resumed run differs from the uninterrupted one: max-abs "
+                        f"{resume_max_abs}")
+    del tr_a, tr_b
+
+    # ---- config 4: mesh with masks, then the background, then render --with_bg
+    data4, model4 = (os.path.join(tmpdir, n) for n in ("colmap", "model4"))
+    t0 = time.perf_counter()
+    n_points = write_colmap_set(torch, port, model, bg, data4, poses, cfg)
+    log(f"[pipeline] config 4 dataset: {len(poses)} RGB PNGs + masks at "
+        f"{PIPE_SIZE}x{PIPE_SIZE}, {n_points} SfM points, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_test4 = len(range(0, len(poses), 8))                   # llffhold 8
+    tr_c, lc, rows_c = run_cli(torch, port, port.cli_train_mesh.main, [
+        "-s", data4, "-m", model4, "--input_mesh", proxy, "--is_exist_bg",
+        "--init_target", str(INIT_TARGET), "--eval", "--iterations", str(PIPE_ITERS),
+        "--save_iterations", str(PIPE_ITERS), "--test_iterations", str(PIPE_ITERS),
+        *sched, *pipeline_flags(cfg)], port.trainer.MeshTrainer)
+    assert lc == {"K1": PIPE_ITERS + n_test4, "K2": PIPE_ITERS, "K3": PIPE_ITERS}, lc
+
+    # The background: the default threshold 2e-4 is set for 30K-step runs;
+    # grads_avg here is taken over BG_ITERS steps of a fresh model, so the
+    # smoke lowers it to 1e-5 as phase 6 does (the densify logs its
+    # quantiles). The mesh run's shrunk schedule is undone for it: the
+    # window and reset interval of the defaults, its own densify start.
+    grads_seen = []
+    densify = port.bg_trainer.BgTrainer.densify
+
+    def densify_logged(self):
+        g = port.densify.grads_avg(self.model.state)[self.model.alive]
+        q = torch.quantile(g, torch.tensor([0.5, 0.9, 0.99, 0.999], device=g.device))
+        grads_seen.append(dict(quantiles=q.tolist(), max=g.max().item()))
+        return densify(self)
+
+    port.bg_trainer.BgTrainer.densify = densify_logged
+    try:
+        tr_d, ld, rows_d = run_cli(torch, port, port.cli_train_bg.main, [
+            "-m", model4, "--iterations", str(BG_ITERS), "--densify_from_iter",
+            str(BG_DENSIFY_FROM), "--densify_until_iter", "15000",
+            "--opacity_reset_interval", "3000", "--densify_grad_threshold", "1e-5",
+            "--remove_neighbor_gaussian_iterations", str(BG_PRUNE_AT),
+            "--device", "cuda"], port.bg_trainer.BgTrainer)
+    finally:
+        port.bg_trainer.BgTrainer.densify = densify
+    assert ld == {"K1": BG_ITERS, "K2": BG_ITERS, "K3": BG_ITERS}, ld
+    for name, p in list(tr_c.model.named_parameters()) + list(
+            tr_d.model.named_parameters()):
+        assert torch.isfinite(p).all(), name
+    events = {kind: info for _, kind, info in tr_d.events}
+    log(f"[pipeline] background events: {tr_d.events}; grads_avg at the densify "
+        f"(median / p90 / p99 / p99.9, max): {grads_seen}")
+    if [(it, kind) for it, kind, _ in tr_d.events] != [
+            (BG_PRUNE_AT, "prune_near_mesh"), (BG_DENSIFY_FROM, "opacity_reset"),
+            (BG_ITERS, "densify")]:
+        failures.append(f"background events {tr_d.events}")
+    elif events["prune_near_mesh"]["n_retired"] < 1 or (
+            events["densify"]["n_cloned"] + events["densify"]["n_split"] < 1):
+        failures.append(f"the prune retired or the densify added nothing: {events}")
+    prof = phase_profile(torch, lambda i: tr_d.train(1, log_every=10 ** 9), 3, "step",
+                         "bg profile")
+
+    # the kernels on the arguments of one more background step: the
+    # concatenated table (background capacity rows, then the frozen
+    # foreground's), its pair domain, cotangents from the real loss
+    seen = capture_step(torch, port, tr_d)
+    k1, _, _, blended = check_k1(torch, port.tile_blend, seen["K1"],
+                                 tr_d.rt.max_per_tile)
+    log("[pipeline] K1 at the background step's shapes: " + json.dumps(k1))
+    rows, grouped_pos, seg_starts = seen["K3"]
+    k2, k3 = check_k2_k3(torch, port, seen["K2"], grouped_pos, seg_starts,
+                         blended, step_rows=rows)
+    log("[pipeline] K2 at the background step's shapes: " + json.dumps(k2))
+    log("[pipeline] K3 at the background step's shapes: " + json.dumps(k3))
+    del seen, rows, grouped_pos, seg_starts
+
+    # render --with_bg at the background's iteration: the foreground's PLY
+    # of iteration PIPE_ITERS copied beside it (the two runs' lengths differ)
+    pc = os.path.join(model4, "point_cloud")
+    shutil.copy(os.path.join(pc, f"iteration_{PIPE_ITERS}", "point_cloud.ply"),
+                os.path.join(pc, f"iteration_{BG_ITERS}", "point_cloud.ply"))
+    _, lr, _ = run_cli(torch, port, port.cli_render.main, [
+        "-m", model4, "--with_bg", "--skip_train", "--device", "cuda"])
+    assert lr == {"K1": n_test4, "K2": 0, "K3": 0}, lr
+    fg4, _ = port.gaussian_ply.load_mesh_gaussian_ply(
+        os.path.join(pc, f"iteration_{BG_ITERS}", "point_cloud.ply"), device="cuda")
+    bg4 = port.gaussian_ply.load_gaussian_ply(
+        os.path.join(pc, f"iteration_{BG_ITERS}", "bg_point_cloud.ply"), device="cuda")
+    scene4 = port.scene.Scene(port.config.ModelParams(source_path=data4, eval=True),
+                              shuffle=False)
+    levels = []
+    with torch.no_grad():
+        for i, cam in enumerate(scene4.test_cameras):
+            ca = cam.arrays("cuda")
+            out = port.render.render(port.render.concat_arrays(
+                port.render.mesh_model_arrays(fg4, ca, SH_DEGREE),
+                port.render.gaussian_model_arrays(bg4, ca, SH_DEGREE)), ca, cfg,
+                torch.ones(3, device="cuda"))
+            assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+            png = port.png.read_png(os.path.join(model4, "test", f"ours_{BG_ITERS}",
+                                                 "renders", f"{i:05d}.png"))
+            levels.append(int(np.abs(png.astype(int)
+                                     - port.cli_common.to_uint8(out.color)).max()))
+    res["config4"] = dict(
+        mesh=dict(**step_summary(rows_c["steps"], "config 4 mesh"),
+                  gaussians=int(tr_c.model.alive.sum()),
+                  load_s=(rows_c["scene"][0][0] + rows_c["upload"][0][0]) / 1e3),
+        bg=dict(**step_summary(rows_d["steps"], "config 4 background"),
+                capacity=tr_d.model.capacity, alive=int(tr_d.model.alive.sum()),
+                fg_gaussians=tr_d.fg.capacity, sfm_points=n_points,
+                load_s=(rows_d["scene"][0][0] + rows_d["upload"][0][0]) / 1e3,
+                device_busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+                device_operations=prof["launches"], events=events),
+        render_views=n_test4, render_png_max_levels=levels)
+    log("[pipeline] config 4: " + json.dumps(res["config4"]))
+    launches["config4"] = {k: lc[k] + ld[k] + lr[k] for k in lc}
+    if max(levels) != 0:
+        failures.append(f"--with_bg PNGs differ from the in-process render by {levels}")
+    assert not failures, failures
+    return res, {k: sum(x[k] for x in launches.values()) for k in ("K1", "K2", "K3")}, (
+        k1, k2, k3)
+
+
+def load_port():
+    """The port's modules the phases use, as one namespace."""
     from gaussianmesh_tpu_torch import config
     from gaussianmesh_tpu_torch.io import gaussian_ply
     from gaussianmesh_tpu_torch.models import mesh_gaussians, render
@@ -1246,41 +1650,65 @@ def main() -> int:
     from gaussianmesh_tpu_torch.train import densify, trainer
     from gaussianmesh_tpu_torch.utils import graphics, maths
 
+    from gaussianmesh_tpu_torch import scene
     from gaussianmesh_tpu_torch.cli import common as cli_common, edit as cli_edit
+    from gaussianmesh_tpu_torch.cli import render as cli_render
+    from gaussianmesh_tpu_torch.cli import train_bg as cli_train_bg
+    from gaussianmesh_tpu_torch.cli import train_mesh as cli_train_mesh
     from gaussianmesh_tpu_torch.data import cameras
     from gaussianmesh_tpu_torch.edit import pose_paths, runtime
-    from gaussianmesh_tpu_torch.io import mesh as mesh_io
+    from gaussianmesh_tpu_torch.io import colmap, mesh as mesh_io, png
     from gaussianmesh_tpu_torch.models import gaussians
+    from gaussianmesh_tpu_torch.train import bg_trainer
     from gaussianmesh_tpu_torch.utils import sh
 
-    port = types.SimpleNamespace(
+    return types.SimpleNamespace(
         gaussian_ply=gaussian_ply, mesh_gaussians=mesh_gaussians, render=render,
         binning=binning, oracle=oracle, preprocess=preprocess,
         rasterize=rasterize, segsum=segsum, tile_blend=tile_blend,
         graphics=graphics, maths=maths, config=config, trainer=trainer,
         densify=densify, _cuda=_cuda, runtime=runtime, pose_paths=pose_paths,
         cameras=cameras, mesh_io=mesh_io, gaussians=gaussians, sh=sh,
-        cli_common=cli_common, cli_edit=cli_edit)
+        cli_common=cli_common, cli_edit=cli_edit, cli_train_mesh=cli_train_mesh,
+        cli_train_bg=cli_train_bg, cli_render=cli_render, scene=scene, png=png,
+        colmap=colmap, bg_trainer=bg_trainer)
+
+
+def main() -> int:
+    import torch
+
+    smi = phase_card(torch)
+    port = load_port()
     t_start = time.perf_counter()
-    phase_build(_cuda)
+    phase_build(port._cuda)
     phase_oracle(torch, port)
     with tempfile.TemporaryDirectory() as tmpdir:
         model, cam, cfg, render_k1, frames = phase_slice(torch, port, tmpdir)
         results, fullscreen = phase_kernels(torch, port, model, cam, cfg)
-        train_launches, step_ms, results["train"] = phase_train(torch, port, model)
+        train_launches, step_ms, results["train"], train_rt = phase_train(
+            torch, port, model)
         t_play = time.perf_counter()
         playback, k1_composite, playback_launches = phase_playback(
             torch, port, model, cam, cfg, tmpdir)
         t_play = time.perf_counter() - t_play
+        t_pipe = time.perf_counter()
+        pipeline, pipeline_launches, results["pipeline"] = phase_pipeline(
+            torch, port, model, train_rt, tmpdir)
+        t_pipe = time.perf_counter() - t_pipe
     results["composite"] = (k1_composite, None, None)
     kernels = kernel_line(results, fullscreen,
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
-                           "train": train_launches, "playback": playback_launches})
+                           "train": train_launches, "playback": playback_launches,
+                           "pipeline": pipeline_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
         f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
     log(f"[done] playback phase {t_play:.1f} s; 1080p playback frame ms mean: "
         f"config 3 {playback['config3']['frame_ms_mean']:.3f}, config 5 "
         f"{playback['config5']['frame_ms_mean']:.3f}")
+    log(f"[done] pipeline phase {t_pipe:.1f} s; step ms median: config 2 "
+        f"{pipeline['config2']['step_ms_median']:.3f}, config 4 mesh "
+        f"{pipeline['config4']['mesh']['step_ms_median']:.3f}, background "
+        f"{pipeline['config4']['bg']['step_ms_median']:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

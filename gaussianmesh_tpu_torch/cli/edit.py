@@ -71,10 +71,7 @@ def main(argv=None) -> None:
         sel = cams if args.all_cameras else [cams[args.camera_index]]
 
     def cfg_for(cam):
-        return RasterizerConfig(
-            width=cam.width, height=cam.height, max_per_tile=rt.max_per_tile,
-            pair_capacity_per_gaussian=rt.pair_capacity_per_gaussian,
-            row_capacity_per_gaussian=rt.row_capacity_per_gaussian)
+        return RasterizerConfig.from_runtime(rt, cam.width, cam.height)
 
     os.makedirs(args.out, exist_ok=True)
     t_start = time.time()

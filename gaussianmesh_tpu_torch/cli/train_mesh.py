@@ -1,0 +1,121 @@
+"""Train the mesh-bound foreground model from a dataset on disk (port of
+`gaussianmesh_tpu/cli/train_mesh.py`; the reference train_mesh_gaussian.py).
+
+    python -m gaussianmesh_tpu_torch.cli.train_mesh -s <data> -m <out> \
+        --input_mesh proxy.obj [--is_exist_bg] [--iterations 30000] [--device cpu]
+
+Runs on CUDA unless `--device cpu` is given, and raises without a card.
+Writes the JAX package's model-directory layout (`scene.py`): a directory
+written here renders in either package. The flags, boundaries and output
+are the JAX command line's: test / save / checkpoint iterations past
+`--iterations` are dropped; checkpoints are `chkpnt<N>.ckpt` in the model
+directory (`utils/checkpoint.py`), `--start_checkpoint` resumes from one and
+`--auto_resume` from the newest. One difference: the test PSNR compares
+each render with its image masked onto the constant background, as
+`MeshTrainer.eval_psnr` does (the JAX command line compares with the
+unmasked image).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+
+from gaussianmesh_tpu_torch import config as cfg_mod
+from gaussianmesh_tpu_torch.cli.common import base_parser
+
+
+def latest_checkpoint(model_path: str) -> str | None:
+    """The chkpnt<N>.ckpt with the largest N in `model_path`, if any."""
+    found = glob.glob(os.path.join(model_path, "chkpnt*.ckpt"))
+    return max(found, key=lambda f: int(re.sub(r"\D", "", os.path.basename(f))),
+               default=None)
+
+
+def main(argv=None):
+    """-> the `MeshTrainer` at the end of training."""
+    parser = base_parser("Train mesh-bound Gaussians (PyTorch + CUDA)")
+    parser.add_argument("--input_mesh", type=str, required=True)
+    parser.add_argument("--is_exist_bg", action="store_true", default=False)
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--auto_resume", action="store_true", default=False,
+                        help="resume from the latest chkpnt*.ckpt in the "
+                             "model dir (crash recovery)")
+    parser.add_argument("--init_target", type=int, default=100_000)
+    args = parser.parse_args(argv)
+
+    model = cfg_mod.extract(cfg_mod.ModelParams, args)
+    opt = cfg_mod.extract(cfg_mod.OptimizationParams, args)
+    pipe = cfg_mod.extract(cfg_mod.PipelineParams, args)
+    rt = cfg_mod.extract(cfg_mod.RuntimeParams, args)
+    if not model.model_path:
+        model = cfg_mod.ModelParams(**{**model.__dict__, "model_path": os.path.join(
+            "output", "mesh_gaussian")})
+    cfg_mod.save_cfg(model.model_path, {"model": model, "pipeline": pipe,
+                                        "optimization": opt, "runtime": rt})
+
+    from gaussianmesh_tpu_torch import resolve_device
+    from gaussianmesh_tpu_torch.io import mesh as mesh_io
+    from gaussianmesh_tpu_torch.scene import Scene
+    from gaussianmesh_tpu_torch.train.trainer import DeviceDataset, MeshTrainer
+    from gaussianmesh_tpu_torch.utils.logging import TrainLogger
+
+    device = resolve_device(args.device)
+    scene = Scene(model, is_exist_bg=args.is_exist_bg, seed=rt.seed)
+    scene.write_static_artifacts()
+    ds = DeviceDataset.from_cameras(scene.train_cameras, device=device)
+    v, f = mesh_io.read_triangle_mesh(args.input_mesh)
+    print(f"[train] proxy mesh: {v.shape[0]} verts, {f.shape[0]} faces; "
+          f"{len(scene.train_cameras)} train cams; "
+          f"extent {scene.cameras_extent:.3f}; {device}")
+
+    trainer = MeshTrainer(v, f, ds, opt, rt, spatial_lr_scale=scene.cameras_extent,
+                          white_background=model.white_background,
+                          is_exist_bg=args.is_exist_bg,
+                          init_target=args.init_target,
+                          max_sh_degree=model.sh_degree)
+    trainer.logger = TrainLogger(model.model_path)
+    ckpt_path = args.start_checkpoint
+    if args.auto_resume and not ckpt_path:
+        ckpt_path = latest_checkpoint(model.model_path)
+    if ckpt_path:
+        trainer.load_ckpt(ckpt_path)
+        print(f"[train] resumed from {ckpt_path} at iter {trainer.global_it}")
+    print(f"[train] {int(trainer.model.alive.sum())} gaussians after init")
+
+    test_iters = {b for b in args.test_iterations if b <= opt.iterations}
+    save_iters = {b for b in args.save_iterations if b <= opt.iterations}
+    ckpt_iters = {b for b in args.checkpoint_iterations if b <= opt.iterations}
+
+    def cb(m):
+        print(f"  iter {m['iter']:>6d}  loss {m['loss']:.5f}  "
+              f"n {m['n_alive']}  {m['elapsed']:.0f}s", flush=True)
+
+    test_ds = (DeviceDataset.from_cameras(scene.test_cameras, device=device)
+               if scene.test_cameras and test_iters else None)
+    prev = trainer.global_it
+    for b in sorted(test_iters | save_iters | ckpt_iters | {opt.iterations}):
+        if b <= prev:
+            continue
+        trainer.train(iterations=b - prev, log_every=200, callback=cb)
+        prev = b
+        if b in save_iters or b == opt.iterations:
+            print(f"[ITER {b}] Saving Gaussians")
+            trainer.save(scene.iteration_dir(b))
+        if b in ckpt_iters:
+            trainer.save_ckpt(os.path.join(model.model_path, f"chkpnt{b}.ckpt"))
+        if b in test_iters and test_ds is not None:
+            print(f"[ITER {b}] test PSNR {trainer.eval_psnr(dataset=test_ds):.2f}")
+    trainer.logger.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

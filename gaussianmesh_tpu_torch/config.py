@@ -8,12 +8,12 @@ run stores the merged groups as JSON `cfg_args.json` in its model directory
 and `load_combined` overlays the command line on it.
 
 Left out, because nothing in the port reads them:
-`OptimizationParams.random_background` (the background trainer) and
-`percent_dense`, `RuntimeParams.blend_chunk` and `use_pallas` (TPU kernel
-options), and the device-mesh fields `data_axis`, `tile_axis` and
-`shard_gaussians` (multi-device training). `load_combined` skips those keys
-in a `cfg_args.json` the JAX package wrote, so a model directory trained by
-either package loads here.
+`RuntimeParams.blend_chunk` and `use_pallas` (TPU kernel options), and the
+device-mesh fields `data_axis`, `tile_axis` and `shard_gaussians`
+(multi-device training). `load_combined` skips those keys in a
+`cfg_args.json` the JAX package wrote, so a model directory trained by
+either package loads here; every key the port writes is one of the JAX
+package's, so the reverse holds too.
 """
 
 from __future__ import annotations
@@ -61,12 +61,14 @@ class OptimizationParams:
     opacity_lr: float = 0.05
     scaling_lr: float = 0.005
     rotation_lr: float = 0.001
+    percent_dense: float = 0.01
     lambda_dssim: float = 0.2
     densification_interval: int = 200
     opacity_reset_interval: int = 3000
     densify_from_iter: int = 500
     densify_until_iter: int = 15_000
     densify_grad_threshold: float = 0.0002
+    random_background: bool = True
     alpha_mrloss: float = 6.0
 
 
@@ -86,8 +88,7 @@ GROUPS = {"model": ModelParams, "pipeline": PipelineParams,
           "optimization": OptimizationParams, "runtime": RuntimeParams}
 
 # fields of the JAX package's groups that the port leaves out (see above)
-JAX_ONLY = {"optimization": ("percent_dense", "random_background"),
-            "runtime": ("blend_chunk", "use_pallas", "data_axis", "tile_axis",
+JAX_ONLY = {"runtime": ("blend_chunk", "use_pallas", "data_axis", "tile_axis",
                         "shard_gaussians")}
 
 

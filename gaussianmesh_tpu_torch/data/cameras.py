@@ -1,5 +1,5 @@
-"""Host-side cameras (port of `gaussianmesh_tpu/data/cameras.py`, without
-image IO: reading datasets from disk comes with the command-line slice).
+"""Host-side cameras and the resolution ladder (port of
+`gaussianmesh_tpu/data/cameras.py`; datasets are read by `data/readers.py`).
 
 A `Camera` carries the (R, T, fov) extrinsics in the COLMAP/3DGS convention,
 the ground-truth image (float32 CHW in [0, 1]) and an optional mask, and
@@ -65,6 +65,20 @@ class Camera:
         the caller asks for the CPU)."""
         return CameraArrays.from_numpy(*self.arrays_np(),
                                        device=resolve_device(device))
+
+
+def pick_resolution(orig_w: int, orig_h: int, resolution: int,
+                    resolution_scale: float = 1.0) -> tuple[int, int]:
+    """The -1 -> 1600 px cap ladder (utils/camera_utils.py:22-39)."""
+    if resolution in (1, 2, 4, 8):
+        return (round(orig_w / (resolution_scale * resolution)),
+                round(orig_h / (resolution_scale * resolution)))
+    if resolution == -1:
+        global_down = orig_w / 1600 if orig_w > 1600 else 1
+    else:
+        global_down = orig_w / resolution
+    scale = float(global_down) * float(resolution_scale)
+    return int(orig_w / scale), int(orig_h / scale)
 
 
 def camera_to_json(cam_id: int, cam: Camera) -> dict:

@@ -50,6 +50,13 @@ def gaussian_model_arrays(model: GaussianModel, cam: CameraArrays,
                           active=model.alive)
 
 
+def freeze(a: GaussianArrays) -> GaussianArrays:
+    """Detach a model that is composited but not trained (bg_render's frozen
+    mesh model, gaussian_renderer/__init__.py:221-232). Build its arrays
+    under `torch.no_grad()` as well, so no graph is recorded for them."""
+    return GaussianArrays(*(x.detach() for x in a))
+
+
 def concat_arrays(a: GaussianArrays, b: GaussianArrays) -> GaussianArrays:
     return GaussianArrays(*(torch.cat([x, y], dim=0) for x, y in zip(a, b)))
 

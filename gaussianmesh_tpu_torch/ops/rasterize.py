@@ -37,6 +37,12 @@ class RasterizerConfig:
     pair_capacity_per_gaussian: int = 10
     row_capacity_per_gaussian: int = 4
 
+    @classmethod
+    def from_runtime(cls, rt, width: int, height: int) -> "RasterizerConfig":
+        """The capacities of a `config.RuntimeParams` at a view's size."""
+        return cls(width, height, rt.max_per_tile, rt.pair_capacity_per_gaussian,
+                   rt.row_capacity_per_gaussian)
+
     def expand_capacity(self, n: int) -> int:
         return n * self.pair_capacity_per_gaussian
 

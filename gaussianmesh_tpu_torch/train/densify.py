@@ -13,20 +13,39 @@ densification statistics reset to zero afterwards. `split_all_for_init` is
 the same pass with every Gaussian selected and 4 children (the init loop,
 densify_and_split_for_init:596-647).
 
-Running out of room is reported (`dropped`), never silent: the trainer grows
-the capacities and retries. The background model's densification is a later
-slice.
+The background model (vanilla 3DGS, reference scene/gaussian_model.py:
+373-427) densifies by `densify_and_prune_bg`: clone small high-gradient
+Gaussians, split large ones into 2 resampled children, prune by opacity;
+`prune_near_mesh` retires background Gaussians close to the mesh model.
+
+Running out of room is reported (`dropped`), never silent: the trainers grow
+the capacities (`round_up`, `pad0`) and retry.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from gaussianmesh_tpu_torch.models.gaussians import GaussianModel
 from gaussianmesh_tpu_torch.models.mesh_gaussians import (
     MeshGaussianModel, MeshGaussianState, MeshVertices, empty_state)
+from gaussianmesh_tpu_torch.utils.maths import normalize, quat_to_rotmat
 from gaussianmesh_tpu_torch.utils.subdivision import CHILD_IDX_CODE, CHILD_W
+
+
+def round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def pad0(x: torch.Tensor, new_cap: int) -> torch.Tensor:
+    """x padded with zero (False) rows to new_cap rows."""
+    n = new_cap - x.shape[0]
+    if n <= 0:
+        return x
+    return torch.cat([x, x.new_zeros((n,) + tuple(x.shape[1:]))])
 
 
 class SplitResult(NamedTuple):
@@ -196,3 +215,136 @@ def add_densification_stats(state: MeshGaussianState, mean2d_grad: torch.Tensor,
 def grads_avg(state: MeshGaussianState) -> torch.Tensor:
     g = state.grad_accum / torch.clamp(state.denom, min=1.0)
     return torch.nan_to_num(g, nan=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The background model: vanilla 3DGS adaptive density control
+# ---------------------------------------------------------------------------
+
+
+class BgDensifyResult(NamedTuple):
+    model: GaussianModel          # new parameters and alive mask, zero statistics
+    mu: dict[str, torch.Tensor]
+    nu: dict[str, torch.Tensor]
+    n_cloned: int
+    n_split: int
+    n_pruned: int
+    dropped: int                  # candidates with no room
+
+
+@torch.no_grad()
+def densify_and_prune_bg(model: GaussianModel, mu: dict, nu: dict,
+                         grads_avg: torch.Tensor, eps: torch.Tensor,
+                         grad_threshold: float, min_opacity: float,
+                         extent: float, percent_dense: float,
+                         max_screen: float, max_new: int) -> BgDensifyResult:
+    """Clone + split (N = 2) + prune in one compaction pass (the JAX
+    `densify_and_prune_bg`); -> a new model (the input is not modified).
+
+    Candidates are the alive rows with grads_avg >= grad_threshold, ranked
+    by gradient (ties in index order, as `jax.lax.top_k`), at most
+    `max_new`: a clone (largest scale <= percent_dense * extent) takes one
+    free slot, a split two (its parent retires). Split children sample
+    their position N(mean, Sigma) from `eps` (2 max_new, 3) standard normal
+    draws, row 2 i + k for candidate rank i's child k, and divide the scale
+    by 1.6. Then rows with opacity < min_opacity die; `max_screen` <= 0
+    turns the screen / world size prune off (the reference passes
+    size_threshold=None in background training, train_bg_gaussian.py:148)."""
+    alive = model.alive
+    c = alive.shape[0]
+    dev = alive.device
+    if max_new > c:
+        raise ValueError(f"max_new {max_new} exceeds the capacity {c}")
+    p = model.params()
+    max_scale = torch.exp(p["scaling"]).amax(dim=1)
+    hot = alive & (grads_avg >= grad_threshold)
+    small = max_scale <= percent_dense * extent
+    split_sel = hot & ~small
+    score = torch.where(hot, grads_avg, float("-inf"))
+    top_score, cand = torch.sort(score, descending=True, stable=True)
+    top_score, cand = top_score[:max_new], cand[:max_new]
+    cand_ok = top_score > float("-inf")
+    cand_is_split = split_sel[cand]
+
+    # candidate i takes `need` slots from slot0 on, in the ascending free rows
+    n_free = int((~alive).sum())
+    need = torch.where(cand_ok, torch.where(cand_is_split, 2, 1), 0)
+    slot0 = torch.cumsum(need, 0) - need
+    ok = cand_ok & (slot0 + need <= n_free)
+    n_cloned = int((ok & ~cand_is_split).sum())
+    n_split = int((ok & cand_is_split).sum())
+    dropped = int(cand_ok.sum()) - n_cloned - n_split
+
+    free_idx = torch.nonzero(~alive).flatten()[:2 * max_new]
+    k_ids = torch.arange(2 * max_new, device=dev)
+    ci, k = k_ids // 2, k_ids % 2
+    needed = ok[ci] & (k < need[ci])                     # child rows written
+    parent = cand[ci][needed]
+    dest = free_idx[(slot0[ci] + k)[needed]]
+    is_split_row = cand_is_split[ci][needed][:, None]
+
+    rot = quat_to_rotmat(normalize(p["rotation"][parent]))
+    sample = p["xyz"][parent] + torch.einsum(
+        "nij,nj->ni", rot, eps[needed] * torch.exp(p["scaling"][parent]))
+    new_vals = {k_: v[parent] for k_, v in p.items()}
+    new_vals["xyz"] = torch.where(is_split_row, sample, new_vals["xyz"])
+    new_vals["scaling"] = torch.where(is_split_row,
+                                      new_vals["scaling"] - math.log(0.8 * 2),
+                                      new_vals["scaling"])
+
+    def scat(arr, vals):
+        out = arr.detach().clone()
+        out[dest] = vals
+        return out
+
+    params = {k_: scat(v, new_vals[k_]) for k_, v in p.items()}
+    kill = torch.zeros(c, dtype=torch.bool, device=dev)
+    kill[cand[ok & cand_is_split]] = True
+    new_alive = alive & ~kill
+    new_alive[dest] = True
+
+    prune = new_alive & (torch.sigmoid(params["opacity"][:, 0]) < min_opacity)
+    if max_screen > 0:
+        size_prune = (model.state.max_radii2d > max_screen) | (
+            torch.exp(params["scaling"]).amax(dim=1) > 0.1 * extent)
+        prune = prune | (new_alive & size_prune)
+    n_pruned = int(prune.sum())
+    new_alive = new_alive & ~prune
+
+    def zero_at_dest(m):
+        out = m.clone()
+        out[dest] = 0.0
+        return out
+
+    return BgDensifyResult(
+        model=GaussianModel(params, new_alive),
+        mu={n: zero_at_dest(m) for n, m in mu.items()},
+        nu={n: zero_at_dest(m) for n, m in nu.items()},
+        n_cloned=n_cloned, n_split=n_split, n_pruned=n_pruned, dropped=dropped)
+
+
+reset_opacity_bg = reset_opacity  # the same law for both models
+
+# background rows per distance matmul: 1,024 x 491,692 alive mesh rows of
+# config 4 is a 2 GB f32 block on the card
+NEAR_MESH_CHUNK = 1024
+
+
+@torch.no_grad()
+def prune_near_mesh(alive: torch.Tensor, bg_xyz: torch.Tensor,
+                    mesh_xyz: torch.Tensor, mesh_alive: torch.Tensor,
+                    min_dist_sq: float = 0.01) -> torch.Tensor:
+    """Retire background Gaussians whose nearest alive mesh Gaussian is
+    closer than sqrt(min_dist_sq) (train_bg_gaussian.py:129-138, squared
+    distances as jt.misc.knn gives them) -> the new alive mask. Distances in
+    the JAX package's expanded form |b|^2 + |m|^2 - 2 b.m (dead mesh rows at
+    +inf), an f32 matmul per NEAR_MESH_CHUNK background rows."""
+    m_sq = torch.where(mesh_alive, torch.sum(mesh_xyz * mesh_xyz, dim=1),
+                       float("inf"))
+    dmin = []
+    for s in range(0, bg_xyz.shape[0], NEAR_MESH_CHUNK):
+        b = bg_xyz[s:s + NEAR_MESH_CHUNK]
+        d2 = (torch.sum(b * b, dim=1)[:, None] + m_sq[None, :]
+              - 2.0 * (b @ mesh_xyz.T))
+        dmin.append(d2.amin(dim=1))
+    return alive & ~(torch.cat(dmin) < min_dist_sq)

@@ -58,19 +58,31 @@ class Adam:
         self.step = count
 
 
-def mesh_lr_fn(opt: OptimizationParams, spatial_lr_scale: float
-               ) -> Callable[[int], dict[str, float]]:
-    """Per-parameter learning rates of the mesh model at a step (the JAX
-    `mesh_lr_tree_fn`): bc and distance follow the position schedule scaled
-    by the scene extent."""
+def _lr_fn(opt: OptimizationParams, spatial_lr_scale: float,
+           position_fields: tuple[str, ...]) -> Callable[[int], dict[str, float]]:
     def fn(step: int) -> dict[str, float]:
         pos_lr = expon_lr(step, opt.position_lr_init * spatial_lr_scale,
                           opt.position_lr_final * spatial_lr_scale,
                           lr_delay_mult=opt.position_lr_delay_mult,
                           max_steps=opt.position_lr_max_steps)
-        return {"bc": pos_lr, "distance": pos_lr,
+        return {**{k: pos_lr for k in position_fields},
                 "features_dc": opt.feature_lr,
                 "features_rest": opt.feature_lr / 20.0,
                 "scaling": opt.scaling_lr, "rotation": opt.rotation_lr,
                 "opacity": opt.opacity_lr}
     return fn
+
+
+def mesh_lr_fn(opt: OptimizationParams, spatial_lr_scale: float
+               ) -> Callable[[int], dict[str, float]]:
+    """Per-parameter learning rates of the mesh model at a step (the JAX
+    `mesh_lr_tree_fn`): bc and distance follow the position schedule scaled
+    by the scene extent."""
+    return _lr_fn(opt, spatial_lr_scale, ("bc", "distance"))
+
+
+def gaussian_lr_fn(opt: OptimizationParams, spatial_lr_scale: float
+                   ) -> Callable[[int], dict[str, float]]:
+    """The background model's learning rates (the JAX `gaussian_lr_tree_fn`):
+    xyz follows the position schedule."""
+    return _lr_fn(opt, spatial_lr_scale, ("xyz",))

@@ -20,6 +20,11 @@ a `torch.Generator` seeded with `rt.seed` (other draws than `jax.random`);
 multi-device training is a later slice. The reference's skip of the
 optimizer step on densify iterations (train_mesh_gaussian.py:140-141) is not
 replicated, as in the JAX package.
+
+`capture()` is the whole training state as a host copy (the generator's
+state included, the counterpart of the JAX capture's `key`), so a run
+resumed from `save_ckpt` / `load_ckpt` draws the views and backgrounds the
+uninterrupted run draws and ends with the same bits.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from gaussianmesh_tpu_torch.ops.rasterize import RasterizerConfig
 from gaussianmesh_tpu_torch.train import densify as densify_mod
 from gaussianmesh_tpu_torch.train import loss as loss_mod
 from gaussianmesh_tpu_torch.train.optim import Adam, mesh_lr_fn
+from gaussianmesh_tpu_torch.utils import checkpoint as ckpt_mod
 from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
 
 
@@ -94,24 +100,15 @@ class DeviceDataset:
         return gt
 
 
-def _round_up(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
-
-
-def _pad0(x: torch.Tensor, new_cap: int) -> torch.Tensor:
-    """x padded with zero (False) rows to new_cap rows."""
-    n = new_cap - x.shape[0]
-    if n <= 0:
-        return x
-    return torch.cat([x, x.new_zeros((n,) + tuple(x.shape[1:]))])
-
 
 class MeshTrainer:
     """Trains a mesh-bound model on a `DeviceDataset`. State: `model`
     (`MeshGaussianModel`, with its vertex pool and statistics), `adam`
     (moments keyed like the parameters, one step counter), `sh_degree`,
-    `global_it`. `events` lists (iteration, kind, details) for every
-    densify and opacity reset."""
+    `global_it`, and `gen`, the generator of views and backgrounds.
+    `events` lists (iteration, kind, details) for every densify and opacity
+    reset; `logger` (a `utils.logging.TrainLogger`, optional) receives every
+    logged row."""
 
     def __init__(self, mesh_vertices: np.ndarray, mesh_triangles: np.ndarray,
                  dataset: DeviceDataset, opt: OptimizationParams,
@@ -133,8 +130,8 @@ class MeshTrainer:
         while n <= init_target:
             n *= 4
             rounds += 1
-        cap = _round_up(int(n * 2.0), 4096) if rt.capacity == 0 else rt.capacity
-        vcap = _round_up(mesh_vertices.shape[0] + n * 2, 4096)
+        cap = densify_mod.round_up(int(n * 2.0), 4096) if rt.capacity == 0 else rt.capacity
+        vcap = densify_mod.round_up(mesh_vertices.shape[0] + n * 2, 4096)
         gen = torch.Generator(device=self.device).manual_seed(rt.seed)
         self.model = mgs.create_from_mesh(
             mesh_vertices, mesh_triangles, capacity=cap, vertex_capacity=vcap,
@@ -143,12 +140,13 @@ class MeshTrainer:
 
         cur = n_faces                   # init loop (train_mesh_gaussian.py:60-61)
         for _ in range(rounds):
-            self._split_all(max_split=_round_up(cur, 256))
+            self._split_all(max_split=densify_mod.round_up(cur, 256))
             cur *= 4
         self.sh_degree = 0
         self.global_it = 0
         self.metrics_log: list[dict] = []
         self.events: list[tuple[int, str, dict]] = []
+        self.logger = None
 
     # ------------------------------------------------------------ densify
     def _apply_split(self, res: densify_mod.SplitResult):
@@ -166,23 +164,23 @@ class MeshTrainer:
     def _grow(self, new_cap: int):
         """Pad every per-Gaussian tensor to `new_cap` (rounded up to 4096)
         rows of dead capacity; the vertex pool grows to twice that."""
-        new_cap = _round_up(new_cap, 4096)
+        new_cap = densify_mod.round_up(new_cap, 4096)
         m = self.model
-        params = {k: _pad0(v.detach(), new_cap) for k, v in m.params().items()}
-        binding = {k: _pad0(v, new_cap) for k, v in m.binding().items()}
-        state = mgs.MeshGaussianState(*(_pad0(x, new_cap) for x in m.state))
+        params = {k: densify_mod.pad0(v.detach(), new_cap) for k, v in m.params().items()}
+        binding = {k: densify_mod.pad0(v, new_cap) for k, v in m.binding().items()}
+        state = mgs.MeshGaussianState(*(densify_mod.pad0(x, new_cap) for x in m.state))
         pool = m.mesh_v
         if pool.v.shape[0] < 2 * new_cap:
-            pool = pool._replace(v=_pad0(pool.v, 2 * new_cap))
+            pool = pool._replace(v=densify_mod.pad0(pool.v, 2 * new_cap))
         self.model = mgs.MeshGaussianModel(params, binding, mesh_v=pool,
                                            state=state)
-        self.adam.mu = {k: _pad0(v, new_cap) for k, v in self.adam.mu.items()}
-        self.adam.nu = {k: _pad0(v, new_cap) for k, v in self.adam.nu.items()}
+        self.adam.mu = {k: densify_mod.pad0(v, new_cap) for k, v in self.adam.mu.items()}
+        self.adam.nu = {k: densify_mod.pad0(v, new_cap) for k, v in self.adam.nu.items()}
 
     def densify(self) -> int:
         """One densify-by-subdivision pass (N = 5 children); grows the
         capacities and retries when it runs out of room. -> parents split."""
-        max_split = _round_up(max(256, self.model.capacity // 16), 256)
+        max_split = densify_mod.round_up(max(256, self.model.capacity // 16), 256)
         for _attempt in range(4):
             grads = densify_mod.grads_avg(self.model.state)
             res = densify_mod.densify_and_split(
@@ -202,12 +200,9 @@ class MeshTrainer:
         self.adam.nu["opacity"] = torch.zeros_like(self.adam.nu["opacity"])
 
     # --------------------------------------------------------------- step
-    def raster_cfg(self) -> RasterizerConfig:
-        return RasterizerConfig(
-            width=self.ds.width, height=self.ds.height,
-            max_per_tile=self.rt.max_per_tile,
-            pair_capacity_per_gaussian=self.rt.pair_capacity_per_gaussian,
-            row_capacity_per_gaussian=self.rt.row_capacity_per_gaussian)
+    def raster_cfg(self, ds: DeviceDataset | None = None) -> RasterizerConfig:
+        ds = ds or self.ds
+        return RasterizerConfig.from_runtime(self.rt, ds.width, ds.height)
 
     def step(self, cam_idx: int, bg: torch.Tensor) -> dict[str, torch.Tensor]:
         """One training step on view `cam_idx` over background `bg` (3,):
@@ -292,24 +287,31 @@ class MeshTrainer:
                 m.update(iter=it, n_alive=int(self.model.alive.sum()),
                          elapsed=time.time() - t0)
                 self.metrics_log.append(m)
+                if self.logger is not None:
+                    self.logger.scalars(it, {f"train/{k}": v for k, v in m.items()
+                                             if k != "iter"})
                 if callback:
                     callback(m)
         return self.metrics_log
 
     # --------------------------------------------------------------- eval
     @torch.no_grad()
-    def render_view(self, cam: CameraArrays, bg: torch.Tensor | None = None):
+    def render_view(self, cam: CameraArrays, bg: torch.Tensor | None = None,
+                    cfg: RasterizerConfig | None = None):
         arrays = render_mod.mesh_model_arrays(self.model, cam, self.sh_degree)
-        return render_mod.render(arrays, cam, self.raster_cfg(),
+        return render_mod.render(arrays, cam, cfg or self.raster_cfg(),
                                  self.bg_const if bg is None else bg)
 
-    def eval_psnr(self, indices=None) -> float:
-        indices = range(self.ds.images.shape[0]) if indices is None else indices
+    def eval_psnr(self, indices=None, dataset: DeviceDataset | None = None) -> float:
+        """Mean PSNR over views of `dataset` (default: the training set),
+        each against its image masked onto the constant background."""
+        ds = dataset or self.ds
+        indices = range(ds.images.shape[0]) if indices is None else indices
+        cfg = self.raster_cfg(ds)
         vals = []
         for i in indices:
-            out = self.render_view(self.ds.camera(i))
-            vals.append(float(loss_mod.psnr(out.color,
-                                             self.ds.target(i, self.bg_const))))
+            out = self.render_view(ds.camera(i), cfg=cfg)
+            vals.append(float(loss_mod.psnr(out.color, ds.target(i, self.bg_const))))
         return float(np.mean(vals))
 
     # ---------------------------------------------------------- artifacts
@@ -327,26 +329,58 @@ class MeshTrainer:
             self.model.vertex_index.cpu().numpy()[alive])
 
     def capture(self) -> dict:
-        """The whole training state (the reference's capture())."""
-        return dict(model=self.model, mu=self.adam.mu, nu=self.adam.nu,
-                    step=self.adam.step, sh_degree=self.sh_degree,
-                    global_it=self.global_it)
+        """The whole training state as a host copy (the reference's
+        capture()): "params", "binding", "state", "mu", "nu" ({field: CPU
+        tensor}), "mesh_v" ({"v": tensor, "count": int}), "step",
+        "sh_degree", "global_it" (ints) and "gen" (the generator's state).
+        Later steps leave it unchanged."""
+        m = self.model
+        return dict(params=copy_tree(m.params()), binding=copy_tree(m.binding()),
+                    mesh_v=copy_tree(m.mesh_v._asdict()),
+                    state=copy_tree(m.state._asdict()), mu=copy_tree(self.adam.mu),
+                    nu=copy_tree(self.adam.nu), step=int(self.adam.step),
+                    sh_degree=int(self.sh_degree), global_it=int(self.global_it),
+                    gen=self.gen.get_state())
 
     def restore(self, state: dict) -> None:
-        """Take over a state from `capture()` or `trainer_state_from_numpy`."""
-        self.model = state["model"]
-        self.adam.mu, self.adam.nu = dict(state["mu"]), dict(state["nu"])
+        """Take over a state from `capture()` or `trainer_state_from_numpy`
+        (which carries no generator state: the generator stays as it is),
+        copied onto the trainer's device."""
+        dev = self.device
+        self.model = mgs.MeshGaussianModel(
+            copy_tree(state["params"], dev), copy_tree(state["binding"], dev),
+            mesh_v=mgs.MeshVertices(**copy_tree(state["mesh_v"], dev)),
+            state=mgs.MeshGaussianState(**copy_tree(state["state"], dev)))
+        self.adam.mu = copy_tree(state["mu"], dev)
+        self.adam.nu = copy_tree(state["nu"], dev)
         self.adam.step = int(state["step"])
         self.sh_degree = int(state["sh_degree"])
         self.global_it = int(state.get("global_it", 0))
+        if "gen" in state:
+            self.gen.set_state(state["gen"])
+
+    def save_ckpt(self, path: str) -> str:
+        """Write `capture()` to `path` (`utils/checkpoint.py`) -> the path."""
+        ckpt_mod.save_checkpoint(path, self.capture())
+        return path
+
+    def load_ckpt(self, path: str) -> None:
+        self.restore(ckpt_mod.load_checkpoint(path))
+
+
+def copy_tree(tree: dict, device="cpu") -> dict:
+    """{name: tensor or int} -> detached copies of the tensors on `device`
+    (a capture must alias no tensor that later steps change in place)."""
+    return {k: v.detach().to(device, copy=True) if torch.is_tensor(v) else v
+            for k, v in tree.items()}
 
 
 def trainer_state_from_numpy(capture: dict, device=None) -> dict:
     """The JAX trainer's `capture()` as numpy -> the port's training state
-    (for `MeshTrainer.restore`). `capture` maps "params", "binding",
-    "mesh_v", "state", "mu" and "nu" to {field: array} with the JAX
-    dataclasses' field names, "step" to the optimizer step, "sh_degree" and
-    optionally "global_it" to ints."""
+    (for `MeshTrainer.restore`; no generator state). `capture` maps
+    "params", "binding", "mesh_v", "state", "mu" and "nu" to {field: array}
+    with the JAX dataclasses' field names, "step" to the optimizer step,
+    "sh_degree" and optionally "global_it" to ints."""
     dev = resolve_device(device)
     model = mgs.from_numpy(capture["params"], capture["binding"], device=dev,
                            mesh_v=capture["mesh_v"], state=capture["state"])
@@ -355,7 +389,9 @@ def trainer_state_from_numpy(capture: dict, device=None) -> dict:
         return {k: torch.tensor(np.asarray(tree[k], np.float32), device=dev)
                 for k in mgs.PARAM_FIELDS}
 
-    return dict(model=model, mu=moments(capture["mu"]),
-                nu=moments(capture["nu"]), step=int(capture["step"]),
+    return dict(params=model.params(), binding=model.binding(),
+                mesh_v=model.mesh_v._asdict(), state=model.state._asdict(),
+                mu=moments(capture["mu"]), nu=moments(capture["nu"]),
+                step=int(capture["step"]),
                 sh_degree=int(capture["sh_degree"]),
                 global_it=int(capture.get("global_it", 0)))

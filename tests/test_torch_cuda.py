@@ -398,3 +398,66 @@ def test_composite_frame_k1_and_render_bits(cuda, tmp_path):
     assert torch.equal(out.color, want.color)
     assert int(out.num_rendered) == int(want.num_rendered) > 0
     assert (want.final_t < 0.5).float().mean().item() > 0.05
+
+
+def _bg_trainer(device, state=None):
+    """A `BgTrainer` at 64 px (three views of noise images, a frozen
+    icosphere-1 foreground, 150 SfM points) on `device`, from `state` (a
+    capture) when given; scales anisotropic and rotations turned."""
+    from gaussianmesh_tpu_torch.config import OptimizationParams, RuntimeParams
+    from gaussianmesh_tpu_torch.train.bg_trainer import BgTrainer
+    from gaussianmesh_tpu_torch.train.trainer import DeviceDataset
+
+    rng = np.random.default_rng(11)
+    cams = [_camera(64, 64, device, distance=3.5, azimuth=a) for a in (0.0, 1.5, 3.0)]
+    images = (rng.uniform(0.3, 0.7, (3, 3, 64, 64)) * 255).astype(np.uint8)
+    ds = DeviceDataset(*(torch.stack(x) for x in zip(*cams)),
+                       images=torch.tensor(images, device=device), masks=None,
+                       width=64, height=64)
+    v, f = icosphere(1)
+    fg = mesh_gaussians.create_from_mesh(v, f, max_sh_degree=1, device="cpu")
+    fg = mesh_gaussians.from_numpy(
+        {k: x.detach().numpy() for k, x in fg.params().items()},
+        {k: x.numpy() for k, x in fg.binding().items()}, device=device)
+    with torch.no_grad():
+        fg.opacity.fill_(4.0)
+    pts = (rng.normal(size=(150, 3)) * 2.5).astype(np.float32)
+    tr = BgTrainer(fg, pts, rng.uniform(0, 1, (150, 3)), ds, OptimizationParams(),
+                   RuntimeParams(max_per_tile=1024, capacity=512), spatial_lr_scale=3.0,
+                   max_sh_degree=1)
+    if state is not None:
+        tr.restore(state)
+    else:
+        with torch.no_grad():
+            for k in ("scaling", "rotation"):
+                p = getattr(tr.model, k)
+                p.add_(torch.tensor(rng.normal(0, 0.3, p.shape), dtype=torch.float32))
+    tr.sh_degree = 1
+    return tr
+
+
+@pytest.mark.cuda
+def test_bg_trainer_step_on_cuda_matches_cpu(cuda):
+    """One background step (K1 forward over the background and the frozen
+    foreground, K2 and K3 over the whole table backward) from the same
+    state: gradients within the normalized 2e-4 of the CPU step's, loss to
+    1e-5, each kernel launched once."""
+    cpu = _bg_trainer("cpu")
+    gpu = _bg_trainer(cuda, state=cpu.capture())
+    bg = torch.tensor([0.3, 0.6, 0.9])
+    mc = cpu.step(1, bg)
+    for fn in (tile_blend.blend_forward, tile_blend.blend_backward, segsum.segment_sum):
+        fn.launches = 0
+    mg = gpu.step(1, bg.to(cuda))
+    torch.cuda.synchronize()
+    assert (tile_blend.blend_forward.launches, tile_blend.blend_backward.launches,
+            segsum.segment_sum.launches) == (1, 1, 1)
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert int(mg["tile_overflow"]) == int(mc["tile_overflow"]) == 0
+    for k, mu in cpu.adam.mu.items():
+        scale = mu.abs().max()
+        assert scale > 0, k
+        assert ((gpu.adam.mu[k].cpu() - mu).abs() / scale).max().item() <= 2e-4, k
+    for k in ("grad_accum", "denom"):
+        a, b = getattr(cpu.model.state, k), getattr(gpu.model.state, k).cpu()
+        assert ((a - b).abs() / a.abs().max()).max().item() <= 2e-4, k

@@ -1,0 +1,339 @@
+"""The port's dataset IO against the JAX package on the CPU: the PNG codec
+against PIL, COLMAP models, the Blender and COLMAP scene readers, the
+scene's camera order and the uint8 training targets."""
+
+import json
+import os
+import struct
+import zlib
+
+import imageio.v2 as imageio
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from gaussianmesh_tpu.data import readers as jreaders
+from gaussianmesh_tpu.io import colmap as jcolmap, ply as jply_io
+from gaussianmesh_tpu.scene import Scene as JScene
+from gaussianmesh_tpu.config import ModelParams as JModelParams
+from gaussianmesh_tpu.train import trainer as jtrainer
+from gaussianmesh_tpu_torch.config import ModelParams
+from gaussianmesh_tpu_torch.data import cameras, readers
+from gaussianmesh_tpu_torch.io import colmap, png
+from gaussianmesh_tpu_torch.scene import Scene
+from gaussianmesh_tpu_torch.train.trainer import DeviceDataset
+
+torch.set_num_threads(2)
+
+MODES = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}
+
+
+def _chunk(tag, data):
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def _encode(img, filters, interlace=0):
+    """A PNG of uint8 `img` whose row y uses filter filters[y % len]: a
+    plain numpy encoder, so every filter type is exercised."""
+    img3 = img[..., None] if img.ndim == 2 else img
+    h, w, c = img3.shape
+    x = img3.reshape(h, w * c).astype(np.int32)
+    rows = []
+    for y in range(h):
+        f = filters[y % len(filters)]
+        row = x[y]
+        up = x[y - 1] if y else np.zeros_like(row)
+        left = np.concatenate([np.zeros(c, np.int32), row[:-c]])
+        ul = np.concatenate([np.zeros(c, np.int32), up[:-c]])
+        p = left + up - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        pred = [0, left, up, (left + up) // 2, paeth][f]
+        rows.append(bytes([f]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes())
+    ct = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    return (png.PNG_MAGIC
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ct, 0, 0, interlace))
+            + _chunk(b"IDAT", zlib.compress(b"".join(rows)))
+            + _chunk(b"IEND", b""))
+
+
+def _image(c, h=13, w=17, seed=0):
+    """Noise plus a smooth ramp (so PIL's and imageio's adaptive filters
+    pick more than one type)."""
+    rng = np.random.default_rng(seed + c)
+    y, x = np.mgrid[0:h, 0:w]
+    base = (3 * x + 5 * y)[..., None] + 40 * np.arange(c)
+    img = (base + rng.integers(0, 4, (h, w, c))) % 256
+    return img[..., 0].astype(np.uint8) if c == 1 else img.astype(np.uint8)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_png_decodes_every_filter_as_pil(tmp_path, c):
+    """Gray, gray + alpha, RGB, RGBA; filters 0-4 alone and mixed; and the
+    PNGs PIL and imageio write: the same array as PIL's, shape and dtype."""
+    img = _image(c)
+    path = str(tmp_path / "x.png")
+    for filters in ([0], [1], [2], [3], [4], [0, 1, 2, 3, 4], [4, 3, 2, 1, 0, 2]):
+        with open(path, "wb") as fh:
+            fh.write(_encode(img, filters))
+        got, want = png.read_png(path), np.asarray(Image.open(path))
+        assert got.dtype == want.dtype and got.shape == want.shape, filters
+        assert np.array_equal(got, want) and np.array_equal(got, img), filters
+    for write in (lambda p: Image.fromarray(img, MODES[c]).save(p),
+                  lambda p: imageio.imwrite(p, img)):
+        write(path)
+        assert np.array_equal(png.read_png(path), np.asarray(Image.open(path)))
+    png.write_png(path, img)
+    assert np.array_equal(np.asarray(Image.open(path)), img)
+    assert np.array_equal(png.read_png(path), img)
+
+
+def test_unsupported_images_raise(tmp_path):
+    """16-bit, palette and interlaced PNGs, JPEG files and any resize the
+    resolution ladder asks for raise with a message naming the cause."""
+    p16 = str(tmp_path / "g16.png")
+    Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(p16)
+    with pytest.raises(ValueError, match="16-bit"):
+        png.read_png(p16)
+    pal = str(tmp_path / "p.png")
+    Image.fromarray(_image(3)).convert("P").save(pal)
+    with pytest.raises(ValueError, match="palette"):
+        png.read_png(pal)
+    inter = str(tmp_path / "i.png")
+    with open(inter, "wb") as fh:
+        fh.write(_encode(_image(3), [0], interlace=1))
+    with pytest.raises(ValueError, match="interlace"):
+        png.read_png(inter)
+    jpg = str(tmp_path / "j.jpg")
+    Image.fromarray(_image(3)).save(jpg)
+    with pytest.raises(ValueError, match="JPEG"):
+        png.read_image(jpg)
+    root = _blender_set(tmp_path / "b", with_ply=True, w=32, h=20)
+    with pytest.raises(ValueError, match="resiz"):
+        readers.read_scene(root, resolution=2)
+    big = str(tmp_path / "big.png")
+    png.write_png(big, np.zeros((2, 1700, 3), np.uint8))
+    with pytest.raises(ValueError, match="resiz"):
+        readers._load_image(big, -1, None)
+
+
+# ------------------------------------------------------------------ COLMAP
+def _colmap_model(rng, n_img=5, n_pts=40):
+    cams = {1: jcolmap.ColmapCamera(1, "PINHOLE", 40, 30,
+                                    np.array([35.0, 33.0, 20.0, 15.0])),
+            2: jcolmap.ColmapCamera(2, "SIMPLE_PINHOLE", 40, 30,
+                                    np.array([31.0, 20.0, 15.0]))}
+    imgs = {}
+    for i in range(1, n_img + 1):
+        q = rng.normal(size=4)
+        imgs[i] = jcolmap.ColmapImage(i, q / np.linalg.norm(q), rng.normal(size=3),
+                                      1 + i % 2, f"im{i:03d}.png")
+    xyz = rng.normal(size=(n_pts, 3))
+    rgb = rng.integers(0, 256, (n_pts, 3))
+    err = rng.uniform(0, 1, n_pts)
+    return cams, imgs, xyz, rgb, err
+
+
+def _write_text(sparse, cams, imgs, xyz, rgb, err):
+    os.makedirs(sparse, exist_ok=True)
+    with open(os.path.join(sparse, "cameras.txt"), "w") as fh:
+        fh.write("# cameras\n")
+        for c in cams.values():
+            fh.write(f"{c.id} {c.model} {c.width} {c.height} "
+                     + " ".join(repr(float(p)) for p in c.params) + "\n")
+    with open(os.path.join(sparse, "images.txt"), "w") as fh:
+        fh.write("# images\n")
+        for im in imgs.values():
+            fh.write(f"{im.id} " + " ".join(repr(float(x)) for x in im.qvec) + " "
+                     + " ".join(repr(float(x)) for x in im.tvec)
+                     + f" {im.camera_id} {im.name}\n\n")
+    with open(os.path.join(sparse, "points3D.txt"), "w") as fh:
+        for i in range(len(xyz)):
+            fh.write(f"{i} " + " ".join(repr(float(x)) for x in xyz[i]) + " "
+                     + " ".join(str(int(x)) for x in rgb[i]) + f" {float(err[i])!r}\n")
+
+
+def _assert_colmap_equal(a, b):
+    (ca, ia, pa), (cb, ib, pb) = a, b
+    assert ca.keys() == cb.keys() and ia.keys() == ib.keys()
+    for k in ca:
+        assert (ca[k].model, ca[k].width, ca[k].height) == \
+            (cb[k].model, cb[k].width, cb[k].height)
+        assert np.array_equal(ca[k].params, cb[k].params)
+    for k in ia:
+        assert (ia[k].name, ia[k].camera_id) == (ib[k].name, ib[k].camera_id)
+        assert np.array_equal(ia[k].qvec, ib[k].qvec)
+        assert np.array_equal(ia[k].tvec, ib[k].tvec)
+    for x, y in zip(pa, pb):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["binary", "text"])
+def test_colmap_model_round_trip_matches_jax(tmp_path, kind):
+    rng = np.random.default_rng(1)
+    cams, imgs, xyz, rgb, err = _colmap_model(rng)
+    sparse = str(tmp_path / "sparse")
+    if kind == "binary":
+        colmap.write_model_binary(sparse, {k: colmap.ColmapCamera(**vars(c))
+                                           for k, c in cams.items()},
+                                  {k: colmap.ColmapImage(**vars(i))
+                                   for k, i in imgs.items()}, xyz, rgb, err)
+    else:
+        _write_text(sparse, cams, imgs, xyz, rgb, err)
+    got, want = colmap.read_model(sparse), jcolmap.read_model(sparse)
+    _assert_colmap_equal(got, want)
+    np.testing.assert_array_equal(got[2][0], xyz)
+    np.testing.assert_array_equal(got[1][3].qvec, imgs[3].qvec)
+
+
+# ------------------------------------------------------------------ scenes
+def _rotation(rng):
+    return np.linalg.qr(rng.normal(size=(3, 3)))[0]
+
+
+def _blender_set(root, with_ply, w=24, h=20, n=4):
+    """RGBA frames written by PIL, random poses; test split = 2 frames."""
+    root = str(root)
+    rng = np.random.default_rng(2)
+    os.makedirs(os.path.join(root, "train"), exist_ok=True)
+    frames = []
+    for i in range(n):
+        img = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        img[..., 3] = np.where(rng.uniform(size=(h, w)) < 0.3, 255, img[..., 3])
+        Image.fromarray(img, "RGBA").save(os.path.join(root, "train", f"r_{i}.png"))
+        c2w = np.eye(4)
+        c2w[:3, :3], c2w[:3, 3] = _rotation(rng), rng.normal(0, 3, 3)
+        frames.append({"file_path": f"train/r_{i}", "transform_matrix": c2w.tolist()})
+    for split, fr in (("train", frames), ("test", frames[1:3])):
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as fh:
+            json.dump({"camera_angle_x": 0.7, "frames": fr}, fh)
+    if with_ply:
+        pts = rng.normal(size=(50, 3)).astype(np.float32)
+        rgb = rng.integers(0, 256, (50, 3)).astype(np.uint8)
+        jply_io.write_ply(os.path.join(root, "points3d.ply"), {"vertex": {
+            "x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2],
+            "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2]}})
+    return root
+
+
+def _colmap_set(root, n=9):
+    """A COLMAP scene: binary model, RGB PNG images (imageio), masks as
+    gray PNGs and, for one image, an RGB mask (its first channel counts)."""
+    root = str(root)
+    rng = np.random.default_rng(3)
+    cams, imgs, xyz, rgb, err = _colmap_model(rng, n_img=n, n_pts=60)
+    for d in ("images", "masks"):
+        os.makedirs(os.path.join(root, d))
+    for im in imgs.values():
+        imageio.imwrite(os.path.join(root, "images", im.name),
+                        rng.integers(0, 256, (30, 40, 3), dtype=np.uint8))
+        mask = rng.integers(0, 256, (30, 40) if im.id != 2 else (30, 40, 3),
+                            dtype=np.uint8)
+        Image.fromarray(mask).save(os.path.join(root, "masks", im.name))
+    colmap.write_model_binary(os.path.join(root, "sparse", "0"),
+                              {k: colmap.ColmapCamera(**vars(c)) for k, c in cams.items()},
+                              {k: colmap.ColmapImage(**vars(i)) for k, i in imgs.items()},
+                              xyz, rgb, err)
+    return root
+
+
+def _assert_scene_equal(got, want):
+    for split in ("train_cameras", "test_cameras"):
+        a, b = getattr(got, split), getattr(want, split)
+        assert len(a) == len(b) > 0, split
+        for ca, cb in zip(a, b):
+            assert (ca.uid, ca.image_name, ca.width, ca.height) == \
+                (cb.uid, cb.image_name, cb.width, cb.height)
+            assert ca.fovx == cb.fovx and ca.fovy == cb.fovy
+            for k in ("R", "T", "image"):
+                x, y = getattr(ca, k), getattr(cb, k)
+                assert x.dtype == y.dtype and np.array_equal(x, y), k
+            assert (ca.mask is None) == (cb.mask is None)
+            if ca.mask is not None:
+                assert ca.mask.dtype == cb.mask.dtype
+                assert np.array_equal(ca.mask, cb.mask)
+    assert np.array_equal(got.nerf_norm["translate"], want.nerf_norm["translate"])
+    assert got.nerf_norm["radius"] == want.nerf_norm["radius"]
+    for k in ("points", "colors", "normals"):
+        x, y = getattr(got.point_cloud, k), getattr(want.point_cloud, k)
+        assert x.dtype == y.dtype and np.array_equal(x, y), k
+    assert got.ply_path == want.ply_path
+
+
+@pytest.mark.parametrize("kind", ["blender", "blender_no_ply", "colmap"])
+def test_read_scene_matches_jax(tmp_path, kind):
+    """Cameras (R, T, fov), images and masks exactly, with their dtypes (a
+    Blender RGBA image composited over the float64 background is float64),
+    the nerf++ normalization and the point cloud (the 100,000 seeded points
+    where a Blender set has no points3d.ply); the uint8 targets of
+    `DeviceDataset` equal the JAX package's."""
+    if kind == "colmap":
+        root = _colmap_set(tmp_path / "c")
+        kw = dict(eval_split=True, is_exist_bg=True)
+    else:
+        root = _blender_set(tmp_path / "b", with_ply=kind == "blender")
+        kw = dict(eval_split=True, white_background=kind == "blender")
+    assert readers.detect_scene_type(root) == kind.split("_")[0]
+    got, want = readers.read_scene(root, **kw), jreaders.read_scene(root, **kw)
+    _assert_scene_equal(got, want)
+    if kind == "blender":
+        assert got.train_cameras[0].image.dtype == np.float64
+    if kind == "blender_no_ply":
+        assert got.point_cloud.points.shape == (100_000, 3)
+    dt = DeviceDataset.from_cameras(got.train_cameras, device="cpu")
+    dj = jtrainer.DeviceDataset.from_cameras(want.train_cameras)
+    for k in ("images", "masks"):
+        x, y = getattr(dt, k).numpy(), np.asarray(getattr(dj, k))
+        assert x.dtype == y.dtype == np.uint8 and np.array_equal(x, y), k
+
+
+def test_colmap_without_masks_raises_for_a_background_run(tmp_path):
+    root = _colmap_set(tmp_path / "c")
+    os.rename(os.path.join(root, "masks"), os.path.join(root, "no_masks"))
+    with pytest.raises(ValueError, match="masks"):
+        readers.read_scene(root, is_exist_bg=True)
+    assert readers.read_scene(root).train_cameras[0].mask is None
+
+
+def test_scene_orders_cameras_and_writes_artifacts_as_jax(tmp_path):
+    """The shuffled training order and the static artifacts (cameras.json,
+    input.ply) are the JAX Scene's."""
+    root = _colmap_set(tmp_path / "c", n=12)
+    mine, theirs = str(tmp_path / "port"), str(tmp_path / "jax")
+    s = Scene(ModelParams(source_path=root, model_path=mine, eval=True), seed=5)
+    j = JScene(JModelParams(source_path=root, model_path=theirs, eval=True), seed=5)
+    assert [c.image_name for c in s.train_cameras] == \
+        [c.image_name for c in j.train_cameras]
+    assert [c.image_name for c in s.train_cameras] != \
+        [c.image_name for c in readers.read_scene(root, eval_split=True).train_cameras]
+    assert s.cameras_extent == j.cameras_extent
+    s.write_static_artifacts()
+    j.write_static_artifacts()
+    assert json.load(open(os.path.join(mine, "cameras.json"))) == \
+        json.load(open(os.path.join(theirs, "cameras.json")))
+    with open(os.path.join(mine, "input.ply"), "rb") as a, \
+            open(os.path.join(theirs, "input.ply"), "rb") as b:
+        assert a.read() == b.read()
+    os.makedirs(os.path.join(mine, "point_cloud", "iteration_30"))
+    os.makedirs(os.path.join(mine, "point_cloud", "iteration_7"))
+    assert Scene.find_latest_iteration(mine) == 30
+
+
+def test_pick_resolution_matches_jax():
+    from gaussianmesh_tpu.data.cameras import pick_resolution as jpick
+    for w, h in ((800, 800), (1920, 1080), (1601, 900), (640, 480)):
+        for r in (-1, 1, 2, 4, 8, 400, 1600):
+            assert cameras.pick_resolution(w, h, r) == jpick(w, h, r), (w, h, r)
+
+
+def test_import_walk_covers_the_training_slice():
+    """`test_torch_import.py`'s walk of the package reaches every module of
+    this slice."""
+    from test_torch_import import _modules
+    mods = set(_modules())
+    for m in ("io.colmap", "io.png", "data.readers", "scene", "utils.checkpoint",
+              "utils.logging", "train.bg_trainer", "cli.train_mesh", "cli.train_bg",
+              "cli.render"):
+        assert f"gaussianmesh_tpu_torch.{m}" in mods, m
