@@ -86,6 +86,31 @@ Phases (any failure raises, so the exit code is not 0):
    first, its pair domain, cotangents from the real loss), and K1, K2 and
    K3 held against their plain versions on those, timed and bounded as in
    phase 5; K2's rows must equal the step's.
+9. eval: the reference's quality protocol through `cli.full_eval` on a JPEG
+   COLMAP scene. The slice model rendered over white at 1920x1080 from 24
+   orbit views, each written by `io/jpeg.write_jpeg` (quality 90, 4:2:0;
+   the round trip's PSNR against the uint8 render must be >= 35 dB), a
+   binary model with one PINHOLE camera and 1,000 of the object's
+   Gaussians as points3D, an icosphere-2 proxy. `cli.full_eval --iterations
+   100 --device cuda` with phase 8's shrunk schedule and capacities passed
+   on to `train_mesh`, which reads 21 train and 3 test views through the
+   `-r -1` ladder (1920 -> 1600x900 by `io/resample.py`); `render` the 3
+   test views; `metrics`; then `cli.metrics --lpips_uncalibrated`. K1, K2
+   and K3 once per train step and K1 once per rendered view (counters set
+   to 0 just before each command line, read just after; full_eval's
+   inner ones by difference); finite losses and parameters, no overflow;
+   each gt PNG equal to `resize(read_jpeg(source))`; no overflow in
+   `render`'s renders, and each of its PNGs equal to an in-process render
+   of the trained model on `render`'s camera and capacities; results.json's
+   PSNR and SSIM equal to an in-process computation on the written PNGs
+   (1e-5); `LPIPS` null and `LPIPS_uncalibrated` finite. The share of each
+   test view the object covers, beside that of phase 8's config-2 test
+   views. JPEG decode s / MP, resample ms per image, dataset load s, the
+   step median and LPIPS ms per view at 1600x900, beside the card's name
+   and power limit. Then one more training step at 1600x900 with the
+   kernels' wrappers recording their arguments, and K1, K2 and K3 held
+   against their plain versions on those, timed and bounded as in phase 5;
+   K2's rows must equal the step's.
 
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
@@ -148,6 +173,14 @@ BG_ITERS = 500         # train_bg: one densify (every 500 iterations)
 BG_DENSIFY_FROM = 100
 BG_PRUNE_AT = 50       # the neighbour prune
 BG_SURFACE_POINTS = 1000
+
+# eval phase: the quality protocol (full_eval) on a JPEG COLMAP scene
+EVAL_WIDTH, EVAL_HEIGHT = 1920, 1080   # -r -1 caps the width: 1600x900
+EVAL_FOVX = math.radians(60.0)
+EVAL_VIEWS = 24                        # llffhold 8: 21 train, 3 test
+EVAL_QUALITY = 90
+EVAL_ITERS = 100
+EVAL_MIN_PSNR = 35.0                   # the JPEG round trip against the render
 
 # H100 SXM peaks (NVIDIA data sheet; the CUDA programming guide's throughput
 # table for the special-function unit: 16 exp2 results / clock / SM) at the
@@ -761,9 +794,10 @@ KERNELS = (
 def kernel_line(results, fullscreen, launches):
     """The `kernels` JSON entries: times and bounds at the slice config,
     beside them those at the clamped config, at a mesh training step's and
-    a background step's shapes ("pipeline"), (K1) at a composite playback
-    frame's, and K3's on the full-screen case; errors over all of them; launches from the
-    main paths (render, train, playback, pipeline)."""
+    a background step's shapes ("pipeline"), at a 1600x900 step's of the
+    eval phase ("eval"), (K1) at a composite playback frame's, and K3's on
+    the full-screen case; errors over all of them; launches from the main
+    paths (render, train, playback, pipeline, eval)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -785,7 +819,7 @@ def kernel_line(results, fullscreen, launches):
         entry.update({k: s[k] for k in ("queued_ms", "host_ms") if k in s})
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
-        for label in ("clamped", "train", "fullscreen", "composite", "pipeline"):
+        for label in ("clamped", "train", "fullscreen", "composite", "pipeline", "eval"):
             for k in ("ms", "queued_ms", "host_ms", "plain_ms", "bound_ms",
                       "library_ms", "max_abs"):
                 if k in r.get(label, {}):
@@ -1640,6 +1674,282 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
         k1, k2, k3)
 
 
+def eval_cameras(port):
+    """EVAL_VIEWS orbit views of the object at EVAL_WIDTH x EVAL_HEIGHT ->
+    [(R, pos, port Camera)], fov 60 degrees across."""
+    fovy = port.graphics.focal2fov(port.graphics.fov2focal(EVAL_FOVX, EVAL_WIDTH),
+                                   EVAL_HEIGHT)
+    out = []
+    for i in range(EVAL_VIEWS):
+        az, el = 2 * math.pi * i / EVAL_VIEWS, 0.3 + 0.3 * math.sin(1.3 * i)
+        pos = 4.0 * np.array([math.cos(el) * math.sin(az), math.sin(el),
+                              math.cos(el) * math.cos(az)])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+        out.append((R, pos, port.cameras.Camera(
+            uid=i, R=R, T=-R.T @ pos, fovx=EVAL_FOVX, fovy=fovy, image=None,
+            width=EVAL_WIDTH, height=EVAL_HEIGHT)))
+    return out
+
+
+def write_eval_set(torch, port, model, root, cams, cfg):
+    """The eval scene: the slice model over white at EVAL_WIDTH x
+    EVAL_HEIGHT, JPEGs through `write_jpeg` (EVAL_QUALITY, 4:2:0), a binary
+    COLMAP model (one PINHOLE camera; points3D 1,000 of the object's
+    Gaussians, seeded, coloured), an icosphere-2 proxy. Each JPEG decoded
+    again by `read_jpeg`: -> (proxy path, round-trip PSNR per view, decode
+    s per view, the decoded test views {file name: array})."""
+    os.makedirs(os.path.join(root, "images"))
+    white = torch.ones(3, device="cuda")
+    psnrs, decode_s, decoded, images = [], [], {}, {}
+    for i, (R, pos, cam) in enumerate(cams):
+        ca = cam.arrays("cuda")
+        with torch.no_grad():
+            out = port.render.render(port.render.mesh_model_arrays(model, ca, SH_DEGREE),
+                                     ca, cfg, white)
+        assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+        u8 = port.cli_common.to_uint8(out.color)
+        name = f"{i:03d}.jpg"
+        path = os.path.join(root, "images", name)
+        port.jpeg.write_jpeg(path, u8, quality=EVAL_QUALITY, subsampling="4:2:0")
+        t0 = time.perf_counter()
+        back = port.jpeg.read_jpeg(path)
+        decode_s.append(time.perf_counter() - t0)
+        mse = np.mean((back.astype(np.float64) - u8) ** 2)
+        psnrs.append(float(10 * np.log10(255.0 ** 2 / mse)))
+        if i % 8 == 0:                                   # llffhold 8: the test views
+            decoded[name] = back
+        images[i + 1] = port.colmap.ColmapImage(i + 1, rotmat2qvec(R.T), -R.T @ pos, 1,
+                                                name)
+    f = port.graphics.fov2focal(EVAL_FOVX, EVAL_WIDTH)
+    colmap_cams = {1: port.colmap.ColmapCamera(1, "PINHOLE", EVAL_WIDTH, EVAL_HEIGHT,
+                                               np.array([f, f, EVAL_WIDTH / 2,
+                                                         EVAL_HEIGHT / 2]))}
+    rng = np.random.default_rng(SEED + 9)
+    with torch.no_grad():
+        alive = torch.nonzero(model.alive).flatten()
+        pick = alive[torch.tensor(rng.choice(alive.numel(), BG_SURFACE_POINTS,
+                                             replace=False), device="cuda")]
+        xyz = model.get_xyz()[pick].cpu().numpy().astype(np.float64)
+        rgb = (port.sh.sh_to_rgb(model.features_dc[pick, 0]).clamp(0, 1) * 255).round()
+    port.colmap.write_model_binary(os.path.join(root, "sparse", "0"), colmap_cams, images,
+                                   xyz, rgb.cpu().numpy(), np.zeros(len(xyz)))
+    proxy = os.path.join(root, "ico2.obj")
+    port.mesh_io.write_triangle_mesh(proxy, *icosphere(PROXY_SUBDIV))
+    return proxy, psnrs, decode_s, decoded
+
+
+@contextlib.contextmanager
+def recording_renders(port, into):
+    """`models.render.render` appending each call's (camera, capacities,
+    background, tile overflow, rect overflow) to `into`."""
+    kept = port.render.render
+
+    def record(arrays, cam, cfg, bg_color, *rest):
+        out = kept(arrays, cam, cfg, bg_color, *rest)
+        into.append((cam, cfg, bg_color, int(out.tile_overflow), int(out.rect_overflow)))
+        return out
+
+    port.render.render = record
+    try:
+        yield
+    finally:
+        port.render.render = kept
+
+
+def phase_eval(torch, port, model, train_rt, tmpdir):
+    """The quality protocol through `cli.full_eval` on the card; see the
+    module docstring. -> (results, launches, (K1, K2, K3 checks at a
+    1600x900 training step's shapes))."""
+    t_phase = time.perf_counter()
+    cams = eval_cameras(port)
+    tw, th = port.cameras.pick_resolution(EVAL_WIDTH, EVAL_HEIGHT, -1)
+    assert (tw, th) == (1600, 900), (tw, th)
+    with torch.no_grad():
+        gt_cfg, _ = size_capacities(torch, port, model, [c.arrays("cuda") for *_, c in cams],
+                                    EVAL_WIDTH, EVAL_HEIGHT, SH_DEGREE, "eval")
+        scaled = [dataclasses.replace(c, width=tw, height=th).arrays("cuda")
+                  for *_, c in cams]
+        cfg, largest = size_capacities(torch, port, model, scaled, tw, th, SH_DEGREE,
+                                       "eval")
+    # doubled as phase 8 doubles (the student's scales move while training)
+    cfg = port.rasterize.RasterizerConfig(
+        tw, th, max(2 * cfg.max_per_tile, train_rt.max_per_tile),
+        max(2 * cfg.pair_capacity_per_gaussian, train_rt.pair_capacity_per_gaussian),
+        max(2 * cfg.row_capacity_per_gaussian, train_rt.row_capacity_per_gaussian))
+    log(f"[eval] largest tile at {tw}x{th} {max(largest)}; training {cfg}")
+
+    base, out_root = os.path.join(tmpdir, "eval_data"), os.path.join(tmpdir, "eval_out")
+    t0 = time.perf_counter()
+    proxy, psnrs, decode_s, decoded = write_eval_set(
+        torch, port, model, os.path.join(base, "s"), cams, gt_cfg)
+    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
+    res = dict(jpeg_psnr_min=min(psnrs), jpeg_psnr_mean=float(np.mean(psnrs)),
+               jpeg_bytes_mean=float(np.mean([os.path.getsize(os.path.join(
+                   base, "s", "images", n)) for n in sorted(os.listdir(
+                       os.path.join(base, "s", "images")))])),
+               jpeg_decode_s_per_mp=float(np.median(decode_s)) / megapixels,
+               dataset_write_s=time.perf_counter() - t0)
+    log(f"[eval] {EVAL_VIEWS} JPEGs at {EVAL_WIDTH}x{EVAL_HEIGHT} (quality "
+        f"{EVAL_QUALITY}, 4:2:0): round-trip PSNR min {min(psnrs):.2f} dB, mean "
+        f"{np.mean(psnrs):.2f}; decode {res['jpeg_decode_s_per_mp']:.4f} s/MP; written "
+        f"in {res['dataset_write_s']:.1f} s")
+    if min(psnrs) < EVAL_MIN_PSNR:
+        raise AssertionError(f"JPEG round trip below {EVAL_MIN_PSNR} dB: {psnrs}")
+
+    # full_eval: train_mesh -> render -> metrics, each inner command line's
+    # launches by difference of the counters, its trainer kept
+    sched = ["--densify_from_iter", "10", "--densification_interval", "10",
+             "--densify_until_iter", "35", "--opacity_reset_interval", "20",
+             "--densify_grad_threshold", "1e-5"]
+    inner, trainers, renders = {}, [], []
+    kept = {name: getattr(port, f"cli_{name}").main for name in ("train_mesh", "render",
+                                                                 "metrics")}
+
+    def counted(name):
+        def run(argv):
+            torch.cuda.synchronize()
+            before = read_launches(port)
+            with (recording_renders(port, renders) if name == "render"
+                  else contextlib.nullcontext()):
+                out = kept[name](argv)
+            torch.cuda.synchronize()
+            inner[name] = {k: v - before[k] for k, v in read_launches(port).items()}
+            if name == "train_mesh":
+                trainers.append(out)
+            return out
+        return run
+
+    for name in kept:
+        getattr(port, f"cli_{name}").main = counted(name)
+    lpips_rows = []
+    try:
+        with clocked(torch, port.lpips.LPIPS, "__call__", lpips_rows, sync=True):
+            _, launches, rows = run_cli(torch, port, port.cli_full_eval.main, [
+                "--base", base, "--scenes", "s", "--meshes", proxy, "--output", out_root,
+                "--iterations", str(EVAL_ITERS), "--device", "cuda",
+                "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
+                "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
+                "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
+                *sched], port.trainer.MeshTrainer)
+            model_dir = os.path.join(out_root, "s")
+            _, metric_launches, _ = run_cli(torch, port, port.cli_metrics.main, [
+                "-m", model_dir, "--lpips_uncalibrated", "--device", "cuda"])
+    finally:
+        for name, fn in kept.items():
+            getattr(port, f"cli_{name}").main = fn
+    log(f"[eval] launches: full_eval {launches} (train_mesh {inner['train_mesh']}, "
+        f"render {inner['render']}, metrics {inner['metrics']}); metrics "
+        f"--lpips_uncalibrated {metric_launches}")
+    n_test = len(range(0, EVAL_VIEWS, 8))
+    assert inner["train_mesh"] == {"K1": EVAL_ITERS, "K2": EVAL_ITERS, "K3": EVAL_ITERS}, inner
+    assert inner["render"] == {"K1": n_test, "K2": 0, "K3": 0}, inner
+    assert inner["metrics"] == metric_launches == {"K1": 0, "K2": 0, "K3": 0}, inner
+    assert launches == {k: inner["train_mesh"][k] + inner["render"][k] for k in launches}
+    trainer = trainers[0]
+    for name, p in trainer.model.named_parameters():
+        assert torch.isfinite(p).all(), name
+    steps = step_summary(rows["steps"], "eval")
+    ds = trainer.ds
+    assert tuple(ds.images.shape[-2:]) == (th, tw), tuple(ds.images.shape)
+
+    # the written PNGs: gt equal to the resized JPEGs; metrics in process
+    method = os.path.join(model_dir, "test", f"ours_{EVAL_ITERS}")
+    names = sorted(os.listdir(os.path.join(method, "gt")))
+    assert len(names) == n_test, names
+    resample_ms, psnr_in, ssim_in = [], [], []
+    for i, name in enumerate(names):
+        t0 = time.perf_counter()
+        want = port.resample.resize(decoded[f"{8 * i:03d}.jpg"], (tw, th))
+        resample_ms.append((time.perf_counter() - t0) * 1e3)
+        gt = port.png.read_png(os.path.join(method, "gt", name))
+        if not np.array_equal(gt, want):
+            raise AssertionError(f"gt {name} differs from resize(read_jpeg()) by "
+                                 f"{int(np.abs(gt.astype(int) - want).max())} levels")
+        render = port.png.read_png(os.path.join(method, "renders", name))
+        assert render.shape == (th, tw, 3), render.shape
+        as_t = lambda a: torch.from_numpy(a.astype(np.float32) / 255.0).permute(  # noqa: E731
+            2, 0, 1).contiguous().cuda()
+        with torch.no_grad():
+            psnr_in.append(float(port.loss.psnr(as_t(render), as_t(gt))))
+            ssim_in.append(float(port.loss.ssim(as_t(render), as_t(gt))))
+    # the rendered test views: no overflow in `render`'s renders, and each
+    # PNG equal to an in-process render of the trained model on `render`'s
+    # camera and capacities; the share of each test view the object covers
+    # (final T < 0.5 in the ground truth's render), beside the same share
+    # in phase 8's config-2 test views
+    assert len(renders) == n_test, len(renders)
+    sh_degree = port.config.load_cfg(model_dir)["model"]["sh_degree"]
+    render_levels, coverage = [], []
+    with torch.no_grad():
+        for i, (ca, rcfg, bg_color, tile_of, rect_of) in enumerate(renders):
+            assert tile_of == 0 and rect_of == 0, (i, tile_of, rect_of)
+            assert (rcfg.width, rcfg.height) == (tw, th), rcfg
+            out = port.render.render(port.render.mesh_model_arrays(
+                trainer.model, ca, sh_degree), ca, rcfg, bg_color)
+            assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+            png = port.png.read_png(os.path.join(method, "renders", names[i]))
+            render_levels.append(int(np.abs(png.astype(int)
+                                            - port.cli_common.to_uint8(out.color)).max()))
+            gt_out = port.render.render(port.render.mesh_model_arrays(model, ca, SH_DEGREE),
+                                        ca, cfg, bg_color)
+            assert int(gt_out.tile_overflow) == 0 and int(gt_out.rect_overflow) == 0
+            coverage.append(float((gt_out.final_t < 0.5).float().mean()))
+        pipe_cfg = port.rasterize.RasterizerConfig(
+            PIPE_SIZE, PIPE_SIZE, cfg.max_per_tile, cfg.pair_capacity_per_gaussian,
+            cfg.row_capacity_per_gaussian)
+        pipe_coverage = []
+        for R, pos in pipeline_cameras(port)[PIPE_VIEWS:]:
+            ca = pose_camera(port, R, pos).arrays("cuda")
+            out = port.render.render(port.render.mesh_model_arrays(model, ca, SH_DEGREE),
+                                     ca, pipe_cfg, torch.ones(3, device="cuda"))
+            assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+            pipe_coverage.append(float((out.final_t < 0.5).float().mean()))
+    if max(render_levels) != 0:
+        raise AssertionError(f"render's PNGs differ from the in-process render of the "
+                             f"trained model by {render_levels} levels")
+    with open(os.path.join(model_dir, "results.json")) as fh:
+        results = json.load(fh)[f"ours_{EVAL_ITERS}"]
+    log(f"[eval] results.json: {json.dumps(results)}")
+    for key, mine in (("PSNR", np.mean(psnr_in)), ("SSIM", np.mean(ssim_in))):
+        if abs(results[key] - mine) > 1e-5 * max(1.0, abs(mine)):
+            raise AssertionError(f"results.json {key} {results[key]} vs in-process {mine}")
+    assert results["LPIPS"] is None and "LPIPS_note" in results, results
+    assert math.isfinite(results["LPIPS_uncalibrated"]), results
+    assert len(lpips_rows) == n_test, len(lpips_rows)
+    res.update(
+        **steps, gaussians=int(trainer.model.alive.sum()), capacity=trainer.model.capacity,
+        train_views=int(ds.images.shape[0]), test_views=n_test, size=[tw, th],
+        load_s=(rows["scene"][0][0] + rows["upload"][0][0]) / 1e3,
+        render_load_s=rows["scene"][1][0] / 1e3,
+        resample_ms_per_image=float(np.median(resample_ms)),
+        lpips_ms_per_view=float(np.median([t for t, _ in lpips_rows])),
+        psnr=results["PSNR"], ssim=results["SSIM"],
+        lpips_uncalibrated=results["LPIPS_uncalibrated"],
+        render_png_max_levels=render_levels, object_coverage=coverage,
+        phase8_object_coverage=pipe_coverage)
+    log("[eval] " + json.dumps(res))
+
+    # the kernels on the arguments of one more training step at 1600x900
+    # (the table at training capacity with its dead rows, cotangents from
+    # the real loss)
+    t0 = time.perf_counter()
+    seen = capture_step(torch, port, trainer)
+    k1, _, _, blended = check_k1(torch, port.tile_blend, seen["K1"],
+                                 trainer.rt.max_per_tile)
+    log("[eval] K1 at the 1600x900 step's shapes: " + json.dumps(k1))
+    rows, grouped_pos, seg_starts = seen["K3"]
+    k2, k3 = check_k2_k3(torch, port, seen["K2"], grouped_pos, seg_starts,
+                         blended, step_rows=rows)
+    log("[eval] K2 at the 1600x900 step's shapes: " + json.dumps(k2))
+    log("[eval] K3 at the 1600x900 step's shapes: " + json.dumps(k3))
+    res.update(kernel_check_s=time.perf_counter() - t0,
+               phase_s=time.perf_counter() - t_phase)
+    return res, launches, (k1, k2, k3)
+
+
 def load_port():
     """The port's modules the phases use, as one namespace."""
     from gaussianmesh_tpu_torch import config
@@ -1662,6 +1972,12 @@ def load_port():
     from gaussianmesh_tpu_torch.train import bg_trainer
     from gaussianmesh_tpu_torch.utils import sh
 
+    from gaussianmesh_tpu_torch.cli import full_eval as cli_full_eval
+    from gaussianmesh_tpu_torch.cli import metrics as cli_metrics
+    from gaussianmesh_tpu_torch.eval import lpips
+    from gaussianmesh_tpu_torch.io import jpeg, resample
+    from gaussianmesh_tpu_torch.train import loss
+
     return types.SimpleNamespace(
         gaussian_ply=gaussian_ply, mesh_gaussians=mesh_gaussians, render=render,
         binning=binning, oracle=oracle, preprocess=preprocess,
@@ -1671,7 +1987,8 @@ def load_port():
         cameras=cameras, mesh_io=mesh_io, gaussians=gaussians, sh=sh,
         cli_common=cli_common, cli_edit=cli_edit, cli_train_mesh=cli_train_mesh,
         cli_train_bg=cli_train_bg, cli_render=cli_render, scene=scene, png=png,
-        colmap=colmap, bg_trainer=bg_trainer)
+        colmap=colmap, bg_trainer=bg_trainer, cli_full_eval=cli_full_eval,
+        cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss)
 
 
 def main() -> int:
@@ -1695,11 +2012,13 @@ def main() -> int:
         pipeline, pipeline_launches, results["pipeline"] = phase_pipeline(
             torch, port, model, train_rt, tmpdir)
         t_pipe = time.perf_counter() - t_pipe
+        evaluation, eval_launches, results["eval"] = phase_eval(
+            torch, port, model, train_rt, tmpdir)
     results["composite"] = (k1_composite, None, None)
     kernels = kernel_line(results, fullscreen,
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
                            "train": train_launches, "playback": playback_launches,
-                           "pipeline": pipeline_launches})
+                           "pipeline": pipeline_launches, "eval": eval_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
         f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
     log(f"[done] playback phase {t_play:.1f} s; 1080p playback frame ms mean: "
@@ -1709,6 +2028,17 @@ def main() -> int:
         f"{pipeline['config2']['step_ms_median']:.3f}, config 4 mesh "
         f"{pipeline['config4']['mesh']['step_ms_median']:.3f}, background "
         f"{pipeline['config4']['bg']['step_ms_median']:.3f}")
+    log(f"[done] eval phase {evaluation['phase_s']:.1f} s on {smi}: JPEG decode "
+        f"{evaluation['jpeg_decode_s_per_mp']:.4f} s/MP (host), resample "
+        f"{evaluation['resample_ms_per_image']:.1f} ms per 1920x1080 -> 1600x900 image "
+        f"(host), dataset load {evaluation['load_s']:.2f} s, 1600x900 train step ms "
+        f"median {evaluation['step_ms_median']:.3f}, LPIPS "
+        f"{evaluation['lpips_ms_per_view']:.2f} ms per 1600x900 view; test PSNR "
+        f"{evaluation['psnr']:.4f}, SSIM {evaluation['ssim']:.4f}, LPIPS_uncalibrated "
+        f"{evaluation['lpips_uncalibrated']:.4f} after {EVAL_ITERS} iterations; the "
+        f"object covers {np.mean(evaluation['object_coverage']):.4f} of a test view "
+        f"(phase 8's: {np.mean(evaluation['phase8_object_coverage']):.4f}); kernel "
+        f"checks {evaluation['kernel_check_s']:.1f} s of the phase")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

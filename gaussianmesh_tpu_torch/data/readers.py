@@ -10,9 +10,11 @@ dtype: images decode to float32 / 255, a Blender RGBA image composites over
 a float64 background (so it comes out float64, and its uint8 targets
 truncate as the JAX package's do), masks are float32.
 
-Images are read by the port's PNG codec (`io/png.py`): JPEG images and any
-resize the resolution ladder asks for raise, where the JAX reader uses PIL
-(PIL's resample filter is not reproduced without PIL).
+Images are read by the port's own codecs (`io/png.py`, `io/jpeg.py`) and
+resized by `io/resample.py`, where the JAX reader uses PIL: the same
+arrays, bit for bit, for the JPEGs and PNGs PIL reads, with two repairs
+(palette PNGs expand to their colours, 16-bit gray keeps its high byte:
+`io/png.py`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 from gaussianmesh_tpu_torch.data.cameras import Camera, pick_resolution
 from gaussianmesh_tpu_torch.io import colmap, ply as ply_io
 from gaussianmesh_tpu_torch.io.png import read_image
+from gaussianmesh_tpu_torch.io.resample import resize
 from gaussianmesh_tpu_torch.utils.graphics import focal2fov, fov2focal
 
 
@@ -72,23 +75,13 @@ def nerfpp_norm(cameras: list[Camera]) -> dict:
     return {"translate": -avg, "radius": float(diag * 1.1)}
 
 
-def _read_sized(path: str, resolution: int) -> np.ndarray:
-    """An image at the size the resolution ladder picks; a resize raises."""
-    im = read_image(path)
-    h, w = im.shape[:2]
-    tw, th = pick_resolution(w, h, resolution)
-    if (tw, th) != (w, h):
-        raise ValueError(
-            f"{path}: resolution {resolution} asks for {tw}x{th} from {w}x{h}; "
-            "resizing is not ported (PIL's resample); pass -r 1 or resize "
-            "the dataset's images")
-    return im
-
-
 def _load_image(path: str, resolution: int, bg: np.ndarray | None,
                 mask_path: str | None = None):
-    """-> (image (3, H, W), mask (1, H, W) float32 | None)."""
-    arr = _read_sized(path, resolution).astype(np.float32) / 255.0
+    """-> (image (3, H, W), mask (1, H, W) float32 | None). A mask is
+    resized to the image's size; an RGB mask counts by its first channel."""
+    im = read_image(path)
+    size = pick_resolution(im.shape[1], im.shape[0], resolution)
+    arr = resize(im, size).astype(np.float32) / 255.0
     if arr.ndim == 2:
         arr = np.repeat(arr[..., None], 3, axis=2)
     mask = None
@@ -102,11 +95,7 @@ def _load_image(path: str, resolution: int, bg: np.ndarray | None,
     else:
         arr = arr[..., :3]
     if mask_path is not None:
-        m_arr = read_image(mask_path).astype(np.float32) / 255.0
-        if m_arr.shape[:2] != arr.shape[:2]:
-            raise ValueError(f"{mask_path}: mask size {m_arr.shape[:2]} is not "
-                             f"the image's {arr.shape[:2]}; resizing is not "
-                             "ported")
+        m_arr = resize(read_image(mask_path), size).astype(np.float32) / 255.0
         if m_arr.ndim == 3:
             m_arr = m_arr[..., 0]
         mask = m_arr[None]

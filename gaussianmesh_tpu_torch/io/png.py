@@ -2,12 +2,14 @@
 need no imaging package (the JAX package reads images with PIL and writes
 them with imageio).
 
-`read_png` decodes 8-bit gray, gray + alpha, RGB and RGBA PNGs without
-interlace, with any of the five row filters (None, Sub, Up, Average,
-Paeth), to the arrays PIL gives: (H, W) for gray, (H, W, C) otherwise,
-uint8. 16-bit, palette and interlaced PNGs raise. `read_image` reads a PNG
-and names a JPEG in its error: JPEG decoding is not ported. `write_png`
-writes the same four color types with filter type 0 on every row.
+`read_png` decodes every PNG PIL reads (gray, gray + alpha, RGB, RGBA and
+palette; 1- to 16-bit samples; the five row filters None, Sub, Up, Average
+and Paeth; Adam7 interlace) to uint8 arrays: (H, W) for gray, (H, W, C)
+otherwise. 16-bit samples keep their high byte and palette images expand
+to RGB or RGBA (the JAX reader's PIL path gives 16-bit gray unscaled and
+palette indices). `read_image` reads a JPEG (`io/jpeg.py`) or a PNG by its
+first bytes. `write_png` writes 8-bit gray, gray + alpha, RGB and RGBA
+with filter type 0 on every row.
 """
 
 from __future__ import annotations
@@ -18,11 +20,11 @@ import zlib
 
 import numpy as np
 
+from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
+
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-JPEG_MAGIC = b"\xff\xd8\xff"
-# PNG color type -> channels, for the 8-bit types this codec reads
-_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}
-_COLOR_TYPE = {c: t for t, c in _CHANNELS.items()}
+# channels -> PNG color type, for the 8-bit types `write_png` writes
+_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -81,15 +83,41 @@ def _unfilter(ft: np.ndarray, raw: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def _samples(rows: np.ndarray, width: int, depth: int, c: int) -> np.ndarray:
+    """Unfiltered rows (H, row bytes) -> (H, width, c) samples, uint8: the
+    high byte of a 16-bit sample, a 1/2/4-bit sample as its value."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows.reshape(h, width, c)
+    if depth == 16:
+        return rows.reshape(h, width, c, 2)[..., 0]
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :width]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit gray / gray + alpha / RGB / RGBA PNG without interlace ->
-    uint8 (H, W) for gray, (H, W, C) otherwise, as PIL's `np.asarray`
-    gives it. Other PNGs raise."""
+    """A PNG -> uint8 (H, W) for gray, (H, W, C) otherwise, as PIL reads it:
+    gray, gray + alpha, RGB and RGBA at 8 bits as they are; at 16 bits the
+    high byte of each sample (PIL's rule for 16-bit RGB(A), and for gray +
+    alpha, which it opens as RGBA; it gives 16-bit gray as values up to
+    65,535, which the JAX reader divides by 255);
+    1/2/4-bit gray scaled to 0..255, as PIL's `convert("L")`; palette
+    images expanded to RGB, or RGBA where a tRNS chunk gives alpha, as
+    PIL's `convert("RGB" / "RGBA")` (the JAX reader takes the indices).
+    Row filters 0-4, with or without Adam7 interlace."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != PNG_MAGIC:
         raise ValueError(f"{path}: not a PNG")
-    pos, idat, header = 8, [], None
+    pos, idat, header, plte, trns = 8, [], None, None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
@@ -99,6 +127,10 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + length
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -106,29 +138,49 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color_type, _, _, interlace = header
-    if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit PNG; only 8-bit PNGs are read")
-    if color_type == 3:
-        raise ValueError(f"{path}: palette PNG; only gray, gray + alpha, RGB "
-                         "and RGBA PNGs are read")
-    if color_type not in _CHANNELS:
+    if color_type not in _PNG_CHANNELS:
         raise ValueError(f"{path}: PNG color type {color_type} is unknown")
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNG; only PNGs without "
-                         "interlace are read")
-    c = _CHANNELS[color_type]
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows[:h * (w * c + 1)].reshape(h, w * c + 1)
-    img = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, c))
+    if depth not in _DEPTHS[color_type]:
+        raise ValueError(f"{path}: {depth}-bit samples are not allowed for PNG "
+                         f"color type {color_type}")
+    if color_type == 3 and plte is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+    c = _PNG_CHANNELS[color_type]
+    bpp = max(1, depth * c // 8)                      # filter byte distance
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    img = np.zeros((h, w, c), np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        row_bytes = -(-pw * depth * c // 8)
+        rows = raw[pos:pos + ph * (row_bytes + 1)].reshape(ph, row_bytes + 1)
+        pos += ph * (row_bytes + 1)
+        un = _unfilter(rows[:, 0], rows[:, 1:].reshape(ph, row_bytes // bpp, bpp))
+        img[y0::dy, x0::dx] = _samples(un.reshape(ph, row_bytes), pw, depth, c)
+    if color_type == 3:
+        pal = np.zeros((256, 4), np.uint8)
+        pal[:len(plte), :3] = plte
+        pal[:, 3] = 255
+        if trns is not None:
+            pal[:len(trns), 3] = trns
+        return np.ascontiguousarray(pal[img[..., 0], :3 if trns is None else 4])
+    if color_type == 0 and depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
+    if color_type == 4 and depth == 16:               # PIL opens it as RGBA
+        img = img[..., [0, 0, 0, 1]]
+        c = 4
     return img[..., 0].copy() if c == 1 else np.ascontiguousarray(img)
 
 
 def read_image(path: str) -> np.ndarray:
-    """A dataset image -> `read_png`'s array. A JPEG raises: its decoding is
-    not ported (convert the images to PNG)."""
+    """A dataset image, JPEG or PNG by its first bytes -> `read_jpeg`'s or
+    `read_png`'s array."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head[:3] == JPEG_MAGIC:
-        raise ValueError(f"{path}: JPEG decoding is not ported; convert the "
-                         "dataset's images to PNG")
-    return read_png(path)
+        return read_jpeg(path)
+    if head == PNG_MAGIC:
+        return read_png(path)
+    raise ValueError(f"{path}: neither a JPEG nor a PNG")

@@ -461,3 +461,21 @@ def test_bg_trainer_step_on_cuda_matches_cpu(cuda):
     for k in ("grad_accum", "denom"):
         a, b = getattr(cpu.model.state, k), getattr(gpu.model.state, k).cpu()
         assert ((a - b).abs() / a.abs().max()).max().item() <= 2e-4, k
+
+
+@pytest.mark.cuda
+def test_lpips_on_cuda_matches_cpu(cuda):
+    """The LPIPS graph with the seed weights on the card (cuDNN, TF32 off)
+    against the same graph on the CPU, within 1e-4 relative, at an odd size
+    and at 320x180."""
+    from gaussianmesh_tpu_torch.eval.lpips import LPIPSNet, random_weights
+    net = LPIPSNet(random_weights(0))
+    rng = np.random.default_rng(5)
+    for h, w in ((35, 33), (180, 320)):
+        a = torch.from_numpy(rng.uniform(0, 1, (3, h, w)).astype(np.float32))
+        b = (a + torch.from_numpy(rng.normal(0, 0.1, (3, h, w)).astype(np.float32))).clamp(0, 1)
+        with torch.no_grad():
+            want = float(net(a, b))
+            got = float(net.to(cuda)(a.to(cuda), b.to(cuda)))
+        net.cpu()
+        assert want > 0 and abs(got - want) <= 1e-4 * want, (h, w, got, want)

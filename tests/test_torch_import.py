@@ -1,4 +1,5 @@
-"""The port stands alone: no module of it imports JAX or the JAX package."""
+"""The port stands alone: no module of it imports JAX or the JAX package,
+nor an imaging package (PIL, imageio): the machines it runs on have none."""
 
 import ast
 import pathlib
@@ -24,8 +25,9 @@ def test_importing_every_module_leaves_out_jax():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'flax', 'gaussianmesh_tpu.')) or m == 'gaussianmesh_tpu')\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'gaussianmesh_tpu', "
+            "'PIL', 'imageio') or m.startswith(('jax.', 'flax', 'gaussianmesh_tpu.', "
+            "'PIL.', 'imageio.')))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -46,4 +48,5 @@ def test_no_source_names_jax_or_the_jax_package():
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "gaussianmesh_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "flax", "gaussianmesh_tpu", "PIL",
+                               "imageio"), (path, name)

@@ -34,27 +34,38 @@ def _chunk(tag, data):
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def _encode(img, filters, interlace=0):
-    """A PNG of uint8 `img` whose row y uses filter filters[y % len]: a
-    plain numpy encoder, so every filter type is exercised."""
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+         (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _encode(img, filters, interlace=0, depth=8):
+    """A PNG of `img` (uint8, or uint16 at depth 16) whose row y of each
+    pass uses filter filters[y % len]: a plain numpy encoder, so every
+    filter type, 16-bit samples and Adam7 are exercised."""
     img3 = img[..., None] if img.ndim == 2 else img
     h, w, c = img3.shape
-    x = img3.reshape(h, w * c).astype(np.int32)
+    bpp = c * depth // 8
     rows = []
-    for y in range(h):
-        f = filters[y % len(filters)]
-        row = x[y]
-        up = x[y - 1] if y else np.zeros_like(row)
-        left = np.concatenate([np.zeros(c, np.int32), row[:-c]])
-        ul = np.concatenate([np.zeros(c, np.int32), up[:-c]])
-        p = left + up - ul
-        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
-        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
-        pred = [0, left, up, (left + up) // 2, paeth][f]
-        rows.append(bytes([f]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes())
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = img3[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        sub = sub.astype(">u2").view(np.uint8) if depth == 16 else sub
+        x = sub.reshape(sub.shape[0], -1).astype(np.int32)
+        for y in range(x.shape[0]):
+            f = filters[y % len(filters)]
+            row = x[y]
+            up = x[y - 1] if y else np.zeros_like(row)
+            left = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])
+            ul = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+            p = left + up - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+            paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+            pred = [0, left, up, (left + up) // 2, paeth][f]
+            rows.append(bytes([f]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes())
     ct = {1: 0, 2: 4, 3: 2, 4: 6}[c]
     return (png.PNG_MAGIC
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ct, 0, 0, interlace))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ct, 0, 0, interlace))
             + _chunk(b"IDAT", zlib.compress(b"".join(rows)))
             + _chunk(b"IEND", b""))
 
@@ -91,32 +102,99 @@ def test_png_decodes_every_filter_as_pil(tmp_path, c):
 
 
 def test_unsupported_images_raise(tmp_path):
-    """16-bit, palette and interlaced PNGs, JPEG files and any resize the
-    resolution ladder asks for raise with a message naming the cause."""
-    p16 = str(tmp_path / "g16.png")
-    Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(p16)
-    with pytest.raises(ValueError, match="16-bit"):
-        png.read_png(p16)
+    """What PIL would not read either raises with a message naming the
+    cause: a bit depth the color type does not allow, a palette PNG without
+    its palette, a file that is neither PNG nor JPEG, a progressive JPEG."""
+    bad = str(tmp_path / "bad.png")
+    with open(bad, "wb") as fh:
+        fh.write(png.PNG_MAGIC
+                 + _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 4, 2, 0, 0, 0))
+                 + _chunk(b"IDAT", zlib.compress(bytes(4 * 7)))
+                 + _chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="4-bit samples"):
+        png.read_png(bad)
     pal = str(tmp_path / "p.png")
     Image.fromarray(_image(3)).convert("P").save(pal)
-    with pytest.raises(ValueError, match="palette"):
+    data = open(pal, "rb").read()
+    i = data.index(b"PLTE") - 4
+    with open(pal, "wb") as fh:
+        fh.write(data[:i] + data[i + 12 + struct.unpack(">I", data[i:i + 4])[0]:])
+    with pytest.raises(ValueError, match="PLTE"):
         png.read_png(pal)
-    inter = str(tmp_path / "i.png")
-    with open(inter, "wb") as fh:
-        fh.write(_encode(_image(3), [0], interlace=1))
-    with pytest.raises(ValueError, match="interlace"):
-        png.read_png(inter)
-    jpg = str(tmp_path / "j.jpg")
-    Image.fromarray(_image(3)).save(jpg)
-    with pytest.raises(ValueError, match="JPEG"):
-        png.read_image(jpg)
-    root = _blender_set(tmp_path / "b", with_ply=True, w=32, h=20)
-    with pytest.raises(ValueError, match="resiz"):
-        readers.read_scene(root, resolution=2)
-    big = str(tmp_path / "big.png")
-    png.write_png(big, np.zeros((2, 1700, 3), np.uint8))
-    with pytest.raises(ValueError, match="resiz"):
-        readers._load_image(big, -1, None)
+    other = str(tmp_path / "x.bmp")
+    Image.fromarray(_image(3)).save(other)
+    with pytest.raises(ValueError, match="neither a JPEG nor a PNG"):
+        png.read_image(other)
+    prog = str(tmp_path / "p.jpg")
+    Image.fromarray(_image(3)).save(prog, progressive=True)
+    with pytest.raises(ValueError, match="progressive"):
+        png.read_image(prog)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_png_16_bit_keeps_the_high_byte(tmp_path, c):
+    """16-bit PNGs: PIL gives RGB(A) their high bytes and opens gray + alpha
+    as RGBA of the high bytes; gray comes back from PIL unscaled (values up
+    to 65,535, fault B7), and the port keeps its high byte too. Filters 0-4
+    over two-byte samples."""
+    rng = np.random.default_rng(c)
+    img = rng.integers(0, 1 << 16, (11, 9, c), dtype=np.uint16)
+    img = img[..., 0] if c == 1 else img
+    path = str(tmp_path / "x16.png")
+    with open(path, "wb") as fh:
+        fh.write(_encode(img, [0, 1, 2, 3, 4], depth=16))
+    got = png.read_png(path)
+    want = np.asarray(Image.open(path))
+    if c == 1:
+        assert want.max() > 255           # B7: the JAX reader's PIL path
+        want = (want.astype(np.int64) >> 8).astype(np.uint8)
+    assert got.dtype == np.uint8 and np.array_equal(got, want)
+    high = (img >> 8).astype(np.uint8)
+    assert np.array_equal(got, high[..., [0, 0, 0, 1]] if c == 2 else high)
+    if c == 1:                            # PIL's own 16-bit gray writer
+        Image.fromarray(img).save(path)
+        assert np.array_equal(png.read_png(path), high)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("trns", [False, True])
+def test_palette_png_expands_as_pil_convert(tmp_path, bits, trns):
+    """Palette PNGs (fault B6: the JAX reader takes the indices) expand to
+    RGB, or to RGBA where a tRNS chunk gives alpha, as PIL's convert."""
+    rng = np.random.default_rng(bits)
+    n = 1 << bits
+    idx = rng.integers(0, n, (13, 21), dtype=np.uint8)
+    im = Image.fromarray(idx, "P")
+    im.putpalette(rng.integers(0, 256, 3 * n, dtype=np.uint8).tobytes())
+    path = str(tmp_path / "p.png")
+    kw = {"bits": bits} if bits < 8 else {}
+    if trns:
+        kw["transparency"] = rng.integers(0, 256, max(1, n // 2), dtype=np.uint8).tobytes()
+    im.save(path, **kw)
+    back = Image.open(path)
+    assert back.mode == "P" and np.array_equal(np.asarray(back), idx)
+    want = np.asarray(back.convert("RGBA" if trns else "RGB"))
+    got = png.read_png(path)
+    assert got.shape == want.shape and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_adam7_interlaced_png_as_pil(tmp_path, c):
+    """Adam7 passes at sizes where some passes are empty, each pass's rows
+    with all five filters; and 1-bit gray, interlaced and not."""
+    for h, w in ((13, 17), (1, 1), (3, 2), (9, 8)):
+        img = _image(c, h=h, w=w, seed=h * w)
+        path = str(tmp_path / f"i{h}x{w}.png")
+        with open(path, "wb") as fh:
+            fh.write(_encode(img, [0, 1, 2, 3, 4], interlace=1))
+        want = np.asarray(Image.open(path))
+        got = png.read_png(path)
+        assert np.array_equal(got, want) and np.array_equal(got, img), (h, w)
+    if c == 1:
+        bw = np.random.default_rng(0).random((13, 17)) < 0.5
+        path = str(tmp_path / "b.png")
+        Image.fromarray(bw).save(path)
+        assert np.array_equal(png.read_png(path), np.asarray(Image.open(path).convert("L")))
 
 
 # ------------------------------------------------------------------ COLMAP
@@ -287,6 +365,64 @@ def test_read_scene_matches_jax(tmp_path, kind):
     for k in ("images", "masks"):
         x, y = getattr(dt, k).numpy(), np.asarray(getattr(dj, k))
         assert x.dtype == y.dtype == np.uint8 and np.array_equal(x, y), k
+
+
+def _jpeg_colmap_set(root, w=1700, h=22, n=6):
+    """A COLMAP scene of JPEG images (PIL, quality 90, 4:2:0 / 4:2:2 /
+    4:4:4 in turn, one gray) `w` px wide, and masks at half the image size:
+    gray PNGs and, for one image, an RGB one."""
+    root = str(root)
+    rng = np.random.default_rng(4)
+    cams, imgs, xyz, rgb, err = _colmap_model(rng, n_img=n, n_pts=30)
+    for d in ("images", "masks"):
+        os.makedirs(os.path.join(root, d))
+    renamed = {}
+    y, x = np.mgrid[0:h, 0:w]
+    for im in imgs.values():
+        name = im.name.replace(".png", ".jpg")
+        renamed[im.id] = colmap.ColmapImage(im.id, im.qvec, im.tvec, im.camera_id, name)
+        img = np.clip(128 + 90 * np.sin(x[..., None] / (20.0 + im.id) + np.arange(3))
+                      + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        if im.id == 3:
+            Image.fromarray(img[..., 0]).save(os.path.join(root, "images", name), quality=90)
+        else:
+            Image.fromarray(img).save(os.path.join(root, "images", name), quality=90,
+                                      subsampling=im.id % 3)
+        mask = rng.integers(0, 256, (h // 2, w // 2) if im.id != 2 else (h // 2, w // 2, 3),
+                            dtype=np.uint8)
+        Image.fromarray(mask).save(os.path.join(root, "masks", name.replace(".jpg", ".png")))
+    colmap.write_model_binary(os.path.join(root, "sparse", "0"),
+                              {k: colmap.ColmapCamera(**vars(c)) for k, c in cams.items()},
+                              renamed, xyz, rgb, err)
+    return root
+
+
+@pytest.mark.parametrize("resolution", [1, 2, -1])
+def test_jpeg_colmap_scene_on_the_ladder_matches_jax(tmp_path, resolution):
+    """JPEG images 1,700 px wide with masks at half their size: at -r 1 the
+    masks are upscaled to the images, at -r 2 both are halved, at -r -1 the
+    images go to 1,600 px; images, masks and cameras equal the JAX reader's
+    (PIL's decoder and bicubic resize) bit for bit, a gray JPEG repeated to
+    3 channels."""
+    root = _jpeg_colmap_set(tmp_path / "c")
+    kw = dict(resolution=resolution, eval_split=True, is_exist_bg=True)
+    got, want = readers.read_scene(root, **kw), jreaders.read_scene(root, **kw)
+    _assert_scene_equal(got, want)
+    cam = got.train_cameras[0]
+    assert cam.image.shape[1:] == {1: (22, 1700), 2: (11, 850), -1: (20, 1600)}[resolution]
+    assert cam.mask.shape[1:] == cam.image.shape[1:]
+
+
+@pytest.mark.parametrize("resolution", [2, 4])
+def test_blender_rgba_scene_resized_matches_jax(tmp_path, resolution):
+    """A Blender set's RGBA frames at -r 2 and 4: resized premultiplied by
+    alpha as PIL does, then composited over the background, equal to the
+    JAX reader's."""
+    root = _blender_set(tmp_path / "b", with_ply=True, w=40, h=28)
+    kw = dict(resolution=resolution, white_background=True, eval_split=True)
+    got, want = readers.read_scene(root, **kw), jreaders.read_scene(root, **kw)
+    _assert_scene_equal(got, want)
+    assert got.train_cameras[0].image.shape == (3, 28 // resolution, 40 // resolution)
 
 
 def test_colmap_without_masks_raises_for_a_background_run(tmp_path):
