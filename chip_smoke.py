@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render, training, playback and command-line
-training paths on one CUDA card and check them.
+"""Drive the PyTorch port's render, training, playback, command-line,
+serving and multi-process paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -111,6 +111,37 @@ Phases (any failure raises, so the exit code is not 0):
    kernels' wrappers recording their arguments, and K1, K2 and K3 held
    against their plain versions on those, timed and bounded as in phase 5;
    K2's rows must equal the step's.
+10. serve and shard, at full width. (a) The host deformation-gradient
+   extractor (`edit/native_acap.py`, C++ / OpenMP, built by g++) on the
+   slice's icosphere-7 mesh and phase 7's largest twist frame: against the
+   card's `deformation_gradients` in float64 (1e-4) and beside its float32
+   path (within `RS_F32_FLOOR`); a rigid frame made in float64 gives R = Q
+   (1e-4), one made in float32 within `RIGID_F32_BAR`; host ms per call
+   beside the card's deformation ms. (b)
+   `ViewerServer` on 127.0.0.1, port 0, serving `editor_render_fn` of the
+   slice model at 1920x1080: 8 `GET /frame` at the slice's orbit angles,
+   each PNG equal to the in-process render quantised (0 levels), K1 once per
+   frame (counters set to 0 just before the requests, read just after), no
+   overflow, `/state` 8 frames, a 500 for a render that raises; request ms
+   split into render and encode. (c) `GM_DEVICE=cuda bash
+   examples/synthetic_e2e_torch.sh`: exit 0, renders, results.json, edit
+   frames. (d) View 0 as 4 bands (`parallel/train_step.rasterize_band`, one
+   at a time), stitched equal to the full render (2e-5). (e) A rehearsal of
+   the (data, tile) regime: 4 ranks (2x2) on the one card over gloo from a
+   FileStore, config 2 at 800x800 from the phase-6 student's state: the
+   first step against a single-process reference over the same two views
+   (loss 1e-4 relative, parameters 5e-4 of each leaf's largest, grad_accum
+   1e-5, denom exact), 20 more steps with a reset at 2, densify at 3 and 6
+   and a reset at 6 (the ranks' state hashes all-gathered after each event
+   and at the end, equal), K1-K3 once per rank and step, finite losses that
+   fall over the event-free steps; then one more step with the band
+   arguments recorded and, on rank 0, K1-K3 held against their plain
+   versions there, timed and bounded as in phase 5 (the `band_*` keys). An
+   nccl world of 4 ranks on one card raises. (f) Config-3 playback at
+   1080p through `make_sharded_playback_fn` on the same ranks, 2 frames a
+   call, 2 bands each, every frame within 2e-5 of the single-process
+   frame. The parent joins each rank with a timeout and fails on any
+   rank's failure; its wall times are a rehearsal, not a multi-card speed.
 
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
@@ -181,6 +212,18 @@ EVAL_VIEWS = 24                        # llffhold 8: 21 train, 3 test
 EVAL_QUALITY = 90
 EVAL_ITERS = 100
 EVAL_MIN_PSNR = 35.0                   # the JPEG round trip against the render
+
+# phase 10: serve and shard
+ACAP_CALLS = 5
+RS_F32_FLOOR = 5e-3    # float32 card path vs the float64 extractor at level 7
+RIGID_F32_BAR = 2e-3   # R vs Q on a rigid frame made in float32
+VIEWER_FRAMES = 8
+E2E_TIMEOUT_S = 600
+SHARD_WORLD = (2, 2)   # (data, tile) ranks sharing the one card over gloo
+SHARD_STEPS = 20
+SHARD_LR_SCALE = 4.4   # phase 6's spatial_lr_scale
+SHARD_GROUP_TIMEOUT_S = 300
+SHARD_JOIN_S = 900
 
 # H100 SXM peaks (NVIDIA data sheet; the CUDA programming guide's throughput
 # table for the special-function unit: 16 exp2 results / clock / SM) at the
@@ -795,9 +838,10 @@ def kernel_line(results, fullscreen, launches):
     """The `kernels` JSON entries: times and bounds at the slice config,
     beside them those at the clamped config, at a mesh training step's and
     a background step's shapes ("pipeline"), at a 1600x900 step's of the
-    eval phase ("eval"), (K1) at a composite playback frame's, and K3's on
-    the full-screen case; errors over all of them; launches from the main
-    paths (render, train, playback, pipeline, eval)."""
+    eval phase ("eval"), at one rank's band of a 2x2 sharded step ("band"),
+    (K1) at a composite playback frame's, and K3's on the full-screen case;
+    errors over all of them; launches from the main paths (render, train,
+    playback, pipeline, eval, serve, shard)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -819,7 +863,8 @@ def kernel_line(results, fullscreen, launches):
         entry.update({k: s[k] for k in ("queued_ms", "host_ms") if k in s})
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
-        for label in ("clamped", "train", "fullscreen", "composite", "pipeline", "eval"):
+        for label in ("clamped", "train", "fullscreen", "composite", "pipeline", "eval",
+                      "band"):
             for k in ("ms", "queued_ms", "host_ms", "plain_ms", "bound_ms",
                       "library_ms", "max_abs"):
                 if k in r.get(label, {}):
@@ -828,9 +873,10 @@ def kernel_line(results, fullscreen, launches):
     return line
 
 
-def capture_step(torch, port, trainer):
+def capture_step(torch, port, trainer, cam=0):
     """One more training step (`step` of a `MeshTrainer` or a `BgTrainer`,
-    on view 0 over its constant background) with the wrappers of K1, K2 and
+    on view `cam` over its constant background; a tensor of one view per
+    data group for a multi-process `MeshTrainer`) with the wrappers of K1, K2 and
     K3 recording the arguments the step hands them.
     -> {"K1": args, "K2": args, "K3": args}. A wrapper bumps its counter
     through its module's name, so each stand-in carries a `launches` of its
@@ -852,7 +898,7 @@ def capture_step(torch, port, trainer):
 
         setattr(mod, attr, record)
     try:
-        trainer.step(0, trainer.bg_const)
+        trainer.step(cam, trainer.bg_const)
     finally:
         for key, (mod, attr) in wrappers.items():
             setattr(mod, attr, kept[key])
@@ -995,7 +1041,7 @@ def phase_train(torch, port, model):
                          blended, step_rows=rows)
     log("[train] K2 at the step's shapes: " + json.dumps(k2))
     log("[train] K3 at the step's shapes: " + json.dumps(k3))
-    return launches, free_ms, (k1, k2, k3), trainer.rt
+    return launches, free_ms, (k1, k2, k3), trainer
 
 
 def twist_frames(v, n_frames, amp=TWIST_AMP):
@@ -1950,6 +1996,477 @@ def phase_eval(torch, port, model, train_rt, tmpdir):
     return res, launches, (k1, k2, k3)
 
 
+# ------------------------------------------------------------------ phase 10
+
+def phase_acap(torch, port):
+    """10a. The host extractor (`edit/native_acap.py`, C++ / OpenMP) on the
+    slice model's icosphere-7 mesh and phase 7's largest twist frame,
+    against the port's `deformation_gradients` on the card in float64 (the
+    same normalised rings, eps, guards and Newton steps: 1e-4), and beside
+    the float32 card path playback runs (whose rounding of the ~1e-4-flat
+    rings sets a floor near 2e-3 at this level; `RS_F32_FLOOR`); a rigid
+    frame made in float64 gives R = Q (1e-4), one made in float32 within
+    `RIGID_F32_BAR`."""
+    v, f = icosphere(SUBDIV)
+    frame = twist_frames(v, PLAYBACK_FRAMES)[PLAYBACK_FRAMES // 4]
+    t0 = time.perf_counter()
+    nat = port.native_acap.NativeACAP((v, f))
+    setup_s = time.perf_counter() - t0
+    nat.get_rs(frame)                                     # warm
+    t0 = time.perf_counter()
+    for _ in range(ACAP_CALLS):
+        r, s = nat.get_rs(frame)
+    host_ms = (time.perf_counter() - t0) * 1e3 / ACAP_CALLS
+    d = port.deform.MeshDeformer(v, f, device="cuda")
+    vd = torch.tensor(frame, device="cuda")
+    card_ms, _ = timed_frames(torch, lambda i: d.get_rs(vd), ACAP_CALLS)
+    r32, s32 = d.get_rs(vd)
+    r64, s64 = port.deform.deformation_gradients(d.v_ref.double(), vd.double(),
+                                                 d.neighbors, d.mask)
+
+    def err(a, b):
+        return float(np.abs(a - b.cpu().numpy()).max())
+
+    q = rotation([0.3, 1.0, 0.2], 0.7)
+    rq, _ = nat.get_rs(v.astype(np.float64) @ q.T + [0.5, -0.2, 0.1])
+    rq32, _ = nat.get_rs((v @ q.T + [0.5, -0.2, 0.1]).astype(np.float32))
+    res = dict(vertices=int(v.shape[0]), threads=os.cpu_count(), setup_s=setup_s,
+               host_ms=host_ms, card_deform_ms=float(np.median(card_ms)),
+               r_vs_card_f64=err(r, r64), s_vs_card_f64=err(s, s64),
+               r_vs_card_f32=err(r, r32), s_vs_card_f32=err(s, s32),
+               rigid_f64_r_vs_q=float(np.abs(rq - q).max()),
+               rigid_f32_r_vs_q=float(np.abs(rq32 - q).max()))
+    log("[acap] " + json.dumps(res))
+    assert res["r_vs_card_f64"] <= 1e-4 and res["s_vs_card_f64"] <= 1e-4, res
+    assert res["r_vs_card_f32"] <= RS_F32_FLOOR and res["s_vs_card_f32"] <= RS_F32_FLOOR
+    assert res["rigid_f64_r_vs_q"] <= 1e-4, res
+    assert res["rigid_f32_r_vs_q"] <= RIGID_F32_BAR, res
+    return res
+
+
+def phase_viewer(torch, port, cfg, tmpdir):
+    """10b. `ViewerServer` on 127.0.0.1, port 0, serving `editor_render_fn`
+    of the slice model (its PLY and icosphere-7 mesh) at 1920x1080: 8
+    `GET /frame` at the slice's orbit angles, each PNG equal to the uint8
+    quantisation of the in-process `SceneEditor.render` (0 levels), K1 once
+    per frame, no overflow, `/state` 8 frames, a render that raises a 500.
+    -> (results, launches)."""
+    import urllib.error
+    import urllib.request
+
+    vw = port.viewer
+    editor = port.runtime.SceneEditor(device="cuda")
+    editor.add_object(os.path.join(tmpdir, "point_cloud.ply"),
+                      os.path.join(tmpdir, "origin.obj"), name="object")
+    bg = (1.0, 1.0, 1.0)
+    server = vw.ViewerServer(vw.editor_render_fn(editor, cfg, bg), width=WIDTH,
+                             height=HEIGHT, port=0, radius=4.0).start()
+    base = f"http://{server.host}:{server.port}"
+    angles = [(2 * math.pi * i / N_VIEWS, 0.3) for i in range(VIEWER_FRAMES)]
+    try:
+        torch.cuda.synchronize()
+        reset_launches(port)                                 # main path starts
+        pngs, request_ms = [], []
+        for theta, phi in angles:
+            t0 = time.perf_counter()
+            pngs.append(urllib.request.urlopen(
+                f"{base}/frame?theta={theta!r}&phi={phi}&r=4.0", timeout=120).read())
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches(port)                       # main path ends
+        state = json.loads(urllib.request.urlopen(f"{base}/state", timeout=30).read())
+        try:
+            urllib.request.urlopen(f"{base}/frame?w=-32", timeout=60)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code, text = e.code, e.read().decode()
+        frame_ms = list(server.frame_ms)
+    finally:
+        server.stop()
+    levels = []
+    with torch.no_grad():
+        for (theta, phi), data in zip(angles, pngs):
+            cam = vw.orbit_camera(theta, phi, 4.0, WIDTH, HEIGHT)
+            out = editor.render(cam, cfg, bg_color=torch.tensor(bg, device="cuda"))
+            assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+            want = vw.to_uint8(out.color.cpu())
+            got = port.png.decode_png(data)
+            assert got.shape == (HEIGHT, WIDTH, 3), got.shape
+            levels.append(int(np.abs(got.astype(int) - want).max()))
+    res = dict(frames=len(pngs), png_bytes=int(np.mean([len(x) for x in pngs])),
+               max_levels=max(levels), state=state, error_code=code,
+               request_ms_median=float(np.median(request_ms)),
+               render_ms_median=float(np.median([a for a, _ in frame_ms])),
+               encode_ms_median=float(np.median([b for _, b in frame_ms])),
+               request_ms=[round(x, 2) for x in request_ms], launches=launches)
+    log("[viewer] " + json.dumps(res))
+    assert max(levels) == 0, levels
+    assert launches == {"K1": VIEWER_FRAMES, "K2": 0, "K3": 0}, launches
+    assert state["frames_served"] == VIEWER_FRAMES, state
+    assert code == 500 and text, code
+    return res, launches
+
+
+def phase_e2e(torch, tmpdir):
+    """10c. `GM_DEVICE=cuda bash examples/synthetic_e2e_torch.sh`: exit 0,
+    its renders, results.json and edit frames."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmpdir, "e2e")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", os.path.join(root, "examples", "synthetic_e2e_torch.sh"),
+                           work], cwd=root, env={**os.environ, "GM_DEVICE": "cuda"},
+                          capture_output=True, text=True, timeout=E2E_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+        raise AssertionError(f"synthetic_e2e_torch.sh exited {proc.returncode}")
+    model = os.path.join(work, "model")
+    renders = sorted(os.listdir(os.path.join(model, "test", "ours_400", "renders")))
+    results = json.load(open(os.path.join(model, "results.json")))["ours_400"]
+    frames = sorted(os.listdir(os.path.join(work, "edit_out")))
+    res = dict(seconds=wall, renders=len(renders), edit_frames=len(frames),
+               psnr=results["PSNR"], ssim=results["SSIM"],
+               last_lines=proc.stdout.strip().splitlines()[-3:])
+    log("[e2e] " + json.dumps(res))
+    assert renders == ["00000.png", "00001.png"] and len(frames) == 8, res
+    assert math.isfinite(res["psnr"]), res
+    return res
+
+
+def phase_bands(torch, port, model, cam, cfg):
+    """10d. The slice's view 0 as 4 bands through `rasterize_band`, one at a
+    time: stitched, equal to the full render within 2e-5."""
+    pts = port.train_step
+    bg = torch.ones(3, device="cuda")
+    gy_local = port.sharding.band_rows(port.sharding.padded_grid_y(HEIGHT, 4), 4)
+    with torch.no_grad():
+        a = port.render.mesh_model_arrays(model, cam, SH_DEGREE)
+        full = port.render.render(a, cam, cfg, bg)
+        reset_launches(port)
+        bands = [pts.rasterize_band(a, cam, cfg, gy_local, i * gy_local, bg)
+                 for i in range(4)]
+        launches = read_launches(port)
+    stitched = torch.cat([b.color for b in bands], 1)[:, :HEIGHT]
+    err = (stitched - full.color).abs().max().item()
+    res = dict(bands=4, rows_per_band=gy_local * 16, max_abs=err, launches=launches,
+               num_rendered=[int(b.num_rendered) for b in bands],
+               full_num_rendered=int(full.num_rendered))
+    log("[bands] " + json.dumps(res))
+    assert err <= 2e-5, res
+    assert all(torch.equal(b.radii, full.radii) for b in bands)
+    assert launches == {"K1": 4, "K2": 0, "K3": 0}, launches
+    return res
+
+
+def reference_step(torch, port, trainer, cams, bg):
+    """The single-process reference of one 2x2 step over the same views, on
+    the card: a copy of the trainer's state, the mean of the views' losses
+    plus the mesh-restrict loss, one Adam update with the trainer's moments,
+    the per-view densification statistics."""
+    state = trainer.capture()
+    tr = port.trainer.MeshTrainer(*icosphere(PROXY_SUBDIV), trainer.ds, trainer.opt,
+                                  trainer.rt, spatial_lr_scale=SHARD_LR_SCALE,
+                                  init_target=0, max_sh_degree=SH_DEGREE)
+    tr.restore(state)
+    m, opt, ds = tr.model, tr.opt, tr.ds
+    lam = opt.lambda_dssim
+    params = m.params()
+    total, accum, denom = 0.0, m.state.grad_accum.clone(), m.state.denom.clone()
+    for idx in cams:
+        cam, gt = ds.camera(idx), ds.target(idx, bg)
+        off = torch.zeros((m.capacity, 2), device="cuda", requires_grad=True)
+        out = port.render.render(port.render.mesh_model_arrays(m, cam, tr.sh_degree),
+                                 cam, tr.raster_cfg(), bg, mean2d_offset=off)
+        view = ((1 - lam) * port.loss.l1_loss(out.color, gt)
+                + lam * (1 - port.loss.ssim(out.color, gt)))
+        total = total + view / len(cams)
+        g_off = torch.autograd.grad(view, off, retain_graph=True)[0]
+        st = port.densify.add_densification_stats(m.state, g_off, out.visibility,
+                                                  ds.width, ds.height)
+        accum += st.grad_accum - m.state.grad_accum
+        denom += st.denom - m.state.denom
+    total = total + port.loss.mesh_restrict_loss(m.get_scaling(), m.vertex1, m.vertex2,
+                                                 m.vertex3, m.alive, opt.alpha_mrloss)
+    grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+    tr.adam.update(params, {k: torch.zeros_like(p) if g is None else g
+                            for (k, p), g in zip(params.items(), grads)})
+    return dict(loss=float(total.detach()),
+                params={k: v.detach().cpu() for k, v in params.items()},
+                grad_accum=accum.detach().cpu(), denom=denom.cpu())
+
+
+def phase_shard(torch, port, trainer, playback_cfg, cam, tmpdir):
+    """10e and 10f: the (data, tile) regime on SHARD_WORLD ranks that share
+    the one card over gloo (a rehearsal: it checks, it measures no
+    multi-card speed). The parent writes the phase-6 student's state, its
+    dataset and the single-process reference of the first step; spawns the
+    ranks (`shard_rank`), joins each with a timeout and checks their
+    reports. -> (results, launches summed over the ranks, band kernels)."""
+    work = os.path.join(tmpdir, "shard")
+    os.makedirs(work)
+    ds = trainer.ds
+    cams = [0, TRAIN_VIEWS // 2]
+    t0 = time.perf_counter()
+    torch.save(dict(
+        state=trainer.capture(), opt=dataclasses.asdict(trainer.opt),
+        rt=dataclasses.asdict(trainer.rt), cams=cams,
+        data={k: getattr(ds, k).cpu() for k in ("view", "proj", "campos", "tanfovx",
+                                                "tanfovy", "images")},
+        size=(ds.width, ds.height), cam=[x.cpu() for x in cam],
+        playback_cfg=dataclasses.asdict(playback_cfg),
+        paths=[os.path.join(tmpdir, "point_cloud.ply"), os.path.join(tmpdir, "origin.obj")]),
+        os.path.join(work, "inputs.pt"))
+    torch.save(reference_step(torch, port, trainer, cams, trainer.bg_const),
+               os.path.join(work, "reference.pt"))
+    prep_s = time.perf_counter() - t0
+
+    # NCCL refuses more ranks than cards: the port raises before it tries
+    env_keys = ("WORLD_SIZE", "LOCAL_WORLD_SIZE")
+    kept = {k: os.environ.get(k) for k in env_keys}
+    os.environ.update(WORLD_SIZE="4", LOCAL_WORLD_SIZE="4")
+    try:
+        port.multihost.initialize(backend="nccl")
+        raise AssertionError("nccl with 4 ranks on one card did not raise")
+    except RuntimeError as e:
+        nccl_refused = str(e)
+    finally:
+        for k, v in kept.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+
+    # the ranks need the card's memory that earlier phases left cached here
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = SHARD_WORLD[0] * SHARD_WORLD[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-rank",
+                               str(r), str(world), work],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = join_ranks(procs, SHARD_JOIN_S)
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        for line in out.strip().splitlines()[-12:]:
+            log(f"[shard] rank {r}: {line}")
+    reports = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(world)]
+    r0 = reports[0]
+    for rep in reports:
+        assert rep["ok"], rep
+        assert rep["hashes"] == r0["hashes"] and rep["losses"] == r0["losses"], rep
+    launches = {k: sum(rep["launches"][k] + rep["playback_launches"][k]
+                       for rep in reports) for k in ("K1", "K2", "K3")}
+    res = dict(world=SHARD_WORLD, prep_s=prep_s, wall_s=wall, nccl_refused=nccl_refused,
+               step1=[rep["step1"] for rep in reports], losses=r0["losses"],
+               events=r0["events"], hashes_equal=True,
+               step_ms_median=[rep["step_ms_median"] for rep in reports],
+               gloo_cuda=r0["gloo_cuda"],
+               playback=[rep["playback"] for rep in reports],
+               rank_launches=[rep["launches"] for rep in reports])
+    log("[shard] " + json.dumps({k: v for k, v in res.items() if k != "losses"}))
+    log(f"[shard] losses {[round(x, 5) for x in r0['losses']]}")
+    return res, launches, tuple(r0["band_kernels"])
+
+
+def join_ranks(procs, timeout):
+    """Wait for every rank until `timeout` s; on expiry kill them all and
+    fail; fail on any non-zero exit. -> each rank's output."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    for r, p in enumerate(procs):
+        try:
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"rank {r} still running after {timeout} s: killed")
+        outs.append(out)
+        if p.returncode != 0:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    return outs
+
+
+def state_hash(trainer):
+    """sha256 over the bytes of every parameter, binding field, statistic,
+    Adam moment and the vertex pool."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    m = trainer.model
+    for tree in (m.params(), m.binding(), m.state._asdict(), trainer.adam.mu,
+                 trainer.adam.nu, {"v": m.mesh_v.v}):
+        for k in sorted(tree):
+            h.update(k.encode())
+            h.update(tree[k].detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def shard_rank(rank, world, work):
+    """One rank of phase 10e / 10f, on the card, in a gloo group from a
+    FileStore in `work`: load the phase-6 state; the first 2x2 step against
+    the parent's single-process reference; 20 more steps with a densify and
+    an opacity reset inside, the state hashes all-gathered after each event
+    and at the end; one more step recording the band arguments (rank 0
+    holds K1-K3 against their plain versions there); sharded config-3
+    playback, 2 frames a call, against the single-process frames. Writes
+    `rank<r>.json`."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    os.environ["GM_DIST_TIMEOUT"] = str(SHARD_GROUP_TIMEOUT_S)
+    port = load_port()
+    inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    ref = torch.load(os.path.join(work, "reference.pt"), weights_only=False)
+    width, height = inp["size"]
+    d = {k: v.cuda() for k, v in inp["data"].items()}
+    ds = port.trainer.DeviceDataset(d["view"], d["proj"], d["campos"], d["tanfovx"],
+                                    d["tanfovy"], d["images"], None, width, height)
+    opt = port.config.OptimizationParams(**inp["opt"])
+    # twice phase 6's max_per_tile: two more densifies pile pairs into tiles
+    rt = port.config.RuntimeParams(**{**inp["rt"], "data_axis": SHARD_WORLD[0],
+                                      "tile_axis": SHARD_WORLD[1],
+                                      "max_per_tile": 2 * inp["rt"]["max_per_tile"]})
+    tr = port.trainer.MeshTrainer(*icosphere(PROXY_SUBDIV), ds, opt, rt,
+                                  spatial_lr_scale=SHARD_LR_SCALE, init_target=0,
+                                  max_sh_degree=SH_DEGREE)
+    tr.restore(inp["state"])
+    mesh = tr.mesh
+    report = dict(rank=rank, ok=False)
+
+    # gloo's collectives on CUDA tensors, which the port hands them as they are
+    report["gloo_cuda"] = {}
+    for name, fn in (("all_reduce", lambda x: dist.all_reduce(x)),
+                     ("all_gather", lambda x: dist.all_gather(
+                         [torch.empty_like(x) for _ in range(world)], x))):
+        try:
+            fn(torch.ones(4, device="cuda"))
+            torch.cuda.synchronize()
+            report["gloo_cuda"][name] = "accepted"
+        except RuntimeError as e:
+            report["gloo_cuda"][name] = f"refused: {str(e).splitlines()[0][:120]}"
+    dist.barrier()
+
+    # step 1 against the single-process reference
+    reset_launches(port)
+    m1 = tr.sharded_step(torch.tensor(inp["cams"]), tr.bg_const)
+    torch.cuda.synchronize()
+    step1_launches = read_launches(port)
+    params = tr.model.params()
+    rel = {k: float(((params[k].detach().cpu() - ref["params"][k]).abs().max()
+                     / ref["params"][k].abs().max().clamp(min=1e-30)))
+           for k in params}
+    report["step1"] = dict(
+        loss=float(m1["loss"]), ref_loss=ref["loss"],
+        loss_rel=abs(float(m1["loss"]) - ref["loss"]) / abs(ref["loss"]),
+        param_rel=max(rel.values()), param_rel_by_leaf=rel,
+        grad_accum_abs=float((tr.model.state.grad_accum.cpu() - ref["grad_accum"]).abs().max()),
+        denom_equal=bool(torch.equal(tr.model.state.denom.cpu(), ref["denom"])),
+        launches=step1_launches)
+    s1 = report["step1"]
+    assert s1["loss_rel"] <= 1e-4 and s1["param_rel"] <= 5e-4, s1
+    assert s1["grad_accum_abs"] <= 1e-5 and s1["denom_equal"], s1
+    assert step1_launches == {"K1": 1, "K2": 1, "K3": 1}, step1_launches
+
+    # 20 more steps: a white-background reset and a densify early, then 15
+    # steps without an event; hashes after every event and at the end
+    tr.global_it = 0          # the schedule below counts from here
+    tr.opt = dataclasses.replace(opt, densify_from_iter=2, densification_interval=3,
+                                 densify_until_iter=8, opacity_reset_interval=6)
+    hashes, losses, times, n_events = [], [], [], [0]
+    clock = [time.perf_counter()]
+
+    def gathered_hash():
+        out = [None] * world
+        dist.all_gather_object(out, state_hash(tr))
+        assert len(set(out)) == 1, out
+        return out[0]
+
+    def on_step(m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append((now - clock[0]) * 1e3)
+        losses.append(m["loss"])
+        assert m["tile_overflow"] == 0 and m["rect_overflow"] == 0, m
+        if len(tr.events) > n_events[0]:
+            n_events[0] = len(tr.events)
+            hashes.append(gathered_hash())
+        clock[0] = time.perf_counter()
+
+    reset_launches(port)
+    tr.train(SHARD_STEPS, log_every=1, callback=on_step)
+    launches = read_launches(port)
+    hashes.append(gathered_hash())
+    kinds = [(it, kind) for it, kind, _ in tr.events]
+    assert kinds == [(2, "opacity_reset"), (3, "densify"), (6, "densify"),
+                     (6, "opacity_reset")], kinds
+    assert launches == {"K1": SHARD_STEPS, "K2": SHARD_STEPS, "K3": SHARD_STEPS}, launches
+    assert all(math.isfinite(x) for x in losses), losses
+    free = losses[8:]
+    assert np.mean(free[-4:]) < np.mean(free[:4]), losses
+    report.update(hashes=hashes, losses=losses, events=tr.events,
+                  launches={k: launches[k] + step1_launches[k] for k in launches},
+                  step_ms_median=float(np.median(times[8:])),
+                  n_alive=int(tr.model.alive.sum()))
+
+    # one more step, recording the band arguments; rank 0 checks the kernels
+    seen = capture_step(torch, port, tr, torch.tensor(inp["cams"]))
+    band = [None, None, None]
+    if rank == 0:
+        k1, _, _, blended = check_k1(torch, port.tile_blend, seen["K1"], rt.max_per_tile)
+        rows, grouped_pos, seg_starts = seen["K3"]
+        k2, k3 = check_k2_k3(torch, port, seen["K2"], grouped_pos, seg_starts, blended,
+                             step_rows=rows)
+        band = [k1, k2, k3]
+        for key, r in zip(("K1", "K2", "K3"), band):
+            log(f"[band] {key} at a band step's shapes: " + json.dumps(r))
+    report["band_kernels"] = band
+    dist.barrier()
+
+    # 10f: sharded config-3 playback against the single-process frames
+    pcfg = port.rasterize.RasterizerConfig(**inp["playback_cfg"])
+    cam = port.graphics.CameraArrays(*(x.cuda() for x in inp["cam"]))
+    editor = port.runtime.SceneEditor(device="cuda")
+    editor.add_object(*inp["paths"], name="main")
+    frames = torch.tensor(twist_frames(icosphere(SUBDIV)[0], PLAYBACK_FRAMES),
+                          device="cuda")
+    fn = port.edit_step.make_sharded_playback_fn(mesh, editor, "main", cam, pcfg,
+                                                 bg_color=(1.0, 1.0, 1.0))
+    fn(frames[:SHARD_WORLD[0]])                              # warm
+    torch.cuda.synchronize()
+    calls = [frames[i:i + SHARD_WORLD[0]] for i in range(0, 2 * SHARD_WORLD[0],
+                                                          SHARD_WORLD[0])]
+    reset_launches(port)
+    call_ms, got = timed_frames(torch, lambda i: fn(calls[i]), len(calls))
+    report["playback_launches"] = read_launches(port)
+    single = port.runtime.make_playback_fn(editor.objects["main"], cam, pcfg, (1.0, 1.0, 1.0))
+    errs = []
+    with torch.no_grad():
+        for c, imgs in zip(calls, got):
+            for v_def, img in zip(c, imgs):
+                want = single(v_def)
+                assert int(want.tile_overflow) == 0 and int(want.rect_overflow) == 0
+                errs.append((img - want.color).abs().max().item())
+    report["playback"] = dict(frames=len(errs), max_abs=max(errs),
+                              call_ms=[round(x, 2) for x in call_ms],
+                              launches=report["playback_launches"])
+    assert max(errs) <= 2e-5, errs
+    assert report["playback_launches"] == {"K1": len(calls), "K2": 0, "K3": 0}
+    report["ok"] = True
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def load_port():
     """The port's modules the phases use, as one namespace."""
     from gaussianmesh_tpu_torch import config
@@ -1978,7 +2495,14 @@ def load_port():
     from gaussianmesh_tpu_torch.io import jpeg, resample
     from gaussianmesh_tpu_torch.train import loss
 
+    from gaussianmesh_tpu_torch import viewer
+    from gaussianmesh_tpu_torch.edit import deform, native_acap
+    from gaussianmesh_tpu_torch.parallel import (edit_step, multihost, sharding,
+                                                 train_step)
+
     return types.SimpleNamespace(
+        viewer=viewer, deform=deform, native_acap=native_acap, edit_step=edit_step,
+        multihost=multihost, sharding=sharding, train_step=train_step,
         gaussian_ply=gaussian_ply, mesh_gaussians=mesh_gaussians, render=render,
         binning=binning, oracle=oracle, preprocess=preprocess,
         rasterize=rasterize, segsum=segsum, tile_blend=tile_blend,
@@ -1992,6 +2516,8 @@ def load_port():
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--shard-rank"]:        # a rank of phase 10e / 10f
+        return shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     import torch
 
     smi = phase_card(torch)
@@ -2002,8 +2528,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         model, cam, cfg, render_k1, frames = phase_slice(torch, port, tmpdir)
         results, fullscreen = phase_kernels(torch, port, model, cam, cfg)
-        train_launches, step_ms, results["train"], train_rt = phase_train(
+        train_launches, step_ms, results["train"], student = phase_train(
             torch, port, model)
+        train_rt = student.rt
         t_play = time.perf_counter()
         playback, k1_composite, playback_launches = phase_playback(
             torch, port, model, cam, cfg, tmpdir)
@@ -2014,11 +2541,21 @@ def main() -> int:
         t_pipe = time.perf_counter() - t_pipe
         evaluation, eval_launches, results["eval"] = phase_eval(
             torch, port, model, train_rt, tmpdir)
+        t_serve = time.perf_counter()
+        acap = phase_acap(torch, port)
+        viewer, serve_launches = phase_viewer(torch, port, cfg, tmpdir)
+        e2e = phase_e2e(torch, tmpdir)
+        bands = phase_bands(torch, port, model, cam, cfg)
+        shard, shard_launches, results["band"] = phase_shard(
+            torch, port, student,
+            dataclasses.replace(cfg, max_per_tile=2 * cfg.max_per_tile), cam, tmpdir)
+        t_serve = time.perf_counter() - t_serve
     results["composite"] = (k1_composite, None, None)
     kernels = kernel_line(results, fullscreen,
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
                            "train": train_launches, "playback": playback_launches,
-                           "pipeline": pipeline_launches, "eval": eval_launches})
+                           "pipeline": pipeline_launches, "eval": eval_launches,
+                           "serve": serve_launches, "shard": shard_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
         f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
     log(f"[done] playback phase {t_play:.1f} s; 1080p playback frame ms mean: "
@@ -2039,6 +2576,16 @@ def main() -> int:
         f"object covers {np.mean(evaluation['object_coverage']):.4f} of a test view "
         f"(phase 8's: {np.mean(evaluation['phase8_object_coverage']):.4f}); kernel "
         f"checks {evaluation['kernel_check_s']:.1f} s of the phase")
+    log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} (a rehearsal: "
+        f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks share one card, no multi-card "
+        f"speed): native ACAP {acap['host_ms']:.1f} ms per call on the host "
+        f"({acap['threads']} threads) beside the card's deformation "
+        f"{acap['card_deform_ms']:.2f} ms; viewer request ms median "
+        f"{viewer['request_ms_median']:.1f} (render {viewer['render_ms_median']:.1f}, "
+        f"encode {viewer['encode_ms_median']:.1f} on the host); end-to-end script "
+        f"{e2e['seconds']:.1f} s; 4 bands max-abs {bands['max_abs']:.3g}; sharded step "
+        f"ms median by rank {[round(x, 1) for x in shard['step_ms_median']]}, wall "
+        f"{shard['wall_s']:.1f} s; gloo on CUDA tensors: {shard['gloo_cuda']}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,16 @@ directory (`utils/checkpoint.py`), `--start_checkpoint` resumes from one and
 each render with its image masked onto the constant background, as
 `MeshTrainer.eval_psnr` does (the JAX command line compares with the
 unmasked image).
+
+On several processes, one per rank, over a (data, tile) mesh:
+
+    torchrun --nproc_per_node N -m gaussianmesh_tpu_torch.cli.train_mesh ... \
+        --data_axis D --tile_axis T          (D * T = N)
+
+`parallel.multihost.initialize` joins torchrun's process group first (nccl
+on cards, gloo with `--device cpu`); rank 0 alone writes the model
+directory and prints, the others wait for each write. `--shard_gaussians`
+(the JAX package's Gaussian-table shard) is refused: not ported yet.
 """
 
 from __future__ import annotations
@@ -49,7 +59,17 @@ def main(argv=None):
                         help="resume from the latest chkpnt*.ckpt in the "
                              "model dir (crash recovery)")
     parser.add_argument("--init_target", type=int, default=100_000)
+    parser.add_argument("--shard_gaussians", type=int, default=1,
+                        help="the JAX package's Gaussian-table shard: not ported "
+                             "yet, any value above 1 raises")
     args = parser.parse_args(argv)
+
+    from gaussianmesh_tpu_torch import resolve_device
+    from gaussianmesh_tpu_torch.parallel import multihost
+
+    device = resolve_device(args.device)
+    multihost.initialize(backend="gloo" if device.type == "cpu" else None)
+    writer = multihost.is_writer()
 
     model = cfg_mod.extract(cfg_mod.ModelParams, args)
     opt = cfg_mod.extract(cfg_mod.OptimizationParams, args)
@@ -58,45 +78,50 @@ def main(argv=None):
     if not model.model_path:
         model = cfg_mod.ModelParams(**{**model.__dict__, "model_path": os.path.join(
             "output", "mesh_gaussian")})
-    cfg_mod.save_cfg(model.model_path, {"model": model, "pipeline": pipe,
-                                        "optimization": opt, "runtime": rt})
+    if writer:
+        cfg_mod.save_cfg(model.model_path, {"model": model, "pipeline": pipe,
+                                            "optimization": opt, "runtime": rt})
 
-    from gaussianmesh_tpu_torch import resolve_device
     from gaussianmesh_tpu_torch.io import mesh as mesh_io
     from gaussianmesh_tpu_torch.scene import Scene
     from gaussianmesh_tpu_torch.train.trainer import DeviceDataset, MeshTrainer
     from gaussianmesh_tpu_torch.utils.logging import TrainLogger
 
-    device = resolve_device(args.device)
+    log = print if writer else (lambda *a, **k: None)
     scene = Scene(model, is_exist_bg=args.is_exist_bg, seed=rt.seed)
-    scene.write_static_artifacts()
+    if writer:
+        scene.write_static_artifacts()
+    multihost.barrier()
     ds = DeviceDataset.from_cameras(scene.train_cameras, device=device)
     v, f = mesh_io.read_triangle_mesh(args.input_mesh)
-    print(f"[train] proxy mesh: {v.shape[0]} verts, {f.shape[0]} faces; "
-          f"{len(scene.train_cameras)} train cams; "
-          f"extent {scene.cameras_extent:.3f}; {device}")
+    log(f"[train] proxy mesh: {v.shape[0]} verts, {f.shape[0]} faces; "
+        f"{len(scene.train_cameras)} train cams; "
+        f"extent {scene.cameras_extent:.3f}; {device}")
 
     trainer = MeshTrainer(v, f, ds, opt, rt, spatial_lr_scale=scene.cameras_extent,
                           white_background=model.white_background,
                           is_exist_bg=args.is_exist_bg,
                           init_target=args.init_target,
-                          max_sh_degree=model.sh_degree)
-    trainer.logger = TrainLogger(model.model_path)
+                          max_sh_degree=model.sh_degree,
+                          shard_gaussians=args.shard_gaussians)
+    if trainer.mesh is not None:
+        log(f"[train] process mesh: data {rt.data_axis} x tile {rt.tile_axis}")
+    trainer.logger = TrainLogger(model.model_path) if writer else None
     ckpt_path = args.start_checkpoint
     if args.auto_resume and not ckpt_path:
         ckpt_path = latest_checkpoint(model.model_path)
     if ckpt_path:
         trainer.load_ckpt(ckpt_path)
-        print(f"[train] resumed from {ckpt_path} at iter {trainer.global_it}")
-    print(f"[train] {int(trainer.model.alive.sum())} gaussians after init")
+        log(f"[train] resumed from {ckpt_path} at iter {trainer.global_it}")
+    log(f"[train] {int(trainer.model.alive.sum())} gaussians after init")
 
     test_iters = {b for b in args.test_iterations if b <= opt.iterations}
     save_iters = {b for b in args.save_iterations if b <= opt.iterations}
     ckpt_iters = {b for b in args.checkpoint_iterations if b <= opt.iterations}
 
     def cb(m):
-        print(f"  iter {m['iter']:>6d}  loss {m['loss']:.5f}  "
-              f"n {m['n_alive']}  {m['elapsed']:.0f}s", flush=True)
+        log(f"  iter {m['iter']:>6d}  loss {m['loss']:.5f}  "
+            f"n {m['n_alive']}  {m['elapsed']:.0f}s", flush=True)
 
     test_ds = (DeviceDataset.from_cameras(scene.test_cameras, device=device)
                if scene.test_cameras and test_iters else None)
@@ -107,13 +132,14 @@ def main(argv=None):
         trainer.train(iterations=b - prev, log_every=200, callback=cb)
         prev = b
         if b in save_iters or b == opt.iterations:
-            print(f"[ITER {b}] Saving Gaussians")
+            log(f"[ITER {b}] Saving Gaussians")
             trainer.save(scene.iteration_dir(b))
         if b in ckpt_iters:
             trainer.save_ckpt(os.path.join(model.model_path, f"chkpnt{b}.ckpt"))
         if b in test_iters and test_ds is not None:
-            print(f"[ITER {b}] test PSNR {trainer.eval_psnr(dataset=test_ds):.2f}")
-    trainer.logger.close()
+            log(f"[ITER {b}] test PSNR {trainer.eval_psnr(dataset=test_ds):.2f}")
+    if trainer.logger is not None:
+        trainer.logger.close()
     return trainer
 
 

@@ -8,9 +8,10 @@ run stores the merged groups as JSON `cfg_args.json` in its model directory
 and `load_combined` overlays the command line on it.
 
 Left out, because nothing in the port reads them:
-`RuntimeParams.blend_chunk` and `use_pallas` (TPU kernel options), and the
-device-mesh fields `data_axis`, `tile_axis` and `shard_gaussians`
-(multi-device training). `load_combined` skips those keys in a
+`RuntimeParams.blend_chunk` and `use_pallas` (TPU kernel options), and
+`shard_gaussians` (the Gaussian-table shard, not ported yet; the training
+command line refuses it). `data_axis` and `tile_axis` shape the (data,
+tile) process mesh of `parallel/`. `load_combined` skips those keys in a
 `cfg_args.json` the JAX package wrote, so a model directory trained by
 either package loads here; every key the port writes is one of the JAX
 package's, so the reverse holds too.
@@ -82,14 +83,17 @@ class RuntimeParams:
     pair_capacity_per_gaussian: int = 10
     row_capacity_per_gaussian: int = 4
     seed: int = 0
+    # (data, tile) process mesh: data_axis cameras per step, each image cut
+    # into tile_axis bands; their product is the world size (1: one process)
+    data_axis: int = 1
+    tile_axis: int = 1
 
 
 GROUPS = {"model": ModelParams, "pipeline": PipelineParams,
           "optimization": OptimizationParams, "runtime": RuntimeParams}
 
 # fields of the JAX package's groups that the port leaves out (see above)
-JAX_ONLY = {"runtime": ("blend_chunk", "use_pallas", "data_axis", "tile_axis",
-                        "shard_gaussians")}
+JAX_ONLY = {"runtime": ("blend_chunk", "use_pallas", "shard_gaussians")}
 
 
 def add_group(parser: argparse.ArgumentParser, cls) -> None:

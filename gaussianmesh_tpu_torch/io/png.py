@@ -8,8 +8,8 @@ and Paeth; Adam7 interlace) to uint8 arrays: (H, W) for gray, (H, W, C)
 otherwise. 16-bit samples keep their high byte and palette images expand
 to RGB or RGBA (the JAX reader's PIL path gives 16-bit gray unscaled and
 palette indices). `read_image` reads a JPEG (`io/jpeg.py`) or a PNG by its
-first bytes. `write_png` writes 8-bit gray, gray + alpha, RGB and RGBA
-with filter type 0 on every row.
+first bytes. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
+with filter type 0 on every row, and `write_png` writes what it returns.
 """
 
 from __future__ import annotations
@@ -32,25 +32,31 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
+def encode_png(img: np.ndarray) -> bytes:
     """(H, W) gray or (H, W, C) uint8, C in 1-4 (gray, gray + alpha, RGB,
-    RGBA) -> an 8-bit PNG."""
+    RGBA) -> the bytes of an 8-bit PNG (filter 0, one zlib stream)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8, not {img.dtype}")
+        raise ValueError(f"encode_png takes uint8, not {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
     if c not in _COLOR_TYPE:
-        raise ValueError(f"write_png takes 1-4 channels, not {c}")
+        raise ValueError(f"encode_png takes 1-4 channels, not {c}")
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, c * w)], 1)
+    return (PNG_MAGIC
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c],
+                                          0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """`encode_png(img)` written to `path` (its directory made if needed)."""
+    data = encode_png(img)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(PNG_MAGIC
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                              _COLOR_TYPE[c], 0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
-                + _chunk(b"IEND", b""))
+        f.write(data)
 
 
 def _unfilter(ft: np.ndarray, raw: np.ndarray) -> np.ndarray:
@@ -114,7 +120,11 @@ def read_png(path: str) -> np.ndarray:
     PIL's `convert("RGB" / "RGBA")` (the JAX reader takes the indices).
     Row filters 0-4, with or without Adam7 interlace."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`read_png` of a PNG's bytes (`path` names it in errors)."""
     if data[:8] != PNG_MAGIC:
         raise ValueError(f"{path}: not a PNG")
     pos, idat, header, plte, trns = 8, [], None, None, None

@@ -7,6 +7,11 @@ package (listed in `.gitignore`), named by a hash of their source, the
 shared headers `csrc/*.cuh` and the flags, so an edited source is rebuilt
 and a stale library never loads.
 `build()` starts one `nvcc` per source, all at once.
+
+Host code (`csrc/<name>.cpp`, C++ with OpenMP: the deformation-gradient
+extractor) builds the same way with `g++` (`host_library`). A missing
+compiler or a failed build raises with the compiler's output: nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_FLAGS = ["-O3", "-std=c++17", "-fopenmp", "-shared", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # library -> {C entry point: argtypes}; every entry point returns a
@@ -53,6 +60,16 @@ KERNELS = {
 }
 
 
+# host library -> {C entry point: argtypes}; these return nothing
+HOST_LIBRARIES = {
+    "acap": {
+        # v_ref, v_def (n, 3) f64, n, neighbors (n, D) i32, mask (n, D) u8,
+        # D, r_out, s_out (n, 9) f32, n_threads
+        "gm_acap_get_rs": [_P, _P, _I, _P, _P, _I, _P, _P, _I],
+    },
+}
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -67,6 +84,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    if name in HOST_LIBRARIES:
+        h = hashlib.sha1((CSRC / f"{name}.cpp").read_bytes())
+        h.update(" ".join(HOST_FLAGS).encode())
+        return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):   # the sources' shared pieces
         h.update(header.read_bytes())
@@ -125,3 +146,32 @@ def occupancy(name: str) -> dict[str, int]:
         raise RuntimeError(f"{name} occupancy query failed: cudaError {err}")
     return dict(zip(("threads", "smem_bytes", "blocks_per_sm"),
                     (v.value for v in vals)))
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: a C++ compiler with OpenMP is needed "
+                           "to build the port's host library")
+    return gxx
+
+
+@functools.cache
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library `name` (`csrc/<name>.cpp`), built first with
+    g++ if needed. Raises with the compiler's output when the build fails."""
+    out = _lib_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_gxx(), *HOST_FLAGS, "-o", str(tmp),
+                               str(CSRC / f"{name}.cpp")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in HOST_LIBRARIES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = None
+    return lib

@@ -10,6 +10,12 @@ input that requires grad) runs the forward `blend_forward` alone and skips
 the reduction map `grouped_pos`. Preprocess gradients (mean2d, conic, rgb -> means3d, cov6, SH)
 come from autograd of `ops/preprocess.py`.
 
+`rasterize(..., band=(y0_tiles, gy_local))` renders one horizontal band of
+tile rows of the image (the tile axis of `parallel/`): the tile rects are
+clipped to the band (`clip_to_band`) and the means shifted into band-local
+pixel rows before the features are packed, so the blend runs on a
+gx x gy_local grid; `radii` stay the full image's.
+
 `precompute_static_pairs` and `rasterize(..., static=)` (forward only;
 `rasterize_composite` under the JAX package's name) serve composite
 playback: a static set's pair domain is expanded once per camera and merged
@@ -84,6 +90,20 @@ def _preprocess(means3d, cov6, opacity, cam, cfg, active_mask):
         tiles_touched=torch.where(active_mask, prep.tiles_touched, 0))
 
 
+def clip_to_band(prep: prep_mod.Preprocessed, y0_tiles: int,
+                 gy_local: int) -> prep_mod.Preprocessed:
+    """Restrict tile rects to tile rows [y0, y0 + gy_local), in band-local
+    rows; a Gaussian that touches none of them is culled."""
+    rmin_y = torch.clamp(prep.rect_min[:, 1] - y0_tiles, 0, gy_local)
+    rmax_y = torch.clamp(prep.rect_max[:, 1] - y0_tiles, 0, gy_local)
+    touched = (prep.rect_max[:, 0] - prep.rect_min[:, 0]) * (rmax_y - rmin_y)
+    return prep._replace(
+        rect_min=torch.stack([prep.rect_min[:, 0], rmin_y], -1),
+        rect_max=torch.stack([prep.rect_max[:, 0], rmax_y], -1),
+        tiles_touched=touched.to(torch.int32),
+        valid=prep.valid & (touched > 0))
+
+
 class StaticPairs(NamedTuple):
     """The pair domain of a static Gaussian set seen from one camera, for
     composite playback (one object deforms in a scene of static objects
@@ -100,7 +120,8 @@ def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
               cfg: RasterizerConfig,
               mean2d_offset: torch.Tensor | None = None,
               active_mask: torch.Tensor | None = None,
-              static: StaticPairs | None = None) -> RasterizeOut:
+              static: StaticPairs | None = None,
+              band: tuple[int, int] | None = None) -> RasterizeOut:
     """Render N Gaussians (world means, 3D covariance uppers, activated
     opacity in [0, 1], per-view RGB) over the background color `bg` (3,).
 
@@ -116,9 +137,26 @@ def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
     emission order of the concatenated scene [this set | static]: without
     capacity clipping the frame equals the render of that scene bit for
     bit. `rect_overflow` then counts both expansions; `radii`, `mean2d` and
-    `visibility` report this set."""
+    `visibility` report this set.
+
+    `band` = (y0_tiles, gy_local) renders tile rows [y0_tiles, y0_tiles +
+    gy_local) of cfg's image alone, (3, gy_local * 16, W); rows past the
+    image's tile grid (padding) render the background. `radii`, `mean2d`
+    and `visibility` stay the full image's."""
     gx, gy = cfg.grid
-    prep = _preprocess(means3d, cov6, opacity, cam, cfg, active_mask)
+    height = cfg.height
+    full = prep = _preprocess(means3d, cov6, opacity, cam, cfg, active_mask)
+    if band is not None:
+        if static is not None:
+            raise ValueError("rasterize: a band render takes no static pair domain")
+        y0_tiles, gy = band
+        height = gy * prep_mod.TILE
+        prep = clip_to_band(prep, y0_tiles, gy)
+        # band-local pixel rows before binning and packing: the binning's
+        # ellipse cull and the blend derive pixel positions from local tile
+        # ids; a constant shift leaves the mean2d gradient as it is
+        prep = prep._replace(mean2d=prep.mean2d - prep.mean2d.new_tensor(
+            [0.0, float(y0_tiles * prep_mod.TILE)]))
 
     mean2d = prep.mean2d
     if mean2d_offset is not None:
@@ -144,20 +182,20 @@ def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
 
     if grad:
         color, final_t, n_contrib = tile_blend.blend(feat, tiles, gx, cfg.width,
-                                                     cfg.height)
+                                                     height)
     else:
         color, final_t, n_contrib = tile_blend.blend_forward(
             feat, tiles.sorted_gid, tiles.starts, tiles.counts, gx, cfg.width,
-            cfg.height)
+            height)
     color = color + final_t[None] * bg[:, None, None]
 
     return RasterizeOut(
         color=color,
         final_t=final_t,
         n_contrib=n_contrib,
-        radii=prep.radius,
-        mean2d=prep.mean2d,
-        visibility=prep.radius > 0,
+        radii=full.radius,
+        mean2d=full.mean2d,
+        visibility=full.radius > 0,
         num_rendered=tiles.num_rendered,
         tile_overflow=tiles.tile_overflow,
         rect_overflow=tiles.rect_overflow,

@@ -33,11 +33,13 @@ def _gaussian_window(window_size: int, sigma: float) -> tuple:
     return tuple(v / s for v in g)
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor,
-         window_size: int = 11) -> torch.Tensor:
-    """SSIM on (C, H, W) or (B, C, H, W) images. The 11x11 window is
-    separable: two 1-D grouped convolutions (along W, then along H), zero
-    padded, as in the JAX package."""
+def ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+             pad_rows: bool = True) -> torch.Tensor:
+    """The SSIM map of (C, H, W) or (B, C, H, W) images, (B, C, H', W). The
+    11x11 window is separable: two 1-D grouped convolutions (along W, then
+    along H), zero padded, as in the JAX package. With `pad_rows` False the
+    convolution along H is valid (H' = H - window_size + 1): a band given
+    its neighbours' rows as a halo then gets the full image's map rows."""
     if img1.dim() == 3:
         img1, img2 = img1[None], img2[None]
     c = img1.shape[1]
@@ -46,10 +48,11 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     kx = w1d.reshape(1, 1, 1, -1).repeat(c, 1, 1, 1)       # (C, 1, 1, W)
     ky = w1d.reshape(1, 1, -1, 1).repeat(c, 1, 1, 1)       # (C, 1, W, 1)
     pad = window_size // 2
+    pad_h = pad if pad_rows else 0
 
     def blur(x):
         x = F.conv2d(x, kx, padding=(0, pad), groups=c)
-        return F.conv2d(x, ky, padding=(pad, 0), groups=c)
+        return F.conv2d(x, ky, padding=(pad_h, 0), groups=c)
 
     mu1, mu2 = blur(img1), blur(img2)
     mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
@@ -58,9 +61,14 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     sigma12 = blur(img1 * img2) - mu12
 
     c1, c2 = 0.01 ** 2, 0.03 ** 2
-    ssim_map = ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (
+    return ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1 + sigma2 + c2))
-    return ssim_map.mean()
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor,
+         window_size: int = 11) -> torch.Tensor:
+    """Mean SSIM of (C, H, W) or (B, C, H, W) images (`ssim_map`)."""
+    return ssim_map(img1, img2, window_size).mean()
 
 
 def mesh_restrict_loss(scaling: torch.Tensor, v1: torch.Tensor,

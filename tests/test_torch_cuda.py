@@ -479,3 +479,67 @@ def test_lpips_on_cuda_matches_cpu(cuda):
             got = float(net.to(cuda)(a.to(cuda), b.to(cuda)))
         net.cpu()
         assert want > 0 and abs(got - want) <= 1e-4 * want, (h, w, got, want)
+
+
+def _band_grads(device, sc, bg, cfg, n_bands):
+    """Each band of a 2-D image rendered by `rasterize_band` (K1, K2, K3 on
+    the card), its loss against a ramp, the gradients summed over the
+    bands -> (stitched color, gradients)."""
+    from gaussianmesh_tpu_torch.models.render import GaussianArrays
+    from gaussianmesh_tpu_torch.parallel import sharding, train_step
+    leaves = [sc[k].detach().to(device).requires_grad_()
+              for k in ("means", "cov6", "opacity", "rgb")]
+    arrays = GaussianArrays(*leaves, torch.ones(len(leaves[0]), dtype=torch.bool,
+                                                device=device))
+    cam = _camera(cfg.width, cfg.height, device)
+    gy_local = sharding.band_rows(sharding.padded_grid_y(cfg.height, n_bands), n_bands)
+    target = torch.linspace(0, 1, 3 * gy_local * 16 * cfg.width, device=device).reshape(
+        3, gy_local * 16, cfg.width)
+    colors, grads = [], [torch.zeros_like(x) for x in leaves]
+    for i in range(n_bands):
+        out = train_step.rasterize_band(arrays, cam, cfg, gy_local, i * gy_local,
+                                        bg.to(device))
+        loss = ((out.color - target) ** 2).sum() + 0.1 * out.final_t.sum()
+        grads = [a + b for a, b in zip(grads, torch.autograd.grad(loss, leaves))]
+        colors.append(out.color.detach())
+    return torch.cat(colors, 1)[:, :cfg.height].cpu(), [g.cpu() for g in grads]
+
+
+@pytest.mark.cuda
+def test_rasterize_band_on_cuda_matches_cpu(cuda):
+    """`rasterize_band` forward and backward on the card (4 bands of a
+    256 x 200 image, the last one past the image's 13 tile rows) against
+    the plain path on the CPU: forward 1e-3 max-abs / 1e-5 mean (a pair's
+    alpha can round across the 1/255 gate), gradients within 2e-4 of each
+    leaf's largest; two runs on the card bit-identical."""
+    sc = _scene(5000, cuda, seed=5)
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    cfg = RasterizerConfig(width=256, height=200, max_per_tile=1024)
+    ca, ga = _band_grads(cuda, sc, bg, cfg, 4)
+    cb, gb = _band_grads(cuda, sc, bg, cfg, 4)
+    assert torch.equal(ca, cb) and all(torch.equal(a, b) for a, b in zip(ga, gb))
+    cc, gc = _band_grads("cpu", {k: v.cpu() for k, v in sc.items()}, bg, cfg, 4)
+    d = (ca - cc).abs()
+    assert d.max().item() <= 1e-3 and d.mean().item() <= 1e-5
+    for a, c in zip(ga, gc):
+        assert ((a - c).abs() / c.abs().max()).max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_native_acap_matches_deformation_gradients_on_cuda(cuda):
+    """The host extractor against the port's deformation gradients on the
+    card: float64 within 1e-4 at icosphere level 5, float32 within its
+    rounding floor there (2e-3)."""
+    from gaussianmesh_tpu_torch.edit import deform, native_acap
+    v, f = icosphere(5)
+    v_def = _twist(v)
+    r, s = native_acap.NativeACAP((v, f)).get_rs(v_def)
+    d = deform.MeshDeformer(v, f, device=cuda)
+    vd = torch.tensor(v_def, device=cuda)
+    r64, s64 = deform.deformation_gradients(d.v_ref.double(), vd.double(),
+                                            d.neighbors, d.mask)
+    assert np.abs(r - r64.cpu().numpy()).max() <= 1e-4
+    assert np.abs(s - s64.cpu().numpy()).max() <= 1e-4
+    r32, s32 = d.get_rs(vd)
+    assert np.abs(r - r32.cpu().numpy()).max() <= 2e-3
+    assert np.abs(s - s32.cpu().numpy()).max() <= 2e-3

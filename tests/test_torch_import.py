@@ -50,3 +50,26 @@ def test_no_source_names_jax_or_the_jax_package():
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "gaussianmesh_tpu", "PIL",
                                "imageio"), (path, name)
+
+
+def test_native_sources_and_e2e_script_stand_alone():
+    """The port's C++ / CUDA sources include only system headers and their
+    own `csrc/` headers (nothing of the JAX tree's `native/`); the
+    end-to-end script and the scene generator it imports name only the
+    port's modules."""
+    import re
+
+    sources = sorted(PKG.glob("csrc/*.c*"))
+    assert PKG / "csrc" / "acap.cpp" in sources
+    for path in sources:
+        for inc in re.findall(r'#include\s+([<"][^>"]+[>"])', path.read_text()):
+            if inc.startswith('"'):
+                assert (path.parent / inc.strip('"')).exists(), (path, inc)
+        assert "native/" not in path.read_text(), path
+    script = (ROOT / "examples" / "synthetic_e2e_torch.sh").read_text()
+    mods = re.findall(r"-m\s+([\w.]+)", script)
+    assert mods and all(m.startswith("gaussianmesh_tpu_torch.cli.") for m in mods), mods
+    assert not re.search(r"\bjax\b|gaussianmesh_tpu\.|imageio|PIL", script)
+    for name in _imported_names(ROOT / "tests" / "test_torch_e2e.py"):
+        assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "gaussianmesh_tpu",
+                                          "PIL", "imageio"), name

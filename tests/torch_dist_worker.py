@@ -1,0 +1,191 @@
+"""Rank processes of the port's multi-process tests (`tests/test_torch_parallel.py`).
+
+`launch(case, world, workdir)` starts `world` processes of
+
+    python -m tests.torch_dist_worker <case> <rank> <world> <workdir>
+
+each joining a gloo group from a `FileStore` in `workdir` (60 s timeout),
+running one case on the CPU and writing `<case>_rank<r>.pt`; the parent
+waits 120 s at most, kills what is left and raises on any failed rank.
+Inputs come in `<workdir>/<case>_in.pt` (tensors only). This module imports
+neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import subprocess
+import sys
+import time
+from datetime import timedelta
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GROUP_TIMEOUT_S = 60
+JOIN_TIMEOUT_S = 120
+
+
+def launch(case: str, world: int, workdir: str, timeout: float = JOIN_TIMEOUT_S,
+           extra_env: dict | None = None) -> list:
+    """Run `case` on `world` ranks -> each rank's saved result, in rank order."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "GM_DIST_TIMEOUT": str(GROUP_TIMEOUT_S),
+           **(extra_env or {})}
+    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_dist_worker", case,
+                               str(r), str(world), workdir], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    join(procs, timeout, f"{case}: rank")
+    return [torch.load(os.path.join(workdir, f"{case}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def join(procs, timeout: float, label: str) -> list[str]:
+    """Wait for every process until `timeout` s; kill the rest and raise on
+    expiry or on a non-zero exit. -> their outputs."""
+    deadline = time.monotonic() + timeout
+    outs, failed = [], []
+    for r, p in enumerate(procs):
+        try:
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise RuntimeError(f"{label} {r} still running after {timeout} s: killed")
+        outs.append(out)
+        if p.returncode != 0:
+            failed.append(f"{label} {r} exited {p.returncode}:\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def tensor_hash(tree) -> str:
+    """sha256 of every tensor's bytes in a {name: tensor} tree, by name."""
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        v = tree[k]
+        if torch.is_tensor(v):
+            h.update(k.encode())
+            h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_hash(trainer) -> str:
+    """One hash of a trainer's parameters, binding, state and both moments."""
+    m = trainer.model
+    parts = [m.params(), m.binding(), m.state._asdict(), trainer.adam.mu,
+             trainer.adam.nu, {"v": m.mesh_v.v}]
+    return hashlib.sha256("".join(tensor_hash(p) for p in parts).encode()).hexdigest()
+
+
+# ------------------------------------------------------------------- cases
+
+def case_halo(mesh, inp):
+    """Each rank's band of a full image through `halo_exchange_rows`, and
+    the gradient of sum(out * w) with w its own weights."""
+    from gaussianmesh_tpu_torch.parallel import sharding
+    full, w = inp["full"], inp["w"][mesh.rank]
+    rows = full.shape[-2] // mesh.n_tile
+    x = full[..., mesh.tile_index * rows:(mesh.tile_index + 1) * rows, :].clone()
+    x.requires_grad_()
+    out = sharding.halo_exchange_rows(x, inp["halo"], mesh)
+    (out * w).sum().backward()
+    return {"out": out.detach(), "grad": x.grad}
+
+
+def _model(inp):
+    from gaussianmesh_tpu_torch.models import mesh_gaussians as mgs
+    return mgs.from_numpy({k: v.numpy() for k, v in inp["params"].items()},
+                          {k: v.numpy() for k, v in inp["binding"].items()},
+                          device="cpu",
+                          mesh_v={k: v.numpy() for k, v in inp["mesh_v"].items()},
+                          state={k: v.numpy() for k, v in inp["state"].items()})
+
+
+def case_step(mesh, inp):
+    """One sharded step from the given state: camera data_index, its gt."""
+    from gaussianmesh_tpu_torch.config import OptimizationParams
+    from gaussianmesh_tpu_torch.ops.rasterize import RasterizerConfig
+    from gaussianmesh_tpu_torch.parallel import sharding, train_step as pts
+    from gaussianmesh_tpu_torch.train.optim import Adam, mesh_lr_fn
+    from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
+    model = _model(inp)
+    opt = OptimizationParams()
+    adam = Adam(model.params(), mesh_lr_fn(opt, 1.0))
+    w, h = int(inp["width"]), int(inp["height"])
+    cfg = RasterizerConfig(w, h, int(inp["max_per_tile"]))
+    step = pts.make_sharded_train_step(mesh, adam, cfg, 0, opt.lambda_dssim,
+                                       opt.alpha_mrloss, w, h)
+    cam = CameraArrays(*(x[mesh.data_index] for x in inp["cams"]))
+    padded = sharding.padded_grid_y(h, mesh.n_tile) * 16
+    gt = torch.nn.functional.pad(inp["gts"][mesh.data_index], (0, 0, 0, padded - h))
+    metrics = step(model, cam, gt, inp["bg"])
+    return {"metrics": metrics, "params": {k: v.detach() for k, v in model.params().items()},
+            "state": model.state._asdict()}
+
+
+def case_playback(mesh, inp):
+    from gaussianmesh_tpu_torch.edit.runtime import SceneEditor
+    from gaussianmesh_tpu_torch.ops.rasterize import RasterizerConfig
+    from gaussianmesh_tpu_torch.parallel.edit_step import make_sharded_playback_fn
+    from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
+    editor = SceneEditor(device="cpu")
+    editor.add_object(inp["paths"][0], inp["paths"][1], name="obj")
+    w, h = int(inp["width"]), int(inp["height"])
+    fn = make_sharded_playback_fn(mesh, editor, "obj", CameraArrays(*inp["cam"]),
+                                  RasterizerConfig(w, h, int(inp["max_per_tile"])))
+    return {"frames": fn(inp["frames"])}
+
+
+def case_trainer(mesh, inp):
+    """MeshTrainer at data 2 x tile 2: the state hash after every iteration
+    and every event, and the losses."""
+    from gaussianmesh_tpu_torch.config import OptimizationParams, RuntimeParams
+    from gaussianmesh_tpu_torch.train.trainer import DeviceDataset, MeshTrainer
+    ds = DeviceDataset(*inp["stacks"], images=inp["images"], masks=None,
+                       width=int(inp["width"]), height=int(inp["height"]))
+    opt = OptimizationParams(densify_from_iter=3, densification_interval=4,
+                             densify_until_iter=9, opacity_reset_interval=6,
+                             densify_grad_threshold=1e-6)
+    rt = RuntimeParams(max_per_tile=256, data_axis=2, tile_axis=2)
+    tr = MeshTrainer(inp["v"].numpy(), inp["f"].numpy(), ds, opt, rt,
+                     spatial_lr_scale=3.2, init_target=300, max_sh_degree=1)
+    assert tr.mesh is not None and (tr.mesh.n_data, tr.mesh.n_tile) == (2, 2)
+    hashes, losses = [state_hash(tr)], []
+
+    def cb(m):
+        losses.append(m["loss"])
+        hashes.append(state_hash(tr))
+
+    tr.train(int(inp["iterations"]), log_every=1, callback=cb)
+    return {"hashes": hashes, "losses": losses, "events": tr.events,
+            "n_alive": int(tr.model.alive.sum())}
+
+
+CASES = {"halo": case_halo, "step": case_step, "playback": case_playback,
+         "trainer": case_trainer}
+
+
+def main(argv) -> None:
+    import torch.distributed as dist
+    case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(workdir, f"{case}_store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        inp = torch.load(os.path.join(workdir, f"{case}_in.pt"), weights_only=False)
+        mesh = None          # the trainer makes its own
+        if case != "trainer":
+            from gaussianmesh_tpu_torch.parallel import sharding
+            mesh = sharding.make_mesh(*(int(x) for x in inp["mesh"]))
+        out = CASES[case](mesh, inp)
+        torch.save(out, os.path.join(workdir, f"{case}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
