@@ -142,6 +142,24 @@ Phases (any failure raises, so the exit code is not 0):
    call, 2 bands each, every frame within 2e-5 of the single-process
    frame. The parent joins each rank with a timeout and fails on any
    rank's failure; its wall times are a rehearsal, not a multi-card speed.
+   (g) The Gaussian-table shard: the phase-6 student's table dealt over 4
+   shards, one emulated rank (`emulate_d=4`: forward and backward in this
+   process) timed; then 4 ranks on the card over gloo, spawned as in (e),
+   each with its shard and one band: step 1 against a single-process step
+   on the dealt table (loss 1e-4 relative, parameters 5e-4 of each leaf's
+   largest, grad_accum 1e-5, denom exact), 8 steps with resets at 2 and 6
+   and densifies at 3 and 6 (each threshold the 2,000th largest grads_avg
+   of the gathered table, so that no per-shard cap binds; the summed
+   n_split equal to a single-process `densify_and_split` of the gathered
+   table; the vertex pools' hashes equal on every rank), no overflow of
+   any kind, K1 1, K2 1 and K3 2 launches per rank and step (counters set
+   to 0 just before, read just after); a per-rank checkpoint, 2 more steps,
+   and fresh trainers resumed from it for 2 steps, equal bit for bit; the
+   exchange alone timed; one more step with the arguments recorded, and on
+   the rank that received the most pairs K1, K2 and the receiver's K3 held
+   against their plain versions and the owner's K3 against a float64
+   `index_add_` (the `gshard_*` keys). Prints the bytes sent per rank and
+   step, the received live pairs beside the slots, step ms per rank.
 
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
@@ -171,7 +189,9 @@ SUBDIV = 7             # 20 * 4**7 = 327,680 faces
 SH_DEGREE = 3
 TIMED_LAUNCHES = 20
 SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's clock (queued_ms, host_ms)
-PLAIN_LAUNCHES = 3     # the plain K1 and K2 walk each pair of the largest tile in Python
+# the plain K1 and K2 walk each pair of the largest tile in Python, seconds a
+# call at a step's shapes: one timed call, warmed by the comparison before it
+PLAIN_LAUNCHES = 1
 
 # playback phase: configs 3 and 5 (tools/bench_playback.py) at 1080p
 PLAYBACK_FRAMES = 32
@@ -224,6 +244,12 @@ SHARD_STEPS = 20
 SHARD_LR_SCALE = 4.4   # phase 6's spatial_lr_scale
 SHARD_GROUP_TIMEOUT_S = 300
 SHARD_JOIN_S = 900
+# phase 10g: the Gaussian-table shard, 4 ranks on the card over gloo
+GSHARD_WORLD = 4
+GSHARD_STEPS = 8       # a reset at 2, densifies at 3 and 6, a reset at 6
+GSHARD_MORE = 2        # steps after the checkpoint: uninterrupted, then resumed
+GSHARD_HOT = 2000      # each densify's threshold: the 2,000th largest grads_avg
+EMULATED_CALLS = 5
 
 # H100 SXM peaks (NVIDIA data sheet; the CUDA programming guide's throughput
 # table for the special-function unit: 16 exp2 results / clock / SM) at the
@@ -300,9 +326,9 @@ def read_launches(port):
             "K3": port.segsum.segment_sum.launches}
 
 
-def cuda_ms(torch, fn, n):
-    """Mean device ms of fn() over n launches, after 3 warm ones."""
-    for _ in range(3):
+def cuda_ms(torch, fn, n, warm=3):
+    """Mean device ms of fn() over n launches, after `warm` warm ones."""
+    for _ in range(warm):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -662,7 +688,7 @@ def check_k1(torch, tb, args, mpt=None):
         n_contrib_equal=(kn == pn).float().mean().item())
     r["ms"] = cuda_ms(torch, lambda: tb.blend_forward(*args), TIMED_LAUNCHES)
     r["plain_ms"] = cuda_ms(torch, lambda: tb.blend_forward_plain(*args),
-                            PLAIN_LAUNCHES)
+                            PLAIN_LAUNCHES, warm=0)
     evals, blended = walk_counts(torch, tb, feat, sorted_gid, starts, counts,
                                  gx, width, height)
     r.update(evaluations=evals, blended=blended, **bound(
@@ -691,21 +717,22 @@ def check_k3(torch, seg, rows, grouped_pos, seg_starts, again=None):
     """K3 against its plain version (a float64 index_add_) and bit-identical
     over two runs (`again()` gives the second result; by default K3 on the
     same rows again), timed beside the plain version and
-    `torch.segment_reduce` with its row gather, bounded by bytes, with the
-    segment-length statistics of the shape."""
-    d_feat = seg.segment_sum(rows, grouped_pos, seg_starts)
-    second = (again or (lambda: seg.segment_sum(rows, grouped_pos,
-                                                seg_starts)))()
+    `torch.segment_reduce` with its row gather, bounded by bytes (the rows
+    `grouped_pos` names, once each), with the segment-length statistics of
+    the shape. `rows` may be any table (`segment_sum_rows`)."""
+    d_feat = seg.segment_sum_rows(rows, grouped_pos, seg_starts)
+    second = (again or (lambda: seg.segment_sum_rows(rows, grouped_pos,
+                                                     seg_starts)))()
     ref64 = seg.segment_sum_plain(rows, grouped_pos, seg_starts)
     torch.cuda.synchronize()
-    m, n = rows.shape[0], seg_starts.shape[0] - 1
+    m, n = grouped_pos.shape[0], seg_starts.shape[0] - 1
     d3 = (d_feat - ref64).abs()
     k3 = dict(gaussians=n, pairs=m, max_abs=d3.max().item(),
               rel=(d3 / ref64.abs().amax(0).clamp(min=1e-30)).max().item(),
               bit_identical=bool(torch.equal(d_feat, second)),
               **segment_stats(torch, seg, seg_starts))
     lengths = (seg_starts[1:] - seg_starts[:-1]).long()
-    call = lambda: seg.segment_sum(rows, grouped_pos, seg_starts)  # noqa: E731
+    call = lambda: seg.segment_sum_rows(rows, grouped_pos, seg_starts)  # noqa: E731
     k3["ms"] = cuda_ms(torch, call, TIMED_LAUNCHES)
     k3["queued_ms"] = queued_ms(torch, call, TIMED_LAUNCHES)
     k3["host_ms"] = host_ms(torch, call, TIMED_LAUNCHES)
@@ -762,7 +789,7 @@ def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
         k2["same_as_step"] = bool(torch.equal(rows, step_rows))
     k2["ms"] = cuda_ms(torch, lambda: tb.blend_backward(*k2_args), TIMED_LAUNCHES)
     k2["plain_ms"] = cuda_ms(torch, lambda: tb.blend_backward_plain(*k2_args),
-                             PLAIN_LAUNCHES)
+                             PLAIN_LAUNCHES, warm=0)
     # each tile stages (gid + 9 feature floats) only for pairs [0, walk),
     # walk its pixels' largest n_contrib; rows past it are written as zeros
     staged = int(tb._tile_blocks(n_contrib[None], gx)[:, 0].amax(1).sum())
@@ -839,9 +866,11 @@ def kernel_line(results, fullscreen, launches):
     beside them those at the clamped config, at a mesh training step's and
     a background step's shapes ("pipeline"), at a 1600x900 step's of the
     eval phase ("eval"), at one rank's band of a 2x2 sharded step ("band"),
-    (K1) at a composite playback frame's, and K3's on the full-screen case;
-    errors over all of them; launches from the main paths (render, train,
-    playback, pipeline, eval, serve, shard)."""
+    at rank 0's received band of a Gaussian-table-sharded step ("gshard"; for
+    K3 the receiver's reduction, and the owner's as "gshard_owner"), (K1) at
+    a composite playback frame's, and K3's on the full-screen case; errors
+    over all of them; launches from the main paths (render, train, playback,
+    pipeline, eval, serve, shard, gshard)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -864,7 +893,7 @@ def kernel_line(results, fullscreen, launches):
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
         for label in ("clamped", "train", "fullscreen", "composite", "pipeline", "eval",
-                      "band"):
+                      "band", "gshard", "gshard_owner"):
             for k in ("ms", "queued_ms", "host_ms", "plain_ms", "bound_ms",
                       "library_ms", "max_abs"):
                 if k in r.get(label, {}):
@@ -877,23 +906,25 @@ def capture_step(torch, port, trainer, cam=0):
     """One more training step (`step` of a `MeshTrainer` or a `BgTrainer`,
     on view `cam` over its constant background; a tensor of one view per
     data group for a multi-process `MeshTrainer`) with the wrappers of K1, K2 and
-    K3 recording the arguments the step hands them.
-    -> {"K1": args, "K2": args, "K3": args}. A wrapper bumps its counter
-    through its module's name, so each stand-in carries a `launches` of its
-    own (functools.wraps copies it); the real counters stay as they were."""
+    K3 (`segment_sum_rows`, which every K3 call goes through) recording the
+    arguments the step hands them. -> {"K1": args, "K2": args, "K3": args}
+    and, for the Gaussian-table shard's second K3 call (the owner's
+    reduction), "K3_owner". The launch counters are set back to what they
+    were: this step is not the main path's."""
     import functools
 
     wrappers = {"K1": (port.tile_blend, "blend_forward"),
                 "K2": (port.tile_blend, "blend_backward"),
-                "K3": (port.segsum, "segment_sum")}
-    seen, kept = {}, {}
+                "K3": (port.segsum, "segment_sum_rows")}
+    calls, kept = {key: [] for key in wrappers}, {}
+    counts = read_launches(port)
     for key, (mod, attr) in wrappers.items():
         kept[key] = getattr(mod, attr)
 
         @functools.wraps(kept[key])
         def record(*args, _fn=kept[key], _key=key):
-            seen[_key] = tuple(a.clone() if torch.is_tensor(a) else a
-                               for a in args)
+            calls[_key].append(tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args))
             return _fn(*args)
 
         setattr(mod, attr, record)
@@ -902,7 +933,14 @@ def capture_step(torch, port, trainer, cam=0):
     finally:
         for key, (mod, attr) in wrappers.items():
             setattr(mod, attr, kept[key])
-    assert sorted(seen) == ["K1", "K2", "K3"], sorted(seen)
+        port.tile_blend.blend_forward.launches = counts["K1"]
+        port.tile_blend.blend_backward.launches = counts["K2"]
+        port.segsum.segment_sum.launches = counts["K3"]
+    assert [len(calls[k]) for k in ("K1", "K2")] == [1, 1], calls.keys()
+    assert len(calls["K3"]) in (1, 2), len(calls["K3"])
+    seen = {key: c[0] for key, c in calls.items()}
+    if len(calls["K3"]) == 2:
+        seen["K3_owner"] = calls["K3"][1]
     return seen
 
 
@@ -2345,7 +2383,9 @@ def shard_rank(rank, world, work):
     report["gloo_cuda"] = {}
     for name, fn in (("all_reduce", lambda x: dist.all_reduce(x)),
                      ("all_gather", lambda x: dist.all_gather(
-                         [torch.empty_like(x) for _ in range(world)], x))):
+                         [torch.empty_like(x) for _ in range(world)], x)),
+                     ("all_to_all_single", lambda x: dist.all_to_all_single(
+                         torch.empty_like(x), x))):
         try:
             fn(torch.ones(4, device="cuda"))
             torch.cuda.synchronize()
@@ -2467,6 +2507,322 @@ def shard_rank(rank, world, work):
     return 0
 
 
+# ------------------------------------------------------------------ phase 10g
+
+def emulated_rank(torch, port, shard, rt, ds, cam_idx, bg):
+    """One rank's device work of a 4-way Gaussian-table shard in this process
+    (`emulate_d=4`: rank 0's own buckets of view cam_idx stand in for the
+    received ones), forward and backward of an L1 sum against the first
+    band's rows, host clock ending in `synchronize()`, after one warm call."""
+    tr = port.trainer.MeshTrainer(*icosphere(PROXY_SUBDIV), ds,
+                                  port.config.OptimizationParams(),
+                                  dataclasses.replace(rt, shard_gaussians=0),
+                                  spatial_lr_scale=SHARD_LR_SCALE, init_target=0,
+                                  max_sh_degree=SH_DEGREE)
+    tr.restore(shard)
+    cfg, cam = tr.raster_cfg(), ds.camera(cam_idx)
+    cap = port.gauss_shard.send_capacity(cfg, tr.model.capacity, GSHARD_WORLD)
+    gt = ds.target(cam_idx, bg)
+    params = list(tr.model.params().values())
+    counts = []
+
+    def call():
+        arrays = port.render.mesh_model_arrays(tr.model, cam, SH_DEGREE)
+        out = port.gauss_shard.rasterize_band_gauss_sharded(
+            arrays, cam, cfg, None, cap, bg, emulate_d=GSHARD_WORLD)
+        rows = out.color.shape[1]
+        torch.autograd.grad((out.color - gt[:, :rows]).abs().sum(), params,
+                            allow_unused=True)
+        counts.append(int(out.num_rendered))
+
+    call()
+    torch.cuda.synchronize()
+    reset_launches(port)
+    ms = []
+    for _ in range(EMULATED_CALLS):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res = dict(gaussians=int(tr.model.alive.sum()), capacity=tr.model.capacity,
+               send_capacity=cap, pairs=counts[-1], ms_median=float(np.median(ms)),
+               ms=[round(x, 3) for x in ms], launches=read_launches(port))
+    assert res["launches"] == {"K1": EMULATED_CALLS, "K2": EMULATED_CALLS,
+                               "K3": 2 * EMULATED_CALLS}, res
+    log("[gshard] emulated rank of 4: " + json.dumps(res))
+    return res
+
+
+def phase_gshard(torch, port, trainer, tmpdir):
+    """10g: the Gaussian-table shard on GSHARD_WORLD ranks that share the one
+    card over gloo (a rehearsal: it checks, it measures no multi-card speed).
+    The parent deals the phase-6 student's table over the shards, computes
+    the single-process step 1 on it, times one emulated rank, spawns the
+    ranks (`gshard_rank`), joins each with a timeout and checks their
+    reports. -> (results, launches summed over the ranks, the received band
+    kernels of the rank that received the most pairs (K1, K2, the
+    receiver's K3), that rank's owner K3)."""
+    import gc
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmpdir, "gshard")
+    os.makedirs(work)
+    d, ds, bg = GSHARD_WORLD, trainer.ds, trainer.bg_const
+    dealt = port.trainer.deal_rows(trainer.capture(), d)
+    # twice phase 6's max_per_tile, as 10e: densifies pile pairs into tiles
+    rt = dataclasses.replace(trainer.rt, shard_gaussians=d,
+                             max_per_tile=2 * trainer.rt.max_per_tile)
+    single = port.trainer.MeshTrainer(*icosphere(PROXY_SUBDIV), ds, trainer.opt,
+                                      dataclasses.replace(rt, shard_gaussians=0),
+                                      spatial_lr_scale=SHARD_LR_SCALE, init_target=0,
+                                      max_sh_degree=SH_DEGREE)
+    single.restore(dealt)
+    m = single.step(0, bg)
+    ref = dict(loss=float(m["loss"]),
+               params={k: v.detach().cpu() for k, v in single.model.params().items()},
+               grad_accum=single.model.state.grad_accum.cpu(),
+               denom=single.model.state.denom.cpu())
+    del single
+    torch.save(dict(state=dealt, opt=dataclasses.asdict(trainer.opt),
+                    rt=dataclasses.asdict(rt), cam=0,
+                    data={k: getattr(ds, k).cpu() for k in ("view", "proj", "campos",
+                                                            "tanfovx", "tanfovy",
+                                                            "images")},
+                    size=(ds.width, ds.height)), os.path.join(work, "inputs.pt"))
+    torch.save(ref, os.path.join(work, "reference.pt"))
+    emulated = emulated_rank(torch, port, port.checkpoint.shard_rows(dealt, 0, d), rt,
+                             ds, 0, bg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gshard-rank",
+                               str(r), str(d), work],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(d)]
+    outs = join_ranks(procs, SHARD_JOIN_S)
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        for line in out.strip().splitlines()[-12:]:
+            log(f"[gshard] rank {r}: {line}")
+    reports = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(d)]
+    r0 = reports[0]
+    for rep in reports:
+        assert rep["ok"], rep
+        assert rep["losses"] == r0["losses"] and rep["densify"] == r0["densify"], rep
+        assert rep["pool_hashes"] == r0["pool_hashes"], rep
+    launches = {k: sum(rep["launches"][k] for rep in reports) for k in ("K1", "K2", "K3")}
+    res = dict(world=d, wall_s=wall, emulated=emulated,
+               step1=[rep["step1"] for rep in reports], losses=r0["losses"],
+               events=r0["events"], densify=r0["densify"],
+               pool_hashes_equal=True, resume_equal=[rep["resume_equal"] for rep in reports],
+               step_ms_median=[rep["step_ms_median"] for rep in reports],
+               exchange_ms=[rep["exchange_ms"] for rep in reports],
+               traffic=r0["traffic"], received_live=[rep["received_live"] for rep in reports],
+               rank_launches=[rep["launches"] for rep in reports])
+    res["phase_s"] = time.perf_counter() - t_phase
+    log("[gshard] " + json.dumps({k: v for k, v in res.items() if k != "losses"}))
+    log(f"[gshard] losses {[round(x, 5) for x in r0['losses']]}")
+    res["kernel_rank"] = r0["kernel_rank"]
+    k1, k2, k3, k3_owner = reports[r0["kernel_rank"]]["kernels"]
+    return res, launches, (k1, k2, k3), (None, None, k3_owner)
+
+
+def gshard_rank(rank, world, work):
+    """One rank of phase 10g, on the card, in a gloo group from a FileStore in
+    `work`: its shard of the dealt phase-6 state; step 1 against the
+    parent's single-process step; GSHARD_STEPS steps with resets and two
+    densifies (each checked against a single-process `densify_and_split` of
+    the gathered table, the vertex pools' hashes all-gathered); a per-rank
+    checkpoint, GSHARD_MORE more steps, and a fresh trainer resumed from the
+    checkpoint for as many (the same bits); the exchange alone timed; one
+    more step recording the kernels' arguments (the rank that received the
+    most pairs holds K1, K2 and both K3 calls against their plain versions).
+    Writes `rank<r>.json`."""
+    import hashlib
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    os.environ["GM_DIST_TIMEOUT"] = str(SHARD_GROUP_TIMEOUT_S)
+    port = load_port()
+    inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    ref = torch.load(os.path.join(work, "reference.pt"), weights_only=False)
+    width, height = inp["size"]
+    dd = {k: v.cuda() for k, v in inp["data"].items()}
+    ds = port.trainer.DeviceDataset(dd["view"], dd["proj"], dd["campos"], dd["tanfovx"],
+                                    dd["tanfovy"], dd["images"], None, width, height)
+    opt = port.config.OptimizationParams(**inp["opt"])
+    rt = port.config.RuntimeParams(**inp["rt"])
+    cam = inp["cam"]
+
+    def make_trainer():
+        return port.trainer.MeshTrainer(*icosphere(PROXY_SUBDIV), ds, opt, rt,
+                                        spatial_lr_scale=SHARD_LR_SCALE, init_target=0,
+                                        max_sh_degree=SH_DEGREE)
+
+    tr = make_trainer()
+    tr.restore(port.checkpoint.shard_rows(inp["state"], rank, world))
+    del inp
+    group = tr.mesh.tile_group
+    c = tr.model.capacity
+    report = dict(rank=rank, ok=False)
+
+    def gather_equal(x):
+        out = [None] * world
+        dist.all_gather_object(out, x)
+        return out
+
+    # step 1 against the single-process step on the same camera
+    torch.cuda.synchronize()
+    reset_launches(port)
+    m1 = tr.step(cam, tr.bg_const)
+    torch.cuda.synchronize()
+    step1_launches = read_launches(port)
+    params = tr.model.params()
+    rows = slice(rank * c, (rank + 1) * c)
+    rel = {k: float((params[k].detach().cpu() - ref["params"][k][rows]).abs().max()
+                    / ref["params"][k].abs().max().clamp(min=1e-30)) for k in params}
+    st = tr.model.state
+    report["step1"] = dict(
+        loss=float(m1["loss"]), ref_loss=ref["loss"],
+        loss_rel=abs(float(m1["loss"]) - ref["loss"]) / abs(ref["loss"]),
+        param_rel=max(rel.values()), param_rel_by_leaf=rel,
+        grad_accum_abs=float((st.grad_accum.cpu() - ref["grad_accum"][rows]).abs().max()),
+        denom_equal=bool(torch.equal(st.denom.cpu(), ref["denom"][rows])),
+        launches=step1_launches, overflow=int(m1["overflow"]))
+    s1 = report["step1"]
+    assert s1["loss_rel"] <= 1e-4 and s1["param_rel"] <= 5e-4, s1
+    assert s1["grad_accum_abs"] <= 1e-5 and s1["denom_equal"], s1
+    assert step1_launches == {"K1": 1, "K2": 1, "K3": 2}, step1_launches
+    assert s1["overflow"] == 0, s1
+    slots = world * tr.send_capacity()
+    # per step: the metadata (2 int32) and the feature rows (16 f32) forward,
+    # the feature cotangents back
+    report["traffic"] = dict(send_capacity=tr.send_capacity(), slots_per_rank=slots,
+                             bytes_sent_per_rank_step=slots * (8 + 64 + 64))
+
+    # GSHARD_STEPS steps with a reset at 2, densifies at 3 and 6, a reset at 6
+    tr.global_it = 0          # the schedule below counts from here
+    tr.opt = dataclasses.replace(opt, densify_from_iter=2, densification_interval=3,
+                                 densify_until_iter=GSHARD_STEPS, opacity_reset_interval=6)
+    densify, checks, pool_hashes = tr.densify, [], []
+
+    def densify_checked():
+        # a threshold at which no per-shard cap binds (the JAX contract's
+        # condition), the same on every rank: from the gathered statistics
+        whole = tr.whole_model()
+        g = port.densify.grads_avg(whole.state)
+        thr = float(torch.topk(g[whole.alive], GSHARD_HOT).values[-1])
+        tr.opt = dataclasses.replace(tr.opt, densify_grad_threshold=thr)
+        mu, nu = ({k: torch.cat(port.sharding.all_gather(v, group)) for k, v in t.items()}
+                  for t in (tr.adam.mu, tr.adam.nu))
+        max_split = port.densify.round_up(max(256, whole.capacity // 16), 256)
+        want = port.densify.densify_and_split(whole, mu, nu, g, thr, 5, max_split)
+        del whole, mu, nu
+        got = densify()
+        checks.append(dict(iteration=tr.global_it, threshold=thr, n_split=got,
+                           single_n_split=want.n_split, single_dropped=want.dropped,
+                           capacity=tr.model.capacity))
+        assert got == want.n_split and want.dropped == 0 and tr.model.capacity == c, checks
+        return got
+
+    tr.densify = densify_checked
+    losses, times = [], []
+    n_events = [0]
+    clock = [time.perf_counter()]
+
+    def on_step(m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append((now - clock[0]) * 1e3)
+        losses.append(m["loss"])
+        assert m["overflow"] == 0 and m["send_overflow"] == 0, m
+        if len(tr.events) > n_events[0]:
+            n_events[0] = len(tr.events)
+            pool = tr.model.mesh_v
+            h = hashlib.sha256(pool.v.cpu().numpy().tobytes() + str(pool.count).encode())
+            got = gather_equal(h.hexdigest())
+            assert len(set(got)) == 1, got
+            pool_hashes.append(got[0])
+        clock[0] = time.perf_counter()
+
+    reset_launches(port)
+    tr.train(GSHARD_STEPS, log_every=1, callback=on_step)
+    kinds = [(it, kind) for it, kind, _ in tr.events]
+    assert kinds == [(2, "opacity_reset"), (3, "densify"), (6, "densify"),
+                     (6, "opacity_reset")], kinds
+    assert all(math.isfinite(x) for x in losses), losses
+
+    # a per-rank checkpoint; GSHARD_MORE more steps; a fresh trainer resumed
+    path = tr.save_ckpt(os.path.join(work, "ckpt", "chkpnt.ckpt"))
+    tr.train(GSHARD_MORE, log_every=1, callback=on_step)
+    resumed = make_trainer()
+    resumed.opt = tr.opt
+    resumed.load_ckpt(os.path.join(work, "ckpt", "chkpnt.ckpt"))
+    resumed.train(GSHARD_MORE, log_every=1000)
+    launches = read_launches(port)
+    steps = 1 + GSHARD_STEPS + 2 * GSHARD_MORE
+    assert launches == {"K1": GSHARD_STEPS + 2 * GSHARD_MORE,
+                        "K2": GSHARD_STEPS + 2 * GSHARD_MORE,
+                        "K3": 2 * (GSHARD_STEPS + 2 * GSHARD_MORE)}, launches
+    equal = state_hash(resumed) == state_hash(tr)
+    assert all(gather_equal(equal)), "a resumed shard differs from the uninterrupted run"
+    del resumed
+    report.update(losses=losses, events=tr.events, densify=checks, pool_hashes=pool_hashes,
+                  resume_equal=equal, checkpoint=sorted(os.listdir(path)),
+                  launches={k: launches[k] + step1_launches[k] for k in launches},
+                  steps=steps, step_ms_median=float(np.median(times)),
+                  step_ms=[round(x, 1) for x in times])
+
+    # the exchange alone: the step's three all_to_all calls on buffers of its size
+    meta = torch.zeros((slots, 2), dtype=torch.int32, device="cuda")
+    feat = torch.zeros((slots, 16), device="cuda")
+    ex = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port.sharding.all_to_all(meta, group)
+        port.sharding.all_to_all(feat, group)
+        port.sharding.all_to_all(feat, group)
+        torch.cuda.synchronize()
+        ex.append((time.perf_counter() - t0) * 1e3)
+    report["exchange_ms"] = float(np.median(ex))
+    del meta, feat
+
+    # one more step recording the kernels' arguments; the rank whose band
+    # received the most pairs checks them (a band may hold none of the object)
+    seen = capture_step(torch, port, tr, cam)
+    report["received_live"] = int(seen["K1"][1].shape[0])
+    received = gather_equal(report["received_live"])
+    report["kernel_rank"] = int(np.argmax(received))
+    kernels = [None] * 4
+    if rank == report["kernel_rank"]:
+        k1, _, _, blended = check_k1(torch, port.tile_blend, seen["K1"],
+                                     rt.max_per_tile)
+        rows_, grouped_pos, seg_starts = seen["K3"]
+        k2, k3 = check_k2_k3(torch, port, seen["K2"], grouped_pos, seg_starts, blended,
+                             step_rows=rows_)
+        k3_owner = check_k3(torch, port.segsum, *seen["K3_owner"])
+        kernels = [k1, k2, k3, k3_owner]
+        for key, r in zip(("K1", "K2", "K3 receiver", "K3 owner"), kernels):
+            log(f"[gshard] {key} at a received band's shapes: " + json.dumps(r))
+    report["kernels"] = kernels
+    dist.barrier()
+    report["ok"] = True
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def load_port():
     """The port's modules the phases use, as one namespace."""
     from gaussianmesh_tpu_torch import config
@@ -2497,8 +2853,9 @@ def load_port():
 
     from gaussianmesh_tpu_torch import viewer
     from gaussianmesh_tpu_torch.edit import deform, native_acap
-    from gaussianmesh_tpu_torch.parallel import (edit_step, multihost, sharding,
-                                                 train_step)
+    from gaussianmesh_tpu_torch.parallel import (edit_step, gauss_shard, multihost,
+                                                 sharding, train_step)
+    from gaussianmesh_tpu_torch.utils import checkpoint
 
     return types.SimpleNamespace(
         viewer=viewer, deform=deform, native_acap=native_acap, edit_step=edit_step,
@@ -2512,12 +2869,15 @@ def load_port():
         cli_common=cli_common, cli_edit=cli_edit, cli_train_mesh=cli_train_mesh,
         cli_train_bg=cli_train_bg, cli_render=cli_render, scene=scene, png=png,
         colmap=colmap, bg_trainer=bg_trainer, cli_full_eval=cli_full_eval,
-        cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss)
+        cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss,
+        gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
 def main() -> int:
     if sys.argv[1:2] == ["--shard-rank"]:        # a rank of phase 10e / 10f
         return shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--gshard-rank"]:       # a rank of phase 10g
+        return gshard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     import torch
 
     smi = phase_card(torch)
@@ -2550,12 +2910,15 @@ def main() -> int:
             torch, port, student,
             dataclasses.replace(cfg, max_per_tile=2 * cfg.max_per_tile), cam, tmpdir)
         t_serve = time.perf_counter() - t_serve
+        gshard, gshard_launches, results["gshard"], results["gshard_owner"] = phase_gshard(
+            torch, port, student, tmpdir)
     results["composite"] = (k1_composite, None, None)
     kernels = kernel_line(results, fullscreen,
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
                            "train": train_launches, "playback": playback_launches,
                            "pipeline": pipeline_launches, "eval": eval_launches,
-                           "serve": serve_launches, "shard": shard_launches})
+                           "serve": serve_launches, "shard": shard_launches,
+                           "gshard": gshard_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
         f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
     log(f"[done] playback phase {t_play:.1f} s; 1080p playback frame ms mean: "
@@ -2586,6 +2949,14 @@ def main() -> int:
         f"{e2e['seconds']:.1f} s; 4 bands max-abs {bands['max_abs']:.3g}; sharded step "
         f"ms median by rank {[round(x, 1) for x in shard['step_ms_median']]}, wall "
         f"{shard['wall_s']:.1f} s; gloo on CUDA tensors: {shard['gloo_cuda']}")
+    log(f"[done] Gaussian-table shard phase {gshard['phase_s']:.1f} s on {smi} (a "
+        f"rehearsal: {GSHARD_WORLD} ranks share one card over gloo): step ms median by "
+        f"rank {[round(x, 1) for x in gshard['step_ms_median']]}; sent "
+        f"{gshard['traffic']['bytes_sent_per_rank_step'] / 1e6:.1f} MB per rank and step "
+        f"({gshard['traffic']['slots_per_rank']} slots); received live pairs by rank "
+        f"{gshard['received_live']}; exchange ms per rank-step "
+        f"{[round(x, 1) for x in gshard['exchange_ms']]}; emulated rank of 4 (forward "
+        f"+ backward, one process) {gshard['emulated']['ms_median']:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

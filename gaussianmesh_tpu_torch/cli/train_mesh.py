@@ -15,15 +15,19 @@ each render with its image masked onto the constant background, as
 `MeshTrainer.eval_psnr` does (the JAX command line compares with the
 unmasked image).
 
-On several processes, one per rank, over a (data, tile) mesh:
+On several processes, one per rank, over a (data, tile) mesh or with the
+Gaussian table sharded over D ranks:
 
     torchrun --nproc_per_node N -m gaussianmesh_tpu_torch.cli.train_mesh ... \
         --data_axis D --tile_axis T          (D * T = N)
+    torchrun --nproc_per_node N -m gaussianmesh_tpu_torch.cli.train_mesh ... \
+        --shard_gaussians N
 
 `parallel.multihost.initialize` joins torchrun's process group first (nccl
 on cards, gloo with `--device cpu`); rank 0 alone writes the model
-directory and prints, the others wait for each write. `--shard_gaussians`
-(the JAX package's Gaussian-table shard) is refused: not ported yet.
+directory and prints, the others wait for each write. With a shard the
+checkpoints are per rank, `chkpnt<N>.ckpt.shards/` (`utils/checkpoint.py`),
+and `--auto_resume` finds them too.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ from gaussianmesh_tpu_torch.cli.common import base_parser
 
 
 def latest_checkpoint(model_path: str) -> str | None:
-    """The chkpnt<N>.ckpt with the largest N in `model_path`, if any."""
-    found = glob.glob(os.path.join(model_path, "chkpnt*.ckpt"))
+    """The chkpnt<N>.ckpt (or per-rank chkpnt<N>.ckpt.shards) with the
+    largest N in `model_path`, if any."""
+    found = glob.glob(os.path.join(model_path, "chkpnt*.ckpt*"))
     return max(found, key=lambda f: int(re.sub(r"\D", "", os.path.basename(f))),
                default=None)
 
@@ -59,9 +64,6 @@ def main(argv=None):
                         help="resume from the latest chkpnt*.ckpt in the "
                              "model dir (crash recovery)")
     parser.add_argument("--init_target", type=int, default=100_000)
-    parser.add_argument("--shard_gaussians", type=int, default=1,
-                        help="the JAX package's Gaussian-table shard: not ported "
-                             "yet, any value above 1 raises")
     args = parser.parse_args(argv)
 
     from gaussianmesh_tpu_torch import resolve_device
@@ -102,9 +104,10 @@ def main(argv=None):
                           white_background=model.white_background,
                           is_exist_bg=args.is_exist_bg,
                           init_target=args.init_target,
-                          max_sh_degree=model.sh_degree,
-                          shard_gaussians=args.shard_gaussians)
-    if trainer.mesh is not None:
+                          max_sh_degree=model.sh_degree)
+    if trainer.n_shards > 1:
+        log(f"[train] Gaussian table sharded over {trainer.n_shards} ranks")
+    elif trainer.mesh is not None:
         log(f"[train] process mesh: data {rt.data_axis} x tile {rt.tile_axis}")
     trainer.logger = TrainLogger(model.model_path) if writer else None
     ckpt_path = args.start_checkpoint
@@ -113,7 +116,7 @@ def main(argv=None):
     if ckpt_path:
         trainer.load_ckpt(ckpt_path)
         log(f"[train] resumed from {ckpt_path} at iter {trainer.global_it}")
-    log(f"[train] {int(trainer.model.alive.sum())} gaussians after init")
+    log(f"[train] {trainer.n_alive()} gaussians after init")
 
     test_iters = {b for b in args.test_iterations if b <= opt.iterations}
     save_iters = {b for b in args.save_iterations if b <= opt.iterations}

@@ -8,13 +8,12 @@ run stores the merged groups as JSON `cfg_args.json` in its model directory
 and `load_combined` overlays the command line on it.
 
 Left out, because nothing in the port reads them:
-`RuntimeParams.blend_chunk` and `use_pallas` (TPU kernel options), and
-`shard_gaussians` (the Gaussian-table shard, not ported yet; the training
-command line refuses it). `data_axis` and `tile_axis` shape the (data,
-tile) process mesh of `parallel/`. `load_combined` skips those keys in a
-`cfg_args.json` the JAX package wrote, so a model directory trained by
-either package loads here; every key the port writes is one of the JAX
-package's, so the reverse holds too.
+`RuntimeParams.blend_chunk` and `use_pallas` (TPU kernel options).
+`data_axis` and `tile_axis` shape the (data, tile) process mesh of
+`parallel/`, `shard_gaussians` the Gaussian-table shard. `load_combined`
+skips the left-out keys in a `cfg_args.json` the JAX package wrote, so a
+model directory trained by either package loads here; every key the port
+writes is one of the JAX package's, so the reverse holds too.
 """
 
 from __future__ import annotations
@@ -87,13 +86,16 @@ class RuntimeParams:
     # into tile_axis bands; their product is the world size (1: one process)
     data_axis: int = 1
     tile_axis: int = 1
+    # > 1: the Gaussian table and the tile bands sharded over that many
+    # ranks (exclusive with the (data, tile) mesh); 0 or 1: no shard
+    shard_gaussians: int = 0
 
 
 GROUPS = {"model": ModelParams, "pipeline": PipelineParams,
           "optimization": OptimizationParams, "runtime": RuntimeParams}
 
 # fields of the JAX package's groups that the port leaves out (see above)
-JAX_ONLY = {"runtime": ("blend_chunk", "use_pallas", "shard_gaussians")}
+JAX_ONLY = {"runtime": ("blend_chunk", "use_pallas")}
 
 
 def add_group(parser: argparse.ArgumentParser, cls) -> None:

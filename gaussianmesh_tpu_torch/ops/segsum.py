@@ -23,6 +23,15 @@ Two implementations of that one function:
   `LONG_SEGMENT` rows with 4 lanes per Gaussian; the block that holds a
   longer one sums it with all its threads (the source's note gives the
   design).
+
+The kernel reads `rows` only through `grouped_pos`, so the rows may be any
+table: `segment_sum_rows` is the same wrapper without `segment_sum`'s rule
+of one `grouped_pos` entry per row. `gather_rows` uses it: the Gaussian-table
+shard (`parallel/gauss_shard.py`) gathers each emitted pair's feature row
+into a send slot, and the transpose of that gather sums every Gaussian's
+slot cotangents with K3 (the counterpart of the JAX package's
+`gather_rows_counted`, `segsum.py:56-63`; PyTorch's own backward of
+`feat[idx]` would scatter-add with atomics on CUDA).
 """
 
 from __future__ import annotations
@@ -67,9 +76,8 @@ def _check_inputs(rows, grouped_pos, seg_starts):
             raise ValueError(f"{name} must be 1-D int32, got {x.dtype}")
         if x.device != rows.device:
             raise ValueError("segment_sum inputs lie on different devices")
-    if grouped_pos.shape[0] != rows.shape[0] or seg_starts.shape[0] < 1:
-        raise ValueError(f"grouped_pos has {grouped_pos.shape[0]} entries for "
-                         f"{rows.shape[0]} rows")
+    if seg_starts.shape[0] < 1:
+        raise ValueError("seg_starts needs at least one entry")
 
 
 def segment_sum(rows: torch.Tensor, grouped_pos: torch.Tensor,
@@ -79,6 +87,19 @@ def segment_sum(rows: torch.Tensor, grouped_pos: torch.Tensor,
     counts, seg_starts[N] == M) -> (N + 1, FEAT) f32.
 
     CPU tensors run `segment_sum_plain`; CUDA tensors launch the kernel."""
+    if grouped_pos.shape[0] != rows.shape[0]:
+        raise ValueError(f"grouped_pos has {grouped_pos.shape[0]} entries for "
+                         f"{rows.shape[0]} rows")
+    return segment_sum_rows(rows, grouped_pos, seg_starts)
+
+
+def segment_sum_rows(rows: torch.Tensor, grouped_pos: torch.Tensor,
+                     seg_starts: torch.Tensor) -> torch.Tensor:
+    """K3 over any table of rows: out[g] = sum of rows[grouped_pos[e]] over e
+    in [seg_starts[g], seg_starts[g + 1]), for rows (R, FEAT) f32,
+    grouped_pos (M,) int32 with entries < R and seg_starts[N] == M.
+    -> (N + 1, FEAT) f32. CPU tensors run `segment_sum_plain`; CUDA tensors
+    launch the kernel (and count in `segment_sum.launches`)."""
     _check_inputs(rows, grouped_pos, seg_starts)
     if rows.device.type == "cpu":
         return segment_sum_plain(rows, grouped_pos, seg_starts)
@@ -103,3 +124,32 @@ def segment_sum(rows: torch.Tensor, grouped_pos: torch.Tensor,
 
 
 segment_sum.launches = 0  # calls that launched the kernel since the last reset
+
+
+class GatherRows(torch.autograd.Function):
+    """send[s] = feat[slot_gid[s]]: the (N + 1, FEAT) feature table's rows
+    gathered into S send slots (an empty slot names the zero dummy row N).
+    Backward: K3 (`segment_sum_rows`) over the emission order, the pairs
+    Gaussian-major with `seg_starts` from their per-Gaussian counts, and
+    `grouped_pos[e]` the send slot of emission pair e, or S for a pair no
+    slot took (it reads an appended zero row)."""
+
+    @staticmethod
+    def forward(ctx, feat, slot_gid, grouped_pos, seg_starts):
+        ctx.save_for_backward(grouped_pos, seg_starts)
+        return feat[slot_gid]
+
+    @staticmethod
+    def backward(ctx, g_send):
+        grouped_pos, seg_starts = ctx.saved_tensors
+        table = torch.cat([g_send, g_send.new_zeros(1, g_send.shape[1])])
+        return segment_sum_rows(table, grouped_pos, seg_starts), None, None, None
+
+
+def gather_rows(feat: torch.Tensor, slot_gid: torch.Tensor,
+                grouped_pos: torch.Tensor, seg_starts: torch.Tensor
+                ) -> torch.Tensor:
+    """Differentiable `feat[slot_gid]` whose gradient is K3 (`GatherRows`):
+    feat (N + 1, FEAT) f32, slot_gid (S,) int64, grouped_pos (M,) int32 with
+    entries <= S, seg_starts (N + 1,) int32 -> (S, FEAT)."""
+    return GatherRows.apply(feat, slot_gid, grouped_pos, seg_starts)

@@ -9,10 +9,15 @@ data_index * n_tile + tile_index, as the JAX package reshapes its devices.
   horizontal bands of tile rows, one per rank; SSIM crosses the band
   boundaries through a 5-row halo exchange (`halo_exchange_rows`).
 - Parameters and Adam state stay replicated: every rank holds the whole
-  Gaussian table (sharding it is a later slice).
+  Gaussian table.
 
-Only `all_reduce` and `all_gather` run, each on an explicit process group.
-Every rank issues the same collectives in the same order whatever its data.
+The Gaussian-table shard (`parallel/gauss_shard.py`) runs on a (1, D) mesh:
+its tile group is the shard group, and `all_to_all` carries the pairs to the
+band owners.
+
+Only `all_reduce`, `all_gather` and `all_to_all_single` run, each on an
+explicit process group. Every rank issues the same collectives in the same
+order whatever its data.
 """
 
 from __future__ import annotations
@@ -91,11 +96,45 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
-    """Every rank's x over `group`, in the group's rank order."""
+    """Every rank's x over `group`, in the group's rank order (a bool tensor
+    travels as uint8)."""
+    if x.dtype == torch.bool:
+        return [o.bool() for o in all_gather(x.to(torch.uint8), group)]
     src = x.detach().contiguous()
     outs = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(outs, src, group=group)
     return outs
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """Equal-split all-to-all along axis 0. Its transpose is itself: the
+    backward sends each cotangent chunk back to the rank it came from."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """x (D * C, ...) cut into D equal chunks along axis 0: chunk k goes to
+    the group's rank k, and the result's chunk k is what rank k sent here.
+    Differentiable (`_AllToAll`); every rank of the group must call it, and
+    its backward, in the same order."""
+    if x.shape[0] % dist.get_world_size(group):
+        raise ValueError(f"{x.shape[0]} rows do not split into "
+                         f"{dist.get_world_size(group)} equal chunks")
+    return _AllToAll.apply(x, group)
 
 
 class _HaloExchange(torch.autograd.Function):

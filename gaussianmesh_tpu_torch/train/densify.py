@@ -11,7 +11,9 @@ the reference: children inherit the parent's `r`, `fid` and normal; scale is
 divided by 4 * 0.8; bc logits reset to 1/3 and distance to 0; the
 densification statistics reset to zero afterwards. `split_all_for_init` is
 the same pass with every Gaussian selected and 4 children (the init loop,
-densify_and_split_for_init:596-647).
+densify_and_split_for_init:596-647). `densify_and_split_gauss_sharded` runs
+it on each shard of the Gaussian-table-sharded regime, with the vertex pool
+replicated.
 
 The background model (vanilla 3DGS, reference scene/gaussian_model.py:
 373-427) densifies by `densify_and_prune_bg`: clone small high-gradient
@@ -32,6 +34,7 @@ import torch
 from gaussianmesh_tpu_torch.models.gaussians import GaussianModel
 from gaussianmesh_tpu_torch.models.mesh_gaussians import (
     MeshGaussianModel, MeshGaussianState, MeshVertices, empty_state)
+from gaussianmesh_tpu_torch.parallel import sharding
 from gaussianmesh_tpu_torch.utils.maths import normalize, quat_to_rotmat
 from gaussianmesh_tpu_torch.utils.subdivision import CHILD_IDX_CODE, CHILD_W
 
@@ -95,16 +98,45 @@ def densify_and_split(model: MeshGaussianModel, mu: dict, nu: dict,
                                   n_children, max_split)
 
 
+def densify_and_split_gauss_sharded(mesh, model: MeshGaussianModel, mu: dict,
+                                    nu: dict, grads_avg: torch.Tensor,
+                                    threshold: float, n_children: int,
+                                    max_split_per_shard: int) -> SplitResult:
+    """`densify_and_split` of this rank's shard in the Gaussian-table-sharded
+    regime (`mesh` the (1, D) `ProcessMesh`; every rank calls it together).
+
+    Each shard selects and compacts its own parents into its own free rows
+    (at most `max_split_per_shard`, and the shard's capacity), with vertex
+    room (vcap - count) // D. One all_gather of the shards' n_split gives
+    each an exclusive-scan base for its new vertices, so `vertex_index`
+    stays global; the vertex pool stays replicated: every rank writes all
+    shards' midpoints (one all_gather) in rank order. `n_split` and
+    `dropped` are the sums over the shards. A threshold test distributes
+    over shards, so with no cap binding the selection is the single
+    table's."""
+    with torch.no_grad():
+        return _densify_and_split(model, mu, nu, grads_avg, threshold, n_children,
+                                  min(max_split_per_shard, model.capacity), mesh)
+
+
 def _densify_and_split(model, mu, nu, grads_avg, threshold, n_children,
-                       max_split):
+                       max_split, mesh=None):
     alive = model.alive
     c = alive.shape[0]
     dev = alive.device
     nch = n_children
     pool = model.mesh_v
+    n_shards = 1 if mesh is None else mesh.n_tile
     sel_idx, parent_ok, free_idx, n_split, dropped = _select_parents(
         alive, grads_avg, threshold, nch, max_split,
-        vroom=pool.v.shape[0] - pool.count)
+        vroom=(pool.v.shape[0] - pool.count) // n_shards)
+    base, split_by_shard = pool.count, [n_split]
+    if mesh is not None:
+        group = mesh.tile_group
+        split_by_shard = [int(x) for x in sharding.all_gather(
+            torch.tensor([n_split], device=dev), group)]
+        base += 3 * sum(split_by_shard[:mesh.tile_index])
+        dropped = int(sharding.all_reduce(torch.tensor(dropped, device=dev), group))
 
     # --- child geometry ----------------------------------------------------
     k_ids = torch.arange(max_split * nch, device=dev)
@@ -120,8 +152,9 @@ def _densify_and_split(model, mu, nu, grads_avg, threshold, n_children,
     w = torch.as_tensor(CHILD_W, device=dev)[cid[ok]]  # (K, 3 verts, 3 corners)
     child = torch.einsum("kvc,kcd->kvd", w, corners)   # (K, 3 verts, 3)
 
-    # new vertices: 3 per split parent, packed after the pool's count
-    vbase = pool.count + 3 * pj[ok]
+    # new vertices: 3 per split parent, packed after the pool's count (and
+    # the lower shards' new vertices)
+    vbase = base + 3 * pj[ok]
     code = torch.as_tensor(CHILD_IDX_CODE, device=dev)[cid[ok]].long()
     parent_vidx = model.vertex_index[src].long()
     child_vidx = torch.where(
@@ -166,9 +199,14 @@ def _densify_and_split(model, mu, nu, grads_avg, threshold, n_children,
     a, b, cc = model.vertex1[split], model.vertex2[split], model.vertex3[split]
     mids = torch.stack([(a + b) * 0.5, (a + cc) * 0.5, (b + cc) * 0.5],
                        dim=1).reshape(-1, 3)
+    most = max(split_by_shard)
+    if mesh is not None and most > 0:      # every shard's, in rank order
+        pad = torch.cat([mids, mids.new_zeros(3 * (most - n_split), 3)])
+        mids = torch.cat([m[:3 * k] for m, k in zip(
+            sharding.all_gather(pad, mesh.tile_group), split_by_shard)])
     v = pool.v.clone()
     v[pool.count:pool.count + mids.shape[0]] = mids
-    mesh_v = MeshVertices(v=v, count=pool.count + 3 * n_split)
+    mesh_v = MeshVertices(v=v, count=pool.count + 3 * sum(split_by_shard))
 
     def zero_at_dest(m):
         out = m.clone()
@@ -180,7 +218,7 @@ def _densify_and_split(model, mu, nu, grads_avg, threshold, n_children,
     return SplitResult(model=new_model,
                        mu={n: zero_at_dest(m) for n, m in mu.items()},
                        nu={n: zero_at_dest(m) for n, m in nu.items()},
-                       n_split=n_split, dropped=dropped)
+                       n_split=sum(split_by_shard), dropped=dropped)
 
 
 def split_all_for_init(model: MeshGaussianModel, mu: dict, nu: dict,

@@ -87,14 +87,14 @@ def test_cli_edit_runs_on_cuda_by_default(model_dir, monkeypatch):
 
 def test_load_combined_reads_a_jax_cfg(model_dir):
     """The JAX package's cfg_args.json loads with its TPU-only keys skipped
-    (the process-mesh axes are the port's too); the command line overrides
-    it; an unknown key raises."""
+    (the process-mesh axes and the shard count are the port's too); the
+    command line overrides it; an unknown key raises."""
     root = str(model_dir[0])
     parser = common.base_parser("test")
     groups = config.load_combined(root, parser.parse_args(["--sh_degree", "2"]))
     assert groups["model"].sh_degree == 2 and groups["model"].model_path == root
     assert groups["runtime"] == config.RuntimeParams(max_per_tile=512, data_axis=2,
-                                                     tile_axis=2)
+                                                     tile_axis=2, shard_gaussians=4)
     assert groups["optimization"] == config.OptimizationParams()
     args = parser.parse_args(["--no-white_background", "-m", "x", "--device", "cpu"])
     assert config.extract(config.ModelParams, args) == config.ModelParams(

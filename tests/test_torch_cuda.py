@@ -543,3 +543,81 @@ def test_native_acap_matches_deformation_gradients_on_cuda(cuda):
     r32, s32 = d.get_rs(vd)
     assert np.abs(r - r32.cpu().numpy()).max() <= 2e-3
     assert np.abs(s - s32.cpu().numpy()).max() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [4096, 300])
+def test_owner_side_gather_backward_k3_matches_plain(cuda, capacity):
+    """`segsum.gather_rows` on the card: the forward equals the CPU's, the
+    backward is K3 over a send buffer (one launch; capacity 300 drops pairs
+    past their bucket) within 1e-6 of each column's largest sum against the
+    plain version (a float64 `index_add_`)."""
+    from gaussianmesh_tpu_torch.parallel import gauss_shard
+    rng = np.random.default_rng(8)
+    n, d = 3000, 4
+    counts = rng.integers(0, 9, n)
+    gid = torch.tensor(np.repeat(np.arange(n), counts))
+    dest = torch.tensor(rng.integers(0, d, gid.shape[0]))
+    slot, overflow = gauss_shard.send_slots(dest, d, capacity)
+    assert (int(overflow) > 0) == (capacity == 300)
+    slot_gid = torch.full((d * capacity + 1,), n, dtype=torch.int64)
+    slot_gid[slot] = gid
+    feat = torch.tensor(rng.normal(size=(n + 1, segsum.FEAT)).astype(np.float32))
+    feat[n] = 0.0
+    w = torch.tensor(rng.normal(size=(d * capacity, segsum.FEAT)).astype(np.float32))
+    args = (slot_gid[:-1], slot.to(torch.int32),
+            segsum.segment_starts(torch.tensor(counts, dtype=torch.int32)))
+    grads = []
+    for dev in (cuda, "cpu"):
+        f = feat.to(dev).requires_grad_()
+        send = segsum.gather_rows(f, *(a.to(dev) for a in args))
+        before = segsum.segment_sum.launches
+        (send * w.to(dev)).sum().backward()
+        assert segsum.segment_sum.launches == before + (dev == cuda)
+        grads.append((send.detach().cpu(), f.grad.cpu()))
+    assert torch.equal(grads[0][0], grads[1][0])
+    scale = grads[1][1].abs().amax(0).clamp(min=1e-30)
+    assert ((grads[0][1] - grads[1][1]).abs() / scale).max().item() <= 1e-6
+
+
+def _emulated_band(device, sc, bg, cfg):
+    """One band of a 4-way Gaussian-table shard emulated in one process
+    (`emulate_d=4`: this rank's buckets stand in for the received buffer),
+    its loss against a ramp -> (color, gradients of the leaves)."""
+    from gaussianmesh_tpu_torch.models.render import GaussianArrays
+    from gaussianmesh_tpu_torch.parallel import gauss_shard
+    leaves = [sc[k].detach().to(device).requires_grad_()
+              for k in ("means", "cov6", "opacity", "rgb")]
+    arrays = GaussianArrays(*leaves, torch.ones(len(leaves[0]), dtype=torch.bool,
+                                                device=device))
+    out = gauss_shard.rasterize_band_gauss_sharded(
+        arrays, _camera(cfg.width, cfg.height, device), cfg, None, 20000, bg.to(device),
+        emulate_d=4)
+    target = torch.linspace(0, 1, out.color.numel(), device=device).reshape(out.color.shape)
+    loss = ((out.color - target) ** 2).sum() + 0.1 * out.final_t.sum()
+    return out.color.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+@pytest.mark.cuda
+def test_receiver_blend_on_a_received_buffer_matches_cpu(cuda):
+    """The receiver's blend of a send buffer standing in for the received
+    one (an emulated rank of 4 at 256 x 200): K1 once, K2 once, K3
+    twice (the receiver's permutation and the owner's reduction); forward
+    1e-3 max-abs / 1e-5 mean against the plain path on the CPU, gradients
+    within 2e-4 of each leaf's largest; two runs on the card bit-identical."""
+    sc = _scene(5000, cuda, seed=6)
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    cfg = RasterizerConfig(width=256, height=200, max_per_tile=1024)
+    for fn in (tile_blend.blend_forward, tile_blend.blend_backward, segsum.segment_sum):
+        fn.launches = 0
+    ca, ga = _emulated_band(cuda, sc, bg, cfg)
+    torch.cuda.synchronize()
+    assert (tile_blend.blend_forward.launches, tile_blend.blend_backward.launches,
+            segsum.segment_sum.launches) == (1, 1, 2)
+    cb, gb = _emulated_band(cuda, sc, bg, cfg)
+    assert torch.equal(ca, cb) and all(torch.equal(a, b) for a, b in zip(ga, gb))
+    cc, gc = _emulated_band("cpu", {k: v.cpu() for k, v in sc.items()}, bg, cfg)
+    d = (ca - cc).abs()
+    assert d.max().item() <= 1e-3 and d.mean().item() <= 1e-5
+    for a, c in zip(ga, gc):
+        assert ((a - c).abs() / c.abs().max()).max().item() <= 2e-4

@@ -335,8 +335,8 @@ def test_mesh_trainer_2x2_keeps_ranks_identical(tmp_path):
 def test_trainer_regime_needs_a_matching_world(monkeypatch):
     """The (data, tile) regime needs an initialised world of that size, and
     a world of N > 1 processes needs a mesh of N (the default 1 x 1
-    included: every rank would otherwise train alone); the Gaussian-table
-    shard is not ported yet."""
+    included: every rank would otherwise train alone); so does the
+    Gaussian-table shard."""
     stacks, images = _dataset()
     ds = DeviceDataset(*(torch.tensor(x.astype(np.float32)) for x in stacks),
                        images=torch.tensor(images), masks=None, width=W, height=H)
@@ -352,9 +352,9 @@ def test_trainer_regime_needs_a_matching_world(monkeypatch):
             with pytest.raises(RuntimeError, match="world of"):
                 MeshTrainer(v, f, ds, OptimizationParams(), rt,
                             spatial_lr_scale=3.2, init_target=100)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        MeshTrainer(v, f, ds, OptimizationParams(), RuntimeParams(),
-                    spatial_lr_scale=3.2, init_target=100, shard_gaussians=4)
+    with pytest.raises(RuntimeError, match="world of 4"):
+        MeshTrainer(v, f, ds, OptimizationParams(), RuntimeParams(shard_gaussians=4),
+                    spatial_lr_scale=3.2, init_target=100)
 
 
 def _free_port() -> int:

@@ -1,4 +1,5 @@
-"""Rank processes of the port's multi-process tests (`tests/test_torch_parallel.py`).
+"""Rank processes of the port's multi-process tests (`tests/test_torch_parallel.py`,
+`tests/test_torch_gauss_shard.py`).
 
 `launch(case, world, workdir)` starts `world` processes of
 
@@ -164,8 +165,133 @@ def case_trainer(mesh, inp):
             "n_alive": int(tr.model.alive.sum())}
 
 
+# ------------------------------------------------------ the Gaussian-table shard
+
+def _shard_arrays(mesh, sc, requires_grad=False):
+    """This rank's contiguous shard of a scene {means3d, cov6, opacity, rgb}."""
+    from gaussianmesh_tpu_torch.models.render import GaussianArrays
+    n, d, r = sc["means3d"].shape[0], mesh.n_tile, mesh.tile_index
+    part = {k: v[r * n // d:(r + 1) * n // d].clone() for k, v in sc.items()}
+    part["opacity"].requires_grad_(requires_grad)
+    return GaussianArrays(part["means3d"], part["cov6"], part["opacity"], part["rgb"],
+                          torch.ones(n // d, dtype=torch.bool)), part["opacity"]
+
+
+def case_gband(mesh, inp):
+    """Each scene's band through `rasterize_band_gauss_sharded`, and the
+    gradient of the sum of its squared pixels in this rank's opacities; then
+    the first scene with a starved send capacity."""
+    from gaussianmesh_tpu_torch.ops.rasterize import RasterizerConfig
+    from gaussianmesh_tpu_torch.parallel import gauss_shard
+    from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
+    cam = CameraArrays(*inp["cam"])
+    cfg = RasterizerConfig(int(inp["width"]), int(inp["height"]), int(inp["max_per_tile"]))
+    out = {}
+    for name, sc in inp["scenes"].items():
+        arrays, op = _shard_arrays(mesh, sc, requires_grad=True)
+        o = gauss_shard.rasterize_band_gauss_sharded(arrays, cam, cfg, mesh,
+                                                     int(inp["send_capacity"]), inp["bg"])
+        (o.color * o.color).sum().backward()
+        out[name] = {"color": o.color.detach(), "grad": op.grad,
+                     **{k: int(getattr(o, k)) for k in ("send_overflow", "tile_overflow",
+                                                        "rect_overflow", "num_rendered",
+                                                        "sent")}}
+    with torch.no_grad():
+        arrays, _ = _shard_arrays(mesh, next(iter(inp["scenes"].values())))
+        o = gauss_shard.rasterize_band_gauss_sharded(arrays, cam, cfg, mesh, 8, inp["bg"])
+    out["starved_send_overflow"] = int(o.send_overflow)
+    return out
+
+
+def case_gstep(mesh, inp):
+    """One Gaussian-table-sharded step from this rank's rows of the given
+    state (a JAX capture carried across), on one camera and its gt."""
+    from gaussianmesh_tpu_torch.config import OptimizationParams
+    from gaussianmesh_tpu_torch.models import mesh_gaussians as mgs
+    from gaussianmesh_tpu_torch.ops.rasterize import RasterizerConfig
+    from gaussianmesh_tpu_torch.parallel import gauss_shard, sharding
+    from gaussianmesh_tpu_torch.train.optim import Adam, mesh_lr_fn
+    from gaussianmesh_tpu_torch.train.trainer import trainer_state_from_numpy
+    from gaussianmesh_tpu_torch.utils.checkpoint import shard_rows
+    from gaussianmesh_tpu_torch.utils.graphics import CameraArrays
+    state = shard_rows(trainer_state_from_numpy(
+        {k: ({f: x.numpy() for f, x in v.items()} if isinstance(v, dict) else v)
+         for k, v in inp["capture"].items()}, device="cpu"), mesh.rank, mesh.n_tile)
+    model = mgs.MeshGaussianModel(state["params"], state["binding"],
+                                  mesh_v=mgs.MeshVertices(**state["mesh_v"]),
+                                  state=mgs.MeshGaussianState(**state["state"]))
+    opt = OptimizationParams()
+    adam = Adam(model.params(), mesh_lr_fn(opt, 1.0))
+    w, h = int(inp["width"]), int(inp["height"])
+    cfg = RasterizerConfig(w, h, int(inp["max_per_tile"]))
+    step = gauss_shard.make_gauss_sharded_train_step(
+        mesh, adam, cfg, 0, opt.lambda_dssim, opt.alpha_mrloss, w, h,
+        int(inp["send_capacity"]))
+    padded = sharding.padded_grid_y(h, mesh.n_tile) * 16
+    gt = torch.nn.functional.pad(inp["gt"], (0, 0, 0, padded - h))
+    metrics = step(model, CameraArrays(*inp["cam"]), gt, inp["bg"])
+    return {"metrics": metrics, "params": {k: v.detach() for k, v in model.params().items()},
+            "state": model.state._asdict()}
+
+
+def case_gdensify(mesh, inp):
+    """`densify_and_split_gauss_sharded` of this rank's rows of the given
+    (already dealt) state, with its hot rows."""
+    from gaussianmesh_tpu_torch.train import densify
+    from gaussianmesh_tpu_torch.utils.checkpoint import shard_rows
+    tree = shard_rows({"params": inp["params"], "binding": inp["binding"],
+                       "state": inp["state"], "mu": inp["mu"], "nu": inp["nu"]},
+                      mesh.rank, mesh.n_tile)
+    model = _model({**inp, "params": tree["params"], "binding": tree["binding"],
+                    "state": tree["state"]})
+    res = densify.densify_and_split_gauss_sharded(
+        mesh, model, tree["mu"], tree["nu"], inp["grads"].chunk(mesh.n_tile)[mesh.rank],
+        0.5, 5, 64)
+    m = res.model
+    return {"params": {k: v.detach() for k, v in m.params().items()},
+            "binding": m.binding(), "mesh_v": m.mesh_v._asdict(), "mu": res.mu,
+            "n_split": res.n_split, "dropped": res.dropped}
+
+
+def case_gtrainer(mesh, inp):
+    """`MeshTrainer` with the Gaussian table sharded over the world: train to
+    the checkpoint iteration, save a per-rank checkpoint, train on; then a
+    fresh trainer resumed from the checkpoint trains as far. -> the state
+    hashes of both runs, the events, the losses and this rank's capture at
+    the checkpoint."""
+    from gaussianmesh_tpu_torch.config import OptimizationParams, RuntimeParams
+    from gaussianmesh_tpu_torch.train.trainer import DeviceDataset, MeshTrainer
+    ds = DeviceDataset(*inp["stacks"], images=inp["images"], masks=None,
+                       width=int(inp["width"]), height=int(inp["height"]))
+    opt = OptimizationParams(densify_from_iter=3, densification_interval=4,
+                             densify_until_iter=25, opacity_reset_interval=10,
+                             densify_grad_threshold=1e-6)
+    world = torch.distributed.get_world_size()
+    rt = RuntimeParams(max_per_tile=256, shard_gaussians=world)
+
+    def trainer():
+        return MeshTrainer(inp["v"].numpy(), inp["f"].numpy(), ds, opt, rt,
+                           spatial_lr_scale=3.2, init_target=300, max_sh_degree=1)
+
+    tr = trainer()
+    assert tr.n_shards == world and tr.model.capacity * world == 4096
+    losses = []
+    tr.train(int(inp["at"]), log_every=1, callback=lambda m: losses.append(m["loss"]))
+    path = tr.save_ckpt(os.path.join(inp["dir"], "chkpnt.ckpt"))
+    at_ckpt = tr.capture()
+    tr.train(int(inp["iterations"]) - int(inp["at"]), log_every=1,
+             callback=lambda m: losses.append(m["loss"]))
+    resumed = trainer()
+    resumed.load_ckpt(os.path.join(inp["dir"], "chkpnt.ckpt"))
+    resumed.train(int(inp["iterations"]) - int(inp["at"]), log_every=1000)
+    return {"hash": state_hash(tr), "resumed_hash": state_hash(resumed), "path": path,
+            "events": tr.events, "losses": losses, "n_alive": tr.n_alive(),
+            "capture": at_ckpt, "global_it": resumed.global_it}
+
+
 CASES = {"halo": case_halo, "step": case_step, "playback": case_playback,
-         "trainer": case_trainer}
+         "trainer": case_trainer, "gband": case_gband, "gstep": case_gstep,
+         "gdensify": case_gdensify, "gtrainer": case_gtrainer}
 
 
 def main(argv) -> None:
@@ -177,8 +303,8 @@ def main(argv) -> None:
                             timeout=timedelta(seconds=GROUP_TIMEOUT_S))
     try:
         inp = torch.load(os.path.join(workdir, f"{case}_in.pt"), weights_only=False)
-        mesh = None          # the trainer makes its own
-        if case != "trainer":
+        mesh = None          # a trainer makes its own
+        if case not in ("trainer", "gtrainer"):
             from gaussianmesh_tpu_torch.parallel import sharding
             mesh = sharding.make_mesh(*(int(x) for x in inp["mesh"]))
         out = CASES[case](mesh, inp)
