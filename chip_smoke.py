@@ -160,6 +160,23 @@ Phases (any failure raises, so the exit code is not 0):
    against their plain versions and the owner's K3 against a float64
    `index_add_` (the `gshard_*` keys). Prints the bytes sent per rank and
    step, the received live pairs beside the slots, step ms per rank.
+11. quality: the config-2 quality protocol of `tools/quality_run_torch.py`
+   in its SMALL mode (128x128, 16 poses of the icosphere-2 teacher, 2 of
+   them test views, an icosphere-1 proxy, 300 iterations, evals at 100 and
+   300), in-process on the card once for each seed of QUALITY_SEEDS: K1 once
+   per training step, teacher view and rendered test view, K2 and K3 once per
+   step (counters set to 0 just before each run, read just after); finite
+   losses and trajectory, the test PSNR rising from 100 to 300, and the
+   final test PSNR within QUALITY_BAR_DB of the JAX package's SMALL run
+   (`results/config2_quality_smoke.json`, read as JSON). Then the quality
+   step: a `MeshTrainer` at the PROTOCOL run's shapes (448x448 views of the
+   icosphere-4 teacher, the 1,600-face uv-sphere proxy -> 102,400
+   Gaussians, the tool's flags: `max_per_tile` 768, 6 pairs and 3 rows per
+   Gaussian, SH degree 2) takes one step with the kernels' wrappers
+   recording their arguments, and K1, K2 and K3 are held against their
+   plain versions on those, timed and bounded as in phase 5 (the `quality_*`
+   keys). `python3 chip_smoke.py --quality-step WORK` does the same on the
+   table of the newest checkpoint of a PROTOCOL run in WORK.
 
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
@@ -250,6 +267,11 @@ GSHARD_STEPS = 8       # a reset at 2, densifies at 3 and 6, a reset at 6
 GSHARD_MORE = 2        # steps after the checkpoint: uninterrupted, then resumed
 GSHARD_HOT = 2000      # each densify's threshold: the 2,000th largest grads_avg
 EMULATED_CALLS = 5
+
+# phase 11: the config-2 quality protocol (tools/quality_run_torch.py)
+QUALITY_SEEDS = (0, 1, 2)
+QUALITY_BAR_DB = 1.0   # each seed's SMALL test PSNR against the JAX package's
+QUALITY_STEP_VIEWS = 4
 
 # H100 SXM peaks (NVIDIA data sheet; the CUDA programming guide's throughput
 # table for the special-function unit: 16 exp2 results / clock / SM) at the
@@ -893,7 +915,7 @@ def kernel_line(results, fullscreen, launches):
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
         for label in ("clamped", "train", "fullscreen", "composite", "pipeline", "eval",
-                      "band", "gshard", "gshard_owner"):
+                      "band", "gshard", "gshard_owner", "quality"):
             for k in ("ms", "queued_ms", "host_ms", "plain_ms", "bound_ms",
                       "library_ms", "max_abs"):
                 if k in r.get(label, {}):
@@ -2823,6 +2845,170 @@ def gshard_rank(rank, world, work):
     return 0
 
 
+# ------------------------------------------------------------------ phase 11
+
+QUALITY_MODES = ("GM_QUALITY_SMALL", "GM_QUALITY_PROTOCOL", "GM_QUALITY_ITERS")
+
+
+def load_quality_tool(mode):
+    """tools/quality_run_torch.py loaded afresh with its mode's environment
+    ("GM_QUALITY_SMALL" or "GM_QUALITY_PROTOCOL" set to 1, the others unset)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "quality_run_torch.py")
+    saved = {k: os.environ.pop(k, None) for k in QUALITY_MODES}
+    os.environ[mode] = "1"
+    try:
+        spec = importlib.util.spec_from_file_location(f"quality_run_torch_{mode}", path)
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    return tool
+
+
+def quality_trainer(torch, port, tool):
+    """A `MeshTrainer` at the PROTOCOL run's shapes: the tool's icosphere-4
+    teacher over white as QUALITY_STEP_VIEWS ground-truth views at its size,
+    the uv-sphere proxy (1,600 faces -> 102,400 Gaussians), and the flags the
+    tool hands `train_mesh`, parsed by the port's own parser."""
+    args, _ = port.cli_common.base_parser("quality step").parse_known_args(
+        tool.train_args("data", "model", "proxy.obj"))
+    opt = port.config.extract(port.config.OptimizationParams, args)
+    rt = port.config.extract(port.config.RuntimeParams, args)
+    teacher = tool.make_teacher(4, "cuda")
+    cfg = port.rasterize.RasterizerConfig(tool.W, tool.H, tool.TEACHER_MAX_PER_TILE)
+    n_total = tool.N_CAMS + max(4, tool.N_CAMS // 6)
+    cams = []
+    with torch.no_grad():
+        for i in range(QUALITY_STEP_VIEWS):
+            R, T, _ = tool.pose(i, n_total)
+            cam = port.cameras.Camera(uid=i, R=R, T=T, fovx=tool.FOVX, fovy=tool.FOVX,
+                                      image=None, width=tool.W, height=tool.H)
+            out = port.render.render(port.render.mesh_model_arrays(
+                teacher, cam.arrays("cuda"), 0), cam.arrays("cuda"), cfg,
+                torch.ones(3, device="cuda"))
+            cam.image = (port.cli_common.to_uint8(out.color).transpose(2, 0, 1)
+                         .astype(np.float32) / 255.0)
+            cams.append(cam)
+    ds = port.trainer.DeviceDataset.from_cameras(cams, device="cuda")
+    v, f = tool.proxy_mesh()
+    extent = port.readers.nerfpp_norm(cams)["radius"]
+    trainer = port.trainer.MeshTrainer(v, f, ds, opt, rt, spatial_lr_scale=extent,
+                                       init_target=tool.INIT_TARGET,
+                                       max_sh_degree=int(args.sh_degree))
+    trainer.sh_degree = trainer.max_sh_degree    # the state after iteration 2000
+    return trainer
+
+
+def quality_step(torch, port, trainer, label):
+    """K1, K2 and K3 held against their plain versions on the arguments of
+    one more step of `trainer`, timed and bounded as in phase 5."""
+    seen = capture_step(torch, port, trainer)
+    k1, _, _, blended = check_k1(torch, port.tile_blend, seen["K1"],
+                                 trainer.rt.max_per_tile)
+    rows, grouped_pos, seg_starts = seen["K3"]
+    k2, k3 = check_k2_k3(torch, port, seen["K2"], grouped_pos, seg_starts,
+                         blended, step_rows=rows)
+    feat, _, _, counts = seen["K1"][:4]
+    log(f"[quality] {label}: {int(trainer.model.alive.sum())} alive of "
+        f"{feat.shape[0]} rows, {int(counts.sum())} pairs, largest tile "
+        f"{int(counts.max())} (max_per_tile {trainer.rt.max_per_tile})")
+    for key, r in (("K1", k1), ("K2", k2), ("K3", k3)):
+        log(f"[quality] {key} at the {label}'s shapes: " + json.dumps(r))
+    return k1, k2, k3
+
+
+def phase_quality(torch, port, tmpdir):
+    """11. The config-2 quality protocol at SMALL scale through
+    `tools/quality_run_torch.py`, once per seed; then the quality step."""
+    t_phase = time.perf_counter()
+    tool = load_quality_tool("GM_QUALITY_SMALL")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "results", "config2_quality_smoke.json")) as fh:
+        ref = json.load(fh)                  # the JAX package's SMALL run (CPU)
+    first, last = str(tool.EVAL_ITERS[0]), str(tool.ITERS)
+    ref_psnr = ref["trajectory"][last]["PSNR"]
+    n_total = tool.N_CAMS + max(4, tool.N_CAMS // 6)
+    n_test = sum(1 for i in range(n_total) if i % 8 == 7)
+    # K1: each step, each teacher view, each test view of train_mesh's evals
+    # and of render's; K2 and K3: each step
+    want = {"K1": tool.ITERS + n_total + 2 * len(tool.EVAL_ITERS) * n_test,
+            "K2": tool.ITERS, "K3": tool.ITERS}
+    runs, launches = [], {"K1": 0, "K2": 0, "K3": 0}
+    for seed in QUALITY_SEEDS:
+        work = os.path.join(tmpdir, f"quality_seed{seed}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_launches(port)                             # main path starts
+        art = tool.main([work, "--device", "cuda", "--seed", str(seed),
+                         "--out", os.path.join(work, "quality.json")])
+        torch.cuda.synchronize()
+        got = read_launches(port)                        # main path ends
+        run = dict(seed=seed, seconds=time.perf_counter() - t0, launches=got,
+                   train_seconds=art["train_seconds"],
+                   iters_per_second=art["iters_per_second"],
+                   psnr={it: r["PSNR"] for it, r in art["trajectory"].items()},
+                   ssim={it: r["SSIM"] for it, r in art["trajectory"].items()},
+                   lpips_uncalibrated={it: r["LPIPS_uncalibrated"]
+                                       for it, r in art["trajectory"].items()},
+                   n_gauss_final=art["n_gauss_final"], overflow=art["overflow"],
+                   host_events={k: {"count": v["count"], "total_ms": v["total_ms"]}
+                                for k, v in art["host_events"].items()})
+        log("[quality] SMALL run: " + json.dumps(run))
+        runs.append(run)
+        assert got == want, (got, want)
+        assert art["losses_finite"], seed
+        assert all(math.isfinite(x) for r in art["trajectory"].values()
+                   for x in (r["PSNR"], r["SSIM"], r["LPIPS_uncalibrated"])), art
+        assert run["psnr"][last] > run["psnr"][first], run["psnr"]
+        for k in launches:
+            launches[k] += got[k]
+    final = [r["psnr"][last] for r in runs]
+    log(f"[quality] SMALL test PSNR at {last} by seed {QUALITY_SEEDS}: {final} "
+        f"(spread {max(final) - min(final):.4f} dB) against the JAX package's "
+        f"{ref_psnr:.4f} ({ref['backend']}); bar {QUALITY_BAR_DB} dB")
+    for seed, psnr in zip(QUALITY_SEEDS, final):
+        if abs(psnr - ref_psnr) > QUALITY_BAR_DB:
+            raise AssertionError(f"seed {seed}: SMALL test PSNR {psnr:.4f} is more "
+                                 f"than {QUALITY_BAR_DB} dB from the JAX package's "
+                                 f"{ref_psnr:.4f}")
+
+    t0 = time.perf_counter()
+    trainer = quality_trainer(torch, port, load_quality_tool("GM_QUALITY_PROTOCOL"))
+    kernels = quality_step(torch, port, trainer, "quality step")
+    res = dict(runs=runs, reference_psnr=ref_psnr, final_psnr=final,
+               spread_db=max(final) - min(final),
+               quality_step_s=time.perf_counter() - t0,
+               phase_s=time.perf_counter() - t_phase)
+    return res, launches, kernels
+
+
+def quality_step_main(work):
+    """`python3 chip_smoke.py --quality-step WORK`: the quality step on the
+    table of WORK's newest checkpoint (a PROTOCOL run of
+    tools/quality_run_torch.py), K1-K3 against their plain versions there."""
+    import torch
+
+    smi = phase_card(torch)
+    port = load_port()
+    phase_build(port._cuda)
+    trainer = quality_trainer(torch, port, load_quality_tool("GM_QUALITY_PROTOCOL"))
+    ckpt = port.cli_train_mesh.latest_checkpoint(os.path.join(work, "model"))
+    if ckpt is None:
+        raise SystemExit(f"chip_smoke --quality-step: no checkpoint under {work}/model")
+    trainer.load_ckpt(ckpt)
+    k1, k2, k3 = quality_step(torch, port, trainer, f"quality step at {ckpt}")
+    print(json.dumps({"quality_step": {"checkpoint": ckpt, "K1": k1, "K2": k2,
+                                       "K3": k3}}))
+    print(smi)
+    return 0
+
+
 def load_port():
     """The port's modules the phases use, as one namespace."""
     from gaussianmesh_tpu_torch import config
@@ -2838,7 +3024,7 @@ def load_port():
     from gaussianmesh_tpu_torch.cli import render as cli_render
     from gaussianmesh_tpu_torch.cli import train_bg as cli_train_bg
     from gaussianmesh_tpu_torch.cli import train_mesh as cli_train_mesh
-    from gaussianmesh_tpu_torch.data import cameras
+    from gaussianmesh_tpu_torch.data import cameras, readers
     from gaussianmesh_tpu_torch.edit import pose_paths, runtime
     from gaussianmesh_tpu_torch.io import colmap, mesh as mesh_io, png
     from gaussianmesh_tpu_torch.models import gaussians
@@ -2865,7 +3051,7 @@ def load_port():
         rasterize=rasterize, segsum=segsum, tile_blend=tile_blend,
         graphics=graphics, maths=maths, config=config, trainer=trainer,
         densify=densify, _cuda=_cuda, runtime=runtime, pose_paths=pose_paths,
-        cameras=cameras, mesh_io=mesh_io, gaussians=gaussians, sh=sh,
+        cameras=cameras, readers=readers, mesh_io=mesh_io, gaussians=gaussians, sh=sh,
         cli_common=cli_common, cli_edit=cli_edit, cli_train_mesh=cli_train_mesh,
         cli_train_bg=cli_train_bg, cli_render=cli_render, scene=scene, png=png,
         colmap=colmap, bg_trainer=bg_trainer, cli_full_eval=cli_full_eval,
@@ -2878,6 +3064,8 @@ def main() -> int:
         return shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:2] == ["--gshard-rank"]:       # a rank of phase 10g
         return gshard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--quality-step"]:      # the quality step on a run's table
+        return quality_step_main(sys.argv[2])
     import torch
 
     smi = phase_card(torch)
@@ -2912,13 +3100,14 @@ def main() -> int:
         t_serve = time.perf_counter() - t_serve
         gshard, gshard_launches, results["gshard"], results["gshard_owner"] = phase_gshard(
             torch, port, student, tmpdir)
+        quality, quality_launches, results["quality"] = phase_quality(torch, port, tmpdir)
     results["composite"] = (k1_composite, None, None)
     kernels = kernel_line(results, fullscreen,
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
                            "train": train_launches, "playback": playback_launches,
                            "pipeline": pipeline_launches, "eval": eval_launches,
                            "serve": serve_launches, "shard": shard_launches,
-                           "gshard": gshard_launches})
+                           "gshard": gshard_launches, "quality": quality_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
         f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
     log(f"[done] playback phase {t_play:.1f} s; 1080p playback frame ms mean: "
@@ -2957,6 +3146,12 @@ def main() -> int:
         f"{gshard['received_live']}; exchange ms per rank-step "
         f"{[round(x, 1) for x in gshard['exchange_ms']]}; emulated rank of 4 (forward "
         f"+ backward, one process) {gshard['emulated']['ms_median']:.2f} ms")
+    log(f"[done] quality phase {quality['phase_s']:.1f} s on {smi}: SMALL test PSNR "
+        f"by seed {[round(x, 4) for x in quality['final_psnr']]} (spread "
+        f"{quality['spread_db']:.4f} dB) against the JAX package's "
+        f"{quality['reference_psnr']:.4f}; SMALL it/s by seed "
+        f"{[r['iters_per_second'] for r in quality['runs']]}; quality step checks "
+        f"{quality['quality_step_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -44,12 +44,35 @@ def _imported_names(path):
 
 
 def test_no_source_names_jax_or_the_jax_package():
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "tools" / "quality_run_torch.py"]
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "gaussianmesh_tpu", "PIL",
                                "imageio"), (path, name)
+
+
+def test_quality_tool_leaves_out_jax(tmp_path):
+    """`tools/quality_run_torch.py`, loaded by path and run for its dataset
+    (16x16, 4 cameras, on the CPU), imports neither JAX nor the JAX package
+    nor an imaging package."""
+    code = ("import importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location('q', 'tools/quality_run_torch.py')\n"
+            "q = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(q)\n"
+            "q.W = q.H = 16\n"
+            "q.N_CAMS = 4\n"
+            f"q.make_dataset({str(tmp_path)!r}, 'cpu')\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'gaussianmesh_tpu', "
+            "'PIL', 'imageio') or m.startswith(('jax.', 'flax', 'gaussianmesh_tpu.', "
+            "'PIL.', 'imageio.')))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(list((tmp_path / "train").glob("r_*.png"))) == 8
+    assert (tmp_path / "proxy.obj").exists()
 
 
 def test_native_sources_and_e2e_script_stand_alone():
