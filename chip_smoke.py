@@ -176,7 +176,8 @@ Phases (any failure raises, so the exit code is not 0):
    recording their arguments, and K1, K2 and K3 are held against their
    plain versions on those, timed and bounded as in phase 5 (the `quality_*`
    keys). `python3 chip_smoke.py --quality-step WORK` does the same on the
-   table of the newest checkpoint of a PROTOCOL run in WORK.
+   table of the newest checkpoint of a PROTOCOL run in WORK, at that run's
+   `max_per_tile`.
 
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
@@ -2935,9 +2936,10 @@ def phase_quality(torch, port, tmpdir):
     ref_psnr = ref["trajectory"][last]["PSNR"]
     n_total = tool.N_CAMS + max(4, tool.N_CAMS // 6)
     n_test = sum(1 for i in range(n_total) if i % 8 == 7)
-    # K1: each step, each teacher view, each test view of train_mesh's evals
-    # and of render's; K2 and K3: each step
-    want = {"K1": tool.ITERS + n_total + 2 * len(tool.EVAL_ITERS) * n_test,
+    # K1: each step, each teacher view, each test view of train_mesh's evals,
+    # of render's and twice of the clamp report's (clamped and unclamped);
+    # K2 and K3: each step
+    want = {"K1": tool.ITERS + n_total + 4 * len(tool.EVAL_ITERS) * n_test,
             "K2": tool.ITERS, "K3": tool.ITERS}
     runs, launches = [], {"K1": 0, "K2": 0, "K3": 0}
     for seed in QUALITY_SEEDS:
@@ -2991,7 +2993,8 @@ def phase_quality(torch, port, tmpdir):
 def quality_step_main(work):
     """`python3 chip_smoke.py --quality-step WORK`: the quality step on the
     table of WORK's newest checkpoint (a PROTOCOL run of
-    tools/quality_run_torch.py), K1-K3 against their plain versions there."""
+    tools/quality_run_torch.py) at the run's `max_per_tile`, K1-K3 against
+    their plain versions there."""
     import torch
 
     smi = phase_card(torch)
@@ -3002,6 +3005,10 @@ def quality_step_main(work):
     if ckpt is None:
         raise SystemExit(f"chip_smoke --quality-step: no checkpoint under {work}/model")
     trainer.load_ckpt(ckpt)
+    # the run's own clamp (`--max_per_tile` of the tool, in its cfg_args.json)
+    saved = port.config.load_cfg(os.path.join(work, "model")).get("runtime", {})
+    trainer.rt = dataclasses.replace(
+        trainer.rt, max_per_tile=saved.get("max_per_tile", trainer.rt.max_per_tile))
     k1, k2, k3 = quality_step(torch, port, trainer, f"quality step at {ckpt}")
     print(json.dumps({"quality_step": {"checkpoint": ckpt, "K1": k1, "K2": k2,
                                        "K3": k3}}))

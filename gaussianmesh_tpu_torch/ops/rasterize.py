@@ -204,6 +204,21 @@ def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
 
 
 @torch.no_grad()
+def tile_pair_counts(means3d: torch.Tensor, cov6: torch.Tensor,
+                     opacity: torch.Tensor, cam: CameraArrays,
+                     cfg: RasterizerConfig,
+                     active_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(num_tiles,) int64: the live pairs of each tile that `rasterize`
+    bins for these inputs, before `cfg.max_per_tile` clamps them."""
+    gx, gy = cfg.grid
+    n = means3d.shape[0]
+    prep = _preprocess(means3d, cov6, opacity, cam, cfg, active_mask)
+    pairs = binning.expand_pairs(prep, gx, gy, cfg.expand_capacity(n),
+                                 opacity=opacity, row_capacity=cfg.row_capacity(n))
+    return torch.bincount(pairs.pair_tile, minlength=cfg.num_tiles)
+
+
+@torch.no_grad()
 def precompute_static_pairs(means3d: torch.Tensor, cov6: torch.Tensor,
                             opacity: torch.Tensor, rgb: torch.Tensor,
                             cam: CameraArrays, cfg: RasterizerConfig,

@@ -244,6 +244,68 @@ def test_k1_k2_edge_tiles_match_plain(cuda):
     assert (rows[:int(starts[1])] != 0).any(1).float().mean().item() > 0.3
 
 
+def _heavy_tile(m=20_000, seed=13):
+    """One 16x16 tile of `m` pairs, more than any tile the clamped protocol
+    keeps (768) and past the 13,847 of an unclamped PROTOCOL step: small
+    faint splats (alpha at most 0.012), a few hundred over each pixel, so
+    the pixels stay unsaturated and walk to the list's end, through many
+    turns of K1's and K2's staging rings. -> feat (m + 1, FEAT),
+    sorted_gid, starts, counts, width, height."""
+    rng = np.random.default_rng(seed)
+    f = np.zeros((m, tile_blend.FEAT), np.float32)
+    f[:, 0:2] = rng.uniform(0, 16, (m, 2))
+    sx, sy = rng.uniform(0.5, 1.5, m), rng.uniform(0.5, 1.5, m)
+    rho = rng.uniform(-0.3, 0.3, m)
+    det = (sx * sy) ** 2 * (1 - rho ** 2)
+    f[:, 2] = sy ** 2 / det
+    f[:, 3] = -rho * sx * sy / det
+    f[:, 4] = sx ** 2 / det
+    f[:, 5] = rng.uniform(0.004, 0.012, m)
+    f[:, 6:9] = rng.uniform(0.05, 0.95, (m, 3))
+    f[:, 9] = 1.0
+    perm = rng.permutation(m)
+    feat = np.zeros((m + 1, tile_blend.FEAT), np.float32)
+    feat[perm] = f
+    return (feat, perm.astype(np.int32), np.array([0, m], np.int32),
+            np.array([m], np.int32), 16, 16)
+
+
+@pytest.mark.cuda
+def test_k1_k2_tile_of_20000_pairs_match_plain(cuda):
+    """K1 bit-equal to `blend_forward_plain`, K2 within 1e-5 of each
+    column's largest |row| of `blend_backward_plain` with its zero rows
+    equal, both bit-identical over two runs, on `_heavy_tile`: one tile of
+    20,000 pairs that every pixel walks past its 19,000th."""
+    feat, gid, starts, counts, width, height = (
+        torch.tensor(x, device=cuda) if isinstance(x, np.ndarray) else x
+        for x in _heavy_tile())
+    k1_args = (feat, gid, starts, counts, 1, width, height)
+    color, final_t, n_contrib = tile_blend.blend_forward(*k1_args)
+    again = tile_blend.blend_forward(*k1_args)
+    pc, pt, pn = tile_blend.blend_forward_plain(*k1_args)
+    torch.cuda.synchronize()
+    for a, b, p in zip((color, final_t, n_contrib), again, (pc, pt, pn)):
+        assert torch.equal(a, b) and torch.equal(a, p)
+    assert n_contrib.min().item() > 19_000
+    assert final_t.min().item() > 1e-3                  # no pixel saturates
+
+    rng = np.random.default_rng(14)
+    g_color = torch.tensor(rng.normal(size=(3, height, width)).astype(np.float32),
+                           device=cuda)
+    g_final_t = torch.tensor(rng.normal(size=(height, width)).astype(np.float32),
+                             device=cuda)
+    k2_args = (feat, gid, starts, counts, final_t, n_contrib, g_color, g_final_t)
+    rows = tile_blend.blend_backward(*k2_args)
+    rows2 = tile_blend.blend_backward(*k2_args)
+    ref = tile_blend.blend_backward_plain(*k2_args)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rows2)
+    scale = ref.abs().amax(0).clamp(min=1e-30)
+    assert ((rows - ref).abs() / scale).max().item() <= 1e-5
+    assert torch.equal(rows == 0, ref == 0)
+    assert (rows != 0).any(1).float().mean().item() > 0.9
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", LAYOUTS)
 def test_k3_layouts_match_plain(cuda, name):

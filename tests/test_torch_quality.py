@@ -17,6 +17,14 @@ import pytest
 import torch
 
 import gaussianmesh_tpu.cli.train_mesh as jax_train_mesh
+from gaussianmesh_tpu.data import readers as jreaders
+from gaussianmesh_tpu.io import gaussian_ply as jply
+from gaussianmesh_tpu.models import render as jrender
+from gaussianmesh_tpu.ops import binning as jbinning
+from gaussianmesh_tpu.ops import preprocess as jprep
+from gaussianmesh_tpu.ops.rasterize import RasterizerConfig as JRasterizerConfig
+from gaussianmesh_tpu.ops.tile_blend import ALPHA_MIN, T_EPS
+from gaussianmesh_tpu.train.loss import psnr as jpsnr
 import gaussianmesh_tpu_torch.cli.train_mesh as torch_train_mesh
 from gaussianmesh_tpu_torch.io import png
 
@@ -210,3 +218,95 @@ def test_tool_end_to_end_on_the_cpu_resumes(tmp_path, monkeypatch):
     assert ply.read_bytes() == ply_bytes
     assert resumed["trajectory"] == first["trajectory"]
     assert repo_files() == before
+
+
+def jax_clamp_view(p, b, cam, max_per_tile, sh_degree):
+    """The clamp report's figures of one view through the JAX package's
+    rasterizer (the jnp path): the renders at `max_per_tile` and at the
+    view's largest tile count, the raw per-tile counts from its binning."""
+    import jax.numpy as jnp
+
+    ca = cam.arrays()
+    a = jrender.mesh_model_arrays(p, b, ca, sh_degree)
+    n = a.xyz.shape[0]
+
+    def cfg(mpt):
+        return JRasterizerConfig(cam.width, cam.height, max_per_tile=mpt,
+                                 use_pallas=False)
+
+    c = cfg(max_per_tile)
+    prep = jprep.preprocess(a.xyz, a.cov6, ca, c.width, c.height, opacity=a.opacity)
+    prep = prep._replace(valid=prep.valid & a.active,
+                         radius=jnp.where(a.active, prep.radius, 0),
+                         tiles_touched=jnp.where(a.active, prep.tiles_touched, 0))
+    gx, gy = c.grid
+    tiles = jbinning.build_tile_lists(
+        prep, gx, gy, max_per_tile, expand_capacity=c.expand_capacity(n),
+        pair_capacity=c.pair_capacity(n), chunk=c.blend_chunk, opacity=a.opacity,
+        row_capacity=c.row_capacity(n))
+    raw = np.diff(np.asarray(tiles.starts))
+    white = jnp.ones(3)
+    clamped = jrender.render(a, ca, c, white)
+    free = jrender.render(a, ca, cfg(int(raw.max())), white)
+    for out in (clamped, free):
+        assert int(out.pair_overflow) == 0 and int(out.rect_overflow) == 0
+
+    def image(color):
+        u8 = (np.clip(np.asarray(color), 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
+        return jnp.asarray(u8.transpose(2, 0, 1).astype(np.float32) / 255.0)
+
+    cut = raw > max_per_tile
+    ys, xs = np.mgrid[:c.height, :c.width] // 16
+    in_cut = cut[ys * gx + xs]
+    t_c = np.asarray(clamped.final_t)[in_cut]
+    img_c, img_u, gt = image(clamped.color), image(free.color), image(cam.image)
+    return {"largest_tile": int(raw.max()), "dropped": int(clamped.tile_overflow),
+            "free_dropped": int(free.tile_overflow), "cut_tiles": int(cut.sum()),
+            "t_share": float((t_c >= T_EPS).mean()),
+            "shown_share": float((np.asarray(free.final_t)[in_cut]
+                                  < t_c * (1 - 0.5 * ALPHA_MIN)).mean()),
+            "psnr_renders": float(jpsnr(img_c, img_u)),
+            "psnr_clamped": float(jpsnr(img_c, gt)),
+            "psnr_unclamped": float(jpsnr(img_u, gt))}
+
+
+def test_clamp_report_matches_the_jax_rasterizer(tmp_path, monkeypatch):
+    """The SMALL tool at 64x64 (14 cameras, 2 held-out views), 10
+    iterations at `--max_per_tile 64`, which cuts some of the 16 tiles: the
+    clamp report's figures of each view equal those of the JAX package's
+    jnp rasterizer on the saved PLY and the JAX reader's cameras at the same
+    two `max_per_tile` values: pairs dropped, tiles cut and the largest tile
+    exactly, the T shares within one pixel of the cut tiles, PSNRs within
+    1e-3 dB; the clamped render's test PSNR is the trajectory's."""
+    tool = load_tool("quality_run_torch", monkeypatch, "small")
+    tool.W = tool.H = 64
+    tool.N_CAMS = 14
+    tool.ITERS, tool.EVAL_ITERS = 10, [10]
+    work = tmp_path / "work"
+    art = tool.main([str(work), "--device", "cpu", "--out", str(tmp_path / "q.json"),
+                     "--max_per_tile", "64"])
+    assert art["max_per_tile"] == 64
+    assert art["reproduce"].endswith("--max_per_tile 64")
+    rep = art["clamp"]["10"]
+    assert rep["max_per_tile"] == 64 and len(rep["views"]) == 2
+
+    info = jreaders.read_scene(str(work / "data"), eval_split=True)
+    p, b, _ = jply.load_mesh_gaussian_ply(
+        str(work / "model" / "point_cloud" / "iteration_10" / "point_cloud.ply"),
+        max_sh_degree=2)
+    for cam, got in zip(info.test_cameras, rep["views"]):
+        want = jax_clamp_view(p, b, cam, 64, 2)
+        assert want["free_dropped"] == 0
+        assert 0 < got["cut_tiles"] < 16, got
+        for key in ("largest_tile", "dropped", "cut_tiles"):
+            assert got[key] == want[key], (key, got, want)
+        pixels = got["cut_tiles"] * 256
+        for key in ("t_share", "shown_share"):
+            assert abs(got[key] - want[key]) * pixels <= 1.0 + 1e-6, (key, got, want)
+        assert got["t_share"] == 1.0 and 0 < got["shown_share"] < 1, got
+        for key in ("psnr_renders", "psnr_clamped", "psnr_unclamped"):
+            assert got[key] == pytest.approx(want[key], abs=1e-3), (key, got, want)
+    assert rep["worst"]["psnr_clamped"] == min(v["psnr_clamped"] for v in rep["views"])
+    assert rep["worst"]["dropped"] == max(v["dropped"] for v in rep["views"])
+    assert rep["mean"]["psnr_clamped"] == pytest.approx(art["trajectory"]["10"]["PSNR"],
+                                                        abs=1e-5)

@@ -84,12 +84,18 @@ def test_losses_and_their_gradients_match_jax():
 
 # ------------------------------------------------------------ Adam and lr
 def test_expon_lr_matches_jax():
-    for step in (-1, 0, 1, 5, 50, 99, 100, 250):
-        for kw in (dict(), dict(lr_delay_steps=10, lr_delay_mult=0.01)):
-            got = expon_lr(step, 1.6e-4 * 3.2, 1.6e-6 * 3.2, max_steps=100, **kw)
-            want = float(jexpon_lr(step, 1.6e-4 * 3.2, 1.6e-6 * 3.2,
-                                   max_steps=100, **kw))
-            assert got == pytest.approx(want, rel=1e-6, abs=0.0), (step, kw)
+    """A short schedule, and the config-2 protocol's position schedule
+    (`position_lr_max_steps` 30,000) at its start, middle, last step and end."""
+    for max_steps, steps in ((100, (-1, 0, 1, 5, 50, 99, 100, 250)),
+                             (30_000, (0, 15_000, 29_999, 30_000))):
+        for step in steps:
+            for kw in (dict(), dict(lr_delay_steps=10, lr_delay_mult=0.01)):
+                got = expon_lr(step, 1.6e-4 * 3.2, 1.6e-6 * 3.2,
+                               max_steps=max_steps, **kw)
+                want = float(jexpon_lr(step, 1.6e-4 * 3.2, 1.6e-6 * 3.2,
+                                       max_steps=max_steps, **kw))
+                assert got == pytest.approx(want, rel=1e-6, abs=0.0), (
+                    max_steps, step, kw)
 
 
 def test_adam_with_scheduled_lr_matches_optax_over_5_steps():
@@ -265,16 +271,16 @@ def _jax_dataset(dataset):
                                   width=W, height=H)
 
 
-def _trainers(dataset, opt_kw):
+def _trainers(dataset, opt_kw, max_sh_degree=1):
     v, f = icosphere(1)
     jt = jtrainer.MeshTrainer(v, f, _jax_dataset(dataset), JOpt(**opt_kw),
                               JRt(max_per_tile=256, use_pallas=False),
                               spatial_lr_scale=3.2, init_target=300,
-                              max_sh_degree=1)
+                              max_sh_degree=max_sh_degree)
     jt.steps_per_dispatch = 1
     pt = MeshTrainer(v, f, _port_dataset(dataset), OptimizationParams(**opt_kw),
                      RuntimeParams(max_per_tile=256), spatial_lr_scale=3.2,
-                     init_target=300, max_sh_degree=1)
+                     init_target=300, max_sh_degree=max_sh_degree)
     return jt, pt
 
 
@@ -338,6 +344,119 @@ def test_trainer_step_matches_jax(dataset):
         a, b = np.asarray(getattr(state, k)), getattr(pt.model.state, k).numpy()
         np.testing.assert_allclose(b / a.max(), a / a.max(), atol=2e-4, err_msg=k)
     assert pt.adam.step == int(opt_state.step) == 1
+
+
+# ------------------------------------------------- the late schedule
+LATE_IT = 20_000
+# the config-2 protocol's schedule past its densify window (15,000)
+LATE_OPT = dict(position_lr_max_steps=30_000, densify_until_iter=15_000)
+
+
+def _jax_tree(cls, tree: dict):
+    return cls(**{k: jnp.asarray(x) for k, x in tree.items()})
+
+
+@pytest.fixture(scope="module")
+def late_state(dataset):
+    """A JAX trainer's state moved to the protocol's late schedule, as numpy
+    (`_capture_np`'s keys): the global iteration and the Adam step counter
+    at 20,000, SH degree 2 (its rest coefficients and the scales and
+    rotations perturbed from a seed), mu and nu seeded non-zero from numpy
+    at each leaf's gradient scale (the largest |gradient| of one step from
+    zero moments)."""
+    jt, _ = _trainers(dataset, LATE_OPT, max_sh_degree=2)
+    c = _capture_np(jt)
+    rng = np.random.default_rng(11)
+    for k, sd in (("scaling", 0.3), ("rotation", 0.3), ("features_rest", 0.1)):
+        c["params"][k] = c["params"][k] + rng.normal(
+            0, sd, c["params"][k].shape).astype(np.float32)
+    params = _jax_tree(type(jt.params), c["params"])
+    _, probe, _, _ = jt._get_step_fn(2, c["binding"]["alive"].shape[0])(
+        params, jt.tx.init(params), jt.state, jt.binding, jnp.int32(5),
+        jnp.ones(3, jnp.float32))
+    for k in mgs.PARAM_FIELDS:
+        scale = float(np.abs(np.asarray(getattr(probe.adam.mu, k))).max()) / 0.1
+        assert scale > 0, k
+        shape = c["params"][k].shape
+        c["mu"][k] = (scale * rng.normal(0, 1, shape)).astype(np.float32)
+        c["nu"][k] = (scale * rng.uniform(0.5, 2.0, shape)).astype(np.float32) ** 2
+    c.update(step=LATE_IT, global_it=LATE_IT, sh_degree=2)
+    return c
+
+
+def _late_pair(dataset, c):
+    """(JAX trainer, port trainer), both holding the late state `c`."""
+    import optax
+
+    jt, pt = _trainers(dataset, LATE_OPT, max_sh_degree=2)
+    cls = type(jt.params)
+    jt.params = _jax_tree(cls, c["params"])
+    jt.opt_state = joptim.OptState(
+        adam=optax.ScaleByAdamState(count=jnp.int32(LATE_IT),
+                                    mu=_jax_tree(cls, c["mu"]),
+                                    nu=_jax_tree(cls, c["nu"])),
+        step=jnp.int32(LATE_IT))
+    jt.sh_degree, jt.global_it = 2, LATE_IT
+    pt.restore(trainer_state_from_numpy(c, device="cpu"))
+    assert (pt.sh_degree, pt.global_it, pt.adam.step) == (2, LATE_IT, LATE_IT)
+    return jt, pt
+
+
+def test_late_step_matches_jax(dataset, late_state):
+    """One step at iteration 20,001 of the protocol's schedule in each
+    package, at the step-1 test's bars: the gradients (from mu_new - b1 mu)
+    within 2e-4 of each leaf's largest, the parameters within 1e-6 where the
+    gradient is large, nu within 4e-4 of its largest, the densification
+    statistics within 2e-4."""
+    c = late_state
+    jt, pt = _late_pair(dataset, c)
+    cam_idx, bg = 5, np.ones(3, np.float32)
+    cap = pt.model.capacity
+    params, opt_state, state, mj = jt._get_step_fn(2, cap)(
+        jt.params, jt.opt_state, jt.state, jt.binding, jnp.int32(cam_idx),
+        jnp.asarray(bg))
+    mt = pt.step(cam_idx, _t(bg))
+    assert float(mt["loss"]) == pytest.approx(float(mj["loss"]), rel=1e-5)
+    assert int(mt["num_rendered"]) == int(mj["num_rendered"])
+    assert pt.adam.step == int(opt_state.step) == int(opt_state.adam.count) == LATE_IT + 1
+    for k in mgs.PARAM_FIELDS:
+        gj = (np.asarray(getattr(opt_state.adam.mu, k)) - 0.9 * c["mu"][k]) / 0.1
+        gt = (pt.adam.mu[k].numpy() - 0.9 * c["mu"][k]) / 0.1
+        scale = np.abs(gj).max()
+        assert scale > 0, k
+        np.testing.assert_allclose(gt / scale, gj / scale, atol=2e-4, err_msg=k)
+        big = np.abs(gj) > 1e-3 * scale
+        np.testing.assert_allclose(getattr(pt.model, k).detach().numpy()[big],
+                                   np.asarray(getattr(params, k))[big],
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+        nuj = np.asarray(getattr(opt_state.adam.nu, k))
+        np.testing.assert_allclose(pt.adam.nu[k].numpy() / nuj.max(), nuj / nuj.max(),
+                                   atol=4e-4, err_msg=k)
+    for k in ("grad_accum", "denom", "max_radii2d"):
+        a, b = np.asarray(getattr(state, k)), getattr(pt.model.state, k).numpy()
+        np.testing.assert_allclose(b / a.max(), a / a.max(), atol=2e-4, err_msg=k)
+
+
+def test_late_ten_steps_match_jax(dataset, late_state):
+    """Ten steps from the late state over ten different views in each
+    package (iterations 20,001-20,010, no densify or reset): every
+    parameter within 5e-4 of its leaf's largest value, the bar of
+    tests/test_parallel.py."""
+    jt, pt = _late_pair(dataset, late_state)
+    bg = np.ones(3, np.float32)
+    cap = pt.model.capacity
+    step = jt._get_step_fn(2, cap)
+    params, opt_state, state = jt.params, jt.opt_state, jt.state
+    for cam_idx in (0, 3, 7, 11, 2, 5, 9, 1, 4, 8):
+        params, opt_state, state, mj = step(params, opt_state, state, jt.binding,
+                                            jnp.int32(cam_idx), jnp.asarray(bg))
+        mt = pt.step(cam_idx, _t(bg))
+        assert float(mt["loss"]) == pytest.approx(float(mj["loss"]), rel=1e-4), cam_idx
+    assert pt.adam.step == int(opt_state.step) == LATE_IT + 10
+    for k in mgs.PARAM_FIELDS:
+        want = np.asarray(getattr(params, k))
+        np.testing.assert_allclose(getattr(pt.model, k).detach().numpy(), want,
+                                   rtol=0, atol=5e-4 * np.abs(want).max(), err_msg=k)
 
 
 def test_event_iterations_match_jax(dataset, monkeypatch):

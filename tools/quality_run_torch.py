@@ -15,6 +15,24 @@ eval iteration. Three modes, chosen as in the JAX tool:
 `GM_QUALITY_ITERS` overrides the iteration count. Runs on CUDA unless
 `--device cpu` is given, and raises without a card. `--seed` goes on to
 `train_mesh` (the views and backgrounds it draws, the init's random colors).
+`--max_per_tile N` (default 768, the JAX tool's) is the training run's
+per-tile pair clamp: both packages blend only the nearest N pairs of a tile,
+where the reference blends every pair. A second run of the protocol with an
+N larger than any tile's pair count (1048576 at this size) trains and
+evaluates at the reference's unclamped blend.
+
+The clamp report (the artifact's `clamp`): at each eval iteration every
+held-out view is rendered twice through `models/render.py`, at the run's
+`max_per_tile` and with no clamp (`max_per_tile` the view's largest tile
+count, so nothing is dropped). Per view: the pairs dropped, the tiles cut,
+the share of the cut tiles' pixels whose final T after the kept pairs is
+still >= T_EPS (`t_share`; the walk ends before T would fall below T_EPS, so
+this share is 1 wherever a tile is cut) and the share where the unclamped
+render blended a dropped pair (its final T lower by half of the least
+alpha a pair blends with, 1/255: `shown_share`), the
+PSNR between the two renders (null where they are equal) and each render's
+test PSNR against the ground truth, all on the 8-bit images `cli.render`
+writes; per iteration the worst view and the mean over views of each.
 
 The run is resumable: `train_mesh` checkpoints at every eval iteration and
 every 5,000, and runs with `--auto_resume`, so the same command on the same
@@ -27,7 +45,8 @@ end is not recorded.
 
 The artifact, written afresh on every run, has the JAX artifact's keys plus
 `device` (nvidia-smi's name and power limit; the torch device on the CPU),
-`n_gauss_final`, `seed`, `segments`, `host_events` and `overflow`:
+`n_gauss_final`, `seed`, `max_per_tile`, `segments`, `host_events`,
+`overflow` and `clamp`:
 results/config2_quality_torch.json, or results/config2_quality_torch_smoke.json
 in SMALL mode (beside this file's repository), or `--out`.
 """
@@ -71,6 +90,7 @@ if ITERS not in EVAL_ITERS:
 INIT_TARGET = 500 if SMALL else (100_000 if PROTOCOL else 20000)
 FOVX = 0.8
 TEACHER_MAX_PER_TILE = 512
+MAX_PER_TILE = 768
 CHECKPOINT_EVERY = 5000
 
 
@@ -182,8 +202,10 @@ def make_dataset(root: str, device) -> str:
     return mesh_path
 
 
-def train_args(data: str, model: str, mesh_path: str) -> list[str]:
-    """`cli.train_mesh`'s flags, those of the JAX tool letter for letter."""
+def train_args(data: str, model: str, mesh_path: str,
+               max_per_tile: int = MAX_PER_TILE) -> list[str]:
+    """`cli.train_mesh`'s flags, those of the JAX tool letter for letter at
+    the default `max_per_tile`."""
     ev = [str(i) for i in EVAL_ITERS]
     args = [
         "-s", data, "-m", model, "--input_mesh", mesh_path,
@@ -195,7 +217,7 @@ def train_args(data: str, model: str, mesh_path: str) -> list[str]:
         "--densification_interval", "200",
         "--opacity_reset_interval", "3000",
         "--test_iterations", *ev, "--save_iterations", *ev,
-        "--max_per_tile", "768"]
+        "--max_per_tile", str(max_per_tile)]
     if PROTOCOL:
         # 102K Gaussians at 448^2: coverage-bound pair counts; overflow stays
         # counted and reported
@@ -329,6 +351,96 @@ def evaluate(model: str, it: int, device: torch.device) -> tuple[dict, dict]:
         return json.load(fh)[f"ours_{it}"], rec.read_max()
 
 
+def as_8bit(color, device) -> torch.Tensor:
+    """(3, H, W) color -> the float image of the PNG `cli.render` writes of
+    it, as `cli.metrics` reads it back."""
+    from gaussianmesh_tpu_torch.cli.common import to_uint8
+
+    return torch.from_numpy(to_uint8(color).transpose(2, 0, 1).astype(np.float32)
+                            / 255.0).to(device)
+
+
+def clamp_view(arrays, cam, cfg, bg, gt) -> dict:
+    """One view of the clamp report: `arrays` rendered at `cfg.max_per_tile`
+    and with no clamp, both held against `gt` (3, H, W), as 8-bit images."""
+    import dataclasses
+
+    from gaussianmesh_tpu_torch.models import render as render_mod
+    from gaussianmesh_tpu_torch.ops.preprocess import TILE
+    from gaussianmesh_tpu_torch.ops.rasterize import tile_pair_counts
+    from gaussianmesh_tpu_torch.ops.tile_blend import ALPHA_MIN, T_EPS
+    from gaussianmesh_tpu_torch.train.loss import psnr
+
+    raw = tile_pair_counts(arrays.xyz, arrays.cov6, arrays.opacity, cam, cfg,
+                           arrays.active)
+    largest = int(raw.max())
+    clamped = render_mod.render(arrays, cam, cfg, bg)
+    free = render_mod.render(arrays, cam, dataclasses.replace(
+        cfg, max_per_tile=max(largest, 1)), bg)
+    dropped = int((raw - raw.clamp(max=cfg.max_per_tile)).sum())
+    assert dropped == int(clamped.tile_overflow) and int(free.tile_overflow) == 0
+    cut = raw > cfg.max_per_tile
+    ys = torch.arange(cfg.height, device=raw.device)[:, None] // TILE
+    xs = torch.arange(cfg.width, device=raw.device)[None, :] // TILE
+    in_cut = cut[ys * cfg.grid[0] + xs]
+    t_kept = clamped.final_t[in_cut]
+    img_c, img_u = as_8bit(clamped.color, gt.device), as_8bit(free.color, gt.device)
+    return {"largest_tile": largest, "dropped": dropped, "cut_tiles": int(cut.sum()),
+            "t_share": float((t_kept >= T_EPS).float().mean()) if t_kept.numel() else 0.0,
+            # a blended pair has alpha >= ALPHA_MIN: T falls by that share at least
+            "shown_share": (float((free.final_t[in_cut] < t_kept * (1 - 0.5 * ALPHA_MIN))
+                                  .float().mean()) if t_kept.numel() else 0.0),
+            "psnr_renders": (None if torch.equal(img_c, img_u)
+                             else float(psnr(img_c, img_u))),
+            "psnr_clamped": float(psnr(img_c, gt)),
+            "psnr_unclamped": float(psnr(img_u, gt))}
+
+
+# the clamp report's figures and which end of them is the worst view's
+WORST = {"largest_tile": max, "dropped": max, "cut_tiles": max, "t_share": max,
+         "shown_share": max, "psnr_renders": min, "psnr_clamped": min,
+         "psnr_unclamped": min}
+
+
+def clamp_report(model: str, it: int, device: torch.device) -> dict:
+    """The clamp report of iteration `it`'s table on the held-out views, as
+    `cli.render` loads them (the run's `cfg_args.json`): {"max_per_tile",
+    "views": [per view], "worst": {figure: worst view's}, "mean": {figure:
+    mean over views}}. `psnr_renders` is null for a view whose two renders
+    are equal; its worst and mean are over the other views
+    (`identical_views` counts them)."""
+    from gaussianmesh_tpu_torch import config as cfg_mod
+    from gaussianmesh_tpu_torch.cli.common import base_parser
+    from gaussianmesh_tpu_torch.io import gaussian_ply
+    from gaussianmesh_tpu_torch.models import render as render_mod
+    from gaussianmesh_tpu_torch.ops.rasterize import RasterizerConfig
+    from gaussianmesh_tpu_torch.scene import Scene
+
+    groups = cfg_mod.load_combined(model, base_parser("clamp report").parse_args(
+        ["-m", model]))
+    params, rt = groups["model"], groups["runtime"]
+    fg, _ = gaussian_ply.load_mesh_gaussian_ply(
+        os.path.join(model, "point_cloud", f"iteration_{it}", "point_cloud.ply"),
+        max_sh_degree=params.sh_degree, device=device)
+    bg = torch.full((3,), 1.0 if params.white_background else 0.0, device=device)
+    views = []
+    with torch.no_grad():
+        for cam in Scene(params, shuffle=False).test_cameras:
+            ca = cam.arrays(device)
+            views.append(clamp_view(render_mod.mesh_model_arrays(fg, ca, params.sh_degree),
+                                    ca, RasterizerConfig.from_runtime(
+                                        rt, cam.width, cam.height), bg,
+                                    as_8bit(cam.image, device)))
+    worst, mean = {}, {}
+    for key, pick in WORST.items():
+        vals = [v[key] for v in views if v[key] is not None]
+        worst[key] = pick(vals) if vals else None
+        mean[key] = float(np.mean(vals)) if vals else None
+    return {"max_per_tile": rt.max_per_tile, "views": views, "worst": worst,
+            "mean": mean,
+            "identical_views": sum(v["psnr_renders"] is None for v in views)}
+
+
 def card(device: torch.device) -> dict:
     """The card's name and power limit as nvidia-smi gives them; on the CPU
     the torch device."""
@@ -361,6 +473,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=None,
                         help="train_mesh's --seed (its default, 0, when not given)")
     parser.add_argument("--out", default=None, help="the artifact's path")
+    parser.add_argument("--max_per_tile", type=int, default=MAX_PER_TILE,
+                        help="the training run's per-tile pair clamp (768, the "
+                             "JAX tool's; 1048576 never clamps at this size: the "
+                             "reference's unclamped blend)")
     args = parser.parse_args(argv)
 
     from gaussianmesh_tpu_torch import resolve_device
@@ -379,7 +495,7 @@ def main(argv=None) -> dict:
             segments = json.load(fh)
     start = checkpoint_iteration(model)
     if start < ITERS:
-        argv_train = train_args(data, model, mesh_path) + [
+        argv_train = train_args(data, model, mesh_path, args.max_per_tile) + [
             "--checkpoint_iterations", *map(str, checkpoint_iterations()),
             "--auto_resume", "--device", device.type]
         if args.seed is not None:
@@ -396,10 +512,13 @@ def main(argv=None) -> dict:
     print(f"[quality] trained {ITERS} iters in {train_s:.0f}s "
           f"({ITERS / train_s:.2f} it/s) over {len(segments)} segment(s)", flush=True)
 
-    traj, eval_overflow = {}, {}
+    traj, eval_overflow, clamp = {}, {}, {}
     for it in EVAL_ITERS:
         traj[str(it)], eval_overflow[str(it)] = evaluate(model, it, device)
         print(f"[quality] iter {it}: {traj[str(it)]}", flush=True)
+        clamp[str(it)] = clamp_report(model, it, device)
+        print(f"[quality] iter {it} clamp report: worst {json.dumps(clamp[str(it)]['worst'])}",
+              flush=True)
 
     densify_ms = [x for s in segments for x in s["densify_ms"]]
     grow_ms = [x for s in segments for x in s["grow_ms"]]
@@ -419,6 +538,7 @@ def main(argv=None) -> dict:
         "backend": device.type,
         "device": card(device),
         "seed": 0 if args.seed is None else args.seed,
+        "max_per_tile": args.max_per_tile,
         "train_seconds": round(train_s, 1),
         "iters_per_second": round(ITERS / train_s, 2),
         "segments": len(segments),
@@ -431,6 +551,7 @@ def main(argv=None) -> dict:
                         "n_split": [x for s in segments for x in s["densify_splits"]]},
             "grow": {"count": len(grow_ms), "total_ms": sum(grow_ms), "ms": grow_ms}},
         "overflow": {"train": train_overflow, "eval": eval_overflow},
+        "clamp": clamp,
         "losses_finite": all(s["losses_finite"] for s in segments),
         "lpips_note": ("LPIPS_uncalibrated uses the deterministic seed-0 "
                        "graph weights (eval/lpips.py): trajectory deltas are "
@@ -445,7 +566,10 @@ def main(argv=None) -> dict:
         "reproduce": ("GM_QUALITY_PROTOCOL=1 python tools/quality_run_torch.py"
                       if PROTOCOL else
                       "GM_QUALITY_SMALL=1 python tools/quality_run_torch.py"
-                      if SMALL else "python tools/quality_run_torch.py"),
+                      if SMALL else "python tools/quality_run_torch.py")
+                     + ("" if args.seed is None else f" --seed {args.seed}")
+                     + ("" if args.max_per_tile == MAX_PER_TILE
+                        else f" --max_per_tile {args.max_per_tile}"),
     }
     print(f"[quality] largest overflow: train {json.dumps(train_overflow)}, eval "
           f"renders {json.dumps(eval_overflow)}", flush=True)
