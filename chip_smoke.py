@@ -179,6 +179,21 @@ Phases (any failure raises, so the exit code is not 0):
    table of the newest checkpoint of a PROTOCOL run in WORK, at that run's
    `max_per_tile`.
 
+12. tools: the port's measurement tools in-process on the card at their
+   full width, each through its `main()`, artifacts in the phase's
+   temporary directory: `bench_torch.py` (1080p, 100,000 Gaussians, 10
+   steps), `tools/profile_raster_torch.py --prefix` (TOOL_REPS calls a row)
+   and `tools/bench_playback_torch.py` (configs 3, 5 and 5's tile axis over
+   TOOL_FRAMES frames, TOOL_STEPS4 config-4 steps). Their JSON lines and
+   artifacts parse; the bench has no overflow and launches K1, K2 and K3
+   once a step; its `num_rendered` equals the prefix table's F7; every
+   playback frame and the config-4 steps have no overflow; the covariances
+   rotate; K1-K3 launched (counters set to 0 just before the tools, read
+   just after: the `tools` launches). Then one more bench step with the
+   kernels' wrappers recording their arguments, and K1, K2 and K3 held
+   against their plain versions on those, timed and bounded as in phase 5
+   (the `bench_*` keys).
+
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
 """
@@ -273,6 +288,10 @@ EMULATED_CALLS = 5
 QUALITY_SEEDS = (0, 1, 2)
 QUALITY_BAR_DB = 1.0   # each seed's SMALL test PSNR against the JAX package's
 QUALITY_STEP_VIEWS = 4
+
+TOOL_REPS = 3          # phase 12: calls a row of profile_raster_torch.py --prefix
+TOOL_FRAMES = 8        # phase 12: bench_playback_torch.py's frames and config-4 steps
+TOOL_STEPS4 = 5
 
 # H100 SXM peaks (NVIDIA data sheet; the CUDA programming guide's throughput
 # table for the special-function unit: 16 exp2 results / clock / SM) at the
@@ -891,9 +910,11 @@ def kernel_line(results, fullscreen, launches):
     eval phase ("eval"), at one rank's band of a 2x2 sharded step ("band"),
     at rank 0's received band of a Gaussian-table-sharded step ("gshard"; for
     K3 the receiver's reduction, and the owner's as "gshard_owner"), (K1) at
-    a composite playback frame's, and K3's on the full-screen case; errors
-    over all of them; launches from the main paths (render, train, playback,
-    pipeline, eval, serve, shard, gshard)."""
+    a composite playback frame's, at the quality step's ("quality"), at
+    `bench_torch.py`'s step ("bench": 1080p, 100,000 Gaussians), and K3's on
+    the full-screen case; errors over all of them; launches from the main
+    paths (render, train, playback, pipeline, eval, serve, shard, gshard,
+    quality, tools)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -916,7 +937,7 @@ def kernel_line(results, fullscreen, launches):
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
         for label in ("clamped", "train", "fullscreen", "composite", "pipeline", "eval",
-                      "band", "gshard", "gshard_owner", "quality"):
+                      "band", "gshard", "gshard_owner", "quality", "bench"):
             for k in ("ms", "queued_ms", "host_ms", "plain_ms", "bound_ms",
                       "library_ms", "max_abs"):
                 if k in r.get(label, {}):
@@ -928,14 +949,17 @@ def kernel_line(results, fullscreen, launches):
 def capture_step(torch, port, trainer, cam=0):
     """One more training step (`step` of a `MeshTrainer` or a `BgTrainer`,
     on view `cam` over its constant background; a tensor of one view per
-    data group for a multi-process `MeshTrainer`) with the wrappers of K1, K2 and
-    K3 (`segment_sum_rows`, which every K3 call goes through) recording the
-    arguments the step hands them. -> {"K1": args, "K2": args, "K3": args}
-    and, for the Gaussian-table shard's second K3 call (the owner's
-    reduction), "K3_owner". The launch counters are set back to what they
-    were: this step is not the main path's."""
-    import functools
+    data group for a multi-process `MeshTrainer`) through `capture_calls`."""
+    return capture_calls(torch, port, lambda: trainer.step(cam, trainer.bg_const))
 
+
+def capture_calls(torch, port, run):
+    """run() (one forward + backward) with the wrappers of K1, K2 and K3
+    (`segment_sum_rows`, which every K3 call goes through) recording the
+    arguments it hands them. -> {"K1": args, "K2": args, "K3": args} and,
+    for the Gaussian-table shard's second K3 call (the owner's reduction),
+    "K3_owner". The launch counters are set back to what they were: this
+    call is not the main path's."""
     wrappers = {"K1": (port.tile_blend, "blend_forward"),
                 "K2": (port.tile_blend, "blend_backward"),
                 "K3": (port.segsum, "segment_sum_rows")}
@@ -952,7 +976,7 @@ def capture_step(torch, port, trainer, cam=0):
 
         setattr(mod, attr, record)
     try:
-        trainer.step(cam, trainer.bg_const)
+        run()
     finally:
         for key, (mod, attr) in wrappers.items():
             setattr(mod, attr, kept[key])
@@ -2851,19 +2875,25 @@ def gshard_rank(rank, world, work):
 QUALITY_MODES = ("GM_QUALITY_SMALL", "GM_QUALITY_PROTOCOL", "GM_QUALITY_ITERS")
 
 
+def load_tool(*path):
+    """A tool of the repository (a path under its root) loaded by path."""
+    import importlib.util
+
+    full = os.path.join(os.path.dirname(os.path.abspath(__file__)), *path)
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(path[-1])[0] + "_smoke", full)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
 def load_quality_tool(mode):
     """tools/quality_run_torch.py loaded afresh with its mode's environment
     ("GM_QUALITY_SMALL" or "GM_QUALITY_PROTOCOL" set to 1, the others unset)."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "quality_run_torch.py")
     saved = {k: os.environ.pop(k, None) for k in QUALITY_MODES}
     os.environ[mode] = "1"
     try:
-        spec = importlib.util.spec_from_file_location(f"quality_run_torch_{mode}", path)
-        tool = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(tool)
+        tool = load_tool("tools", "quality_run_torch.py")
     finally:
         for k, v in saved.items():
             os.environ.pop(k, None)
@@ -2990,6 +3020,92 @@ def phase_quality(torch, port, tmpdir):
     return res, launches, kernels
 
 
+class Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def lines(self):
+        return "".join(self.parts).strip().splitlines()
+
+
+def run_tool(tool, argv, label):
+    """tool.main(argv) in this process, its output echoed and kept -> (its
+    result, its last output line)."""
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        res = tool.main(argv)
+    log(f"[tools] {label}: {time.perf_counter() - t0:.1f} s")
+    return res, tee.lines()[-1]
+
+
+def phase_tools(torch, port, tmpdir):
+    """12. The measurement tools in-process on the card at their full width:
+    `bench_torch.py` (10 steps), `tools/profile_raster_torch.py --prefix`
+    (TOOL_REPS calls a row) and `tools/bench_playback_torch.py` (TOOL_FRAMES
+    frames, TOOL_STEPS4 config-4 steps), artifacts in the phase's directory;
+    then K1, K2 and K3 against their plain versions on one bench step."""
+    t_phase = time.perf_counter()
+    bench = load_tool("bench_torch.py")
+    prof = load_tool("tools", "profile_raster_torch.py")
+    play = load_tool("tools", "bench_playback_torch.py")
+    torch.cuda.synchronize()
+    reset_launches(port)                                 # main path starts
+    b, b_line = run_tool(bench, [], "bench_torch.py")
+    p, _ = run_tool(prof, ["--prefix", "--reps", str(TOOL_REPS),
+                           "--out", os.path.join(tmpdir, "profile_raster_torch.json")],
+                    "profile_raster_torch.py --prefix")
+    pb, pb_line = run_tool(play, ["--frames", str(TOOL_FRAMES), "--steps4", str(TOOL_STEPS4),
+                                  "--out", os.path.join(tmpdir, "playback_torch.json")],
+                           "bench_playback_torch.py")
+    torch.cuda.synchronize()
+    launches = read_launches(port)                       # main path ends
+    line, pb_json = json.loads(b_line), json.loads(pb_line)
+    with open(os.path.join(tmpdir, "profile_raster_torch.json")) as fh:
+        p_json = json.load(fh)
+    d = b["detail"]
+    res = dict(bench_step_ms=d["step_ms"], bench_mpix_s=b["value"],
+               bench_num_rendered=d["num_rendered"],
+               prefix_b7_host_ms=p["prefix"]["b7_host_ms"],
+               prefix_f7_num_rendered=p["prefix"]["f7_num_rendered"],
+               config3_fps=pb["config3"]["fps"], config5_fps=pb["config5"]["fps"],
+               config4_step_ms=pb["config4"]["train_step_ms"], launches=launches)
+    log("[tools] " + json.dumps(res))
+    assert line == json.loads(json.dumps(b)) and "error" not in line, line
+    assert pb_json["metric"] == "playback_fps_1080p", pb_json
+    assert p_json["prefix"]["b7_host_ms"] == p["prefix"]["b7_host_ms"]
+    assert d["overflow"] == 0, d
+    assert d["launches_per_step"] == {"K1": 1, "K2": 1, "K3": 1}, d
+    assert d["num_rendered"] == p["prefix"]["f7_num_rendered"], res
+    for key in ("config3", "config5"):
+        assert pb[key]["tile_overflow_max"] == 0 and pb[key]["rect_overflow_max"] == 0
+    assert pb["config4"]["tile_overflow"] == 0 and pb["config4"]["rect_overflow"] == 0
+    assert pb["config3"]["cov_rotation_max"] > 0, pb["config3"]
+    assert all(launches[k] > 0 for k in launches), launches
+
+    t0 = time.perf_counter()
+    w = bench.make_workload(bench.WIDTH, bench.HEIGHT, bench.N_GAUSS)
+    seen = capture_calls(torch, port, lambda: bench.fwd_bwd(w))
+    k1, _, _, blended = check_k1(torch, port.tile_blend, seen["K1"], w.cfg.max_per_tile)
+    rows, grouped_pos, seg_starts = seen["K3"]
+    k2, k3 = check_k2_k3(torch, port, seen["K2"], grouped_pos, seg_starts, blended,
+                         step_rows=rows)
+    for key, r in (("K1", k1), ("K2", k2), ("K3", k3)):
+        log(f"[tools] {key} at the bench step's shapes: " + json.dumps(r))
+    res.update(kernel_check_s=time.perf_counter() - t0,
+               phase_s=time.perf_counter() - t_phase)
+    return res, launches, (k1, k2, k3)
+
+
 def quality_step_main(work):
     """`python3 chip_smoke.py --quality-step WORK`: the quality step on the
     table of WORK's newest checkpoint (a PROTOCOL run of
@@ -3108,13 +3224,15 @@ def main() -> int:
         gshard, gshard_launches, results["gshard"], results["gshard_owner"] = phase_gshard(
             torch, port, student, tmpdir)
         quality, quality_launches, results["quality"] = phase_quality(torch, port, tmpdir)
+        tools, tools_launches, results["bench"] = phase_tools(torch, port, tmpdir)
     results["composite"] = (k1_composite, None, None)
     kernels = kernel_line(results, fullscreen,
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
                            "train": train_launches, "playback": playback_launches,
                            "pipeline": pipeline_launches, "eval": eval_launches,
                            "serve": serve_launches, "shard": shard_launches,
-                           "gshard": gshard_launches, "quality": quality_launches})
+                           "gshard": gshard_launches, "quality": quality_launches,
+                           "tools": tools_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
         f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
     log(f"[done] playback phase {t_play:.1f} s; 1080p playback frame ms mean: "
@@ -3159,6 +3277,11 @@ def main() -> int:
         f"{quality['reference_psnr']:.4f}; SMALL it/s by seed "
         f"{[r['iters_per_second'] for r in quality['runs']]}; quality step checks "
         f"{quality['quality_step_s']:.1f} s")
+    log(f"[done] tools phase {tools['phase_s']:.1f} s on {smi}: bench step "
+        f"{tools['bench_step_ms']:.3f} ms ({tools['bench_mpix_s']:.2f} Mpix/s), the "
+        f"prefix table's B7 {tools['prefix_b7_host_ms']:.3f} ms; playback fps config 3 "
+        f"{tools['config3_fps']:.1f}, config 5 {tools['config5_fps']:.1f}; config-4 step "
+        f"{tools['config4_step_ms']:.3f} ms; kernel checks {tools['kernel_check_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

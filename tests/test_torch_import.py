@@ -44,8 +44,11 @@ def _imported_names(path):
 
 
 def test_no_source_names_jax_or_the_jax_package():
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                       ROOT / "tools" / "quality_run_torch.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
+        ROOT / "tools" / f"{name}.py" for name in (
+            "quality_run_torch", "profile_raster_torch", "bench_playback_torch",
+            "scenes_torch", "timing_torch")]
+    assert all(path.exists() for path in files)
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
@@ -73,6 +76,26 @@ def test_quality_tool_leaves_out_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(list((tmp_path / "train").glob("r_*.png"))) == 8
     assert (tmp_path / "proxy.obj").exists()
+
+
+def test_measurement_tools_leave_out_jax():
+    """`bench_torch.py` run at 32x32 on the CPU, with the profile and playback
+    tools and their helpers imported beside it, imports neither JAX nor the
+    JAX package nor an imaging package."""
+    code = ("import sys\n"
+            "sys.path[:0] = ['.', 'tools']\n"
+            "import bench_torch, profile_raster_torch, bench_playback_torch\n"
+            "import scenes_torch, timing_torch\n"
+            "bench_torch.main(['--device', 'cpu', '--width', '32', '--height', '32', "
+            "'--n_gauss', '100', '--steps', '1', '--warm', '0'])\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'gaussianmesh_tpu', "
+            "'PIL', 'imageio') or m.startswith(('jax.', 'flax', 'gaussianmesh_tpu.', "
+            "'PIL.', 'imageio.')))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '"rasterize_fwd_bwd_mpix_per_s"' in proc.stdout
 
 
 def test_native_sources_and_e2e_script_stand_alone():
