@@ -3,6 +3,7 @@
 
     python3 bench_torch.py [--device cpu] [--width W --height H --n_gauss N
                             --steps S --warm K]
+    python3 bench_torch.py --sharded [tools/bench_scaling_torch.py's flags]
 
 The workload is `bench.py`'s: 100,000 random Gaussians
 (`random_gaussians(100_000, seed=0, spread=1.4, scale_range=(0.004,
@@ -27,6 +28,11 @@ the card), `busy_ms` and `device_operations` per step (torch.profiler over
 per step, the loss, the card's name and power limit. On any failure it prints the same line with value 0 and
 an `error` and exits 1. Runs on CUDA unless `--device cpu` is given; with
 no card it fails (no fallback).
+
+`--sharded` runs `tools/bench_scaling_torch.py`'s `main` with the other
+flags instead (as `bench.py --sharded` runs `tools/bench_scaling.py`): it
+writes that tool's artifact and prints its `scaling_efficiency_8dev_model`
+line; a failure raises.
 """
 
 from __future__ import annotations
@@ -145,6 +151,12 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--sharded" in argv:
+        # the scaling tool (`bench.py --sharded`): its artifact and its own line
+        import bench_scaling_torch
+
+        return bench_scaling_torch.main([a for a in argv if a != "--sharded"])
     args = parser().parse_args(argv)
     try:
         result = measure(args)

@@ -193,6 +193,22 @@ Phases (any failure raises, so the exit code is not 0):
    kernels' wrappers recording their arguments, and K1, K2 and K3 held
    against their plain versions on those, timed and bounded as in phase 5
    (the `bench_*` keys).
+13. scaling: the two scaling tools in-process on the card at full width
+   (1080p, 100,000 Gaussians), artifacts in the phase's directory:
+   `tools/bench_scaling_torch.py` at D = 1 and 8 (SCALING_STEPS steps an
+   item) and `tools/bench_sharded_torch.py`. Their JSON lines and artifacts
+   parse; the D = 1 band renders the bench's 765,920 pairs and at every D
+   the bands' live pairs sum to them and equal the histogram; no band
+   overflows at the timed capacities and no emulated rank's send overflows;
+   the (1, 1) steps' losses and gradients (and the (1, 1) training step's
+   parameters) agree with the plain step's within the multi-rank bars of
+   PERF.md section 2; no process group is left; K1-K3 launched (the
+   `scaling` launches). Then K1, K2 and K3 held against their plain
+   versions, timed and bounded as in phase 5, on the D = 8 critical band's
+   step (the `scaling_band_*` keys) and on the D = 8 critical emulated
+   rank's at the design's send capacity, whose K3 writes the D x cap-row
+   receiver table (`scaling_gshard_*`; the owner's K3
+   `scaling_gshard_owner_*`).
 
 The last three lines: the `kernels` JSON, the card's name and power limit
 (nvidia-smi), and the device JSON.
@@ -292,6 +308,12 @@ QUALITY_STEP_VIEWS = 4
 TOOL_REPS = 3          # phase 12: calls a row of profile_raster_torch.py --prefix
 TOOL_FRAMES = 8        # phase 12: bench_playback_torch.py's frames and config-4 steps
 TOOL_STEPS4 = 5
+SCALING_D = (1, 8)     # phase 13: tools/bench_scaling_torch.py's --d_list
+SCALING_STEPS = 5      # phase 13: timed steps of each item of both scaling tools
+BENCH_PAIRS = 765_920  # the bench scene's live pairs (bench_torch.py, 1080p, 100,000 Gaussians)
+# the multi-rank bars of PERF.md section 2: loss 1e-4 relative, parameters
+# 5e-4 of each leaf's largest; gradients the port's 2e-4 of each leaf's largest
+RANK_LOSS_REL, RANK_PARAM_REL, RANK_GRAD_REL = 1e-4, 5e-4, 2e-4
 
 # H100 SXM peaks (NVIDIA data sheet; the CUDA programming guide's throughput
 # table for the special-function unit: 16 exp2 results / clock / SM) at the
@@ -911,10 +933,12 @@ def kernel_line(results, fullscreen, launches):
     at rank 0's received band of a Gaussian-table-sharded step ("gshard"; for
     K3 the receiver's reduction, and the owner's as "gshard_owner"), (K1) at
     a composite playback frame's, at the quality step's ("quality"), at
-    `bench_torch.py`'s step ("bench": 1080p, 100,000 Gaussians), and K3's on
-    the full-screen case; errors over all of them; launches from the main
+    `bench_torch.py`'s step ("bench": 1080p, 100,000 Gaussians), at the
+    scaling tool's D = 8 critical band ("scaling_band") and critical emulated
+    rank ("scaling_gshard"; the owner's K3 "scaling_gshard_owner"), and K3's
+    on the full-screen case; errors over all of them; launches from the main
     paths (render, train, playback, pipeline, eval, serve, shard, gshard,
-    quality, tools)."""
+    quality, tools, scaling)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -937,7 +961,8 @@ def kernel_line(results, fullscreen, launches):
         if "rel" in s:
             entry["max_rel_err"] = max(x["rel"] for x in r.values())
         for label in ("clamped", "train", "fullscreen", "composite", "pipeline", "eval",
-                      "band", "gshard", "gshard_owner", "quality", "bench"):
+                      "band", "gshard", "gshard_owner", "quality", "bench", "scaling_band",
+                      "scaling_gshard", "scaling_gshard_owner"):
             for k in ("ms", "queued_ms", "host_ms", "plain_ms", "bound_ms",
                       "library_ms", "max_abs"):
                 if k in r.get(label, {}):
@@ -3106,6 +3131,100 @@ def phase_tools(torch, port, tmpdir):
     return res, launches, (k1, k2, k3)
 
 
+def phase_scaling(torch, port, tmpdir):
+    """13. The two scaling tools in-process on the card at full width:
+    `tools/bench_scaling_torch.py` (D in SCALING_D) and
+    `tools/bench_sharded_torch.py`, SCALING_STEPS steps an item, artifacts in
+    the phase's directory; then K1, K2 and K3 against their plain versions
+    at the D = max(SCALING_D) critical band's step ("scaling band") and at
+    that D's critical emulated rank at the design's send capacity ("scaling
+    gshard", its receiver K3 and, as "scaling gshard owner", the owner's)."""
+    t_phase = time.perf_counter()
+    bench = load_tool("bench_torch.py")
+    scaling = load_tool("tools", "bench_scaling_torch.py")
+    sharded = load_tool("tools", "bench_sharded_torch.py")
+    steps = ["--steps", str(SCALING_STEPS)]
+    torch.cuda.synchronize()
+    reset_launches(port)                                 # main path starts
+    sc, sc_line = run_tool(scaling, steps + [
+        "--d_list", *map(str, SCALING_D),
+        "--out", os.path.join(tmpdir, "scaling_torch.json")], "bench_scaling_torch.py")
+    sh, sh_line = run_tool(sharded, steps + [
+        "--out", os.path.join(tmpdir, "sharded_bench_torch.json")],
+        "bench_sharded_torch.py")
+    torch.cuda.synchronize()
+    launches = read_launches(port)                       # main path ends
+    line = json.loads(sc_line)
+    for path, art in (("scaling_torch.json", sc), ("sharded_bench_torch.json", sh)):
+        with open(os.path.join(tmpdir, path)) as fh:
+            assert json.load(fh) == json.loads(json.dumps(art)), path
+    assert json.loads(sh_line) == json.loads(json.dumps(sh))
+    assert line["metric"] == "scaling_efficiency_8dev_model", line
+    assert not torch.distributed.is_initialized()
+    d_top = max(SCALING_D)
+    tile, gauss = sc["tile_bands"], sc["gauss_shard_bands"]
+    assert sc["plain_step"]["num_rendered"] == BENCH_PAIRS, sc["plain_step"]
+    assert [b["num_rendered"] for b in tile["1"]["bands"]] == [BENCH_PAIRS], tile["1"]
+    for d, rec in tile.items():
+        assert sum(b["num_rendered"] for b in rec["bands"]) == BENCH_PAIRS, (d, rec)
+        assert [b["num_rendered"] for b in rec["bands"]] == rec["pair_hist"], (d, rec)
+        for b in rec["bands"]:
+            assert b["tile_overflow"] == b["rect_overflow"] == b["pair_overflow"] == 0, b
+    for d, rec in gauss.items():
+        for label in ("design", "jax_live"):
+            assert all(r["send_overflow"] == 0 for r in rec[label]["ranks"]), (d, label)
+    for name in ("tile", "gauss"):
+        a = sh["steps"][name]["agreement"]
+        assert a["loss_rel"] <= RANK_LOSS_REL and a["grad_rel"] <= RANK_GRAD_REL, (name, a)
+        assert sh["steps"][name]["num_rendered"] == BENCH_PAIRS, sh["steps"][name]
+    first = sc["sharded_train_step"]["sharded_1x1"]["first_step"]
+    assert first["loss_rel"] <= RANK_LOSS_REL and first["param_rel"] <= RANK_PARAM_REL, first
+    assert all(launches[k] > 0 for k in launches), launches
+    res = dict(plain_step_ms=sc["plain_step"]["host_ms"],
+               plain_busy_ms=sc["plain_step"]["busy_ms"],
+               critical_band_ms={d: r["critical_ms"] for d, r in tile.items()},
+               critical_band_busy_ms={d: r["critical_busy_ms"] for d, r in tile.items()},
+               gshard_critical_ms={d: r["design"]["critical_ms"] for d, r in gauss.items()},
+               gshard_critical_busy_ms={d: r["design"]["critical_busy_ms"]
+                                        for d, r in gauss.items()},
+               efficiency=line["value"], train_ratio_host=sc["sharded_train_step"][
+                   "ratio_host"], tile_1x1_overhead=sh["steps"]["tile"]["overhead_host"],
+               gauss_1x1_overhead=sh["steps"]["gauss"]["overhead_host"],
+               replicated_ms=sh["replicated"]["host_ms"], launches=launches)
+    log("[scaling] " + json.dumps(res))
+
+    t0 = time.perf_counter()
+    w = bench.make_workload(bench.WIDTH, bench.HEIGHT, bench.N_GAUSS)
+    band = tile[str(d_top)]
+    k = band["critical_index"]
+    cfg = scaling.band_config(w.cfg, band)
+    seen = capture_calls(torch, port, scaling.band_call(w, cfg, band["gy_local"],
+                                                        k * band["gy_local"]))
+    k1, _, _, blended = check_k1(torch, port.tile_blend, seen["K1"], cfg.max_per_tile)
+    rows, grouped_pos, seg_starts = seen["K3"]
+    k2, k3 = check_k2_k3(torch, port, seen["K2"], grouped_pos, seg_starts, blended,
+                         step_rows=rows)
+    kernels_band = (k1, k2, k3)
+    g = gauss[str(d_top)]
+    r = g["design"]["critical_index"]
+    seen = capture_calls(torch, port, scaling.gshard_call(
+        w, d_top, scaling.shard_inputs(w, d_top, r), g["send_capacity"]["design"]))
+    k1, _, _, blended = check_k1(torch, port.tile_blend, seen["K1"], w.cfg.max_per_tile)
+    rows, grouped_pos, seg_starts = seen["K3"]
+    k2, k3 = check_k2_k3(torch, port, seen["K2"], grouped_pos, seg_starts, blended,
+                         step_rows=rows)
+    k3_owner = check_k3(torch, port.segsum, *seen["K3_owner"])
+    assert k3["gaussians"] == d_top * g["send_capacity"]["design"], k3
+    kernels_gshard = (k1, k2, k3)
+    for label, ks in ((f"band {k} of {d_top}", kernels_band),
+                      (f"emulated rank {r} of {d_top}", kernels_gshard + (k3_owner,))):
+        for key, kr in zip(("K1", "K2", "K3", "K3 owner"), ks):
+            log(f"[scaling] {key} at the {label}'s shapes: " + json.dumps(kr))
+    res.update(kernel_check_s=time.perf_counter() - t0,
+               phase_s=time.perf_counter() - t_phase)
+    return res, launches, kernels_band, kernels_gshard, (None, None, k3_owner)
+
+
 def quality_step_main(work):
     """`python3 chip_smoke.py --quality-step WORK`: the quality step on the
     table of WORK's newest checkpoint (a PROTOCOL run of
@@ -3225,6 +3344,8 @@ def main() -> int:
             torch, port, student, tmpdir)
         quality, quality_launches, results["quality"] = phase_quality(torch, port, tmpdir)
         tools, tools_launches, results["bench"] = phase_tools(torch, port, tmpdir)
+        (scaling, scaling_launches, results["scaling_band"], results["scaling_gshard"],
+         results["scaling_gshard_owner"]) = phase_scaling(torch, port, tmpdir)
     results["composite"] = (k1_composite, None, None)
     kernels = kernel_line(results, fullscreen,
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
@@ -3232,7 +3353,7 @@ def main() -> int:
                            "pipeline": pipeline_launches, "eval": eval_launches,
                            "serve": serve_launches, "shard": shard_launches,
                            "gshard": gshard_launches, "quality": quality_launches,
-                           "tools": tools_launches})
+                           "tools": tools_launches, "scaling": scaling_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; 1080p frame ms mean "
         f"{np.mean(frames):.3f}; 800px train step ms median {np.median(step_ms):.3f}")
     log(f"[done] playback phase {t_play:.1f} s; 1080p playback frame ms mean: "
@@ -3282,6 +3403,16 @@ def main() -> int:
         f"prefix table's B7 {tools['prefix_b7_host_ms']:.3f} ms; playback fps config 3 "
         f"{tools['config3_fps']:.1f}, config 5 {tools['config5_fps']:.1f}; config-4 step "
         f"{tools['config4_step_ms']:.3f} ms; kernel checks {tools['kernel_check_s']:.1f} s")
+    log(f"[done] scaling phase {scaling['phase_s']:.1f} s on {smi}: plain step "
+        f"{scaling['plain_step_ms']:.3f} ms (busy {scaling['plain_busy_ms']:.3f}); "
+        f"critical band by D {scaling['critical_band_ms']} ms (busy "
+        f"{scaling['critical_band_busy_ms']}); critical emulated rank by D "
+        f"{scaling['gshard_critical_ms']} ms (busy {scaling['gshard_critical_busy_ms']}); "
+        f"modelled efficiency at D = {max(SCALING_D)} {scaling['efficiency']:.4f} (host "
+        f"clock, NVLink 4 assumed); (1, 1) overheads: tile "
+        f"{scaling['tile_1x1_overhead']:.3f}, gauss {scaling['gauss_1x1_overhead']:.3f}, "
+        f"training step {scaling['train_ratio_host']:.3f}; kernel checks "
+        f"{scaling['kernel_check_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

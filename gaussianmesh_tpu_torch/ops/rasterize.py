@@ -104,6 +104,17 @@ def clip_to_band(prep: prep_mod.Preprocessed, y0_tiles: int,
         valid=prep.valid & (touched > 0))
 
 
+def band_view(prep: prep_mod.Preprocessed, y0_tiles: int,
+              gy_local: int) -> prep_mod.Preprocessed:
+    """`prep` as the band of tile rows [y0, y0 + gy_local) bins it: the
+    rects clipped (`clip_to_band`) and the means in band-local pixel rows.
+    The binning's ellipse cull and the blend derive pixel positions from
+    local tile ids; a constant shift leaves the mean2d gradient as it is."""
+    prep = clip_to_band(prep, y0_tiles, gy_local)
+    return prep._replace(mean2d=prep.mean2d - prep.mean2d.new_tensor(
+        [0.0, float(y0_tiles * prep_mod.TILE)]))
+
+
 class StaticPairs(NamedTuple):
     """The pair domain of a static Gaussian set seen from one camera, for
     composite playback (one object deforms in a scene of static objects
@@ -151,12 +162,7 @@ def rasterize(means3d: torch.Tensor, cov6: torch.Tensor, opacity: torch.Tensor,
             raise ValueError("rasterize: a band render takes no static pair domain")
         y0_tiles, gy = band
         height = gy * prep_mod.TILE
-        prep = clip_to_band(prep, y0_tiles, gy)
-        # band-local pixel rows before binning and packing: the binning's
-        # ellipse cull and the blend derive pixel positions from local tile
-        # ids; a constant shift leaves the mean2d gradient as it is
-        prep = prep._replace(mean2d=prep.mean2d - prep.mean2d.new_tensor(
-            [0.0, float(y0_tiles * prep_mod.TILE)]))
+        prep = band_view(prep, y0_tiles, gy)
 
     mean2d = prep.mean2d
     if mean2d_offset is not None:

@@ -47,7 +47,7 @@ def test_no_source_names_jax_or_the_jax_package():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
         ROOT / "tools" / f"{name}.py" for name in (
             "quality_run_torch", "profile_raster_torch", "bench_playback_torch",
-            "scenes_torch", "timing_torch")]
+            "scenes_torch", "timing_torch", "bench_scaling_torch", "bench_sharded_torch")]
     assert all(path.exists() for path in files)
     for path in files:
         for name in _imported_names(path):
@@ -96,6 +96,31 @@ def test_measurement_tools_leave_out_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert '"rasterize_fwd_bwd_mpix_per_s"' in proc.stdout
+
+
+def test_scaling_tools_leave_out_jax():
+    """`bench_torch.py --sharded` (the scaling tool) and the sharded-step tool
+    run at 32x32 on the CPU, D = 1 and 2, import neither JAX nor the JAX
+    package nor an imaging package, and leave no process group behind."""
+    code = ("import sys, tempfile\n"
+            "sys.path[:0] = ['.', 'tools']\n"
+            "import torch.distributed as dist\n"
+            "import bench_torch, bench_sharded_torch\n"
+            "small = ['--device', 'cpu', '--width', '32', '--height', '32', "
+            "'--n_gauss', '100', '--steps', '1', '--warm', '0']\n"
+            "with tempfile.TemporaryDirectory() as tmp:\n"
+            "    bench_torch.main(['--sharded', '--d_list', '1', '2', '--out', "
+            "tmp + '/s.json'] + small)\n"
+            "    bench_sharded_torch.main(small + ['--out', tmp + '/b.json'])\n"
+            "assert not dist.is_initialized()\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'gaussianmesh_tpu', "
+            "'PIL', 'imageio') or m.startswith(('jax.', 'flax', 'gaussianmesh_tpu.', "
+            "'PIL.', 'imageio.')))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert '"scaling_efficiency_8dev_model"' in proc.stdout
 
 
 def test_native_sources_and_e2e_script_stand_alone():

@@ -134,19 +134,23 @@ def background(n, rng, device, sh_degree=1):
 
 
 @torch.no_grad()
-def load_sized(arrays, cam, cfg, tiles=True):
+def load_sized(arrays, cam, cfg, tiles=True, band=None):
     """cfg's pair / row capacities doubled until `arrays` seen from `cam`
     bin with no `rect_overflow`, then (with `tiles`) its `max_per_tile`
     doubled until no tile holds more -> (that config, a record: the
     capacities, the live pairs and the overflow at cfg's and at the
-    chosen, the largest tile)."""
+    chosen, the largest tile). `band` = (y0_tiles, gy_local) sizes for that
+    band of the image alone, as `rasterize(..., band=)` bins it."""
     from gaussianmesh_tpu_torch.ops import binning, preprocess as prep_mod
+    from gaussianmesh_tpu_torch.ops.rasterize import band_view
 
     n = arrays.xyz.shape[0]
     prep = prep_mod.preprocess(arrays.xyz, arrays.cov6, cam, cfg.width, cfg.height,
                                opacity=arrays.opacity)
     prep = prep._replace(valid=prep.valid & arrays.active)
     gx, gy = cfg.grid
+    if band is not None:
+        prep, gy = band_view(prep, *band), band[1]
 
     def probe(c):
         e = binning.expand_pairs(prep, gx, gy, c.expand_capacity(n), opacity=arrays.opacity,
@@ -159,7 +163,7 @@ def load_sized(arrays, cam, cfg, tiles=True):
         c = dataclasses.replace(c, pair_capacity_per_gaussian=2 * c.pair_capacity_per_gaussian,
                                 row_capacity_per_gaussian=2 * c.row_capacity_per_gaussian)
         overflow, pairs, pair_tile = probe(c)
-    largest = int(torch.bincount(pair_tile, minlength=c.num_tiles).max()) if pairs else 0
+    largest = int(torch.bincount(pair_tile, minlength=gx * gy).max()) if pairs else 0
     while tiles and c.max_per_tile < largest:
         c = dataclasses.replace(c, max_per_tile=2 * c.max_per_tile)
     return c, dict(capacity=[c.pair_capacity_per_gaussian, c.row_capacity_per_gaussian],
