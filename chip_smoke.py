@@ -137,14 +137,17 @@ Phases (any failure raises, so the exit code is not 0):
    fall over the event-free steps; then one more step with the band
    arguments recorded and, on rank 0, K1-K3 held against their plain
    versions there, timed and bounded as in phase 5 (the `band_*` keys). An
-   nccl world of 4 ranks on one card raises. (f) Config-3 playback at
+   nccl world of 4 ranks on one card raises. On a host with a card per rank
+   the same ranks run over nccl instead, rank r on card r (`rank_plan`),
+   and the parent checks that nccl initialised. (f) Config-3 playback at
    1080p through `make_sharded_playback_fn` on the same ranks, 2 frames a
    call, 2 bands each, every frame within 2e-5 of the single-process
    frame. The parent joins each rank with a timeout and fails on any
    rank's failure; its wall times are a rehearsal, not a multi-card speed.
    (g) The Gaussian-table shard: the phase-6 student's table dealt over 4
    shards, one emulated rank (`emulate_d=4`: forward and backward in this
-   process) timed; then 4 ranks on the card over gloo, spawned as in (e),
+   process) timed; then 4 ranks on the card over gloo (or one card per
+   rank over nccl, as in (e)), spawned as in (e),
    each with its shard and one band: step 1 against a single-process step
    on the dealt table (loss 1e-4 relative, parameters 5e-4 of each leaf's
    largest, grad_accum 1e-5, denom exact), 8 steps with resets at 2 and 6
@@ -575,13 +578,14 @@ def phase_oracle(torch, port):
     assert err <= 3e-5, err
 
 
-def make_model(torch, port, tmpdir):
-    v, f = icosphere(SUBDIV)
+def make_model(torch, port, tmpdir, subdiv=SUBDIV, device="cuda"):
+    v, f = icosphere(subdiv)
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
     model = port.mesh_gaussians.create_from_mesh(v, f, max_sh_degree=SH_DEGREE,
-                                                 device="cuda", generator=gen)
-    torch.cuda.synchronize()
+                                                 device=device, generator=gen)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
     log(f"[slice] create_from_mesh: {f.shape[0]} faces -> {model.bc.shape[0]} "
         f"Gaussians in {time.perf_counter() - t0:.1f} s")
     # perturb to look trained: moved along the faces and off them, resized,
@@ -592,7 +596,7 @@ def make_model(torch, port, tmpdir):
 
     def add(param, noise):
         with torch.no_grad():
-            param.add_(torch.tensor(noise.astype(np.float32), device="cuda"))
+            param.add_(torch.tensor(noise.astype(np.float32), device=device))
 
     add(model.bc, rng.normal(0, 0.5, (n, 3)))
     add(model.distance, rng.normal(0, 0.5, (n, 1)))
@@ -603,7 +607,7 @@ def make_model(torch, port, tmpdir):
     add(model.features_rest, rng.normal(0, 0.05, (n, k, 3)))
     path = os.path.join(tmpdir, "point_cloud.ply")
     port.gaussian_ply.save_mesh_gaussian_ply(path, model)
-    loaded, _ = port.gaussian_ply.load_mesh_gaussian_ply(path, device="cuda")
+    loaded, _ = port.gaussian_ply.load_mesh_gaussian_ply(path, device=device)
     log(f"[slice] PLY round trip: {os.path.getsize(path) / 1e6:.1f} MB, "
         f"{loaded.bc.shape[0]} Gaussians, SH degree {SH_DEGREE}")
     for name, p in model.named_parameters():
@@ -2283,7 +2287,7 @@ def reference_step(torch, port, trainer, cams, bg):
     total, accum, denom = 0.0, m.state.grad_accum.clone(), m.state.denom.clone()
     for idx in cams:
         cam, gt = ds.camera(idx), ds.target(idx, bg)
-        off = torch.zeros((m.capacity, 2), device="cuda", requires_grad=True)
+        off = torch.zeros((m.capacity, 2), device=tr.device, requires_grad=True)
         out = port.render.render(port.render.mesh_model_arrays(m, cam, tr.sh_degree),
                                  cam, tr.raster_cfg(), bg, mean2d_offset=off)
         view = ((1 - lam) * port.loss.l1_loss(out.color, gt)
@@ -2329,27 +2333,30 @@ def phase_shard(torch, port, trainer, playback_cfg, cam, tmpdir):
                os.path.join(work, "reference.pt"))
     prep_s = time.perf_counter() - t0
 
-    # NCCL refuses more ranks than cards: the port raises before it tries
-    env_keys = ("WORLD_SIZE", "LOCAL_WORLD_SIZE")
-    kept = {k: os.environ.get(k) for k in env_keys}
-    os.environ.update(WORLD_SIZE="4", LOCAL_WORLD_SIZE="4")
-    try:
-        port.multihost.initialize(backend="nccl")
-        raise AssertionError("nccl with 4 ranks on one card did not raise")
-    except RuntimeError as e:
-        nccl_refused = str(e)
-    finally:
-        for k, v in kept.items():
-            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+    world = SHARD_WORLD[0] * SHARD_WORLD[1]
+    backend, cards = rank_plan(world, torch.cuda.device_count())
+    nccl_refused = None
+    if backend == "gloo":
+        # NCCL refuses more ranks than cards: the port raises before it tries
+        env_keys = ("WORLD_SIZE", "LOCAL_WORLD_SIZE")
+        kept = {k: os.environ.get(k) for k in env_keys}
+        os.environ.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+        try:
+            port.multihost.initialize(backend="nccl")
+            raise AssertionError("nccl with 4 ranks on one card did not raise")
+        except RuntimeError as e:
+            nccl_refused = str(e)
+        finally:
+            for k, v in kept.items():
+                os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
 
     # the ranks need the card's memory that earlier phases left cached here
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    world = SHARD_WORLD[0] * SHARD_WORLD[1]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-rank",
-                               str(r), str(world), work],
+                               str(r), str(world), work, backend, str(cards[r])],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
     outs = join_ranks(procs, SHARD_JOIN_S)
@@ -2362,9 +2369,11 @@ def phase_shard(torch, port, trainer, playback_cfg, cam, tmpdir):
     for rep in reports:
         assert rep["ok"], rep
         assert rep["hashes"] == r0["hashes"] and rep["losses"] == r0["losses"], rep
+        assert (rep["backend"], rep["card"]) == (backend, cards[rep["rank"]]), rep
     launches = {k: sum(rep["launches"][k] + rep["playback_launches"][k]
                        for rep in reports) for k in ("K1", "K2", "K3")}
-    res = dict(world=SHARD_WORLD, prep_s=prep_s, wall_s=wall, nccl_refused=nccl_refused,
+    res = dict(world=SHARD_WORLD, backend=backend, cards=cards, prep_s=prep_s, wall_s=wall,
+               nccl_refused=nccl_refused,
                step1=[rep["step1"] for rep in reports], losses=r0["losses"],
                events=r0["events"], hashes_equal=True,
                step_ms_median=[rep["step_ms_median"] for rep in reports],
@@ -2374,6 +2383,31 @@ def phase_shard(torch, port, trainer, playback_cfg, cam, tmpdir):
     log("[shard] " + json.dumps({k: v for k, v in res.items() if k != "losses"}))
     log(f"[shard] losses {[round(x, 5) for x in r0['losses']]}")
     return res, launches, tuple(r0["band_kernels"])
+
+
+def rank_plan(world, n_cards):
+    """(backend, card of each rank) of the phase-10 ranks: with fewer cards
+    than ranks they share card 0 over gloo (a rehearsal); with a card per
+    rank, rank r takes card r over nccl."""
+    if n_cards >= world:
+        return "nccl", list(range(world))
+    return "gloo", [0] * world
+
+
+def join_group(rank, world, work, backend, card):
+    """This rank's process group from a FileStore in `work`, on `card`
+    (`rank_plan`); under nccl the card is bound to the group."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(card)
+    bound = {"device_id": torch.device("cuda", card)} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(work, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S), **bound)
+    os.environ["GM_DIST_TIMEOUT"] = str(SHARD_GROUP_TIMEOUT_S)
 
 
 def join_ranks(procs, timeout):
@@ -2413,25 +2447,19 @@ def state_hash(trainer):
     return h.hexdigest()
 
 
-def shard_rank(rank, world, work):
-    """One rank of phase 10e / 10f, on the card, in a gloo group from a
-    FileStore in `work`: load the phase-6 state; the first 2x2 step against
+def shard_rank(rank, world, work, backend, card):
+    """One rank of phase 10e / 10f, on `card`, in a `backend` group from a
+    FileStore in `work` (`rank_plan`): load the phase-6 state; the first 2x2 step against
     the parent's single-process reference; 20 more steps with a densify and
     an opacity reset inside, the state hashes all-gathered after each event
     and at the end; one more step recording the band arguments (rank 0
     holds K1-K3 against their plain versions there); sharded config-3
     playback, 2 frames a call, against the single-process frames. Writes
     `rank<r>.json`."""
-    from datetime import timedelta
-
     import torch
     import torch.distributed as dist
 
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"), world),
-                            rank=rank, world_size=world,
-                            timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
-    os.environ["GM_DIST_TIMEOUT"] = str(SHARD_GROUP_TIMEOUT_S)
+    join_group(rank, world, work, backend, card)
     port = load_port()
     inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
     ref = torch.load(os.path.join(work, "reference.pt"), weights_only=False)
@@ -2449,22 +2477,23 @@ def shard_rank(rank, world, work):
                                   max_sh_degree=SH_DEGREE)
     tr.restore(inp["state"])
     mesh = tr.mesh
-    report = dict(rank=rank, ok=False)
+    report = dict(rank=rank, ok=False, backend=dist.get_backend(),
+                  card=torch.cuda.current_device())
 
     # gloo's collectives on CUDA tensors, which the port hands them as they are
-    report["gloo_cuda"] = {}
+    report["gloo_cuda"] = {} if backend == "gloo" else None
     for name, fn in (("all_reduce", lambda x: dist.all_reduce(x)),
                      ("all_gather", lambda x: dist.all_gather(
                          [torch.empty_like(x) for _ in range(world)], x)),
                      ("all_to_all_single", lambda x: dist.all_to_all_single(
-                         torch.empty_like(x), x))):
+                         torch.empty_like(x), x))) if backend == "gloo" else ():
         try:
             fn(torch.ones(4, device="cuda"))
             torch.cuda.synchronize()
             report["gloo_cuda"][name] = "accepted"
         except RuntimeError as e:
             report["gloo_cuda"][name] = f"refused: {str(e).splitlines()[0][:120]}"
-    dist.barrier()
+    port.multihost.barrier()
 
     # step 1 against the single-process reference
     reset_launches(port)
@@ -2540,7 +2569,7 @@ def shard_rank(rank, world, work):
         for key, r in zip(("K1", "K2", "K3"), band):
             log(f"[band] {key} at a band step's shapes: " + json.dumps(r))
     report["band_kernels"] = band
-    dist.barrier()
+    port.multihost.barrier()
 
     # 10f: sharded config-3 playback against the single-process frames
     pcfg = port.rasterize.RasterizerConfig(**inp["playback_cfg"])
@@ -2574,7 +2603,7 @@ def shard_rank(rank, world, work):
     report["ok"] = True
     with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
         json.dump(report, fh)
-    dist.barrier()
+    port.multihost.barrier()
     dist.destroy_process_group()
     return 0
 
@@ -2667,9 +2696,10 @@ def phase_gshard(torch, port, trainer, tmpdir):
     gc.collect()
     torch.cuda.empty_cache()
 
+    backend, cards = rank_plan(d, torch.cuda.device_count())
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gshard-rank",
-                               str(r), str(d), work],
+                               str(r), str(d), work, backend, str(cards[r])],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(d)]
     outs = join_ranks(procs, SHARD_JOIN_S)
@@ -2683,8 +2713,9 @@ def phase_gshard(torch, port, trainer, tmpdir):
         assert rep["ok"], rep
         assert rep["losses"] == r0["losses"] and rep["densify"] == r0["densify"], rep
         assert rep["pool_hashes"] == r0["pool_hashes"], rep
+        assert (rep["backend"], rep["card"]) == (backend, cards[rep["rank"]]), rep
     launches = {k: sum(rep["launches"][k] for rep in reports) for k in ("K1", "K2", "K3")}
-    res = dict(world=d, wall_s=wall, emulated=emulated,
+    res = dict(world=d, backend=backend, cards=cards, wall_s=wall, emulated=emulated,
                step1=[rep["step1"] for rep in reports], losses=r0["losses"],
                events=r0["events"], densify=r0["densify"],
                pool_hashes_equal=True, resume_equal=[rep["resume_equal"] for rep in reports],
@@ -2700,9 +2731,9 @@ def phase_gshard(torch, port, trainer, tmpdir):
     return res, launches, (k1, k2, k3), (None, None, k3_owner)
 
 
-def gshard_rank(rank, world, work):
-    """One rank of phase 10g, on the card, in a gloo group from a FileStore in
-    `work`: its shard of the dealt phase-6 state; step 1 against the
+def gshard_rank(rank, world, work, backend, card):
+    """One rank of phase 10g, on `card`, in a `backend` group from a
+    FileStore in `work` (`rank_plan`): its shard of the dealt phase-6 state; step 1 against the
     parent's single-process step; GSHARD_STEPS steps with resets and two
     densifies (each checked against a single-process `densify_and_split` of
     the gathered table, the vertex pools' hashes all-gathered); a per-rank
@@ -2712,16 +2743,11 @@ def gshard_rank(rank, world, work):
     most pairs holds K1, K2 and both K3 calls against their plain versions).
     Writes `rank<r>.json`."""
     import hashlib
-    from datetime import timedelta
 
     import torch
     import torch.distributed as dist
 
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"), world),
-                            rank=rank, world_size=world,
-                            timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
-    os.environ["GM_DIST_TIMEOUT"] = str(SHARD_GROUP_TIMEOUT_S)
+    join_group(rank, world, work, backend, card)
     port = load_port()
     inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
     ref = torch.load(os.path.join(work, "reference.pt"), weights_only=False)
@@ -2743,7 +2769,8 @@ def gshard_rank(rank, world, work):
     del inp
     group = tr.mesh.tile_group
     c = tr.model.capacity
-    report = dict(rank=rank, ok=False)
+    report = dict(rank=rank, ok=False, backend=dist.get_backend(),
+                  card=torch.cuda.current_device())
 
     def gather_equal(x):
         out = [None] * world
@@ -2857,7 +2884,7 @@ def gshard_rank(rank, world, work):
     feat = torch.zeros((slots, 16), device="cuda")
     ex = []
     for _ in range(3):
-        dist.barrier()
+        port.multihost.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         port.sharding.all_to_all(meta, group)
@@ -2886,11 +2913,11 @@ def gshard_rank(rank, world, work):
         for key, r in zip(("K1", "K2", "K3 receiver", "K3 owner"), kernels):
             log(f"[gshard] {key} at a received band's shapes: " + json.dumps(r))
     report["kernels"] = kernels
-    dist.barrier()
+    port.multihost.barrier()
     report["ok"] = True
     with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
         json.dump(report, fh)
-    dist.barrier()
+    port.multihost.barrier()
     dist.destroy_process_group()
     return 0
 
@@ -3303,9 +3330,11 @@ def load_port():
 
 def main() -> int:
     if sys.argv[1:2] == ["--shard-rank"]:        # a rank of phase 10e / 10f
-        return shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                          int(sys.argv[6]))
     if sys.argv[1:2] == ["--gshard-rank"]:       # a rank of phase 10g
-        return gshard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return gshard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                           int(sys.argv[6]))
     if sys.argv[1:2] == ["--quality-step"]:      # the quality step on a run's table
         return quality_step_main(sys.argv[2])
     import torch
@@ -3374,9 +3403,9 @@ def main() -> int:
         f"object covers {np.mean(evaluation['object_coverage']):.4f} of a test view "
         f"(phase 8's: {np.mean(evaluation['phase8_object_coverage']):.4f}); kernel "
         f"checks {evaluation['kernel_check_s']:.1f} s of the phase")
-    log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} (a rehearsal: "
-        f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks share one card, no multi-card "
-        f"speed): native ACAP {acap['host_ms']:.1f} ms per call on the host "
+    log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} ("
+        f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks over {shard['backend']} on cards "
+        f"{shard['cards']}): native ACAP {acap['host_ms']:.1f} ms per call on the host "
         f"({acap['threads']} threads) beside the card's deformation "
         f"{acap['card_deform_ms']:.2f} ms; viewer request ms median "
         f"{viewer['request_ms_median']:.1f} (render {viewer['render_ms_median']:.1f}, "
@@ -3384,8 +3413,9 @@ def main() -> int:
         f"{e2e['seconds']:.1f} s; 4 bands max-abs {bands['max_abs']:.3g}; sharded step "
         f"ms median by rank {[round(x, 1) for x in shard['step_ms_median']]}, wall "
         f"{shard['wall_s']:.1f} s; gloo on CUDA tensors: {shard['gloo_cuda']}")
-    log(f"[done] Gaussian-table shard phase {gshard['phase_s']:.1f} s on {smi} (a "
-        f"rehearsal: {GSHARD_WORLD} ranks share one card over gloo): step ms median by "
+    log(f"[done] Gaussian-table shard phase {gshard['phase_s']:.1f} s on {smi} ("
+        f"{GSHARD_WORLD} ranks over {gshard['backend']} on cards {gshard['cards']}): "
+        f"step ms median by "
         f"rank {[round(x, 1) for x in gshard['step_ms_median']]}; sent "
         f"{gshard['traffic']['bytes_sent_per_rank_step'] / 1e6:.1f} MB per rank and step "
         f"({gshard['traffic']['slots_per_rank']} slots); received live pairs by rank "

@@ -6,6 +6,9 @@
   single-process run it does nothing, so entry points call it
   unconditionally. `nccl` for CUDA, `gloo` for the CPU, unless the caller
   names the backend; `nccl` with more ranks on a host than cards raises.
+  A rank takes card `LOCAL_RANK` before it joins, and under `nccl` hands
+  that card to the group (`device_id`), so the group's communicators and
+  every barrier run on it.
 - `process_camera_slice(n)` is the contiguous camera range this process
   loads.
 
@@ -32,7 +35,8 @@ def _env_int(name: str, default: int) -> int:
 
 def initialize(backend: str | None = None) -> bool:
     """Join torchrun's process group; -> True when this is a multi-process
-    run. With CUDA present, a rank takes card LOCAL_RANK % device_count."""
+    run. With CUDA present, a rank takes card LOCAL_RANK % device_count
+    (LOCAL_RANK itself under nccl, which needs a card per rank)."""
     world = _env_int("WORLD_SIZE", 1)
     if world <= 1 or dist.is_initialized():
         return dist.is_initialized()
@@ -46,11 +50,15 @@ def initialize(backend: str | None = None) -> bool:
             raise RuntimeError(
                 f"nccl needs a card per rank: {local_world} ranks on this host, "
                 f"{cards} cards (name the gloo backend to share a card)")
+    bound = {}
     if cuda:
-        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+        card = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(card)
+        if backend == "nccl":
+            bound["device_id"] = card
     dist.init_process_group(backend=backend, init_method="env://",
                             world_size=world, rank=_env_int("RANK", 0),
-                            timeout=group_timeout())
+                            timeout=group_timeout(), **bound)
     return True
 
 
@@ -71,6 +79,11 @@ def is_writer() -> bool:
 
 
 def barrier() -> None:
-    """Wait for every rank (nothing in a single process)."""
-    if dist.is_initialized():
+    """Wait for every rank (nothing in a single process); under nccl on this
+    rank's current card."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
         dist.barrier()

@@ -17,7 +17,10 @@ band owners.
 
 Only `all_reduce`, `all_gather` and `all_to_all_single` run, each on an
 explicit process group. Every rank issues the same collectives in the same
-order whatever its data.
+order whatever its data. Under nccl each takes tensors on this rank's
+current card only, and raises, naming itself, on any other device: no
+collective moves a tensor across devices (gloo takes CPU and CUDA tensors
+alike).
 """
 
 from __future__ import annotations
@@ -88,8 +91,20 @@ def padded_grid_y(height: int, n_tile: int) -> int:
     return -(-gy // n_tile) * n_tile
 
 
+def check_device(x: torch.Tensor, group, site: str) -> None:
+    """Raise unless `group`'s backend takes x where it lies: under nccl, x
+    must be on this rank's current card."""
+    if dist.get_backend(group) != "nccl":
+        return
+    if x.device.type != "cuda" or x.device.index != torch.cuda.current_device():
+        raise RuntimeError(
+            f"sharding.{site}: nccl takes tensors on this "
+            f"rank's card cuda:{torch.cuda.current_device()}, not on {x.device}")
+
+
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """x reduced over `group`, as a new tensor on x's device."""
+    check_device(x, group, "all_reduce")
     out = x.detach().clone().contiguous()
     dist.all_reduce(out, op=op, group=group)
     return out
@@ -100,6 +115,7 @@ def all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
     travels as uint8)."""
     if x.dtype == torch.bool:
         return [o.bool() for o in all_gather(x.to(torch.uint8), group)]
+    check_device(x, group, "all_gather")
     src = x.detach().contiguous()
     outs = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(outs, src, group=group)
@@ -107,8 +123,10 @@ def all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    check_device(x, group, "all_to_all")
+    x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
+    dist.all_to_all_single(out, x, group=group)
     return out
 
 

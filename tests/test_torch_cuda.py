@@ -683,3 +683,49 @@ def test_receiver_blend_on_a_received_buffer_matches_cpu(cuda):
     assert d.max().item() <= 1e-3 and d.mean().item() <= 1e-5
     for a, c in zip(ga, gc):
         assert ((a - c).abs() / c.abs().max()).max().item() <= 2e-4
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices (the port's multi-card run)")
+    return torch.device("cuda", 0), torch.device("cuda", torch.cuda.device_count() - 1)
+
+
+@pytest.mark.cuda
+def test_kernels_on_the_last_card_equal_card_0(two_cards):
+    """K1, K2 and K3 on tensors of the last card, launched while card 0 is
+    the current device (each wrapper enters its tensors' device and takes
+    that device's stream; K2 sets its shared-memory attribute there), give
+    the bits they give on card 0 for the same inputs."""
+    torch.cuda.set_device(0)
+    outs = []
+    for dev in two_cards:
+        args, tiles = _k2_inputs(dev, 256, 256, 1024)
+        gx = preprocess.tile_grid(256, 256)[0]
+        k1 = tile_blend.blend_forward(*args[:4], gx, 256, 256)
+        rows = tile_blend.blend_backward(*args)
+        d_feat = segsum.segment_sum(rows, tiles.grouped_pos,
+                                    segsum.segment_starts(tiles.gid_counts))
+        torch.cuda.synchronize(dev)
+        assert rows.device == dev and d_feat.device == dev
+        outs.append([t.cpu() for t in (*k1, rows, d_feat)])
+    assert outs[0][3].abs().sum() > 0
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_nccl_all_to_all_on_two_cards(two_cards, tmp_path):
+    """`sharding.all_to_all` in a 2-rank nccl group, rank r on card r:
+    forward and backward equal the reference permutation."""
+    import torch_dist_worker as worker
+
+    inp = worker.a2a_inputs(2)
+    torch.save(inp, str(tmp_path / "a2a_in.pt"))
+    outs = worker.launch("a2a", 2, str(tmp_path), extra_env={"GM_TEST_BACKEND": "nccl"})
+    want_out = worker.a2a_reference(list(inp["x"]))
+    want_grad = worker.a2a_reference(list(inp["g"]))
+    for r, o in enumerate(outs):
+        assert o["device"] == f"cuda:{r}"
+        assert torch.equal(o["out"], want_out[r]) and torch.equal(o["grad"], want_grad[r])

@@ -47,7 +47,8 @@ def test_no_source_names_jax_or_the_jax_package():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
         ROOT / "tools" / f"{name}.py" for name in (
             "quality_run_torch", "profile_raster_torch", "bench_playback_torch",
-            "scenes_torch", "timing_torch", "bench_scaling_torch", "bench_sharded_torch")]
+            "scenes_torch", "timing_torch", "bench_scaling_torch", "bench_sharded_torch",
+            "multicard_torch")] + [ROOT / "tests" / "torch_dist_worker.py"]
     assert all(path.exists() for path in files)
     for path in files:
         for name in _imported_names(path):
@@ -144,3 +145,23 @@ def test_native_sources_and_e2e_script_stand_alone():
     for name in _imported_names(ROOT / "tests" / "test_torch_e2e.py"):
         assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "gaussianmesh_tpu",
                                           "PIL", "imageio"), name
+
+
+def test_multicard_tool_leaves_out_jax():
+    """`tools/multicard_torch.py` with what its ranks and its entry-point part
+    import (`chip_smoke.py`, the dataset of `tests/test_torch_e2e.py`, the
+    measurement tools) names neither JAX nor the JAX package nor an imaging
+    package."""
+    code = ("import sys\n"
+            "sys.path[:0] = ['.', 'tools', 'tests']\n"
+            "import multicard_torch, chip_smoke, test_torch_e2e\n"
+            "import bench_torch, bench_sharded_torch, bench_scaling_torch\n"
+            "chip_smoke.load_port()\n"
+            "multicard_torch.parser().parse_args(['--device', 'cpu'])\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'gaussianmesh_tpu', "
+            "'PIL', 'imageio') or m.startswith(('jax.', 'flax', 'gaussianmesh_tpu.', "
+            "'PIL.', 'imageio.')))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

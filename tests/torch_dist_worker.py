@@ -3,10 +3,11 @@
 
 `launch(case, world, workdir)` starts `world` processes of
 
-    python -m tests.torch_dist_worker <case> <rank> <world> <workdir>
+    python tests/torch_dist_worker.py <case> <rank> <world> <workdir>
 
 each joining a gloo group from a `FileStore` in `workdir` (60 s timeout),
-running one case on the CPU and writing `<case>_rank<r>.pt`; the parent
+running one case on the CPU and writing `<case>_rank<r>.pt` (with
+`GM_TEST_BACKEND=nccl`, an nccl group instead, rank r on card r); the parent
 waits 120 s at most, kills what is left and raises on any failed rank.
 Inputs come in `<workdir>/<case>_in.pt` (tensors only). This module imports
 neither JAX nor the JAX package.
@@ -31,9 +32,12 @@ JOIN_TIMEOUT_S = 120
 def launch(case: str, world: int, workdir: str, timeout: float = JOIN_TIMEOUT_S,
            extra_env: dict | None = None) -> list:
     """Run `case` on `world` ranks -> each rank's saved result, in rank order."""
+    # run by path, the repository first on the path: a `tests` package
+    # installed elsewhere would shadow `-m tests.torch_dist_worker`
     env = {**os.environ, "OMP_NUM_THREADS": "1", "GM_DIST_TIMEOUT": str(GROUP_TIMEOUT_S),
-           **(extra_env or {})}
-    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_dist_worker", case,
+           "PYTHONPATH": os.pathsep.join([ROOT] + [p for p in [os.environ.get(
+               "PYTHONPATH")] if p]), **(extra_env or {})}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), case,
                                str(r), str(world), workdir], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for r in range(world)]
@@ -289,7 +293,36 @@ def case_gtrainer(mesh, inp):
             "capture": at_ckpt, "global_it": resumed.global_it}
 
 
-CASES = {"halo": case_halo, "step": case_step, "playback": case_playback,
+def case_a2a(mesh, inp):
+    """`sharding.all_to_all` of this rank's rows over the tile group, and its
+    backward for this rank's cotangent, on the rank's device."""
+    from gaussianmesh_tpu_torch.parallel import sharding
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.distributed.get_backend() == "nccl" else torch.device("cpu")
+    r = mesh.rank
+    x = inp["x"][r].to(dev).requires_grad_(True)
+    out = sharding.all_to_all(x, mesh.tile_group)
+    out.backward(inp["g"][r].to(dev))
+    return {"out": out.detach().cpu(), "grad": x.grad.cpu(), "device": str(out.device)}
+
+
+def a2a_reference(xs: list) -> list:
+    """What an equal-split all_to_all gives each rank: chunk k of rank r's
+    result is chunk r of rank k's rows (its own transpose, so also the
+    backward's map of the cotangents)."""
+    d = len(xs)
+    return [torch.cat([xs[k].chunk(d)[r] for k in range(d)]) for r in range(d)]
+
+
+def a2a_inputs(world: int, rows: int = 6, width: int = 5, seed: int = 0) -> dict:
+    """Seeded rows and cotangents for `case_a2a`: (world, world * rows, width)."""
+    gen = torch.Generator().manual_seed(seed)
+    return {"x": torch.randn(world, world * rows, width, generator=gen),
+            "g": torch.randn(world, world * rows, width, generator=gen),
+            "mesh": (1, world)}
+
+
+CASES = {"a2a": case_a2a, "halo": case_halo, "step": case_step, "playback": case_playback,
          "trainer": case_trainer, "gband": case_gband, "gstep": case_gstep,
          "gdensify": case_gdensify, "gtrainer": case_gtrainer}
 
@@ -298,9 +331,14 @@ def main(argv) -> None:
     import torch.distributed as dist
     case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
     torch.set_num_threads(1)
+    backend = os.environ.get("GM_TEST_BACKEND", "gloo")
+    bound = {}
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+        bound["device_id"] = torch.device("cuda", rank)
     store = dist.FileStore(os.path.join(workdir, f"{case}_store"), world)
-    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
-                            timeout=timedelta(seconds=GROUP_TIMEOUT_S))
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                            timeout=timedelta(seconds=GROUP_TIMEOUT_S), **bound)
     try:
         inp = torch.load(os.path.join(workdir, f"{case}_in.pt"), weights_only=False)
         mesh = None          # a trainer makes its own
