@@ -10,7 +10,9 @@ Phases (any failure raises, so the exit code is not 0):
    that float32 matmuls and cuDNN convolutions stay out of TF32.
 2. build: compiles every CUDA kernel of the port from `csrc/` (one nvcc per
    source, in parallel) and prints nvcc's register / shared-memory lines
-   and each kernel's threads, shared memory and resident blocks per SM.
+   and each kernel's threads, shared memory and resident blocks per SM;
+   then the two host libraries (`csrc/acap.cpp`, `csrc/image.cpp`) with
+   g++, each one's build seconds printed.
 3. oracle: a small scene rendered on the card through `rasterize` agrees
    with the port's sequential oracle renderer.
 4. slice: a mesh-bound model at the size of a trained config-2 model
@@ -81,6 +83,12 @@ Phases (any failure raises, so the exit code is not 0):
    0 just before each command line, read just after); finite losses and
    parameters, no overflow. Step ms medians, dataset load seconds, and a
    profile of 3 more background steps (device operations, idle share).
+   The host codecs on config 2's PNGs: each decoded by the C++ path
+   (`csrc/image.cpp`) and by the plain numpy version, equal bytes; then
+   each re-written with its rows cycling through filters 1-4 (the port's
+   writer uses filter 0 alone) and decoded both ways again, equal to the
+   view, its rows unfiltered both ways on their own: equal bytes, ms per
+   view.
    Then one more background step with the kernels' wrappers recording
    their arguments (the concatenated ~0.9 M-row table, background rows
    first, its pair domain, cotangents from the real loss), and K1, K2 and
@@ -105,7 +113,10 @@ Phases (any failure raises, so the exit code is not 0):
    PSNR and SSIM equal to an in-process computation on the written PNGs
    (1e-5); `LPIPS` null and `LPIPS_uncalibrated` finite. The share of each
    test view the object covers, beside that of phase 8's config-2 test
-   views. JPEG decode s / MP, resample ms per image, dataset load s, the
+   views. Every JPEG decoded by the C++ path and by the plain numpy
+   version (equal bytes), each test view resized both ways (equal bytes).
+   JPEG decode s / MP and resample ms per image (C++ and plain), dataset
+   load s, the
    step median and LPIPS ms per view at 1600x900, beside the card's name
    and power limit. Then one more training step at 1600x900 with the
    kernels' wrappers recording their arguments, and K1, K2 and K3 held
@@ -213,8 +224,11 @@ Phases (any failure raises, so the exit code is not 0):
    receiver table (`scaling_gshard_*`; the owner's K3
    `scaling_gshard_owner_*`).
 
-The last three lines: the `kernels` JSON, the card's name and power limit
-(nvidia-smi), and the device JSON.
+The host codecs' figures (JPEG decode s / MP, PNG unfilter ms per view,
+resize ms, C++ and plain, and the two dataset loads) are printed on one
+line with the card's name and power limit and the host's CPU model and
+core count. The last three lines: the `kernels` JSON, the card's name and
+power limit (nvidia-smi), and the device JSON.
 """
 
 from __future__ import annotations
@@ -231,6 +245,7 @@ import sys
 import tempfile
 import time
 import types
+import zlib
 
 import numpy as np
 
@@ -544,6 +559,28 @@ def phase_build(_cuda):
         shape = _cuda.occupancy(name)
         log(f"[build] {name}: {shape['threads']} threads, {shape['smem_bytes']} B "
             f"shared memory per block, {shape['blocks_per_sm']} blocks per SM")
+    for name in _cuda.HOST_LIBRARIES:
+        t0 = time.perf_counter()
+        _cuda.host_library(name)
+        log(f"[build] host library {name} (g++) in {time.perf_counter() - t0:.1f} s")
+
+
+def host_cpu() -> str:
+    """The host's CPU as /proc/cpuinfo gives its first processor (model
+    name, vendor, family, model number, MHz; a virtual machine may hide the
+    name) and the logical core count: the host codecs' figures are this
+    CPU's."""
+    info = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as fh:
+        for line in fh:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    fields = [info.get("model name", "model name not given"),
+              *(f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model", "cpu MHz")
+                if k in info)]
+    return f"{', '.join(fields)}, {os.cpu_count()} cores"
 
 
 def phase_oracle(torch, port):
@@ -1521,6 +1558,70 @@ def rotmat2qvec(R):
     return q if q[0] >= 0 else -q
 
 
+def filtered_png(port, img):
+    """(H, W, C) uint8 as a PNG whose row y uses filter 1 + y % 4 (Sub, Up,
+    Average, Paeth), forward filtering in numpy -> (its bytes, its rows
+    (H, 1 + W C): filter byte, filtered bytes)."""
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int32)
+    zero_col = np.zeros((h, c), np.int32)
+    up = np.concatenate([np.zeros((1, w * c), np.int32), x[:-1]])
+    left = np.concatenate([zero_col, x[:, :-c]], 1)
+    ul = np.concatenate([zero_col, up[:, :-c]], 1)
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    ft = (1 + np.arange(h) % 4)[:, None]
+    pred = np.select([ft == 1, ft == 2, ft == 3], [left, up, (left + up) >> 1], paeth)
+    rows = np.concatenate([ft.astype(np.uint8), ((x - pred) & 0xFF).astype(np.uint8)], 1)
+    data = (port.png.PNG_MAGIC
+            + port.png._chunk(b"IHDR", np.array([w, h], ">u4").tobytes()
+                              + bytes([8, port.png._COLOR_TYPE[c], 0, 0, 0]))
+            + port.png._chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + port.png._chunk(b"IEND", b""))
+    return data, rows
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def png_codecs(port, paths):
+    """Each PNG decoded by the C++ path and the plain version (equal
+    bytes); then re-written with filtered rows (`filtered_png`) and decoded
+    both ways again (equal to the view), its rows unfiltered both ways on
+    their own (equal bytes). -> ms per view of each."""
+    ms = {k: [] for k in ("decode", "decode_plain", "filtered_decode",
+                          "filtered_decode_plain", "unfilter", "unfilter_plain")}
+    for path in paths:
+        with open(path, "rb") as fh:
+            data = fh.read()
+        img, t = timed(port.png.decode_png, data)
+        ms["decode"].append(t * 1e3)
+        plain, t = timed(port.png.decode_png_plain, data)
+        ms["decode_plain"].append(t * 1e3)
+        if not np.array_equal(img, plain):
+            raise AssertionError(f"{path}: the C++ PNG decode differs from the plain one")
+        fdata, rows = filtered_png(port, img)
+        for key, fn in (("filtered_decode", port.png.decode_png),
+                        ("filtered_decode_plain", port.png.decode_png_plain)):
+            back, t = timed(fn, fdata)
+            ms[key].append(t * 1e3)
+            if not np.array_equal(back, img):
+                raise AssertionError(f"{path}, filtered rows: {key} differs from the view")
+        bpp = img.shape[2]
+        un, t = timed(port.png._unfilter, rows, bpp)
+        ms["unfilter"].append(t * 1e3)
+        un_plain, t = timed(port.png._unfilter_plain, rows, bpp)
+        ms["unfilter_plain"].append(t * 1e3)
+        if not np.array_equal(un, un_plain):
+            raise AssertionError(f"{path}: the C++ unfilter differs from the plain one")
+    return {f"{k}_ms_median": float(np.median(v)) for k, v in ms.items()} | {
+        "views": len(paths)}
+
+
 def write_blender_set(torch, port, model, root, poses, cfg):
     """Config 2's dataset: the slice model at PIPE_SIZE^2 from `poses` (the
     last PIPE_TEST_VIEWS the test split), RGBA PNGs through the port's
@@ -1684,6 +1785,11 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
     proxy = write_blender_set(torch, port, model, data2, poses, cfg)
     log(f"[pipeline] config 2 dataset: {len(poses)} RGBA PNGs at {PIPE_SIZE}x{PIPE_SIZE} "
         f"written in {time.perf_counter() - t0:.1f} s")
+    views = sorted(os.path.join(data2, "views", n) for n in os.listdir(os.path.join(
+        data2, "views")))
+    res["png_codecs"] = png_codecs(port, views)
+    log("[pipeline] host PNG codecs (C++ and plain, ms per view): "
+        + json.dumps(res["png_codecs"]))
     base = ["-s", data2, "--input_mesh", proxy, "--init_target", str(INIT_TARGET),
             "--eval", "--iterations", str(PIPE_ITERS), "--save_iterations",
             str(PIPE_ITERS), "--test_iterations", str(PIPE_ITERS), *sched,
@@ -1859,8 +1965,9 @@ def write_eval_set(torch, port, model, root, cams, cfg):
     EVAL_HEIGHT, JPEGs through `write_jpeg` (EVAL_QUALITY, 4:2:0), a binary
     COLMAP model (one PINHOLE camera; points3D 1,000 of the object's
     Gaussians, seeded, coloured), an icosphere-2 proxy. Each JPEG decoded
-    again by `read_jpeg`: -> (proxy path, round-trip PSNR per view, decode
-    s per view, the decoded test views {file name: array})."""
+    again by `read_jpeg` (C++) and `read_jpeg_plain`, equal bytes: ->
+    (proxy path, round-trip PSNR per view, (C++, plain) decode s per view,
+    the decoded test views {file name: array})."""
     os.makedirs(os.path.join(root, "images"))
     white = torch.ones(3, device="cuda")
     psnrs, decode_s, decoded, images = [], [], {}, {}
@@ -1874,9 +1981,11 @@ def write_eval_set(torch, port, model, root, cams, cfg):
         name = f"{i:03d}.jpg"
         path = os.path.join(root, "images", name)
         port.jpeg.write_jpeg(path, u8, quality=EVAL_QUALITY, subsampling="4:2:0")
-        t0 = time.perf_counter()
-        back = port.jpeg.read_jpeg(path)
-        decode_s.append(time.perf_counter() - t0)
+        back, t = timed(port.jpeg.read_jpeg, path)
+        plain, t_plain = timed(port.jpeg.read_jpeg_plain, path)
+        if not np.array_equal(back, plain):
+            raise AssertionError(f"{name}: the C++ JPEG decode differs from the plain one")
+        decode_s.append((t, t_plain))
         mse = np.mean((back.astype(np.float64) - u8) ** 2)
         psnrs.append(float(10 * np.log10(255.0 ** 2 / mse)))
         if i % 8 == 0:                                   # llffhold 8: the test views
@@ -1950,11 +2059,13 @@ def phase_eval(torch, port, model, train_rt, tmpdir):
                jpeg_bytes_mean=float(np.mean([os.path.getsize(os.path.join(
                    base, "s", "images", n)) for n in sorted(os.listdir(
                        os.path.join(base, "s", "images")))])),
-               jpeg_decode_s_per_mp=float(np.median(decode_s)) / megapixels,
-               dataset_write_s=time.perf_counter() - t0)
+               jpeg_decode_s_per_mp=float(np.median([t for t, _ in decode_s])) / megapixels,
+               jpeg_decode_plain_s_per_mp=float(np.median([t for _, t in decode_s]))
+               / megapixels, dataset_write_s=time.perf_counter() - t0)
     log(f"[eval] {EVAL_VIEWS} JPEGs at {EVAL_WIDTH}x{EVAL_HEIGHT} (quality "
         f"{EVAL_QUALITY}, 4:2:0): round-trip PSNR min {min(psnrs):.2f} dB, mean "
-        f"{np.mean(psnrs):.2f}; decode {res['jpeg_decode_s_per_mp']:.4f} s/MP; written "
+        f"{np.mean(psnrs):.2f}; decode {res['jpeg_decode_s_per_mp']:.4f} s/MP (plain "
+        f"{res['jpeg_decode_plain_s_per_mp']:.4f}); written and decoded both ways "
         f"in {res['dataset_write_s']:.1f} s")
     if min(psnrs) < EVAL_MIN_PSNR:
         raise AssertionError(f"JPEG round trip below {EVAL_MIN_PSNR} dB: {psnrs}")
@@ -2019,11 +2130,14 @@ def phase_eval(torch, port, model, train_rt, tmpdir):
     method = os.path.join(model_dir, "test", f"ours_{EVAL_ITERS}")
     names = sorted(os.listdir(os.path.join(method, "gt")))
     assert len(names) == n_test, names
-    resample_ms, psnr_in, ssim_in = [], [], []
+    resample_ms, resample_plain_ms, psnr_in, ssim_in = [], [], [], []
     for i, name in enumerate(names):
-        t0 = time.perf_counter()
-        want = port.resample.resize(decoded[f"{8 * i:03d}.jpg"], (tw, th))
-        resample_ms.append((time.perf_counter() - t0) * 1e3)
+        want, t = timed(port.resample.resize, decoded[f"{8 * i:03d}.jpg"], (tw, th))
+        resample_ms.append(t * 1e3)
+        plain, t = timed(port.resample.resize_plain, decoded[f"{8 * i:03d}.jpg"], (tw, th))
+        resample_plain_ms.append(t * 1e3)
+        if not np.array_equal(want, plain):
+            raise AssertionError(f"{name}: the C++ resize differs from the plain one")
         gt = port.png.read_png(os.path.join(method, "gt", name))
         if not np.array_equal(gt, want):
             raise AssertionError(f"gt {name} differs from resize(read_jpeg()) by "
@@ -2085,6 +2199,7 @@ def phase_eval(torch, port, model, train_rt, tmpdir):
         load_s=(rows["scene"][0][0] + rows["upload"][0][0]) / 1e3,
         render_load_s=rows["scene"][1][0] / 1e3,
         resample_ms_per_image=float(np.median(resample_ms)),
+        resample_plain_ms_per_image=float(np.median(resample_plain_ms)),
         lpips_ms_per_view=float(np.median([t for t, _ in lpips_rows])),
         psnr=results["PSNR"], ssim=results["SSIM"],
         lpips_uncalibrated=results["LPIPS_uncalibrated"],
@@ -3403,6 +3518,18 @@ def main() -> int:
         f"object covers {np.mean(evaluation['object_coverage']):.4f} of a test view "
         f"(phase 8's: {np.mean(evaluation['phase8_object_coverage']):.4f}); kernel "
         f"checks {evaluation['kernel_check_s']:.1f} s of the phase")
+    codecs = pipeline["png_codecs"]
+    log(f"[done] host codecs on {smi}, host CPU: {host_cpu()} (one core a call): JPEG "
+        f"decode {evaluation['jpeg_decode_s_per_mp']:.4f} s/MP (plain "
+        f"{evaluation['jpeg_decode_plain_s_per_mp']:.4f}); PNG unfilter of an "
+        f"{PIPE_SIZE}x{PIPE_SIZE} RGBA view with filtered rows "
+        f"{codecs['unfilter_ms_median']:.2f} ms (plain {codecs['unfilter_plain_ms_median']:.1f}), "
+        f"its decode {codecs['filtered_decode_ms_median']:.2f} ms (plain "
+        f"{codecs['filtered_decode_plain_ms_median']:.1f}); resize 1920x1080 -> 1600x900 "
+        f"{evaluation['resample_ms_per_image']:.1f} ms (plain "
+        f"{evaluation['resample_plain_ms_per_image']:.1f}); dataset loads: config 2 "
+        f"(Blender, {PIPE_VIEWS + PIPE_TEST_VIEWS} PNGs) {pipeline['config2']['load_s']:.2f} s, "
+        f"eval ({EVAL_VIEWS} JPEGs at -r -1) {evaluation['load_s']:.2f} s")
     log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} ("
         f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks over {shard['backend']} on cards "
         f"{shard['cards']}): native ACAP {acap['host_ms']:.1f} ms per call on the host "

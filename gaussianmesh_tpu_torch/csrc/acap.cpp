@@ -85,9 +85,10 @@ extern "C" {
 // v_ref, v_def: (n, 3) float64; neighbors: (n, max_degree) int32 and
 // mask: (n, max_degree) uint8 (deform.build_one_ring); r_out, s_out: (n, 9)
 // float32 row-major. n_threads <= 0: OpenMP's default (every core).
-void gm_acap_get_rs(const double* v_ref, const double* v_def, int n_vertices,
-                    const int* neighbors, const unsigned char* mask,
-                    int max_degree, float* r_out, float* s_out, int n_threads) {
+// Returns 0 (the status every host entry point returns).
+int gm_acap_get_rs(const double* v_ref, const double* v_def, int n_vertices,
+                   const int* neighbors, const unsigned char* mask,
+                   int max_degree, float* r_out, float* s_out, int n_threads) {
 #ifdef _OPENMP
   const int threads = n_threads > 0 ? n_threads : omp_get_max_threads();
 #pragma omp parallel for schedule(static) num_threads(threads)
@@ -145,6 +146,7 @@ void gm_acap_get_rs(const double* v_ref, const double* v_def, int n_vertices,
       s_out[static_cast<long>(v) * 9 + i] = static_cast<float>(s[i]);
     }
   }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,0 +1,511 @@
+// The host image codecs of the training path: baseline JPEG decoding, PNG
+// row unfiltering and PIL's bicubic resampling pass, each returning the
+// bytes of its plain numpy version in `io/jpeg.py`, `io/png.py` and
+// `io/resample.py` (which are themselves PIL 12's bits, checked against
+// PIL by the tests). The parsing of markers, chunks and filter
+// coefficients stays in Python: it is per file or per output size, not per
+// sample.
+//
+// - gm_jpeg_scan: one scan's entropy-coded data -> the zig-zag
+//   coefficients of each block it codes, DC undifferenced within each
+//   restart interval. Huffman symbols are found by one lookup in a 16-bit
+//   peek table per table; bits past the end of an interval read as zeros,
+//   and an interval that needs them is truncated.
+// - gm_jpeg_planes: dequantisation, libjpeg-turbo's islow IDCT
+//   (`jidctint.c`), fancy upsampling (`jdsample.c`) and the fixed-point
+//   YCbCr -> RGB tables (`jdcolor.c`), cropped to the frame.
+// - gm_png_unfilter: PNG filters 0-4 row after row over bytes.
+// - gm_resample_pass: one 8-bit bicubic pass of `Resample.c` along an axis.
+//
+// Integer arithmetic wraps as numpy's int32 does (built with -fwrapv), so
+// even out-of-range coefficients of a corrupt file give the plain
+// version's bytes. Single-threaded within a call, as PIL is.
+//
+// Host code, not a TPU kernel: built by `ops/_cuda.py::host_library` with
+// g++, loaded with ctypes (which releases the GIL around each call).
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+// entry-point status codes (io/jpeg.py and io/png.py name them)
+constexpr int kOk = 0;
+constexpr int kTruncated = 1;       // an interval's data ends early
+constexpr int kNoCode = 2;          // no Huffman code matches
+constexpr int kFewIntervals = 3;    // fewer restart intervals than the scan needs
+constexpr int kBadMagnitude = 4;    // a DC magnitude category over 16
+constexpr int kBadFilter = 5;       // a PNG filter type over 4
+
+// zig-zag position -> natural (row-major) index in the 8x8 block
+constexpr int kZigzag[64] = {
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// A Huffman table as a 65,536-entry peek table: the code length << 8 | the
+// symbol of every 16-bit window that starts with a code word, 0 where none
+// does (jpeg._decode_tables' `slow` table: codes in Annex C order, a code
+// word that overflows its length clipped off the table's end).
+struct Huffman {
+  std::vector<uint16_t> peek = std::vector<uint16_t>(1 << 16, 0);
+  // the entries of code words of up to kFastBits bits by the window's first
+  // kFastBits bits (0 where the code word is longer: look in `peek`)
+  static constexpr int kFastBits = 9;
+  uint16_t fast[1 << kFastBits];
+
+  Huffman(const int32_t* bits, int n_vals, const uint8_t* vals) {
+    int64_t code = 0;
+    int k = 0;
+    for (int length = 1; length <= 16; ++length) {
+      for (int i = 0; i < bits[length - 1] && k < n_vals; ++i, ++k) {
+        const int64_t lo = code << (16 - length);
+        const int64_t hi = std::min<int64_t>((code + 1) << (16 - length), 1 << 16);
+        for (int64_t w = lo; w < hi; ++w)
+          peek[w] = static_cast<uint16_t>(length << 8 | vals[k]);
+        ++code;
+      }
+      code <<= 1;
+    }
+    for (int i = 0; i < (1 << kFastBits); ++i) {
+      const uint16_t e = peek[i << (16 - kFastBits)];
+      fast[i] = (e >> 8) <= kFastBits ? e : 0;
+    }
+  }
+
+  uint16_t lookup(uint32_t window16) const {
+    const uint16_t e = fast[window16 >> (16 - kFastBits)];
+    return e ? e : peek[window16];
+  }
+};
+
+// One restart interval's unstuffed bytes, read MSB first through a 64-bit
+// buffer; bytes past the end read as zeros (the padding of
+// jpeg._windows). `p` counts the bits consumed.
+class Bits {
+ public:
+  Bits(const uint8_t* data, int64_t n) : data_(data), n_(n) {}
+
+  // Before a symbol: false where the plain walk's window W[p >> 3] would
+  // be past its table (an IndexError there: the interval is truncated).
+  // Else at least 32 bits are buffered, a code word and its value bits.
+  bool ready() {
+    if ((p >> 3) > n_ + 1) return false;
+    if (nbits_ <= 32 && pos_ + 4 <= n_) {
+      const uint8_t* b = data_ + pos_;
+      acc_ |= static_cast<uint64_t>(uint32_t(b[0]) << 24 | uint32_t(b[1]) << 16 |
+                                    uint32_t(b[2]) << 8 | b[3]) << (32 - nbits_);
+      pos_ += 4;
+      nbits_ += 32;
+    }
+    while (nbits_ <= 56) {
+      acc_ |= static_cast<uint64_t>(pos_ < n_ ? data_[pos_] : 0) << (56 - nbits_);
+      ++pos_;
+      nbits_ += 8;
+    }
+    return true;
+  }
+  uint32_t peek16() const { return static_cast<uint32_t>(acc_ >> 48); }
+  uint32_t take(int n) {           // n in 1..16
+    const uint32_t v = static_cast<uint32_t>(acc_ >> (64 - n));
+    acc_ <<= n;
+    nbits_ -= n;
+    p += n;
+    return v;
+  }
+  int64_t p = 0;
+
+ private:
+  const uint8_t* data_;
+  int64_t n_;
+  int64_t pos_ = 0;
+  uint64_t acc_ = 0;
+  int nbits_ = 0;
+};
+
+// The next symbol: -> status and its symbol, the code word consumed.
+inline int symbol(Bits& in, const Huffman& t, int* sym) {
+  if (!in.ready()) return kTruncated;
+  const uint16_t e = t.lookup(in.peek16());
+  if ((e >> 8) == 0) return kNoCode;
+  in.take(e >> 8);
+  *sym = e & 0xFF;
+  return kOk;
+}
+
+// `s` (1..16) magnitude bits, extended to their signed value (F.2.2.1).
+inline int32_t value(Bits& in, int s) {
+  const int32_t x = static_cast<int32_t>(in.take(s));
+  return x < (1 << (s - 1)) ? x - ((1 << s) - 1) : x;
+}
+
+// One pass of `jidctint.c` over 8 inputs g[0], g[stride], ... -> the 8
+// outputs descaled by `shift`, written at out[0], out[stride], ...
+inline void idct_1d(const int32_t* g, int stride, int shift, int32_t* out) {
+  const int32_t g0 = g[0], g1 = g[stride], g2 = g[2 * stride], g3 = g[3 * stride];
+  const int32_t g4 = g[4 * stride], g5 = g[5 * stride], g6 = g[6 * stride],
+                g7 = g[7 * stride];
+  int32_t z1 = (g2 + g6) * 4433;
+  const int32_t tmp2 = z1 + g6 * -15137;
+  const int32_t tmp3 = z1 + g2 * 6270;
+  const int32_t tmp0 = (g0 + g4) * 8192;
+  const int32_t tmp1 = (g0 - g4) * 8192;
+  const int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  int32_t t0 = g7, t1 = g5, t2 = g3, t3 = g1;
+  z1 = t0 + t3;
+  int32_t z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
+  const int32_t z5 = (z3 + z4) * 9633;
+  t0 *= 2446;
+  t1 *= 16819;
+  t2 *= 25172;
+  t3 *= 12299;
+  z1 *= -7373;
+  z2 *= -20995;
+  z3 = z3 * -16069 + z5;
+  z4 = z4 * -3196 + z5;
+  t0 += z1 + z3;
+  t1 += z2 + z4;
+  t2 += z2 + z3;
+  t3 += z1 + z4;
+  const int32_t half = 1 << (shift - 1);
+  out[0] = (tmp10 + t3 + half) >> shift;
+  out[stride] = (tmp11 + t2 + half) >> shift;
+  out[2 * stride] = (tmp12 + t1 + half) >> shift;
+  out[3 * stride] = (tmp13 + t0 + half) >> shift;
+  out[4 * stride] = (tmp13 - t0 + half) >> shift;
+  out[5 * stride] = (tmp12 - t1 + half) >> shift;
+  out[6 * stride] = (tmp11 - t2 + half) >> shift;
+  out[7 * stride] = (tmp10 - t3 + half) >> shift;
+}
+
+// One component's blocks (nby x nbx, zig-zag) -> its sample plane
+// (nby * 8, nbx * 8), as jpeg._idct: dequantised in int32, columns then
+// rows, clamped to -128..127 and shifted to 0..255.
+void idct_plane(const int32_t* coef, const int32_t* q, int nby, int nbx,
+                std::vector<uint8_t>* plane) {
+  const int64_t w = static_cast<int64_t>(nbx) * 8;
+  plane->resize(static_cast<size_t>(nby) * 8 * w);
+  int32_t nat[64], ws[64], out[64];
+  for (int by = 0; by < nby; ++by)
+    for (int bx = 0; bx < nbx; ++bx) {
+      const int32_t* zz = coef + (static_cast<int64_t>(by) * nbx + bx) * 64;
+      uint8_t* dst = plane->data() + static_cast<int64_t>(by) * 8 * w + bx * 8;
+      int32_t ac = 0;
+      for (int k = 1; k < 64; ++k) ac |= zz[k];
+      const int32_t dc = zz[0] * q[0];
+      if (ac == 0 && dc < (1 << 16) && dc >= -(1 << 16)) {
+        // both passes' shortcuts below: every sample (4 DC + 16) >> 5
+        const uint8_t v = static_cast<uint8_t>(
+            std::min(std::max((4 * dc + 16) >> 5, -128), 127) + 128);
+        for (int r = 0; r < 8; ++r) std::memset(dst + r * w, v, 8);
+        continue;
+      }
+      for (int k = 0; k < 64; ++k) nat[kZigzag[k]] = zz[k] * q[k];
+      for (int c = 0; c < 8; ++c) {
+        const int32_t* g = nat + c;
+        // a column of zero AC terms and a DC term whose << 13 cannot wrap:
+        // the full pass gives DC * 4 in every row
+        if ((g[8] | g[16] | g[24] | g[32] | g[40] | g[48] | g[56]) == 0 &&
+            g[0] < (1 << 18) && g[0] >= -(1 << 18)) {
+          for (int r = 0; r < 8; ++r) ws[8 * r + c] = g[0] * 4;
+        } else {
+          idct_1d(g, 8, 11, ws + c);    // 13 - PASS1_BITS
+        }
+      }
+      for (int r = 0; r < 8; ++r) {
+        const int32_t* g = ws + 8 * r;
+        // the same shortcut along a row: (DC * 8192 + 2^17) >> 18 everywhere
+        if ((g[1] | g[2] | g[3] | g[4] | g[5] | g[6] | g[7]) == 0 &&
+            g[0] < (1 << 18) && g[0] >= -(1 << 18)) {
+          for (int c = 0; c < 8; ++c) out[8 * r + c] = (g[0] + 16) >> 5;
+        } else {
+          idct_1d(g, 1, 18, out + 8 * r);   // 13 + 2 + 3
+        }
+      }
+      for (int r = 0; r < 8; ++r)
+        for (int c = 0; c < 8; ++c)
+          dst[r * w + c] = static_cast<uint8_t>(std::min(std::max(out[8 * r + c], -128), 127) + 128);
+    }
+}
+
+// Row y of `jdsample.c`'s upsampling by (ry, rx), each 1 or 2, of the
+// (rows x cols) corner of a plane of row stride `stride` -> the first
+// cols * rx samples of `out` (jpeg._upsample, one output row).
+void upsample_row(const uint8_t* p, int64_t stride, int rows, int cols, int ry, int rx,
+                  int64_t y, int32_t* cs, int32_t* out) {
+  const int sy = static_cast<int>(y / ry);
+  const uint8_t* row = p + sy * stride;
+  if (rx == 2 && cols > 2) {
+    // h2v2: vertical sums 3 * this + the nearer row, then a 1/16 triangle
+    // along the row; h2v1: the row itself, then 1/4
+    int bias0 = 1, bias1 = 2, shift = 2;
+    if (ry == 2) {
+      const int ny = (y & 1) ? std::min(sy + 1, rows - 1) : std::max(sy - 1, 0);
+      const uint8_t* near = p + ny * stride;
+      for (int x = 0; x < cols; ++x) cs[x] = 3 * row[x] + near[x];
+      bias0 = 8, bias1 = 7, shift = 4;
+    } else {
+      for (int x = 0; x < cols; ++x) cs[x] = row[x];
+    }
+    for (int x = 0; x < cols; ++x) {
+      const int32_t left = cs[x > 0 ? x - 1 : 0], right = cs[x < cols - 1 ? x + 1 : x];
+      out[2 * x] = (3 * cs[x] + left + bias0) >> shift;
+      out[2 * x + 1] = (3 * cs[x] + right + bias1) >> shift;
+    }
+    return;
+  }
+  if (ry == 2 && rx == 1) {         // h1v2
+    const int ny = (y & 1) ? std::min(sy + 1, rows - 1) : std::max(sy - 1, 0);
+    const uint8_t* near = p + ny * stride;
+    const int bias = (y & 1) ? 2 : 1;
+    for (int x = 0; x < cols; ++x) out[x] = (3 * row[x] + near[x] + bias) >> 2;
+    return;
+  }
+  // 1:1, or h2v1 / h2v2 at widths of 1-2 (replicated)
+  if (rx == 1) {
+    for (int x = 0; x < cols; ++x) out[x] = row[x];
+  } else {
+    for (int x = 0; x < cols; ++x) out[2 * x] = out[2 * x + 1] = row[x];
+  }
+}
+
+inline uint8_t clip255(int32_t v) { return static_cast<uint8_t>(std::min(std::max(v, 0), 255)); }
+
+}  // namespace
+
+extern "C" {
+
+// One sequential scan. `data` (n bytes) is the file from the scan's first
+// entropy-coded byte on. Its restart intervals are the runs between RSTn
+// markers up to the first other marker, stuffed zeros removed (as
+// jpeg._entropy_segments); fewer than ceil(n_mcus / interval) of them is
+// kFewIntervals (their count in *n_found). Each MCU holds `per_mcu` blocks;
+// block j of an MCU is of component slot comp[j] and uses DC table dc_tab[j]
+// and AC table ac_tab[j] of `tables` ((n_tables, 17) int32: the number of
+// symbols given, then the 16 counts of DHT) and `vals` ((n_tables,
+// vals_stride) uint8). The i-th block of the scan goes to coef[dest[i] * 64]
+// (zeroed first), 64 zig-zag int32. *used: the bytes the entropy-coded
+// data spans.
+int gm_jpeg_scan(const uint8_t* data, int64_t n, int n_mcus, int interval, int per_mcu,
+                 const int32_t* comp, const int32_t* dc_tab, const int32_t* ac_tab,
+                 const int32_t* tables, const uint8_t* vals, int vals_stride,
+                 int n_tables, const int32_t* dest, int32_t* coef, int64_t* used,
+                 int32_t* n_found) {
+  // the intervals: [start, end) spans of `data` and where the data ends
+  std::vector<int64_t> cuts{0};
+  int64_t end = n;
+  for (int64_t i = 0; i + 1 < n; ++i) {
+    if (data[i] != 0xFF) continue;
+    const uint8_t next = data[i + 1];
+    if (next == 0) continue;
+    if (next >= 0xD0 && next <= 0xD7) {
+      cuts.push_back(i);
+      cuts.push_back(i + 2);
+      ++i;
+      continue;
+    }
+    end = i;
+    break;
+  }
+  cuts.push_back(end);
+  *used = end;
+  const int n_seg = static_cast<int>(cuts.size() / 2);
+  if (interval <= 0) interval = n_mcus;
+  const int n_int = n_mcus > 0 ? (n_mcus + interval - 1) / interval : 0;
+  *n_found = n_seg;
+  if (n_seg < n_int) return kFewIntervals;
+
+  std::vector<Huffman> huff;
+  huff.reserve(n_tables);
+  for (int t = 0; t < n_tables; ++t)
+    huff.emplace_back(tables + 17 * t + 1, tables[17 * t], vals + static_cast<int64_t>(t) * vals_stride);
+
+  std::vector<uint8_t> seg;
+  int64_t block = 0;
+  for (int it = 0; it < n_int; ++it) {
+    // the interval's bytes, stuffed zeros removed, then zeros
+    const int64_t a = cuts[2 * it], b = cuts[2 * it + 1];
+    seg.clear();
+    for (int64_t i = a; i < b; ++i)
+      if (!(i > a && data[i] == 0 && data[i - 1] == 0xFF)) seg.push_back(data[i]);
+    const int64_t len = static_cast<int64_t>(seg.size());
+    Bits in(seg.data(), len);
+    int32_t pred[4] = {0, 0, 0, 0};     // DC predictors by component slot
+    const int m = std::min(interval, n_mcus - it * interval);
+    for (int mcu = 0; mcu < m; ++mcu)
+      for (int j = 0; j < per_mcu; ++j, ++block) {
+        int32_t* zz = coef + static_cast<int64_t>(dest[block]) * 64;
+        std::memset(zz, 0, 64 * sizeof(int32_t));
+        int sym, st;
+        if ((st = symbol(in, huff[dc_tab[j]], &sym)) != kOk) return st;
+        if (sym > 16) return kBadMagnitude;
+        pred[comp[j]] += sym ? value(in, sym) : 0;
+        zz[0] = pred[comp[j]];
+        const Huffman& ac = huff[ac_tab[j]];
+        for (int k = 1; k < 64; ++k) {
+          if ((st = symbol(in, ac, &sym)) != kOk) return st;
+          const int run = sym >> 4, s = sym & 15;
+          if (s == 0) {
+            if (run != 15) break;       // end of block
+            k += 15;                    // ZRL: sixteen zeros
+            continue;
+          }
+          k += run;
+          const int32_t v = value(in, s);
+          if (k < 64) zz[k] = v;
+        }
+      }
+    const int64_t p = in.p;
+    if (p > 8 * len) return kTruncated;
+  }
+  return kOk;
+}
+
+// The frame's planes -> the decoded image. Component c's blocks (nby[c] x
+// nbx[c], zig-zag) start at coef[offset[c] * 64] with its table
+// q[c * 64 ...] (zig-zag order); its samples are its (rows[c], cols[c])
+// corner, upsampled by (ry[c], rx[c]) and cropped to height x width.
+// color: 0 one gray plane -> (H, W); 1 YCbCr -> RGB; 2 the three planes as
+// they are -> (H, W, 3).
+int gm_jpeg_planes(const int32_t* coef, int n_comp, const int64_t* offset,
+                   const int32_t* nby, const int32_t* nbx, const int32_t* rows,
+                   const int32_t* cols, const int32_t* ry, const int32_t* rx,
+                   const int32_t* q, int height, int width, int color, uint8_t* out) {
+  std::vector<std::vector<uint8_t>> plane(n_comp);
+  std::vector<std::vector<int32_t>> line(n_comp);
+  int64_t longest = 0;
+  for (int c = 0; c < n_comp; ++c) {
+    idct_plane(coef + offset[c] * 64, q + 64 * c, nby[c], nbx[c], &plane[c]);
+    line[c].resize(static_cast<size_t>(cols[c]) * rx[c]);
+    longest = std::max<int64_t>(longest, cols[c]);
+  }
+  std::vector<int32_t> cs(longest);
+  // jdcolor.c's tables: 16-bit fixed point, ONE_HALF rounding
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+  for (int i = 0; i < 256; ++i) {
+    const int32_t x = i - 128;
+    cr_r[i] = (91881 * x + 32768) >> 16;     // FIX(1.40200)
+    cb_b[i] = (116130 * x + 32768) >> 16;    // FIX(1.77200)
+    cr_g[i] = -46802 * x;                    // -FIX(0.71414)
+    cb_g[i] = -22554 * x + 32768;            // -FIX(0.34414), ONE_HALF
+  }
+  const int64_t w = width;
+  for (int64_t y = 0; y < height; ++y) {
+    for (int c = 0; c < n_comp; ++c)
+      upsample_row(plane[c].data(), static_cast<int64_t>(nbx[c]) * 8, rows[c], cols[c],
+                   ry[c], rx[c], y, cs.data(), line[c].data());
+    if (color == 0) {
+      uint8_t* o = out + y * w;
+      for (int64_t x = 0; x < w; ++x) o[x] = static_cast<uint8_t>(line[0][x]);
+    } else if (color == 2) {
+      uint8_t* o = out + y * w * 3;
+      for (int64_t x = 0; x < w; ++x)
+        for (int c = 0; c < 3; ++c) o[3 * x + c] = static_cast<uint8_t>(line[c][x]);
+    } else {
+      const int32_t *yy = line[0].data(), *cb = line[1].data(), *cr = line[2].data();
+      uint8_t* o = out + y * w * 3;
+      for (int64_t x = 0; x < w; ++x) {
+        o[3 * x] = clip255(yy[x] + cr_r[cr[x]]);
+        o[3 * x + 1] = clip255(yy[x] + ((cb_g[cb[x]] + cr_g[cr[x]]) >> 16));
+        o[3 * x + 2] = clip255(yy[x] + cb_b[cb[x]]);
+      }
+    }
+  }
+  return kOk;
+}
+
+// PNG rows (h, 1 + row_bytes): a filter type byte, then the filtered bytes
+// -> out (h, row_bytes), each byte predicted from the reconstructed byte
+// `bpp` to its left, the one above and the one above that, as libpng.
+int gm_png_unfilter(const uint8_t* rows, int64_t h, int64_t row_bytes, int bpp,
+                    uint8_t* out) {
+  const std::vector<uint8_t> zero(row_bytes, 0);
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t* src = rows + y * (row_bytes + 1);
+    const uint8_t ft = src[0];
+    ++src;
+    uint8_t* cur = out + y * row_bytes;
+    const uint8_t* up = y ? out + (y - 1) * row_bytes : zero.data();
+    switch (ft) {
+      case 0:
+        std::memcpy(cur, src, row_bytes);
+        break;
+      case 1:
+        for (int64_t i = 0; i < row_bytes; ++i)
+          cur[i] = static_cast<uint8_t>(src[i] + (i >= bpp ? cur[i - bpp] : 0));
+        break;
+      case 2:
+        for (int64_t i = 0; i < row_bytes; ++i) cur[i] = static_cast<uint8_t>(src[i] + up[i]);
+        break;
+      case 3:
+        for (int64_t i = 0; i < row_bytes; ++i) {
+          const int a = i >= bpp ? cur[i - bpp] : 0;
+          cur[i] = static_cast<uint8_t>(src[i] + ((a + up[i]) >> 1));
+        }
+        break;
+      case 4:
+        for (int64_t i = 0; i < row_bytes; ++i) {
+          const int a = i >= bpp ? cur[i - bpp] : 0, b = up[i], c = i >= bpp ? up[i - bpp] : 0;
+          const int p = a + b - c;
+          const int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+          const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          cur[i] = static_cast<uint8_t>(src[i] + pred);
+        }
+        break;
+      default:
+        return kBadFilter;
+    }
+  }
+  return kOk;
+}
+
+// One pass of Resample.c's 8-bit resampler over an (h, w, c) uint8 image
+// along `axis` (1: columns, to out_size; 0: rows, to out_size). Output i
+// sums, from 1 << 21, source pixel min(xmin[i] + t, last) times
+// k[i * ksize + t] for t = 0 .. ksize - 1 (the 22-bit fixed-point weights
+// of resample.coefficients), shifted by 22 and clipped to 0..255.
+int gm_resample_pass(const uint8_t* src, int64_t h, int64_t w, int64_t c, int axis,
+                     int64_t out_size, const int32_t* xmin, const int32_t* k, int ksize,
+                     uint8_t* dst) {
+  constexpr int kPrecisionBits = 32 - 8 - 2;
+  const int32_t start = 1 << (kPrecisionBits - 1);
+  if (axis == 1) {
+    const int64_t last = w - 1;
+    int32_t acc[4];
+    for (int64_t y = 0; y < h; ++y) {
+      const uint8_t* row = src + y * w * c;
+      uint8_t* o = dst + y * out_size * c;
+      for (int64_t x = 0; x < out_size; ++x) {
+        for (int ch = 0; ch < c; ++ch) acc[ch] = start;
+        const int32_t* kx = k + x * ksize;
+        for (int t = 0; t < ksize; ++t) {
+          const uint8_t* px = row + std::min<int64_t>(xmin[x] + t, last) * c;
+          for (int ch = 0; ch < c; ++ch) acc[ch] += px[ch] * kx[t];
+        }
+        for (int ch = 0; ch < c; ++ch) o[x * c + ch] = clip255(acc[ch] >> kPrecisionBits);
+      }
+    }
+    return kOk;
+  }
+  const int64_t last = h - 1, n = w * c;
+  std::vector<int32_t> acc(n);
+  for (int64_t y = 0; y < out_size; ++y) {
+    std::fill(acc.begin(), acc.end(), start);
+    const int32_t* ky = k + y * ksize;
+    for (int t = 0; t < ksize; ++t) {
+      const uint8_t* row = src + std::min<int64_t>(xmin[y] + t, last) * n;
+      const int32_t wt = ky[t];
+      for (int64_t i = 0; i < n; ++i) acc[i] += row[i] * wt;
+    }
+    uint8_t* o = dst + y * n;
+    for (int64_t i = 0; i < n; ++i) o[i] = clip255(acc[i] >> kPrecisionBits);
+  }
+  return kOk;
+}
+
+}  // extern "C"

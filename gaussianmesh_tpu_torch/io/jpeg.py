@@ -1,5 +1,5 @@
-"""Baseline JPEG with numpy alone: the machines the port runs on have no
-imaging package (the JAX package reads JPEGs with PIL).
+"""Baseline JPEG without an imaging package: the machines the port runs on
+have none (the JAX package reads JPEGs with PIL).
 
 `read_jpeg` decodes 8-bit sequential Huffman JPEGs (SOF0 baseline and SOF1
 extended) with 1 or 3 components, sampling factors 1-2 on each axis
@@ -21,11 +21,16 @@ EXIF orientation is ignored, as a plain `Image.open` ignores it.
 Progressive, arithmetic-coded, lossless and hierarchical files, 12-bit
 samples and 4-component (CMYK / YCCK) files raise with the cause.
 
-Entropy decoding is serial: one Python loop over the symbols, each
-decoded by one lookup in a 16-bit peek table that holds the code length,
-the run and the value when code and value bits fit in 16 bits (a second
-table and a bit read otherwise). Dequantisation, the IDCT, upsampling and
-colour conversion run vectorised over all blocks.
+`read_jpeg` parses the markers here and decodes each scan and the planes
+in the port's C++ (`csrc/image.cpp`, built by `ops/_cuda.py::host_library`
+at first use; a failed build raises). `read_jpeg_plain` is the same
+decoder in Python and numpy, the version the C++ is held to byte for byte:
+entropy decoding is one Python loop over the symbols, each decoded by one
+lookup in a 16-bit peek table that holds the code length, the run and the
+value when code and value bits fit in 16 bits (a second table and a bit
+read otherwise); dequantisation, the IDCT, upsampling and colour
+conversion run vectorised over all blocks. The training path never calls
+it.
 
 `write_jpeg` writes baseline JPEGs (JFIF, one interleaved scan): the
 Annex K quantisation and Huffman tables scaled by libjpeg's quality
@@ -40,6 +45,8 @@ import os
 import struct
 
 import numpy as np
+
+from gaussianmesh_tpu_torch.ops import _cuda
 
 JPEG_MAGIC = b"\xff\xd8\xff"
 
@@ -311,9 +318,13 @@ class _Frame:
                              "only 1 and 2 are read")
         self.mcux = -(-self.width // (8 * self.hmax))
         self.mcuy = -(-self.height // (8 * self.vmax))
-        # coefficient blocks of each component, over the MCU-padded grid
-        self.coef = [np.zeros((self.mcuy * v, self.mcux * h, 64), np.int32)
-                     for h, v in zip(self.h, self.v)]
+        # coefficient blocks of each component over the MCU-padded grid, all
+        # in one buffer: component c's (nby, nbx) blocks from block offset[c]
+        self.grid = [(self.mcuy * v, self.mcux * h) for h, v in zip(self.h, self.v)]
+        self.offset = np.cumsum([0] + [y * x for y, x in self.grid])
+        self.blocks = np.zeros((int(self.offset[-1]), 64), np.int32)
+        self.coef = [self.blocks[o:o + y * x].reshape(y, x, 64)
+                     for o, (y, x) in zip(self.offset, self.grid)]
         self.q = [None] * nf
 
     def comp_size(self, c):
@@ -322,52 +333,69 @@ class _Frame:
                 -(-self.width * self.h[c] // self.hmax))
 
 
-def _scan(frame: _Frame, seg: bytes, arr: np.ndarray, restart: int, qt, dc, ac, path):
-    """One SOS: decode its entropy-coded data (`arr` onwards) into
-    frame.coef. -> bytes of entropy-coded data consumed."""
-    ns = seg[0]
-    comps, tabs = [], []
-    for i in range(ns):
-        cid, t = seg[1 + 2 * i:3 + 2 * i]
-        if cid not in frame.ids:
-            raise ValueError(f"{path}: scan names component {cid}, not in the frame")
-        c = frame.ids.index(cid)
-        if (t >> 4) not in dc or (t & 15) not in ac:
-            raise ValueError(f"{path}: scan uses a Huffman table that is not defined")
-        if frame.tq[c] not in qt:
-            raise ValueError(f"{path}: quantisation table {frame.tq[c]} not defined")
-        if frame.q[c] is None:          # latched at the component's first scan
-            frame.q[c] = qt[frame.tq[c]]
-        comps.append(c)
-        tabs.append(dc[t >> 4] + ac[t & 15])
-    ss, se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahl) != (0, 63, 0):
-        raise ValueError(f"{path}: spectral selection {ss}-{se}, approximation "
-                         f"{ahl:#x}: a progressive scan")
+class _Scan:
+    """One SOS header against the frame: the scan's components, its blocks in
+    decode order and the Huffman tables of each block of an MCU."""
 
-    # the blocks in decode order: (component, block row, block column)
-    if ns == 1:
-        c = comps[0]
-        rows, cols = frame.comp_size(c)
-        by, bx = np.meshgrid(np.arange(-(-rows // 8)), np.arange(-(-cols // 8)),
-                             indexing="ij")
-        order = [(np.full(by.size, c), by.ravel(), bx.ravel())]
-        tables = [tabs[0]]
-        n_mcus = by.size
-    else:
-        my, mx = np.meshgrid(np.arange(frame.mcuy), np.arange(frame.mcux), indexing="ij")
-        my, mx = my.ravel(), mx.ravel()
-        order, tables = [], []
-        for c, t in zip(comps, tabs):
-            for v in range(frame.v[c]):
-                for h in range(frame.h[c]):
-                    order.append((np.full(my.size, c), my * frame.v[c] + v,
-                                  mx * frame.h[c] + h))
-                    tables.append(t)
-        n_mcus = my.size
-    # (n_mcus, blocks per MCU) -> decode order
-    bc, by, bx = (np.stack([o[i] for o in order], 1).ravel() for i in range(3))
-    per_mcu = len(tables)
+    def __init__(self, frame: _Frame, seg: bytes, qt, dc, ac, path):
+        ns = seg[0]
+        comps, tabs = [], []
+        for i in range(ns):
+            cid, t = seg[1 + 2 * i:3 + 2 * i]
+            if cid not in frame.ids:
+                raise ValueError(f"{path}: scan names component {cid}, not in the frame")
+            c = frame.ids.index(cid)
+            if (t >> 4) not in dc or (t & 15) not in ac:
+                raise ValueError(f"{path}: scan uses a Huffman table that is not defined")
+            if frame.tq[c] not in qt:
+                raise ValueError(f"{path}: quantisation table {frame.tq[c]} not defined")
+            if frame.q[c] is None:          # latched at the component's first scan
+                frame.q[c] = qt[frame.tq[c]]
+            comps.append(c)
+            tabs.append((t >> 4, t & 15))
+        ss, se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
+        if (ss, se, ahl) != (0, 63, 0):
+            raise ValueError(f"{path}: spectral selection {ss}-{se}, approximation "
+                             f"{ahl:#x}: a progressive scan")
+
+        # the blocks in decode order: (component, block row, block column)
+        if ns == 1:
+            c = comps[0]
+            rows, cols = frame.comp_size(c)
+            by, bx = np.meshgrid(np.arange(-(-rows // 8)), np.arange(-(-cols // 8)),
+                                 indexing="ij")
+            order = [(np.full(by.size, c), by.ravel(), bx.ravel())]
+            self.comp, self.tables = [c], [tabs[0]]
+            self.n_mcus = by.size
+        else:
+            my, mx = np.meshgrid(np.arange(frame.mcuy), np.arange(frame.mcux),
+                                 indexing="ij")
+            my, mx = my.ravel(), mx.ravel()
+            order, self.comp, self.tables = [], [], []
+            for c, t in zip(comps, tabs):
+                for v in range(frame.v[c]):
+                    for h in range(frame.h[c]):
+                        order.append((np.full(my.size, c), my * frame.v[c] + v,
+                                      mx * frame.h[c] + h))
+                        self.comp.append(c)
+                        self.tables.append(t)
+            self.n_mcus = my.size
+        self.comps = comps
+        # (n_mcus, blocks per MCU) -> decode order
+        self.bc, self.by, self.bx = (np.stack([o[i] for o in order], 1).ravel()
+                                     for i in range(3))
+
+
+def _scan_plain(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, ac,
+                path):
+    """Decode one scan's entropy-coded data (`arr` onwards) into frame.coef
+    in Python. -> bytes of entropy-coded data consumed."""
+    built = {}
+    for t in scan.tables:
+        if t not in built:
+            built[t] = (_decode_tables(*dc[t[0]], False) + _decode_tables(*ac[t[1]], True))
+    tables = [built[t] for t in scan.tables]
+    per_mcu, n_mcus, bc = len(tables), scan.n_mcus, scan.bc
 
     segs, used = _entropy_segments(arr)
     interval = restart or n_mcus
@@ -388,20 +416,96 @@ def _scan(frame: _Frame, seg: bytes, arr: np.ndarray, restart: int, qt, dc, ac, 
 
     # DC: each component's differences summed within each restart interval
     interval_of = np.arange(len(blocks)) // (interval * per_mcu)
-    for c in set(comps):
+    for c in set(scan.comps):
         sel = np.flatnonzero(bc == c)
         run = np.cumsum(blocks[sel, 0].astype(np.int64))
         first = np.flatnonzero(np.diff(interval_of[sel], prepend=-1))
         before = np.where(first > 0, run[first - 1], 0)
         run -= np.repeat(before, np.diff(np.append(first, len(sel))))
         blocks[sel, 0] = run
-    for c in set(comps):
+    for c in set(scan.comps):
         sel = bc == c
-        frame.coef[c][by[sel], bx[sel]] = blocks[sel]
+        frame.coef[c][scan.by[sel], scan.bx[sel]] = blocks[sel]
     return used
 
 
-def _decode(data: bytes, path) -> np.ndarray:
+def _scan_native(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, ac,
+                 path):
+    """`_scan_plain` in `csrc/image.cpp` (`gm_jpeg_scan`): the same
+    coefficients, the same errors. -> bytes of entropy-coded data consumed."""
+    keys = sorted({("dc", d) for d, _ in scan.tables} | {("ac", a) for _, a in scan.tables})
+    defs = [(dc if kind == "dc" else ac)[i] for kind, i in keys]
+    tables = np.zeros((len(keys), 17), np.int32)
+    vals = np.zeros((len(keys), max(1, max(len(v) for _, v in defs))), np.uint8)
+    for j, (bits, v) in enumerate(defs):
+        tables[j, 0], tables[j, 1:1 + len(bits)] = len(v), bits   # a cut DHT: fewer counts
+        vals[j, :len(v)] = np.frombuffer(v, np.uint8)
+    comp = np.array(scan.comp, np.int32)
+    dc_tab = np.array([keys.index(("dc", d)) for d, _ in scan.tables], np.int32)
+    ac_tab = np.array([keys.index(("ac", a)) for _, a in scan.tables], np.int32)
+    nbx = np.array([x for _, x in frame.grid], np.int64)
+    dest = (frame.offset[scan.bc] + scan.by * nbx[scan.bc] + scan.bx).astype(np.int32)
+    used, found = np.zeros(1, np.int64), np.zeros(1, np.int32)
+    status = _cuda.host_library("image").gm_jpeg_scan(
+        arr.ctypes.data, len(arr), scan.n_mcus, restart, len(scan.tables),
+        comp.ctypes.data, dc_tab.ctypes.data, ac_tab.ctypes.data, tables.ctypes.data,
+        vals.ctypes.data, vals.shape[1], len(keys), dest.ctypes.data,
+        frame.blocks.ctypes.data, used.ctypes.data, found.ctypes.data)
+    if status == 1:
+        raise ValueError(f"{path}: entropy-coded data ends early (truncated JPEG)")
+    if status == 2:
+        raise ValueError("corrupt JPEG data: no Huffman code matches")
+    if status == 3:
+        n_int = -(-scan.n_mcus // (restart or scan.n_mcus))
+        raise ValueError(f"{path}: {int(found[0])} restart intervals, {n_int} expected")
+    if status == 4:
+        raise ValueError(f"{path}: corrupt JPEG data: a DC magnitude category over 16")
+    if status:
+        raise RuntimeError(f"{path}: gm_jpeg_scan returned {status}")
+    return int(used[0])
+
+
+def _planes_plain(frame: _Frame, rgb: bool) -> np.ndarray:
+    """The frame's coefficients -> the image, in numpy."""
+    planes = []
+    for c in range(len(frame.ids)):
+        nby, nbx = frame.grid[c]
+        pix = _idct(frame.coef[c].reshape(-1, 64), frame.q[c])
+        pix = pix.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3).reshape(nby * 8, nbx * 8)
+        rows, cols = frame.comp_size(c)
+        p = _upsample(pix[:rows, :cols].astype(np.int32), frame.vmax // frame.v[c],
+                      frame.hmax // frame.h[c])
+        planes.append(p[:frame.height, :frame.width])
+    if len(planes) == 1:
+        return planes[0].astype(np.uint8)
+    if rgb:
+        return np.stack(planes, -1).astype(np.uint8)
+    return _ycc_to_rgb(*planes)
+
+
+def _planes_native(frame: _Frame, rgb: bool) -> np.ndarray:
+    """`_planes_plain` in `csrc/image.cpp` (`gm_jpeg_planes`)."""
+    n = len(frame.ids)
+    i32 = lambda v: np.ascontiguousarray(v, np.int32)  # noqa: E731
+    sizes = [frame.comp_size(c) for c in range(n)]
+    nby, nbx = i32([g[0] for g in frame.grid]), i32([g[1] for g in frame.grid])
+    rows, cols = i32([r for r, _ in sizes]), i32([c for _, c in sizes])
+    ry = i32([frame.vmax // v for v in frame.v])
+    rx = i32([frame.hmax // h for h in frame.h])
+    q = i32(np.stack(frame.q))
+    offset = np.ascontiguousarray(frame.offset[:n], np.int64)
+    out = np.empty((frame.height, frame.width) + (() if n == 1 else (3,)), np.uint8)
+    status = _cuda.host_library("image").gm_jpeg_planes(
+        frame.blocks.ctypes.data, n, offset.ctypes.data, nby.ctypes.data,
+        nbx.ctypes.data, rows.ctypes.data, cols.ctypes.data, ry.ctypes.data,
+        rx.ctypes.data, q.ctypes.data, frame.height, frame.width,
+        0 if n == 1 else 2 if rgb else 1, out.ctypes.data)
+    if status:
+        raise RuntimeError(f"gm_jpeg_planes returned {status}")
+    return out
+
+
+def _decode(data: bytes, path, native: bool) -> np.ndarray:
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{path}: not a JPEG")
     qt, dc, ac = {}, {}, {}
@@ -429,6 +533,8 @@ def _decode(data: bytes, path) -> np.ndarray:
                 pq, tq = seg[i] >> 4, seg[i] & 15
                 n = 128 if pq else 64
                 vals = np.frombuffer(seg[i + 1:i + 1 + n], ">u2" if pq else np.uint8)
+                if len(vals) != 64:
+                    raise ValueError(f"{path}: quantisation table {tq} is cut short")
                 qt[tq] = vals.astype(np.int64)
                 i += 1 + n
         elif marker == 0xC4:
@@ -437,7 +543,7 @@ def _decode(data: bytes, path) -> np.ndarray:
                 tc, th = seg[i] >> 4, seg[i] & 15
                 bits = tuple(seg[i + 1:i + 17])
                 vals = seg[i + 17:i + 17 + sum(bits)]
-                (ac if tc else dc)[th] = _decode_tables(bits, vals, bool(tc))
+                (ac if tc else dc)[th] = (bits, vals)
                 i += 17 + sum(bits)
         elif marker in (0xC0, 0xC1):
             frame = _Frame(seg, path)
@@ -456,42 +562,41 @@ def _decode(data: bytes, path) -> np.ndarray:
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError(f"{path}: scan before the frame header")
-            pos += _scan(frame, seg, np.frombuffer(data, np.uint8, offset=pos),
-                         restart, qt, dc, ac, path)
+            scan = _Scan(frame, seg, qt, dc, ac, path)
+            pos += (_scan_native if native else _scan_plain)(
+                frame, scan, np.frombuffer(data, np.uint8, offset=pos), restart, dc, ac,
+                path)
             scans += 1
     if frame is None or not scans:
         raise ValueError(f"{path}: no frame or no scan")
 
-    planes = []
     for c in range(len(frame.ids)):
         if frame.q[c] is None:
             raise ValueError(f"{path}: component {frame.ids[c]} has no scan")
-        nby, nbx = frame.coef[c].shape[:2]
-        pix = _idct(frame.coef[c].reshape(-1, 64), frame.q[c])
-        pix = pix.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3).reshape(nby * 8, nbx * 8)
-        rows, cols = frame.comp_size(c)
-        p = _upsample(pix[:rows, :cols].astype(np.int32), frame.vmax // frame.v[c],
-                      frame.hmax // frame.h[c])
-        planes.append(p[:frame.height, :frame.width])
-    if len(planes) == 1:
-        return planes[0].astype(np.uint8)
     if jfif:
         rgb = False
     elif adobe is not None:
         rgb = adobe == 0
     else:
         rgb = tuple(frame.ids) == (82, 71, 66)
-    if rgb:
-        return np.stack(planes, -1).astype(np.uint8)
-    return _ycc_to_rgb(*planes)
+    return (_planes_native if native else _planes_plain)(frame, rgb)
 
 
 def read_jpeg(path: str) -> np.ndarray:
     """A baseline / extended sequential 8-bit JPEG -> uint8 (H, W) gray or
-    (H, W, 3) RGB, the bits PIL 12 (libjpeg-turbo) decodes."""
+    (H, W, 3) RGB, the bits PIL 12 (libjpeg-turbo) decodes; decoded by
+    `csrc/image.cpp`."""
     with open(path, "rb") as f:
         data = f.read()
-    return _decode(data, path)
+    return _decode(data, path, native=True)
+
+
+def read_jpeg_plain(path: str) -> np.ndarray:
+    """`read_jpeg` in Python and numpy alone: the plain version the C++
+    decoder is held to (tests and `chip_smoke.py`; slow)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return _decode(data, path, native=False)
 
 
 # ---------------------------------------------------------------- encoder

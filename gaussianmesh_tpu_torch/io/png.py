@@ -10,6 +10,12 @@ to RGB or RGBA (the JAX reader's PIL path gives 16-bit gray unscaled and
 palette indices). `read_image` reads a JPEG (`io/jpeg.py`) or a PNG by its
 first bytes. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
 with filter type 0 on every row, and `write_png` writes what it returns.
+
+The row filters are undone by the port's C++ (`gm_png_unfilter` of
+`csrc/image.cpp`, built by `ops/_cuda.py::host_library` at first use; a
+failed build raises). `decode_png_plain` undoes them in numpy instead
+(`_unfilter_plain`), the version the C++ is held to byte for byte; the
+training path never calls it.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import zlib
 import numpy as np
 
 from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
+from gaussianmesh_tpu_torch.ops import _cuda
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 # channels -> PNG color type, for the 8-bit types `write_png` writes
@@ -59,17 +66,21 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(data)
 
 
-def _unfilter(ft: np.ndarray, raw: np.ndarray) -> np.ndarray:
-    """Undo the row filters. ft (H,) filter types, raw (H, W, C) filtered
-    bytes -> (H, W, C) uint8. Each byte's predictor reads its left, upper
-    and upper-left neighbours' reconstructed values, so the decode walks
-    anti-diagonals x + y = d (every cell of one diagonal depends only on
-    earlier diagonals), vectorised over each diagonal's cells."""
+def _unfilter_plain(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the row filters in numpy. rows (H, 1 + row bytes): each row's
+    filter type, then its filtered bytes; `bpp` the byte distance to the
+    left neighbour -> (H, row bytes) uint8. Each byte's predictor reads its
+    left, upper and upper-left neighbours' reconstructed values, so the
+    decode walks anti-diagonals x + y = d (every cell of one diagonal
+    depends only on earlier diagonals), vectorised over each diagonal's
+    cells."""
+    ft = rows[:, 0]
     if ft.max(initial=0) > 4:
         raise ValueError(f"unknown PNG filter type {int(ft.max())}")
+    raw = rows[:, 1:].reshape(len(rows), -1, bpp)
     h, w, c = raw.shape
     if not ft.any():
-        return raw
+        return raw.reshape(h, w * c)
     out = np.zeros((h + 1, w + 1, c), np.int32)       # a zero row and column
     ftc = ft.astype(np.int32)[:, None]
     src = raw.astype(np.int32)
@@ -86,7 +97,18 @@ def _unfilter(ft: np.ndarray, raw: np.ndarray) -> np.ndarray:
         pred = np.select([f == 1, f == 2, f == 3, f == 4],
                          [a, b, (a + b) >> 1, paeth], 0)
         out[y + 1, x + 1] = (src[y, x] + pred) & 0xFF
-    return out[1:, 1:].astype(np.uint8)
+    return out[1:, 1:].astype(np.uint8).reshape(h, w * c)
+
+
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """`_unfilter_plain` in `csrc/image.cpp` (`gm_png_unfilter`): row after
+    row, as libpng."""
+    rows = np.ascontiguousarray(rows)
+    out = np.empty((rows.shape[0], rows.shape[1] - 1), np.uint8)
+    if _cuda.host_library("image").gm_png_unfilter(
+            rows.ctypes.data, out.shape[0], out.shape[1], bpp, out.ctypes.data):
+        raise ValueError(f"unknown PNG filter type {int(rows[:, 0].max())}")
+    return out
 
 
 # Adam7 passes: (first column, first row, column step, row step)
@@ -125,6 +147,15 @@ def read_png(path: str) -> np.ndarray:
 
 def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """`read_png` of a PNG's bytes (`path` names it in errors)."""
+    return _decode(data, path, _unfilter)
+
+
+def decode_png_plain(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`decode_png` with the rows unfiltered in numpy (the plain version)."""
+    return _decode(data, path, _unfilter_plain)
+
+
+def _decode(data: bytes, path: str, unfilter) -> np.ndarray:
     if data[:8] != PNG_MAGIC:
         raise ValueError(f"{path}: not a PNG")
     pos, idat, header, plte, trns = 8, [], None, None, None
@@ -167,8 +198,7 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
         row_bytes = -(-pw * depth * c // 8)
         rows = raw[pos:pos + ph * (row_bytes + 1)].reshape(ph, row_bytes + 1)
         pos += ph * (row_bytes + 1)
-        un = _unfilter(rows[:, 0], rows[:, 1:].reshape(ph, row_bytes // bpp, bpp))
-        img[y0::dy, x0::dx] = _samples(un.reshape(ph, row_bytes), pw, depth, c)
+        img[y0::dy, x0::dx] = _samples(unfilter(rows, bpp), pw, depth, c)
     if color_type == 3:
         pal = np.zeros((256, 4), np.uint8)
         pal[:len(plte), :3] = plte

@@ -1,4 +1,4 @@
-"""PIL's default resize with numpy alone (the JAX reader resizes with
+"""PIL's default resize without PIL (the JAX reader resizes with
 `PIL.Image.resize`, whose default filter is BICUBIC for L, LA, RGB and
 RGBA; the machines the port runs on have no PIL).
 
@@ -13,6 +13,13 @@ RGBA; the machines the port runs on have no PIL).
   its size does not change);
 - LA and RGBA resized premultiplied by alpha (PIL's `La` / `RGBa` modes,
   rounded as `MULDIV255`) and divided back after, as `Image.resize` does.
+
+`resize` runs each pass in the port's C++ (`gm_resample_pass` of
+`csrc/image.cpp`, built by `ops/_cuda.py::host_library` at first use; a
+failed build raises); the coefficients and the alpha steps stay here in
+numpy. `resize_plain` runs the passes in numpy too (`_pass_plain`, one
+vectorised step per filter tap): the version the C++ is held to byte for
+byte, which the training path never calls.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from gaussianmesh_tpu_torch.ops import _cuda
 
 PRECISION_BITS = 32 - 8 - 2
 _SUPPORT = 2.0                          # bicubic
@@ -58,8 +67,8 @@ def coefficients(in_size: int, out_size: int):
     return xmin, fixed.astype(np.int32)
 
 
-def _pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One 8-bit pass along `axis` of an (H, W, C) uint8 image."""
+def _pass_plain(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit pass along `axis` of an (H, W, C) uint8 image, in numpy."""
     xmin, k = coefficients(img.shape[axis], out_size)
     src = np.ascontiguousarray(np.moveaxis(img, axis, 0))     # gathered as uint8
     acc = np.full((out_size,) + src.shape[1:], 1 << (PRECISION_BITS - 1), np.int32)
@@ -71,6 +80,22 @@ def _pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
+def _pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """`_pass_plain` in `csrc/image.cpp` (`gm_resample_pass`)."""
+    xmin, k = coefficients(img.shape[axis], out_size)
+    img = np.ascontiguousarray(img)
+    h, w, c = img.shape
+    out = np.empty((out_size, w, c) if axis == 0 else (h, out_size, c), np.uint8)
+    xmin = np.ascontiguousarray(xmin, np.int32)
+    k = np.ascontiguousarray(k)
+    status = _cuda.host_library("image").gm_resample_pass(
+        img.ctypes.data, h, w, c, axis, out_size, xmin.ctypes.data, k.ctypes.data,
+        k.shape[1], out.ctypes.data)
+    if status:
+        raise RuntimeError(f"gm_resample_pass returned {status}")
+    return out
+
+
 def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     t = a.astype(np.int32) * b + 128
     return (((t >> 8) + t) >> 8).astype(np.uint8)
@@ -80,6 +105,15 @@ def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """uint8 (H, W) gray or (H, W, C) with C in 1-4 (L, LA, RGB, RGBA) ->
     the (th, tw) image `PIL.Image.resize((tw, th))` gives; `img` itself
     where it already has that size."""
+    return _resize(img, size, _pass)
+
+
+def resize_plain(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """`resize` with both passes in numpy (the plain version)."""
+    return _resize(img, size, _pass_plain)
+
+
+def _resize(img: np.ndarray, size: tuple[int, int], one_pass) -> np.ndarray:
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"resize takes uint8, not {img.dtype}")
@@ -98,9 +132,9 @@ def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
         a = x[..., -1:].astype(np.int32)
         x = np.concatenate([_muldiv255(x[..., :-1], a), x[..., -1:]], -1)
     if tw != w:
-        x = _pass(x, tw, 1)
+        x = one_pass(x, tw, 1)
     if th != h:
-        x = _pass(x, th, 0)
+        x = one_pass(x, th, 0)
     if alpha:                           # back, as rgba2rgbA / La2LA
         a = x[..., -1:].astype(np.int32)
         color = x[..., :-1].astype(np.int32)

@@ -8,10 +8,10 @@ shared headers `csrc/*.cuh` and the flags, so an edited source is rebuilt
 and a stale library never loads.
 `build()` starts one `nvcc` per source, all at once.
 
-Host code (`csrc/<name>.cpp`, C++ with OpenMP: the deformation-gradient
-extractor) builds the same way with `g++` (`host_library`). A missing
-compiler or a failed build raises with the compiler's output: nothing falls
-back.
+Host code (`csrc/<name>.cpp`, C++: the deformation-gradient extractor with
+OpenMP, the image codecs of the training path) builds the same way with
+`g++` (`host_library`). A missing compiler or a failed build raises with the
+compiler's output: nothing falls back.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-HOST_FLAGS = ["-O3", "-std=c++17", "-fopenmp", "-shared", "-fPIC"]
+# -fwrapv: signed arithmetic wraps, as numpy's int32 does in the plain versions
+HOST_FLAGS = ["-O3", "-std=c++17", "-fopenmp", "-fwrapv", "-shared", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # library -> {C entry point: argtypes}; every entry point returns a
@@ -60,12 +61,27 @@ KERNELS = {
 }
 
 
-# host library -> {C entry point: argtypes}; these return nothing
+# host library -> {C entry point: argtypes}; every entry point returns an
+# int status, 0 when it succeeded (its caller names the others)
+_L = ctypes.c_int64
 HOST_LIBRARIES = {
     "acap": {
         # v_ref, v_def (n, 3) f64, n, neighbors (n, D) i32, mask (n, D) u8,
         # D, r_out, s_out (n, 9) f32, n_threads
         "gm_acap_get_rs": [_P, _P, _I, _P, _P, _I, _P, _P, _I],
+    },
+    "image": {
+        # data, n, n_mcus, interval, per_mcu, comp, dc_tab, ac_tab, tables,
+        # vals, vals_stride, n_tables, dest, coef, used, n_found
+        "gm_jpeg_scan": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                         _P, _P],
+        # coef, n_comp, offset, nby, nbx, rows, cols, ry, rx, q, height,
+        # width, color, out
+        "gm_jpeg_planes": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # rows, h, row_bytes, bpp, out
+        "gm_png_unfilter": [_P, _L, _L, _I, _P],
+        # src, h, w, c, axis, out_size, xmin, k, ksize, dst
+        "gm_resample_pass": [_P, _L, _L, _L, _I, _L, _P, _P, _I, _P],
     },
 }
 
@@ -152,7 +168,7 @@ def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: a C++ compiler with OpenMP is needed "
-                           "to build the port's host library")
+                           "to build the port's host libraries")
     return gxx
 
 
@@ -173,5 +189,5 @@ def host_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     for fn, argtypes in HOST_LIBRARIES[name].items():
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = None
+        getattr(lib, fn).restype = ctypes.c_int
     return lib

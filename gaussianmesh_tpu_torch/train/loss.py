@@ -19,6 +19,10 @@ def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.abs(pred - gt).mean()
 
 
+def l2_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return ((pred - gt) ** 2).mean()
+
+
 def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """Per-image PSNR over flattened pixels (utils/image_utils.py:21-23)."""
     mse = torch.mean((pred - gt) ** 2)
@@ -80,3 +84,10 @@ def mesh_restrict_loss(scaling: torch.Tensor, v1: torch.Tensor,
     r = torch.sqrt(torch.linalg.vector_norm(cross, dim=1))
     return torch.sum(torch.where(alive, torch.clamp(max_s - weight * r, min=0.0),
                                  0.0))
+
+
+def photometric_loss(pred: torch.Tensor, gt: torch.Tensor,
+                     lambda_dssim: float = 0.2) -> torch.Tensor:
+    """(1 - l) L1 + l (1 - SSIM): the training loss without mrloss."""
+    return ((1.0 - lambda_dssim) * l1_loss(pred, gt)
+            + lambda_dssim * (1.0 - ssim(pred, gt)))

@@ -83,6 +83,14 @@ def ndc_to_pix(v: torch.Tensor, size: int) -> torch.Tensor:
     return ((v + 1.0) * size - 1.0) * 0.5
 
 
+def transform_points_h(points: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """(N, 3) points through M: a 3x4 [R | t] -> (N, 3) R p + t; a 4x4 ->
+    the homogeneous (N, 4) M [p, 1]."""
+    if M.shape[0] == 3:
+        return points @ M[:3, :3].T + M[:3, 3]
+    return torch.cat([points, torch.ones_like(points[..., :1])], -1) @ M.T
+
+
 def camera_center_from_w2v(V: np.ndarray) -> np.ndarray:
     """Camera position in world space from the 4x4 world->view matrix."""
     return np.linalg.inv(V)[:3, 3].astype(np.float32)

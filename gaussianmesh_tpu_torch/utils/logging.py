@@ -1,5 +1,5 @@
-"""Observability: tensorboard scalars, a profiler hook and a step timer
-(port of `gaussianmesh_tpu/utils/logging.py`).
+"""Observability: tensorboard scalars, images and histograms, a profiler
+hook and a step timer (port of `gaussianmesh_tpu/utils/logging.py`).
 
 The reference logs through tensorboardX when it imports
 (train_mesh_gaussian.py:25-29, 176-211); here too, and stdout alone where
@@ -13,7 +13,12 @@ import contextlib
 import os
 import time
 
+import numpy as np
 import torch
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class TrainLogger:
@@ -34,6 +39,17 @@ class TrainLogger:
             return
         for k, v in values.items():
             self.writer.add_scalar(k, float(v), step)
+
+    def image(self, step: int, tag: str, chw) -> None:
+        """A (C, H, W) image in [0, 1] (clipped), a tensor or an array."""
+        if self.writer is None:
+            return
+        self.writer.add_image(tag, np.clip(_numpy(chw), 0, 1), step)
+
+    def histogram(self, step: int, tag: str, values) -> None:
+        if self.writer is None:
+            return
+        self.writer.add_histogram(tag, _numpy(values), step)
 
     def close(self) -> None:
         """Flush and close; later `scalars` calls do nothing."""

@@ -52,6 +52,32 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> quaternions (..., 4) (w, x, y, z),
+    w >= 0, normalised. Branch-free Shepperd selection: all four candidate
+    quaternions, the one with the largest 4 q_i^2 taken (reference:
+    edittool/__init__.py:23-38, 204-207)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    t = torch.stack([1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,    # 4w^2, 4x^2,
+                     1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)  # 4y^2, 4z^2
+    s = torch.sqrt(torch.clamp(t, min=1e-12))
+    sw, sx, sy, sz = s.unbind(-1)
+    cands = torch.stack([
+        torch.stack([0.5 * sw, 0.5 * (m21 - m12) / sw, 0.5 * (m02 - m20) / sw,
+                     0.5 * (m10 - m01) / sw], -1),
+        torch.stack([0.5 * (m21 - m12) / sx, 0.5 * sx, 0.5 * (m01 + m10) / sx,
+                     0.5 * (m02 + m20) / sx], -1),
+        torch.stack([0.5 * (m02 - m20) / sy, 0.5 * (m01 + m10) / sy, 0.5 * sy,
+                     0.5 * (m12 + m21) / sy], -1),
+        torch.stack([0.5 * (m10 - m01) / sz, 0.5 * (m02 + m20) / sz,
+                     0.5 * (m12 + m21) / sz, 0.5 * sz], -1)], -2)       # (..., 4, 4)
+    best = torch.argmax(t, dim=-1)[..., None, None].expand(*t.shape[:-1], 1, 4)
+    q = torch.gather(cands, -2, best)[..., 0, :]
+    return normalize(torch.where(q[..., :1] < 0, -q, q))
+
+
 def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """L = R @ diag(s), (..., 3, 3)."""
     return quat_to_rotmat(q) * s[..., None, :]

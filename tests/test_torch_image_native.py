@@ -1,0 +1,397 @@
+"""The port's C++ image codecs (`csrc/image.cpp`: JPEG scans and planes, PNG
+row unfiltering, PIL's bicubic pass) against their plain numpy versions
+and PIL, byte for byte, on the CPU: every JPEG sampling and gray, odd
+sizes, restart intervals, non-interleaved scans, SOF1, long Huffman codes
+and the corrupt streams (the same errors); PNGs at every depth and colour
+type with rows cycling through all five filters, palettes with tRNS,
+Adam7; resize in L / LA / RGB / RGBA up, down and on the resolution ladder.
+The training path's readers never reach a plain version, and a build that
+cannot happen raises."""
+
+import io
+import struct
+import zlib
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from gaussianmesh_tpu_torch.data import cameras, readers
+from gaussianmesh_tpu_torch.io import jpeg, png, resample
+from gaussianmesh_tpu_torch.ops import _cuda
+from tests.test_torch_jpeg import _image as _jpeg_image, _segment, _segments
+from tests.test_torch_readers import ADAM7, _blender_set, _chunk, _jpeg_colmap_set
+from tests.test_torch_resample import CASES, MODES, _image as _resize_image
+
+torch.set_num_threads(2)
+
+JPEG_SIZES = [(1, 1), (17, 9), (33, 17), (65, 9)]     # (width, height), 8k + 1 among them
+
+
+def _same(path):
+    """read_jpeg (C++) == read_jpeg_plain (numpy) == PIL, dtype and shape."""
+    got, plain = jpeg.read_jpeg(path), jpeg.read_jpeg_plain(path)
+    assert got.dtype == plain.dtype == np.uint8 and got.shape == plain.shape
+    assert np.array_equal(got, plain), np.abs(got.astype(int) - plain).max()
+    want = np.asarray(Image.open(path))
+    assert np.array_equal(got, want), np.abs(got.astype(int) - want).max()
+
+
+@pytest.mark.parametrize("size", JPEG_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("sampling", ["4:4:4", "4:2:2", "4:2:0", "4:4:0", "gray"])
+def test_jpeg_native_equals_plain_and_pil(tmp_path, sampling, size):
+    """`write_jpeg`'s files (every sampling, 4:4:0 included) at qualities 50
+    and 100, and PIL's (its samplings) plain, optimized and with restart
+    markers every block."""
+    gray = sampling == "gray"
+    img = _jpeg_image(*size, 1 if gray else 3, seed=size[0] + 7 * size[1])
+    path = str(tmp_path / "x.jpg")
+    for quality in (50, 100):
+        jpeg.write_jpeg(path, img, quality=quality,
+                        **({} if gray else {"subsampling": sampling}))
+        _same(path)
+    if sampling == "4:4:0":         # PIL writes 4:4:4, 4:2:2 and 4:2:0
+        return
+    for extra in ({}, {"optimize": True}, {"restart_marker_blocks": 1}):
+        kw = dict(quality=90, **extra, **({} if gray else {"subsampling": sampling}))
+        try:
+            Image.fromarray(img).save(path, "JPEG", **kw)
+        except OSError:             # PIL's own encoder fails on some optimize cases
+            continue
+        _same(path)
+
+
+@pytest.mark.parametrize("kw", [{"restart_marker_blocks": 1}, {"restart_marker_blocks": 5},
+                                {"restart_marker_rows": 1}], ids=["blocks1", "blocks5", "rows1"])
+def test_jpeg_restart_intervals(tmp_path, kw):
+    path = str(tmp_path / "r.jpg")
+    Image.fromarray(_jpeg_image(67, 35, 3, seed=3)).save(path, "JPEG", quality=85, **kw)
+    assert b"\xff\xdd" in open(path, "rb").read()
+    _same(path)
+
+
+@pytest.mark.parametrize("sampling", ["4:4:4", "4:2:0"])
+def test_jpeg_non_interleaved_scans(tmp_path, sampling):
+    """Y, Cb and Cr in three scans of one component each (each over its
+    component's own block grid), built from `write_jpeg`'s gray files."""
+    w, h = 33, 19
+    f = 2 if sampling == "4:2:0" else 1
+    cw, ch = -(-w // f), -(-h // f)
+    planes = [_jpeg_image(w, h, 1, seed=5), _jpeg_image(cw, ch, 1, seed=6, noise=8.0),
+              _jpeg_image(cw, ch, 1, seed=7, noise=8.0)]
+    path = str(tmp_path / "ni.jpg")
+    scans = []
+    for p in planes:
+        jpeg.write_jpeg(path, p, quality=90)
+        segs, scan = _segments(open(path, "rb").read())
+        scans.append(scan)
+    tables = [_segment(m, b) for m, b in segs if m in (0xE0, 0xDB, 0xC4)]
+    sof = struct.pack(">BHHB", 8, h, w, 3) + bytes([1, f << 4 | f, 0, 2, 0x11, 0,
+                                                     3, 0x11, 0])
+    out = [b"\xff\xd8", *tables, _segment(0xC0, sof)]
+    for i, scan in enumerate(scans):
+        out += [_segment(0xDA, bytes([1, i + 1, 0x00, 0, 63, 0])), scan]
+    with open(path, "wb") as fh:
+        fh.write(b"".join(out + [b"\xff\xd9"]))
+    _same(path)
+
+
+def test_jpeg_sof1_and_long_huffman_codes(tmp_path):
+    """An extended-sequential (SOF1) file, and noise at quality 100 under
+    the Annex K tables, whose AC codes run to 16 bits (past the decoder's
+    9-bit fast table)."""
+    path = str(tmp_path / "n.jpg")
+    noise = np.random.default_rng(0).integers(0, 256, (40, 72, 3), dtype=np.uint8)
+    Image.fromarray(noise).save(path, "JPEG", quality=100, subsampling=0)
+    segs, _ = _segments(open(path, "rb").read())
+    dht = [b for m, b in segs if m == 0xC4]
+    assert any(sum(b[1 + 9:1 + 16]) > 0 for b in dht)       # code lengths 10-16
+    _same(path)
+    data = open(path, "rb").read()
+    at = data.index(b"\xff\xc0")
+    with open(path, "wb") as fh:
+        fh.write(data[:at] + b"\xff\xc1" + data[at + 2:])
+    _same(path)
+
+
+def _both_raise(path, match):
+    for read in (jpeg.read_jpeg, jpeg.read_jpeg_plain):
+        with pytest.raises(ValueError, match=match) as err:
+            read(path)
+        yield str(err.value)
+
+
+@pytest.mark.parametrize("cut", [0.3, 0.6, 0.95])
+def test_jpeg_truncated_raises_as_plain(tmp_path, cut):
+    path = str(tmp_path / "t.jpg")
+    Image.fromarray(_jpeg_image(64, 40, 3, seed=1)).save(path, "JPEG", quality=95)
+    data = open(path, "rb").read()
+    with open(path, "wb") as fh:
+        fh.write(data[:int(len(data) * cut)])
+    native, plain = _both_raise(path, "truncated JPEG")
+    assert native == plain
+
+
+@pytest.mark.parametrize("drop", [1, 2])
+def test_jpeg_scan_short_by_a_byte_or_two_raises_as_plain(tmp_path, drop):
+    """The entropy-coded data short by its last byte or two (the EOI kept):
+    the last symbols read the zero padding, so only the bit count at the
+    end of the interval says the data ran out."""
+    path = str(tmp_path / "s.jpg")
+    Image.fromarray(_jpeg_image(40, 24, 3, seed=4)).save(path, "JPEG", quality=90)
+    head, body = _split_scan(open(path, "rb").read())
+    with open(path, "wb") as fh:
+        fh.write(head + body[:-drop] + b"\xff\xd9")
+    native, plain = _both_raise(path, "truncated JPEG")
+    assert native == plain
+
+
+def test_jpeg_colour_tables_every_chroma_pair():
+    """The fixed-point YCbCr -> RGB conversion on every (Cb, Cr) pair: a
+    4:4:4 frame of 256 x 256 flat blocks (DC alone, a quantiser of 8, so a
+    block's samples are its DC + 128), Cb the block column, Cr the block
+    row, Y varying across them; C++ planes == numpy planes."""
+    n = 256
+    sof = struct.pack(">BHHB", 8, 8 * n, 8 * n, 3) + bytes([1, 0x11, 0, 2, 0x11, 0,
+                                                             3, 0x11, 0])
+    frame = jpeg._Frame(sof, "<frame>")
+    by, bx = np.mgrid[0:n, 0:n]
+    for c, value in enumerate(((7 * bx + 13 * by) % 256, bx, by)):
+        frame.coef[c][..., 0] = value - 128
+        frame.q[c] = np.full(64, 8, np.int64)
+    got, want = jpeg._planes_native(frame, False), jpeg._planes_plain(frame, False)
+    assert got.shape == want.shape == (8 * n, 8 * n, 3)
+    assert np.array_equal(got[::8, ::8], got[7::8, 7::8])        # flat blocks
+    assert np.array_equal(got, want), np.argwhere(got != want)[:5]
+
+
+def test_jpeg_corrupt_streams_raise_as_plain(tmp_path):
+    """Restart markers taken out of a file that declares an interval, and
+    an entropy-coded stream of 0xFF bytes, which no code word matches."""
+    path = str(tmp_path / "c.jpg")
+    Image.fromarray(_jpeg_image(48, 32, 3, seed=2)).save(path, "JPEG", quality=90,
+                                                         restart_marker_blocks=1)
+    head, body = _split_scan(open(path, "rb").read())
+    for r in range(0xD0, 0xD8):
+        body = body.replace(bytes([0xFF, r]), b"")
+    with open(path, "wb") as fh:
+        fh.write(head + body + b"\xff\xd9")
+    assert len(set(_both_raise(path, "restart intervals"))) == 1
+    Image.fromarray(_jpeg_image(48, 32, 3, seed=2)).save(path, "JPEG", quality=90)
+    head, _ = _split_scan(open(path, "rb").read())
+    with open(path, "wb") as fh:
+        fh.write(head + b"\xff\x00" * 64 + b"\xff\xd9")
+    assert len(set(_both_raise(path, "no Huffman code matches"))) == 1
+
+
+def _split_scan(data):
+    """A one-scan JPEG -> (its bytes to the end of the SOS header, the
+    entropy-coded bytes)."""
+    sos = data.index(b"\xff\xda")
+    head = data[:sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")]
+    return head, data[len(head):-2]
+
+
+# ---------------------------------------------------------------------- PNG
+
+def _row_bytes(samples, depth):
+    """(h, w, c) samples -> (h, row bytes) uint8: big-endian 16-bit, or
+    sub-byte samples packed MSB first."""
+    h = samples.shape[0]
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    bits = (samples.reshape(h, -1, 1) >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
+
+
+def _filter(rows, bpp, filters):
+    """Forward PNG filtering, row y with filters[y % len] -> the IDAT rows."""
+    x = rows.astype(np.int32)
+    out = []
+    for y in range(len(x)):
+        f = filters[y % len(filters)]
+        row, up = x[y], (x[y - 1] if y else np.zeros_like(x[y]))
+        left = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])[:len(row)]
+        ul = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])[:len(row)]
+        p = left + up - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        pred = [0, left, up, (left + up) // 2, paeth][f] if f <= 4 else 0
+        out.append(bytes([f]) + ((row - pred) & 0xFF).astype(np.uint8).tobytes())
+    return b"".join(out)
+
+
+def _png(samples, color_type, depth, filters, interlace=0, plte=None, trns=None):
+    """A PNG of (h, w, c) samples at `depth`, every row of every pass
+    filtered by the cycle `filters`."""
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    idat = b""
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            idat += _filter(_row_bytes(sub, depth), bpp, filters)
+    out = png.PNG_MAGIC + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type,
+                                                      0, 0, interlace))
+    if plte is not None:
+        out += _chunk(b"PLTE", plte)
+    if trns is not None:
+        out += _chunk(b"tRNS", trns)
+    return out + _chunk(b"IDAT", zlib.compress(idat)) + _chunk(b"IEND", b"")
+
+
+def _same_png(data):
+    got, plain = png.decode_png(data), png.decode_png_plain(data)
+    assert got.dtype == plain.dtype == np.uint8 and got.shape == plain.shape
+    assert np.array_equal(got, plain), np.abs(got.astype(int) - plain).max()
+    return got
+
+
+CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+TYPES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (4, 8), (4, 16), (2, 8), (2, 16),
+         (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["progressive_rows", "adam7"])
+@pytest.mark.parametrize("color_type,depth", TYPES, ids=lambda v: str(v))
+def test_png_native_equals_plain_every_filter_and_depth(color_type, depth, interlace):
+    """Gray at 1-16 bits, gray + alpha, RGB and RGBA at 8 and 16, rows
+    cycling through filters 0-4 (and 4-1 backwards), Adam7 or not, at
+    sizes with empty passes and odd row lengths; 8-bit ones equal PIL's."""
+    rng = np.random.default_rng(depth * 10 + color_type)
+    c = CHANNELS[color_type]
+    for h, w in ((13, 17), (1, 1), (5, 3), (9, 31)):
+        y, x = np.mgrid[0:h, 0:w]
+        ramp = (3 * x + 5 * y)[..., None] + 40 * np.arange(c)
+        scale = 257 if depth == 16 else 1          # both bytes of a 16-bit sample vary
+        samples = (ramp + rng.integers(0, 7, (h, w, c))) * scale % (1 << depth)
+        for filters in ([1, 2, 3, 4, 0], [4, 3, 2, 1]):
+            data = _png(samples, color_type, depth, filters, interlace)
+            got = _same_png(data)
+            if depth == 8:
+                want = np.asarray(Image.open(io.BytesIO(data)))
+                assert np.array_equal(got, want), (h, w, filters)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("interlace", [0, 1], ids=["progressive_rows", "adam7"])
+def test_png_palette_with_trns(bits, interlace):
+    """Palette PNGs with a tRNS chunk, filtered and interlaced: C++ ==
+    numpy == PIL's convert("RGBA")."""
+    rng = np.random.default_rng(bits + 5 * interlace)
+    n = 1 << bits
+    idx = rng.integers(0, n, (11, 19, 1))
+    plte = rng.integers(0, 256, 3 * n, dtype=np.uint8).tobytes()
+    trns = rng.integers(0, 256, max(1, n // 2), dtype=np.uint8).tobytes()
+    data = _png(idx, 3, bits, [1, 2, 3, 4, 0], interlace, plte=plte, trns=trns)
+    got = _same_png(data)
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    assert np.array_equal(got, want)
+
+
+def test_png_pil_adaptive_filters_and_a_bad_filter():
+    """PIL's own RGBA file (its adaptive row filters, more than one type),
+    and filter type 5, which both versions refuse alike."""
+    rng = np.random.default_rng(8)
+    y, x = np.mgrid[0:48, 0:64]
+    img = np.clip(np.stack([x * 3, y * 5, x + y, 255 - y], -1) + rng.integers(0, 9, (48, 64, 4)),
+                  0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img, "RGBA").save(buf, "PNG")
+    data = buf.getvalue()
+    assert np.array_equal(_same_png(data), img)
+    bad = _png(img, 6, 8, [1, 5])
+    errors = []
+    for decode in (png.decode_png, png.decode_png_plain):
+        with pytest.raises(ValueError, match="unknown PNG filter type 5") as err:
+            decode(bad)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+
+
+# ------------------------------------------------------------------- resize
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4], ids=lambda c: MODES[c])
+def test_resize_native_equals_plain_and_pil(c):
+    """The resample tests' cases (ladder factors, odd sizes, one axis,
+    upscales) and the ladder's 1920 -> 1600 and 2400 -> 1600 widths."""
+    cases = CASES + [((1920, 6), (1600, 5)), ((2400, 4), (1600, 3)), ((8, 640), (4, 320))]
+    for (w, h), size in cases:
+        img = _resize_image(w, h, c, seed=w + h + c)
+        got, plain = resample.resize(img, size), resample.resize_plain(img, size)
+        want = np.asarray(Image.fromarray(img, MODES[c]).resize(size))
+        assert got.shape == plain.shape == want.shape, (w, h, size)
+        assert np.array_equal(got, plain) and np.array_equal(got, want), (w, h, size)
+
+
+# ------------------------------------------------------------ the main path
+
+def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
+    """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
+    resize) and of a Blender set of PIL-filtered RGBA PNGs at -r 2, with
+    every plain piece made to raise: the same scenes as before."""
+    colmap_root = _jpeg_colmap_set(tmp_path / "c")
+    blender_root = _blender_set(tmp_path / "b", with_ply=True, w=40, h=28)
+    frame = open(f"{blender_root}/train/r_0.png", "rb").read()
+    raw = zlib.decompress(frame[frame.index(b"IDAT") + 4:frame.index(b"IEND") - 8])
+    assert any(raw[y * (1 + 40 * 4)] for y in range(28))      # filtered rows
+    kw = dict(eval_split=True, is_exist_bg=True)
+    before = (readers.read_scene(colmap_root, resolution=-1, **kw),
+              readers.read_scene(blender_root, resolution=2, eval_split=True))
+
+    def plain(*_a, **_k):
+        raise AssertionError("a plain version was called")
+    for mod, names in ((jpeg, ("_scan_plain", "_planes_plain", "_huffman", "_idct",
+                               "_upsample", "_ycc_to_rgb", "_decode_tables")),
+                       (png, ("_unfilter_plain",)), (resample, ("_pass_plain",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, plain)
+    after = (readers.read_scene(colmap_root, resolution=-1, **kw),
+             readers.read_scene(blender_root, resolution=2, eval_split=True))
+    for a, b in zip(before, after):
+        for ca, cb in zip(a.train_cameras + a.test_cameras, b.train_cameras + b.test_cameras):
+            assert np.array_equal(ca.image, cb.image) and np.array_equal(ca.mask, cb.mask)
+    assert after[0].train_cameras[0].image.shape[1:] == cameras.pick_resolution(1700, 22, -1)[::-1]
+    assert after[1].train_cameras[0].image.shape[1:] == (14, 20)
+
+
+@pytest.fixture
+def fresh_library(tmp_path, monkeypatch):
+    """host_library's cache emptied and its build directory empty, before
+    and after (the real library loads again afterwards)."""
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    _cuda.host_library.cache_clear()
+    yield
+    _cuda.host_library.cache_clear()
+
+
+def _every_entry_point(tmp_path):
+    path = str(tmp_path / "x.jpg")
+    Image.fromarray(_jpeg_image(16, 8, 3, seed=0)).save(path, "JPEG")
+    yield lambda: jpeg.read_jpeg(path)
+    yield lambda: png.decode_png(_png(np.zeros((4, 4, 3), int), 2, 8, [1, 2]))
+    yield lambda: resample.resize(np.zeros((4, 4, 3), np.uint8), (2, 2))
+
+
+def test_no_compiler_raises_not_falls_back(tmp_path, monkeypatch, fresh_library):
+    """With no g++ to be found, each public entry point raises; none falls
+    back to its plain version."""
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    for call in _every_entry_point(tmp_path):
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+            call()
+
+
+def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch,
+                                                      fresh_library):
+    """A source g++ refuses: the error carries g++'s own message."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "image.cpp").write_text("int gm_jpeg_scan( { this is not C++ }\n")
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    for call in _every_entry_point(tmp_path):
+        with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed for image.*error"):
+            call()
