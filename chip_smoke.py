@@ -122,6 +122,20 @@ Phases (any failure raises, so the exit code is not 0):
    kernels' wrappers recording their arguments, and K1, K2 and K3 held
    against their plain versions on those, timed and bounded as in phase 5;
    K2's rows must equal the step's.
+9b. progressive: phase 9's scene again with its 24 views written as
+   progressive JPEGs (`write_jpeg(..., progressive=True)`: quality 90,
+   4:2:0, libjpeg's 10-scan progression), rendered again from the same
+   cameras. Each view decoded by `read_jpeg` (C++, `gm_jpeg_scan_progressive`)
+   and `read_jpeg_plain`: equal bytes, and equal to phase 9's baseline
+   file of the view decoded again; decode s / MP of both and of the
+   baseline in the same run, beside the card's name and power limit and
+   the host's CPU. A crafted file (view 0 with its last three scans, the AC
+   refinements to bit 0, dropped) must raise "coefficients left unrefined"
+   through both decoders. Then `cli.train_mesh --device cuda` on that scene
+   for PROGRESSIVE_ITERS steps with phase 9's shrunk schedule and
+   capacities: K1, K2 and K3 once a step (counters set to 0 just before,
+   read just after), finite losses and parameters, no overflow, and the
+   loaded training targets and cameras equal to phase 9's.
 10. serve and shard, at full width. (a) The host deformation-gradient
    extractor (`edit/native_acap.py`, C++ / OpenMP, built by g++) on the
    slice's icosphere-7 mesh and phase 7's largest twist frame: against the
@@ -299,6 +313,7 @@ EVAL_VIEWS = 24                        # llffhold 8: 21 train, 3 test
 EVAL_QUALITY = 90
 EVAL_ITERS = 100
 EVAL_MIN_PSNR = 35.0                   # the JPEG round trip against the render
+PROGRESSIVE_ITERS = 20                 # phase 9b: train_mesh on the progressive scene
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -978,8 +993,8 @@ def kernel_line(results, fullscreen, launches):
     scaling tool's D = 8 critical band ("scaling_band") and critical emulated
     rank ("scaling_gshard"; the owner's K3 "scaling_gshard_owner"), and K3's
     on the full-screen case; errors over all of them; launches from the main
-    paths (render, train, playback, pipeline, eval, serve, shard, gshard,
-    quality, tools, scaling)."""
+    paths (render, train, playback, pipeline, eval, progressive, serve,
+    shard, gshard, quality, tools, scaling)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -2222,7 +2237,116 @@ def phase_eval(torch, port, model, train_rt, tmpdir):
     log("[eval] K3 at the 1600x900 step's shapes: " + json.dumps(k3))
     res.update(kernel_check_s=time.perf_counter() - t0,
                phase_s=time.perf_counter() - t_phase)
-    return res, launches, (k1, k2, k3)
+    scene = dict(root=os.path.join(base, "s"), cams=cams, gt_cfg=gt_cfg, cfg=cfg,
+                 proxy=proxy, sched=sched, targets=ds)
+    return res, launches, (k1, k2, k3), scene
+
+
+# ------------------------------------------------------------------ phase 9b
+
+def jpeg_scan_starts(data: bytes) -> list:
+    """A JPEG's bytes -> the offset of each SOS marker: the segments walked
+    by their lengths, each scan's entropy-coded data to the next marker that
+    is neither a stuffed zero nor a restart."""
+    starts, pos = [], 2
+    while pos + 4 <= len(data) and data[pos + 1] != 0xD9:
+        marker = data[pos + 1]
+        if marker == 0xDA:
+            starts.append(pos)
+        pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        while marker == 0xDA and not (data[pos] == 0xFF and not (
+                data[pos + 1] == 0 or 0xD0 <= data[pos + 1] <= 0xD7)):
+            pos += 1
+    return starts
+
+
+def phase_progressive(torch, port, model, scene, tmpdir):
+    """Phase 9b (see the module docstring) on phase 9's `scene` ->
+    (results, launches)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(tmpdir, "progressive_data", "s")
+    shutil.copytree(os.path.join(scene["root"], "sparse"), os.path.join(root, "sparse"))
+    os.makedirs(os.path.join(root, "images"))
+    white = torch.ones(3, device="cuda")
+    times = {k: [] for k in ("write", "decode", "plain", "baseline")}
+    for i, (_, _, cam) in enumerate(scene["cams"]):
+        ca = cam.arrays("cuda")
+        with torch.no_grad():
+            out = port.render.render(port.render.mesh_model_arrays(model, ca, SH_DEGREE),
+                                     ca, scene["gt_cfg"], white)
+        assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
+        u8 = port.cli_common.to_uint8(out.color)
+        name = f"{i:03d}.jpg"
+        path = os.path.join(root, "images", name)
+        _, t = timed(port.jpeg.write_jpeg, path, u8, EVAL_QUALITY, "4:2:0", True)
+        times["write"].append(t)
+        got, t = timed(port.jpeg.read_jpeg, path)
+        times["decode"].append(t)
+        plain, t = timed(port.jpeg.read_jpeg_plain, path)
+        times["plain"].append(t)
+        base, t = timed(port.jpeg.read_jpeg, os.path.join(scene["root"], "images", name))
+        times["baseline"].append(t)
+        if not np.array_equal(got, plain):
+            raise AssertionError(f"{name}: the C++ progressive decode differs from the "
+                                 "plain one")
+        if not np.array_equal(got, base):
+            raise AssertionError(
+                f"{name}: the progressive file decodes to other bytes than the baseline "
+                f"one, by {int(np.abs(got.astype(int) - base).max())} levels")
+    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
+    per_mp = {k: float(np.median(v)) / megapixels for k, v in times.items()}
+    sizes = [os.path.getsize(os.path.join(root, "images", n))
+             for n in os.listdir(os.path.join(root, "images"))]
+    with open(os.path.join(root, "images", "000.jpg"), "rb") as fh:
+        data = fh.read()
+    starts = jpeg_scan_starts(data)
+    assert len(starts) == 10 and b"\xff\xc2" in data[:starts[0]], len(starts)
+    crafted = os.path.join(tmpdir, "unrefined.jpg")
+    with open(crafted, "wb") as fh:
+        fh.write(data[:starts[-3]] + b"\xff\xd9")
+    for read in (port.jpeg.read_jpeg, port.jpeg.read_jpeg_plain):
+        try:
+            read(crafted)
+        except ValueError as err:
+            if "coefficients left unrefined" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"{read.__name__} decoded a file with unrefined "
+                                 "coefficients")
+    log(f"[progressive] {len(sizes)} progressive JPEGs at {EVAL_WIDTH}x{EVAL_HEIGHT} "
+        f"(quality {EVAL_QUALITY}, 4:2:0, 10 scans), {np.mean(sizes):.0f} bytes each: "
+        f"decode {per_mp['decode']:.4f} s/MP (plain {per_mp['plain']:.4f}; the baseline "
+        f"files {per_mp['baseline']:.4f}); write {np.median(times['write']):.2f} s a "
+        "view; C++ = plain = baseline bytes on every view; view 0 cut after 7 scans "
+        "raises through both decoders")
+
+    cfg = scene["cfg"]
+    trainer, launches, rows = run_cli(torch, port, port.cli_train_mesh.main, [
+        "-s", root, "-m", os.path.join(tmpdir, "progressive_out"), "--input_mesh",
+        scene["proxy"], "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
+        "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
+        "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
+        "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
+        *scene["sched"]], port.trainer.MeshTrainer)
+    want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
+    assert launches == want, launches
+    steps = step_summary(rows["steps"], "progressive")
+    for name, p in trainer.model.named_parameters():
+        assert torch.isfinite(p).all(), name
+    ds, ref = trainer.ds, scene["targets"]
+    for key in ("images", "view", "proj", "campos"):
+        if not torch.equal(getattr(ds, key), getattr(ref, key)):
+            raise AssertionError(f"the progressive scene's training {key} differ from "
+                                 "phase 9's")
+    res = dict(views=len(sizes), bytes_mean=float(np.mean(sizes)),
+               decode_s_per_mp=per_mp["decode"], decode_plain_s_per_mp=per_mp["plain"],
+               baseline_decode_s_per_mp=per_mp["baseline"],
+               write_s_per_view=float(np.median(times["write"])),
+               load_s=(rows["scene"][0][0] + rows["upload"][0][0]) / 1e3,
+               train_s=sum(t for t, _ in rows["steps"]) / 1e3, **steps,
+               phase_s=time.perf_counter() - t_phase)
+    log("[progressive] " + json.dumps(res))
+    return res, launches
 
 
 # ------------------------------------------------------------------ phase 10
@@ -3473,8 +3597,11 @@ def main() -> int:
         pipeline, pipeline_launches, results["pipeline"] = phase_pipeline(
             torch, port, model, train_rt, tmpdir)
         t_pipe = time.perf_counter() - t_pipe
-        evaluation, eval_launches, results["eval"] = phase_eval(
+        evaluation, eval_launches, results["eval"], eval_scene = phase_eval(
             torch, port, model, train_rt, tmpdir)
+        progressive, progressive_launches = phase_progressive(torch, port, model,
+                                                              eval_scene, tmpdir)
+        del eval_scene
         t_serve = time.perf_counter()
         acap = phase_acap(torch, port)
         viewer, serve_launches = phase_viewer(torch, port, cfg, tmpdir)
@@ -3495,6 +3622,7 @@ def main() -> int:
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
                            "train": train_launches, "playback": playback_launches,
                            "pipeline": pipeline_launches, "eval": eval_launches,
+                           "progressive": progressive_launches,
                            "serve": serve_launches, "shard": shard_launches,
                            "gshard": gshard_launches, "quality": quality_launches,
                            "tools": tools_launches, "scaling": scaling_launches})
@@ -3530,6 +3658,13 @@ def main() -> int:
         f"{evaluation['resample_plain_ms_per_image']:.1f}); dataset loads: config 2 "
         f"(Blender, {PIPE_VIEWS + PIPE_TEST_VIEWS} PNGs) {pipeline['config2']['load_s']:.2f} s, "
         f"eval ({EVAL_VIEWS} JPEGs at -r -1) {evaluation['load_s']:.2f} s")
+    log(f"[done] progressive phase {progressive['phase_s']:.1f} s on {smi}, host CPU: "
+        f"{host_cpu()} (one core a call): {progressive['views']} progressive JPEGs at "
+        f"{EVAL_WIDTH}x{EVAL_HEIGHT}, decode {progressive['decode_s_per_mp']:.4f} s/MP "
+        f"(plain {progressive['decode_plain_s_per_mp']:.4f}; the baseline files in the "
+        f"same run {progressive['baseline_decode_s_per_mp']:.4f}); train_mesh load "
+        f"{progressive['load_s']:.2f} s, {progressive['steps']} steps in "
+        f"{progressive['train_s']:.2f} s (median {progressive['step_ms_median']:.3f} ms)")
     log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} ("
         f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks over {shard['backend']} on cards "
         f"{shard['cards']}): native ACAP {acap['host_ms']:.1f} ms per call on the host "

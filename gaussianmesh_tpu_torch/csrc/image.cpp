@@ -11,6 +11,9 @@
 //   restart interval. Huffman symbols are found by one lookup in a 16-bit
 //   peek table per table; bits past the end of an interval read as zeros,
 //   and an interval that needs them is truncated.
+// - gm_jpeg_scan_progressive: one scan of a progressive (SOF2) file, the
+//   four decoders of libjpeg's `jdphuff.c` (DC first, DC refine, AC first,
+//   AC refine), added into the coefficients of the scans before it.
 // - gm_jpeg_planes: dequantisation, libjpeg-turbo's islow IDCT
 //   (`jidctint.c`), fancy upsampling (`jdsample.c`) and the fixed-point
 //   YCbCr -> RGB tables (`jdcolor.c`), cropped to the frame.
@@ -39,6 +42,7 @@ constexpr int kNoCode = 2;          // no Huffman code matches
 constexpr int kFewIntervals = 3;    // fewer restart intervals than the scan needs
 constexpr int kBadMagnitude = 4;    // a DC magnitude category over 16
 constexpr int kBadFilter = 5;       // a PNG filter type over 4
+constexpr int kBadRefine = 6;       // an AC refinement's new coefficient of size other than 1
 
 // zig-zag position -> natural (row-major) index in the 8x8 block
 constexpr int kZigzag[64] = {
@@ -276,6 +280,49 @@ void upsample_row(const uint8_t* p, int64_t stride, int rows, int cols, int ry, 
 
 inline uint8_t clip255(int32_t v) { return static_cast<uint8_t>(std::min(std::max(v, 0), 255)); }
 
+// The restart intervals of the entropy-coded data at the start of `data` (n
+// bytes): [start, end) spans, in `cuts`, of the runs between RSTn markers
+// up to the first other marker (jpeg._entropy_segments). -> the bytes the
+// data spans.
+int64_t split_intervals(const uint8_t* data, int64_t n, std::vector<int64_t>* cuts) {
+  cuts->assign(1, 0);
+  int64_t end = n;
+  for (int64_t i = 0; i + 1 < n; ++i) {
+    if (data[i] != 0xFF) continue;
+    const uint8_t next = data[i + 1];
+    if (next == 0) continue;
+    if (next >= 0xD0 && next <= 0xD7) {
+      cuts->push_back(i);
+      cuts->push_back(i + 2);
+      ++i;
+      continue;
+    }
+    end = i;
+    break;
+  }
+  cuts->push_back(end);
+  return end;
+}
+
+// Interval `it`'s bytes with the stuffed zeros removed, into `seg`.
+void unstuff(const uint8_t* data, const std::vector<int64_t>& cuts, int it,
+             std::vector<uint8_t>* seg) {
+  const int64_t a = cuts[2 * it], b = cuts[2 * it + 1];
+  seg->clear();
+  for (int64_t i = a; i < b; ++i)
+    if (!(i > a && data[i] == 0 && data[i - 1] == 0xFF)) seg->push_back(data[i]);
+}
+
+std::vector<Huffman> huffman_tables(const int32_t* tables, const uint8_t* vals,
+                                    int vals_stride, int n_tables) {
+  std::vector<Huffman> huff;
+  huff.reserve(n_tables);
+  for (int t = 0; t < n_tables; ++t)
+    huff.emplace_back(tables + 17 * t + 1, tables[17 * t],
+                      vals + static_cast<int64_t>(t) * vals_stride);
+  return huff;
+}
+
 }  // namespace
 
 extern "C" {
@@ -296,43 +343,20 @@ int gm_jpeg_scan(const uint8_t* data, int64_t n, int n_mcus, int interval, int p
                  const int32_t* tables, const uint8_t* vals, int vals_stride,
                  int n_tables, const int32_t* dest, int32_t* coef, int64_t* used,
                  int32_t* n_found) {
-  // the intervals: [start, end) spans of `data` and where the data ends
-  std::vector<int64_t> cuts{0};
-  int64_t end = n;
-  for (int64_t i = 0; i + 1 < n; ++i) {
-    if (data[i] != 0xFF) continue;
-    const uint8_t next = data[i + 1];
-    if (next == 0) continue;
-    if (next >= 0xD0 && next <= 0xD7) {
-      cuts.push_back(i);
-      cuts.push_back(i + 2);
-      ++i;
-      continue;
-    }
-    end = i;
-    break;
-  }
-  cuts.push_back(end);
-  *used = end;
+  std::vector<int64_t> cuts;
+  *used = split_intervals(data, n, &cuts);
   const int n_seg = static_cast<int>(cuts.size() / 2);
   if (interval <= 0) interval = n_mcus;
   const int n_int = n_mcus > 0 ? (n_mcus + interval - 1) / interval : 0;
   *n_found = n_seg;
   if (n_seg < n_int) return kFewIntervals;
 
-  std::vector<Huffman> huff;
-  huff.reserve(n_tables);
-  for (int t = 0; t < n_tables; ++t)
-    huff.emplace_back(tables + 17 * t + 1, tables[17 * t], vals + static_cast<int64_t>(t) * vals_stride);
-
+  const std::vector<Huffman> huff = huffman_tables(tables, vals, vals_stride, n_tables);
   std::vector<uint8_t> seg;
   int64_t block = 0;
   for (int it = 0; it < n_int; ++it) {
     // the interval's bytes, stuffed zeros removed, then zeros
-    const int64_t a = cuts[2 * it], b = cuts[2 * it + 1];
-    seg.clear();
-    for (int64_t i = a; i < b; ++i)
-      if (!(i > a && data[i] == 0 && data[i - 1] == 0xFF)) seg.push_back(data[i]);
+    unstuff(data, cuts, it, &seg);
     const int64_t len = static_cast<int64_t>(seg.size());
     Bits in(seg.data(), len);
     int32_t pred[4] = {0, 0, 0, 0};     // DC predictors by component slot
@@ -362,6 +386,125 @@ int gm_jpeg_scan(const uint8_t* data, int64_t n, int n_mcus, int interval, int p
       }
     const int64_t p = in.p;
     if (p > 8 * len) return kTruncated;
+  }
+  return kOk;
+}
+
+// One scan of a progressive file: `data`, `n`, the intervals, `per_mcu`,
+// `comp`, `tables`, `vals` and `dest` as gm_jpeg_scan's, block j of an MCU
+// decoded with table tab[j] (DC for a DC first scan, AC for an AC scan;
+// none for a DC refinement), by the decoder that spectral selection ss..se
+// and successive approximation ah, al name (`jdphuff.c`, whose checks
+// io/jpeg.py has made). Coefficients are set or refined in place, never
+// zeroed: the frame's blocks start at zero and gather every scan. The DC
+// predictors and the EOB run restart with each interval. Before each
+// symbol and each raw bit the bit count is checked as gm_jpeg_scan's
+// window is; past the interval's end bits read as zeros and the interval is
+// truncated. An AC refinement's new coefficient of a size other than 1 is
+// kBadRefine (libjpeg warns and goes on).
+int gm_jpeg_scan_progressive(const uint8_t* data, int64_t n, int n_mcus, int interval,
+                             int per_mcu, const int32_t* comp, const int32_t* tab,
+                             const int32_t* tables, const uint8_t* vals, int vals_stride,
+                             int n_tables, const int32_t* dest, int ss, int se, int ah,
+                             int al, int32_t* coef, int64_t* used, int32_t* n_found) {
+  std::vector<int64_t> cuts;
+  *used = split_intervals(data, n, &cuts);
+  const int n_seg = static_cast<int>(cuts.size() / 2);
+  if (interval <= 0) interval = n_mcus;
+  const int n_int = n_mcus > 0 ? (n_mcus + interval - 1) / interval : 0;
+  *n_found = n_seg;
+  if (n_seg < n_int) return kFewIntervals;
+
+  const std::vector<Huffman> huff = huffman_tables(tables, vals, vals_stride, n_tables);
+  const int32_t p1 = static_cast<int32_t>(1u << al), m1 = -p1;
+  std::vector<uint8_t> seg;
+  int64_t block = 0;
+  for (int it = 0; it < n_int; ++it) {
+    unstuff(data, cuts, it, &seg);
+    const int64_t len = static_cast<int64_t>(seg.size());
+    Bits in(seg.data(), len);
+    int32_t pred[4] = {0, 0, 0, 0};
+    int64_t eobrun = 0;
+    const int m = std::min(interval, n_mcus - it * interval);
+    for (int mcu = 0; mcu < m; ++mcu)
+      for (int j = 0; j < per_mcu; ++j, ++block) {
+        int32_t* zz = coef + static_cast<int64_t>(dest[block]) * 64;
+        int sym, st;
+        if (ss == 0 && ah == 0) {               // DC first
+          if ((st = symbol(in, huff[tab[j]], &sym)) != kOk) return st;
+          if (sym > 16) return kBadMagnitude;
+          pred[comp[j]] += sym ? value(in, sym) : 0;
+          zz[0] = pred[comp[j]] * p1;
+        } else if (ss == 0) {                   // DC refine: one raw bit
+          if (!in.ready()) return kTruncated;
+          if (in.take(1)) zz[0] |= p1;
+        } else if (ah == 0) {                   // AC first
+          if (eobrun > 0) {
+            --eobrun;
+            continue;
+          }
+          const Huffman& ac = huff[tab[j]];
+          for (int k = ss; k <= se; ++k) {
+            if ((st = symbol(in, ac, &sym)) != kOk) return st;
+            int r = sym >> 4;
+            const int s = sym & 15;
+            if (s) {
+              k += r;
+              zz[std::min(k, 63)] = value(in, s) * p1;
+            } else if (r == 15) {
+              k += 15;                          // ZRL
+            } else {                            // EOBr: 2^r + r bits, this block one
+              eobrun = int64_t{1} << r;
+              if (r) eobrun += in.take(r);
+              --eobrun;
+              break;
+            }
+          }
+        } else {                                // AC refine
+          const Huffman& ac = huff[tab[j]];
+          int k = ss;
+          if (eobrun == 0) {
+            for (; k <= se; ++k) {
+              if ((st = symbol(in, ac, &sym)) != kOk) return st;
+              int r = sym >> 4;
+              int32_t s = sym & 15;
+              if (s) {
+                if (s != 1) return kBadRefine;
+                s = in.take(1) ? p1 : m1;
+              } else if (r != 15) {
+                eobrun = int64_t{1} << r;
+                if (r) eobrun += in.take(r);
+                break;                          // the rest as the EOB run's
+              }
+              // past nonzero coefficients (a correction bit each) and r zero
+              // ones, to the zero one the new coefficient takes
+              do {
+                int32_t* c = zz + k;
+                if (*c != 0) {
+                  if (!in.ready()) return kTruncated;
+                  if (in.take(1) && (*c & p1) == 0) *c += *c >= 0 ? p1 : m1;
+                } else if (--r < 0) {
+                  break;
+                }
+                ++k;
+              } while (k <= se);
+              if (s) zz[std::min(k, 63)] = s;
+            }
+          }
+          if (eobrun > 0) {
+            // the band's remaining nonzero coefficients: a correction bit each
+            for (; k <= se; ++k) {
+              int32_t* c = zz + k;
+              if (*c != 0) {
+                if (!in.ready()) return kTruncated;
+                if (in.take(1) && (*c & p1) == 0) *c += *c >= 0 ? p1 : m1;
+              }
+            }
+            --eobrun;
+          }
+        }
+      }
+    if (in.p > 8 * len) return kTruncated;
   }
   return kOk;
 }

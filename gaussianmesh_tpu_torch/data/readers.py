@@ -10,11 +10,14 @@ dtype: images decode to float32 / 255, a Blender RGBA image composites over
 a float64 background (so it comes out float64, and its uint8 targets
 truncate as the JAX package's do), masks are float32.
 
-Images are read by the port's own codecs (`io/png.py`, `io/jpeg.py`) and
-resized by `io/resample.py`, where the JAX reader uses PIL: the same
-arrays, bit for bit, for the JPEGs and PNGs PIL reads, with two repairs
-(palette PNGs expand to their colours, 16-bit gray keeps its high byte:
-`io/png.py`).
+Images are read by the port's own codecs (`io/png.py::read_image`:
+`io/jpeg.py`, the PNG path, `io/bmp.py`, `io/tiff.py`) and resized by
+`io/resample.py`, where the JAX reader uses PIL: the same arrays, bit for
+bit, for the JPEGs, PNGs, BMPs and TIFFs PIL reads, with three repairs:
+palette images expand to their colours (faults B6, B15), 16-bit gray keeps
+its high byte (`io/png.py`), and gray + alpha (2 channels) is taken as
+PIL's `convert("RGBA")` gives it, gray in R, G and B and the alpha a mask
+(fault A2: the JAX reader keeps the two channels as colours).
 """
 
 from __future__ import annotations
@@ -78,12 +81,15 @@ def nerfpp_norm(cameras: list[Camera]) -> dict:
 def _load_image(path: str, resolution: int, bg: np.ndarray | None,
                 mask_path: str | None = None):
     """-> (image (3, H, W), mask (1, H, W) float32 | None). A mask is
-    resized to the image's size; an RGB mask counts by its first channel."""
+    resized to the image's size; an RGB or gray + alpha mask counts by its
+    first channel."""
     im = read_image(path)
     size = pick_resolution(im.shape[1], im.shape[0], resolution)
     arr = resize(im, size).astype(np.float32) / 255.0
     if arr.ndim == 2:
         arr = np.repeat(arr[..., None], 3, axis=2)
+    elif arr.shape[2] == 2:                         # gray + alpha -> RGBA
+        arr = arr[..., [0, 0, 0, 1]]
     mask = None
     if arr.shape[2] == 4:
         mask = arr[..., 3:4]

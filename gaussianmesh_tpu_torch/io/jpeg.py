@@ -1,12 +1,23 @@
-"""Baseline JPEG without an imaging package: the machines the port runs on
-have none (the JAX package reads JPEGs with PIL).
+"""JPEG without an imaging package: the machines the port runs on have none
+(the JAX package reads JPEGs with PIL).
 
-`read_jpeg` decodes 8-bit sequential Huffman JPEGs (SOF0 baseline and SOF1
-extended) with 1 or 3 components, sampling factors 1-2 on each axis
-(4:4:4, 4:2:2, 4:2:0, 4:4:0), restart intervals, interleaved or
-single-component scans, to the arrays `np.asarray(PIL.Image.open(p))`
-gives: (H, W) uint8 for gray, (H, W, 3) RGB otherwise. It follows PIL 12's
-libjpeg-turbo step for step so that the bits agree:
+`read_jpeg` decodes 8-bit Huffman JPEGs, sequential (SOF0 baseline and
+SOF1 extended) and progressive (SOF2), with 1 or 3 components, sampling
+factors 1-2 on each axis (4:4:4, 4:2:2, 4:2:0, 4:4:0), restart intervals,
+interleaved or single-component scans, to the arrays
+`np.asarray(PIL.Image.open(p))` gives: (H, W) uint8 for gray, (H, W, 3) RGB
+otherwise. It follows PIL 12's libjpeg-turbo step for step so that the bits
+agree:
+
+- a progressive file's scans (`jdphuff.c`: DC first and refinement, AC
+  first with its EOB runs, AC refinement with its correction bits) each
+  add their bits to the frame's coefficients; the scan parameters are
+  checked as `start_pass_phuff_decoder` checks them. Where libjpeg only
+  warns, this raises: a scan out of order (an AC scan before the
+  component's DC, a refinement whose Ah is not the bits already sent), an
+  AC refinement's new coefficient of a size other than 1, and a file that
+  ends with coefficients 1-9 of a component unrefined (libjpeg-turbo would
+  smooth the blocks, `jdcoefct.c`, which is not ported);
 
 - the integer "islow" IDCT (`jidctint.c`: 13-bit constants, two passes
   with their descales, the output clamped to 0..255);
@@ -18,8 +29,8 @@ libjpeg-turbo step for step so that the bits agree:
   says whether the three components are YCbCr or RGB.
 
 EXIF orientation is ignored, as a plain `Image.open` ignores it.
-Progressive, arithmetic-coded, lossless and hierarchical files, 12-bit
-samples and 4-component (CMYK / YCCK) files raise with the cause.
+Arithmetic-coded, lossless and hierarchical files, 12-bit samples and
+4-component (CMYK / YCCK) files raise with the cause.
 
 `read_jpeg` parses the markers here and decodes each scan and the planes
 in the port's C++ (`csrc/image.cpp`, built by `ops/_cuda.py::host_library`
@@ -36,11 +47,15 @@ it.
 Annex K quantisation and Huffman tables scaled by libjpeg's quality
 rule, 4:2:0 or 4:4:4, a float DCT, and Huffman coding vectorised (code
 words and bit lengths per coefficient, packed with numpy, 0xFF stuffed).
+With `progressive=True` it writes the same coefficients as a progressive
+file in libjpeg's `jpeg_simple_progression` script, each scan with its own
+Huffman tables (Annex K.2) and EOB runs, vectorised over the blocks too.
 """
 
 from __future__ import annotations
 
 import array
+import heapq
 import os
 import struct
 
@@ -58,7 +73,7 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 _SOF_KINDS = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+    0xC3: "lossless", 0xC5: "differential sequential",
     0xC6: "differential progressive", 0xC7: "differential lossless",
     0xC9: "arithmetic-coded", 0xCA: "progressive arithmetic-coded",
     0xCB: "lossless arithmetic-coded", 0xCD: "differential arithmetic-coded",
@@ -115,10 +130,8 @@ def _extend(v, s):
 def _decode_tables(bits, vals, ac: bool):
     """-> (fast, slow): 65,536-entry peek tables as Python lists."""
     fast = np.zeros(1 << 16, np.int64)
-    slow = np.zeros(1 << 16, np.int64)
     for code, length, sym in zip(*_canonical(bits, vals)):
         lo, hi = code << (16 - length), (code + 1) << (16 - length)
-        slow[lo:hi] = sym << 5 | length
         run, s = (sym >> 4, sym & 15) if ac else (0, sym)
         if ac and s == 0:
             run = 15 if run == 15 else _EOB_RUN     # ZRL, else end of block
@@ -127,7 +140,18 @@ def _decode_tables(bits, vals, ac: bool):
         peek = np.arange(lo, hi)
         value = _extend((peek >> (16 - length - s)) & ((1 << s) - 1), s)
         fast[lo:hi] = value * 4096 + (run << 5 | (length + s))
-    return fast.tolist(), slow.tolist()
+    return fast.tolist(), _peek_table(bits, vals)
+
+
+def _peek_table(bits, vals):
+    """-> the slow table: symbol << 5 | code length for every 16-bit window
+    that starts with a code word, 0 where none does (code words that
+    overflow their length clipped off its end, as `csrc/image.cpp` clips
+    them)."""
+    slow = np.zeros(1 << 16, np.int64)
+    for code, length, sym in zip(*_canonical(bits, vals)):
+        slow[code << (16 - length):(code + 1) << (16 - length)] = sym << 5 | length
+    return slow.tolist()
 
 
 def _slow_symbol(W, p, slow, ac: bool):
@@ -294,7 +318,8 @@ def _ycc_to_rgb(y, cb, cr):
 
 
 class _Frame:
-    def __init__(self, seg: bytes, path):
+    def __init__(self, seg: bytes, path, progressive: bool = False):
+        self.progressive = progressive
         precision, self.height, self.width, nf = struct.unpack(">BHHB", seg[:6])
         if precision != 8:
             raise ValueError(f"{path}: {precision}-bit JPEG; only 8-bit samples are read")
@@ -326,6 +351,10 @@ class _Frame:
         self.coef = [self.blocks[o:o + y * x].reshape(y, x, 64)
                      for o, (y, x) in zip(self.offset, self.grid)]
         self.q = [None] * nf
+        # a progressive file's bits known of each coefficient (zig-zag), -1
+        # before any scan sent it: libjpeg's `coef_bits`
+        self.coef_bits = np.full((nf, 64), -1)
+        self.orders = {}            # components of a scan -> _decode_order
 
     def comp_size(self, c):
         """The component's sample rows and columns (`downsampled_*`)."""
@@ -333,19 +362,60 @@ class _Frame:
                 -(-self.width * self.h[c] // self.hmax))
 
 
+def _decode_order(frame: _Frame, comps):
+    """A scan of `comps`: one component's own blocks, or the MCUs of the
+    interleaved ones -> (the component of each block of an MCU, MCUs, and in
+    decode order each block's component, block row, block column and row of
+    frame.blocks)."""
+    if len(comps) == 1:
+        c = comps[0]
+        rows, cols = frame.comp_size(c)
+        by, bx = np.meshgrid(np.arange(-(-rows // 8)), np.arange(-(-cols // 8)),
+                             indexing="ij")
+        order = [(np.full(by.size, c), by.ravel(), bx.ravel())]
+        comp, n_mcus = [c], by.size
+    else:
+        my, mx = np.meshgrid(np.arange(frame.mcuy), np.arange(frame.mcux), indexing="ij")
+        my, mx = my.ravel(), mx.ravel()
+        order, comp = [], []
+        for c in comps:
+            for v in range(frame.v[c]):
+                for h in range(frame.h[c]):
+                    order.append((np.full(my.size, c), my * frame.v[c] + v,
+                                  mx * frame.h[c] + h))
+                    comp.append(c)
+        n_mcus = my.size
+    # (n_mcus, blocks per MCU) -> decode order
+    bc, by, bx = (np.stack([o[i] for o in order], 1).ravel() for i in range(3))
+    nbx = np.array([x for _, x in frame.grid], np.int64)
+    return comp, n_mcus, bc, by, bx, frame.offset[bc] + by * nbx[bc] + bx
+
+
 class _Scan:
     """One SOS header against the frame: the scan's components, its blocks in
-    decode order and the Huffman tables of each block of an MCU."""
+    decode order and the Huffman tables of each block of an MCU; in a
+    progressive frame its kind, checked against the scans before it."""
 
     def __init__(self, frame: _Frame, seg: bytes, qt, dc, ac, path):
         ns = seg[0]
+        self.ss, self.se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
+        self.ah, self.al = ahl >> 4, ahl & 15
+        if not frame.progressive:
+            self.kind = "sequential"
+        elif self.ss == 0:
+            self.kind = "dc_refine" if self.ah else "dc_first"
+        else:
+            self.kind = "ac_refine" if self.ah else "ac_first"
+        # a progressive scan needs the tables of its kind alone
+        need_dc = self.kind in ("sequential", "dc_first")
+        need_ac = self.kind in ("sequential", "ac_first", "ac_refine")
         comps, tabs = [], []
         for i in range(ns):
             cid, t = seg[1 + 2 * i:3 + 2 * i]
             if cid not in frame.ids:
                 raise ValueError(f"{path}: scan names component {cid}, not in the frame")
             c = frame.ids.index(cid)
-            if (t >> 4) not in dc or (t & 15) not in ac:
+            if (need_dc and (t >> 4) not in dc) or (need_ac and (t & 15) not in ac):
                 raise ValueError(f"{path}: scan uses a Huffman table that is not defined")
             if frame.tq[c] not in qt:
                 raise ValueError(f"{path}: quantisation table {frame.tq[c]} not defined")
@@ -353,37 +423,53 @@ class _Scan:
                 frame.q[c] = qt[frame.tq[c]]
             comps.append(c)
             tabs.append((t >> 4, t & 15))
-        ss, se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
-        if (ss, se, ahl) != (0, 63, 0):
-            raise ValueError(f"{path}: spectral selection {ss}-{se}, approximation "
-                             f"{ahl:#x}: a progressive scan")
+        if frame.progressive:
+            self._progression(frame, comps, path)
+        elif (self.ss, self.se, ahl) != (0, 63, 0):
+            raise ValueError(f"{path}: spectral selection {self.ss}-{self.se}, "
+                             f"approximation {ahl:#x}: a progressive scan")
 
-        # the blocks in decode order: (component, block row, block column)
-        if ns == 1:
-            c = comps[0]
-            rows, cols = frame.comp_size(c)
-            by, bx = np.meshgrid(np.arange(-(-rows // 8)), np.arange(-(-cols // 8)),
-                                 indexing="ij")
-            order = [(np.full(by.size, c), by.ravel(), bx.ravel())]
-            self.comp, self.tables = [c], [tabs[0]]
-            self.n_mcus = by.size
-        else:
-            my, mx = np.meshgrid(np.arange(frame.mcuy), np.arange(frame.mcux),
-                                 indexing="ij")
-            my, mx = my.ravel(), mx.ravel()
-            order, self.comp, self.tables = [], [], []
-            for c, t in zip(comps, tabs):
-                for v in range(frame.v[c]):
-                    for h in range(frame.h[c]):
-                        order.append((np.full(my.size, c), my * frame.v[c] + v,
-                                      mx * frame.h[c] + h))
-                        self.comp.append(c)
-                        self.tables.append(t)
-            self.n_mcus = my.size
+        # the blocks in decode order, the same for every scan of these
+        # components (a progressive file has up to 10 scans)
+        key = tuple(comps)
+        if key not in frame.orders:
+            frame.orders[key] = _decode_order(frame, comps)
+        self.comp, self.n_mcus, self.bc, self.by, self.bx, self.dest = frame.orders[key]
         self.comps = comps
-        # (n_mcus, blocks per MCU) -> decode order
-        self.bc, self.by, self.bx = (np.stack([o[i] for o in order], 1).ravel()
-                                     for i in range(3))
+        self.tables = [tabs[0]] if len(comps) == 1 else [
+            t for c, t in zip(comps, tabs) for _ in range(frame.v[c] * frame.h[c])]
+
+    def _progression(self, frame: _Frame, comps, path):
+        """`start_pass_phuff_decoder`'s checks (JERR_BAD_PROGRESSION), then
+        its bookkeeping of each coefficient's bits, raising where libjpeg
+        warns (JWRN_BOGUS_PROGRESSION)."""
+        ss, se, ah, al = self.ss, self.se, self.ah, self.al
+        causes = []
+        if ss == 0 and se != 0:
+            causes.append("a DC scan must end at 0")
+        if ss != 0 and (ss > se or se > 63):
+            causes.append("an AC scan must have 1 <= Ss <= Se <= 63")
+        if ss != 0 and len(comps) != 1:
+            causes.append(f"an AC scan must have one component, not {len(comps)}")
+        if ah != 0 and al != ah - 1:
+            causes.append("a refinement must have Al = Ah - 1")
+        if al > 13:
+            causes.append("Al over 13")
+        if causes:
+            raise ValueError(f"{path}: invalid progressive scan (Ss {ss}, Se {se}, Ah "
+                             f"{ah}, Al {al}): " + "; ".join(causes))
+        for c in comps:
+            bits = frame.coef_bits[c]
+            if ss != 0 and bits[0] < 0:
+                raise ValueError(f"{path}: bogus progression: an AC scan of component "
+                                 f"{frame.ids[c]} before its DC scan")
+            known = np.maximum(bits[ss:se + 1], 0)
+            if (known != ah).any():
+                k = ss + int(np.flatnonzero(known != ah)[0])
+                raise ValueError(f"{path}: bogus progression: component {frame.ids[c]}'s "
+                                 f"coefficient {k} refined from Ah {ah} where "
+                                 f"{int(known[k - ss])} bits are known")
+            bits[ss:se + 1] = al
 
 
 def _scan_plain(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, ac,
@@ -423,34 +509,24 @@ def _scan_plain(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, a
         before = np.where(first > 0, run[first - 1], 0)
         run -= np.repeat(before, np.diff(np.append(first, len(sel))))
         blocks[sel, 0] = run
-    for c in set(scan.comps):
-        sel = bc == c
-        frame.coef[c][scan.by[sel], scan.bx[sel]] = blocks[sel]
+    frame.blocks[scan.dest] = blocks
     return used
 
 
-def _scan_native(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, ac,
-                 path):
-    """`_scan_plain` in `csrc/image.cpp` (`gm_jpeg_scan`): the same
-    coefficients, the same errors. -> bytes of entropy-coded data consumed."""
-    keys = sorted({("dc", d) for d, _ in scan.tables} | {("ac", a) for _, a in scan.tables})
-    defs = [(dc if kind == "dc" else ac)[i] for kind, i in keys]
-    tables = np.zeros((len(keys), 17), np.int32)
-    vals = np.zeros((len(keys), max(1, max(len(v) for _, v in defs))), np.uint8)
+def _packed_tables(defs):
+    """Huffman tables [(bits, vals)] -> gm_jpeg_scan's (n, 17) int32 counts
+    and (n, stride) uint8 symbols."""
+    tables = np.zeros((max(1, len(defs)), 17), np.int32)
+    vals = np.zeros((len(tables), max([1] + [len(v) for _, v in defs])), np.uint8)
     for j, (bits, v) in enumerate(defs):
         tables[j, 0], tables[j, 1:1 + len(bits)] = len(v), bits   # a cut DHT: fewer counts
         vals[j, :len(v)] = np.frombuffer(v, np.uint8)
-    comp = np.array(scan.comp, np.int32)
-    dc_tab = np.array([keys.index(("dc", d)) for d, _ in scan.tables], np.int32)
-    ac_tab = np.array([keys.index(("ac", a)) for _, a in scan.tables], np.int32)
-    nbx = np.array([x for _, x in frame.grid], np.int64)
-    dest = (frame.offset[scan.bc] + scan.by * nbx[scan.bc] + scan.bx).astype(np.int32)
-    used, found = np.zeros(1, np.int64), np.zeros(1, np.int32)
-    status = _cuda.host_library("image").gm_jpeg_scan(
-        arr.ctypes.data, len(arr), scan.n_mcus, restart, len(scan.tables),
-        comp.ctypes.data, dc_tab.ctypes.data, ac_tab.ctypes.data, tables.ctypes.data,
-        vals.ctypes.data, vals.shape[1], len(keys), dest.ctypes.data,
-        frame.blocks.ctypes.data, used.ctypes.data, found.ctypes.data)
+    return tables, vals
+
+
+def _native_status(status, entry, path, scan, restart, found):
+    """An entropy decoder's status in `csrc/image.cpp` -> the plain
+    version's error."""
     if status == 1:
         raise ValueError(f"{path}: entropy-coded data ends early (truncated JPEG)")
     if status == 2:
@@ -460,8 +536,245 @@ def _scan_native(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, 
         raise ValueError(f"{path}: {int(found[0])} restart intervals, {n_int} expected")
     if status == 4:
         raise ValueError(f"{path}: corrupt JPEG data: a DC magnitude category over 16")
+    if status == 6:
+        raise ValueError(f"{path}: corrupt JPEG data: an AC refinement's new "
+                         "coefficient is not of size 1")
     if status:
-        raise RuntimeError(f"{path}: gm_jpeg_scan returned {status}")
+        raise RuntimeError(f"{path}: {entry} returned {status}")
+
+
+def _scan_native(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, ac,
+                 path):
+    """`_scan_plain` in `csrc/image.cpp` (`gm_jpeg_scan`): the same
+    coefficients, the same errors. -> bytes of entropy-coded data consumed."""
+    keys = sorted({("dc", d) for d, _ in scan.tables} | {("ac", a) for _, a in scan.tables})
+    tables, vals = _packed_tables([(dc if kind == "dc" else ac)[i] for kind, i in keys])
+    comp = np.array(scan.comp, np.int32)
+    dc_tab = np.array([keys.index(("dc", d)) for d, _ in scan.tables], np.int32)
+    ac_tab = np.array([keys.index(("ac", a)) for _, a in scan.tables], np.int32)
+    dest = scan.dest.astype(np.int32)
+    used, found = np.zeros(1, np.int64), np.zeros(1, np.int32)
+    status = _cuda.host_library("image").gm_jpeg_scan(
+        arr.ctypes.data, len(arr), scan.n_mcus, restart, len(scan.tables),
+        comp.ctypes.data, dc_tab.ctypes.data, ac_tab.ctypes.data, tables.ctypes.data,
+        vals.ctypes.data, vals.shape[1], len(keys), dest.ctypes.data,
+        frame.blocks.ctypes.data, used.ctypes.data, found.ctypes.data)
+    _native_status(status, "gm_jpeg_scan", path, scan, restart, found)
+    return int(used[0])
+
+
+# ------------------------------------------------------- progressive scans
+
+def _read_bits(W, q, n):
+    """`n` (1-16) bits from bit `q` of the windows `W`."""
+    return (W[q >> 3] >> (64 - (q & 7) - n)) & ((1 << n) - 1)
+
+
+def _extend_bits(v, s):
+    return v - (1 << s) + 1 if v < 1 << (s - 1) else v
+
+
+def _progressive_plain(scan: _Scan, seg: np.ndarray, blocks, dest: np.ndarray, tables,
+                       set_, path):
+    """One restart interval (`seg`, its bytes unstuffed) of a progressive
+    scan in Python: the decode loop of `gm_jpeg_scan_progressive`, bit for
+    bit and check for check (a bit count is checked before each symbol and
+    each raw bit; past the end bits read as zeros). DC first returns the DC
+    differences; the other kinds put their coefficients in `set_` ({index
+    into blocks.ravel(): value}), or for an AC refinement's correction bits
+    straight into `blocks`, whose values before the scan they read. -> (bits
+    consumed, the DC differences)."""
+    kind, ss, se, al = scan.kind, scan.ss, scan.se, scan.al
+    n, p1, p = len(seg), 1 << scan.al, 0
+    W = _windows(np.concatenate([seg, np.zeros(8, np.uint8)]))
+    truncated = f"{path}: entropy-coded data ends early (truncated JPEG)"
+
+    def symbol(q, slow):
+        if (q >> 3) > n + 1:
+            raise ValueError(truncated)
+        e = slow[(W[q >> 3] >> (48 - (q & 7))) & 0xFFFF]
+        if not e & 31:
+            raise ValueError("corrupt JPEG data: no Huffman code matches")
+        return q + (e & 31), e >> 5
+
+    diffs = []
+    if kind == "dc_first":
+        for j in range(len(dest)):
+            p, sym = symbol(p, tables[j % len(tables)])
+            if sym > 16:
+                raise ValueError(f"{path}: corrupt JPEG data: a DC magnitude category "
+                                 "over 16")
+            diffs.append(_extend_bits(_read_bits(W, p, sym), sym) if sym else 0)
+            p += sym
+        return p, diffs
+    slow, eobrun = tables[0], 0
+    if kind == "ac_first":
+        for d in dest.tolist():
+            if eobrun:
+                eobrun -= 1
+                continue
+            k = ss
+            while k <= se:
+                p, sym = symbol(p, slow)
+                r, s = sym >> 4, sym & 15
+                if s:
+                    k += r
+                    set_[d * 64 + min(k, 63)] = _extend_bits(_read_bits(W, p, s), s) << al
+                    p += s
+                elif r == 15:
+                    k += 15
+                else:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += _read_bits(W, p, r)
+                        p += r
+                    eobrun -= 1
+                    break
+                k += 1
+        return p, diffs
+
+    # AC refinement. The band's nonzero coefficients before the scan, block
+    # by block: the walk past them reads one correction bit each, in runs
+    # (first coefficient, count, first bit) applied after the walk
+    band = blocks[dest, ss:se + 1]
+    bi, ki = np.nonzero(band)
+    starts = np.searchsorted(bi, np.arange(len(dest) + 1)).tolist()
+    pos = (ki + ss).tolist()
+    runs = []
+
+    def corrections(first, count, q):
+        if (q + count - 1) >> 3 > n + 1:    # the check before the run's last bit
+            raise ValueError(truncated)
+        runs.append((first, count, q))
+        return q + count
+
+    for b, d in enumerate(dest.tolist()):
+        i, end = starts[b], starts[b + 1]      # the next nonzero coefficient
+        k = ss
+        if not eobrun:
+            while k <= se:
+                p, sym = symbol(p, slow)
+                r, s = sym >> 4, sym & 15
+                if s:
+                    if s != 1:
+                        raise ValueError(f"{path}: corrupt JPEG data: an AC refinement's "
+                                         "new coefficient is not of size 1")
+                    s = p1 if _read_bits(W, p, 1) else -p1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += _read_bits(W, p, r)
+                        p += r
+                    break
+                # past nonzero coefficients and r zero ones, to the zero one
+                # the new coefficient takes (or past the band's end)
+                first = i
+                while True:
+                    nxt = pos[i] if i < end else se + 1
+                    if r < nxt - k:
+                        k += r
+                        break
+                    r -= nxt - k
+                    if i == end:
+                        k = se + 1
+                        break
+                    k, i = nxt + 1, i + 1
+                if i > first:
+                    p = corrections(first, i - first, p)
+                if s:
+                    set_[d * 64 + min(k, 63)] = s
+                k += 1
+        if eobrun:
+            if end > i:                         # the rest of the band's nonzero ones
+                p = corrections(i, end - i, p)
+            eobrun -= 1
+    if runs:
+        first, count, q = (np.array(x, np.int64) for x in zip(*runs))
+        offs = np.repeat(np.cumsum(count) - count, count)
+        at = np.arange(int(count.sum())) - offs
+        idx, q = np.repeat(first, count) + at, np.repeat(q, count) + at
+        bit = np.unpackbits(np.concatenate([seg, np.zeros(8, np.uint8)]))[q]
+        v = band[bi[idx], ki[idx]].astype(np.int64)
+        fix = (bit == 1) & ((v & p1) == 0)
+        flat = blocks.reshape(-1)
+        flat[dest[bi[idx[fix]]] * 64 + ki[idx[fix]] + ss] = v[fix] + np.where(
+            v[fix] >= 0, p1, -p1)
+    return p, diffs
+
+
+def _scan_plain_progressive(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int,
+                            dc, ac, path):
+    """Decode one progressive scan's entropy-coded data (`arr` onwards) into
+    frame.blocks in Python: the plain version of `_scan_native_progressive`.
+    -> bytes of entropy-coded data consumed."""
+    kind, per_mcu, n_mcus = scan.kind, len(scan.tables), scan.n_mcus
+    segs, used = _entropy_segments(arr)
+    interval = restart or n_mcus
+    n_int = -(-n_mcus // interval)
+    if len(segs) < n_int:
+        raise ValueError(f"{path}: {len(segs)} restart intervals, {n_int} expected")
+    if kind == "dc_first":
+        tables = [_peek_table(*dc[d]) for d, _ in scan.tables]
+    elif kind != "dc_refine":
+        tables = [_peek_table(*ac[scan.tables[0][1]])]
+    set_, diffs = {}, []
+    for i in range(n_int):
+        m = min(interval, n_mcus - i * interval) * per_mcu
+        seg, first = segs[i], i * interval * per_mcu
+        dest = scan.dest[first:first + m]
+        if kind == "dc_refine":                 # one raw bit a block
+            if m > 8 * len(seg):
+                raise ValueError(f"{path}: entropy-coded data ends early (truncated JPEG)")
+            bits = np.unpackbits(seg)[:m].astype(bool)
+            frame.blocks[dest[bits], 0] |= np.int32(1 << scan.al)
+            continue
+        p, d = _progressive_plain(scan, seg, frame.blocks, dest, tables, set_, path)
+        if p > 8 * len(seg):
+            raise ValueError(f"{path}: entropy-coded data ends early (truncated JPEG)")
+        diffs += d
+    if kind == "dc_first":
+        # each component's differences summed within each restart interval
+        blocks = np.array(diffs, np.int64)
+        interval_of = np.arange(len(blocks)) // (interval * per_mcu)
+        for c in set(scan.comps):
+            sel = np.flatnonzero(scan.bc == c)
+            run = np.cumsum(blocks[sel])
+            first = np.flatnonzero(np.diff(interval_of[sel], prepend=-1))
+            before = np.where(first > 0, run[first - 1], 0)
+            run -= np.repeat(before, np.diff(np.append(first, len(sel))))
+            blocks[sel] = run << scan.al
+        frame.blocks[scan.dest, 0] = (blocks & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    elif set_:
+        idx = np.fromiter(set_.keys(), np.int64, len(set_))
+        v = np.fromiter(set_.values(), np.int64, len(set_))
+        frame.blocks.reshape(-1)[idx] = (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return used
+
+
+def _scan_native_progressive(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int,
+                             dc, ac, path):
+    """`_scan_plain_progressive` in `csrc/image.cpp`
+    (`gm_jpeg_scan_progressive`): the same coefficients, the same errors.
+    -> bytes of entropy-coded data consumed."""
+    if scan.kind == "dc_first":
+        keys = sorted({d for d, _ in scan.tables})
+        defs, tab = [dc[d] for d in keys], [keys.index(d) for d, _ in scan.tables]
+    elif scan.kind == "dc_refine":
+        keys, defs, tab = [], [], [0] * len(scan.tables)
+    else:
+        keys, defs, tab = [scan.tables[0][1]], [ac[scan.tables[0][1]]], [0]
+    tables, vals = _packed_tables(defs)
+    comp = np.array(scan.comp, np.int32)
+    tab = np.array(tab, np.int32)
+    dest = scan.dest.astype(np.int32)
+    used, found = np.zeros(1, np.int64), np.zeros(1, np.int32)
+    status = _cuda.host_library("image").gm_jpeg_scan_progressive(
+        arr.ctypes.data, len(arr), scan.n_mcus, restart, len(scan.tables),
+        comp.ctypes.data, tab.ctypes.data, tables.ctypes.data, vals.ctypes.data,
+        vals.shape[1], len(keys), dest.ctypes.data, scan.ss, scan.se, scan.ah, scan.al,
+        frame.blocks.ctypes.data, used.ctypes.data, found.ctypes.data)
+    _native_status(status, "gm_jpeg_scan_progressive", path, scan, restart, found)
     return int(used[0])
 
 
@@ -545,12 +858,12 @@ def _decode(data: bytes, path, native: bool) -> np.ndarray:
                 vals = seg[i + 17:i + 17 + sum(bits)]
                 (ac if tc else dc)[th] = (bits, vals)
                 i += 17 + sum(bits)
-        elif marker in (0xC0, 0xC1):
-            frame = _Frame(seg, path)
+        elif marker in (0xC0, 0xC1, 0xC2):
+            frame = _Frame(seg, path, progressive=marker == 0xC2)
         elif marker in _SOF_KINDS:
             raise ValueError(f"{path}: {_SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}); "
-                             "only baseline and extended sequential Huffman JPEGs "
-                             "are read")
+                             "only baseline, extended sequential and progressive "
+                             "Huffman JPEGs are read")
         elif marker == 0xCC:
             raise ValueError(f"{path}: arithmetic-coded JPEG; only Huffman coding is read")
         elif marker == 0xDD:
@@ -563,9 +876,10 @@ def _decode(data: bytes, path, native: bool) -> np.ndarray:
             if frame is None:
                 raise ValueError(f"{path}: scan before the frame header")
             scan = _Scan(frame, seg, qt, dc, ac, path)
-            pos += (_scan_native if native else _scan_plain)(
-                frame, scan, np.frombuffer(data, np.uint8, offset=pos), restart, dc, ac,
-                path)
+            decoder = ((_scan_native_progressive if native else _scan_plain_progressive)
+                       if frame.progressive else _scan_native if native else _scan_plain)
+            pos += decoder(frame, scan, np.frombuffer(data, np.uint8, offset=pos), restart,
+                           dc, ac, path)
             scans += 1
     if frame is None or not scans:
         raise ValueError(f"{path}: no frame or no scan")
@@ -573,6 +887,12 @@ def _decode(data: bytes, path, native: bool) -> np.ndarray:
     for c in range(len(frame.ids)):
         if frame.q[c] is None:
             raise ValueError(f"{path}: component {frame.ids[c]} has no scan")
+    # `smoothing_ok` of jdcoefct.c: nonzero quantisers 0-9 and a coefficient
+    # 1-9 not sent in full make libjpeg-turbo smooth the blocks
+    if (frame.progressive and all((q[:10] != 0).all() for q in frame.q)
+            and (frame.coef_bits[:, 1:10] != 0).any()):
+        raise ValueError(f"{path}: progressive JPEG with coefficients left unrefined; "
+                         "libjpeg would smooth them (block smoothing is not read)")
     if jfif:
         rgb = False
     elif adobe is not None:
@@ -583,7 +903,8 @@ def _decode(data: bytes, path, native: bool) -> np.ndarray:
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """A baseline / extended sequential 8-bit JPEG -> uint8 (H, W) gray or
+    """A baseline, extended sequential or progressive 8-bit Huffman JPEG ->
+    uint8 (H, W) gray or
     (H, W, 3) RGB, the bits PIL 12 (libjpeg-turbo) decodes; decoded by
     `csrc/image.cpp`."""
     with open(path, "rb") as f:
@@ -633,20 +954,37 @@ def _blocks(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
 _SUBSAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2), "4:4:0": (1, 2)}
 
 
-def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
-               subsampling: str = "4:2:0") -> None:
-    """(H, W) gray or (H, W, 3) RGB uint8 -> a baseline JFIF JPEG with the
-    Annex K tables at libjpeg's `quality`; chroma subsampled 4:2:0, 4:2:2,
-    4:4:0 or not at all (4:4:4)."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"write_jpeg takes uint8, not {img.dtype}")
-    if img.ndim == 3 and img.shape[2] == 1:
-        img = img[..., 0]
-    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(f"write_jpeg takes (H, W) or (H, W, 3), not {img.shape}")
-    if subsampling not in _SUBSAMPLING:
-        raise ValueError(f"subsampling {subsampling!r}: one of {list(_SUBSAMPLING)}")
+def _magnitude(v):
+    """Values -> (their magnitude category, their extra bits) (F.1.2.1)."""
+    size = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+    return size, np.where(v < 0, v + (1 << size) - 1, v)
+
+
+def _pack(val, ln) -> bytes:
+    """Code words `val` of `ln` bits each, in order -> the entropy-coded
+    bytes: MSB first, padded with 1 bits, 0xFF stuffed."""
+    val, ln = np.asarray(val, np.int64), np.asarray(ln, np.int64)
+    total = int(ln.sum())
+    starts = np.cumsum(ln) - ln
+    owner = np.repeat(np.arange(len(ln)), ln)
+    j = np.arange(total) - starts[owner]
+    bits = ((val[owner] >> (ln[owner] - 1 - j)) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones(-total % 8, np.uint8)])
+    by = np.packbits(bits)
+    ff = by == 0xFF
+    stuffed = np.repeat(by, 1 + ff)
+    stuffed[np.flatnonzero(ff) + np.arange(int(ff.sum())) + 1] = 0
+    return stuffed.tobytes()
+
+
+def _segment(marker, body):
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _coefficients(img: np.ndarray, quality: int, subsampling: str):
+    """write_jpeg's image -> (quantisation tables, per component its
+    sampling, table and (rows, cols) of zig-zag quantised coefficients over
+    the MCU-padded grid)."""
     h, w = img.shape[:2]
     qs = [_quant_table(_Q_LUMA, quality), _quant_table(_Q_CHROMA, quality)]
     if img.ndim == 2:
@@ -666,14 +1004,30 @@ def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
     hmax, vmax = samp[0]
     mcuy, mcux = -(-h // (8 * vmax)), -(-w // (8 * hmax))
     a = _fdct_matrix()
-    comp_blocks = []
+    grids = []
     for p, (sh, sv), qi in zip(planes, samp, qsel):
         blk = _blocks(p - 128.0, mcuy * 8 * sv, mcux * 8 * sh).reshape(-1, 8, 8)
         coef = (a @ blk @ a.T).reshape(mcuy * sv, mcux * sh, 64)
-        q = np.round(coef / qs[qi]).astype(np.int64)[..., ZIGZAG]   # zigzag order
-        comp_blocks.append(q.reshape(mcuy, sv, mcux, sh, 64).transpose(0, 2, 1, 3, 4)
-                           .reshape(mcuy * mcux, sv * sh, 64))
-    blocks = np.concatenate(comp_blocks, 1)             # (MCUs, blocks per MCU, 64)
+        grids.append(np.round(coef / qs[qi]).astype(np.int64)[..., ZIGZAG])   # zigzag order
+    return qs, samp, qsel, grids
+
+
+def _headers(h, w, qs, samp, qsel, sof) -> list:
+    nc = len(samp)
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for i in range(1 if nc == 1 else 2):
+        out.append(_segment(0xDB, bytes([i]) + qs[i][ZIGZAG].astype(np.uint8).tobytes()))
+    out.append(_segment(sof, struct.pack(">BHHB", 8, h, w, nc) + b"".join(
+        bytes([i + 1, sh << 4 | sv, qsel[i]]) for i, (sh, sv) in enumerate(samp))))
+    return out
+
+
+def _baseline(h, w, qs, samp, qsel, grids) -> list:
+    """One interleaved scan with the Annex K Huffman tables."""
+    mcuy, mcux = grids[0].shape[0] // samp[0][1], grids[0].shape[1] // samp[0][0]
+    blocks = np.concatenate([q.reshape(mcuy, sv, mcux, sh, 64).transpose(0, 2, 1, 3, 4)
+                             .reshape(mcuy * mcux, sv * sh, 64)
+                             for q, (sh, sv) in zip(grids, samp)], 1)
     per_mcu = blocks.shape[1]
     comp_of = np.concatenate([np.full(sh * sv, i) for i, (sh, sv) in enumerate(samp)])
     blocks = blocks.reshape(-1, 64)
@@ -689,10 +1043,6 @@ def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
         _DC_LUMA, _AC_LUMA, _DC_CHROMA, _AC_CHROMA))))
     tsel = 2 * np.array(qsel)[comp]
 
-    def magnitude(v):
-        size = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
-        return size, np.where(v < 0, v + (1 << size) - 1, v)
-
     # symbols as (sort key, table, symbol, extra bits, their length); the key
     # orders them by block, then DC, ZRLs and AC by position, then EOB
     events = []
@@ -703,14 +1053,14 @@ def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
                        np.broadcast_to(extra, n), np.broadcast_to(elen, n)])
 
     nb = len(blocks)
-    size, extra = magnitude(dcv)
+    size, extra = _magnitude(dcv)
     emit(np.arange(nb) * 260, tsel, size, extra, size)
     b, k = np.nonzero(blocks[:, 1:])
     k = k + 1
     prev = np.concatenate([[0], k[:-1]])
     prev[np.flatnonzero(np.diff(b, prepend=-1))] = 0    # first in its block
     run = k - prev - 1
-    size, extra = magnitude(blocks[b, k])
+    size, extra = _magnitude(blocks[b, k])
     for j in range(3):                  # ZRLs before runs of 16 or more
         z = np.flatnonzero(run >= 16 * (j + 1))
         emit(b[z] * 260 + k[z] * 4 + j, tsel[b[z]] + 1, 0xF0)
@@ -724,35 +1074,225 @@ def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
     tab, sym, ext, elen = (np.concatenate([e[i] for e in events])[order].astype(np.int64)
                            for i in range(1, 5))
     code, clen = code_of[tab, sym], len_of[tab, sym]
-    val = code << elen | (ext & ((1 << elen) - 1))
-    ln = clen + elen
-    total = int(ln.sum())
-    starts = np.cumsum(ln) - ln
-    owner = np.repeat(np.arange(len(ln)), ln)
-    j = np.arange(total) - starts[owner]
-    bits = ((val[owner] >> (ln[owner] - 1 - j)) & 1).astype(np.uint8)
-    bits = np.concatenate([bits, np.ones(-total % 8, np.uint8)])
-    by = np.packbits(bits)
-    ff = by == 0xFF
-    stuffed = np.repeat(by, 1 + ff)
-    stuffed[np.flatnonzero(ff) + np.arange(int(ff.sum())) + 1] = 0
-
-    def segment(marker, body):
-        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
-
     nc = len(samp)
-    out = [b"\xff\xd8", segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    for i in range(1 if nc == 1 else 2):
-        out.append(segment(0xDB, bytes([i]) + qs[i][ZIGZAG].astype(np.uint8).tobytes()))
-    out.append(segment(0xC0, struct.pack(">BHHB", 8, h, w, nc) + b"".join(
-        bytes([i + 1, sh << 4 | sv, qsel[i]]) for i, (sh, sv) in enumerate(samp))))
+    out = []
     for i, (dct, act) in enumerate(((_DC_LUMA, _AC_LUMA), (_DC_CHROMA, _AC_CHROMA))
                                    [:1 if nc == 1 else 2]):
-        out.append(segment(0xC4, bytes([i]) + bytes(dct[0]) + dct[1]
-                           + bytes([0x10 | i]) + bytes(act[0]) + act[1]))
-    out.append(segment(0xDA, bytes([nc]) + b"".join(
+        out.append(_segment(0xC4, bytes([i]) + bytes(dct[0]) + dct[1]
+                            + bytes([0x10 | i]) + bytes(act[0]) + act[1]))
+    out.append(_segment(0xDA, bytes([nc]) + b"".join(
         bytes([i + 1, qsel[i] << 4 | qsel[i]]) for i in range(nc)) + b"\x00\x3f\x00"))
-    out += [stuffed.tobytes(), b"\xff\xd9"]
+    out.append(_pack(code << elen | (ext & ((1 << elen) - 1)), clen + elen))
+    return out
+
+
+def _optimal_table(freq):
+    """Symbol counts (256) -> (16 code counts, symbols): Annex K.2 as
+    libjpeg's `jpeg_gen_optimal_table`, a pseudo-symbol 256 keeping the code
+    of all ones free, lengths over 16 folded back."""
+    syms = [int(x) for x in np.flatnonzero(freq)] + [256]
+    size = dict.fromkeys(syms, 0)
+    # ties to the larger symbol, as libjpeg takes them
+    heap = [(int(freq[x]) if x < 256 else 1, -x, [x]) for x in syms]
+    heapq.heapify(heap)
+    while len(heap) > 1:
+        f1, t1, a = heapq.heappop(heap)
+        f2, t2, b = heapq.heappop(heap)
+        for x in a + b:
+            size[x] += 1
+        heapq.heappush(heap, (f1 + f2, max(t1, t2), a + b))
+    bits = np.zeros(max(33, max(size.values()) + 1), np.int64)
+    for x in syms:
+        bits[size[x]] += 1
+    for i in range(len(bits) - 1, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1                        # the pseudo-symbol
+    order = sorted((size[x], x) for x in syms if x < 256)
+    return tuple(int(c) for c in bits[1:17]), bytes(x for _, x in order)
+
+
+# one EOB run codes at most 2^15 - 1 blocks (EOB14 and 14 bits)
+_MAX_EOBRUN = 0x7FFF
+
+
+def _ac_events(t, sign, refine: bool):
+    """An AC scan's band over its blocks (t (blocks, L): the magnitudes after
+    the point transform, `sign` their signs) -> the scan's symbols and raw
+    bits as (key, symbol or -1 for a raw bit, extra bits, their length).
+
+    A first scan codes each nonzero t as (run, size) with its value bits; a
+    refinement codes each t of 1 (newly nonzero) as (run, 1) with its sign
+    bit, and gives each t over 1 (nonzero before) its next bit, t & 1, as a
+    correction bit. Runs count the zeros (t == 0) in between; ZRLs code 16 of
+    them each. A block whose band does not end on a coded coefficient joins
+    an EOB run, coded before the next block that codes one (or at the end),
+    at most 2^15 - 1 blocks a run. The decoder reads a correction bit while
+    walking past its coefficient, so each one follows the first symbol
+    whose walk reaches past it: in a block, a symbol's key is 2 (e + 1) for
+    e the position its walk starts after, a correction bit's 2 k + 1."""
+    nb, L = t.shape
+    span = 2 * L + 2
+    coded = t == 1 if refine else t > 0
+    zero = t == 0
+    zb, zk = np.nonzero(zero)
+    zoff = np.searchsorted(zb, np.arange(nb + 1))
+    zbefore = np.cumsum(zero, 1) - zero                 # zeros before each position
+    b, k = np.nonzero(coded)
+    first = np.diff(b, prepend=-1) != 0
+    prev = np.where(first, -1, np.concatenate([[-1], k[:-1]]))
+    z0 = np.where(prev < 0, 0, zbefore[b, np.maximum(prev, 0)] + zero[b, np.maximum(prev, 0)])
+    run = zbefore[b, k] - z0
+    n_zrl = run // 16
+    keys, syms, extras, elens = [], [], [], []
+    # ZRLs: the m-th ends at the (z0 + 16 m)-th zero after the previous symbol
+    zi = np.repeat(np.arange(len(b)), n_zrl)
+    m = np.arange(len(zi)) - np.repeat(np.cumsum(n_zrl) - n_zrl, n_zrl) + 1
+    zend = lambda i, mm: zk[zoff[b[i]] + z0[i] + 16 * mm - 1]     # noqa: E731
+    zstart = prev[zi]
+    later = m > 1
+    zstart[later] = zend(zi[later], m[later] - 1)
+    keys.append(b[zi] * span + 2 * (zstart + 1))
+    syms.append(np.full(len(zi), 0xF0))
+    extras.append(np.zeros(len(zi), np.int64))
+    elens.append(np.zeros(len(zi), np.int64))
+    start = prev.copy()
+    after = np.flatnonzero(n_zrl)
+    start[after] = zend(after, n_zrl[after])
+    keys.append(b * span + 2 * (start + 1))
+    if refine:
+        syms.append((run % 16) << 4 | 1)
+        extras.append((sign[b, k] > 0).astype(np.int64))
+        elens.append(np.ones(len(b), np.int64))
+        hb, hk = np.nonzero(t > 1)                      # correction bits
+        keys.append(hb * span + 2 * hk + 1)
+        syms.append(np.full(len(hb), -1))
+        extras.append(t[hb, hk] & 1)
+        elens.append(np.ones(len(hb), np.int64))
+    else:
+        size, extra = _magnitude(np.where(sign[b, k] < 0, -t[b, k], t[b, k]))
+        syms.append((run % 16) << 4 | size)
+        extras.append(extra)
+        elens.append(size)
+    # EOB runs: from each block that codes a coefficient (and block 0) to
+    # the next, the blocks whose band does not end on a coded coefficient
+    last = np.full(nb, -1)
+    np.maximum.at(last, b, k)
+    trails = last < L - 1
+    seg = np.union1d([0], b)
+    run_start = np.where(trails[seg], seg, seg + 1)
+    run_len = np.append(seg[1:], nb) - run_start
+    keep = run_len > 0
+    run_start, run_len = run_start[keep], run_len[keep]
+    n_chunk = -(-run_len // _MAX_EOBRUN)
+    ci = np.repeat(np.arange(len(run_len)), n_chunk)
+    j = np.arange(len(ci)) - np.repeat(np.cumsum(n_chunk) - n_chunk, n_chunk)
+    x = run_start[ci] + j * _MAX_EOBRUN
+    n = np.minimum(run_len[ci] - j * _MAX_EOBRUN, _MAX_EOBRUN)
+    r = np.frexp(n.astype(np.float64))[1].astype(np.int64) - 1
+    keys.append(x * span + 2 * (last[x] + 1))
+    syms.append(r << 4)
+    extras.append(n - (1 << r))
+    elens.append(r)
+    return [np.concatenate(a).astype(np.int64) for a in (keys, syms, extras, elens)]
+
+
+def _progressive(h, w, qs, samp, qsel, grids) -> list:
+    """The coefficients as `jpeg_simple_progression`'s scans, each after a
+    DHT of its own optimal tables."""
+    nc = len(samp)
+    hmax, vmax = samp[0]
+    if nc == 3:     # (components, Ss, Se, Ah, Al); Cr before Cb, as libjpeg
+        script = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                  ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                  ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                  ((0,), 1, 63, 1, 0)]
+    else:
+        script = [((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
+                  ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0)]
+    out = []
+    for comps, ss, se, ah, al in script:
+        if len(comps) > 1:              # interleaved: the MCU order
+            mcuy, mcux = grids[0].shape[0] // vmax, grids[0].shape[1] // hmax
+            parts = [grids[c].reshape(mcuy, samp[c][1], mcux, samp[c][0], 64)
+                     .transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, -1, 64) for c in comps]
+            blocks = np.concatenate(parts, 1).reshape(-1, 64)
+            comp = np.tile(np.concatenate([np.full(p.shape[1], c) for c, p in
+                                           zip(comps, parts)]), mcuy * mcux)
+        else:                           # the component's own blocks
+            c = comps[0]
+            rows = -(-h * samp[c][1] // vmax)
+            cols = -(-w * samp[c][0] // hmax)
+            blocks = grids[c][:-(-rows // 8), :-(-cols // 8)].reshape(-1, 64)
+            comp = np.full(len(blocks), c)
+        tab = np.array(qsel)[comp]
+        if ss == 0 and ah:              # DC refinement: a raw bit a block
+            keys, syms = np.arange(len(blocks)), np.full(len(blocks), -1)
+            extras, elens = (blocks[:, 0] >> al) & 1, np.ones(len(blocks), np.int64)
+        elif ss == 0:                   # DC first: differences of coef >> Al
+            v = blocks[:, 0] >> al
+            diff = v.copy()
+            for c in comps:
+                sel = np.flatnonzero(comp == c)
+                diff[sel] = np.diff(v[sel], prepend=0)
+            size, extras = _magnitude(diff)
+            keys, syms, elens = np.arange(len(blocks)), size, size
+        else:
+            band = blocks[:, ss:se + 1]
+            keys, syms, extras, elens = _ac_events(np.abs(band) >> al, np.sign(band),
+                                                   refine=ah > 0)
+            tab = np.full(len(keys), qsel[comps[0]])
+        order = np.argsort(keys, kind="stable")
+        syms, extras, elens, tab = syms[order], extras[order], elens[order], tab[order]
+        code, clen = np.zeros(len(syms), np.int64), np.zeros(len(syms), np.int64)
+        dht = b""
+        huffman = syms >= 0
+        for t in sorted(set(tab[huffman].tolist())):
+            sel = huffman & (tab == t)
+            bits, vals = _optimal_table(np.bincount(syms[sel], minlength=256))
+            dht += bytes([(0 if ss == 0 else 0x10) | t]) + bytes(bits) + vals
+            cw, cl = _encode_tables(bits, vals)
+            code[sel], clen[sel] = cw[syms[sel]], cl[syms[sel]]
+        if dht:
+            out.append(_segment(0xC4, dht))
+        td_ta = [(qsel[c] << 4 if ss == 0 and not ah else 0) | (qsel[c] if ss else 0)
+                 for c in comps]
+        out.append(_segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([c + 1, t]) for c, t in zip(comps, td_ta)) + bytes([ss, se, ah << 4 | al])))
+        out.append(_pack(code << elens | (extras & ((1 << elens) - 1)), clen + elens))
+    return out
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
+               subsampling: str = "4:2:0", progressive: bool = False) -> None:
+    """(H, W) gray or (H, W, 3) RGB uint8 -> a JFIF JPEG with the Annex K
+    quantisation tables at libjpeg's `quality`; chroma subsampled 4:2:0,
+    4:2:2, 4:4:0 or not at all (4:4:4). Baseline (one interleaved scan, the
+    Annex K Huffman tables), or with `progressive` the same coefficients in
+    `jpeg_simple_progression`'s scans (SOF2)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"write_jpeg takes uint8, not {img.dtype}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"write_jpeg takes (H, W) or (H, W, 3), not {img.shape}")
+    if subsampling not in _SUBSAMPLING:
+        raise ValueError(f"subsampling {subsampling!r}: one of {list(_SUBSAMPLING)}")
+    h, w = img.shape[:2]
+    qs, samp, qsel, grids = _coefficients(img, quality, subsampling)
+    out = _headers(h, w, qs, samp, qsel, 0xC2 if progressive else 0xC0)
+    out += (_progressive if progressive else _baseline)(h, w, qs, samp, qsel, grids)
+    out.append(b"\xff\xd9")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(b"".join(out))

@@ -7,8 +7,8 @@ palette; 1- to 16-bit samples; the five row filters None, Sub, Up, Average
 and Paeth; Adam7 interlace) to uint8 arrays: (H, W) for gray, (H, W, C)
 otherwise. 16-bit samples keep their high byte and palette images expand
 to RGB or RGBA (the JAX reader's PIL path gives 16-bit gray unscaled and
-palette indices). `read_image` reads a JPEG (`io/jpeg.py`) or a PNG by its
-first bytes. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
+palette indices). `read_image` reads a JPEG (`io/jpeg.py`), a PNG, a BMP
+(`io/bmp.py`) or a TIFF (`io/tiff.py`) by its first bytes. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
 with filter type 0 on every row, and `write_png` writes what it returns.
 
 The row filters are undone by the port's C++ (`gm_png_unfilter` of
@@ -26,7 +26,9 @@ import zlib
 
 import numpy as np
 
+from gaussianmesh_tpu_torch.io.bmp import BMP_MAGIC, read_bmp
 from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
+from gaussianmesh_tpu_torch.io.tiff import TIFF_HEADS, read_tiff
 from gaussianmesh_tpu_torch.ops import _cuda
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -215,12 +217,16 @@ def _decode(data: bytes, path: str, unfilter) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A dataset image, JPEG or PNG by its first bytes -> `read_jpeg`'s or
-    `read_png`'s array."""
+    """A dataset image, JPEG, PNG, BMP or TIFF by its first bytes ->
+    `read_jpeg`'s, `read_png`'s, `read_bmp`'s or `read_tiff`'s array."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head[:3] == JPEG_MAGIC:
         return read_jpeg(path)
     if head == PNG_MAGIC:
         return read_png(path)
-    raise ValueError(f"{path}: neither a JPEG nor a PNG")
+    if head[:2] == BMP_MAGIC:
+        return read_bmp(path)
+    if head[:4] in TIFF_HEADS:
+        return read_tiff(path)
+    raise ValueError(f"{path}: not a JPEG, PNG, BMP or TIFF")

@@ -75,6 +75,10 @@ HOST_LIBRARIES = {
         # vals, vals_stride, n_tables, dest, coef, used, n_found
         "gm_jpeg_scan": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                          _P, _P],
+        # data, n, n_mcus, interval, per_mcu, comp, tab, tables, vals,
+        # vals_stride, n_tables, dest, ss, se, ah, al, coef, used, n_found
+        "gm_jpeg_scan_progressive": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
+                                     _I, _I, _I, _I, _P, _P, _P],
         # coef, n_comp, offset, nby, nbx, rows, cols, ry, rx, q, height,
         # width, color, out
         "gm_jpeg_planes": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

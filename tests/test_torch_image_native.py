@@ -9,6 +9,7 @@ The training path's readers never reach a plain version, and a build that
 cannot happen raises."""
 
 import io
+import os
 import struct
 import zlib
 
@@ -36,6 +37,7 @@ def _same(path):
     assert np.array_equal(got, plain), np.abs(got.astype(int) - plain).max()
     want = np.asarray(Image.open(path))
     assert np.array_equal(got, want), np.abs(got.astype(int) - want).max()
+    return want
 
 
 @pytest.mark.parametrize("size", JPEG_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -185,6 +187,68 @@ def test_jpeg_corrupt_streams_raise_as_plain(tmp_path):
     assert len(set(_both_raise(path, "no Huffman code matches"))) == 1
 
 
+@pytest.mark.parametrize("size", JPEG_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("sampling", ["4:4:4", "4:2:2", "4:2:0", "4:4:0", "gray"])
+def test_progressive_native_equals_plain_and_pil(tmp_path, sampling, size):
+    """Progressive files (SOF2): `write_jpeg(progressive=True)`'s at every
+    sampling, 4:4:0 included, at qualities 50 and 100, and PIL's plain,
+    optimized and with restart markers every block; the C++ scan decoder
+    (`gm_jpeg_scan_progressive`), the plain one and PIL equal."""
+    gray = sampling == "gray"
+    img = _jpeg_image(*size, 1 if gray else 3, seed=size[0] + 5 * size[1])
+    path = str(tmp_path / "p.jpg")
+    for quality in (50, 100):
+        jpeg.write_jpeg(path, img, quality=quality, progressive=True,
+                        **({} if gray else {"subsampling": sampling}))
+        _same(path)
+    if sampling == "4:4:0":
+        return
+    for extra in ({}, {"optimize": True}, {"restart_marker_blocks": 1}):
+        kw = dict(quality=90, progressive=True, **extra,
+                  **({} if gray else {"subsampling": sampling}))
+        Image.fromarray(img).save(path, "JPEG", **kw)
+        _same(path)
+
+
+def _outcome(read, path):
+    try:
+        return read(path)
+    except ValueError as err:
+        return str(err)
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+def test_progressive_damaged_streams_as_plain(tmp_path, restart):
+    """A progressive file (PIL's, restart interval 0 or 2 blocks) cut at 24
+    places and with 40 single bytes of its scans changed (seeded): on each,
+    the C++ decoder returns the plain one's bytes or raises its error."""
+    path = str(tmp_path / "d.jpg")
+    kw = {"restart_marker_blocks": restart} if restart else {}
+    Image.fromarray(_jpeg_image(48, 40, 3, seed=9)).save(path, "JPEG", quality=80,
+                                                         progressive=True, **kw)
+    data = open(path, "rb").read()
+    first = data.index(b"\xff\xda")
+    rng = np.random.default_rng(restart)
+    damaged = [data[:int(first + f * (len(data) - first))] + b"\xff\xd9"
+               for f in np.linspace(0.02, 0.98, 24)]
+    for at, value in zip(rng.integers(first + 12, len(data) - 2, 40),
+                         rng.integers(0, 256, 40)):
+        if data[at] != 0xFF and data[at - 1] != 0xFF and value != 0xFF:
+            damaged.append(data[:at] + bytes([value]) + data[at + 1:])
+    errors = set()
+    for i, d in enumerate(damaged):
+        with open(path, "wb") as fh:
+            fh.write(d)
+        native, plain = _outcome(jpeg.read_jpeg, path), _outcome(jpeg.read_jpeg_plain, path)
+        assert type(native) is type(plain), (i, native if isinstance(native, str) else plain)
+        if isinstance(native, str):
+            assert native == plain, i
+            errors.add(native.split(": ", 1)[-1])
+        else:
+            assert np.array_equal(native, plain), i
+    assert any("truncated" in e for e in errors), errors
+
+
 def _split_scan(data):
     """A one-scan JPEG -> (its bytes to the end of the SOS header, the
     entropy-coded bytes)."""
@@ -331,31 +395,40 @@ def test_resize_native_equals_plain_and_pil(c):
 
 def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
-    resize) and of a Blender set of PIL-filtered RGBA PNGs at -r 2, with
-    every plain piece made to raise: the same scenes as before."""
+    resize), of the same set with progressive JPEGs, and of a Blender set of
+    PIL-filtered RGBA PNGs at -r 2, with every plain piece made to raise:
+    the same scenes as before."""
     colmap_root = _jpeg_colmap_set(tmp_path / "c")
+    prog_root = _jpeg_colmap_set(tmp_path / "p")
+    for name in os.listdir(f"{prog_root}/images"):
+        path = f"{prog_root}/images/{name}"
+        Image.open(path).save(path, "JPEG", quality=90, progressive=True)
     blender_root = _blender_set(tmp_path / "b", with_ply=True, w=40, h=28)
     frame = open(f"{blender_root}/train/r_0.png", "rb").read()
     raw = zlib.decompress(frame[frame.index(b"IDAT") + 4:frame.index(b"IEND") - 8])
     assert any(raw[y * (1 + 40 * 4)] for y in range(28))      # filtered rows
     kw = dict(eval_split=True, is_exist_bg=True)
     before = (readers.read_scene(colmap_root, resolution=-1, **kw),
+              readers.read_scene(prog_root, resolution=-1, **kw),
               readers.read_scene(blender_root, resolution=2, eval_split=True))
 
     def plain(*_a, **_k):
         raise AssertionError("a plain version was called")
     for mod, names in ((jpeg, ("_scan_plain", "_planes_plain", "_huffman", "_idct",
-                               "_upsample", "_ycc_to_rgb", "_decode_tables")),
+                               "_upsample", "_ycc_to_rgb", "_decode_tables",
+                               "_scan_plain_progressive", "_progressive_plain",
+                               "_peek_table")),
                        (png, ("_unfilter_plain",)), (resample, ("_pass_plain",))):
         for name in names:
             monkeypatch.setattr(mod, name, plain)
     after = (readers.read_scene(colmap_root, resolution=-1, **kw),
+             readers.read_scene(prog_root, resolution=-1, **kw),
              readers.read_scene(blender_root, resolution=2, eval_split=True))
     for a, b in zip(before, after):
         for ca, cb in zip(a.train_cameras + a.test_cameras, b.train_cameras + b.test_cameras):
             assert np.array_equal(ca.image, cb.image) and np.array_equal(ca.mask, cb.mask)
     assert after[0].train_cameras[0].image.shape[1:] == cameras.pick_resolution(1700, 22, -1)[::-1]
-    assert after[1].train_cameras[0].image.shape[1:] == (14, 20)
+    assert after[2].train_cameras[0].image.shape[1:] == (14, 20)
 
 
 @pytest.fixture

@@ -104,7 +104,8 @@ def test_png_decodes_every_filter_as_pil(tmp_path, c):
 def test_unsupported_images_raise(tmp_path):
     """What PIL would not read either raises with a message naming the
     cause: a bit depth the color type does not allow, a palette PNG without
-    its palette, a file that is neither PNG nor JPEG, a progressive JPEG."""
+    its palette, a file that is no JPEG, PNG, BMP or TIFF (a GIF), a
+    lossless JPEG (SOF3)."""
     bad = str(tmp_path / "bad.png")
     with open(bad, "wb") as fh:
         fh.write(png.PNG_MAGIC
@@ -121,14 +122,17 @@ def test_unsupported_images_raise(tmp_path):
         fh.write(data[:i] + data[i + 12 + struct.unpack(">I", data[i:i + 4])[0]:])
     with pytest.raises(ValueError, match="PLTE"):
         png.read_png(pal)
-    other = str(tmp_path / "x.bmp")
+    other = str(tmp_path / "x.gif")
     Image.fromarray(_image(3)).save(other)
-    with pytest.raises(ValueError, match="neither a JPEG nor a PNG"):
+    with pytest.raises(ValueError, match="not a JPEG, PNG, BMP or TIFF"):
         png.read_image(other)
-    prog = str(tmp_path / "p.jpg")
-    Image.fromarray(_image(3)).save(prog, progressive=True)
-    with pytest.raises(ValueError, match="progressive"):
-        png.read_image(prog)
+    lossless = str(tmp_path / "l.jpg")
+    Image.fromarray(_image(3)).save(lossless)
+    data = open(lossless, "rb").read()
+    with open(lossless, "wb") as fh:
+        fh.write(data.replace(b"\xff\xc0", b"\xff\xc3", 1))
+    with pytest.raises(ValueError, match="lossless"):
+        png.read_image(lossless)
 
 
 @pytest.mark.parametrize("c", [1, 2, 3, 4])
