@@ -136,6 +136,26 @@ Phases (any failure raises, so the exit code is not 0):
    capacities: K1, K2 and K3 once a step (counters set to 0 just before,
    read just after), finite losses and parameters, no overflow, and the
    loaded training targets and cameras equal to phase 9's.
+9c. new formats: phase 9's 24 views as the baseline JPEG files decode
+   (1920x1080) written again: 6 LZW TIFFs with predictor 2, 3 with
+   predictor 1, 3 PackBits TIFFs, 4 16-bit LZW TIFFs (each sample x 257,
+   predictor 2), 4 GIFs and 2 RLE8 BMPs on a fixed 256-entry palette (the
+   views quantized in numpy; two GIFs interlaced), 2 RLE4 BMPs on a
+   16-entry one (`io/tiff.py`, `io/gif.py`, `io/bmp.py` writers; the LZW
+   encoder `gm_lzw_encode`). Each view decoded by `read_image` (C++:
+   `gm_lzw_decode`, `gm_packbits_decode`, `gm_bmp_rle`) to the bytes
+   written, or the palette expansion of the indices written; one view of
+   each format decoded by the plain versions, equal bytes; s / MP (C++ and
+   plain), file bytes and write s by format beside the card's name and
+   power limit and the host's CPU. A TIFF cut inside its last LZW strip
+   and a GIF with a code past the LZW table raise the same ValueError
+   through both decoders. Then `cli.train_mesh --device cuda` on that scene
+   for PROGRESSIVE_ITERS steps with phase 9's shrunk schedule and
+   capacities: K1, K2 and K3 once a step (counters set to 0 just before,
+   read just after), finite losses and parameters, no overflow, the
+   cameras equal to phase 9's, the training targets of every TIFF view
+   equal to phase 9's and of every palette view to the port's resize of
+   the palette expansion.
 10. serve and shard, at full width. (a) The host deformation-gradient
    extractor (`edit/native_acap.py`, C++ / OpenMP, built by g++) on the
    slice's icosphere-7 mesh and phase 7's largest twist frame: against the
@@ -314,6 +334,11 @@ EVAL_QUALITY = 90
 EVAL_ITERS = 100
 EVAL_MIN_PSNR = 35.0                   # the JPEG round trip against the render
 PROGRESSIVE_ITERS = 20                 # phase 9b: train_mesh on the progressive scene
+# phase 9c: phase 9's views written again, (format, views) in turn
+FORMATS_9C = (("tiff_lzw_p2", 6), ("tiff_lzw_p1", 3), ("tiff_packbits", 3),
+              ("tiff16_lzw_p2", 4), ("gif", 4), ("bmp_rle8", 2), ("bmp_rle4", 2))
+LEVELS_256 = (8, 8, 4)                 # phase 9c's fixed palettes: steps of R, G, B
+LEVELS_16 = (2, 4, 2)
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -993,8 +1018,8 @@ def kernel_line(results, fullscreen, launches):
     scaling tool's D = 8 critical band ("scaling_band") and critical emulated
     rank ("scaling_gshard"; the owner's K3 "scaling_gshard_owner"), and K3's
     on the full-screen case; errors over all of them; launches from the main
-    paths (render, train, playback, pipeline, eval, progressive, serve,
-    shard, gshard, quality, tools, scaling)."""
+    paths (render, train, playback, pipeline, eval, progressive, formats,
+    serve, shard, gshard, quality, tools, scaling)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -2349,6 +2374,180 @@ def phase_progressive(torch, port, model, scene, tmpdir):
     return res, launches
 
 
+# ------------------------------------------------------------------ phase 9c
+
+def fixed_palette(levels):
+    """The palette of a regular grid of `levels` (R, G, B) steps, R slowest
+    -> (R * G * B, 3) uint8."""
+    axes = [np.rint(np.arange(n) * 255.0 / (n - 1)).astype(np.uint8) for n in levels]
+    grid = np.meshgrid(*axes, indexing="ij")
+    return np.stack([g.ravel() for g in grid], 1)
+
+
+def quantize(img, levels):
+    """(H, W, 3) uint8 -> indices into `fixed_palette(levels)`: each channel
+    rounded to its nearest step."""
+    q = [np.rint(img[..., k].astype(np.float32) * ((n - 1) / 255.0)).astype(np.int32)
+         for k, n in enumerate(levels)]
+    return ((q[0] * levels[1] + q[1]) * levels[2] + q[2]).astype(np.uint8)
+
+
+def write_9c_view(port, kind, path, img, interlace):
+    """View `img` written as `kind` -> (the array `read_image` must give,
+    the writer's s)."""
+    if kind.startswith("tiff"):
+        pixels = img.astype(np.uint16) * 257 if kind.startswith("tiff16") else img
+        kw = (dict(compression="packbits") if kind == "tiff_packbits" else
+              dict(compression="lzw", predictor=2 if kind.endswith("p2") else 1))
+        _, t = timed(lambda: port.tiff.write_tiff(path, pixels, **kw))
+        return img, t
+    levels = LEVELS_16 if kind == "bmp_rle4" else LEVELS_256
+    pal, idx = fixed_palette(levels), quantize(img, levels)
+    if kind == "gif":
+        _, t = timed(lambda: port.gif.write_gif(path, idx, pal, interlace=interlace))
+    else:
+        _, t = timed(lambda: port.bmp.write_bmp(path, idx, palette=pal,
+                                                bits=4 if kind == "bmp_rle4" else 8,
+                                                rle=True))
+    return pal[idx], t
+
+
+def decode_plain_9c(port, kind, data):
+    if kind.startswith("tiff"):
+        return port.tiff.decode_tiff_plain(data)
+    if kind == "gif":
+        return port.gif.decode_gif_plain(data)
+    return port.bmp.decode_bmp_plain(data)
+
+
+def both_raise(port, kind, data, words):
+    """`data` through `read_image` and the plain decoder of `kind`: the same
+    ValueError naming `words` -> its message."""
+    msgs = []
+    with tempfile.NamedTemporaryFile(suffix=".bad") as fh:
+        fh.write(data)
+        fh.flush()
+        for read in (port.png.read_image, lambda p: decode_plain_9c(
+                port, kind, open(p, "rb").read())):
+            try:
+                read(fh.name)
+            except ValueError as err:
+                msgs.append(str(err).replace(fh.name, "<file>").replace("<bytes>", "<file>"))
+            else:
+                raise AssertionError(f"a damaged {kind} file decoded")
+    if msgs[0] != msgs[1] or words not in msgs[0]:
+        raise AssertionError(f"damaged {kind}: {msgs}")
+    return msgs[0]
+
+
+def phase_formats(torch, port, scene, tmpdir):
+    """Phase 9c (see the module docstring) on phase 9's `scene` ->
+    (results, launches)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(tmpdir, "formats_data", "s")
+    sparse = os.path.join(root, "sparse", "0")
+    cams, images, (xyz, rgb, err) = port.colmap.read_model(
+        os.path.join(scene["root"], "sparse", "0"))
+    kinds = [k for k, n in FORMATS_9C for _ in range(n)]
+    assert len(kinds) == len(scene["cams"]) == len(images), (len(kinds), len(images))
+    names = {}
+    for iid, img in images.items():
+        kind = kinds[iid - 1]
+        names[iid] = img.name.replace(".jpg", ".tif" if kind.startswith("tiff")
+                                      else "." + kind[:3])
+        images[iid] = dataclasses.replace(img, name=names[iid])
+    port.colmap.write_model_binary(sparse, cams, images, xyz, rgb, err)
+    os.makedirs(os.path.join(root, "images"))
+    stats = {k: {"decode": [], "write": [], "bytes": []} for k, _ in FORMATS_9C}
+    expected, plain_done, seen = {}, {}, {}
+    for i, kind in enumerate(kinds):
+        base = port.jpeg.read_jpeg(os.path.join(scene["root"], "images", f"{i:03d}.jpg"))
+        path = os.path.join(root, "images", names[i + 1])
+        seen[kind] = seen.get(kind, 0) + 1
+        want, t = write_9c_view(port, kind, path, base, interlace=seen[kind] % 2 == 0)
+        stats[kind]["write"].append(t)
+        stats[kind]["bytes"].append(os.path.getsize(path))
+        got, t = timed(port.png.read_image, path)
+        stats[kind]["decode"].append(t)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{names[i + 1]} ({kind}) decodes to other bytes than "
+                                 "were written")
+        expected[i] = (kind, want)
+        if kind not in plain_done:
+            with open(path, "rb") as fh:
+                data = fh.read()
+            plain, t = timed(decode_plain_9c, port, kind, data)
+            if not np.array_equal(plain, got):
+                raise AssertionError(f"{names[i + 1]}: the plain {kind} decode differs "
+                                     "from the C++ one")
+            plain_done[kind] = t
+    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
+    by_format = {k: dict(views=len(v["decode"]),
+                         decode_s_per_mp=float(np.median(v["decode"])) / megapixels,
+                         plain_s_per_mp=plain_done[k] / megapixels,
+                         bytes_mean=float(np.mean(v["bytes"])),
+                         write_s=float(np.median(v["write"])))
+                 for k, v in stats.items()}
+    first = {k: kinds.index(k) for k, _ in FORMATS_9C}
+    with open(os.path.join(root, "images", names[first["tiff_lzw_p2"] + 1]), "rb") as fh:
+        lzw_tiff = fh.read()
+    with open(os.path.join(root, "images", names[first["gif"] + 1]), "rb") as fh:
+        gif_file = fh.read()
+    at = 13 + 3 * 256 + 10 + 2 + 3         # the GIF's fourth byte of LZW data
+    damaged = {
+        "tiff": both_raise(port, "tiff_lzw_p2", lzw_tiff[:len(lzw_tiff) - 777],
+                           "cut short"),
+        "gif": both_raise(port, "gif", gif_file[:at] + b"\xff\xff\xff" + gif_file[at + 3:],
+                          "past the table"),
+    }
+    for kind, r in by_format.items():
+        log(f"[formats] {kind}: {r['views']} views at {EVAL_WIDTH}x{EVAL_HEIGHT}, "
+            f"{r['bytes_mean']:.0f} bytes each; decode {r['decode_s_per_mp']:.4f} s/MP "
+            f"(plain {r['plain_s_per_mp']:.4f}); write {r['write_s']:.3f} s a view")
+    log(f"[formats] every view decoded to the bytes written; damaged files raise "
+        f"through both decoders: {json.dumps(damaged)}")
+
+    cfg = scene["cfg"]
+    trainer, launches, rows = run_cli(torch, port, port.cli_train_mesh.main, [
+        "-s", root, "-m", os.path.join(tmpdir, "formats_out"), "--input_mesh",
+        scene["proxy"], "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
+        "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
+        "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
+        "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
+        *scene["sched"]], port.trainer.MeshTrainer)
+    want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
+    assert launches == want, launches
+    steps = step_summary(rows["steps"], "formats")
+    for name, p in trainer.model.named_parameters():
+        assert torch.isfinite(p).all(), name
+    ds, ref = trainer.ds, scene["targets"]
+    for key in ("view", "proj", "campos"):
+        if not torch.equal(getattr(ds, key), getattr(ref, key)):
+            raise AssertionError(f"the new-format scene's training {key} differ from "
+                                 "phase 9's")
+    centres = np.stack([pos for _, pos, _ in scene["cams"]])
+    size = (int(ds.width), int(ds.height))
+    n_tiff = n_palette = 0
+    for k in range(ds.images.shape[0]):
+        i = int(np.argmin(np.linalg.norm(centres - ds.campos[k].cpu().numpy(), axis=1)))
+        kind, written = expected[i]
+        if kind.startswith("tiff"):
+            target, n_tiff = ref.images[k], n_tiff + 1
+        else:
+            arr = port.resample.resize(written, size).astype(np.float32) / 255.0
+            target = torch.from_numpy((arr.transpose(2, 0, 1) * 255).astype(np.uint8))
+            target, n_palette = target.to(ds.images.device), n_palette + 1
+        if not torch.equal(ds.images[k], target):
+            raise AssertionError(f"view {i} ({kind}): its training target differs")
+    res = dict(formats=by_format, damaged=damaged, train_tiff_views=n_tiff,
+               train_palette_views=n_palette,
+               load_s=(rows["scene"][0][0] + rows["upload"][0][0]) / 1e3,
+               train_s=sum(t for t, _ in rows["steps"]) / 1e3, **steps,
+               phase_s=time.perf_counter() - t_phase)
+    log("[formats] " + json.dumps(res))
+    return res, launches
+
+
 # ------------------------------------------------------------------ phase 10
 
 def phase_acap(torch, port):
@@ -3542,7 +3741,7 @@ def load_port():
     from gaussianmesh_tpu_torch.cli import full_eval as cli_full_eval
     from gaussianmesh_tpu_torch.cli import metrics as cli_metrics
     from gaussianmesh_tpu_torch.eval import lpips
-    from gaussianmesh_tpu_torch.io import jpeg, resample
+    from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, resample, tiff
     from gaussianmesh_tpu_torch.train import loss
 
     from gaussianmesh_tpu_torch import viewer
@@ -3564,6 +3763,7 @@ def load_port():
         cli_train_bg=cli_train_bg, cli_render=cli_render, scene=scene, png=png,
         colmap=colmap, bg_trainer=bg_trainer, cli_full_eval=cli_full_eval,
         cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss,
+        tiff=tiff, gif=gif, bmp=bmp,
         gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
@@ -3601,6 +3801,7 @@ def main() -> int:
             torch, port, model, train_rt, tmpdir)
         progressive, progressive_launches = phase_progressive(torch, port, model,
                                                               eval_scene, tmpdir)
+        formats, formats_launches = phase_formats(torch, port, eval_scene, tmpdir)
         del eval_scene
         t_serve = time.perf_counter()
         acap = phase_acap(torch, port)
@@ -3623,6 +3824,7 @@ def main() -> int:
                            "train": train_launches, "playback": playback_launches,
                            "pipeline": pipeline_launches, "eval": eval_launches,
                            "progressive": progressive_launches,
+                           "formats": formats_launches,
                            "serve": serve_launches, "shard": shard_launches,
                            "gshard": gshard_launches, "quality": quality_launches,
                            "tools": tools_launches, "scaling": scaling_launches})
@@ -3665,6 +3867,12 @@ def main() -> int:
         f"same run {progressive['baseline_decode_s_per_mp']:.4f}); train_mesh load "
         f"{progressive['load_s']:.2f} s, {progressive['steps']} steps in "
         f"{progressive['train_s']:.2f} s (median {progressive['step_ms_median']:.3f} ms)")
+    log(f"[done] formats phase {formats['phase_s']:.1f} s on {smi}, host CPU: "
+        f"{host_cpu()} (one core a call): s/MP C++ / plain by format "
+        + ", ".join(f"{k} {r['decode_s_per_mp']:.4f} / {r['plain_s_per_mp']:.4f}"
+                    for k, r in formats["formats"].items())
+        + f"; train_mesh load {formats['load_s']:.2f} s, {formats['steps']} steps in "
+        f"{formats['train_s']:.2f} s (median {formats['step_ms_median']:.3f} ms)")
     log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} ("
         f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks over {shard['backend']} on cards "
         f"{shard['cards']}): native ACAP {acap['host_ms']:.1f} ms per call on the host "

@@ -19,6 +19,11 @@
 //   YCbCr -> RGB tables (`jdcolor.c`), cropped to the frame.
 // - gm_png_unfilter: PNG filters 0-4 row after row over bytes.
 // - gm_resample_pass: one 8-bit bicubic pass of `Resample.c` along an axis.
+// - gm_lzw_decode / gm_lzw_encode: LZW as TIFF (MSB first, the code width
+//   growing one code early) and GIF (LSB first, no early change) code it,
+//   for `io/lzw.py`.
+// - gm_packbits_decode: TIFF's PackBits (compression 32773), `io/tiff.py`.
+// - gm_bmp_rle: a BMP's RLE8 / RLE4 pixel data, `io/bmp.py`.
 //
 // Integer arithmetic wraps as numpy's int32 does (built with -fwrapv), so
 // even out-of-range coefficients of a corrupt file give the plain
@@ -43,6 +48,13 @@ constexpr int kFewIntervals = 3;    // fewer restart intervals than the scan nee
 constexpr int kBadMagnitude = 4;    // a DC magnitude category over 16
 constexpr int kBadFilter = 5;       // a PNG filter type over 4
 constexpr int kBadRefine = 6;       // an AC refinement's new coefficient of size other than 1
+constexpr int kPastTable = 7;       // an LZW code past the table's next free entry
+constexpr int kOverflow = 8;        // decoded data past the size of the strip or frame
+constexpr int kBadLiteral = 9;      // an LZW encoder's input byte of min_bits or more bits
+constexpr int kNoRoom = 10;         // an LZW encoder's output past its buffer
+
+constexpr int kLzwMaxBits = 12;     // LZW codes of 12 bits, a table of 4,096 entries
+constexpr int kLzwTable = 1 << kLzwMaxBits;
 
 // zig-zag position -> natural (row-major) index in the 8x8 block
 constexpr int kZigzag[64] = {
@@ -321,6 +333,15 @@ std::vector<Huffman> huffman_tables(const int32_t* tables, const uint8_t* vals,
     huff.emplace_back(tables + 17 * t + 1, tables[17 * t],
                       vals + static_cast<int64_t>(t) * vals_stride);
   return huff;
+}
+
+// The width of the LZW code that follows an entry count of `next` (TIFF's
+// code width grows one code early): the least width past the literals'
+// with next + early < 2^width, 12 at most.
+inline int lzw_width(int next, int min_bits, int early) {
+  int w = min_bits + 1;
+  while (w < kLzwMaxBits && next + early >= (1 << w)) ++w;
+  return w;
 }
 
 }  // namespace
@@ -648,6 +669,271 @@ int gm_resample_pass(const uint8_t* src, int64_t h, int64_t w, int64_t c, int ax
     uint8_t* o = dst + y * n;
     for (int64_t i = 0; i < n; ++i) o[i] = clip255(acc[i] >> kPrecisionBits);
   }
+  return kOk;
+}
+
+// LZW data (n bytes) -> out, at most out_size bytes: codes of min_bits + 1
+// bits to 12, read MSB first (TIFF) or LSB first (GIF); Clear is
+// 1 << min_bits, EOI the code after it; the width grows once the next free
+// entry plus `early` (1 for TIFF) reaches 1 << width, and a full table (4,096
+// entries) takes no more until a Clear. A code equal to the next free entry
+// is the last string and its own first byte (KwKwK). Stops at EOI, where fewer
+// bits are left than a code takes, or with out full. info: the bytes written,
+// then (kPastTable) the code and the next free entry. A code past the next
+// free entry, or the first code after a Clear past the literals, is
+// kPastTable; a string that would run past out_size is kOverflow. The same
+// walk as io/lzw.py::lzw_decode_plain.
+int gm_lzw_decode(const uint8_t* data, int64_t n, int msb_first, int min_bits, int early,
+                  uint8_t* out, int64_t out_size, int64_t* info) {
+  const int clear = 1 << min_bits, eoi = clear + 1;
+  int32_t prefix[kLzwTable], length[kLzwTable];
+  uint8_t last[kLzwTable], first[kLzwTable];
+  for (int i = 0; i < clear; ++i) {
+    prefix[i] = -1;
+    length[i] = 1;
+    last[i] = first[i] = static_cast<uint8_t>(i);
+  }
+  int width = min_bits + 1, next = clear + 2, prev = -1, nacc = 0;
+  uint64_t acc = 0;
+  int64_t pos = 0, o = 0;
+  info[0] = 0;
+  while (o < out_size) {
+    while (nacc < width) {
+      if (pos == n) {
+        info[0] = o;
+        return kOk;
+      }
+      if (msb_first)
+        acc = acc << 8 | data[pos++];
+      else
+        acc |= static_cast<uint64_t>(data[pos++]) << nacc;
+      nacc += 8;
+    }
+    int code;
+    if (msb_first) {
+      code = static_cast<int>(acc >> (nacc - width)) & ((1 << width) - 1);
+      nacc -= width;
+      acc &= (uint64_t(1) << nacc) - 1;
+    } else {
+      code = static_cast<int>(acc) & ((1 << width) - 1);
+      acc >>= width;
+      nacc -= width;
+    }
+    if (code == clear) {
+      width = min_bits + 1;
+      next = clear + 2;
+      prev = -1;
+      continue;
+    }
+    if (code == eoi) break;
+    const bool known = code < next;
+    if (!known && !(code == next && prev >= 0)) {
+      info[0] = o;
+      info[1] = code;
+      info[2] = next;
+      return kPastTable;
+    }
+    const int base = known ? code : prev;
+    const int64_t len = length[base] + (known ? 0 : 1);
+    if (len > out_size - o) {
+      info[0] = o;
+      return kOverflow;
+    }
+    int64_t k = o + length[base] - 1;
+    for (int c = base; c >= 0; c = prefix[c]) out[k--] = last[c];
+    if (!known) out[o + len - 1] = first[prev];
+    if (prev >= 0 && next < kLzwTable) {
+      prefix[next] = prev;
+      last[next] = first[base];
+      first[next] = first[prev];
+      length[next] = length[prev] + 1;
+      ++next;
+    }
+    o += len;
+    prev = code;
+    if (next + early >= (1 << width) && width < kLzwMaxBits) ++width;
+  }
+  info[0] = o;
+  return kOk;
+}
+
+// `data` (n bytes, each below 1 << min_bits) -> LZW in out (room for `cap`
+// bytes), *n_out bytes: Clear first, then greedy matches over a hash of
+// (prefix code, byte), a Clear once the next free entry reaches clear_at
+// (4,094 as libtiff; 4,096: never, the table held full), the last
+// match, EOI, the last byte's free bits zero. Each code takes the width the
+// decoder reads it with (lzw_width of the entry count one behind the
+// encoder's), EOI after the entry the decoder makes from the last code.
+int gm_lzw_encode(const uint8_t* data, int64_t n, int msb_first, int min_bits, int early,
+                  int clear_at, uint8_t* out, int64_t cap, int64_t* n_out) {
+  constexpr int kSlots = 1 << 14;                // open addressing, load <= 1/4
+  const int clear = 1 << min_bits, eoi = clear + 1;
+  std::vector<int32_t> keys(kSlots, -1), codes(kSlots);
+  std::vector<int32_t> used;                     // slots filled since the last Clear
+  used.reserve(kLzwTable);
+  uint64_t acc = 0;
+  int nacc = 0;
+  int64_t o = 0;
+  int next = clear + 2;
+  auto put = [&](int code) -> bool {
+    const int w = lzw_width(next - 1, min_bits, early);
+    if (msb_first) {
+      acc = acc << w | static_cast<uint64_t>(code);
+      nacc += w;
+      while (nacc >= 8) {
+        if (o == cap) return false;
+        out[o++] = static_cast<uint8_t>(acc >> (nacc - 8));
+        nacc -= 8;
+      }
+      acc &= (uint64_t(1) << nacc) - 1;
+    } else {
+      acc |= static_cast<uint64_t>(code) << nacc;
+      nacc += w;
+      while (nacc >= 8) {
+        if (o == cap) return false;
+        out[o++] = static_cast<uint8_t>(acc);
+        acc >>= 8;
+        nacc -= 8;
+      }
+    }
+    return true;
+  };
+  auto slot = [&](int32_t key) {
+    uint32_t h = (static_cast<uint32_t>(key) * 2654435761u) >> (32 - 14);
+    while (keys[h] != -1 && keys[h] != key) h = (h + 1) & (kSlots - 1);
+    return h;
+  };
+  *n_out = 0;
+  for (int64_t i = 0; i < n; ++i)
+    if (data[i] >= clear) return kBadLiteral;
+  if (!put(clear)) return kNoRoom;
+  if (n > 0) {
+    int pre = data[0];
+    for (int64_t i = 1; i < n; ++i) {
+      const int32_t key = pre << 8 | data[i];
+      const uint32_t h = slot(key);
+      if (keys[h] == key) {
+        pre = codes[h];
+        continue;
+      }
+      if (!put(pre)) return kNoRoom;
+      if (next < kLzwTable) {
+        keys[h] = key;
+        codes[h] = next++;
+        used.push_back(static_cast<int32_t>(h));
+      }
+      if (next == clear_at && clear_at < kLzwTable) {
+        if (!put(clear)) return kNoRoom;
+        for (int32_t u : used) keys[u] = -1;
+        used.clear();
+        next = clear + 2;
+      }
+      pre = data[i];
+    }
+    if (!put(pre)) return kNoRoom;
+    if (next < kLzwTable) ++next;
+  }
+  if (!put(eoi)) return kNoRoom;
+  if (nacc > 0) {
+    if (o == cap) return kNoRoom;
+    out[o++] = static_cast<uint8_t>(msb_first ? acc << (8 - nacc) : acc);
+  }
+  *n_out = o;
+  return kOk;
+}
+
+// TIFF PackBits (n bytes) -> out, at most out_size bytes (libtiff's
+// PackBitsDecode): a header byte h as int8, then h + 1 literal bytes
+// (h >= 0), one byte repeated 1 - h times (h < 0), or nothing (-128).
+// Stops with out full or at the end of the data, a packet whose data runs
+// past the end stopping it unwritten; a packet that would run past out_size
+// is kOverflow. *n_out: the bytes written.
+int gm_packbits_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_size,
+                       int64_t* n_out) {
+  int64_t i = 0, o = 0;
+  *n_out = 0;
+  while (i < n && o < out_size) {
+    const int h = static_cast<int8_t>(data[i++]);
+    if (h == -128) continue;
+    const int64_t len = h < 0 ? 1 - h : h + 1;
+    if (len > out_size - o) {
+      *n_out = o;
+      return kOverflow;
+    }
+    if (h < 0) {
+      if (i == n) break;
+      std::memset(out + o, data[i++], len);
+    } else {
+      if (len > n - i) break;
+      std::memcpy(out + o, data + i, len);
+      i += len;
+    }
+    o += len;
+  }
+  *n_out = o;
+  return kOk;
+}
+
+// A BMP's RLE8 (rle4 0) or RLE4 data (n bytes from file offset `origin`) ->
+// out, width * height palette indices in the order they are stored, as
+// PIL's BmpRleDecoder walks it: pairs (count, value) are encoded runs, cut
+// at the row's end (RLE4: the value's two nibbles in turn); (0, 0) pads the
+// row with index 0, (0, 1) ends the bitmap, (0, 2, right, up) skips
+// right + up * width pixels, left at 0 (PIL reads four bytes after the
+// escape: fault B17); (0, k >= 3) is k absolute pixels from ceil(k / 2)
+// bytes for RLE4 (PIL reads k // 2 of them: B17) or k for RLE8, then a
+// byte to the next even file offset. Absolute runs are not cut at the row's
+// end, and an encoded run that follows one in the same row is cut to none.
+// Stops with out full, at the end of the bitmap or of the data. *n_out: the
+// pixels written (fewer than width * height where the data ends first).
+int gm_bmp_rle(const uint8_t* data, int64_t n, int64_t origin, int64_t width,
+               int64_t height, int rle4, uint8_t* out, int64_t* n_out) {
+  const int64_t total = width * height;
+  int64_t len = 0, x = 0, i = 0;
+  auto fill = [&](int64_t count, uint8_t v) {
+    const int64_t k = std::min(count, total - len);
+    if (k > 0) std::memset(out + len, v, k);
+    len += count;
+  };
+  while (len < total) {
+    if (i + 2 > n) break;
+    int64_t count = data[i];
+    const int byte = data[i + 1];
+    i += 2;
+    if (count) {
+      if (x + count > width) count = std::max<int64_t>(0, width - x);
+      if (rle4) {
+        for (int64_t k = 0; k < count && len < total; ++k)
+          out[len++] = static_cast<uint8_t>(k & 1 ? byte & 15 : byte >> 4);
+      } else {
+        fill(count, static_cast<uint8_t>(byte));
+      }
+      x += count;
+    } else if (byte == 0) {
+      fill((width - len % width) % width, 0);
+      x = 0;
+    } else if (byte == 1) {
+      break;
+    } else if (byte == 2) {
+      if (i + 2 > n) break;
+      fill(data[i] + data[i + 1] * width, 0);
+      i += 2;
+      x = len % width;
+    } else {
+      const int64_t nbytes = rle4 ? (byte + 1) / 2 : byte;
+      const int64_t avail = std::min(nbytes, n - i);
+      const int64_t pixels = rle4 ? std::min<int64_t>(byte, 2 * avail) : avail;
+      for (int64_t k = 0; k < pixels && len < total; ++k)
+        out[len++] = rle4 ? static_cast<uint8_t>(k & 1 ? data[i + k / 2] & 15
+                                                       : data[i + k / 2] >> 4)
+                          : data[i + k];
+      i += avail;
+      if (avail < nbytes) break;
+      x += byte;
+      if ((origin + i) & 1) ++i;
+    }
+  }
+  *n_out = std::min(len, total);
   return kOk;
 }
 

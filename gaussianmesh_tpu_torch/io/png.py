@@ -8,7 +8,8 @@ and Paeth; Adam7 interlace) to uint8 arrays: (H, W) for gray, (H, W, C)
 otherwise. 16-bit samples keep their high byte and palette images expand
 to RGB or RGBA (the JAX reader's PIL path gives 16-bit gray unscaled and
 palette indices). `read_image` reads a JPEG (`io/jpeg.py`), a PNG, a BMP
-(`io/bmp.py`) or a TIFF (`io/tiff.py`) by its first bytes. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
+(`io/bmp.py`), a TIFF (`io/tiff.py`) or a GIF (`io/gif.py`) by its first
+bytes, and refuses WebP naming it. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
 with filter type 0 on every row, and `write_png` writes what it returns.
 
 The row filters are undone by the port's C++ (`gm_png_unfilter` of
@@ -27,6 +28,7 @@ import zlib
 import numpy as np
 
 from gaussianmesh_tpu_torch.io.bmp import BMP_MAGIC, read_bmp
+from gaussianmesh_tpu_torch.io.gif import GIF_MAGICS, read_gif
 from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
 from gaussianmesh_tpu_torch.io.tiff import TIFF_HEADS, read_tiff
 from gaussianmesh_tpu_torch.ops import _cuda
@@ -217,16 +219,22 @@ def _decode(data: bytes, path: str, unfilter) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A dataset image, JPEG, PNG, BMP or TIFF by its first bytes ->
-    `read_jpeg`'s, `read_png`'s, `read_bmp`'s or `read_tiff`'s array."""
+    """A dataset image, JPEG, PNG, BMP, TIFF or GIF by its first bytes ->
+    `read_jpeg`'s, `read_png`'s, `read_bmp`'s, `read_tiff`'s or
+    `read_gif`'s array."""
     with open(path, "rb") as f:
-        head = f.read(8)
+        head = f.read(12)
     if head[:3] == JPEG_MAGIC:
         return read_jpeg(path)
-    if head == PNG_MAGIC:
+    if head[:8] == PNG_MAGIC:
         return read_png(path)
     if head[:2] == BMP_MAGIC:
         return read_bmp(path)
     if head[:4] in TIFF_HEADS:
         return read_tiff(path)
-    raise ValueError(f"{path}: not a JPEG, PNG, BMP or TIFF")
+    if head[:6] in GIF_MAGICS:
+        return read_gif(path)
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        raise ValueError(f"{path}: a WebP image; the port reads JPEG, PNG, BMP, TIFF "
+                         "and GIF, not WebP")
+    raise ValueError(f"{path}: not a JPEG, PNG, BMP, TIFF or GIF")

@@ -86,6 +86,14 @@ HOST_LIBRARIES = {
         "gm_png_unfilter": [_P, _L, _L, _I, _P],
         # src, h, w, c, axis, out_size, xmin, k, ksize, dst
         "gm_resample_pass": [_P, _L, _L, _L, _I, _L, _P, _P, _I, _P],
+        # data, n, msb_first, min_bits, early, out, out_size, info
+        "gm_lzw_decode": [_P, _L, _I, _I, _I, _P, _L, _P],
+        # data, n, msb_first, min_bits, early, clear_at, out, cap, n_out
+        "gm_lzw_encode": [_P, _L, _I, _I, _I, _I, _P, _L, _P],
+        # data, n, out, out_size, n_out
+        "gm_packbits_decode": [_P, _L, _P, _L, _P],
+        # data, n, origin, width, height, rle4, out, n_out
+        "gm_bmp_rle": [_P, _L, _L, _L, _L, _I, _P, _P],
     },
 }
 

@@ -26,7 +26,7 @@ from PIL import Image, ImageFile
 from gaussianmesh_tpu.data import readers as jreaders
 from gaussianmesh_tpu_torch.cli import train_mesh
 from gaussianmesh_tpu_torch.data import readers
-from gaussianmesh_tpu_torch.io import jpeg, png
+from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, lzw, png, tiff
 from tests.test_torch_image_native import _same
 from tests.test_torch_jpeg import _image
 from tests.test_torch_readers import _assert_scene_equal
@@ -258,9 +258,11 @@ def test_refinement_coefficient_of_size_2_raises(tmp_path):
 # -------------------------------------------------------------------- BMP
 def _bmp(px_rows, width, height, bits, header=40, compression=0, masks=None,
          palette=b"", top_down=False, colors=0, offset=None):
-    """A BMP from its stored rows (bottom-up unless `top_down`), unpadded."""
+    """A BMP from its stored rows (bottom-up unless `top_down`), unpadded;
+    for RLE (`compression` 1 or 2), the rows are the RLE data as it is."""
     stride = ((width * bits + 31) >> 3) & ~3
-    data = b"".join(r[:stride] + bytes(max(0, stride - len(r))) for r in px_rows)
+    data = b"".join(r if compression in (1, 2) else r[:stride] + bytes(max(0, stride - len(r)))
+                    for r in px_rows)
     info = struct.pack("<IiiHHIIiiII", header, width, -height if top_down else height,
                        1, bits, compression, len(data), 2835, 2835, colors, colors)
     tail = b""
@@ -364,53 +366,97 @@ def test_bmp_palettes_gray_and_colour(tmp_path):
         assert np.array_equal(png.read_image(path), want)
 
 
-@pytest.mark.parametrize("kind", ["rle8", "rle4", "1-bit", "4-bit", "16-bit", "masks",
-                                  "os2", "truncated"])
+@pytest.mark.parametrize("kind", ["rle8", "rle4", "1-bit", "4-bit", "16-bit"])
+def test_bmp_forms_once_refused_equal_pil(tmp_path, kind):
+    """RLE8 and RLE4 (with ends of line that leave pixels at index 0), 1-bit
+    (black and white: PIL's mode 1 as `convert("L")`, 0 and 255, fault B16;
+    and a colour pair), 4-bit and 16-bit (BI_RGB 5-5-5) BMPs, which the
+    readers once refused: equal to PIL's arrays (palettes to
+    `convert("RGB")`, fault B15)."""
+    path = str(tmp_path / "x.bmp")
+    rng = np.random.default_rng(len(kind))
+    pal = rng.integers(0, 256, (256, 4), dtype=np.uint8)
+    pal[:, 3] = 0
+    if kind == "rle8":
+        data = _bmp([bytes([3, 7, 0, 3, 1, 2, 9, 0, 0, 0, 5, 4, 0, 0, 8, 1])], 8, 2, 8,
+                    compression=1, palette=pal.tobytes())
+    elif kind == "rle4":
+        data = _bmp([bytes([3, 0x7A, 0, 4, 0x12, 0x34, 0, 0, 6, 0x45, 0, 0])], 7, 2, 4,
+                    compression=2, palette=pal[:16].tobytes())
+    elif kind == "1-bit":
+        Image.fromarray(rng.uniform(size=(4, 9)) < 0.5).save(path)
+        assert Image.open(path).mode == "1"
+        _check_bmp(path, open(path, "rb").read(),
+                   want=np.asarray(Image.open(path).convert("L")))
+        data = _bmp([bytes([0b10110101, 0b10000000])] * 3, 9, 3, 1, palette=pal[:2].tobytes())
+    elif kind == "4-bit":
+        data = _bmp([bytes([0x12, 0x3F, 0xA0])] * 2, 5, 2, 4, palette=pal[:16].tobytes())
+    else:
+        data = _bmp([rng.integers(0, 256, 8, dtype=np.uint8).tobytes()] * 2, 4, 2, 16)
+    with open(path, "wb") as fh:
+        fh.write(data)
+    mode = Image.open(path).mode
+    assert mode == ("RGB" if kind == "16-bit" else "P")
+    _check_bmp(path, data, rgb=mode == "P")
+
+
+@pytest.mark.parametrize("kind", ["masks", "os2", "truncated", "rle_ends_early",
+                                  "gray_ramp_4_bit", "jpeg"])
 def test_bmp_refused_forms_raise(tmp_path, kind):
-    """RLE8 / RLE4, 1-, 4- and 16-bit pixels, masks PIL does not read, an OS/2
-    header and a file cut short raise a ValueError naming the cause."""
+    """Masks PIL does not read, an OS/2 header, a file cut short, RLE data
+    that ends before the bitmap is full (PIL: "not enough image data"), a
+    4-bit gray-ramp palette (which PIL unpacks as 8-bit pixels) and JPEG
+    compression raise a ValueError naming the cause."""
     path = str(tmp_path / "x.bmp")
     row = [bytes(8)] * 2
+    ramp = b"".join(bytes([i, i, i, 0]) for i in range(16))
     data, words = {
-        "rle8": (_bmp(row, 8, 2, 8, compression=1, palette=bytes(1024)), "RLE8"),
-        "rle4": (_bmp(row, 8, 2, 4, compression=2, palette=bytes(64)), "RLE4"),
-        "1-bit": (None, "1-bit BMP"),
-        "4-bit": (_bmp(row, 8, 2, 4, palette=bytes(64)), "4-bit BMP"),
-        "16-bit": (_bmp(row, 4, 2, 16), "16-bit BMP"),
         "masks": (_bmp(row, 2, 2, 32, compression=3, masks=(0xFF00, 0xFF, 0xFF0000)),
                   "bit-field masks"),
         "os2": (b"BM" + struct.pack("<IHHI", 40, 0, 0, 26) + struct.pack("<IHHHH", 12, 2, 2,
                                                                         1, 24) + bytes(14),
                 "OS/2"),
         "truncated": (_bmp([bytes(12)] * 4, 4, 4, 24)[:-20], "truncated"),
+        "rle_ends_early": (_bmp([bytes([4, 1, 0, 1])], 4, 2, 8, compression=1,
+                                palette=bytes(1024)), "ends after 4 of 8 pixels"),
+        "gray_ramp_4_bit": (_bmp(row, 8, 2, 4, palette=ramp), "reads as 8-bit"),
+        "jpeg": (_bmp(row, 2, 2, 24, compression=4), "JPEG-compressed"),
     }[kind]
-    if data is None:
-        Image.fromarray(np.zeros((4, 9), bool)).save(path)
-    else:
-        with open(path, "wb") as fh:
-            fh.write(data)
+    with open(path, "wb") as fh:
+        fh.write(data)
     with pytest.raises(ValueError, match=words):
         png.read_image(path)
 
 
 # ------------------------------------------------------------------- TIFF
+def _packbits_literal(raw):
+    """PackBits of literal packets of up to 128 bytes (valid, if not small)."""
+    return b"".join(bytes([len(raw[i:i + 128]) - 1]) + raw[i:i + 128]
+                    for i in range(0, len(raw), 128))
+
+
 def _tiff(img, order="<", compression=1, predictor=1, rows_per_strip=None,
           photometric=None, extra=None, cmap=None, more=()):
-    """A TIFF of uint8 samples (H, W) or (H, W, C), written here in either byte
-    order: strips of `rows_per_strip` rows, each zlib-compressed for Deflate
-    (after horizontal differencing for predictor 2)."""
+    """A TIFF of uint8 or uint16 samples (H, W) or (H, W, C), written here in
+    either byte order: strips of `rows_per_strip` rows, each compressed after
+    horizontal differencing for predictor 2 (where libtiff applies it): by zlib for Deflate, by the
+    port's plain LZW encoder for LZW (5), as literal packets for PackBits
+    (32773)."""
     img = img if img.ndim == 3 else img[..., None]
     h, w, c = img.shape
+    bits = 16 if img.dtype == np.uint16 else 8
     rps = rows_per_strip or h
     strips = []
     for y in range(0, h, rps):
-        s = img[y:y + rps].astype(np.int16)
-        if predictor == 2 and compression != 1:
+        s = img[y:y + rps].astype(np.int32)
+        if predictor == 2 and compression not in (1, 32773):
             s = np.diff(s, axis=1, prepend=0)
-        s = (s % 256).astype(np.uint8).tobytes()
-        strips.append(zlib.compress(s) if compression != 1 else s)
+        s = (s % (1 << bits)).astype(f"{order}u{bits // 8}").tobytes()
+        strips.append(s if compression == 1 else lzw.lzw_encode_plain(s)
+                      if compression == 5 else _packbits_literal(s)
+                      if compression == 32773 else zlib.compress(s))
     photometric = (1 if c <= 2 else 2) if photometric is None else photometric
-    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * c), (259, 3, [compression]),
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * c), (259, 3, [compression]),
             (262, 3, [photometric]), (277, 3, [c]), (278, 4, [rps]),
             (273, 4, [0] * len(strips)), (279, 4, [len(s) for s in strips])]
     if predictor != 1:
@@ -516,28 +562,52 @@ def test_pil_written_tiffs(tmp_path, mode):
         _check_tiff(path, open(path, "rb").read(), want)
 
 
-@pytest.mark.parametrize("kind", ["lzw", "packbits", "jpeg", "16-bit", "tiled", "planar",
-                                  "associated", "float_predictor", "fill_order", "cmyk",
-                                  "truncated", "bigtiff"])
-def test_tiff_refused_forms_raise(tmp_path, kind):
-    """LZW, PackBits and JPEG compression, 16-bit samples, tiles, planar
-    files, associated alpha, the floating-point predictor, FillOrder 2,
-    CMYK, a strip cut short and BigTIFF raise a ValueError naming the
-    cause."""
+@pytest.mark.parametrize("kind", ["lzw", "packbits", "16-bit"])
+def test_tiff_forms_once_refused_equal_pil(tmp_path, kind):
+    """LZW and PackBits TIFFs that PIL writes through libtiff, and PIL's
+    16-bit gray TIFF (mode I;16, which the JAX reader divides by 255: fault
+    B7; the port keeps the high byte of PIL's values), which the readers once
+    refused."""
     rng = np.random.default_rng(1)
     img = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
     path = str(tmp_path / "x.tif")
-    words = {"lzw": "LZW", "packbits": "PackBits", "jpeg": "JPEG", "16-bit": "16",
-             "tiled": "tiled", "planar": "planar", "associated": "associated",
+    if kind == "16-bit":
+        Image.fromarray(img[..., 0].astype(np.uint16) * 200).save(path)
+        assert Image.open(path).mode == "I;16"
+        want = (np.asarray(Image.open(path)) >> 8).astype(np.uint8)
+    else:
+        Image.fromarray(img).save(path, compression={"lzw": "tiff_lzw",
+                                                     "packbits": "packbits"}[kind])
+        want = np.asarray(Image.open(path))
+    _check_tiff(path, open(path, "rb").read(), want)
+
+
+@pytest.mark.parametrize("kind", ["old_style_lzw", "ccitt", "jpeg", "12-bit", "tiled",
+                                  "planar", "associated", "float_predictor", "fill_order",
+                                  "cmyk", "truncated", "bigtiff"])
+def test_tiff_refused_forms_raise(tmp_path, kind):
+    """libtiff's old-style LZW (LSB first), CCITT and JPEG compression,
+    12-bit samples, tiles, planar files, associated alpha, the
+    floating-point predictor, FillOrder 2, CMYK, a strip cut short and
+    BigTIFF raise a ValueError naming the cause."""
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    path = str(tmp_path / "x.tif")
+    words = {"old_style_lzw": "old-style LZW", "ccitt": "CCITT", "jpeg": "JPEG",
+             "12-bit": "12", "tiled": "tiled", "planar": "planar", "associated": "associated",
              "float_predictor": "predictor 3", "fill_order": "FillOrder",
              "cmyk": "Photometric 5", "truncated": "truncated", "bigtiff": "BigTIFF"}[kind]
-    if kind in ("lzw", "packbits", "jpeg"):
-        Image.fromarray(img).save(path, compression={"lzw": "tiff_lzw", "packbits": "packbits",
-                                                     "jpeg": "jpeg"}[kind])
-    elif kind == "16-bit":
-        Image.fromarray(img[..., 0].astype(np.uint16) * 200).save(path)
+    if kind == "jpeg":
+        Image.fromarray(img).save(path, compression="jpeg")
+    elif kind == "ccitt":
+        Image.fromarray(img[..., 0] > 128).save(path, compression="group4")
     else:
         data = {
+            "old_style_lzw": lambda: _tiff(img, compression=5, more=[]).replace(
+                lzw.lzw_encode_plain(img.tobytes()),
+                lzw.lzw_encode_plain(img.tobytes(), "gif", 8)),
+            "12-bit": lambda: _tiff(img[..., 0], more=[]).replace(
+                struct.pack("<HHIHH", 258, 3, 1, 8, 0), struct.pack("<HHIHH", 258, 3, 1, 12, 0)),
             "tiled": lambda: _tiff(img, more=[(322, 3, [16]), (323, 3, [16])]),
             "planar": lambda: _tiff(img, more=[(284, 3, [2])]),
             "associated": lambda: _tiff(np.concatenate([img, img[..., :1]], -1), extra=[1]),
@@ -554,17 +624,22 @@ def test_tiff_refused_forms_raise(tmp_path, kind):
 
 
 def test_read_image_dispatch_and_other_formats(tmp_path):
-    """`read_image` goes by the first bytes, whatever the file's name; a GIF
-    raises naming the formats it reads."""
+    """`read_image` goes by the first bytes, whatever the file's name: BMP,
+    TIFF, PNG and GIF (PIL's, a palette: `convert("RGB")`); a WebP raises
+    naming WebP and the formats it reads."""
     img = np.random.default_rng(0).integers(0, 256, (5, 6, 3), dtype=np.uint8)
     for fmt in ("BMP", "TIFF", "PNG"):
         path = str(tmp_path / f"{fmt}.jpg")
         Image.fromarray(img).save(path, fmt)
         assert np.array_equal(png.read_image(path), img)
-    gif = str(tmp_path / "x.gif")
-    Image.fromarray(img).save(gif)
-    with pytest.raises(ValueError, match="not a JPEG, PNG, BMP or TIFF"):
-        png.read_image(gif)
+    path = str(tmp_path / "gif.jpg")
+    Image.fromarray(img).save(path, "GIF")
+    assert np.array_equal(png.read_image(path), np.asarray(Image.open(path).convert("RGB")))
+    webp = str(tmp_path / "x.webp")
+    with open(webp, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", 30) + b"WEBPVP8 " + bytes(22))
+    with pytest.raises(ValueError, match="WebP.*JPEG, PNG, BMP, TIFF and GIF"):
+        png.read_image(webp)
 
 
 # ---------------------------------------------------------- gray + alpha

@@ -5,8 +5,9 @@ sizes, restart intervals, non-interleaved scans, SOF1, long Huffman codes
 and the corrupt streams (the same errors); PNGs at every depth and colour
 type with rows cycling through all five filters, palettes with tRNS,
 Adam7; resize in L / LA / RGB / RGBA up, down and on the resolution ladder.
-The training path's readers never reach a plain version, and a build that
-cannot happen raises."""
+The training path's readers never reach a plain version (the LZW,
+PackBits and RLE ones of `tests/test_torch_image_formats_lzw.py`
+included), and a build that cannot happen raises."""
 
 import io
 import os
@@ -19,7 +20,7 @@ import torch
 from PIL import Image
 
 from gaussianmesh_tpu_torch.data import cameras, readers
-from gaussianmesh_tpu_torch.io import jpeg, png, resample
+from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, lzw, png, resample, tiff
 from gaussianmesh_tpu_torch.ops import _cuda
 from tests.test_torch_jpeg import _image as _jpeg_image, _segment, _segments
 from tests.test_torch_readers import ADAM7, _blender_set, _chunk, _jpeg_colmap_set
@@ -393,13 +394,37 @@ def test_resize_native_equals_plain_and_pil(c):
 
 # ------------------------------------------------------------ the main path
 
+def _new_forms_set(root):
+    """`_jpeg_colmap_set` with its views as LZW TIFF (predictor 2), PackBits
+    TIFF, GIF, RLE8 and RLE4 BMP, in turn."""
+    root = _jpeg_colmap_set(root)
+    for i, name in enumerate(sorted(os.listdir(f"{root}/images"))):
+        path = f"{root}/images/{name}"
+        img = jpeg.read_jpeg(path)
+        kind = i % 5
+        if kind < 2:
+            tiff.write_tiff(path, img, compression=("lzw", "packbits")[kind],
+                            predictor=2 - kind)
+            continue
+        q = Image.fromarray(img).quantize(16 if kind == 4 else 200)
+        pal = np.asarray(q.getpalette()[:3 * (16 if kind == 4 else 200)], np.uint8)
+        if kind == 2:
+            gif.write_gif(path, np.asarray(q), pal)
+        else:
+            bmp.write_bmp(path, np.asarray(q), palette=pal, bits=4 if kind == 4 else 8,
+                          rle=True)
+    return root
+
+
 def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
-    resize), of the same set with progressive JPEGs, and of a Blender set of
-    PIL-filtered RGBA PNGs at -r 2, with every plain piece made to raise:
-    the same scenes as before."""
+    resize), of the same set with progressive JPEGs, of a Blender set of
+    PIL-filtered RGBA PNGs at -r 2, and of the COLMAP set in LZW and
+    PackBits TIFF, GIF and RLE BMP views, with every plain piece made to
+    raise: the same scenes as before."""
     colmap_root = _jpeg_colmap_set(tmp_path / "c")
     prog_root = _jpeg_colmap_set(tmp_path / "p")
+    new_root = _new_forms_set(tmp_path / "n")
     for name in os.listdir(f"{prog_root}/images"):
         path = f"{prog_root}/images/{name}"
         Image.open(path).save(path, "JPEG", quality=90, progressive=True)
@@ -410,7 +435,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     kw = dict(eval_split=True, is_exist_bg=True)
     before = (readers.read_scene(colmap_root, resolution=-1, **kw),
               readers.read_scene(prog_root, resolution=-1, **kw),
-              readers.read_scene(blender_root, resolution=2, eval_split=True))
+              readers.read_scene(blender_root, resolution=2, eval_split=True),
+              readers.read_scene(new_root, resolution=-1, **kw))
 
     def plain(*_a, **_k):
         raise AssertionError("a plain version was called")
@@ -418,12 +444,15 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
                                "_upsample", "_ycc_to_rgb", "_decode_tables",
                                "_scan_plain_progressive", "_progressive_plain",
                                "_peek_table")),
-                       (png, ("_unfilter_plain",)), (resample, ("_pass_plain",))):
+                       (png, ("_unfilter_plain",)), (resample, ("_pass_plain",)),
+                       (lzw, ("lzw_decode_plain", "lzw_encode_plain")),
+                       (tiff, ("packbits_decode_plain",)), (bmp, ("_rle_plain",))):
         for name in names:
             monkeypatch.setattr(mod, name, plain)
     after = (readers.read_scene(colmap_root, resolution=-1, **kw),
              readers.read_scene(prog_root, resolution=-1, **kw),
-             readers.read_scene(blender_root, resolution=2, eval_split=True))
+             readers.read_scene(blender_root, resolution=2, eval_split=True),
+             readers.read_scene(new_root, resolution=-1, **kw))
     for a, b in zip(before, after):
         for ca, cb in zip(a.train_cameras + a.test_cameras, b.train_cameras + b.test_cameras):
             assert np.array_equal(ca.image, cb.image) and np.array_equal(ca.mask, cb.mask)
@@ -447,11 +476,24 @@ def _every_entry_point(tmp_path):
     yield lambda: jpeg.read_jpeg(path)
     yield lambda: png.decode_png(_png(np.zeros((4, 4, 3), int), 2, 8, [1, 2]))
     yield lambda: resample.resize(np.zeros((4, 4, 3), np.uint8), (2, 2))
+    stream = lzw.lzw_encode_plain(bytes(48))
+    yield lambda: lzw.lzw_decode(stream, 48)
+    yield lambda: tiff.packbits_decode(b"\xfe\x00", 3)
+    yield lambda: bmp.decode_bmp(_rle_bmp())
+    yield lambda: lzw.lzw_encode(bytes(4))
+
+
+def _rle_bmp():
+    """A 2 x 1 RLE8 BMP."""
+    info = struct.pack("<IiiHHIIiiII", 40, 2, 1, 1, 8, 1, 4, 0, 0, 2, 2)
+    return (b"BM" + struct.pack("<IHHI", 66, 0, 0, 62) + info
+            + bytes([1, 2, 3, 0, 4, 5, 6, 0]) + bytes([2, 1, 0, 1]))
 
 
 def test_no_compiler_raises_not_falls_back(tmp_path, monkeypatch, fresh_library):
-    """With no g++ to be found, each public entry point raises; none falls
-    back to its plain version."""
+    """With no g++ to be found, each public entry point raises (the JPEG,
+    PNG, resize, LZW, PackBits and RLE ones); none falls back to its plain
+    version."""
     monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
     for call in _every_entry_point(tmp_path):
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
