@@ -156,6 +156,30 @@ Phases (any failure raises, so the exit code is not 0):
    cameras equal to phase 9's, the training targets of every TIFF view
    equal to phase 9's and of every palette view to the port's resize of
    the palette expansion.
+9d. lossy WebP: first the fixtures of `tests/data/webp/` (PIL- and
+   `write_webp`-written files with the SHA-256 of PIL's RGB and of the
+   planes of the library PIL decodes with, recorded on a machine with PIL):
+   `read_image`'s RGB and the C++ planes (`gm_vp8_decode`) give the recorded
+   digests, the plain decoder (`vp8_decode_plain`, `yuv_to_rgb_plain`) the
+   same bytes, the file cut by 2 bytes raises "cut short" through both and
+   the one cut by 3 decodes to its digest. Then phase 9's 24 views as the
+   baseline JPEG files decode (1920x1080: 1080 is not a multiple of 16)
+   written by `write_webp` (`gm_vp8_encode`) in the rows of WEBP_9D: 4
+   segments with delta quantizers and the normal filter; the simple filter
+   on 2 partitions; sharpness 5 with filter-level deltas on 8 partitions at
+   quantizer 4 (DCT_CAT6); no filter at quantizer 110 (skipped
+   macroblocks); 4 absolute segments on 4 partitions in `VP8X` with ICCP
+   and EXIF chunks. Each view's planes decode to the writer's
+   reconstruction and `read_image` gives their `gm_vp8_rgb`; each row's
+   PSNR against the views written is held to its bound; one view a row at
+   480x270 (the port's resize) decoded by the plain version, equal bytes;
+   s / MP (C++ and plain), file bytes and write s by row beside the card's
+   name and power limit and the host's CPU. Then `cli.train_mesh --device
+   cuda` on that scene for PROGRESSIVE_ITERS steps with phase 9's shrunk
+   schedule and capacities: K1, K2 and K3 once a step (counters set to 0
+   just before, read just after), finite losses and parameters, no
+   overflow, the cameras equal to phase 9's and every training target equal
+   to the port's resize of the RGB decoded.
 10. serve and shard, at full width. (a) The host deformation-gradient
    extractor (`edit/native_acap.py`, C++ / OpenMP, built by g++) on the
    slice's icosphere-7 mesh and phase 7's largest twist frame: against the
@@ -270,6 +294,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import os
@@ -339,6 +364,22 @@ FORMATS_9C = (("tiff_lzw_p2", 6), ("tiff_lzw_p1", 3), ("tiff_packbits", 3),
               ("tiff16_lzw_p2", 4), ("gif", 4), ("bmp_rle8", 2), ("bmp_rle4", 2))
 LEVELS_256 = (8, 8, 4)                 # phase 9c's fixed palettes: steps of R, G, B
 LEVELS_16 = (2, 4, 2)
+# phase 9d: phase 9's views as lossy WebPs, (row, views, write_webp's settings,
+# the least PSNR against the view written, dB) in turn
+WEBP_9D = (
+    ("4seg_delta_normal24", 8, dict(quality_index=30, segments=4, filter="normal", level=24,
+                                    sharpness=0, partitions=1), 30.0),
+    ("simple32_2parts", 4, dict(quality_index=40, filter="simple", level=32, partitions=2),
+     30.0),
+    ("4seg_sharp5_deltas_8parts_q4", 4, dict(quality_index=4, segments=4, filter="normal",
+                                             level=20, sharpness=5, ref_lf_delta=(2, 0, 0, 0),
+                                             mode_lf_delta=(4, 0, 0, 0), partitions=8), 34.0),
+    ("unfiltered_q110", 4, dict(quality_index=110, filter="none"), 24.0),
+    ("4seg_absolute_normal16_4parts_vp8x", 4, dict(
+        quality_index=20, segments=4, absolute=True, filter="normal", level=16, partitions=4,
+        icc=b"\x00" * 132, exif=b"Exif\x00\x00MM\x00*" + bytes(8)), 30.0),
+)
+WEBP_PLAIN_SIZE = (480, 270)           # phase 9d's plain decodes: one view a row, resized
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -1019,7 +1060,7 @@ def kernel_line(results, fullscreen, launches):
     rank ("scaling_gshard"; the owner's K3 "scaling_gshard_owner"), and K3's
     on the full-screen case; errors over all of them; launches from the main
     paths (render, train, playback, pipeline, eval, progressive, formats,
-    serve, shard, gshard, quality, tools, scaling)."""
+    webp, serve, shard, gshard, quality, tools, scaling)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -2548,6 +2589,172 @@ def phase_formats(torch, port, scene, tmpdir):
     return res, launches
 
 
+# ------------------------------------------------------------------ phase 9d
+
+def webp_fixtures(port):
+    """Phase 9d's fixtures -> {name: "raises" or the C++ decode's s}."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "webp")
+    with open(os.path.join(here, "digests.json")) as fh:
+        table = json.load(fh)
+    if len(table) < 12:
+        raise AssertionError(f"{here}: {len(table)} WebP fixtures")
+
+    def sha(*arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+    out = {}
+    for name, want in sorted(table.items()):
+        path = os.path.join(here, name)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        if want["rgb"] == "raises":
+            for decode in (port.webp.decode_webp, port.webp.decode_webp_plain):
+                try:
+                    decode(data)
+                except ValueError as err:
+                    if "cut short" not in str(err):
+                        raise
+                else:
+                    raise AssertionError(f"{name} decoded through {decode.__name__}; "
+                                         "the reference raises")
+            out[name] = "raises"
+            continue
+        rgb, t = timed(port.png.read_image, path)
+        frame = port.webp.frame_of(data)
+        planes = port.webp.decode_vp8(frame)[:3]
+        plain = port.webp.vp8_decode_plain(frame)[:3]
+        if sha(rgb) != want["rgb"] or sha(*planes) != want["yuv"]:
+            raise AssertionError(f"{name}: the C++ decode differs from the recorded digest")
+        if sha(*plain) != want["yuv"] or sha(port.webp.yuv_to_rgb_plain(*plain)) != want["rgb"]:
+            raise AssertionError(f"{name}: the plain decode differs from the recorded digest")
+        out[name] = t
+    return out
+
+
+def psnr_u8(a, b) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * math.log10(255.0 ** 2 / mse)
+
+
+def phase_webp(torch, port, scene, tmpdir):
+    """Phase 9d (see the module docstring) on phase 9's `scene` ->
+    (results, launches)."""
+    t_phase = time.perf_counter()
+    fixtures = webp_fixtures(port)
+    log(f"[webp] {len(fixtures)} fixtures decode to their recorded digests through the "
+        f"C++ and the plain version ({sum(v == 'raises' for v in fixtures.values())} raise "
+        "\"cut short\" through both, as the reference does)")
+    root = os.path.join(tmpdir, "webp_data", "s")
+    sparse = os.path.join(root, "sparse", "0")
+    cams, images, (xyz, rgb, err) = port.colmap.read_model(
+        os.path.join(scene["root"], "sparse", "0"))
+    rows = [r for r, n, _, _ in WEBP_9D for _ in range(n)]
+    assert len(rows) == len(scene["cams"]) == len(images), (len(rows), len(images))
+    for iid, img in images.items():
+        images[iid] = dataclasses.replace(img, name=img.name.replace(".jpg", ".webp"))
+    port.colmap.write_model_binary(sparse, cams, images, xyz, rgb, err)
+    os.makedirs(os.path.join(root, "images"))
+    settings = {r: kw for r, _, kw, _ in WEBP_9D}
+    stats = {r: {"decode": [], "write": [], "bytes": [], "psnr": [], "skip": [],
+                 "cat6": []} for r, _, _, _ in WEBP_9D}
+    decoded, plain_done = {}, {}
+    n_mb = -(-EVAL_WIDTH // 16) * -(-EVAL_HEIGHT // 16)
+    for i, row in enumerate(rows):
+        base = port.jpeg.read_jpeg(os.path.join(scene["root"], "images", f"{i:03d}.jpg"))
+        path = os.path.join(root, "images", f"{i:03d}.webp")
+        planes, t = timed(lambda: port.webp.write_webp(path, base, **settings[row]))
+        stats[row]["write"].append(t)
+        stats[row]["bytes"].append(os.path.getsize(path))
+        got, t = timed(port.png.read_image, path)
+        stats[row]["decode"].append(t)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        y, u, v, info = port.webp.decode_vp8(port.webp.frame_of(data))
+        if not all(np.array_equal(a, b) for a, b in zip((y, u, v), planes)):
+            raise AssertionError(f"view {i} ({row}): the decoded planes differ from the "
+                                 "writer's reconstruction")
+        if not np.array_equal(got, port.webp.yuv_to_rgb(*planes)):
+            raise AssertionError(f"view {i} ({row}): read_image differs from gm_vp8_rgb of "
+                                 "the writer's planes")
+        info = dict(zip(port.webp.STATS, info.tolist()))
+        stats[row]["skip"].append(info["skip"] / n_mb)
+        stats[row]["cat6"].append(info["token10"])
+        stats[row]["psnr"].append(psnr_u8(got, base))
+        decoded[i] = got
+        if row not in plain_done:
+            small = port.resample.resize(base, WEBP_PLAIN_SIZE)
+            sdata, _ = port.webp.encode_webp(small, **settings[row])
+            cpp, t_cpp = timed(port.webp.decode_webp, sdata)
+            plain, t_plain = timed(port.webp.decode_webp_plain, sdata)
+            if not np.array_equal(cpp, plain):
+                raise AssertionError(f"{row}: the plain decode of a {WEBP_PLAIN_SIZE} view "
+                                     "differs from the C++ one")
+            plain_done[row] = (t_cpp, t_plain)
+    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
+    small_mp = WEBP_PLAIN_SIZE[0] * WEBP_PLAIN_SIZE[1] / 1e6
+    by_row = {}
+    for row, _, _, bar in WEBP_9D:
+        st = stats[row]
+        by_row[row] = dict(
+            views=len(st["decode"]),
+            decode_s_per_mp=float(np.median(st["decode"])) / megapixels,
+            small_decode_s_per_mp=plain_done[row][0] / small_mp,
+            plain_s_per_mp=plain_done[row][1] / small_mp,
+            bytes_mean=float(np.mean(st["bytes"])), write_s=float(np.median(st["write"])),
+            psnr_min=float(np.min(st["psnr"])), psnr_mean=float(np.mean(st["psnr"])),
+            psnr_bar=bar, skip_share=float(np.mean(st["skip"])),
+            cat6_tokens=int(np.sum(st["cat6"])))
+        if by_row[row]["psnr_min"] < bar:
+            raise AssertionError(f"{row}: PSNR {by_row[row]['psnr_min']:.2f} dB against the "
+                                 f"views written, under its bound {bar} dB")
+    if by_row["4seg_sharp5_deltas_8parts_q4"]["cat6_tokens"] == 0:
+        raise AssertionError("quantizer 4 wrote no DCT_CAT6 token")
+    if by_row["unfiltered_q110"]["skip_share"] == 0:
+        raise AssertionError("quantizer 110 skipped no macroblock")
+    for row, r in by_row.items():
+        log(f"[webp] {row}: {r['views']} views at {EVAL_WIDTH}x{EVAL_HEIGHT}, "
+            f"{r['bytes_mean']:.0f} bytes each, PSNR min {r['psnr_min']:.2f} dB (bound "
+            f"{r['psnr_bar']}), skipped {r['skip_share']:.3f}; decode "
+            f"{r['decode_s_per_mp']:.4f} s/MP; at {WEBP_PLAIN_SIZE[0]}x{WEBP_PLAIN_SIZE[1]} "
+            f"{r['small_decode_s_per_mp']:.4f} (plain {r['plain_s_per_mp']:.4f}); write "
+            f"{r['write_s']:.3f} s a view")
+
+    cfg = scene["cfg"]
+    trainer, launches, steps_rows = run_cli(torch, port, port.cli_train_mesh.main, [
+        "-s", root, "-m", os.path.join(tmpdir, "webp_out"), "--input_mesh",
+        scene["proxy"], "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
+        "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
+        "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
+        "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
+        *scene["sched"]], port.trainer.MeshTrainer)
+    want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
+    assert launches == want, launches
+    steps = step_summary(steps_rows["steps"], "webp")
+    for name, p in trainer.model.named_parameters():
+        assert torch.isfinite(p).all(), name
+    ds, ref = trainer.ds, scene["targets"]
+    for key in ("view", "proj", "campos"):
+        if not torch.equal(getattr(ds, key), getattr(ref, key)):
+            raise AssertionError(f"the WebP scene's training {key} differ from phase 9's")
+    centres = np.stack([pos for _, pos, _ in scene["cams"]])
+    size = (int(ds.width), int(ds.height))
+    for k in range(ds.images.shape[0]):
+        i = int(np.argmin(np.linalg.norm(centres - ds.campos[k].cpu().numpy(), axis=1)))
+        arr = port.resample.resize(decoded[i], size).astype(np.float32) / 255.0
+        target = torch.from_numpy((arr.transpose(2, 0, 1) * 255).astype(np.uint8))
+        if not torch.equal(ds.images[k], target.to(ds.images.device)):
+            raise AssertionError(f"view {i} ({rows[i]}): its training target differs from "
+                                 "the resize of its decode")
+    res = dict(rows=by_row, fixtures=len(fixtures), train_views=int(ds.images.shape[0]),
+               load_s=(steps_rows["scene"][0][0] + steps_rows["upload"][0][0]) / 1e3,
+               train_s=sum(t for t, _ in steps_rows["steps"]) / 1e3, **steps,
+               phase_s=time.perf_counter() - t_phase)
+    log("[webp] " + json.dumps(res))
+    return res, launches
+
+
 # ------------------------------------------------------------------ phase 10
 
 def phase_acap(torch, port):
@@ -3741,7 +3948,7 @@ def load_port():
     from gaussianmesh_tpu_torch.cli import full_eval as cli_full_eval
     from gaussianmesh_tpu_torch.cli import metrics as cli_metrics
     from gaussianmesh_tpu_torch.eval import lpips
-    from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, resample, tiff
+    from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, resample, tiff, webp
     from gaussianmesh_tpu_torch.train import loss
 
     from gaussianmesh_tpu_torch import viewer
@@ -3763,7 +3970,7 @@ def load_port():
         cli_train_bg=cli_train_bg, cli_render=cli_render, scene=scene, png=png,
         colmap=colmap, bg_trainer=bg_trainer, cli_full_eval=cli_full_eval,
         cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss,
-        tiff=tiff, gif=gif, bmp=bmp,
+        tiff=tiff, gif=gif, bmp=bmp, webp=webp,
         gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
@@ -3802,6 +4009,7 @@ def main() -> int:
         progressive, progressive_launches = phase_progressive(torch, port, model,
                                                               eval_scene, tmpdir)
         formats, formats_launches = phase_formats(torch, port, eval_scene, tmpdir)
+        webp_res, webp_launches = phase_webp(torch, port, eval_scene, tmpdir)
         del eval_scene
         t_serve = time.perf_counter()
         acap = phase_acap(torch, port)
@@ -3824,7 +4032,7 @@ def main() -> int:
                            "train": train_launches, "playback": playback_launches,
                            "pipeline": pipeline_launches, "eval": eval_launches,
                            "progressive": progressive_launches,
-                           "formats": formats_launches,
+                           "formats": formats_launches, "webp": webp_launches,
                            "serve": serve_launches, "shard": shard_launches,
                            "gshard": gshard_launches, "quality": quality_launches,
                            "tools": tools_launches, "scaling": scaling_launches})
@@ -3873,6 +4081,15 @@ def main() -> int:
                     for k, r in formats["formats"].items())
         + f"; train_mesh load {formats['load_s']:.2f} s, {formats['steps']} steps in "
         f"{formats['train_s']:.2f} s (median {formats['step_ms_median']:.3f} ms)")
+    log(f"[done] WebP phase {webp_res['phase_s']:.1f} s on {smi}, host CPU: "
+        f"{host_cpu()} (one core a call): {webp_res['fixtures']} fixtures; s/MP C++ at "
+        f"1920x1080 / C++ and plain at {WEBP_PLAIN_SIZE[0]}x{WEBP_PLAIN_SIZE[1]}, PSNR min "
+        "by row " + ", ".join(
+            f"{k} {r['decode_s_per_mp']:.4f} / {r['small_decode_s_per_mp']:.4f} and "
+            f"{r['plain_s_per_mp']:.3f}, {r['psnr_min']:.2f} dB"
+            for k, r in webp_res["rows"].items())
+        + f"; train_mesh load {webp_res['load_s']:.2f} s, {webp_res['steps']} steps in "
+        f"{webp_res['train_s']:.2f} s (median {webp_res['step_ms_median']:.3f} ms)")
     log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} ("
         f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks over {shard['backend']} on cards "
         f"{shard['cards']}): native ACAP {acap['host_ms']:.1f} ms per call on the host "

@@ -8,8 +8,9 @@ and Paeth; Adam7 interlace) to uint8 arrays: (H, W) for gray, (H, W, C)
 otherwise. 16-bit samples keep their high byte and palette images expand
 to RGB or RGBA (the JAX reader's PIL path gives 16-bit gray unscaled and
 palette indices). `read_image` reads a JPEG (`io/jpeg.py`), a PNG, a BMP
-(`io/bmp.py`), a TIFF (`io/tiff.py`) or a GIF (`io/gif.py`) by its first
-bytes, and refuses WebP naming it. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
+(`io/bmp.py`), a TIFF (`io/tiff.py`), a GIF (`io/gif.py`) or a lossy WebP
+(`io/webp.py`, which refuses lossless, alpha and animated WebP naming them) by
+its first bytes. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
 with filter type 0 on every row, and `write_png` writes what it returns.
 
 The row filters are undone by the port's C++ (`gm_png_unfilter` of
@@ -31,6 +32,7 @@ from gaussianmesh_tpu_torch.io.bmp import BMP_MAGIC, read_bmp
 from gaussianmesh_tpu_torch.io.gif import GIF_MAGICS, read_gif
 from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
 from gaussianmesh_tpu_torch.io.tiff import TIFF_HEADS, read_tiff
+from gaussianmesh_tpu_torch.io.webp import read_webp
 from gaussianmesh_tpu_torch.ops import _cuda
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -219,9 +221,9 @@ def _decode(data: bytes, path: str, unfilter) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A dataset image, JPEG, PNG, BMP, TIFF or GIF by its first bytes ->
-    `read_jpeg`'s, `read_png`'s, `read_bmp`'s, `read_tiff`'s or
-    `read_gif`'s array."""
+    """A dataset image, JPEG, PNG, BMP, TIFF, GIF or lossy WebP by its first
+    bytes -> `read_jpeg`'s, `read_png`'s, `read_bmp`'s, `read_tiff`'s,
+    `read_gif`'s or `read_webp`'s array."""
     with open(path, "rb") as f:
         head = f.read(12)
     if head[:3] == JPEG_MAGIC:
@@ -235,6 +237,5 @@ def read_image(path: str) -> np.ndarray:
     if head[:6] in GIF_MAGICS:
         return read_gif(path)
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        raise ValueError(f"{path}: a WebP image; the port reads JPEG, PNG, BMP, TIFF "
-                         "and GIF, not WebP")
-    raise ValueError(f"{path}: not a JPEG, PNG, BMP, TIFF or GIF")
+        return read_webp(path)
+    raise ValueError(f"{path}: not a JPEG, PNG, BMP, TIFF, GIF or WebP")

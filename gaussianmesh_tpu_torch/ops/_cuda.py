@@ -9,9 +9,9 @@ and a stale library never loads.
 `build()` starts one `nvcc` per source, all at once.
 
 Host code (`csrc/<name>.cpp`, C++: the deformation-gradient extractor with
-OpenMP, the image codecs of the training path) builds the same way with
-`g++` (`host_library`). A missing compiler or a failed build raises with the
-compiler's output: nothing falls back.
+OpenMP, the image codecs of the training path, lossy WebP's VP8 codec)
+builds the same way with `g++` (`host_library`). A missing compiler or a
+failed build raises with the compiler's output: nothing falls back.
 """
 
 from __future__ import annotations
@@ -94,6 +94,14 @@ HOST_LIBRARIES = {
         "gm_packbits_decode": [_P, _L, _P, _L, _P],
         # data, n, origin, width, height, rle4, out, n_out
         "gm_bmp_rle": [_P, _L, _L, _L, _L, _I, _P, _P],
+    },
+    "vp8": {
+        # frame, n, y, u, v, info
+        "gm_vp8_decode": [_P, _L, _P, _P, _P, _P],
+        # y, u, v, width, height, out
+        "gm_vp8_rgb": [_P, _P, _P, _I, _I, _P],
+        # y, u, v, width, height, seg_map, params, out, cap, n_out, ry, ru, rv
+        "gm_vp8_encode": [_P, _P, _P, _I, _I, _P, _P, _P, _L, _P, _P, _P, _P],
     },
 }
 

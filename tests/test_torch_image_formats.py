@@ -625,8 +625,9 @@ def test_tiff_refused_forms_raise(tmp_path, kind):
 
 def test_read_image_dispatch_and_other_formats(tmp_path):
     """`read_image` goes by the first bytes, whatever the file's name: BMP,
-    TIFF, PNG and GIF (PIL's, a palette: `convert("RGB")`); a WebP raises
-    naming WebP and the formats it reads."""
+    TIFF, PNG, GIF (PIL's, a palette: `convert("RGB")`) and lossy WebP
+    (PIL's `convert("RGB")`); a lossless WebP raises naming VP8L and the
+    formats the port reads."""
     img = np.random.default_rng(0).integers(0, 256, (5, 6, 3), dtype=np.uint8)
     for fmt in ("BMP", "TIFF", "PNG"):
         path = str(tmp_path / f"{fmt}.jpg")
@@ -635,10 +636,11 @@ def test_read_image_dispatch_and_other_formats(tmp_path):
     path = str(tmp_path / "gif.jpg")
     Image.fromarray(img).save(path, "GIF")
     assert np.array_equal(png.read_image(path), np.asarray(Image.open(path).convert("RGB")))
-    webp = str(tmp_path / "x.webp")
-    with open(webp, "wb") as fh:
-        fh.write(b"RIFF" + struct.pack("<I", 30) + b"WEBPVP8 " + bytes(22))
-    with pytest.raises(ValueError, match="WebP.*JPEG, PNG, BMP, TIFF and GIF"):
+    webp = str(tmp_path / "x.jpg")
+    Image.fromarray(img).save(webp, "WEBP", quality=80)
+    assert np.array_equal(png.read_image(webp), np.asarray(Image.open(webp).convert("RGB")))
+    Image.fromarray(img).save(webp, "WEBP", lossless=True)
+    with pytest.raises(ValueError, match=r"VP8L.*JPEG, PNG, BMP, TIFF, GIF and lossy WebP"):
         png.read_image(webp)
 
 

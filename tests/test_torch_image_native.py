@@ -20,7 +20,7 @@ import torch
 from PIL import Image
 
 from gaussianmesh_tpu_torch.data import cameras, readers
-from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, lzw, png, resample, tiff
+from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, lzw, png, resample, tiff, webp
 from gaussianmesh_tpu_torch.ops import _cuda
 from tests.test_torch_jpeg import _image as _jpeg_image, _segment, _segments
 from tests.test_torch_readers import ADAM7, _blender_set, _chunk, _jpeg_colmap_set
@@ -416,15 +416,30 @@ def _new_forms_set(root):
     return root
 
 
+def _webp_set(root):
+    """`_jpeg_colmap_set` with its views as lossy WebPs, PIL's (quality 80)
+    and `write_webp`'s (4 segments, 2 partitions), in turn."""
+    root = _jpeg_colmap_set(root)
+    for i, name in enumerate(sorted(os.listdir(f"{root}/images"))):
+        path = f"{root}/images/{name}"
+        img = jpeg.read_jpeg(path)
+        if i % 2:
+            webp.write_webp(path, img, quality_index=20, segments=4, partitions=2)
+        else:
+            Image.fromarray(img).save(path, "WEBP", quality=80)
+    return root
+
+
 def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
     resize), of the same set with progressive JPEGs, of a Blender set of
-    PIL-filtered RGBA PNGs at -r 2, and of the COLMAP set in LZW and
-    PackBits TIFF, GIF and RLE BMP views, with every plain piece made to
-    raise: the same scenes as before."""
+    PIL-filtered RGBA PNGs at -r 2, of the COLMAP set in LZW and PackBits
+    TIFF, GIF and RLE BMP views, and of it in lossy WebP views, with every
+    plain piece made to raise: the same scenes as before."""
     colmap_root = _jpeg_colmap_set(tmp_path / "c")
     prog_root = _jpeg_colmap_set(tmp_path / "p")
     new_root = _new_forms_set(tmp_path / "n")
+    webp_root = _webp_set(tmp_path / "w")
     for name in os.listdir(f"{prog_root}/images"):
         path = f"{prog_root}/images/{name}"
         Image.open(path).save(path, "JPEG", quality=90, progressive=True)
@@ -436,7 +451,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     before = (readers.read_scene(colmap_root, resolution=-1, **kw),
               readers.read_scene(prog_root, resolution=-1, **kw),
               readers.read_scene(blender_root, resolution=2, eval_split=True),
-              readers.read_scene(new_root, resolution=-1, **kw))
+              readers.read_scene(new_root, resolution=-1, **kw),
+              readers.read_scene(webp_root, resolution=-1, **kw))
 
     def plain(*_a, **_k):
         raise AssertionError("a plain version was called")
@@ -446,13 +462,17 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
                                "_peek_table")),
                        (png, ("_unfilter_plain",)), (resample, ("_pass_plain",)),
                        (lzw, ("lzw_decode_plain", "lzw_encode_plain")),
-                       (tiff, ("packbits_decode_plain",)), (bmp, ("_rle_plain",))):
+                       (tiff, ("packbits_decode_plain",)), (bmp, ("_rle_plain",)),
+                       (webp, ("vp8_decode_plain", "yuv_to_rgb_plain", "decode_webp_plain",
+                               "_Bits", "_coeffs_plain", "_reconstruct_plain",
+                               "_filter_plain"))):
         for name in names:
             monkeypatch.setattr(mod, name, plain)
     after = (readers.read_scene(colmap_root, resolution=-1, **kw),
              readers.read_scene(prog_root, resolution=-1, **kw),
              readers.read_scene(blender_root, resolution=2, eval_split=True),
-             readers.read_scene(new_root, resolution=-1, **kw))
+             readers.read_scene(new_root, resolution=-1, **kw),
+             readers.read_scene(webp_root, resolution=-1, **kw))
     for a, b in zip(before, after):
         for ca, cb in zip(a.train_cameras + a.test_cameras, b.train_cameras + b.test_cameras):
             assert np.array_equal(ca.image, cb.image) and np.array_equal(ca.mask, cb.mask)

@@ -3,6 +3,7 @@ nor an imaging package (PIL, imageio): the machines it runs on have none."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -55,6 +56,42 @@ def test_no_source_names_jax_or_the_jax_package():
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "gaussianmesh_tpu", "PIL",
                                "imageio"), (path, name)
+
+
+def _loads_webp(path) -> list:
+    """Calls in `path` that load a library named for WebP (ctypes.CDLL,
+    cdll.LoadLibrary, find_library ...) and string constants other than
+    docstrings that name libwebp."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            name = ast.unparse(node.func)
+            if re.search(r"CDLL|LoadLibrary|find_library|dlopen", name) and \
+                    "webp" in ast.unparse(node).lower():
+                found.append(ast.unparse(node))
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) and \
+                id(node) not in docs and "libwebp" in node.value.lower():
+            found.append(node.value)
+    return found
+
+
+def test_no_module_loads_libwebp():
+    """The port decodes WebP with its own C++: no module of it, nor the smoke,
+    loads a WebP library through ctypes or names libwebp in code (the
+    tests' oracle, PIL's bundled libwebp, stays on the tests' side), and the
+    C++ sources open no library."""
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
+    assert PKG / "io" / "webp.py" in files
+    for path in files:
+        assert not _loads_webp(path), (path, _loads_webp(path))
+    for path in PKG.glob("csrc/*.c*"):
+        assert "dlopen" not in path.read_text(), path
+    assert _loads_webp(ROOT / "tools" / "make_webp_fixtures_torch.py")   # the check bites
 
 
 def test_quality_tool_leaves_out_jax(tmp_path):
