@@ -11,8 +11,9 @@ Phases (any failure raises, so the exit code is not 0):
 2. build: compiles every CUDA kernel of the port from `csrc/` (one nvcc per
    source, in parallel) and prints nvcc's register / shared-memory lines
    and each kernel's threads, shared memory and resident blocks per SM;
-   then the two host libraries (`csrc/acap.cpp`, `csrc/image.cpp`) with
-   g++, each one's build seconds printed.
+   then the host libraries (`csrc/acap.cpp`, `csrc/image.cpp`,
+   `csrc/vp8.cpp`, `csrc/vp8l.cpp`) with g++, each one's build seconds
+   printed.
 3. oracle: a small scene rendered on the card through `rasterize` agrees
    with the port's sequential oracle renderer.
 4. slice: a mesh-bound model at the size of a trained config-2 model
@@ -180,6 +181,33 @@ Phases (any failure raises, so the exit code is not 0):
    just before, read just after), finite losses and parameters, no
    overflow, the cameras equal to phase 9's and every training target equal
    to the port's resize of the RGB decoded.
+9e. WebP with alpha, lossless and animated: first the fixtures of
+   `tests/data/webp/rgba/` (PIL- and writer-written VP8L, VP8X + ALPH + VP8
+   and animated files and cuts, with the SHA-256 and shape of PIL's array,
+   recorded on a machine with PIL): `read_image` and the plain version
+   (`vp8l_decode_plain`, `alpha_decode_plain`) give the recorded digests,
+   the cuts that raise raise "cut short" through both. Then phase 8's 27
+   config-2 views (800x800 RGBA PNGs, alpha = 1 - final T) written by
+   `write_webp` / `write_webp_animation` in the rows of WEBP_9E: lossless
+   with subtract-green, predictor and cross-colour transforms, a 10-bit
+   colour cache and backward references (every view); lossless with all
+   four transforms on a copy quantized to 16 colours (bundled); lossy +
+   ALPH compressed with each filter (none, horizontal, vertical by a
+   predictor-coded alpha, gradient); lossy + raw ALPH; each view the first
+   frame of a 2-frame animation at an offset. Each lossless view decodes to
+   exactly the RGBA written (phase 8's, or the quantized copy), each lossy
+   one to the writer's reconstruction (its planes through the plain
+   `yuv_to_rgb_plain`) with the exact alpha, each DECODES_9E times; the 200x200
+   centre of one view a row written with the row's settings decodes through
+   the plain version to the C++'s bytes; s / MP, its ratio to phase 9's
+   baseline JPEG in the same run, plain / C++, bytes and write s by row
+   beside the card's name and power limit and the host's CPU. Then
+   `cli.train_mesh --device cuda` for PROGRESSIVE_ITERS steps on the lossless
+   row as a Blender set (phase 8's transforms, `.webp` views) with phase 8's
+   capacities and phase 9's shrunk schedule: K1, K2 and K3 once a step
+   (counters set to 0 just before, read just after), finite losses and
+   parameters, no overflow, and every training target, mask and camera
+   centre equal to phase 8's from its PNGs.
 10. serve and shard, at full width. (a) The host deformation-gradient
    extractor (`edit/native_acap.py`, C++ / OpenMP, built by g++) on the
    slice's icosphere-7 mesh and phase 7's largest twist frame: against the
@@ -380,6 +408,29 @@ WEBP_9D = (
         icc=b"\x00" * 132, exif=b"Exif\x00\x00MM\x00*" + bytes(8)), 30.0),
 )
 WEBP_PLAIN_SIZE = (480, 270)           # phase 9d's plain decodes: one view a row, resized
+
+# phase 9e: phase 8's RGBA views as WebPs, (row, views, encode_webp's settings) in turn;
+# "quantized" rows write a copy of 16 colours or fewer, "animation" rows each view as
+# the first frame of 2 at an offset of ANIM_OFFSET on a canvas that much larger
+LOSSLESS_9E = dict(transforms=("subtract_green", "predictor", "cross_color"), cache_bits=10,
+                   predictor_bits=4, cross_bits=4, cross_color="seeded")
+WEBP_9E = (
+    ("lossless_3transforms_cache10", None, dict(lossless=True, vp8l_options=LOSSLESS_9E)),
+    ("lossless_quantized_all4", 4, dict(lossless=True, vp8l_options=dict(
+        transforms=("palette", "predictor", "cross_color", "subtract_green"),
+        predictor_bits=3))),
+    ("lossy_alph_none", 2, dict(quality_index=20, alpha_compression=1, alpha_filter=0)),
+    ("lossy_alph_horizontal", 2, dict(quality_index=20, alpha_compression=1, alpha_filter=1)),
+    ("lossy_alph_vertical", 2, dict(quality_index=20, alpha_compression=1, alpha_filter=2,
+                                    alpha_options=dict(transforms=("predictor",),
+                                                       cache_bits=4))),
+    ("lossy_alph_gradient", 2, dict(quality_index=20, alpha_compression=1, alpha_filter=3)),
+    ("lossy_alph_raw", 2, dict(quality_index=20, alpha_compression=0)),
+    ("animation_lossy_alph", 3, dict(quality_index=20, alpha_compression=1, alpha_filter=1)),
+)
+ANIM_OFFSET = (4, 2)
+DECODES_9E = 5                         # phase 9e decodes each view this many times
+WEBP_9E_PLAIN = 200                    # phase 9e's plain decodes: the centre crop of one view a row
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -1060,7 +1111,7 @@ def kernel_line(results, fullscreen, launches):
     rank ("scaling_gshard"; the owner's K3 "scaling_gshard_owner"), and K3's
     on the full-screen case; errors over all of them; launches from the main
     paths (render, train, playback, pipeline, eval, progressive, formats,
-    webp, serve, shard, gshard, quality, tools, scaling)."""
+    webp, webp_alpha, serve, shard, gshard, quality, tools, scaling)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -1902,6 +1953,10 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
     if resume_max_abs != 0 or tr_a.global_it != tr_b.global_it:
         failures.append(f"resumed run differs from the uninterrupted one: max-abs "
                         f"{resume_max_abs}")
+    # phase 9e writes this set again as WebPs and holds its targets to these
+    res["config2_scene"] = dict(root=data2, proxy=proxy, cfg=cfg, sched=sched,
+                                images=tr_a.ds.images.cpu(), masks=tr_a.ds.masks.cpu(),
+                                campos=tr_a.ds.campos.cpu())
     del tr_a, tr_b
 
     # ---- config 4: mesh with masks, then the background, then render --with_bg
@@ -2752,6 +2807,179 @@ def phase_webp(torch, port, scene, tmpdir):
                train_s=sum(t for t, _ in steps_rows["steps"]) / 1e3, **steps,
                phase_s=time.perf_counter() - t_phase)
     log("[webp] " + json.dumps(res))
+    return res, launches
+
+
+def webp_rgba_fixtures(port):
+    """Phase 9e's fixtures (`tests/data/webp/rgba/`) -> {name: "raises" or the
+    C++ decode's s}."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "webp",
+                        "rgba")
+    with open(os.path.join(here, "digests.json")) as fh:
+        table = json.load(fh)
+    if len(table) < 15:
+        raise AssertionError(f"{here}: {len(table)} WebP fixtures")
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    out = {}
+    for name, want in sorted(table.items()):
+        path = os.path.join(here, name)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        if want["array"] == "raises":
+            for decode in (port.webp.decode_webp, port.webp.decode_webp_plain):
+                try:
+                    decode(data)
+                except ValueError as err:
+                    if "cut short" not in str(err):
+                        raise
+                else:
+                    raise AssertionError(f"{name} decoded through {decode.__name__}; "
+                                         "the reference raises")
+            out[name] = "raises"
+            continue
+        got, t = timed(port.png.read_image, path)
+        if sha(got) != want["array"] or list(got.shape) != want["shape"]:
+            raise AssertionError(f"{name}: the C++ decode differs from the recorded digest")
+        if sha(port.webp.decode_webp_plain(data)) != want["array"]:
+            raise AssertionError(f"{name}: the plain decode differs from the recorded digest")
+        out[name] = t
+    return out
+
+
+def view_9e(port, row, kw, rgba, other, path):
+    """One view of a phase-9e row written to `path` -> (what `read_image`
+    must give, write s). A lossy view's colour is the writer's planes
+    through the plain YUV -> RGB, so the C++ decode is held to numpy."""
+    t0 = time.perf_counter()
+    if row.startswith("animation"):
+        h, w = rgba.shape[:2]
+        canvas = (w + ANIM_OFFSET[0], h + ANIM_OFFSET[1])
+        dec = port.webp.write_webp_animation(path, [rgba, other], canvas,
+                                             offsets=[ANIM_OFFSET, (0, 0)], **kw)[0]
+    else:
+        dec = port.webp.write_webp(path, rgba, **kw)
+    t = time.perf_counter() - t0
+    if kw.get("lossless"):
+        return dec, t
+    want = np.concatenate([port.webp.yuv_to_rgb_plain(*dec[:3]), dec[3][..., None]], -1)
+    if row.startswith("animation"):
+        canvas = np.zeros((h + ANIM_OFFSET[1], w + ANIM_OFFSET[0], 4), np.uint8)
+        canvas[ANIM_OFFSET[1]:, ANIM_OFFSET[0]:] = want
+        want = canvas
+    return want, t
+
+
+def phase_webp_alpha(torch, port, p8, sched, jpeg_s_per_mp, tmpdir):
+    """Phase 9e (see the module docstring) on phase 8's config-2 set `p8` ->
+    (results, launches)."""
+    t_phase = time.perf_counter()
+    fixtures = webp_rgba_fixtures(port)
+    log(f"[webp9e] {len(fixtures)} fixtures decode to their recorded digests through the "
+        f"C++ and the plain version ({sum(v == 'raises' for v in fixtures.values())} raise "
+        "\"cut short\" through both, as the reference does)")
+    src = p8["root"]
+    views = sorted(n for n in os.listdir(os.path.join(src, "views")) if n.endswith(".png"))
+    rgbas = [port.png.read_png(os.path.join(src, "views", n)) for n in views]
+    assert all(r.shape == (PIPE_SIZE, PIPE_SIZE, 4) for r in rgbas), rgbas[0].shape
+    levels = LEVELS_16[:1] + (2, 2)
+    stats = {}
+    root = os.path.join(tmpdir, "webp9e")
+    for row, n, kw in WEBP_9E:
+        st = stats[row] = {"decode": [], "write": [], "bytes": []}
+        d = os.path.join(root, row)
+        os.makedirs(d)
+        for i in range(len(rgbas) if n is None else n):
+            rgba = rgbas[i]
+            if "quantized" in row:
+                q = fixed_palette(levels)[quantize(rgba[..., :3], levels)]
+                rgba = np.concatenate([q, np.where(rgba[..., 3:] >= 128, 255, 0).astype(
+                    np.uint8)], -1)
+                assert len(np.unique(port.vp8l.rgba_to_argb(rgba))) <= 16
+            path = os.path.join(d, views[i].replace(".png", ".webp"))
+            want, t = view_9e(port, row, kw, rgba, rgbas[(i + 1) % len(rgbas)], path)
+            st["write"].append(t)
+            st["bytes"].append(os.path.getsize(path))
+            for _ in range(DECODES_9E):
+                got, t = timed(port.png.read_image, path)
+                st["decode"].append(t)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{row} view {i}: read_image differs from what was "
+                                     "written (lossless: the RGBA; lossy: the writer's "
+                                     "reconstruction and the exact alpha)")
+            if kw.get("lossless") and "quantized" not in row and not np.array_equal(got, rgbas[i]):
+                raise AssertionError(f"{row} view {i}: not phase 8's RGBA")
+        c0 = (PIPE_SIZE - WEBP_9E_PLAIN) // 2
+        crop = np.ascontiguousarray(rgbas[1][c0:c0 + WEBP_9E_PLAIN, c0:c0 + WEBP_9E_PLAIN])
+        if "quantized" in row:
+            q = fixed_palette(levels)[quantize(crop[..., :3], levels)]
+            crop = np.concatenate([q, np.where(crop[..., 3:] >= 128, 255, 0).astype(
+                np.uint8)], -1)
+        small = os.path.join(d, "small.webp")
+        view_9e(port, row, kw, crop, crop[::-1].copy(), small)
+        with open(small, "rb") as fh:
+            data = fh.read()
+        cpp, t_cpp = timed(port.webp.decode_webp, data)
+        plain, t_plain = timed(port.webp.decode_webp_plain, data)
+        if not np.array_equal(cpp, plain):
+            raise AssertionError(f"{row}: the plain decode of a {WEBP_9E_PLAIN}^2 view "
+                                 "differs from the C++ one")
+        st["small"] = (t_cpp, t_plain)
+    megapixels = PIPE_SIZE * PIPE_SIZE / 1e6
+    by_row = {}
+    for row, _, _ in WEBP_9E:
+        st = stats[row]
+        dec = float(np.median(st["decode"])) / megapixels
+        by_row[row] = dict(views=len(st["bytes"]), decodes=len(st["decode"]),
+                           decode_s_per_mp=dec,
+                           decode_vs_baseline_jpeg=dec / jpeg_s_per_mp,
+                           plain_vs_cpp=st["small"][1] / st["small"][0],
+                           bytes_mean=float(np.mean(st["bytes"])),
+                           write_s=float(np.median(st["write"])))
+        r = by_row[row]
+        log(f"[webp9e] {row}: {r['views']} views at {PIPE_SIZE}x{PIPE_SIZE}, "
+            f"{r['bytes_mean']:.0f} bytes each; decode {r['decode_s_per_mp']:.4f} s/MP "
+            f"(the median of {r['decodes']}) "
+            f"({r['decode_vs_baseline_jpeg']:.2f}x phase 9's baseline JPEG); plain / C++ at "
+            f"{WEBP_9E_PLAIN}^2 {r['plain_vs_cpp']:.0f}; write {r['write_s']:.3f} s a view")
+
+    # the lossless row as a Blender set: phase 8's transforms, .webp views
+    data = os.path.join(tmpdir, "blender_webp")
+    os.makedirs(os.path.join(data, "views"))
+    for n in views:
+        name = n.replace(".png", ".webp")
+        shutil.copy(os.path.join(root, WEBP_9E[0][0], name), os.path.join(data, "views", name))
+    for split in ("train", "test"):
+        with open(os.path.join(src, f"transforms_{split}.json")) as fh:
+            meta = json.load(fh)
+        for fr in meta["frames"]:
+            fr["file_path"] += ".webp"
+        with open(os.path.join(data, f"transforms_{split}.json"), "w") as fh:
+            json.dump(meta, fh)
+    cfg = p8["cfg"]
+    trainer, launches, steps_rows = run_cli(torch, port, port.cli_train_mesh.main, [
+        "-s", data, "-m", os.path.join(tmpdir, "webp9e_out"), "--input_mesh", p8["proxy"],
+        "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
+        "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
+        "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
+        "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
+        *sched], port.trainer.MeshTrainer)
+    want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
+    assert launches == want, launches
+    steps = step_summary(steps_rows["steps"], "webp9e")
+    for name, p in trainer.model.named_parameters():
+        assert torch.isfinite(p).all(), name
+    ds = trainer.ds
+    for key, ref in (("images", p8["images"]), ("masks", p8["masks"]),
+                     ("campos", p8["campos"])):
+        if not torch.equal(getattr(ds, key).cpu(), ref):
+            raise AssertionError(f"the WebP Blender set's training {key} differ from phase 8's")
+    res = dict(rows=by_row, fixtures=len(fixtures), train_views=int(ds.images.shape[0]),
+               load_s=(steps_rows["scene"][0][0] + steps_rows["upload"][0][0]) / 1e3,
+               train_s=sum(t for t, _ in steps_rows["steps"]) / 1e3, **steps,
+               phase_s=time.perf_counter() - t_phase)
+    log("[webp9e] " + json.dumps(res))
     return res, launches
 
 
@@ -3948,7 +4176,7 @@ def load_port():
     from gaussianmesh_tpu_torch.cli import full_eval as cli_full_eval
     from gaussianmesh_tpu_torch.cli import metrics as cli_metrics
     from gaussianmesh_tpu_torch.eval import lpips
-    from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, resample, tiff, webp
+    from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, resample, tiff, vp8l, webp
     from gaussianmesh_tpu_torch.train import loss
 
     from gaussianmesh_tpu_torch import viewer
@@ -3970,7 +4198,7 @@ def load_port():
         cli_train_bg=cli_train_bg, cli_render=cli_render, scene=scene, png=png,
         colmap=colmap, bg_trainer=bg_trainer, cli_full_eval=cli_full_eval,
         cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss,
-        tiff=tiff, gif=gif, bmp=bmp, webp=webp,
+        tiff=tiff, gif=gif, bmp=bmp, webp=webp, vp8l=vp8l,
         gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
@@ -4010,6 +4238,9 @@ def main() -> int:
                                                               eval_scene, tmpdir)
         formats, formats_launches = phase_formats(torch, port, eval_scene, tmpdir)
         webp_res, webp_launches = phase_webp(torch, port, eval_scene, tmpdir)
+        webp9e, webp9e_launches = phase_webp_alpha(
+            torch, port, pipeline.pop("config2_scene"), eval_scene["sched"],
+            evaluation["jpeg_decode_s_per_mp"], tmpdir)
         del eval_scene
         t_serve = time.perf_counter()
         acap = phase_acap(torch, port)
@@ -4033,6 +4264,7 @@ def main() -> int:
                            "pipeline": pipeline_launches, "eval": eval_launches,
                            "progressive": progressive_launches,
                            "formats": formats_launches, "webp": webp_launches,
+                           "webp_alpha": webp9e_launches,
                            "serve": serve_launches, "shard": shard_launches,
                            "gshard": gshard_launches, "quality": quality_launches,
                            "tools": tools_launches, "scaling": scaling_launches})
@@ -4090,6 +4322,15 @@ def main() -> int:
             for k, r in webp_res["rows"].items())
         + f"; train_mesh load {webp_res['load_s']:.2f} s, {webp_res['steps']} steps in "
         f"{webp_res['train_s']:.2f} s (median {webp_res['step_ms_median']:.3f} ms)")
+    log(f"[done] WebP alpha phase {webp9e['phase_s']:.1f} s on {smi}, host CPU: "
+        f"{host_cpu()} (one core a call): {webp9e['fixtures']} fixtures; by row s/MP at "
+        f"{PIPE_SIZE}x{PIPE_SIZE} (x phase 9's baseline JPEG), plain / C++ at "
+        f"{WEBP_9E_PLAIN}^2, bytes a view, write s: " + ", ".join(
+            f"{k} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "
+            f"{r['plain_vs_cpp']:.0f}, {r['bytes_mean']:.0f}, {r['write_s']:.3f}"
+            for k, r in webp9e["rows"].items())
+        + f"; train_mesh load {webp9e['load_s']:.2f} s, {webp9e['steps']} steps in "
+        f"{webp9e['train_s']:.2f} s (median {webp9e['step_ms_median']:.3f} ms)")
     log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} ("
         f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks over {shard['backend']} on cards "
         f"{shard['cards']}): native ACAP {acap['host_ms']:.1f} ms per call on the host "

@@ -8,8 +8,8 @@ and Paeth; Adam7 interlace) to uint8 arrays: (H, W) for gray, (H, W, C)
 otherwise. 16-bit samples keep their high byte and palette images expand
 to RGB or RGBA (the JAX reader's PIL path gives 16-bit gray unscaled and
 palette indices). `read_image` reads a JPEG (`io/jpeg.py`), a PNG, a BMP
-(`io/bmp.py`), a TIFF (`io/tiff.py`), a GIF (`io/gif.py`) or a lossy WebP
-(`io/webp.py`, which refuses lossless, alpha and animated WebP naming them) by
+(`io/bmp.py`), a TIFF (`io/tiff.py`), a GIF (`io/gif.py`) or a WebP
+(`io/webp.py`: lossy, lossless, with alpha, an animation's first frame) by
 its first bytes. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
 with filter type 0 on every row, and `write_png` writes what it returns.
 
@@ -221,9 +221,10 @@ def _decode(data: bytes, path: str, unfilter) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A dataset image, JPEG, PNG, BMP, TIFF, GIF or lossy WebP by its first
-    bytes -> `read_jpeg`'s, `read_png`'s, `read_bmp`'s, `read_tiff`'s,
-    `read_gif`'s or `read_webp`'s array."""
+    """A dataset image, JPEG, PNG, BMP, TIFF, GIF or WebP (lossy, lossless,
+    with alpha, an animation's first frame) by its first bytes ->
+    `read_jpeg`'s, `read_png`'s, `read_bmp`'s, `read_tiff`'s, `read_gif`'s
+    or `read_webp`'s array."""
     with open(path, "rb") as f:
         head = f.read(12)
     if head[:3] == JPEG_MAGIC:

@@ -1,45 +1,57 @@
-"""Lossy WebP (VP8) images, to the bytes PIL 12 gives (the JAX reader opens
-dataset images with PIL, which reaches libwebp 1.6; the machines the port
-runs on have neither).
+"""WebP images, to the array PIL 12 gives (the JAX reader opens dataset
+images with PIL, which reaches libwebp 1.6; the machines the port runs on
+have neither): lossy (VP8), lossless (VP8L), lossy with an alpha plane
+(ALPH), and the first frame of an animation.
 
-`read_webp` / `decode_webp` read a simple (`VP8 `) or extended (`VP8X`)
-lossy file with no alpha and no animation, as `Image.open(p).convert("RGB")`
-gives it: the RIFF size must agree with the file (bytes past it are
-ignored, as PIL ignores them), chunks are padded to even sizes (the pad
-byte of an odd `VP8 ` chunk ends its last partition, as libwebp's demuxer
-hands the chunk on), `ICCP`,
-`EXIF`, `XMP ` and unknown chunks are skipped, and a `VP8X` canvas must be
-the frame's size. Lossless (`VP8L`), alpha (`ALPH` or the flag) and
-animation (`ANIM` / `ANMF` or the flag) raise a `ValueError` naming them.
+`read_webp` / `decode_webp` read a simple (`VP8 ` / `VP8L`) or extended
+(`VP8X`) file as `np.asarray(Image.open(p))` gives it. `parse` follows
+libwebp's demuxer: the RIFF size must agree with the file (bytes past it
+are ignored, as PIL ignores them), chunks are padded to even sizes (the pad
+byte of an odd `VP8 ` or `VP8L` chunk ends its data, as the demuxer hands
+the chunk on), `ICCP`, `EXIF`, `XMP ` and unknown chunks are skipped, a
+still `VP8X` canvas must be the frame's size, an `ALPH` applies only under
+the alpha flag (and refuses to precede a `VP8L`), and an animation's first
+`ANMF` is drawn at its offset on a canvas cleared to (0, 0, 0, 0) (the
+`ANIM` background is ignored; later frames' chunks are only sized). The
+mode is PIL's: RGB for a simple lossy file, the alpha-is-used bit for
+VP8L, the alpha flag or an `ALPH` chunk for an extended lossy file, the
+alpha flag for an animation.
 
-The frame decodes in the port's C++ (`gm_vp8_decode` of `csrc/vp8.cpp`, built
-by `ops/_cuda.py::host_library` at first use; a failed build raises) to its
-Y, U and V planes, exactly libwebp's, and `gm_vp8_rgb` makes RGB of them
-with libwebp's fancy upsampler. Past a partition's end the decoder reads
-zeros and sets an end-of-file flag, checked where libwebp checks it (after
-each macroblock's tokens, after each row's modes): a set flag raises "cut
-short", so a file cut in its last partition raises, or decodes to other
-pixels, exactly where PIL does. `vp8_decode_plain` / `yuv_to_rgb_plain`
-(and `decode_webp_plain` on them) are the same steps as a Python loop over
-the bits, the reconstruction and the loop filter in numpy per macroblock:
-the versions the C++ is held to byte for byte, which the training path
-never calls.
+A lossy frame decodes in the port's C++ (`gm_vp8_decode` of
+`csrc/vp8.cpp`, built by `ops/_cuda.py::host_library` at first use; a failed
+build raises) to its Y, U and V planes, exactly libwebp's, and `gm_vp8_rgb`
+makes RGB of them with libwebp's fancy upsampler. Past a partition's end
+the decoder reads zeros and sets an end-of-file flag, checked where libwebp
+checks it (after each macroblock's tokens, after each row's modes): a set
+flag raises "cut short", so a file cut in its last partition raises, or
+decodes to other pixels, exactly where PIL does. VP8L and ALPH decode in
+`io/vp8l.py` (`csrc/vp8l.cpp`); a failed alpha plane fails the decode.
+`vp8_decode_plain` / `yuv_to_rgb_plain` (and `decode_webp_plain` on them
+and on `io/vp8l.py`'s plain versions) are the same steps as a Python loop
+over the bits, the reconstruction and the loop filter in numpy per
+macroblock: the versions the C++ is held to byte for byte, which the
+training path never calls.
 
-`encode_webp` / `write_webp` write a lossy key frame (`gm_vp8_encode`):
-16x16 and chroma modes chosen by SSE, 1 segment or 4 by the quartile of
-each macroblock's luma variance, any filter, 1-8 token partitions, the
-default coefficient probabilities, optionally inside `VP8X` with `ICCP` and
-`EXIF` chunks; for the tests and `chip_smoke.py` (no PIL there).
+`encode_vp8` writes a lossy key frame (`gm_vp8_encode`): 16x16 and chroma
+modes chosen by SSE, 1 segment or 4 by the quartile of each macroblock's
+luma variance, any filter, 1-8 token partitions, the default coefficient
+probabilities. `encode_webp` / `write_webp` wrap it, or a lossless frame
+(`vp8l.encode_vp8l`), with an `ALPH` (raw or VP8L, any filter) for a lossy
+RGBA image, optionally inside `VP8X` with `ICCP` and `EXIF` chunks;
+`encode_animation` writes frames in `ANMF` chunks at offsets; for the
+tests and `chip_smoke.py` (no PIL there).
 """
 
 from __future__ import annotations
 
 import os
 import struct
+from typing import NamedTuple
 
 import numpy as np
 
 from gaussianmesh_tpu_torch.io import vp8_tables as T
+from gaussianmesh_tpu_torch.io import vp8l
 from gaussianmesh_tpu_torch.ops import _cuda
 
 _CUT_MODES, _CUT_TOKENS, _BAD_FIRST, _BAD_PARTS = 1, 2, 3, 4   # csrc/vp8.cpp's codes
@@ -52,15 +64,57 @@ _FILTERS = {"none": 0, "simple": 1, "normal": 2}
 # the quantizer index and of the filter level
 _SEGMENT_QUANT = (-8, -3, 3, 8)
 _SEGMENT_FILTER = (-4, 0, 4, 8)
-_READS = ("the port reads JPEG, PNG, BMP, TIFF, GIF and lossy WebP; lossless (VP8L), "
-          "alpha and animated WebP are not read yet")
-
-
 # ------------------------------------------------------------ the container
 
-def frame_of(data: bytes, path: str = "<bytes>") -> bytes:
-    """A lossy WebP's bytes -> its VP8 frame (the `VP8 ` chunk's payload and
-    its pad byte)."""
+class Frame(NamedTuple):
+    """A WebP's image as libwebp's demuxer hands it to the decoder."""
+    codec: bytes                       # b"VP8 " or b"VP8L"
+    data: bytes                        # the chunk's payload and its pad byte
+    alpha: bytes | None                # the ALPH payload applied to a VP8 frame
+    size: tuple[int, int]              # the frame's (width, height)
+    canvas: tuple[int, int]
+    offset: tuple[int, int]            # the frame's place on the canvas
+    rgba: bool                         # PIL opens the file as RGBA (else RGB)
+
+
+def _frame_size(codec: bytes, data: bytes, path: str) -> tuple[int, int]:
+    if codec == b"VP8L":
+        return vp8l.vp8l_size(data, path)[:2]
+    return frame_size(data, path)
+
+
+def _image_chunks(data: bytes, pos: int, end: int, path: str, where: str):
+    """The ALPH (first, unpadded) and image chunk (its pad byte included, as
+    libwebp's demuxer hands it on) from `pos` on -> (alpha, codec, payload,
+    position after the image chunk)."""
+    alpha = None
+    while True:
+        if pos + 8 > end:
+            raise ValueError(f"{path}: WebP cut short: no image chunk{where}")
+        tag, size = data[pos:pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
+        body = pos + 8
+        if body + size > end:
+            raise ValueError(f"{path}: WebP cut short: chunk {tag!r} of {size} bytes "
+                             f"runs past its end{where}")
+        nxt = body + size + (size & 1)
+        if tag == b"ALPH" and alpha is None:
+            alpha = data[body:body + size]
+        elif tag in (b"VP8 ", b"VP8L"):
+            if tag == b"VP8L" and alpha is not None:
+                raise ValueError(f"{path}: WebP ALPH chunk before a VP8L frame{where}")
+            return alpha, tag, data[body:min(nxt, end)], nxt
+        elif tag in (b"ANIM", b"ANMF", b"VP8X"):
+            raise ValueError(f"{path}: WebP chunk {tag!r} where an image chunk belongs{where}")
+        pos = nxt                     # ICCP, EXIF, XMP and unknown chunks
+
+
+def parse(data: bytes, path: str = "<bytes>") -> Frame:
+    """A WebP's bytes -> its (first) frame, by libwebp's demuxer's rules: a
+    simple `VP8 ` / `VP8L` file, or `VP8X` with its canvas, an `ALPH` applied
+    only under the alpha flag, or an animation's first `ANMF` (later frames'
+    chunks are only sized). PIL's mode: RGB for a simple lossy file, the
+    alpha-is-used bit for VP8L, the alpha flag or an ALPH chunk for an
+    extended lossy file, the alpha flag for an animation."""
     if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
         raise ValueError(f"{path}: not a WebP (RIFF ... WEBP)")
     riff = struct.unpack_from("<I", data, 4)[0]
@@ -69,43 +123,78 @@ def frame_of(data: bytes, path: str = "<bytes>") -> bytes:
     if riff + 8 > len(data):
         raise ValueError(f"{path}: WebP cut short: the RIFF size says {riff + 8} bytes, "
                          f"the file has {len(data)}")
-    end, pos = riff + 8, 12
-    canvas = None
-    while True:
-        if pos + 8 > end:
-            raise ValueError(f"{path}: WebP cut short: no image chunk")
+    end = riff + 8
+    if end < 20:
+        raise ValueError(f"{path}: WebP cut short: no image chunk")
+    first = data[12:16]
+    if first in (b"VP8 ", b"VP8L"):
+        _, codec, frame, _ = _image_chunks(data, 12, end, path, "")
+        w, h = _frame_size(codec, frame, path)
+        rgba = codec == b"VP8L" and bool(vp8l.vp8l_size(frame, path)[2])
+        return Frame(codec, frame, None, (w, h), (w, h), (0, 0), rgba)
+    if first != b"VP8X":
+        raise ValueError(f"{path}: WebP whose first chunk is {first!r}")
+    size = struct.unpack_from("<I", data, 16)[0]
+    if size < 10 or 20 + size > end:
+        raise ValueError(f"{path}: WebP VP8X chunk of {size} bytes")
+    flags = data[20]
+    canvas = (int.from_bytes(data[24:27], "little") + 1,
+              int.from_bytes(data[27:30], "little") + 1)
+    pos = 20 + size + (size & 1)
+    if not flags & 0x02:
+        alpha, codec, frame, _ = _image_chunks(data, pos, end, path, "")
+        w, h = _frame_size(codec, frame, path)
+        if canvas != (w, h):
+            raise ValueError(f"{path}: WebP canvas {canvas[0]}x{canvas[1]} is not the "
+                             f"frame's {w}x{h}")
+        if codec == b"VP8L":
+            rgba = bool(vp8l.vp8l_size(frame, path)[2])
+        else:
+            rgba = bool(flags & 0x10) or alpha is not None
+        return Frame(codec, frame, alpha if flags & 0x10 else None, (w, h), canvas, (0, 0),
+                     rgba)
+    anim, found = False, None
+    while pos + 8 <= end:
         tag, size = data[pos:pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
         body = pos + 8
         if body + size > end:
-            raise ValueError(f"{path}: WebP cut short: chunk {tag!r} of {size} bytes "
-                             f"runs past the RIFF's end")
-        if tag == b"VP8L":
-            raise ValueError(f"{path}: lossless WebP (VP8L); {_READS}")
-        if tag == b"ALPH":
-            raise ValueError(f"{path}: WebP with alpha (ALPH); {_READS}")
-        if tag in (b"ANIM", b"ANMF"):
-            raise ValueError(f"{path}: animated WebP; {_READS}")
-        if tag == b"VP8X":
-            if pos != 12 or size < 10:
-                raise ValueError(f"{path}: WebP VP8X chunk of {size} bytes or not first")
-            flags = data[body]
-            if flags & 0x02:
-                raise ValueError(f"{path}: animated WebP; {_READS}")
-            if flags & 0x10:
-                raise ValueError(f"{path}: WebP with alpha (ALPH); {_READS}")
-            canvas = (int.from_bytes(data[body + 4:body + 7], "little") + 1,
-                      int.from_bytes(data[body + 7:body + 10], "little") + 1)
-        elif tag == b"VP8 ":
-            size_wh = frame_size(data[body:body + size], path)
-            if canvas is not None and canvas != size_wh:
-                raise ValueError(f"{path}: WebP canvas {canvas[0]}x{canvas[1]} is not the "
-                                 f"frame's {size_wh[0]}x{size_wh[1]}")
-            # the pad byte of an odd chunk ends the last partition, as libwebp's
-            # demuxer hands it on
-            return data[body:min(body + size + (size & 1), end)]
-        elif pos == 12:
-            raise ValueError(f"{path}: WebP whose first chunk is {tag!r}")
-        pos = body + size + (size & 1)          # ICCP, EXIF, XMP and unknown chunks
+            raise ValueError(f"{path}: WebP cut short: chunk {tag!r} of {size} bytes runs "
+                             f"past the RIFF's end")
+        if tag == b"ANIM":
+            if size < 6:
+                raise ValueError(f"{path}: WebP ANIM chunk of {size} bytes")
+            anim = True
+        elif tag == b"ANMF":
+            if not anim:
+                raise ValueError(f"{path}: WebP ANMF chunk before the ANIM chunk")
+            if size < 16:
+                raise ValueError(f"{path}: WebP ANMF chunk of {size} bytes")
+            if found is None:
+                x, y = (2 * int.from_bytes(data[body + k:body + k + 3], "little")
+                        for k in (0, 3))
+                alpha, codec, frame, _ = _image_chunks(data, body + 16, body + size, path,
+                                                       " in the first animation frame")
+                w, h = _frame_size(codec, frame, path)
+                if x + w > canvas[0] or y + h > canvas[1]:
+                    raise ValueError(f"{path}: WebP animation frame of {w}x{h} at ({x}, {y}) "
+                                     f"does not fit the {canvas[0]}x{canvas[1]} canvas")
+                found = Frame(codec, frame, alpha if codec == b"VP8 " else None, (w, h),
+                              canvas, (x, y), bool(flags & 0x10))
+        elif tag in (b"ALPH", b"VP8 ", b"VP8L"):
+            raise ValueError(f"{path}: WebP animation with an image outside its frames")
+        pos = body + size + (size & 1)
+    if found is None:
+        raise ValueError(f"{path}: WebP animation with no frame")
+    return found
+
+
+def frame_of(data: bytes, path: str = "<bytes>") -> bytes:
+    """A lossy WebP's bytes -> its VP8 frame (the `VP8 ` chunk's payload and
+    its pad byte)."""
+    f = parse(data, path)
+    if f.codec != b"VP8 ":
+        raise ValueError(f"{path}: a lossless WebP (VP8L) has no VP8 frame")
+    return f.data
 
 
 def frame_size(frame: bytes, path: str = "<bytes>") -> tuple[int, int]:
@@ -174,22 +263,47 @@ def yuv_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
     return out
 
 
+def _decode(data: bytes, path: str, plain: bool) -> np.ndarray:
+    f = parse(data, path)
+    w, h = f.size
+    if f.codec == b"VP8L":
+        argb = (vp8l.vp8l_decode_plain if plain else vp8l.decode_vp8l)(f.data, path)[0]
+        img = vp8l.argb_to_rgba(argb)
+    else:
+        if plain:
+            y, u, v, _ = vp8_decode_plain(f.data, path)
+            rgb = yuv_to_rgb_plain(y, u, v)
+        else:
+            y, u, v, _ = decode_vp8(f.data, path)
+            rgb = yuv_to_rgb(y, u, v)
+        a = np.full((h, w), 255, np.uint8)
+        if f.alpha is not None:        # a failed alpha plane fails the decode, as in libwebp
+            a = (vp8l.alpha_decode_plain if plain else vp8l.decode_alpha)(f.alpha, w, h,
+                                                                          path)[0]
+        img = np.concatenate([rgb, a[..., None]], -1)
+    if f.size != f.canvas:             # an animation's first frame on a cleared canvas
+        canvas = np.zeros((f.canvas[1], f.canvas[0], 4), np.uint8)
+        x, y0 = f.offset
+        canvas[y0:y0 + h, x:x + w] = img
+        img = canvas
+    return np.ascontiguousarray(img if f.rgba else img[..., :3])
+
+
 def decode_webp(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """`read_webp` of a WebP's bytes (`path` names it in errors)."""
-    y, u, v, _ = decode_vp8(frame_of(data, path), path)
-    return yuv_to_rgb(y, u, v)
+    return _decode(data, path, False)
 
 
 def read_webp(path: str) -> np.ndarray:
-    """A lossy WebP -> uint8 (H, W, 3) RGB, PIL's `convert("RGB")`."""
+    """A WebP -> uint8 (H, W, 3) RGB or (H, W, 4) RGBA, what
+    `np.asarray(Image.open(path))` gives."""
     with open(path, "rb") as f:
         return decode_webp(f.read(), path)
 
 
 def decode_webp_plain(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """`decode_webp` through the plain versions."""
-    y, u, v, _ = vp8_decode_plain(frame_of(data, path), path)
-    return yuv_to_rgb_plain(y, u, v)
+    return _decode(data, path, True)
 
 
 # ------------------------------------------------------------ the writer
@@ -230,19 +344,18 @@ def _chunk(tag: bytes, body: bytes) -> bytes:
     return tag + struct.pack("<I", len(body)) + body + b"\x00" * (len(body) & 1)
 
 
-def encode_webp(img: np.ndarray, quality_index: int = 30, segments: int = 1,
-                absolute: bool = False, filter: str = "normal", level: int = 24,
-                sharpness: int = 0, ref_lf_delta=None, mode_lf_delta=None,
-                partitions: int = 1, icc: bytes | None = None, exif: bytes | None = None):
-    """(H, W, 3) RGB or (H, W) gray uint8 -> (the bytes of a lossy WebP, its
+def encode_vp8(img: np.ndarray, quality_index: int = 30, segments: int = 1,
+               absolute: bool = False, filter: str = "normal", level: int = 24,
+               sharpness: int = 0, ref_lf_delta=None, mode_lf_delta=None,
+               partitions: int = 1):
+    """(H, W, 3) RGB or (H, W) gray uint8 -> (a lossy key frame's bytes, its
     decoded (Y, U, V) planes). `quality_index` is the frame's quantizer
     index (0-127); with 4 `segments` (by luma variance quartile) each
     segment's index is it plus -8, -3, 3 or 8 and its filter level `level`
     plus -4, 0, 4 or 8, written as deltas or, `absolute`, as the sums.
     `filter` is "none", "simple" or "normal"; `ref_lf_delta` /
     `mode_lf_delta` (4 each) turn the filter-level deltas on; `partitions`
-    is 1, 2, 4 or 8. An `icc` or `exif` payload wraps the frame in `VP8X`
-    with its chunk."""
+    is 1, 2, 4 or 8."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3
                                                            and img.shape[2] != 3):
@@ -284,27 +397,115 @@ def encode_webp(img: np.ndarray, quality_index: int = 30, segments: int = 1,
         ru.ctypes.data, rv.ctypes.data)
     if status:
         raise RuntimeError(f"gm_vp8_encode returned {status} ({int(n_out[0])} bytes)")
-    frame = out[:int(n_out[0])].tobytes()
-    if icc is not None or exif is not None:
-        flags = (0x20 if icc is not None else 0) | (0x08 if exif is not None else 0)
-        body = (_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
-                       + (h - 1).to_bytes(3, "little"))
-                + (_chunk(b"ICCP", icc) if icc is not None else b"")
-                + _chunk(b"VP8 ", frame)
-                + (_chunk(b"EXIF", exif) if exif is not None else b""))
+    return out[:int(n_out[0])].tobytes(), (ry, ru, rv)
+
+
+def frame_chunks(img: np.ndarray, lossless: bool = False, vp8l_options=None,
+                 alpha_compression: int = 1, alpha_filter: int = 0, alpha_options=None,
+                 **vp8_options):
+    """One image's chunks -> (their bytes, what they decode to). Lossless:
+    a `VP8L` chunk of `vp8l.encode_vp8l(img, **vp8l_options)`, decoding to
+    the RGB or RGBA written (gray is written as RGB). Lossy: an (H, W, 4)
+    image gets an `ALPH` chunk (`vp8l.encode_alpha` with
+    `alpha_compression` 0 / 1, `alpha_filter` 0-3 and `alpha_options`)
+    before its `VP8 ` chunk (`encode_vp8(**vp8_options)`); it decodes to
+    the planes (Y, U, V), and the alpha written after them."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] not in (3, 4)):
+        raise ValueError("a WebP image is (H, W), (H, W, 3) or (H, W, 4) uint8")
+    if lossless:
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, 2)
+        stream = vp8l.encode_vp8l(img, **(vp8l_options or {}))[0]
+        return _chunk(b"VP8L", stream), img
+    rgb = img[..., :3] if img.ndim == 3 else img
+    frame, planes = encode_vp8(np.ascontiguousarray(rgb), **vp8_options)
+    if img.ndim == 3 and img.shape[2] == 4:
+        alph = vp8l.encode_alpha(img[..., 3], alpha_compression, alpha_filter,
+                                 **(alpha_options or {}))
+        return _chunk(b"ALPH", alph) + _chunk(b"VP8 ", frame), (*planes, img[..., 3].copy())
+    return _chunk(b"VP8 ", frame), planes
+
+
+def _riff(body: bytes) -> bytes:
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def _vp8x(flags: int, w: int, h: int) -> bytes:
+    return _chunk(b"VP8X", bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+                  + (h - 1).to_bytes(3, "little"))
+
+
+def encode_webp(img: np.ndarray, lossless: bool = False, icc: bytes | None = None,
+                exif: bytes | None = None, **options):
+    """An image -> (the bytes of a WebP, what it decodes to: `frame_chunks`'
+    second value). A lossy RGB or gray image is a simple `VP8 ` file, a
+    lossless one a simple `VP8L` file; an alpha plane (lossy) or an `icc` or
+    `exif` payload wraps the frame in `VP8X` (the alpha flag set for a lossy
+    RGBA image) with those chunks. `options` go to `frame_chunks`."""
+    chunks, decoded = frame_chunks(img, lossless, **options)
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    has_alpha = not lossless and img.ndim == 3 and img.shape[2] == 4
+    if has_alpha or icc is not None or exif is not None:
+        flags = ((0x20 if icc is not None else 0) | (0x08 if exif is not None else 0)
+                 | (0x10 if has_alpha else 0))
+        body = (_vp8x(flags, w, h) + (_chunk(b"ICCP", icc) if icc is not None else b"")
+                + chunks + (_chunk(b"EXIF", exif) if exif is not None else b""))
     else:
-        body = _chunk(b"VP8 ", frame)
-    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body, (ry, ru, rv)
+        body = chunks
+    return _riff(body), decoded
+
+
+def encode_animation(frames, canvas: tuple[int, int], offsets=None, alpha: bool | None = None,
+                     background=(255, 255, 255, 255), frame_flags=None, **options):
+    """Images -> (the bytes of an animated WebP, what each frame's chunks
+    decode to). Each frame is `frame_chunks(img, **options)` in an `ANMF`
+    at its `offsets` entry (even numbers; default (0, 0)) on a `canvas`
+    (width, height); `alpha` is the `VP8X` alpha flag (default: any frame is
+    RGBA); `background` (RGBA) goes into `ANIM`, with loop count 0; each
+    `ANMF` lasts 100 ms and holds its `frame_flags` entry (bit 0 dispose,
+    bit 1 no blending; default 0)."""
+    if alpha is None:
+        alpha = any(np.ndim(f) == 3 and np.shape(f)[2] == 4 for f in frames)
+    body = _vp8x(0x02 | (0x10 if alpha else 0), *canvas)
+    r, g, b, a = background
+    body += _chunk(b"ANIM", bytes([b, g, r, a, 0, 0]))
+    decoded = []
+    for k, img in enumerate(frames):
+        x, y = offsets[k] if offsets is not None else (0, 0)
+        if x % 2 or y % 2:
+            raise ValueError("animation frames sit at even offsets")
+        h, w = np.shape(img)[:2]
+        chunks, dec = frame_chunks(img, **options)
+        decoded.append(dec)
+        head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1, h - 1, 100))
+        body += _chunk(b"ANMF", head + bytes([frame_flags[k] if frame_flags else 0]) + chunks)
+    return _riff(body), decoded
+
+
+def _written(path: str, data: bytes):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def write_webp(path: str, img: np.ndarray, **kwargs):
     """`encode_webp(img, **kwargs)`'s file written to `path` (its directory
-    made if needed) -> the decoded (Y, U, V) planes."""
-    data, planes = encode_webp(img, **kwargs)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(data)
-    return planes
+    made if needed) -> what it decodes to (lossy: the (Y, U, V) planes, and
+    the alpha written; lossless: the image)."""
+    data, decoded = encode_webp(img, **kwargs)
+    _written(path, data)
+    return decoded
+
+
+def write_webp_animation(path: str, frames, canvas, **kwargs):
+    """`encode_animation(frames, canvas, **kwargs)`'s file written to
+    `path` -> what each frame decodes to."""
+    data, decoded = encode_animation(frames, canvas, **kwargs)
+    _written(path, data)
+    return decoded
 
 
 # ------------------------------------------------------------ plain versions

@@ -9,7 +9,8 @@ and a stale library never loads.
 `build()` starts one `nvcc` per source, all at once.
 
 Host code (`csrc/<name>.cpp`, C++: the deformation-gradient extractor with
-OpenMP, the image codecs of the training path, lossy WebP's VP8 codec)
+OpenMP, the image codecs of the training path, lossy WebP's VP8 codec,
+lossless WebP's VP8L codec and the alpha plane)
 builds the same way with `g++` (`host_library`). A missing compiler or a
 failed build raises with the compiler's output: nothing falls back.
 """
@@ -102,6 +103,15 @@ HOST_LIBRARIES = {
         "gm_vp8_rgb": [_P, _P, _P, _I, _I, _P],
         # y, u, v, width, height, seg_map, params, out, cap, n_out, ry, ru, rv
         "gm_vp8_encode": [_P, _P, _P, _I, _I, _P, _P, _P, _L, _P, _P, _P, _P],
+    },
+    "vp8l": {
+        # stream, n, argb, info
+        "gm_vp8l_decode": [_P, _L, _P, _P],
+        # payload, n, width, height, alpha, info
+        "gm_alpha_decode": [_P, _L, _I, _I, _P, _P],
+        # argb, width, height, cache_bits, lz77, meta_bits, groups, flags, out,
+        # cap, bitpos, stats
+        "gm_vp8l_encode_image": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _L, _P, _P],
     },
 }
 

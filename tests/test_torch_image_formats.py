@@ -625,9 +625,9 @@ def test_tiff_refused_forms_raise(tmp_path, kind):
 
 def test_read_image_dispatch_and_other_formats(tmp_path):
     """`read_image` goes by the first bytes, whatever the file's name: BMP,
-    TIFF, PNG, GIF (PIL's, a palette: `convert("RGB")`) and lossy WebP
-    (PIL's `convert("RGB")`); a lossless WebP raises naming VP8L and the
-    formats the port reads."""
+    TIFF, PNG, GIF (PIL's, a palette: `convert("RGB")`), lossy WebP (PIL's
+    `convert("RGB")`) and lossless WebP (exactly the image written; it
+    raised naming VP8L before the port read it)."""
     img = np.random.default_rng(0).integers(0, 256, (5, 6, 3), dtype=np.uint8)
     for fmt in ("BMP", "TIFF", "PNG"):
         path = str(tmp_path / f"{fmt}.jpg")
@@ -640,8 +640,8 @@ def test_read_image_dispatch_and_other_formats(tmp_path):
     Image.fromarray(img).save(webp, "WEBP", quality=80)
     assert np.array_equal(png.read_image(webp), np.asarray(Image.open(webp).convert("RGB")))
     Image.fromarray(img).save(webp, "WEBP", lossless=True)
-    with pytest.raises(ValueError, match=r"VP8L.*JPEG, PNG, BMP, TIFF, GIF and lossy WebP"):
-        png.read_image(webp)
+    assert np.array_equal(png.read_image(webp), img)
+    assert np.array_equal(png.read_image(webp), np.asarray(Image.open(webp)))
 
 
 # ---------------------------------------------------------- gray + alpha

@@ -4,7 +4,8 @@ quality and method read as `Image.open(p).convert("RGB")`, the decoder's
 planes equal libwebp's `WebPDecodeYUV` (PIL's bundled library through
 ctypes, test side only), the constant tables found in that library's bytes,
 the writer's files decoded by PIL, the C++ and the plain version equal on
-damaged and cut streams, the refusals, the fixtures of `tests/data/webp/`
+damaged and cut streams, the refusals (and the forms once refused, read),
+the fixtures of `tests/data/webp/`
 and a COLMAP scene of WebP views through `read_scene` and `train_mesh`."""
 
 from __future__ import annotations
@@ -297,7 +298,7 @@ def test_cut_by_2_raises_and_by_3_decodes():
     assert not np.array_equal(fx.pil_rgb(cut3), fx.pil_rgb(base))
 
 
-# ------------------------------------------------------ refusals
+# ------------------------------------------------------ forms once refused, and refusals
 def _refused(kind: str) -> tuple[bytes, str]:
     img = fx.natural(20, 24, 1)
     lossy = fx.pil_webp(img, quality=80)
@@ -327,23 +328,26 @@ def _refused(kind: str) -> tuple[bytes, str]:
 @pytest.mark.parametrize("kind", ["lossless", "alpha", "animated", "alpha_flag", "canvas",
                                   "riff_size", "inter_frame"])
 def test_refused_files_name_their_cause(tmp_path, kind):
-    """VP8L, ALPH (or the alpha flag) and animated files raise naming the
-    cause and listing what the port reads; damaged containers raise as PIL
-    does (PIL opens the forms the port leaves for later)."""
+    """VP8L, ALPH (and the alpha flag with no ALPH) and animated files, once
+    refused, read as `np.asarray(Image.open(p))` through `read_image` and
+    the plain version (`tests/test_torch_webp_alpha.py` holds them to PIL
+    at every setting); damaged containers raise naming their cause, as PIL
+    raises."""
     data, words = _refused(kind)
     path = str(tmp_path / "x.webp")
     with open(path, "wb") as f:
         f.write(data)
+    if kind in ("lossless", "alpha", "animated", "alpha_flag"):
+        want = fx.pil_array(data)
+        assert want is not None and want.shape[2] == (4 if "alpha" in kind else 3)
+        assert np.array_equal(png.read_image(path), want)
+        assert np.array_equal(webp.decode_webp_plain(data), want)
+        return
     with pytest.raises(ValueError, match=words):
         png.read_image(path)
     with pytest.raises(ValueError, match=words):
         webp.decode_webp_plain(data)
-    if kind in ("lossless", "alpha", "animated", "alpha_flag"):
-        assert fx.pil_rgb(data) is not None
-        with pytest.raises(ValueError, match="lossy WebP"):
-            png.read_image(path)
-    else:
-        assert fx.pil_rgb(data) is None
+    assert fx.pil_rgb(data) is None
 
 
 # ------------------------------------------------------ the fixtures
@@ -353,7 +357,8 @@ def test_fixture_digests_are_pil_and_libwebp():
     use B_PRED with all ten sub-modes, 4 segments, both filters, 8
     partitions, skipped macroblocks and DCT_CAT6."""
     table = json.load(open(os.path.join(FIXTURES, "digests.json")))
-    assert len(table) >= 12 and set(table) == set(os.listdir(FIXTURES)) - {"digests.json"}
+    files = {n for n in os.listdir(FIXTURES) if os.path.isfile(os.path.join(FIXTURES, n))}
+    assert len(table) >= 12 and set(table) == files - {"digests.json"}
     total = os.path.getsize(os.path.join(FIXTURES, "digests.json"))
     bmodes, seen = np.zeros(10, np.int64), set()
     for name, want in table.items():
