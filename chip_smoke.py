@@ -208,6 +208,28 @@ Phases (any failure raises, so the exit code is not 0):
    (counters set to 0 just before, read just after), finite losses and
    parameters, no overflow, and every training target, mask and camera
    centre equal to phase 8's from its PNGs.
+9f. TIFF layouts and CMYK: first the fixtures of `tests/data/tiff/` (PIL-
+   and writer-written JPEG-in-TIFF, LZMA, tiled, planar and CMYK TIFFs and
+   CMYK / YCCK JPEGs, with the SHA-256 and shape of PIL's array, of its
+   `convert("RGB")` for CMYK, recorded on a machine with PIL): `read_image`
+   and the plain route give the recorded digests. Then phase 9's 24 views
+   written in the rows of LAYOUTS_9F: tiled 256x256 LZW with predictor 2,
+   tiled 16-bit Deflate with predictor 2, planar LZW with predictor 2,
+   planar PackBits, JPEG-in-TIFF YCbCr 4:2:0 in strips of 16 rows and in
+   256x256 tiles, JPEG-in-TIFF RGB, LZMA, CMYK LZW TIFFs of each view's
+   CMYK separation (`cmyk_of`), CMYK JPEGs (Adobe, inverted) and YCCK
+   JPEGs at 4:2:0. Each lossless view decodes by `read_image` to exactly
+   the samples written (CMYK: their `cmyk_to_rgb`), each JPEG view to the
+   plain route's decode; the CROP_9F centre of one view a row, written with
+   the row's settings, decodes through the plain route to the C++'s bytes; s /
+   MP, its ratio to phase 9's baseline JPEG in the same run, plain / C++,
+   bytes and write s by row beside the card's name and power limit and the
+   host's CPU. Then `cli.train_mesh --device cuda` on that scene for
+   PROGRESSIVE_ITERS steps with phase 9's shrunk schedule and capacities:
+   K1, K2 and K3 once a step (counters set to 0 just before, read just
+   after), finite losses and parameters, no overflow, the cameras equal to
+   phase 9's, every lossless view's training target equal to phase 9's and
+   every other one equal to the port's resize of its decode.
 10. serve and shard, at full width. (a) The host deformation-gradient
    extractor (`edit/native_acap.py`, C++ / OpenMP, built by g++) on the
    slice's icosphere-7 mesh and phase 7's largest twist frame: against the
@@ -344,8 +366,7 @@ SH_DEGREE = 3
 TIMED_LAUNCHES = 20
 SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's clock (queued_ms, host_ms)
 # the plain K1 and K2 walk each pair of the largest tile in Python, seconds a
-# call at a step's shapes: one timed call, warmed by the comparison before it
-PLAIN_LAUNCHES = 1
+# call at a step's shapes: each is timed on its one comparison call (cuda_call)
 
 # playback phase: configs 3 and 5 (tools/bench_playback.py) at 1080p
 PLAYBACK_FRAMES = 32
@@ -431,6 +452,27 @@ WEBP_9E = (
 ANIM_OFFSET = (4, 2)
 DECODES_9E = 5                         # phase 9e decodes each view this many times
 WEBP_9E_PLAIN = 200                    # phase 9e's plain decodes: the centre crop of one view a row
+
+# phase 9f: phase 9's views as tiled, planar, JPEG-compressed, LZMA and CMYK TIFFs and
+# CMYK / YCCK JPEGs, (row, views, the writer's settings) in turn; "tiff16" rows write
+# 16-bit samples (each 8-bit one times 257), "cmyk" rows the view's CMYK separation
+TILE_9F = (256, 256)
+LAYOUTS_9F = (
+    ("tiled_lzw_p2", 4, dict(compression="lzw", predictor=2, tile=TILE_9F)),
+    ("tiled_tiff16_deflate_p2", 2, dict(compression="deflate", predictor=2, tile=TILE_9F)),
+    ("planar_lzw_p2", 2, dict(compression="lzw", predictor=2, planar=True)),
+    ("planar_packbits", 1, dict(compression="packbits", planar=True)),
+    ("jpeg_ycbcr420_strips16", 4, dict(compression="jpeg", ycbcr=True, rows_per_strip=16,
+                                       quality=EVAL_QUALITY)),
+    ("jpeg_ycbcr420_tiles", 2, dict(compression="jpeg", ycbcr=True, tile=TILE_9F,
+                                    quality=EVAL_QUALITY)),
+    ("jpeg_rgb", 1, dict(compression="jpeg", quality=EVAL_QUALITY)),
+    ("lzma", 2, dict(compression="lzma")),
+    ("cmyk_tiff_lzw", 2, dict(compression="lzw", cmyk=True)),
+    ("cmyk_jpeg_adobe", 2, dict(quality=EVAL_QUALITY)),
+    ("ycck_jpeg_420", 2, dict(quality=EVAL_QUALITY, ycck=True)),
+)
+CROP_9F = (480, 272)                   # phase 9f's plain decodes: the centre of one view a row
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -551,6 +593,17 @@ def cuda_ms(torch, fn, n, warm=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def cuda_call(torch, fn):
+    """One call fn() -> (its result, its device ms), the card idle before it."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def queued_ms(torch, fn, n):
@@ -911,8 +964,7 @@ def check_k1(torch, tb, args, mpt=None):
     starts, counts, grid_x, width, height): errors, times, bound."""
     feat, sorted_gid, starts, counts, gx, width, height = args
     kc, kt, kn = tb.blend_forward(*args)
-    pc, pt, pn = tb.blend_forward_plain(*args)
-    torch.cuda.synchronize()
+    (pc, pt, pn), plain_ms = cuda_call(torch, lambda: tb.blend_forward_plain(*args))
     dc = (kc - pc).abs()
     dt = (kt - pt).abs()
     r = dict(
@@ -924,8 +976,7 @@ def check_k1(torch, tb, args, mpt=None):
         share_off=(dc.amax(0) > 1e-4).float().mean().item(),
         n_contrib_equal=(kn == pn).float().mean().item())
     r["ms"] = cuda_ms(torch, lambda: tb.blend_forward(*args), TIMED_LAUNCHES)
-    r["plain_ms"] = cuda_ms(torch, lambda: tb.blend_forward_plain(*args),
-                            PLAIN_LAUNCHES, warm=0)
+    r["plain_ms"] = plain_ms
     evals, blended = walk_counts(torch, tb, feat, sorted_gid, starts, counts,
                                  gx, width, height)
     r.update(evaluations=evals, blended=blended, **bound(
@@ -1011,7 +1062,7 @@ def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
     height, width = final_t.shape
     gx = -(-width // tb.TILE)
     rows = tb.blend_backward(*k2_args)
-    plain_rows = tb.blend_backward_plain(*k2_args)
+    plain_rows, plain_ms = cuda_call(torch, lambda: tb.blend_backward_plain(*k2_args))
     k3 = check_k3(torch, seg, rows, grouped_pos, seg_starts,
                   again=lambda: seg.segment_sum(tb.blend_backward(*k2_args),
                                                 grouped_pos, seg_starts))
@@ -1025,8 +1076,7 @@ def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
     if step_rows is not None:
         k2["same_as_step"] = bool(torch.equal(rows, step_rows))
     k2["ms"] = cuda_ms(torch, lambda: tb.blend_backward(*k2_args), TIMED_LAUNCHES)
-    k2["plain_ms"] = cuda_ms(torch, lambda: tb.blend_backward_plain(*k2_args),
-                             PLAIN_LAUNCHES, warm=0)
+    k2["plain_ms"] = plain_ms
     # each tile stages (gid + 9 feature floats) only for pairs [0, walk),
     # walk its pixels' largest n_contrib; rows past it are written as zeros
     staged = int(tb._tile_blocks(n_contrib[None], gx)[:, 0].amax(1).sum())
@@ -1111,7 +1161,8 @@ def kernel_line(results, fullscreen, launches):
     rank ("scaling_gshard"; the owner's K3 "scaling_gshard_owner"), and K3's
     on the full-screen case; errors over all of them; launches from the main
     paths (render, train, playback, pipeline, eval, progressive, formats,
-    webp, webp_alpha, serve, shard, gshard, quality, tools, scaling)."""
+    webp, webp_alpha, tiff_layouts, serve, shard, gshard, quality, tools,
+    scaling)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
         r = {label: res[i] for label, res in results.items() if res[i] is not None}
@@ -2983,6 +3034,171 @@ def phase_webp_alpha(torch, port, p8, sched, jpeg_s_per_mp, tmpdir):
     return res, launches
 
 
+# ------------------------------------------------------------------ phase 9f
+
+def tiff_fixtures(port):
+    """Phase 9f's fixtures -> {name: the C++ decode's s}: each gives its
+    recorded digest and shape through `read_image` and the plain route."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "tiff")
+    with open(os.path.join(here, "digests.json")) as fh:
+        table = json.load(fh)
+    if len(table) < 12:
+        raise AssertionError(f"{here}: {len(table)} TIFF and CMYK JPEG fixtures")
+    out = {}
+    for name, want in sorted(table.items()):
+        path = os.path.join(here, name)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        got, t = timed(port.png.read_image, path)
+        plain = (port.tiff.decode_tiff_plain(data) if name.endswith(".tif") else
+                 port.jpeg.decode_jpeg(data, native=False))
+        for route, a in (("C++", got), ("plain", plain)):
+            if (hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() != want["array"]
+                    or list(a.shape) != want["shape"]):
+                raise AssertionError(f"{name}: the {route} decode differs from the recorded "
+                                     "digest")
+        out[name] = t
+    return out
+
+
+def cmyk_of(rgb):
+    """A view's CMYK separation (the writer's input for the CMYK rows): K =
+    255 - max(R, G, B), C, M, Y the rest of each channel's ink."""
+    top = rgb.max(-1, keepdims=True)
+    return np.concatenate([top - rgb, 255 - top], -1).astype(np.uint8)
+
+
+def write_9f_view(port, row, kw, path, img):
+    """View `img` written as row `row` -> (what `read_image` must give, or
+    None where the plain route decides it; write s)."""
+    if row.startswith(("cmyk_jpeg", "ycck_jpeg")):
+        _, t = timed(lambda: port.jpeg.write_jpeg(path, cmyk_of(img), **kw))
+        return None, t
+    pixels = cmyk_of(img) if row.startswith("cmyk") else (
+        img.astype(np.uint16) * 257 if "tiff16" in row else img)
+    _, t = timed(lambda: port.tiff.write_tiff(path, pixels, **kw))
+    if row.startswith("jpeg"):
+        return None, t
+    return (port.jpeg.cmyk_to_rgb(pixels) if row.startswith("cmyk") else img), t
+
+
+def decode_plain_9f(port, path):
+    with open(path, "rb") as fh:
+        data = fh.read()
+    return (port.jpeg.decode_jpeg(data, path, native=False) if path.endswith(".jpg") else
+            port.tiff.decode_tiff_plain(data, path))
+
+
+def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
+    """Phase 9f (see the module docstring) on phase 9's `scene` ->
+    (results, launches)."""
+    t_phase = time.perf_counter()
+    fixtures = tiff_fixtures(port)
+    log(f"[tiff9f] {len(fixtures)} fixtures decode to their recorded digests through the "
+        "C++ and the plain route")
+    root = os.path.join(tmpdir, "tiff9f_data", "s")
+    sparse = os.path.join(root, "sparse", "0")
+    cams, images, (xyz, rgb, err) = port.colmap.read_model(
+        os.path.join(scene["root"], "sparse", "0"))
+    rows = [(r, kw) for r, n, kw in LAYOUTS_9F for _ in range(n)]
+    assert len(rows) == len(scene["cams"]) == len(images), (len(rows), len(images))
+    for iid, img in images.items():
+        ext = ".jpg" if rows[iid - 1][0].endswith(("jpeg_adobe", "jpeg_420")) else ".tif"
+        images[iid] = dataclasses.replace(img, name=img.name.replace(".jpg", ext))
+    port.colmap.write_model_binary(sparse, cams, images, xyz, rgb, err)
+    os.makedirs(os.path.join(root, "images"))
+    stats = {r: {"decode": [], "write": [], "bytes": [], "jpeg_bytes": []}
+             for r, _, _ in LAYOUTS_9F}
+    expected, small = {}, {}
+    for i, (row, kw) in enumerate(rows):
+        src = os.path.join(scene["root"], "images", f"{i:03d}.jpg")
+        base = port.jpeg.read_jpeg(src)
+        path = os.path.join(root, "images", images[i + 1].name)
+        want, t = write_9f_view(port, row, kw, path, base)
+        st = stats[row]
+        st["write"].append(t)
+        st["bytes"].append(os.path.getsize(path))
+        st["jpeg_bytes"].append(os.path.getsize(src))
+        got, t = timed(port.png.read_image, path)
+        st["decode"].append(t)
+        if want is None:                # lossy: the plain route decides
+            want = decode_plain_9f(port, path)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{images[i + 1].name} ({row}) decodes to other bytes than "
+                                 "it should (lossless: the samples written; JPEG: the "
+                                 "plain route's)")
+        expected[i] = (row, got)
+        if row not in small:
+            y0, x0 = (base.shape[0] - CROP_9F[1]) // 2, (base.shape[1] - CROP_9F[0]) // 2
+            crop = np.ascontiguousarray(base[y0:y0 + CROP_9F[1], x0:x0 + CROP_9F[0]])
+            cpath = os.path.join(tmpdir, "tiff9f_crop" + os.path.splitext(path)[1])
+            write_9f_view(port, row, kw, cpath, crop)
+            cpp, t_cpp = timed(port.png.read_image, cpath)
+            plain, t_plain = timed(decode_plain_9f, port, cpath)
+            if cpp.shape != plain.shape or not np.array_equal(cpp, plain):
+                raise AssertionError(f"{row}: the plain decode of a {CROP_9F} crop differs "
+                                     "from the C++ one")
+            small[row] = (t_cpp, t_plain)
+    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
+    by_row = {}
+    for row, _, _ in LAYOUTS_9F:
+        st = stats[row]
+        dec = float(np.median(st["decode"])) / megapixels
+        by_row[row] = dict(views=len(st["bytes"]), decode_s_per_mp=dec,
+                           decode_vs_baseline_jpeg=dec / jpeg_s_per_mp,
+                           plain_vs_cpp=small[row][1] / small[row][0],
+                           bytes_mean=float(np.mean(st["bytes"])),
+                           bytes_vs_baseline_jpeg=float(np.sum(st["bytes"])
+                                                        / np.sum(st["jpeg_bytes"])),
+                           write_s=float(np.median(st["write"])))
+        r = by_row[row]
+        log(f"[tiff9f] {row}: {r['views']} views at {EVAL_WIDTH}x{EVAL_HEIGHT}, "
+            f"{r['bytes_mean']:.0f} bytes each ({r['bytes_vs_baseline_jpeg']:.2f}x phase 9's "
+            f"JPEG files of the same views); decode {r['decode_s_per_mp']:.4f} s/MP "
+            f"({r['decode_vs_baseline_jpeg']:.2f}x phase 9's baseline JPEG); plain / C++ at "
+            f"{CROP_9F[0]}x{CROP_9F[1]} {r['plain_vs_cpp']:.1f}; write {r['write_s']:.3f} s "
+            "a view")
+
+    cfg = scene["cfg"]
+    trainer, launches, steps_rows = run_cli(torch, port, port.cli_train_mesh.main, [
+        "-s", root, "-m", os.path.join(tmpdir, "tiff9f_out"), "--input_mesh",
+        scene["proxy"], "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
+        "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
+        "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
+        "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
+        *scene["sched"]], port.trainer.MeshTrainer)
+    want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
+    assert launches == want, launches
+    steps = step_summary(steps_rows["steps"], "tiff9f")
+    for name, p in trainer.model.named_parameters():
+        assert torch.isfinite(p).all(), name
+    ds, ref = trainer.ds, scene["targets"]
+    for key in ("view", "proj", "campos"):
+        if not torch.equal(getattr(ds, key), getattr(ref, key)):
+            raise AssertionError(f"the phase-9f scene's training {key} differ from phase 9's")
+    centres = np.stack([pos for _, pos, _ in scene["cams"]])
+    size = (int(ds.width), int(ds.height))
+    n_lossless = 0
+    for k in range(ds.images.shape[0]):
+        i = int(np.argmin(np.linalg.norm(centres - ds.campos[k].cpu().numpy(), axis=1)))
+        row, decoded = expected[i]
+        if not row.startswith(("jpeg", "cmyk", "ycck")):
+            target, n_lossless = ref.images[k], n_lossless + 1
+        else:
+            arr = port.resample.resize(decoded, size).astype(np.float32) / 255.0
+            target = torch.from_numpy((arr.transpose(2, 0, 1) * 255).astype(np.uint8))
+            target = target.to(ds.images.device)
+        if not torch.equal(ds.images[k], target):
+            raise AssertionError(f"view {i} ({row}): its training target differs")
+    res = dict(rows=by_row, fixtures=len(fixtures), train_views=int(ds.images.shape[0]),
+               train_lossless_views=n_lossless,
+               load_s=(steps_rows["scene"][0][0] + steps_rows["upload"][0][0]) / 1e3,
+               train_s=sum(t for t, _ in steps_rows["steps"]) / 1e3, **steps,
+               phase_s=time.perf_counter() - t_phase)
+    log("[tiff9f] " + json.dumps(res))
+    return res, launches
+
+
 # ------------------------------------------------------------------ phase 10
 
 def phase_acap(torch, port):
@@ -4241,6 +4457,8 @@ def main() -> int:
         webp9e, webp9e_launches = phase_webp_alpha(
             torch, port, pipeline.pop("config2_scene"), eval_scene["sched"],
             evaluation["jpeg_decode_s_per_mp"], tmpdir)
+        tiff9f, tiff9f_launches = phase_tiff_layouts(
+            torch, port, eval_scene, evaluation["jpeg_decode_s_per_mp"], tmpdir)
         del eval_scene
         t_serve = time.perf_counter()
         acap = phase_acap(torch, port)
@@ -4264,7 +4482,7 @@ def main() -> int:
                            "pipeline": pipeline_launches, "eval": eval_launches,
                            "progressive": progressive_launches,
                            "formats": formats_launches, "webp": webp_launches,
-                           "webp_alpha": webp9e_launches,
+                           "webp_alpha": webp9e_launches, "tiff_layouts": tiff9f_launches,
                            "serve": serve_launches, "shard": shard_launches,
                            "gshard": gshard_launches, "quality": quality_launches,
                            "tools": tools_launches, "scaling": scaling_launches})
@@ -4331,6 +4549,15 @@ def main() -> int:
             for k, r in webp9e["rows"].items())
         + f"; train_mesh load {webp9e['load_s']:.2f} s, {webp9e['steps']} steps in "
         f"{webp9e['train_s']:.2f} s (median {webp9e['step_ms_median']:.3f} ms)")
+    log(f"[done] TIFF layouts phase {tiff9f['phase_s']:.1f} s on {smi}, host CPU: "
+        f"{host_cpu()} (one core a call): {tiff9f['fixtures']} fixtures; by row s/MP at "
+        f"{EVAL_WIDTH}x{EVAL_HEIGHT} (x phase 9's baseline JPEG), plain / C++ at "
+        f"{CROP_9F[0]}x{CROP_9F[1]}, bytes a view, write s: " + ", ".join(
+            f"{k} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "
+            f"{r['plain_vs_cpp']:.1f}, {r['bytes_mean']:.0f}, {r['write_s']:.3f}"
+            for k, r in tiff9f["rows"].items())
+        + f"; train_mesh load {tiff9f['load_s']:.2f} s, {tiff9f['steps']} steps in "
+        f"{tiff9f['train_s']:.2f} s (median {tiff9f['step_ms_median']:.3f} ms)")
     log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} ("
         f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks over {shard['backend']} on cards "
         f"{shard['cards']}): native ACAP {acap['host_ms']:.1f} ms per call on the host "

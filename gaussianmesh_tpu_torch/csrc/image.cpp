@@ -16,7 +16,8 @@
 //   AC refine), added into the coefficients of the scans before it.
 // - gm_jpeg_planes: dequantisation, libjpeg-turbo's islow IDCT
 //   (`jidctint.c`), fancy upsampling (`jdsample.c`) and the fixed-point
-//   YCbCr -> RGB tables (`jdcolor.c`), cropped to the frame.
+//   YCbCr -> RGB tables (`jdcolor.c`), cropped to the frame; four
+//   components (CMYK, inverted CMYK, YCCK) to RGB as PIL converts CMYK.
 // - gm_png_unfilter: PNG filters 0-4 row after row over bytes.
 // - gm_resample_pass: one 8-bit bicubic pass of `Resample.c` along an axis.
 // - gm_lzw_decode / gm_lzw_encode: LZW as TIFF (MSB first, the code width
@@ -535,7 +536,12 @@ int gm_jpeg_scan_progressive(const uint8_t* data, int64_t n, int n_mcus, int int
 // q[c * 64 ...] (zig-zag order); its samples are its (rows[c], cols[c])
 // corner, upsampled by (ry[c], rx[c]) and cropped to height x width.
 // color: 0 one gray plane -> (H, W); 1 YCbCr -> RGB; 2 the three planes as
-// they are -> (H, W, 3).
+// they are -> (H, W, 3); four planes to CMYK, then RGB -> (H, W, 3): 3 CMYK
+// as stored, 4 inverted (PIL's `CMYK;I`), 5 YCCK (libjpeg's
+// `ycck_cmyk_convert`, C = 255 - R of the YCbCr tables and so on, K as it
+// is, which PIL then inverts: C = R, K = 255 - K). CMYK -> RGB is Pillow's
+// `cmyk2rgb` (jpeg.cmyk_to_rgb): nk = 255 - K and R = nk - MULDIV255(C, nk),
+// MULDIV255(a, b) = (((a * b + 128) >> 8) + a * b + 128) >> 8, G and B alike.
 int gm_jpeg_planes(const int32_t* coef, int n_comp, const int64_t* offset,
                    const int32_t* nby, const int32_t* nbx, const int32_t* rows,
                    const int32_t* cols, const int32_t* ry, const int32_t* rx,
@@ -570,13 +576,34 @@ int gm_jpeg_planes(const int32_t* coef, int n_comp, const int64_t* offset,
       uint8_t* o = out + y * w * 3;
       for (int64_t x = 0; x < w; ++x)
         for (int c = 0; c < 3; ++c) o[3 * x + c] = static_cast<uint8_t>(line[c][x]);
-    } else {
+    } else if (color == 1) {
       const int32_t *yy = line[0].data(), *cb = line[1].data(), *cr = line[2].data();
       uint8_t* o = out + y * w * 3;
       for (int64_t x = 0; x < w; ++x) {
         o[3 * x] = clip255(yy[x] + cr_r[cr[x]]);
         o[3 * x + 1] = clip255(yy[x] + ((cb_g[cb[x]] + cr_g[cr[x]]) >> 16));
         o[3 * x + 2] = clip255(yy[x] + cb_b[cb[x]]);
+      }
+    } else {
+      const int32_t *p0 = line[0].data(), *p1 = line[1].data(), *p2 = line[2].data(),
+                    *p3 = line[3].data();
+      uint8_t* o = out + y * w * 3;
+      for (int64_t x = 0; x < w; ++x) {
+        int32_t cmyk[4];
+        if (color == 5) {
+          cmyk[0] = clip255(p0[x] + cr_r[p2[x]]);
+          cmyk[1] = clip255(p0[x] + ((cb_g[p1[x]] + cr_g[p2[x]]) >> 16));
+          cmyk[2] = clip255(p0[x] + cb_b[p1[x]]);
+          cmyk[3] = 255 - p3[x];
+        } else {                                // 3 as stored, 4 inverted
+          const int32_t* p[4] = {p0, p1, p2, p3};
+          for (int c = 0; c < 4; ++c) cmyk[c] = color == 4 ? 255 - p[c][x] : p[c][x];
+        }
+        const int32_t nk = 255 - cmyk[3];
+        for (int c = 0; c < 3; ++c) {
+          const int32_t t = cmyk[c] * nk + 128;
+          o[3 * x + c] = static_cast<uint8_t>(nk - (((t >> 8) + t) >> 8));
+        }
       }
     }
   }

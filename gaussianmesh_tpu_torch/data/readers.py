@@ -11,13 +11,15 @@ a float64 background (so it comes out float64, and its uint8 targets
 truncate as the JAX package's do), masks are float32.
 
 Images are read by the port's own codecs (`io/png.py::read_image`:
-`io/jpeg.py`, the PNG path, `io/bmp.py`, `io/tiff.py`) and resized by
-`io/resample.py`, where the JAX reader uses PIL: the same arrays, bit for
-bit, for the JPEGs, PNGs, BMPs and TIFFs PIL reads, with three repairs:
-palette images expand to their colours (faults B6, B15), 16-bit gray keeps
-its high byte (`io/png.py`), and gray + alpha (2 channels) is taken as
-PIL's `convert("RGBA")` gives it, gray in R, G and B and the alpha a mask
-(fault A2: the JAX reader keeps the two channels as colours).
+`io/jpeg.py`, the PNG path, `io/bmp.py`, `io/tiff.py`, `io/gif.py`,
+`io/webp.py`) and resized by `io/resample.py`, where the JAX reader uses
+PIL: the same arrays, bit for bit, for the images PIL reads, with four
+repairs: palette images expand to their colours (faults B6, B15), 16-bit
+gray keeps its high byte (`io/png.py`), gray + alpha (2 channels) is taken
+as PIL's `convert("RGBA")` gives it, gray in R, G and B and the alpha a
+mask (fault A2: the JAX reader keeps the two channels as colours), and a
+CMYK or YCCK JPEG or a CMYK TIFF comes as PIL's `convert("RGB")` of it, 3
+channels and no mask (fault B14: the JAX reader takes K as the alpha).
 """
 
 from __future__ import annotations

@@ -2,12 +2,13 @@
 (the JAX package reads JPEGs with PIL).
 
 `read_jpeg` decodes 8-bit Huffman JPEGs, sequential (SOF0 baseline and
-SOF1 extended) and progressive (SOF2), with 1 or 3 components, sampling
-factors 1-2 on each axis (4:4:4, 4:2:2, 4:2:0, 4:4:0), restart intervals,
-interleaved or single-component scans, to the arrays
+SOF1 extended) and progressive (SOF2), with 1, 3 or 4 components,
+sampling factors 1-2 on each axis (4:4:4, 4:2:2, 4:2:0, 4:4:0), restart
+intervals, interleaved or single-component scans, to the arrays
 `np.asarray(PIL.Image.open(p))` gives: (H, W) uint8 for gray, (H, W, 3) RGB
-otherwise. It follows PIL 12's libjpeg-turbo step for step so that the bits
-agree:
+otherwise, and for 4 components (CMYK, YCCK) PIL's `convert("RGB")` of the
+CMYK image it opens. It follows PIL 12's libjpeg-turbo step for step so
+that the bits agree:
 
 - a progressive file's scans (`jdphuff.c`: DC first and refinement, AC
   first with its EOB runs, AC refinement with its correction bits) each
@@ -26,11 +27,26 @@ agree:
   replication where the downsampled width is 2 or less;
 - the fixed-point YCbCr -> RGB tables (`jdcolor.c`: 16-bit scale,
   `ONE_HALF` rounding); a JFIF or Adobe marker, else the component ids,
-  says whether the three components are YCbCr or RGB.
+  says whether the three components are YCbCr or RGB;
+- a scan's Huffman table 0 or 1 that no DHT defined is the Annex K table
+  (libjpeg-turbo's `jpeg_std_huff_table`, for Motion-JPEG frames);
+- four components are CMYK, or YCCK where an Adobe marker's transform is
+  not 0 (`default_decompress_parms`); YCCK goes to CMYK by
+  `ycck_cmyk_convert` (the YCbCr -> RGB tables, inverted; K as it is).
+  PIL opens every CMYK JPEG inverted (`CMYK;I`, Adobe's polarity), and
+  `cmyk_to_rgb` is its `convert("RGB")`. The JAX reader keeps PIL's four
+  CMYK channels and takes K as an alpha mask (fault B14); the port reads
+  the RGB PIL converts to.
 
 EXIF orientation is ignored, as a plain `Image.open` ignores it.
-Arithmetic-coded, lossless and hierarchical files, 12-bit samples and
-4-component (CMYK / YCCK) files raise with the cause.
+Arithmetic-coded, lossless and hierarchical files and 12-bit samples raise
+with the cause.
+
+`decode_jpeg` also reads the abbreviated streams of a JPEG-compressed TIFF
+(`io/tiff.py`): the tables come from the TIFF's `JPEGTables` stream
+(`jpeg_tables`), and the caller fixes the colour as libtiff does
+(`color="as_is"`: the components as they are, whatever the markers say;
+`"ycc"`: YCbCr -> RGB), and may check the frame before its scans.
 
 `read_jpeg` parses the markers here and decodes each scan and the planes
 in the port's C++ (`csrc/image.cpp`, built by `ops/_cuda.py::host_library`
@@ -43,18 +59,23 @@ read otherwise); dequantisation, the IDCT, upsampling and colour
 conversion run vectorised over all blocks. The training path never calls
 it.
 
-`write_jpeg` writes baseline JPEGs (JFIF, one interleaved scan): the
-Annex K quantisation and Huffman tables scaled by libjpeg's quality
-rule, 4:2:0 or 4:4:4, a float DCT, and Huffman coding vectorised (code
-words and bit lengths per coefficient, packed with numpy, 0xFF stuffed).
-With `progressive=True` it writes the same coefficients as a progressive
-file in libjpeg's `jpeg_simple_progression` script, each scan with its own
+`write_jpeg` writes baseline JPEGs (one interleaved scan): the Annex K
+quantisation and Huffman tables scaled by libjpeg's quality rule, 4:2:0 or
+4:4:4, a float DCT, and Huffman coding vectorised (code words and bit
+lengths per coefficient, packed with numpy, 0xFF stuffed); gray and YCbCr
+with a JFIF marker, CMYK inverted with an Adobe marker of transform 0 (as
+libjpeg writes PIL's CMYK) or YCCK with transform 2. With
+`progressive=True` it writes the same coefficients as a progressive file
+in libjpeg's `jpeg_simple_progression` script, each scan with its own
 Huffman tables (Annex K.2) and EOB runs, vectorised over the blocks too.
+`encode_jpeg` and `encode_jpeg_tables` give the bytes, abbreviated streams
+and their tables included, for `io/tiff.py`'s writer.
 """
 
 from __future__ import annotations
 
 import array
+import functools
 import heapq
 import os
 import struct
@@ -127,8 +148,11 @@ def _extend(v, s):
     return np.where(v < (1 << s) >> 1, v - (1 << s) + 1, v) if s else np.zeros_like(v)
 
 
+@functools.lru_cache(maxsize=32)
 def _decode_tables(bits, vals, ac: bool):
-    """-> (fast, slow): 65,536-entry peek tables as Python lists."""
+    """-> (fast, slow): 65,536-entry peek tables as Python lists (read only;
+    kept for the next scan with the same table: a TIFF's strips share
+    theirs)."""
     fast = np.zeros(1 << 16, np.int64)
     for code, length, sym in zip(*_canonical(bits, vals)):
         lo, hi = code << (16 - length), (code + 1) << (16 - length)
@@ -143,6 +167,7 @@ def _decode_tables(bits, vals, ac: bool):
     return fast.tolist(), _peek_table(bits, vals)
 
 
+@functools.lru_cache(maxsize=32)
 def _peek_table(bits, vals):
     """-> the slow table: symbol << 5 | code length for every 16-bit window
     that starts with a code word, 0 where none does (code words that
@@ -323,11 +348,8 @@ class _Frame:
         precision, self.height, self.width, nf = struct.unpack(">BHHB", seg[:6])
         if precision != 8:
             raise ValueError(f"{path}: {precision}-bit JPEG; only 8-bit samples are read")
-        if nf == 4:
-            raise ValueError(f"{path}: 4-component (CMYK / YCCK) JPEG; only gray "
-                             "and 3-component JPEGs are read")
-        if nf not in (1, 3):
-            raise ValueError(f"{path}: {nf}-component JPEG; only 1 or 3 are read")
+        if nf not in (1, 3, 4):
+            raise ValueError(f"{path}: {nf}-component JPEG; only 1, 3 or 4 are read")
         if self.height == 0:
             raise ValueError(f"{path}: the height comes in a DNL marker; not read")
         self.ids, self.h, self.v, self.tq = [], [], [], []
@@ -415,6 +437,12 @@ class _Scan:
             if cid not in frame.ids:
                 raise ValueError(f"{path}: scan names component {cid}, not in the frame")
             c = frame.ids.index(cid)
+            # libjpeg-turbo takes the Annex K table for an undefined table 0
+            # or 1 (`jpeg_std_huff_table`: Motion-JPEG frames carry no DHT)
+            if need_dc and (t >> 4) not in dc and (t >> 4) < 2:
+                dc[t >> 4] = (_DC_LUMA, _DC_CHROMA)[t >> 4]
+            if need_ac and (t & 15) not in ac and (t & 15) < 2:
+                ac[t & 15] = (_AC_LUMA, _AC_CHROMA)[t & 15]
             if (need_dc and (t >> 4) not in dc) or (need_ac and (t & 15) not in ac):
                 raise ValueError(f"{path}: scan uses a Huffman table that is not defined")
             if frame.tq[c] not in qt:
@@ -778,8 +806,27 @@ def _scan_native_progressive(frame: _Frame, scan: _Scan, arr: np.ndarray, restar
     return int(used[0])
 
 
-def _planes_plain(frame: _Frame, rgb: bool) -> np.ndarray:
-    """The frame's coefficients -> the image, in numpy."""
+# gm_jpeg_planes' colour modes: one gray plane; YCbCr -> RGB; the three
+# planes as they are; CMYK as stored, inverted (PIL's `CMYK;I`) or from YCCK,
+# each then to RGB by `cmyk_to_rgb`
+GRAY, YCC, PLANES, CMYK, CMYK_INVERTED, YCCK = range(6)
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """(..., 4) CMYK (PIL's mode CMYK) -> (..., 3) uint8 RGB, PIL's
+    `convert("RGB")` (Pillow's `cmyk2rgb`): with nk = 255 - K, each of R, G,
+    B is nk - MULDIV255(C, nk), MULDIV255(a, b) = (((a b + 128) >> 8) + a b +
+    128) >> 8 (`gm_jpeg_planes` computes the same in C++). Every term fits
+    16 bits: C nk + 128 <= 65,153."""
+    x = np.asarray(cmyk).astype(np.uint8)
+    nk = (255 - x[..., 3:]).astype(np.uint16)
+    t = x[..., :3] * nk + np.uint16(128)
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+
+
+def _planes_plain(frame: _Frame, mode: int) -> np.ndarray:
+    """The frame's coefficients -> the image of colour mode `mode`, in
+    numpy."""
     planes = []
     for c in range(len(frame.ids)):
         nby, nbx = frame.grid[c]
@@ -789,14 +836,22 @@ def _planes_plain(frame: _Frame, rgb: bool) -> np.ndarray:
         p = _upsample(pix[:rows, :cols].astype(np.int32), frame.vmax // frame.v[c],
                       frame.hmax // frame.h[c])
         planes.append(p[:frame.height, :frame.width])
-    if len(planes) == 1:
+    if mode == GRAY:
         return planes[0].astype(np.uint8)
-    if rgb:
+    if mode == PLANES:
         return np.stack(planes, -1).astype(np.uint8)
-    return _ycc_to_rgb(*planes)
+    if mode == YCC:
+        return _ycc_to_rgb(*planes)
+    if mode == YCCK:    # libjpeg's C, M, Y are 255 - R, G, B; PIL inverts them back
+        cmyk = np.concatenate([_ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], -1)
+    else:
+        cmyk = np.stack(planes, -1)
+        if mode == CMYK_INVERTED:
+            cmyk = 255 - cmyk
+    return cmyk_to_rgb(cmyk)
 
 
-def _planes_native(frame: _Frame, rgb: bool) -> np.ndarray:
+def _planes_native(frame: _Frame, mode: int) -> np.ndarray:
     """`_planes_plain` in `csrc/image.cpp` (`gm_jpeg_planes`)."""
     n = len(frame.ids)
     i32 = lambda v: np.ascontiguousarray(v, np.int32)  # noqa: E731
@@ -807,21 +862,82 @@ def _planes_native(frame: _Frame, rgb: bool) -> np.ndarray:
     rx = i32([frame.hmax // h for h in frame.h])
     q = i32(np.stack(frame.q))
     offset = np.ascontiguousarray(frame.offset[:n], np.int64)
-    out = np.empty((frame.height, frame.width) + (() if n == 1 else (3,)), np.uint8)
+    out = np.empty((frame.height, frame.width) + (() if mode == GRAY else (3,)), np.uint8)
     status = _cuda.host_library("image").gm_jpeg_planes(
         frame.blocks.ctypes.data, n, offset.ctypes.data, nby.ctypes.data,
         nbx.ctypes.data, rows.ctypes.data, cols.ctypes.data, ry.ctypes.data,
-        rx.ctypes.data, q.ctypes.data, frame.height, frame.width,
-        0 if n == 1 else 2 if rgb else 1, out.ctypes.data)
+        rx.ctypes.data, q.ctypes.data, frame.height, frame.width, mode, out.ctypes.data)
     if status:
         raise RuntimeError(f"gm_jpeg_planes returned {status}")
     return out
 
 
-def _decode(data: bytes, path, native: bool) -> np.ndarray:
+def _read_dqt(seg: bytes, qt: dict, path) -> None:
+    i = 0
+    while i < len(seg):
+        pq, tq = seg[i] >> 4, seg[i] & 15
+        n = 128 if pq else 64
+        vals = np.frombuffer(seg[i + 1:i + 1 + n], ">u2" if pq else np.uint8)
+        if len(vals) != 64:
+            raise ValueError(f"{path}: quantisation table {tq} is cut short")
+        qt[tq] = vals.astype(np.int64)
+        i += 1 + n
+
+
+def _read_dht(seg: bytes, dc: dict, ac: dict) -> int:
+    """-> the bytes the tables' counts call for past the segment's end (a
+    cut table keeps the symbols there are)."""
+    i = 0
+    while i < len(seg):
+        tc, th = seg[i] >> 4, seg[i] & 15
+        bits = tuple(seg[i + 1:i + 17])
+        vals = seg[i + 17:i + 17 + sum(bits)]
+        (ac if tc else dc)[th] = (bits, vals)
+        i += 17 + sum(bits)
+    return i - len(seg)
+
+
+def jpeg_tables(data: bytes, path="<bytes>") -> tuple:
+    """A tables-only JPEG stream (SOI, DQT and DHT segments, EOI: a TIFF's
+    `JPEGTables`) -> (quantisation, DC and AC tables) for `decode_jpeg`.
+    APPn, COM and DRI segments are skipped (libjpeg resets the restart
+    interval at each image's SOI); a stream that does not start with SOI,
+    that holds another marker (a frame or a scan: libtiff's "Bogus
+    JPEGTables field") or a segment cut short raises. A missing EOI is
+    taken, as libjpeg's tables source supplies one; libjpeg also fills a cut
+    segment with EOI markers and reads on, which this refuses."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{path}: JPEGTables does not start with SOI")
+    qt, dc, ac = {}, {}, {}
+    pos = 2
+    while pos < len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"{path}: corrupt JPEGTables: no marker at byte {pos}")
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data) or data[pos] == 0xD9:
+            break
+        marker = data[pos]
+        if marker not in (0xDB, 0xC4, 0xDD, 0xFE) and not 0xE0 <= marker <= 0xEF:
+            raise ValueError(f"{path}: JPEGTables holds marker 0x{marker:02X}; only "
+                             "tables (bogus JPEGTables)")
+        length = int.from_bytes(data[pos + 1:pos + 3], "big")
+        seg = data[pos + 3:pos + 1 + length]
+        if length < 2 or len(seg) != length - 2:
+            raise ValueError(f"{path}: JPEGTables cut short in marker 0x{marker:02X}")
+        pos += 1 + length
+        if marker == 0xDB:
+            _read_dqt(seg, qt, path)
+        elif marker == 0xC4 and _read_dht(seg, dc, ac) > 0:
+            raise ValueError(f"{path}: JPEGTables cut short in a Huffman table")
+    return qt, dc, ac
+
+
+def _decode(data: bytes, path, native: bool, tables=None, color=None,
+            on_frame=None) -> np.ndarray:
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{path}: not a JPEG")
-    qt, dc, ac = {}, {}, {}
+    qt, dc, ac = ({}, {}, {}) if tables is None else (dict(t) for t in tables)
     frame, restart, jfif, adobe, scans = None, 0, False, None, 0
     pos = 2
     while pos < len(data):
@@ -841,25 +957,13 @@ def _decode(data: bytes, path, native: bool) -> np.ndarray:
         seg = data[pos + 2:pos + length]
         pos += length
         if marker == 0xDB:
-            i = 0
-            while i < len(seg):
-                pq, tq = seg[i] >> 4, seg[i] & 15
-                n = 128 if pq else 64
-                vals = np.frombuffer(seg[i + 1:i + 1 + n], ">u2" if pq else np.uint8)
-                if len(vals) != 64:
-                    raise ValueError(f"{path}: quantisation table {tq} is cut short")
-                qt[tq] = vals.astype(np.int64)
-                i += 1 + n
+            _read_dqt(seg, qt, path)
         elif marker == 0xC4:
-            i = 0
-            while i < len(seg):
-                tc, th = seg[i] >> 4, seg[i] & 15
-                bits = tuple(seg[i + 1:i + 17])
-                vals = seg[i + 17:i + 17 + sum(bits)]
-                (ac if tc else dc)[th] = (bits, vals)
-                i += 17 + sum(bits)
+            _read_dht(seg, dc, ac)
         elif marker in (0xC0, 0xC1, 0xC2):
             frame = _Frame(seg, path, progressive=marker == 0xC2)
+            if on_frame is not None:
+                on_frame(frame)
         elif marker in _SOF_KINDS:
             raise ValueError(f"{path}: {_SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}); "
                              "only baseline, extended sequential and progressive "
@@ -893,19 +997,47 @@ def _decode(data: bytes, path, native: bool) -> np.ndarray:
             and (frame.coef_bits[:, 1:10] != 0).any()):
         raise ValueError(f"{path}: progressive JPEG with coefficients left unrefined; "
                          "libjpeg would smooth them (block smoothing is not read)")
+    return (_planes_native if native else _planes_plain)(
+        frame, _color_mode(len(frame.ids), color, jfif, adobe, frame.ids, path))
+
+
+def _color_mode(nf, color, jfif, adobe, ids, path) -> int:
+    """libjpeg's colour space of `nf` components (`default_decompress_parms`),
+    or the one the caller fixes -> gm_jpeg_planes' mode."""
+    if color not in (None, "as_is", "ycc"):
+        raise ValueError(f"color {color!r}: None, 'as_is' or 'ycc'")
+    if color == "ycc":
+        if nf != 3:
+            raise ValueError(f"{path}: {nf} components where YCbCr needs 3")
+        return YCC
+    if nf == 1:
+        return GRAY
+    if color == "as_is":
+        return PLANES if nf == 3 else CMYK
+    if nf == 4:
+        return CMYK_INVERTED if adobe in (None, 0) else YCCK
     if jfif:
-        rgb = False
-    elif adobe is not None:
-        rgb = adobe == 0
-    else:
-        rgb = tuple(frame.ids) == (82, 71, 66)
-    return (_planes_native if native else _planes_plain)(frame, rgb)
+        return YCC
+    if adobe is not None:
+        return PLANES if adobe == 0 else YCC
+    return PLANES if tuple(ids) == (82, 71, 66) else YCC
+
+
+def decode_jpeg(data: bytes, path="<bytes>", *, native: bool = True, tables=None,
+                color=None, on_frame=None) -> np.ndarray:
+    """`read_jpeg` (native) or `read_jpeg_plain` of a JPEG's bytes. `tables`
+    (`jpeg_tables`' result) seed the tables of an abbreviated stream; `color`
+    fixes the colour space as libtiff does: "as_is" takes the components as
+    they are (1 gray, 3 the planes, 4 CMYK as stored, then `cmyk_to_rgb`),
+    "ycc" three components as YCbCr; `on_frame(frame)` sees the frame header
+    before the scans (it raises to refuse one)."""
+    return _decode(data, path, native, tables, color, on_frame)
 
 
 def read_jpeg(path: str) -> np.ndarray:
     """A baseline, extended sequential or progressive 8-bit Huffman JPEG ->
-    uint8 (H, W) gray or
-    (H, W, 3) RGB, the bits PIL 12 (libjpeg-turbo) decodes; decoded by
+    uint8 (H, W) gray or (H, W, 3) RGB, the bits PIL 12 (libjpeg-turbo)
+    decodes (a CMYK or YCCK file: PIL's `convert("RGB")` of it); decoded by
     `csrc/image.cpp`."""
     with open(path, "rb") as f:
         data = f.read()
@@ -981,26 +1113,47 @@ def _segment(marker, body):
     return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
 
 
-def _coefficients(img: np.ndarray, quality: int, subsampling: str):
+def _subsample(p: np.ndarray, sh: int, sv: int) -> np.ndarray:
+    """Means over (sv, sh) cells of a plane, edge padded."""
+    h, w = p.shape
+    p = np.pad(p, ((0, -h % sv), (0, -w % sh)), mode="edge")
+    return np.floor(p.reshape(p.shape[0] // sv, sv, p.shape[1] // sh, sh).mean((1, 3)) + 0.5)
+
+
+def _ycc_planes(img: np.ndarray) -> list:
+    r, g, b = (img[..., i].astype(np.float64) for i in range(3))
+    ycc = [0.299 * r + 0.587 * g + 0.114 * b,
+           -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+           0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    return [np.clip(np.round(p), 0, 255) for p in ycc]
+
+
+def _coefficients(img: np.ndarray, quality: int, subsampling: str, color: str = "auto"):
     """write_jpeg's image -> (quantisation tables, per component its
     sampling, table and (rows, cols) of zig-zag quantised coefficients over
-    the MCU-padded grid)."""
+    the MCU-padded grid). `color` "auto": gray, YCbCr (chroma subsampled),
+    or four channels of PIL's CMYK stored inverted, as libjpeg writes PIL's
+    CMYK; "ycck": PIL's C, M, Y as the R, G, B of YCbCr (chroma subsampled),
+    255 - K (libjpeg's `cmyk_ycck_convert` of the inverted CMYK); "as_is":
+    the channels as they are, one table, 4:4:4 (a TIFF's Photometric 1, 2
+    and 5)."""
     h, w = img.shape[:2]
     qs = [_quant_table(_Q_LUMA, quality), _quant_table(_Q_CHROMA, quality)]
+    sh, sv = _SUBSAMPLING[subsampling]
     if img.ndim == 2:
         planes, samp, qsel = [img.astype(np.float64)], [(1, 1)], [0]
+    elif color == "as_is" or (color == "auto" and img.shape[2] == 4):
+        planes = [img[..., i].astype(np.float64) for i in range(img.shape[2])]
+        if color == "auto":
+            planes = [255.0 - p for p in planes]
+        samp, qsel = [(1, 1)] * len(planes), [0] * len(planes)
     else:
-        r, g, b = (img[..., i].astype(np.float64) for i in range(3))
-        ycc = [0.299 * r + 0.587 * g + 0.114 * b,
-               -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
-               0.5 * r - 0.418688 * g - 0.081312 * b + 128]
-        planes = [np.clip(np.round(p), 0, 255) for p in ycc]
-        sh, sv = _SUBSAMPLING[subsampling]
+        planes = [_subsample(p, sh, sv) if i else p
+                  for i, p in enumerate(_ycc_planes(img))]
         samp, qsel = [(sh, sv), (1, 1), (1, 1)], [0, 1, 1]
-        for i in (1, 2):                # means over (sv, sh) cells, edge padded
-            p = np.pad(planes[i], ((0, -h % sv), (0, -w % sh)), mode="edge")
-            planes[i] = np.floor(p.reshape(p.shape[0] // sv, sv, p.shape[1] // sh, sh)
-                                 .mean((1, 3)) + 0.5)
+        if color == "ycck":
+            planes.append(255.0 - img[..., 3].astype(np.float64))
+            samp, qsel = samp + [(sh, sv)], qsel + [0]
     hmax, vmax = samp[0]
     mcuy, mcux = -(-h // (8 * vmax)), -(-w // (8 * hmax))
     a = _fdct_matrix()
@@ -1012,18 +1165,38 @@ def _coefficients(img: np.ndarray, quality: int, subsampling: str):
     return qs, samp, qsel, grids
 
 
-def _headers(h, w, qs, samp, qsel, sof) -> list:
+def _dqt(qs, n) -> bytes:
+    return b"".join(_segment(0xDB, bytes([i]) + qs[i][ZIGZAG].astype(np.uint8).tobytes())
+                    for i in range(n))
+
+
+def _dht(n) -> bytes:
+    """The Annex K Huffman tables of `n` table pairs (luma, then chroma)."""
+    return b"".join(_segment(0xC4, bytes([i]) + bytes(dct[0]) + dct[1] + bytes([0x10 | i])
+                             + bytes(act[0]) + act[1])
+                    for i, (dct, act) in enumerate(((_DC_LUMA, _AC_LUMA),
+                                                    (_DC_CHROMA, _AC_CHROMA))[:n]))
+
+
+# APP0 JFIF, and APP14 Adobe (version 100, no flags) of transform 0 or 2
+_JFIF = _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+
+
+def _adobe(transform):
+    return _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([transform]))
+
+
+def _headers(h, w, qs, samp, qsel, sof, app=_JFIF, tables=True) -> list:
     nc = len(samp)
-    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    for i in range(1 if nc == 1 else 2):
-        out.append(_segment(0xDB, bytes([i]) + qs[i][ZIGZAG].astype(np.uint8).tobytes()))
+    out = [b"\xff\xd8", app] + ([_dqt(qs, max(qsel) + 1)] if tables else [])
     out.append(_segment(sof, struct.pack(">BHHB", 8, h, w, nc) + b"".join(
         bytes([i + 1, sh << 4 | sv, qsel[i]]) for i, (sh, sv) in enumerate(samp))))
     return out
 
 
-def _baseline(h, w, qs, samp, qsel, grids) -> list:
-    """One interleaved scan with the Annex K Huffman tables."""
+def _baseline(h, w, qs, samp, qsel, grids, tables=True) -> list:
+    """One interleaved scan with the Annex K Huffman tables (their DHT first
+    unless `tables` is false: an abbreviated stream)."""
     mcuy, mcux = grids[0].shape[0] // samp[0][1], grids[0].shape[1] // samp[0][0]
     blocks = np.concatenate([q.reshape(mcuy, sv, mcux, sh, 64).transpose(0, 2, 1, 3, 4)
                              .reshape(mcuy * mcux, sv * sh, 64)
@@ -1075,11 +1248,7 @@ def _baseline(h, w, qs, samp, qsel, grids) -> list:
                            for i in range(1, 5))
     code, clen = code_of[tab, sym], len_of[tab, sym]
     nc = len(samp)
-    out = []
-    for i, (dct, act) in enumerate(((_DC_LUMA, _AC_LUMA), (_DC_CHROMA, _AC_CHROMA))
-                                   [:1 if nc == 1 else 2]):
-        out.append(_segment(0xC4, bytes([i]) + bytes(dct[0]) + dct[1]
-                            + bytes([0x10 | i]) + bytes(act[0]) + act[1]))
+    out = [_dht(max(qsel) + 1)] if tables else []
     out.append(_segment(0xDA, bytes([nc]) + b"".join(
         bytes([i + 1, qsel[i] << 4 | qsel[i]]) for i in range(nc)) + b"\x00\x3f\x00"))
     out.append(_pack(code << elen | (ext & ((1 << elen) - 1)), clen + elen))
@@ -1216,9 +1385,12 @@ def _progressive(h, w, qs, samp, qsel, grids) -> list:
                   ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
                   ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
                   ((0,), 1, 63, 1, 0)]
-    else:
-        script = [((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
-                  ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0)]
+    else:           # the all-purpose script: each AC band component by component
+        every = tuple(range(nc))
+        script = ([(every, 0, 0, 0, 1)]
+                  + [((c,), ss, se, ah, al) for ss, se, ah, al in
+                     ((1, 5, 0, 2), (6, 63, 0, 2), (1, 63, 2, 1)) for c in every]
+                  + [(every, 0, 0, 1, 0)] + [((c,), 1, 63, 1, 0) for c in every])
     out = []
     for comps, ss, se, ah, al in script:
         if len(comps) > 1:              # interleaved: the MCU order
@@ -1272,27 +1444,64 @@ def _progressive(h, w, qs, samp, qsel, grids) -> list:
     return out
 
 
-def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
-               subsampling: str = "4:2:0", progressive: bool = False) -> None:
-    """(H, W) gray or (H, W, 3) RGB uint8 -> a JFIF JPEG with the Annex K
-    quantisation tables at libjpeg's `quality`; chroma subsampled 4:2:0,
-    4:2:2, 4:4:0 or not at all (4:4:4). Baseline (one interleaved scan, the
-    Annex K Huffman tables), or with `progressive` the same coefficients in
-    `jpeg_simple_progression`'s scans (SOF2)."""
+def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0",
+                progressive: bool = False, *, color: str = "auto",
+                tables: bool = True) -> bytes:
+    """`write_jpeg`'s bytes. `color` as `_coefficients` takes it: "auto"
+    (gray or YCbCr with a JFIF marker, four channels as inverted CMYK with an
+    Adobe marker of transform 0), "ycck" (four channels, an Adobe marker of
+    transform 2) or "as_is" (the channels with no marker: libtiff's
+    JCS_UNKNOWN). `tables=False` writes an abbreviated baseline stream (no
+    DQT, DHT or marker segment: a JPEG-compressed TIFF's strip or tile, its
+    tables in `encode_jpeg_tables`)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_jpeg takes uint8, not {img.dtype}")
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
-    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(f"write_jpeg takes (H, W) or (H, W, 3), not {img.shape}")
+    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] not in (3, 4)):
+        raise ValueError(f"write_jpeg takes (H, W), (H, W, 3) or (H, W, 4), not {img.shape}")
     if subsampling not in _SUBSAMPLING:
         raise ValueError(f"subsampling {subsampling!r}: one of {list(_SUBSAMPLING)}")
+    if color not in ("auto", "ycck", "as_is") or (
+            color == "ycck" and (img.ndim == 2 or img.shape[2] != 4)):
+        raise ValueError(f"color {color!r} of a {img.shape} image: 'auto', 'as_is', or "
+                         "'ycck' for four channels")
+    if progressive and not tables:
+        raise ValueError("an abbreviated stream is baseline")
     h, w = img.shape[:2]
-    qs, samp, qsel, grids = _coefficients(img, quality, subsampling)
-    out = _headers(h, w, qs, samp, qsel, 0xC2 if progressive else 0xC0)
-    out += (_progressive if progressive else _baseline)(h, w, qs, samp, qsel, grids)
+    qs, samp, qsel, grids = _coefficients(img, quality, subsampling, color)
+    app = (b"" if color == "as_is" else _adobe(2) if color == "ycck" else
+           _adobe(0) if len(samp) == 4 else _JFIF)
+    out = _headers(h, w, qs, samp, qsel, 0xC2 if progressive else 0xC0,
+                   app if tables else b"", tables)
+    out += (_progressive(h, w, qs, samp, qsel, grids) if progressive else
+            _baseline(h, w, qs, samp, qsel, grids, tables))
     out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def encode_jpeg_tables(quality: int = 90, n_tables: int = 2) -> bytes:
+    """The tables-only stream (SOI, DQT, DHT, EOI) of `encode_jpeg(...,
+    tables=False)`'s streams: the quantisation tables at `quality` and the
+    Annex K Huffman tables, luma alone (`n_tables` 1) or luma and chroma."""
+    qs = [_quant_table(_Q_LUMA, quality), _quant_table(_Q_CHROMA, quality)]
+    return b"\xff\xd8" + _dqt(qs, n_tables) + _dht(n_tables) + b"\xff\xd9"
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
+               subsampling: str = "4:2:0", progressive: bool = False,
+               ycck: bool = False) -> None:
+    """(H, W) gray, (H, W, 3) RGB or (H, W, 4) CMYK (PIL's mode CMYK) uint8
+    -> a JPEG with the Annex K quantisation tables at libjpeg's `quality`.
+    Gray and RGB (as YCbCr) with a JFIF marker, chroma subsampled 4:2:0,
+    4:2:2, 4:4:0 or not at all (4:4:4); CMYK inverted at 4:4:4 with an Adobe
+    marker of transform 0 (as libjpeg writes PIL's CMYK), or with `ycck` as
+    YCCK, Cb and Cr subsampled. Baseline (one interleaved scan, the Annex K
+    Huffman tables), or with `progressive` the same coefficients in
+    `jpeg_simple_progression`'s scans (SOF2)."""
+    data = encode_jpeg(img, quality, subsampling, progressive,
+                       color="ycck" if ycck else "auto")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(b"".join(out))
+        f.write(data)

@@ -1,10 +1,13 @@
-"""TIFF images with numpy, `zlib` and the port's C++, to the arrays PIL 12
-gives (the JAX reader opens dataset images with PIL, which hands compressed
-TIFFs to libtiff; the machines the port runs on have neither).
+"""TIFF images with numpy, `zlib`, `lzma` and the port's C++, to the arrays
+PIL 12 gives (the JAX reader opens dataset images with PIL, which hands
+compressed TIFFs to libtiff; the machines the port runs on have neither).
 
 `read_tiff` reads the first image (IFD) of a little- or big-endian TIFF
-stored in strips with `PlanarConfiguration` 1 (samples interleaved) and
-unsigned samples of 8 or 16 bits, or 1, 2 or 4 bits for one sample:
+stored in strips or tiles (`TileWidth` / `TileLength`; edge tiles are
+stored whole and cropped), its samples interleaved or planar
+(`PlanarConfiguration` 2: a strip or tile of each sample, plane after
+plane), unsigned samples of 8 or 16 bits, or 1, 2 or 4 bits for one
+sample:
 
 - gray (`Photometric` 1) -> (H, W); `Photometric` 0 (white is zero)
   inverted, as PIL inverts it; gray + unassociated alpha (`ExtraSamples`
@@ -16,33 +19,58 @@ unsigned samples of 8 or 16 bits, or 1, 2 or 4 bits for one sample:
   each `ColorMap` entry, as PIL's `convert("RGB")` does (PIL opens it as
   mode P, whose `np.asarray` is the indices: fault B15, which the JAX
   reader keeps);
-- 16-bit gray, RGB and RGBA keep the high byte of each sample, as PIL's
-  `RGB;16L` / `RGB;16B` raw modes do for RGB(A) (PIL opens 16-bit gray as
-  mode I;16, values up to 65,535 that the JAX reader divides by 255:
-  fault B7);
+- CMYK (`Photometric` 5, `InkSet` 1) -> (H, W, 3), PIL's `convert("RGB")`
+  (`jpeg.cmyk_to_rgb`; PIL opens it as mode CMYK, whose K the JAX reader
+  takes as an alpha mask: fault B14);
+- 16-bit gray, RGB, RGBA and CMYK keep the high byte of each sample, as
+  PIL's `RGB;16L` / `RGB;16B` raw modes do for RGB(A) (PIL opens 16-bit
+  gray as mode I;16, values up to 65,535 that the JAX reader divides by
+  255: fault B7);
 - 1-bit gray (bilevel) as 0 and 255, as PIL's `convert("L")` of its mode
   1 (whose `np.asarray` is a bool array that the JAX reader divides by 255:
   fault B16); 2- and 4-bit gray scaled to 0..255 as PIL scales them.
 
-Strips are uncompressed (`Compression` 1), Deflate (8, and the older
-32946, by `zlib`), LZW (5, `io/lzw.py`: `gm_lzw_decode`) or PackBits
-(32773, `gm_packbits_decode`), each to the strip's size: LZW or PackBits
-that stops short or runs past it raises. After Deflate or LZW,
+Strips and tiles are uncompressed (`Compression` 1), Deflate (8, and the
+older 32946, by `zlib`), LZMA (34925, by the standard library's `lzma`,
+the xz container libtiff writes), LZW (5, `io/lzw.py`: `gm_lzw_decode`) or
+PackBits (32773, `gm_packbits_decode`), each to its size: LZW or PackBits
+that stops short or runs past it raises. After Deflate, LZMA or LZW,
 `Predictor` 2 is undone as libtiff undoes it, a cumulative sum along each
-row per sample, mod 256 or mod 65,536 on 16-bit samples (libtiff ignores
-the predictor of uncompressed and PackBits strips, and so does this).
-Tiles, planar files, associated alpha, 12-bit, 16-bit white-is-zero and
-other samples, `FillOrder` 2, libtiff's old-style LZW (LSB first, which
-libtiff tells by a strip's first two bytes), CCITT, JPEG-in-TIFF and every
-other compression raise with the cause. `decode_tiff_plain` decodes LZW
-and PackBits strips with the plain versions (`io/lzw.py::lzw_decode_plain`,
-`packbits_decode_plain`), which the C++ is held to byte for byte; the
-training path never calls them.
+row of the strip or tile per sample (a tile's rows start at its own left
+edge), mod 256 or mod 65,536 on 16-bit samples (libtiff ignores the
+predictor of uncompressed and PackBits data, and so does this).
 
-`encode_tiff` / `write_tiff` write 8- or 16-bit gray, gray + alpha, RGB
-and RGBA in either byte order, LZW (predictor 1 or 2; the LZW encoder in
-C++, `gm_lzw_encode`) or PackBits, for the tests and `chip_smoke.py`; the
-training path does not write TIFFs.
+JPEG compression (7): each strip or tile is a JPEG stream of its own,
+abbreviated where the `JPEGTables` tag holds its tables, decoded by
+`io/jpeg.py::decode_jpeg` with the colour fixed as libtiff fixes it for
+PIL: Photometric 1, 2 and 5 (gray, RGB, CMYK) take the components as they
+are, whatever the stream's markers say (JCS_UNKNOWN); Photometric 6
+(YCbCr) goes through libjpeg's YCbCr -> RGB with fancy upsampling, which
+stops at each strip's or tile's edge (PIL asks libtiff for
+JPEGCOLORMODE_RGB). As libtiff's `JPEGPreDecode` checks: a stream has
+`SamplesPerPixel` components; its frame is the strip's or tile's size,
+or taller for the last strip (cropped); a smaller frame raises (libtiff
+warns and leaves rows undefined); the first component's sampling factors
+are `YCbCrSubsampling` (2, 2 where the tag is absent) for YCbCr and 1, 1
+otherwise, the others' 1, 1 ("Improper JPEG sampling factors").
+
+Associated alpha, 12-bit and floating-point samples, 16-bit white-is-zero,
+`FillOrder` 2, libtiff's old-style LZW (LSB first, which libtiff tells by
+a strip's first two bytes), CCITT, old-style JPEG (6), planar JPEG,
+YCbCr that is not JPEG-compressed (subsampled samples), Zstandard, WebP,
+BigTIFF and every other compression raise with the cause.
+`decode_tiff_plain` decodes LZW and PackBits data with the plain versions
+(`io/lzw.py::lzw_decode_plain`, `packbits_decode_plain`) and JPEG streams
+with `read_jpeg_plain`'s decoder, which the C++ is held to byte for byte;
+the training path never calls them.
+
+`encode_tiff` / `write_tiff` write 8- or 16-bit gray, gray + alpha, RGB,
+RGBA and CMYK in either byte order, in strips or tiles, interleaved or
+planar, uncompressed, LZW (predictor 1 or 2; the LZW encoder in C++,
+`gm_lzw_encode`), PackBits, Deflate or LZMA (predictor 1 or 2), or JPEG
+(Photometric 1, 2 or 5 as they are, or RGB as YCbCr, Photometric 6 with
+its `YCbCrSubsampling`; a `JPEGTables` tag and abbreviated streams), for
+the tests and `chip_smoke.py`; the training path does not write TIFFs.
 """
 
 from __future__ import annotations
@@ -53,7 +81,7 @@ import zlib
 
 import numpy as np
 
-from gaussianmesh_tpu_torch.io import lzw, runs
+from gaussianmesh_tpu_torch.io import jpeg, lzw, runs
 from gaussianmesh_tpu_torch.ops import _cuda
 
 TIFF_MAGICS = (b"II*\x00", b"MM\x00*")
@@ -61,14 +89,17 @@ _BIGTIFF_MAGICS = (b"II+\x00", b"MM\x00+")
 # the first bytes `read_tiff` takes: BigTIFF to raise naming it
 TIFF_HEADS = TIFF_MAGICS + _BIGTIFF_MAGICS
 
-# tag type -> struct code (the integer types; other tags are not read)
+# tag type -> struct code (the integer types; UNDEFINED (7) as bytes for the
+# tags of _BYTE_TAGS; other tags are not read)
 _TYPES = {1: "B", 3: "H", 4: "I"}
+_UNDEFINED = 7
+_BYTE_TAGS = (347,)                    # JPEGTables
 _COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT fax 3", 4: "CCITT fax 4",
-                 6: "old-style JPEG", 7: "JPEG", 34712: "JPEG 2000",
-                 34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
-_NONE, _LZW, _PACKBITS = 1, 5, 32773
+                 6: "old-style JPEG", 34712: "JPEG 2000", 50000: "Zstandard",
+                 50001: "WebP"}
+_NONE, _LZW, _JPEG, _PACKBITS, _LZMA = 1, 5, 7, 32773, 34925
 _DEFLATE = (8, 32946)
-_READ = (_NONE, _LZW, _PACKBITS) + _DEFLATE
+_READ = (_NONE, _LZW, _JPEG, _PACKBITS, _LZMA) + _DEFLATE
 # (Photometric, samples, ExtraSamples) -> the samples kept and whether they
 # are inverted (PIL's OPEN_INFO for 8-bit samples, without associated alpha)
 _LAYOUTS = {
@@ -77,15 +108,19 @@ _LAYOUTS = {
     (2, 4, (0,)): (3, False), (2, 5, (0, 0)): (3, False), (2, 6, (0, 0, 0)): (3, False),
     (2, 5, (2, 0)): (4, False), (2, 6, (2, 0, 0)): (4, False),
     (3, 1, ()): (1, False), (3, 2, (0,)): (1, False),
+    (5, 4, ()): (4, False), (5, 5, (0,)): (4, False), (5, 6, (0, 0)): (4, False),
 }
-# the same for 16-bit samples (PIL's I;16 / I;16B, RGB;16, RGBA;16, RGBX;16)
+# the same for 16-bit samples (PIL's I;16 / I;16B, RGB;16, RGBA;16, RGBX;16,
+# CMYK;16)
 _LAYOUTS_16 = {
     (1, 1, ()): (1, False), (2, 3, ()): (3, False), (2, 4, ()): (4, False),
-    (2, 4, (2,)): (4, False), (2, 4, (0,)): (3, False),
+    (2, 4, (2,)): (4, False), (2, 4, (0,)): (3, False), (5, 4, ()): (4, False),
 }
 # ... and for 1-, 2- and 4-bit samples: gray, white-is-zero gray, palette
 _LAYOUTS_SUB = {(0, 1, ()): (1, True), (1, 1, ()): (1, False), (3, 1, ()): (1, False)}
-_PREDICTED = (_LZW,) + _DEFLATE
+# JPEG compression: (Photometric, samples) read, 8-bit, no ExtraSamples
+_JPEG_LAYOUTS = ((1, 1), (2, 3), (5, 4), (6, 3))
+_PREDICTED = (_LZW, _LZMA) + _DEFLATE
 _STATUS_OVERFLOW = 8                   # csrc/image.cpp's kOverflow
 
 
@@ -97,7 +132,8 @@ def read_tiff(path: str) -> np.ndarray:
 
 
 def _tags(data: bytes, path: str) -> dict:
-    """The first IFD's BYTE, SHORT and LONG tags -> {tag: [values]}."""
+    """The first IFD's BYTE, SHORT and LONG tags -> {tag: [values]}, and
+    the UNDEFINED tags of _BYTE_TAGS -> {tag: bytes}."""
     if data[:4] in _BIGTIFF_MAGICS:
         raise ValueError(f"{path}: BigTIFF; only classic TIFFs are read")
     if data[:4] not in TIFF_MAGICS:
@@ -109,13 +145,19 @@ def _tags(data: bytes, path: str) -> dict:
         tags = {}
         for i in range(n):
             tag, typ, count, _ = struct.unpack_from(e + "HHI4s", data, ifd + 2 + 12 * i)
-            if typ not in _TYPES:
+            code = "B" if typ == _UNDEFINED and tag in _BYTE_TAGS else _TYPES.get(typ)
+            if code is None:
                 continue
-            size = struct.calcsize(_TYPES[typ]) * count
+            size = struct.calcsize(code) * count
             at = ifd + 2 + 12 * i + 8
             if size > 4:
                 (at,) = struct.unpack_from(e + "I", data, at)
-            tags[tag] = list(struct.unpack_from(e + _TYPES[typ] * count, data, at))
+            if typ == _UNDEFINED:
+                if at + count > len(data):
+                    raise struct.error
+                tags[tag] = bytes(data[at:at + count])
+            else:
+                tags[tag] = list(struct.unpack_from(e + code * count, data, at))
     except struct.error:
         raise ValueError(f"{path}: TIFF directory cut short (truncated TIFF)") from None
     return tags
@@ -180,13 +222,13 @@ def packbits_encode(rows: np.ndarray) -> bytes:
 
 def decode_tiff(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """`read_tiff` of a TIFF's bytes (`path` names it in errors)."""
-    return _decode(data, path, lzw.lzw_decode, packbits_decode)
+    return _decode(data, path, lzw.lzw_decode, packbits_decode, True)
 
 
 def decode_tiff_plain(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """`decode_tiff` with LZW and PackBits strips decoded by the plain
-    versions."""
-    return _decode(data, path, lzw.lzw_decode_plain, packbits_decode_plain)
+    """`decode_tiff` with LZW and PackBits data decoded by the plain
+    versions, and JPEG streams by `read_jpeg_plain`'s decoder."""
+    return _decode(data, path, lzw.lzw_decode_plain, packbits_decode_plain, False)
 
 
 def _layout(path, photometric, spp, bits, extra):
@@ -207,38 +249,97 @@ def _layout(path, photometric, spp, bits, extra):
     if extra[:1] == (1,):
         raise ValueError(f"{path}: TIFF with associated (premultiplied) alpha; only "
                          "unassociated alpha is read")
+    if photometric == 6:
+        raise ValueError(f"{path}: YCbCr TIFF (Photometric 6) that is not JPEG-compressed "
+                         "(subsampled YCbCr samples); not read")
     if (photometric, spp, extra) not in table:
         raise ValueError(f"{path}: {bits[0]}-bit TIFF of Photometric {photometric} with "
                          f"{spp} samples and ExtraSamples {list(extra)}; only gray, gray "
-                         "+ alpha, RGB, RGBA and palette TIFFs of the layouts PIL opens "
-                         "are read")
+                         "+ alpha, RGB, RGBA, CMYK and palette TIFFs of the layouts PIL "
+                         "opens are read")
     return (bits[0],) + table[(photometric, spp, extra)]
 
 
-def _strip(raw, i, size, compression, path, decode_lzw, decode_packbits):
-    """Strip i's stored bytes -> `size` bytes, uint8."""
+def _strip(raw, where, size, compression, path, decode_lzw, decode_packbits):
+    """The stored bytes of `where` (strip or tile i) -> `size` bytes,
+    uint8."""
     if compression in _DEFLATE:
         try:
             raw = zlib.decompress(raw)
         except zlib.error as err:
-            raise ValueError(f"{path}: TIFF strip {i} fails to inflate: {err}") from None
+            raise ValueError(f"{path}: TIFF {where} fails to inflate: {err}") from None
         out = np.frombuffer(raw, np.uint8)[:size]
+    elif compression == _LZMA:
+        try:
+            import lzma
+        except ImportError:
+            raise ValueError(f"{path}: LZMA-compressed TIFF, and this Python has no lzma "
+                             "module") from None
+        try:        # as libtiff's LZMADecode: the bytes it needs, trailing data ignored
+            raw = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(raw, size)
+        except lzma.LZMAError as err:
+            raise ValueError(f"{path}: TIFF {where} fails to decompress (LZMA): "
+                             f"{err}") from None
+        out = np.frombuffer(raw, np.uint8)
     elif compression in (_LZW, _PACKBITS):
         if compression == _LZW and raw[:1] == b"\x00" and raw[1:2] and raw[1] & 1:
-            raise ValueError(f"{path}: TIFF strip {i} is old-style LZW (LSB first, "
+            raise ValueError(f"{path}: TIFF {where} is old-style LZW (LSB first, "
                              "libtiff's compatibility codec); not read")
         try:
             out = (decode_lzw if compression == _LZW else decode_packbits)(raw, size)
         except ValueError as err:
-            raise ValueError(f"{path}: TIFF strip {i}: {err}") from None
+            raise ValueError(f"{path}: TIFF {where}: {err}") from None
     else:
         out = np.frombuffer(raw, np.uint8)[:size]
     if len(out) < size:
-        raise ValueError(f"{path}: TIFF strip {i} cut short (truncated TIFF)")
+        raise ValueError(f"{path}: TIFF {where} cut short (truncated TIFF)")
     return out
 
 
-def _decode(data: bytes, path: str, decode_lzw, decode_packbits) -> np.ndarray:
+def _chunks(tags, path, width, height, planes):
+    """The strips or tiles -> (their kind, (width, height) of each, per
+    chunk its (offset, byte count, plane, x0, y0, rows)), in file order:
+    plane after plane, then row after row of chunks."""
+    if 322 in tags or 323 in tags:
+        if not all(t in tags for t in (322, 323, 324, 325)):
+            raise ValueError(f"{path}: tiled TIFF without its tile size, tile offsets or "
+                             "tile byte counts")
+        cw, ch = tags[322][0], tags[323][0]
+        if cw <= 0 or ch <= 0:
+            raise ValueError(f"{path}: TIFF tiles of {cw}x{ch}")
+        kind, offsets, counts = "tile", tags[324], tags[325]
+    else:
+        if 273 not in tags or 279 not in tags:
+            raise ValueError(f"{path}: TIFF without strip offsets or byte counts")
+        cw, ch = width, min(tags.get(278, [height])[0], height) or height
+        kind, offsets, counts = "strip", tags[273], tags[279]
+    across, down = -(-width // cw), -(-height // ch)
+    n = across * down * planes
+    if len(offsets) < n or len(counts) < n:
+        raise ValueError(f"{path}: {len(offsets)} TIFF {kind}s, {n} expected")
+    out = []
+    for i in range(n):
+        p, rest = divmod(i, across * down)
+        y0, x0 = rest // across * ch, rest % across * cw
+        rows = ch if kind == "tile" else min(ch, height - y0)
+        out.append((offsets[i], counts[i], p, x0, y0, rows))
+    return kind, (cw, ch), out
+
+
+def _samples(raw, rows, cols, n, depth, e):
+    """A strip's or tile's bytes -> (rows, cols, n) samples: uint8, uint16 in
+    the file's byte order, or for 1-, 2- and 4-bit samples their values."""
+    if depth < 8:
+        v = np.unpackbits(raw.reshape(rows, -1), axis=1)[:, :cols * depth]
+        v = v.reshape(rows, cols, depth)
+        return (v * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
+            -1, dtype=np.uint8)[..., None]
+    if depth == 16:
+        return np.frombuffer(raw.tobytes(), e + "u2").reshape(rows, cols, n)
+    return raw.reshape(rows, cols, n)
+
+
+def _decode(data: bytes, path: str, decode_lzw, decode_packbits, native: bool) -> np.ndarray:
     tags = _tags(data, path)
     if 256 not in tags or 257 not in tags:
         raise ValueError(f"{path}: TIFF without its width or height")
@@ -249,22 +350,26 @@ def _decode(data: bytes, path: str, decode_lzw, decode_packbits) -> np.ndarray:
     bits = tags.get(258, [1])
     bits = bits * spp if len(bits) == 1 else bits[:spp]
     extra = tuple(tags.get(338, ()))
-    if 322 in tags or 323 in tags:
-        raise ValueError(f"{path}: tiled TIFF; only strips are read")
-    if tags.get(284, [1])[0] != 1:
-        raise ValueError(f"{path}: planar TIFF (PlanarConfiguration 2); only "
-                         "interleaved samples are read")
+    planar = tags.get(284, [1])[0]
+    if planar not in (1, 2):
+        raise ValueError(f"{path}: TIFF PlanarConfiguration {planar}; only 1 and 2 exist")
     if set(tags.get(339, [1])) != {1}:
         raise ValueError(f"{path}: TIFF sample format {tags[339]}; only unsigned "
                          "integer samples are read")
     if tags.get(266, [1])[0] != 1:
         raise ValueError(f"{path}: TIFF with FillOrder 2; not read")
-    depth, keep, invert = _layout(path, photometric, spp, bits, extra)
     if compression in _COMPRESSIONS:
         raise ValueError(f"{path}: {_COMPRESSIONS[compression]}-compressed TIFF; only "
-                         "uncompressed, LZW, PackBits and Deflate TIFFs are read")
+                         "uncompressed, LZW, PackBits, Deflate, LZMA and JPEG TIFFs are read")
     if compression not in _READ:
         raise ValueError(f"{path}: TIFF compression {compression} is unknown")
+    if photometric == 5 and tags.get(332, [1])[0] != 1:
+        raise ValueError(f"{path}: separated TIFF of InkSet {tags[332][0]} (inks other "
+                         "than CMYK); only CMYK is read")
+    if compression == _JPEG:
+        return _decode_jpeg(data, tags, path, width, height, photometric, spp, bits,
+                            extra, planar, native)
+    depth, keep, invert = _layout(path, photometric, spp, bits, extra)
     predictor = tags.get(317, [1])[0] if compression in _PREDICTED else 1
     if predictor not in (1, 2):
         raise ValueError(f"{path}: TIFF predictor {predictor}; only 1 and 2 "
@@ -272,34 +377,25 @@ def _decode(data: bytes, path: str, decode_lzw, decode_packbits) -> np.ndarray:
     if predictor == 2 and depth < 8:
         raise ValueError(f"{path}: TIFF predictor 2 on {depth}-bit samples, which "
                          "libtiff refuses")
-    if 273 not in tags or 279 not in tags:
-        raise ValueError(f"{path}: TIFF without strip offsets or byte counts")
-    per_strip = min(tags.get(278, [height])[0], height) or height
-    offsets, counts = tags[273], tags[279]
-    n_strips = -(-height // per_strip)
-    if len(offsets) < n_strips or len(counts) < n_strips:
-        raise ValueError(f"{path}: {len(offsets)} TIFF strips, {n_strips} expected")
-    row_bytes = -(-width * spp * depth // 8)
-    rows = np.concatenate([
-        _strip(data[offsets[i]:offsets[i] + counts[i]], i,
-               min(per_strip, height - i * per_strip) * row_bytes, compression, path,
-               decode_lzw, decode_packbits)
-        for i in range(n_strips)]).reshape(height, row_bytes)
+    e = "<" if data[:2] == b"II" else ">"
+    per = 1 if planar == 2 else spp                 # samples in a strip or tile
+    kind, (cw, _), chunks = _chunks(tags, path, width, height, spp if planar == 2 else 1)
+    row_bytes = -(-cw * per * depth // 8)
+    img = np.zeros((height, width, spp if depth >= 8 else 1),
+                   np.uint16 if depth == 16 else np.uint8)
+    for i, (off, count, p, x0, y0, rows) in enumerate(chunks):
+        raw = _strip(data[off:off + count], f"{kind} {i}", rows * row_bytes, compression,
+                     path, decode_lzw, decode_packbits)
+        s = _samples(raw, rows, cw, per, depth, e)
+        if predictor == 2:
+            s = np.cumsum(s, axis=1, dtype=s.dtype)
+        r, c = min(rows, height - y0), min(cw, width - x0)
+        img[y0:y0 + r, x0:x0 + c, p:p + per] = s[:r, :c]
     if depth < 8:
-        v = np.unpackbits(rows, axis=1)[:, :width * depth].reshape(height, width, depth)
-        img = (v * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
-            -1, dtype=np.uint8)[..., None]
         if photometric != 3:
             img = img * np.uint8(255 // ((1 << depth) - 1))
     elif depth == 16:
-        img = rows.view("<u2" if data[:2] == b"II" else ">u2").reshape(height, width, spp)
-        if predictor == 2:
-            img = np.cumsum(img, axis=1, dtype=np.uint16)
         img = (img >> 8).astype(np.uint8)
-    else:
-        img = rows.reshape(height, width, spp)
-        if predictor == 2:
-            img = np.cumsum(img, axis=1, dtype=np.uint8)
     img = img[..., :keep]
     if invert:
         img = 255 - img
@@ -310,21 +406,110 @@ def _decode(data: bytes, path: str, decode_lzw, decode_packbits) -> np.ndarray:
                              f"3 x {1 << depth} entries")
         pal = (cmap.reshape(3, -1).T // 256).astype(np.uint8)
         return np.take(pal, img[..., 0], axis=0)
+    if photometric == 5:
+        return jpeg.cmyk_to_rgb(img)
     return img[..., 0].copy() if keep == 1 else np.ascontiguousarray(img)
 
 
+def _decode_jpeg(data, tags, path, width, height, photometric, spp, bits, extra, planar,
+                 native) -> np.ndarray:
+    """A JPEG-compressed TIFF (see the module docstring)."""
+    if planar == 2:
+        raise ValueError(f"{path}: planar JPEG-compressed TIFF (PlanarConfiguration 2); "
+                         "not read")
+    if set(bits) != {8} or len(bits) != spp:
+        raise ValueError(f"{path}: JPEG-compressed TIFF of {bits}-bit samples; only 8-bit "
+                         "samples are read")
+    if (photometric, spp) not in _JPEG_LAYOUTS or extra:
+        raise ValueError(f"{path}: JPEG-compressed TIFF of Photometric {photometric} with "
+                         f"{spp} samples and ExtraSamples {list(extra)}; only gray, RGB, "
+                         "YCbCr and CMYK are read")
+    tables = jpeg.jpeg_tables(tags[347], f"{path}: JPEGTables") if 347 in tags else None
+    sampling = tuple(tags.get(530, [2, 2])[:2]) if photometric == 6 else (1, 1)
+    kind, (cw, ch), chunks = _chunks(tags, path, width, height, 1)
+
+    def check(where, rows, last):
+        def on_frame(frame):
+            n = len(frame.ids)
+            if n != spp:
+                raise ValueError(f"{where}: a JPEG of {n} components in a TIFF of {spp} "
+                                 "samples (improper JPEG component count)")
+            if frame.width > cw or frame.height > rows and not last:
+                raise ValueError(f"{where}: JPEG frame of {frame.width}x{frame.height} "
+                                 f"exceeds the {kind}'s {cw}x{rows}")
+            if frame.width < cw or frame.height < rows:
+                raise ValueError(f"{where}: JPEG frame of {frame.width}x{frame.height} "
+                                 f"smaller than the {kind}'s {cw}x{rows} (libtiff leaves "
+                                 "the rest undefined)")
+            got = list(zip(frame.h, frame.v))
+            if got[0] != sampling or any(hv != (1, 1) for hv in got[1:]):
+                raise ValueError(f"{where}: improper JPEG sampling factors {got}; the "
+                                 f"TIFF's say {sampling} for the first component and "
+                                 "(1, 1) for the others")
+        return on_frame
+
+    color = "ycc" if photometric == 6 else "as_is"
+    img = np.zeros((height, width) + (() if spp == 1 else (3,)), np.uint8)
+    for i, (off, count, _, x0, y0, rows) in enumerate(chunks):
+        where = f"{path}: TIFF {kind} {i}"
+        last = kind == "strip" and i == len(chunks) - 1
+        if off + count > len(data):
+            raise ValueError(f"{where} cut short (truncated TIFF)")
+        arr = jpeg.decode_jpeg(data[off:off + count], where, native=native, tables=tables,
+                               color=color, on_frame=check(where, rows, last))
+        r, c = min(rows, height - y0), min(cw, width - x0)
+        img[y0:y0 + r, x0:x0 + c] = arr[:r, :c]
+    return img
+
+
 # ------------------------------------------------------------------ writer
-_WRITE_COMPRESSION = {"lzw": _LZW, "packbits": _PACKBITS}
+_WRITE_COMPRESSION = {"none": _NONE, "lzw": _LZW, "packbits": _PACKBITS, "deflate": 8,
+                      "lzma": _LZMA, "jpeg": _JPEG}
+# YCbCrSubsampling of write_jpeg's chroma subsamplings
+_YCBCR_SUBSAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2), "4:4:0": (1, 2)}
+_WRITE_TYPES = {3: "H", 4: "I", _UNDEFINED: "B"}
+
+
+def _encode_chunk(s, comp, predictor, byteorder, jpeg_kw):
+    """(rows, cols, n) samples of a strip or tile -> its stored bytes."""
+    if comp == _JPEG:
+        return jpeg.encode_jpeg(s[..., 0] if s.shape[2] == 1 else s, tables=False,
+                                **jpeg_kw)
+    if predictor == 2:
+        s = np.diff(s, axis=1, prepend=np.zeros_like(s[:, :1])).astype(s.dtype)
+    raw = np.ascontiguousarray(s.astype(s.dtype.newbyteorder(byteorder))).view(
+        np.uint8).reshape(len(s), -1)
+    if comp == _LZW:
+        return lzw.lzw_encode(raw)
+    if comp == _PACKBITS:
+        return packbits_encode(raw)
+    if comp == 8:
+        return zlib.compress(raw.tobytes())
+    if comp == _LZMA:
+        import lzma
+        return lzma.compress(raw.tobytes(), lzma.FORMAT_XZ, lzma.CHECK_NONE)
+    return raw.tobytes()
 
 
 def encode_tiff(img: np.ndarray, compression: str = "lzw", predictor: int = 1,
-                byteorder: str = "<", rows_per_strip: int | None = None) -> bytes:
+                byteorder: str = "<", rows_per_strip: int | None = None,
+                tile: tuple | None = None, planar: bool = False, cmyk: bool = False,
+                ycbcr: bool = False, quality: int = 90,
+                subsampling: str = "4:2:0") -> bytes:
     """uint8 or uint16 (H, W) gray, or (H, W, C) with C in 2-4 (gray +
-    alpha in uint8 alone, RGB, RGBA; alpha as ExtraSamples 2) -> a one-IFD TIFF in strips
-    of `rows_per_strip` rows (default: 64 KB strips, as PIL writes them),
-    `compression` "lzw" or "packbits", `predictor` 2 (horizontal
-    differencing, with LZW) or 1, in byte order `byteorder` "<" (II) or ">"
-    (MM)."""
+    alpha in uint8 alone, RGB, RGBA, or with `cmyk` CMYK: Photometric 5,
+    InkSet 1; alpha as ExtraSamples 2) -> a one-IFD TIFF in byte order
+    `byteorder` "<" (II) or ">" (MM): in strips of `rows_per_strip` rows
+    (default: 64 KB strips, as PIL writes them; JPEG: a multiple of the MCU
+    height), or in `tile` (width, height) tiles, edge tiles padded with
+    their edge samples; `planar` writes each sample's plane in turn
+    (PlanarConfiguration 2). `compression` "none", "lzw", "packbits",
+    "deflate", "lzma" or "jpeg" (uint8; gray, RGB or CMYK as they are at
+    4:4:4, or with `ycbcr` RGB as YCbCr, Photometric 6, chroma subsampled by
+    `subsampling`, at libjpeg's `quality`; a JPEGTables tag and abbreviated
+    streams, the last strip's frame its own height, as libtiff writes
+    them); `predictor` 2 (horizontal differencing, along each strip's or
+    tile's rows) with LZW, Deflate or LZMA, or 1."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
         raise ValueError(f"encode_tiff takes uint8 or uint16, not {img.dtype}")
@@ -336,37 +521,75 @@ def encode_tiff(img: np.ndarray, compression: str = "lzw", predictor: int = 1,
     if compression not in _WRITE_COMPRESSION:
         raise ValueError(f"compression {compression!r}: one of {list(_WRITE_COMPRESSION)}")
     comp = _WRITE_COMPRESSION[compression]
-    if predictor == 2 and comp != _LZW:
-        raise ValueError("predictor 2 with PackBits, which libtiff does not undo")
+    if predictor == 2 and comp not in _PREDICTED:
+        raise ValueError(f"predictor 2 with {compression}, which libtiff does not undo")
+    if cmyk and c != 4:
+        raise ValueError(f"a CMYK TIFF takes 4 channels, not {c}")
+    if ycbcr and (comp != _JPEG or c != 3):
+        raise ValueError("ycbcr: RGB with JPEG compression")
     depth = img.dtype.itemsize * 8
-    row_bytes = w * c * depth // 8
-    rps = rows_per_strip or max(1, min(h, 65536 // row_bytes))
-    samples = img.astype(img.dtype.newbyteorder(byteorder))
-    strips = []
-    for y in range(0, h, rps):
-        s = samples[y:y + rps]
-        if predictor == 2:
-            s = np.diff(s, axis=1, prepend=np.zeros_like(s[:, :1])).astype(s.dtype)
-        raw = np.ascontiguousarray(s).view(np.uint8).reshape(len(s), row_bytes)
-        strips.append(lzw.lzw_encode(raw) if comp == _LZW else packbits_encode(raw))
+    jpeg_kw, unit = {}, (1, 1)
+    if comp == _JPEG:
+        if depth != 8 or planar or c == 2 or (c == 4 and not cmyk):
+            raise ValueError("JPEG compression takes 8-bit interleaved gray, RGB or CMYK")
+        sub = _YCBCR_SUBSAMPLING[subsampling if ycbcr else "4:4:4"]
+        jpeg_kw = dict(quality=quality, subsampling=subsampling if ycbcr else "4:4:4",
+                       color="auto" if ycbcr else "as_is")
+        unit = (8 * sub[0], 8 * sub[1])
+    photometric = 5 if cmyk else 6 if ycbcr else 1 if c <= 2 else 2
+    per = 1 if planar else c
+    if tile is not None:
+        cw, ch = tile
+        if cw % max(16, unit[0]) or ch % max(16, unit[1]):
+            raise ValueError(f"tiles of {cw}x{ch}: a multiple of 16 (and of the JPEG MCU)")
+    else:
+        cw = w
+        ch = rows_per_strip or max(1, min(h, 65536 // (w * per * depth // 8)))
+        if comp == _JPEG and not rows_per_strip:
+            ch = max(unit[1], ch // unit[1] * unit[1])
+        if comp == _JPEG and ch % unit[1] and ch < h:
+            raise ValueError(f"JPEG strips of {ch} rows: a multiple of {unit[1]}")
+    across, down = -(-w // cw), -(-h // ch)
+    chunks = []
+    for p in range(c if planar else 1):
+        sel = img[..., p:p + 1] if planar else img
+        for ty in range(down):
+            for tx in range(across):
+                s = sel[ty * ch:(ty + 1) * ch, tx * cw:(tx + 1) * cw]
+                if tile is not None:
+                    s = np.pad(s, ((0, ch - len(s)), (0, cw - s.shape[1]), (0, 0)),
+                               mode="edge")
+                chunks.append(_encode_chunk(s, comp, predictor, byteorder, jpeg_kw))
     tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [depth] * c), (259, 3, [comp]),
-            (262, 3, [1 if c <= 2 else 2]), (273, 4, [0] * len(strips)), (277, 3, [c]),
-            (278, 4, [rps]), (279, 4, [len(s) for s in strips]), (284, 3, [1])]
+            (262, 3, [photometric]), (277, 3, [c]), (284, 3, [2 if planar else 1])]
+    if tile is None:
+        tags += [(273, 4, [0] * len(chunks)), (278, 4, [ch]),
+                 (279, 4, [len(s) for s in chunks])]
+    else:
+        tags += [(322, 4, [cw]), (323, 4, [ch]), (324, 4, [0] * len(chunks)),
+                 (325, 4, [len(s) for s in chunks])]
     if predictor == 2:
         tags.append((317, 3, [2]))
-    if c in (2, 4):
+    if cmyk:
+        tags.append((332, 3, [1]))
+    elif c in (2, 4):
         tags.append((338, 3, [2]))
+    if comp == _JPEG:
+        tables = jpeg.encode_jpeg_tables(quality, 2 if ycbcr else 1)
+        tags.append((347, _UNDEFINED, list(tables)))
+        if ycbcr:
+            tags.append((530, 3, list(sub)))
     tags.sort()
     e = byteorder
     ifd_at = 8
     blob_at = ifd_at + 2 + 12 * len(tags) + 4
-    sizes = [struct.calcsize(_TYPES[t]) * len(v) for _, t, v in tags]
+    sizes = [struct.calcsize(_WRITE_TYPES[t]) * len(v) for _, t, v in tags]
     data_at = blob_at + sum(s for s in sizes if s > 4)
-    offs = list(np.cumsum([0] + [len(s) for s in strips])[:-1] + data_at)
+    offs = list(np.cumsum([0] + [len(s) for s in chunks])[:-1] + data_at)
     entries, blob = [], []
     for (tag, typ, vals), size in zip(tags, sizes):
-        vals = offs if tag == 273 else vals
-        packed = struct.pack(e + _TYPES[typ] * len(vals), *(int(v) for v in vals))
+        vals = offs if tag in (273, 324) else vals
+        packed = struct.pack(e + _WRITE_TYPES[typ] * len(vals), *(int(v) for v in vals))
         if size > 4:
             field = struct.pack(e + "I", blob_at + sum(len(b) for b in blob))
             blob.append(packed)
@@ -374,7 +597,7 @@ def encode_tiff(img: np.ndarray, compression: str = "lzw", predictor: int = 1,
             field = packed + bytes(4 - size)
         entries.append(struct.pack(e + "HHI", tag, typ, len(vals)) + field)
     return b"".join([b"II*\x00" if e == "<" else b"MM\x00*", struct.pack(e + "I", ifd_at),
-                     struct.pack(e + "H", len(tags)), *entries, bytes(4), *blob, *strips])
+                     struct.pack(e + "H", len(tags)), *entries, bytes(4), *blob, *chunks])
 
 
 def write_tiff(path: str, img: np.ndarray, **kwargs) -> None:

@@ -163,7 +163,7 @@ def test_jpeg_colour_tables_every_chroma_pair():
     for c, value in enumerate(((7 * bx + 13 * by) % 256, bx, by)):
         frame.coef[c][..., 0] = value - 128
         frame.q[c] = np.full(64, 8, np.int64)
-    got, want = jpeg._planes_native(frame, False), jpeg._planes_plain(frame, False)
+    got, want = jpeg._planes_native(frame, jpeg.YCC), jpeg._planes_plain(frame, jpeg.YCC)
     assert got.shape == want.shape == (8 * n, 8 * n, 3)
     assert np.array_equal(got[::8, ::8], got[7::8, 7::8])        # flat blocks
     assert np.array_equal(got, want), np.argwhere(got != want)[:5]

@@ -154,10 +154,12 @@ def test_read_jpeg_non_interleaved_scans(tmp_path, size, sampling):
     assert np.array_equal(got, want), np.abs(got.astype(int) - want.astype(int)).max()
 
 
-@pytest.mark.parametrize("kind", ["arithmetic", "cmyk", "not_a_jpeg", "truncated"])
+@pytest.mark.parametrize("kind", ["arithmetic", "lossless", "not_a_jpeg", "truncated"])
 def test_unread_jpegs_raise(tmp_path, kind):
-    """Arithmetic-coded (a SOF0 marker patched to SOF9) and CMYK files raise
-    naming the cause; so do a file that is no JPEG and a truncated one."""
+    """Arithmetic-coded (a SOF0 marker patched to SOF9) and lossless (SOF3)
+    files raise naming the cause; so do a file that is no JPEG and a
+    truncated one. (CMYK and YCCK files are read:
+    tests/test_torch_jpeg_cmyk.py.)"""
     path = str(tmp_path / "x.jpg")
     img = _image(40, 24, 3, seed=2)
     if kind == "arithmetic":
@@ -166,9 +168,12 @@ def test_unread_jpegs_raise(tmp_path, kind):
         with open(path, "wb") as fh:
             fh.write(data.replace(b"\xff\xc0", b"\xff\xc9", 1))
         match = "arithmetic-coded"
-    elif kind == "cmyk":
-        Image.fromarray(img).convert("CMYK").save(path, "JPEG")
-        match = "CMYK"
+    elif kind == "lossless":
+        Image.fromarray(img).save(path, "JPEG")
+        data = open(path, "rb").read()
+        with open(path, "wb") as fh:
+            fh.write(data.replace(b"\xff\xc0", b"\xff\xc3", 1))
+        match = "lossless"
     elif kind == "not_a_jpeg":
         png.write_png(path, img)
         match = "not a JPEG"
