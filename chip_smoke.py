@@ -123,20 +123,16 @@ Phases (any failure raises, so the exit code is not 0):
    kernels' wrappers recording their arguments, and K1, K2 and K3 held
    against their plain versions on those, timed and bounded as in phase 5;
    K2's rows must equal the step's.
-9b. progressive: phase 9's scene again with its 24 views written as
-   progressive JPEGs (`write_jpeg(..., progressive=True)`: quality 90,
-   4:2:0, libjpeg's 10-scan progression), rendered again from the same
-   cameras. Each view decoded by `read_jpeg` (C++, `gm_jpeg_scan_progressive`)
-   and `read_jpeg_plain`: equal bytes, and equal to phase 9's baseline
-   file of the view decoded again; decode s / MP of both and of the
-   baseline in the same run, beside the card's name and power limit and
-   the host's CPU. A crafted file (view 0 with its last three scans, the AC
-   refinements to bit 0, dropped) must raise "coefficients left unrefined"
-   through both decoders. Then `cli.train_mesh --device cuda` on that scene
-   for PROGRESSIVE_ITERS steps with phase 9's shrunk schedule and
-   capacities: K1, K2 and K3 once a step (counters set to 0 just before,
-   read just after), finite losses and parameters, no overflow, and the
-   loaded training targets and cameras equal to phase 9's.
+9b. progressive: phase 9's 24 views rendered again from the same cameras
+   and written as progressive JPEGs (`write_jpeg(..., progressive=True)`:
+   quality 90, 4:2:0, libjpeg's 10-scan progression). Each view decoded by
+   `read_jpeg` (C++, `gm_jpeg_scan_progressive`): equal to phase 9's
+   baseline file of the view decoded again; the CROP_9F centre of view 0,
+   written the same way, decoded by `read_jpeg` and `read_jpeg_plain` to
+   equal bytes; decode s / MP of both and of the baseline in the same run,
+   beside the card's name and power limit and the host's CPU. A crafted file
+   (view 0 with its last three scans, the AC refinements to bit 0, dropped)
+   must raise "coefficients left unrefined" through both decoders.
 9c. new formats: phase 9's 24 views as the baseline JPEG files decode
    (1920x1080) written again: 6 LZW TIFFs with predictor 2, 3 with
    predictor 1, 3 PackBits TIFFs, 4 16-bit LZW TIFFs (each sample x 257,
@@ -150,13 +146,7 @@ Phases (any failure raises, so the exit code is not 0):
    plain), file bytes and write s by format beside the card's name and
    power limit and the host's CPU. A TIFF cut inside its last LZW strip
    and a GIF with a code past the LZW table raise the same ValueError
-   through both decoders. Then `cli.train_mesh --device cuda` on that scene
-   for PROGRESSIVE_ITERS steps with phase 9's shrunk schedule and
-   capacities: K1, K2 and K3 once a step (counters set to 0 just before,
-   read just after), finite losses and parameters, no overflow, the
-   cameras equal to phase 9's, the training targets of every TIFF view
-   equal to phase 9's and of every palette view to the port's resize of
-   the palette expansion.
+   through both decoders.
 9d. lossy WebP: first the fixtures of `tests/data/webp/` (PIL- and
    `write_webp`-written files with the SHA-256 of PIL's RGB and of the
    planes of the library PIL decodes with, recorded on a machine with PIL):
@@ -175,12 +165,7 @@ Phases (any failure raises, so the exit code is not 0):
    PSNR against the views written is held to its bound; one view a row at
    480x270 (the port's resize) decoded by the plain version, equal bytes;
    s / MP (C++ and plain), file bytes and write s by row beside the card's
-   name and power limit and the host's CPU. Then `cli.train_mesh --device
-   cuda` on that scene for PROGRESSIVE_ITERS steps with phase 9's shrunk
-   schedule and capacities: K1, K2 and K3 once a step (counters set to 0
-   just before, read just after), finite losses and parameters, no
-   overflow, the cameras equal to phase 9's and every training target equal
-   to the port's resize of the RGB decoded.
+   name and power limit and the host's CPU.
 9e. WebP with alpha, lossless and animated: first the fixtures of
    `tests/data/webp/rgba/` (PIL- and writer-written VP8L, VP8X + ALPH + VP8
    and animated files and cuts, with the SHA-256 and shape of PIL's array,
@@ -201,13 +186,11 @@ Phases (any failure raises, so the exit code is not 0):
    centre of one view a row written with the row's settings decodes through
    the plain version to the C++'s bytes; s / MP, its ratio to phase 9's
    baseline JPEG in the same run, plain / C++, bytes and write s by row
-   beside the card's name and power limit and the host's CPU. Then
-   `cli.train_mesh --device cuda` for PROGRESSIVE_ITERS steps on the lossless
-   row as a Blender set (phase 8's transforms, `.webp` views) with phase 8's
-   capacities and phase 9's shrunk schedule: K1, K2 and K3 once a step
-   (counters set to 0 just before, read just after), finite losses and
-   parameters, no overflow, and every training target, mask and camera
-   centre equal to phase 8's from its PNGs.
+   beside the card's name and power limit and the host's CPU. Then the
+   lossless row as a Blender set (phase 8's transforms, `.webp` views) is
+   loaded as `cli.train_mesh` loads it (its flags, `Scene`,
+   `DeviceDataset.from_cameras` on the card; `training_dataset`): every
+   training target, mask and camera centre equal to phase 8's from its PNGs.
 9f. TIFF layouts and CMYK: first the fixtures of `tests/data/tiff/` (PIL-
    and writer-written JPEG-in-TIFF, LZMA, tiled, planar and CMYK TIFFs and
    CMYK / YCCK JPEGs, with the SHA-256 and shape of PIL's array, of its
@@ -224,12 +207,37 @@ Phases (any failure raises, so the exit code is not 0):
    the row's settings, decodes through the plain route to the C++'s bytes; s /
    MP, its ratio to phase 9's baseline JPEG in the same run, plain / C++,
    bytes and write s by row beside the card's name and power limit and the
-   host's CPU. Then `cli.train_mesh --device cuda` on that scene for
+   host's CPU.
+9g. PNM, TGA, QOI, SGI and PCX: first the fixtures of `tests/data/raw/`
+   (PIL-written files and the forms PIL reads and does not write, with the
+   SHA-256 and shape of PIL's array under the port's rule: B15, B16, B19,
+   B20; recorded on a machine with PIL by `tools/make_raw_fixtures_torch.py`):
+   `read_image` and the plain route give the recorded digests. Then phase
+   9's 24 views written in the rows of RAW_9G (`io/pnm.py`, `io/tga.py`,
+   `io/qoi.py`, `io/sgi.py`, `io/pcx.py` writers): P6, ASCII P3, a 16-bit
+   P5 whose high byte is the view's green (B19), raw 24-bit TGAs
+   bottom-up, RLE 32-bit TGAs top-down with 8 alpha bits, RLE colour-mapped
+   TGAs (B15), a raw 32-bit TGA whose descriptor has no alpha bits and
+   whose fourth byte is 0 (B20), QOI RGB and RGBA, RLE SGI, 16-bit
+   verbatim SGI, PCX 8 x 3 and 8 x 1 with a palette (B15). Each view
+   decodes by `read_image` (C++: `gm_tga_rle`, `gm_qoi_decode`,
+   `gm_sgi_rle`, `gm_pcx_rle`) to the samples written (palette views to
+   the expansion of the indices, B19 to the green, B20 to 3 channels); the
+   CROP_9F centre of one view a row decodes through the plain route to the
+   C++'s bytes (PNM has no C++ route, so there it is 1); s / MP, its ratio
+   to phase 9's baseline JPEG in the same run, plain / C++, bytes a view and
+   their ratio to phase 9's JPEG files, and write s by row beside the card's
+   name and power limit and the host's CPU.
+9h. the reader phases' shared training: one COLMAP scene of phase 9's 24
+   cameras whose view i is the file phase READER_PHASES[i % 5] (9b, 9c, 9d,
+   9f, 9g) wrote for it; `cli.train_mesh --device cuda` on it for
    PROGRESSIVE_ITERS steps with phase 9's shrunk schedule and capacities:
    K1, K2 and K3 once a step (counters set to 0 just before, read just
    after), finite losses and parameters, no overflow, the cameras equal to
-   phase 9's, every lossless view's training target equal to phase 9's and
-   every other one equal to the port's resize of its decode.
+   phase 9's, the training target of every view that decodes to phase 9's
+   baseline decode equal to phase 9's and of every other one to the port's
+   resize of its decode (as `_load_image` makes it: gray to RGB, alpha
+   dropped). Each reader phase prints its own seconds in a `[done]` line.
 10. serve and shard, at full width. (a) The host deformation-gradient
    extractor (`edit/native_acap.py`, C++ / OpenMP, built by g++) on the
    slice's icosphere-7 mesh and phase 7's largest twist frame: against the
@@ -242,9 +250,9 @@ Phases (any failure raises, so the exit code is not 0):
    each PNG equal to the in-process render quantised (0 levels), K1 once per
    frame (counters set to 0 just before the requests, read just after), no
    overflow, `/state` 8 frames, a 500 for a render that raises; request ms
-   split into render and encode. (c) `GM_DEVICE=cuda bash
-   examples/synthetic_e2e_torch.sh`: exit 0, renders, results.json, edit
-   frames. (d) View 0 as 4 bands (`parallel/train_step.rasterize_band`, one
+   split into render and encode. (c) `GM_DEVICE=cuda GM_E2E_ITERATIONS=100
+   bash examples/synthetic_e2e_torch.sh` (E2E_ITERATIONS: the script's 400
+   cut to 100): exit 0, renders, results.json, edit frames. (d) View 0 as 4 bands (`parallel/train_step.rasterize_band`, one
    at a time), stitched equal to the full render (2e-5). (e) A rehearsal of
    the (data, tile) regime: 4 ranks (2x2) on the one card over gloo from a
    FileStore, config 2 at 800x800 from the phase-6 student's state: the
@@ -407,7 +415,7 @@ EVAL_VIEWS = 24                        # llffhold 8: 21 train, 3 test
 EVAL_QUALITY = 90
 EVAL_ITERS = 100
 EVAL_MIN_PSNR = 35.0                   # the JPEG round trip against the render
-PROGRESSIVE_ITERS = 20                 # phase 9b: train_mesh on the progressive scene
+PROGRESSIVE_ITERS = 20                 # 9h: the reader phases' shared train_mesh
 # phase 9c: phase 9's views written again, (format, views) in turn
 FORMATS_9C = (("tiff_lzw_p2", 6), ("tiff_lzw_p1", 3), ("tiff_packbits", 3),
               ("tiff16_lzw_p2", 4), ("gif", 4), ("bmp_rle8", 2), ("bmp_rle4", 2))
@@ -472,7 +480,16 @@ LAYOUTS_9F = (
     ("cmyk_jpeg_adobe", 2, dict(quality=EVAL_QUALITY)),
     ("ycck_jpeg_420", 2, dict(quality=EVAL_QUALITY, ycck=True)),
 )
-CROP_9F = (480, 272)                   # phase 9f's plain decodes: the centre of one view a row
+CROP_9F = (480, 272)                   # 9b, 9f, 9g: the plain decodes' centre crop of a view
+# phase 9g: phase 9's views as PNM, TGA, QOI, SGI and PCX files, (row, views) in turn
+RAW_9G = (("ppm_p6", 3), ("ppm_p3_ascii", 1), ("pgm_p5_16bit_b19", 1),
+          ("tga_raw24_bottom_up", 2), ("tga_rle32_top_left_8alpha", 2),
+          ("tga_rle_colormapped_b15", 2), ("tga_raw32_0alpha_b20", 1), ("qoi_rgb", 4),
+          ("qoi_rgba", 1), ("sgi_rle8", 2), ("sgi_verbatim16", 1), ("pcx_8x3", 2),
+          ("pcx_8x1_palette_b15", 2))
+# the reader phases' shared training: view i of phase 9's scene from the file of the
+# phase READER_PHASES[i % 5] wrote for it
+READER_PHASES = ("9b", "9c", "9d", "9f", "9g")
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -480,6 +497,7 @@ RS_F32_FLOOR = 5e-3    # float32 card path vs the float64 extractor at level 7
 RIGID_F32_BAR = 2e-3   # R vs Q on a rigid frame made in float32
 VIEWER_FRAMES = 8
 E2E_TIMEOUT_S = 600
+E2E_ITERATIONS = 100   # the end-to-end script's training (the script's default is 400)
 SHARD_WORLD = (2, 2)   # (data, tile) ranks sharing the one card over gloo
 SHARD_STEPS = 20
 SHARD_LR_SCALE = 4.4   # phase 6's spatial_lr_scale
@@ -1160,8 +1178,8 @@ def kernel_line(results, fullscreen, launches):
     scaling tool's D = 8 critical band ("scaling_band") and critical emulated
     rank ("scaling_gshard"; the owner's K3 "scaling_gshard_owner"), and K3's
     on the full-screen case; errors over all of them; launches from the main
-    paths (render, train, playback, pipeline, eval, progressive, formats,
-    webp, webp_alpha, tiff_layouts, serve, shard, gshard, quality, tools,
+    paths (render, train, playback, pipeline, eval, readers: the reader
+    phases' shared training, serve, shard, gshard, quality, tools,
     scaling)."""
     line = []
     for i, (key, name, source, replaces) in enumerate(KERNELS):
@@ -2432,15 +2450,23 @@ def jpeg_scan_starts(data: bytes) -> list:
     return starts
 
 
+def centre_crop(img):
+    """The CROP_9F (width, height) centre of an image, contiguous."""
+    w, h = CROP_9F
+    y0, x0 = (img.shape[0] - h) // 2, (img.shape[1] - w) // 2
+    return np.ascontiguousarray(img[y0:y0 + h, x0:x0 + w])
+
+
 def phase_progressive(torch, port, model, scene, tmpdir):
     """Phase 9b (see the module docstring) on phase 9's `scene` ->
-    (results, launches)."""
+    (results, {view: (file, None where it decodes to phase 9's baseline
+    decode, else its decode)} for the shared training)."""
     t_phase = time.perf_counter()
-    root = os.path.join(tmpdir, "progressive_data", "s")
-    shutil.copytree(os.path.join(scene["root"], "sparse"), os.path.join(root, "sparse"))
-    os.makedirs(os.path.join(root, "images"))
+    root = os.path.join(tmpdir, "progressive_data")
+    os.makedirs(root)
     white = torch.ones(3, device="cuda")
-    times = {k: [] for k in ("write", "decode", "plain", "baseline")}
+    times = {k: [] for k in ("write", "decode", "baseline")}
+    views = {}
     for i, (_, _, cam) in enumerate(scene["cams"]):
         ca = cam.arrays("cuda")
         with torch.no_grad():
@@ -2449,27 +2475,31 @@ def phase_progressive(torch, port, model, scene, tmpdir):
         assert int(out.tile_overflow) == 0 and int(out.rect_overflow) == 0
         u8 = port.cli_common.to_uint8(out.color)
         name = f"{i:03d}.jpg"
-        path = os.path.join(root, "images", name)
+        path = os.path.join(root, name)
         _, t = timed(port.jpeg.write_jpeg, path, u8, EVAL_QUALITY, "4:2:0", True)
         times["write"].append(t)
         got, t = timed(port.jpeg.read_jpeg, path)
         times["decode"].append(t)
-        plain, t = timed(port.jpeg.read_jpeg_plain, path)
-        times["plain"].append(t)
         base, t = timed(port.jpeg.read_jpeg, os.path.join(scene["root"], "images", name))
         times["baseline"].append(t)
-        if not np.array_equal(got, plain):
-            raise AssertionError(f"{name}: the C++ progressive decode differs from the "
-                                 "plain one")
         if not np.array_equal(got, base):
             raise AssertionError(
                 f"{name}: the progressive file decodes to other bytes than the baseline "
                 f"one, by {int(np.abs(got.astype(int) - base).max())} levels")
+        views[i] = (path, None)
+        if i == 0:                        # the plain decoder on the centre crop
+            crop = os.path.join(tmpdir, "progressive_crop.jpg")
+            port.jpeg.write_jpeg(crop, centre_crop(u8), EVAL_QUALITY, "4:2:0", True)
+            small, t_cpp = timed(port.jpeg.read_jpeg, crop)
+            plain, t_plain = timed(port.jpeg.read_jpeg_plain, crop)
+            if not np.array_equal(small, plain):
+                raise AssertionError("the C++ progressive decode of the centre crop differs "
+                                     "from the plain one")
     megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
+    crop_mp = CROP_9F[0] * CROP_9F[1] / 1e6
     per_mp = {k: float(np.median(v)) / megapixels for k, v in times.items()}
-    sizes = [os.path.getsize(os.path.join(root, "images", n))
-             for n in os.listdir(os.path.join(root, "images"))]
-    with open(os.path.join(root, "images", "000.jpg"), "rb") as fh:
+    sizes = [os.path.getsize(p) for p, _ in views.values()]
+    with open(views[0][0], "rb") as fh:
         data = fh.read()
     starts = jpeg_scan_starts(data)
     assert len(starts) == 10 and b"\xff\xc2" in data[:starts[0]], len(starts)
@@ -2487,38 +2517,19 @@ def phase_progressive(torch, port, model, scene, tmpdir):
                                  "coefficients")
     log(f"[progressive] {len(sizes)} progressive JPEGs at {EVAL_WIDTH}x{EVAL_HEIGHT} "
         f"(quality {EVAL_QUALITY}, 4:2:0, 10 scans), {np.mean(sizes):.0f} bytes each: "
-        f"decode {per_mp['decode']:.4f} s/MP (plain {per_mp['plain']:.4f}; the baseline "
-        f"files {per_mp['baseline']:.4f}); write {np.median(times['write']):.2f} s a "
-        "view; C++ = plain = baseline bytes on every view; view 0 cut after 7 scans "
-        "raises through both decoders")
-
-    cfg = scene["cfg"]
-    trainer, launches, rows = run_cli(torch, port, port.cli_train_mesh.main, [
-        "-s", root, "-m", os.path.join(tmpdir, "progressive_out"), "--input_mesh",
-        scene["proxy"], "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
-        "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
-        "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
-        "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
-        *scene["sched"]], port.trainer.MeshTrainer)
-    want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
-    assert launches == want, launches
-    steps = step_summary(rows["steps"], "progressive")
-    for name, p in trainer.model.named_parameters():
-        assert torch.isfinite(p).all(), name
-    ds, ref = trainer.ds, scene["targets"]
-    for key in ("images", "view", "proj", "campos"):
-        if not torch.equal(getattr(ds, key), getattr(ref, key)):
-            raise AssertionError(f"the progressive scene's training {key} differ from "
-                                 "phase 9's")
+        f"decode {per_mp['decode']:.4f} s/MP (the baseline files {per_mp['baseline']:.4f}; "
+        f"at {CROP_9F[0]}x{CROP_9F[1]} {t_cpp / crop_mp:.4f}, plain {t_plain / crop_mp:.4f}); "
+        f"write {np.median(times['write']):.2f} s a view; C++ = baseline bytes on every "
+        "view, C++ = plain on the crop; view 0 cut after 7 scans raises through both "
+        "decoders")
     res = dict(views=len(sizes), bytes_mean=float(np.mean(sizes)),
-               decode_s_per_mp=per_mp["decode"], decode_plain_s_per_mp=per_mp["plain"],
+               decode_s_per_mp=per_mp["decode"], crop_decode_s_per_mp=t_cpp / crop_mp,
+               decode_plain_s_per_mp=t_plain / crop_mp,
                baseline_decode_s_per_mp=per_mp["baseline"],
                write_s_per_view=float(np.median(times["write"])),
-               load_s=(rows["scene"][0][0] + rows["upload"][0][0]) / 1e3,
-               train_s=sum(t for t, _ in rows["steps"]) / 1e3, **steps,
                phase_s=time.perf_counter() - t_phase)
     log("[progressive] " + json.dumps(res))
-    return res, launches
+    return res, views
 
 
 # ------------------------------------------------------------------ phase 9c
@@ -2589,27 +2600,19 @@ def both_raise(port, kind, data, words):
 
 def phase_formats(torch, port, scene, tmpdir):
     """Phase 9c (see the module docstring) on phase 9's `scene` ->
-    (results, launches)."""
+    (results, {view: (file, None or its decode)} for the shared training)."""
     t_phase = time.perf_counter()
-    root = os.path.join(tmpdir, "formats_data", "s")
-    sparse = os.path.join(root, "sparse", "0")
-    cams, images, (xyz, rgb, err) = port.colmap.read_model(
-        os.path.join(scene["root"], "sparse", "0"))
+    root = os.path.join(tmpdir, "formats_data")
+    os.makedirs(root)
     kinds = [k for k, n in FORMATS_9C for _ in range(n)]
-    assert len(kinds) == len(scene["cams"]) == len(images), (len(kinds), len(images))
-    names = {}
-    for iid, img in images.items():
-        kind = kinds[iid - 1]
-        names[iid] = img.name.replace(".jpg", ".tif" if kind.startswith("tiff")
-                                      else "." + kind[:3])
-        images[iid] = dataclasses.replace(img, name=names[iid])
-    port.colmap.write_model_binary(sparse, cams, images, xyz, rgb, err)
-    os.makedirs(os.path.join(root, "images"))
+    assert len(kinds) == len(scene["cams"]), (len(kinds), len(scene["cams"]))
+    names = [f"{i:03d}" + (".tif" if kind.startswith("tiff") else "." + kind[:3])
+             for i, kind in enumerate(kinds)]
     stats = {k: {"decode": [], "write": [], "bytes": []} for k, _ in FORMATS_9C}
     expected, plain_done, seen = {}, {}, {}
     for i, kind in enumerate(kinds):
         base = port.jpeg.read_jpeg(os.path.join(scene["root"], "images", f"{i:03d}.jpg"))
-        path = os.path.join(root, "images", names[i + 1])
+        path = os.path.join(root, names[i])
         seen[kind] = seen.get(kind, 0) + 1
         want, t = write_9c_view(port, kind, path, base, interlace=seen[kind] % 2 == 0)
         stats[kind]["write"].append(t)
@@ -2617,15 +2620,15 @@ def phase_formats(torch, port, scene, tmpdir):
         got, t = timed(port.png.read_image, path)
         stats[kind]["decode"].append(t)
         if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"{names[i + 1]} ({kind}) decodes to other bytes than "
+            raise AssertionError(f"{names[i]} ({kind}) decodes to other bytes than "
                                  "were written")
-        expected[i] = (kind, want)
+        expected[i] = (path, None if np.array_equal(got, base) else got)
         if kind not in plain_done:
             with open(path, "rb") as fh:
                 data = fh.read()
             plain, t = timed(decode_plain_9c, port, kind, data)
             if not np.array_equal(plain, got):
-                raise AssertionError(f"{names[i + 1]}: the plain {kind} decode differs "
+                raise AssertionError(f"{names[i]}: the plain {kind} decode differs "
                                      "from the C++ one")
             plain_done[kind] = t
     megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
@@ -2636,9 +2639,9 @@ def phase_formats(torch, port, scene, tmpdir):
                          write_s=float(np.median(v["write"])))
                  for k, v in stats.items()}
     first = {k: kinds.index(k) for k, _ in FORMATS_9C}
-    with open(os.path.join(root, "images", names[first["tiff_lzw_p2"] + 1]), "rb") as fh:
+    with open(os.path.join(root, names[first["tiff_lzw_p2"]]), "rb") as fh:
         lzw_tiff = fh.read()
-    with open(os.path.join(root, "images", names[first["gif"] + 1]), "rb") as fh:
+    with open(os.path.join(root, names[first["gif"]]), "rb") as fh:
         gif_file = fh.read()
     at = 13 + 3 * 256 + 10 + 2 + 3         # the GIF's fourth byte of LZW data
     damaged = {
@@ -2654,45 +2657,9 @@ def phase_formats(torch, port, scene, tmpdir):
     log(f"[formats] every view decoded to the bytes written; damaged files raise "
         f"through both decoders: {json.dumps(damaged)}")
 
-    cfg = scene["cfg"]
-    trainer, launches, rows = run_cli(torch, port, port.cli_train_mesh.main, [
-        "-s", root, "-m", os.path.join(tmpdir, "formats_out"), "--input_mesh",
-        scene["proxy"], "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
-        "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
-        "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
-        "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
-        *scene["sched"]], port.trainer.MeshTrainer)
-    want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
-    assert launches == want, launches
-    steps = step_summary(rows["steps"], "formats")
-    for name, p in trainer.model.named_parameters():
-        assert torch.isfinite(p).all(), name
-    ds, ref = trainer.ds, scene["targets"]
-    for key in ("view", "proj", "campos"):
-        if not torch.equal(getattr(ds, key), getattr(ref, key)):
-            raise AssertionError(f"the new-format scene's training {key} differ from "
-                                 "phase 9's")
-    centres = np.stack([pos for _, pos, _ in scene["cams"]])
-    size = (int(ds.width), int(ds.height))
-    n_tiff = n_palette = 0
-    for k in range(ds.images.shape[0]):
-        i = int(np.argmin(np.linalg.norm(centres - ds.campos[k].cpu().numpy(), axis=1)))
-        kind, written = expected[i]
-        if kind.startswith("tiff"):
-            target, n_tiff = ref.images[k], n_tiff + 1
-        else:
-            arr = port.resample.resize(written, size).astype(np.float32) / 255.0
-            target = torch.from_numpy((arr.transpose(2, 0, 1) * 255).astype(np.uint8))
-            target, n_palette = target.to(ds.images.device), n_palette + 1
-        if not torch.equal(ds.images[k], target):
-            raise AssertionError(f"view {i} ({kind}): its training target differs")
-    res = dict(formats=by_format, damaged=damaged, train_tiff_views=n_tiff,
-               train_palette_views=n_palette,
-               load_s=(rows["scene"][0][0] + rows["upload"][0][0]) / 1e3,
-               train_s=sum(t for t, _ in rows["steps"]) / 1e3, **steps,
-               phase_s=time.perf_counter() - t_phase)
+    res = dict(formats=by_format, damaged=damaged, phase_s=time.perf_counter() - t_phase)
     log("[formats] " + json.dumps(res))
-    return res, launches
+    return res, expected
 
 
 # ------------------------------------------------------------------ phase 9d
@@ -2746,22 +2713,16 @@ def psnr_u8(a, b) -> float:
 
 def phase_webp(torch, port, scene, tmpdir):
     """Phase 9d (see the module docstring) on phase 9's `scene` ->
-    (results, launches)."""
+    (results, {view: (file, its decode)} for the shared training)."""
     t_phase = time.perf_counter()
     fixtures = webp_fixtures(port)
     log(f"[webp] {len(fixtures)} fixtures decode to their recorded digests through the "
         f"C++ and the plain version ({sum(v == 'raises' for v in fixtures.values())} raise "
         "\"cut short\" through both, as the reference does)")
-    root = os.path.join(tmpdir, "webp_data", "s")
-    sparse = os.path.join(root, "sparse", "0")
-    cams, images, (xyz, rgb, err) = port.colmap.read_model(
-        os.path.join(scene["root"], "sparse", "0"))
+    root = os.path.join(tmpdir, "webp_data")
+    os.makedirs(root)
     rows = [r for r, n, _, _ in WEBP_9D for _ in range(n)]
-    assert len(rows) == len(scene["cams"]) == len(images), (len(rows), len(images))
-    for iid, img in images.items():
-        images[iid] = dataclasses.replace(img, name=img.name.replace(".jpg", ".webp"))
-    port.colmap.write_model_binary(sparse, cams, images, xyz, rgb, err)
-    os.makedirs(os.path.join(root, "images"))
+    assert len(rows) == len(scene["cams"]), (len(rows), len(scene["cams"]))
     settings = {r: kw for r, _, kw, _ in WEBP_9D}
     stats = {r: {"decode": [], "write": [], "bytes": [], "psnr": [], "skip": [],
                  "cat6": []} for r, _, _, _ in WEBP_9D}
@@ -2769,7 +2730,7 @@ def phase_webp(torch, port, scene, tmpdir):
     n_mb = -(-EVAL_WIDTH // 16) * -(-EVAL_HEIGHT // 16)
     for i, row in enumerate(rows):
         base = port.jpeg.read_jpeg(os.path.join(scene["root"], "images", f"{i:03d}.jpg"))
-        path = os.path.join(root, "images", f"{i:03d}.webp")
+        path = os.path.join(root, f"{i:03d}.webp")
         planes, t = timed(lambda: port.webp.write_webp(path, base, **settings[row]))
         stats[row]["write"].append(t)
         stats[row]["bytes"].append(os.path.getsize(path))
@@ -2788,7 +2749,7 @@ def phase_webp(torch, port, scene, tmpdir):
         stats[row]["skip"].append(info["skip"] / n_mb)
         stats[row]["cat6"].append(info["token10"])
         stats[row]["psnr"].append(psnr_u8(got, base))
-        decoded[i] = got
+        decoded[i] = (path, got)
         if row not in plain_done:
             small = port.resample.resize(base, WEBP_PLAIN_SIZE)
             sdata, _ = port.webp.encode_webp(small, **settings[row])
@@ -2827,38 +2788,9 @@ def phase_webp(torch, port, scene, tmpdir):
             f"{r['small_decode_s_per_mp']:.4f} (plain {r['plain_s_per_mp']:.4f}); write "
             f"{r['write_s']:.3f} s a view")
 
-    cfg = scene["cfg"]
-    trainer, launches, steps_rows = run_cli(torch, port, port.cli_train_mesh.main, [
-        "-s", root, "-m", os.path.join(tmpdir, "webp_out"), "--input_mesh",
-        scene["proxy"], "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
-        "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
-        "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
-        "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
-        *scene["sched"]], port.trainer.MeshTrainer)
-    want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
-    assert launches == want, launches
-    steps = step_summary(steps_rows["steps"], "webp")
-    for name, p in trainer.model.named_parameters():
-        assert torch.isfinite(p).all(), name
-    ds, ref = trainer.ds, scene["targets"]
-    for key in ("view", "proj", "campos"):
-        if not torch.equal(getattr(ds, key), getattr(ref, key)):
-            raise AssertionError(f"the WebP scene's training {key} differ from phase 9's")
-    centres = np.stack([pos for _, pos, _ in scene["cams"]])
-    size = (int(ds.width), int(ds.height))
-    for k in range(ds.images.shape[0]):
-        i = int(np.argmin(np.linalg.norm(centres - ds.campos[k].cpu().numpy(), axis=1)))
-        arr = port.resample.resize(decoded[i], size).astype(np.float32) / 255.0
-        target = torch.from_numpy((arr.transpose(2, 0, 1) * 255).astype(np.uint8))
-        if not torch.equal(ds.images[k], target.to(ds.images.device)):
-            raise AssertionError(f"view {i} ({rows[i]}): its training target differs from "
-                                 "the resize of its decode")
-    res = dict(rows=by_row, fixtures=len(fixtures), train_views=int(ds.images.shape[0]),
-               load_s=(steps_rows["scene"][0][0] + steps_rows["upload"][0][0]) / 1e3,
-               train_s=sum(t for t, _ in steps_rows["steps"]) / 1e3, **steps,
-               phase_s=time.perf_counter() - t_phase)
+    res = dict(rows=by_row, fixtures=len(fixtures), phase_s=time.perf_counter() - t_phase)
     log("[webp] " + json.dumps(res))
-    return res, launches
+    return res, decoded
 
 
 def webp_rgba_fixtures(port):
@@ -2922,9 +2854,23 @@ def view_9e(port, row, kw, rgba, other, path):
     return want, t
 
 
+def training_dataset(torch, port, argv):
+    """The `DeviceDataset` `cli.train_mesh` builds from `argv` (its flags,
+    `Scene` with the run's shuffle seed, `from_cameras` on the card), with
+    no trainer -> (dataset, its seconds)."""
+    t0 = time.perf_counter()
+    args, _ = port.cli_common.base_parser("").parse_known_args(argv)
+    model = port.config.extract(port.config.ModelParams, args)
+    seed = port.config.extract(port.config.RuntimeParams, args).seed
+    scene = port.scene.Scene(model, seed=seed)
+    ds = port.trainer.DeviceDataset.from_cameras(scene.train_cameras, device="cuda")
+    torch.cuda.synchronize()
+    return ds, time.perf_counter() - t0
+
+
 def phase_webp_alpha(torch, port, p8, sched, jpeg_s_per_mp, tmpdir):
     """Phase 9e (see the module docstring) on phase 8's config-2 set `p8` ->
-    (results, launches)."""
+    results."""
     t_phase = time.perf_counter()
     fixtures = webp_rgba_fixtures(port)
     log(f"[webp9e] {len(fixtures)} fixtures decode to their recorded digests through the "
@@ -3008,30 +2954,15 @@ def phase_webp_alpha(torch, port, p8, sched, jpeg_s_per_mp, tmpdir):
             fr["file_path"] += ".webp"
         with open(os.path.join(data, f"transforms_{split}.json"), "w") as fh:
             json.dump(meta, fh)
-    cfg = p8["cfg"]
-    trainer, launches, steps_rows = run_cli(torch, port, port.cli_train_mesh.main, [
-        "-s", data, "-m", os.path.join(tmpdir, "webp9e_out"), "--input_mesh", p8["proxy"],
-        "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
-        "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
-        "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
-        "--row_capacity_per_gaussian", str(cfg.row_capacity_per_gaussian),
-        *sched], port.trainer.MeshTrainer)
-    want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
-    assert launches == want, launches
-    steps = step_summary(steps_rows["steps"], "webp9e")
-    for name, p in trainer.model.named_parameters():
-        assert torch.isfinite(p).all(), name
-    ds = trainer.ds
+    ds, load_s = training_dataset(torch, port, ["-s", data, "--eval", *sched])
     for key, ref in (("images", p8["images"]), ("masks", p8["masks"]),
                      ("campos", p8["campos"])):
         if not torch.equal(getattr(ds, key).cpu(), ref):
             raise AssertionError(f"the WebP Blender set's training {key} differ from phase 8's")
     res = dict(rows=by_row, fixtures=len(fixtures), train_views=int(ds.images.shape[0]),
-               load_s=(steps_rows["scene"][0][0] + steps_rows["upload"][0][0]) / 1e3,
-               train_s=sum(t for t, _ in steps_rows["steps"]) / 1e3, **steps,
-               phase_s=time.perf_counter() - t_phase)
+               load_s=load_s, phase_s=time.perf_counter() - t_phase)
     log("[webp9e] " + json.dumps(res))
-    return res, launches
+    return res
 
 
 # ------------------------------------------------------------------ phase 9f
@@ -3091,29 +3022,23 @@ def decode_plain_9f(port, path):
 
 def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
     """Phase 9f (see the module docstring) on phase 9's `scene` ->
-    (results, launches)."""
+    (results, {view: (file, None or its decode)} for the shared training)."""
     t_phase = time.perf_counter()
     fixtures = tiff_fixtures(port)
     log(f"[tiff9f] {len(fixtures)} fixtures decode to their recorded digests through the "
         "C++ and the plain route")
-    root = os.path.join(tmpdir, "tiff9f_data", "s")
-    sparse = os.path.join(root, "sparse", "0")
-    cams, images, (xyz, rgb, err) = port.colmap.read_model(
-        os.path.join(scene["root"], "sparse", "0"))
+    root = os.path.join(tmpdir, "tiff9f_data")
+    os.makedirs(root)
     rows = [(r, kw) for r, n, kw in LAYOUTS_9F for _ in range(n)]
-    assert len(rows) == len(scene["cams"]) == len(images), (len(rows), len(images))
-    for iid, img in images.items():
-        ext = ".jpg" if rows[iid - 1][0].endswith(("jpeg_adobe", "jpeg_420")) else ".tif"
-        images[iid] = dataclasses.replace(img, name=img.name.replace(".jpg", ext))
-    port.colmap.write_model_binary(sparse, cams, images, xyz, rgb, err)
-    os.makedirs(os.path.join(root, "images"))
+    assert len(rows) == len(scene["cams"]), (len(rows), len(scene["cams"]))
     stats = {r: {"decode": [], "write": [], "bytes": [], "jpeg_bytes": []}
              for r, _, _ in LAYOUTS_9F}
     expected, small = {}, {}
     for i, (row, kw) in enumerate(rows):
         src = os.path.join(scene["root"], "images", f"{i:03d}.jpg")
         base = port.jpeg.read_jpeg(src)
-        path = os.path.join(root, "images", images[i + 1].name)
+        path = os.path.join(root, f"{i:03d}" + (
+            ".jpg" if row.endswith(("jpeg_adobe", "jpeg_420")) else ".tif"))
         want, t = write_9f_view(port, row, kw, path, base)
         st = stats[row]
         st["write"].append(t)
@@ -3124,13 +3049,12 @@ def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
         if want is None:                # lossy: the plain route decides
             want = decode_plain_9f(port, path)
         if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"{images[i + 1].name} ({row}) decodes to other bytes than "
+            raise AssertionError(f"view {i} ({row}) decodes to other bytes than "
                                  "it should (lossless: the samples written; JPEG: the "
                                  "plain route's)")
-        expected[i] = (row, got)
+        expected[i] = (path, None if np.array_equal(got, base) else got)
         if row not in small:
-            y0, x0 = (base.shape[0] - CROP_9F[1]) // 2, (base.shape[1] - CROP_9F[0]) // 2
-            crop = np.ascontiguousarray(base[y0:y0 + CROP_9F[1], x0:x0 + CROP_9F[0]])
+            crop = centre_crop(base)
             cpath = os.path.join(tmpdir, "tiff9f_crop" + os.path.splitext(path)[1])
             write_9f_view(port, row, kw, cpath, crop)
             cpp, t_cpp = timed(port.png.read_image, cpath)
@@ -3159,9 +3083,183 @@ def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
             f"{CROP_9F[0]}x{CROP_9F[1]} {r['plain_vs_cpp']:.1f}; write {r['write_s']:.3f} s "
             "a view")
 
+    res = dict(rows=by_row, fixtures=len(fixtures), phase_s=time.perf_counter() - t_phase)
+    log("[tiff9f] " + json.dumps(res))
+    return res, expected
+
+
+# ------------------------------------------------------------------ phase 9g
+
+def raw_fixtures(port):
+    """Phase 9g's fixtures (`tests/data/raw/`) -> {name: the C++ decode's s}:
+    each gives its recorded digest and shape through `read_image` and the
+    plain route."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "raw")
+    with open(os.path.join(here, "digests.json")) as fh:
+        table = json.load(fh)
+    if len(table) < 30:
+        raise AssertionError(f"{here}: {len(table)} PNM / TGA / QOI / SGI / PCX fixtures")
+    out = {}
+    for name, want in sorted(table.items()):
+        path = os.path.join(here, name)
+        got, t = timed(port.png.read_image, path)
+        for route, a in (("C++", got), ("plain", decode_plain_9g(port, path))):
+            if (hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() != want["array"]
+                    or list(a.shape) != want["shape"]):
+                raise AssertionError(f"{name}: the {route} decode differs from the recorded "
+                                     "digest")
+        out[name] = t
+    return out
+
+
+def decode_plain_9g(port, path):
+    """A 9g file through the plain route (PNM has one route: no C++)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    ext = os.path.splitext(path)[1]
+    return {".tga": port.tga.decode_tga_plain, ".qoi": port.qoi.decode_qoi_plain,
+            ".sgi": port.sgi.decode_sgi_plain, ".pcx": port.pcx.decode_pcx_plain}.get(
+        ext, port.pnm.decode_pnm)(data, path)
+
+
+def write_9g_view(port, row, path, img):
+    """View `img` written as row `row` of RAW_9G -> (what `read_image` must
+    give, the writer's s)."""
+    t0 = time.perf_counter()
+    want = img
+    if row.startswith("ppm"):
+        port.pnm.write_pnm(path, img, ascii="ascii" in row)
+    elif row.startswith("pgm"):                  # the high byte is the view's green
+        want = img[..., 1]
+        port.pnm.write_pnm(path, want.astype(np.uint16) << 8 | img[..., 0], maxval=65535)
+    elif row.endswith(("colormapped_b15", "palette_b15")):
+        pal, idx = fixed_palette(LEVELS_256), quantize(img, LEVELS_256)
+        want = pal[idx]
+        if row.startswith("tga"):
+            port.tga.write_tga(path, idx, palette=pal, rle=True)
+        else:
+            port.pcx.write_pcx(path, idx, palette=pal)
+    elif row.startswith("tga"):
+        alpha = np.full(img.shape[:2] + (1,), 0 if "0alpha" in row else 255, np.uint8)
+        rgba = np.concatenate([img, alpha], -1)
+        if row == "tga_raw24_bottom_up":
+            port.tga.write_tga(path, img)
+        elif row == "tga_raw32_0alpha_b20":
+            port.tga.write_tga(path, rgba, alpha_bits=0)
+        else:
+            want = rgba
+            port.tga.write_tga(path, rgba, rle=True, top_down=True)
+    elif row.startswith("qoi"):
+        if row == "qoi_rgba":
+            want = np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+        port.qoi.write_qoi(path, want)
+    elif row == "sgi_rle8":
+        port.sgi.write_sgi(path, img, rle=True)
+    elif row == "sgi_verbatim16":
+        port.sgi.write_sgi(path, img.astype(np.uint16) * 257, bpc=2)
+    else:
+        port.pcx.write_pcx(path, img)
+    return want, time.perf_counter() - t0
+
+
+def phase_raw_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
+    """Phase 9g (see the module docstring) on phase 9's `scene` ->
+    (results, {view: (file, None or its decode)} for the shared training)."""
+    t_phase = time.perf_counter()
+    fixtures = raw_fixtures(port)
+    log(f"[raw9g] {len(fixtures)} fixtures decode to their recorded digests through the "
+        "C++ and the plain route")
+    root = os.path.join(tmpdir, "raw9g_data")
+    os.makedirs(root)
+    rows = [r for r, n in RAW_9G for _ in range(n)]
+    assert len(rows) == len(scene["cams"]), (len(rows), len(scene["cams"]))
+    ext = {"ppm": ".ppm", "pgm": ".pgm", "tga": ".tga", "qoi": ".qoi", "sgi": ".sgi",
+           "pcx": ".pcx"}
+    stats = {r: {"decode": [], "write": [], "bytes": [], "jpeg_bytes": []} for r, _ in RAW_9G}
+    expected, small = {}, {}
+    for i, row in enumerate(rows):
+        src = os.path.join(scene["root"], "images", f"{i:03d}.jpg")
+        base = port.jpeg.read_jpeg(src)
+        path = os.path.join(root, f"{i:03d}" + ext[row[:3]])
+        want, t = write_9g_view(port, row, path, base)
+        st = stats[row]
+        st["write"].append(t)
+        st["bytes"].append(os.path.getsize(path))
+        st["jpeg_bytes"].append(os.path.getsize(src))
+        got, t = timed(port.png.read_image, path)
+        st["decode"].append(t)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"view {i} ({row}) decodes to other bytes than were written")
+        expected[i] = (path, None if np.array_equal(got, base) else got)
+        if row not in small:
+            cpath = os.path.join(tmpdir, "raw9g_crop" + ext[row[:3]])
+            write_9g_view(port, row, cpath, centre_crop(base))
+            cpp, t_cpp = timed(port.png.read_image, cpath)
+            plain, t_plain = timed(decode_plain_9g, port, cpath)
+            if cpp.shape != plain.shape or not np.array_equal(cpp, plain):
+                raise AssertionError(f"{row}: the plain decode of a {CROP_9F} crop differs "
+                                     "from the C++ one")
+            small[row] = (t_cpp, t_plain)
+    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
+    by_row = {}
+    for row, _ in RAW_9G:
+        st = stats[row]
+        dec = float(np.median(st["decode"])) / megapixels
+        by_row[row] = dict(views=len(st["bytes"]), decode_s_per_mp=dec,
+                           decode_vs_baseline_jpeg=dec / jpeg_s_per_mp,
+                           plain_vs_cpp=small[row][1] / small[row][0],
+                           bytes_mean=float(np.mean(st["bytes"])),
+                           bytes_vs_baseline_jpeg=float(np.sum(st["bytes"])
+                                                        / np.sum(st["jpeg_bytes"])),
+                           write_s=float(np.median(st["write"])))
+        r = by_row[row]
+        log(f"[raw9g] {row}: {r['views']} views at {EVAL_WIDTH}x{EVAL_HEIGHT}, "
+            f"{r['bytes_mean']:.0f} bytes each ({r['bytes_vs_baseline_jpeg']:.2f}x phase 9's "
+            f"JPEG files of the same views); decode {r['decode_s_per_mp']:.4f} s/MP "
+            f"({r['decode_vs_baseline_jpeg']:.2f}x phase 9's baseline JPEG); plain / C++ at "
+            f"{CROP_9F[0]}x{CROP_9F[1]} {r['plain_vs_cpp']:.1f}; write {r['write_s']:.3f} s "
+            "a view")
+    res = dict(rows=by_row, fixtures=len(fixtures), phase_s=time.perf_counter() - t_phase)
+    log("[raw9g] " + json.dumps(res))
+    return res, expected
+
+
+# ------------------------------------------------------ the readers' training
+
+def loaded_target(torch, port, decoded, size):
+    """A decode as `data/readers.py::_load_image` makes it the training
+    target of a COLMAP view (no background): resized, gray repeated to RGB,
+    an alpha dropped, the uint8 of float32 / 255 -> (3, H, W) uint8."""
+    arr = port.resample.resize(decoded, size).astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = np.repeat(arr[..., None], 3, axis=2)
+    return torch.from_numpy((arr[..., :3].transpose(2, 0, 1) * 255).astype(np.uint8))
+
+
+def phase_reader_training(torch, port, scene, views, tmpdir):
+    """The reader phases' shared training (see the module docstring): view i
+    of phase 9's scene from the file phase READER_PHASES[i % 5] wrote for it
+    (`views`: {phase: {view: (file, None where it decodes to phase 9's
+    baseline decode, else its decode)}}) -> (results, launches)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(tmpdir, "readers_data", "s")
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(os.path.join(root, "images"))
+    cams, images, (xyz, rgb, err) = port.colmap.read_model(
+        os.path.join(scene["root"], "sparse", "0"))
+    taken = {}
+    for iid, img in images.items():
+        i = iid - 1
+        phase = READER_PHASES[i % len(READER_PHASES)]
+        path, decoded = views[phase][i]
+        name = f"{i:03d}_{phase}{os.path.splitext(path)[1]}"
+        shutil.copy(path, os.path.join(root, "images", name))
+        images[iid] = dataclasses.replace(img, name=name)
+        taken[i] = (phase, decoded)
+    port.colmap.write_model_binary(sparse, cams, images, xyz, rgb, err)
     cfg = scene["cfg"]
-    trainer, launches, steps_rows = run_cli(torch, port, port.cli_train_mesh.main, [
-        "-s", root, "-m", os.path.join(tmpdir, "tiff9f_out"), "--input_mesh",
+    trainer, launches, rows = run_cli(torch, port, port.cli_train_mesh.main, [
+        "-s", root, "-m", os.path.join(tmpdir, "readers_out"), "--input_mesh",
         scene["proxy"], "--eval", "--iterations", str(PROGRESSIVE_ITERS), "--device", "cuda",
         "--init_target", str(INIT_TARGET), "--max_per_tile", str(cfg.max_per_tile),
         "--pair_capacity_per_gaussian", str(cfg.pair_capacity_per_gaussian),
@@ -3169,33 +3267,34 @@ def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
         *scene["sched"]], port.trainer.MeshTrainer)
     want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
     assert launches == want, launches
-    steps = step_summary(steps_rows["steps"], "tiff9f")
+    steps = step_summary(rows["steps"], "readers")
     for name, p in trainer.model.named_parameters():
         assert torch.isfinite(p).all(), name
     ds, ref = trainer.ds, scene["targets"]
     for key in ("view", "proj", "campos"):
         if not torch.equal(getattr(ds, key), getattr(ref, key)):
-            raise AssertionError(f"the phase-9f scene's training {key} differ from phase 9's")
+            raise AssertionError(f"the readers' scene's training {key} differ from phase 9's")
     centres = np.stack([pos for _, pos, _ in scene["cams"]])
     size = (int(ds.width), int(ds.height))
-    n_lossless = 0
+    n_lossless, by_phase = 0, {}
     for k in range(ds.images.shape[0]):
         i = int(np.argmin(np.linalg.norm(centres - ds.campos[k].cpu().numpy(), axis=1)))
-        row, decoded = expected[i]
-        if not row.startswith(("jpeg", "cmyk", "ycck")):
+        phase, decoded = taken[i]
+        if decoded is None:
             target, n_lossless = ref.images[k], n_lossless + 1
         else:
-            arr = port.resample.resize(decoded, size).astype(np.float32) / 255.0
-            target = torch.from_numpy((arr.transpose(2, 0, 1) * 255).astype(np.uint8))
-            target = target.to(ds.images.device)
+            target = loaded_target(torch, port, decoded, size).to(ds.images.device)
         if not torch.equal(ds.images[k], target):
-            raise AssertionError(f"view {i} ({row}): its training target differs")
-    res = dict(rows=by_row, fixtures=len(fixtures), train_views=int(ds.images.shape[0]),
+            which = "phase 9's" if decoded is None else "the resize of its decode"
+            raise AssertionError(f"view {i} (phase {phase}): its training target differs "
+                                 f"from {which}")
+        by_phase[phase] = by_phase.get(phase, 0) + 1
+    res = dict(train_views_by_phase=by_phase, train_views=int(ds.images.shape[0]),
                train_lossless_views=n_lossless,
-               load_s=(steps_rows["scene"][0][0] + steps_rows["upload"][0][0]) / 1e3,
-               train_s=sum(t for t, _ in steps_rows["steps"]) / 1e3, **steps,
+               load_s=(rows["scene"][0][0] + rows["upload"][0][0]) / 1e3,
+               train_s=sum(t for t, _ in rows["steps"]) / 1e3, **steps,
                phase_s=time.perf_counter() - t_phase)
-    log("[tiff9f] " + json.dumps(res))
+    log("[readers] " + json.dumps(res))
     return res, launches
 
 
@@ -3310,21 +3409,24 @@ def phase_viewer(torch, port, cfg, tmpdir):
 
 
 def phase_e2e(torch, tmpdir):
-    """10c. `GM_DEVICE=cuda bash examples/synthetic_e2e_torch.sh`: exit 0,
-    its renders, results.json and edit frames."""
+    """10c. `GM_DEVICE=cuda GM_E2E_ITERATIONS=100 bash
+    examples/synthetic_e2e_torch.sh`: exit 0, its renders, results.json and
+    edit frames."""
     root = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(tmpdir, "e2e")
     t0 = time.perf_counter()
     proc = subprocess.run(["bash", os.path.join(root, "examples", "synthetic_e2e_torch.sh"),
-                           work], cwd=root, env={**os.environ, "GM_DEVICE": "cuda"},
+                           work], cwd=root, env={**os.environ, "GM_DEVICE": "cuda",
+                                                 "GM_E2E_ITERATIONS": str(E2E_ITERATIONS)},
                           capture_output=True, text=True, timeout=E2E_TIMEOUT_S)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         log(proc.stdout[-4000:] + proc.stderr[-4000:])
         raise AssertionError(f"synthetic_e2e_torch.sh exited {proc.returncode}")
     model = os.path.join(work, "model")
-    renders = sorted(os.listdir(os.path.join(model, "test", "ours_400", "renders")))
-    results = json.load(open(os.path.join(model, "results.json")))["ours_400"]
+    ours = f"ours_{E2E_ITERATIONS}"
+    renders = sorted(os.listdir(os.path.join(model, "test", ours, "renders")))
+    results = json.load(open(os.path.join(model, "results.json")))[ours]
     frames = sorted(os.listdir(os.path.join(work, "edit_out")))
     res = dict(seconds=wall, renders=len(renders), edit_frames=len(frames),
                psnr=results["PSNR"], ssim=results["SSIM"],
@@ -4393,6 +4495,7 @@ def load_port():
     from gaussianmesh_tpu_torch.cli import metrics as cli_metrics
     from gaussianmesh_tpu_torch.eval import lpips
     from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, resample, tiff, vp8l, webp
+    from gaussianmesh_tpu_torch.io import pcx, pnm, qoi, sgi, tga
     from gaussianmesh_tpu_torch.train import loss
 
     from gaussianmesh_tpu_torch import viewer
@@ -4414,7 +4517,8 @@ def load_port():
         cli_train_bg=cli_train_bg, cli_render=cli_render, scene=scene, png=png,
         colmap=colmap, bg_trainer=bg_trainer, cli_full_eval=cli_full_eval,
         cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss,
-        tiff=tiff, gif=gif, bmp=bmp, webp=webp, vp8l=vp8l,
+        tiff=tiff, gif=gif, bmp=bmp, webp=webp, vp8l=vp8l, pnm=pnm, tga=tga, qoi=qoi,
+        sgi=sgi, pcx=pcx,
         gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
@@ -4450,16 +4554,21 @@ def main() -> int:
         t_pipe = time.perf_counter() - t_pipe
         evaluation, eval_launches, results["eval"], eval_scene = phase_eval(
             torch, port, model, train_rt, tmpdir)
-        progressive, progressive_launches = phase_progressive(torch, port, model,
-                                                              eval_scene, tmpdir)
-        formats, formats_launches = phase_formats(torch, port, eval_scene, tmpdir)
-        webp_res, webp_launches = phase_webp(torch, port, eval_scene, tmpdir)
-        webp9e, webp9e_launches = phase_webp_alpha(
-            torch, port, pipeline.pop("config2_scene"), eval_scene["sched"],
-            evaluation["jpeg_decode_s_per_mp"], tmpdir)
-        tiff9f, tiff9f_launches = phase_tiff_layouts(
-            torch, port, eval_scene, evaluation["jpeg_decode_s_per_mp"], tmpdir)
-        del eval_scene
+        jpeg_s_per_mp = evaluation["jpeg_decode_s_per_mp"]
+        reader_views = {}
+        progressive, reader_views["9b"] = phase_progressive(torch, port, model, eval_scene,
+                                                            tmpdir)
+        formats, reader_views["9c"] = phase_formats(torch, port, eval_scene, tmpdir)
+        webp_res, reader_views["9d"] = phase_webp(torch, port, eval_scene, tmpdir)
+        webp9e = phase_webp_alpha(torch, port, pipeline.pop("config2_scene"),
+                                  eval_scene["sched"], jpeg_s_per_mp, tmpdir)
+        tiff9f, reader_views["9f"] = phase_tiff_layouts(torch, port, eval_scene,
+                                                        jpeg_s_per_mp, tmpdir)
+        raw9g, reader_views["9g"] = phase_raw_formats(torch, port, eval_scene,
+                                                      jpeg_s_per_mp, tmpdir)
+        readers, readers_launches = phase_reader_training(torch, port, eval_scene,
+                                                          reader_views, tmpdir)
+        del eval_scene, reader_views
         t_serve = time.perf_counter()
         acap = phase_acap(torch, port)
         viewer, serve_launches = phase_viewer(torch, port, cfg, tmpdir)
@@ -4480,9 +4589,7 @@ def main() -> int:
                           {"render": {"K1": render_k1, "K2": 0, "K3": 0},
                            "train": train_launches, "playback": playback_launches,
                            "pipeline": pipeline_launches, "eval": eval_launches,
-                           "progressive": progressive_launches,
-                           "formats": formats_launches, "webp": webp_launches,
-                           "webp_alpha": webp9e_launches, "tiff_layouts": tiff9f_launches,
+                           "readers": readers_launches,
                            "serve": serve_launches, "shard": shard_launches,
                            "gshard": gshard_launches, "quality": quality_launches,
                            "tools": tools_launches, "scaling": scaling_launches})
@@ -4518,46 +4625,43 @@ def main() -> int:
         f"{evaluation['resample_plain_ms_per_image']:.1f}); dataset loads: config 2 "
         f"(Blender, {PIPE_VIEWS + PIPE_TEST_VIEWS} PNGs) {pipeline['config2']['load_s']:.2f} s, "
         f"eval ({EVAL_VIEWS} JPEGs at -r -1) {evaluation['load_s']:.2f} s")
-    log(f"[done] progressive phase {progressive['phase_s']:.1f} s on {smi}, host CPU: "
-        f"{host_cpu()} (one core a call): {progressive['views']} progressive JPEGs at "
-        f"{EVAL_WIDTH}x{EVAL_HEIGHT}, decode {progressive['decode_s_per_mp']:.4f} s/MP "
-        f"(plain {progressive['decode_plain_s_per_mp']:.4f}; the baseline files in the "
-        f"same run {progressive['baseline_decode_s_per_mp']:.4f}); train_mesh load "
-        f"{progressive['load_s']:.2f} s, {progressive['steps']} steps in "
-        f"{progressive['train_s']:.2f} s (median {progressive['step_ms_median']:.3f} ms)")
-    log(f"[done] formats phase {formats['phase_s']:.1f} s on {smi}, host CPU: "
-        f"{host_cpu()} (one core a call): s/MP C++ / plain by format "
-        + ", ".join(f"{k} {r['decode_s_per_mp']:.4f} / {r['plain_s_per_mp']:.4f}"
-                    for k, r in formats["formats"].items())
-        + f"; train_mesh load {formats['load_s']:.2f} s, {formats['steps']} steps in "
-        f"{formats['train_s']:.2f} s (median {formats['step_ms_median']:.3f} ms)")
-    log(f"[done] WebP phase {webp_res['phase_s']:.1f} s on {smi}, host CPU: "
-        f"{host_cpu()} (one core a call): {webp_res['fixtures']} fixtures; s/MP C++ at "
-        f"1920x1080 / C++ and plain at {WEBP_PLAIN_SIZE[0]}x{WEBP_PLAIN_SIZE[1]}, PSNR min "
-        "by row " + ", ".join(
+    cpu = f"{smi}, host CPU: {host_cpu()} (one core a call)"
+    log(f"[done] progressive phase {progressive['phase_s']:.1f} s on {cpu}: "
+        f"{progressive['views']} progressive JPEGs at {EVAL_WIDTH}x{EVAL_HEIGHT}, decode "
+        f"{progressive['decode_s_per_mp']:.4f} s/MP (the baseline files in the same run "
+        f"{progressive['baseline_decode_s_per_mp']:.4f}); at {CROP_9F[0]}x{CROP_9F[1]} C++ "
+        f"{progressive['crop_decode_s_per_mp']:.4f}, plain "
+        f"{progressive['decode_plain_s_per_mp']:.4f}; write "
+        f"{progressive['write_s_per_view']:.3f} s a view")
+    log(f"[done] formats phase {formats['phase_s']:.1f} s on {cpu}: s/MP C++ / plain by "
+        "format " + ", ".join(f"{k} {r['decode_s_per_mp']:.4f} / {r['plain_s_per_mp']:.4f}"
+                              for k, r in formats["formats"].items()))
+    log(f"[done] WebP phase {webp_res['phase_s']:.1f} s on {cpu}: {webp_res['fixtures']} "
+        f"fixtures; s/MP C++ at 1920x1080 / C++ and plain at "
+        f"{WEBP_PLAIN_SIZE[0]}x{WEBP_PLAIN_SIZE[1]}, PSNR min by row " + ", ".join(
             f"{k} {r['decode_s_per_mp']:.4f} / {r['small_decode_s_per_mp']:.4f} and "
             f"{r['plain_s_per_mp']:.3f}, {r['psnr_min']:.2f} dB"
-            for k, r in webp_res["rows"].items())
-        + f"; train_mesh load {webp_res['load_s']:.2f} s, {webp_res['steps']} steps in "
-        f"{webp_res['train_s']:.2f} s (median {webp_res['step_ms_median']:.3f} ms)")
-    log(f"[done] WebP alpha phase {webp9e['phase_s']:.1f} s on {smi}, host CPU: "
-        f"{host_cpu()} (one core a call): {webp9e['fixtures']} fixtures; by row s/MP at "
-        f"{PIPE_SIZE}x{PIPE_SIZE} (x phase 9's baseline JPEG), plain / C++ at "
-        f"{WEBP_9E_PLAIN}^2, bytes a view, write s: " + ", ".join(
+            for k, r in webp_res["rows"].items()))
+    log(f"[done] WebP alpha phase {webp9e['phase_s']:.1f} s on {cpu}: "
+        f"{webp9e['fixtures']} fixtures; by row s/MP at {PIPE_SIZE}x{PIPE_SIZE} (x phase 9's "
+        f"baseline JPEG), plain / C++ at {WEBP_9E_PLAIN}^2, bytes a view, write s: " + ", ".join(
             f"{k} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "
             f"{r['plain_vs_cpp']:.0f}, {r['bytes_mean']:.0f}, {r['write_s']:.3f}"
             for k, r in webp9e["rows"].items())
-        + f"; train_mesh load {webp9e['load_s']:.2f} s, {webp9e['steps']} steps in "
-        f"{webp9e['train_s']:.2f} s (median {webp9e['step_ms_median']:.3f} ms)")
-    log(f"[done] TIFF layouts phase {tiff9f['phase_s']:.1f} s on {smi}, host CPU: "
-        f"{host_cpu()} (one core a call): {tiff9f['fixtures']} fixtures; by row s/MP at "
-        f"{EVAL_WIDTH}x{EVAL_HEIGHT} (x phase 9's baseline JPEG), plain / C++ at "
-        f"{CROP_9F[0]}x{CROP_9F[1]}, bytes a view, write s: " + ", ".join(
-            f"{k} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "
-            f"{r['plain_vs_cpp']:.1f}, {r['bytes_mean']:.0f}, {r['write_s']:.3f}"
-            for k, r in tiff9f["rows"].items())
-        + f"; train_mesh load {tiff9f['load_s']:.2f} s, {tiff9f['steps']} steps in "
-        f"{tiff9f['train_s']:.2f} s (median {tiff9f['step_ms_median']:.3f} ms)")
+        + f"; the Blender set's training dataset {webp9e['load_s']:.2f} s")
+    for name, r9 in (("TIFF layouts", tiff9f), ("PNM / TGA / QOI / SGI / PCX", raw9g)):
+        log(f"[done] {name} phase {r9['phase_s']:.1f} s on {cpu}: {r9['fixtures']} "
+            f"fixtures; by row s/MP at {EVAL_WIDTH}x{EVAL_HEIGHT} (x phase 9's baseline "
+            f"JPEG), plain / C++ at {CROP_9F[0]}x{CROP_9F[1]}, bytes a view (x the JPEG's), "
+            "write s: " + ", ".join(
+                f"{k} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "
+                f"{r['plain_vs_cpp']:.1f}, {r['bytes_mean']:.0f} "
+                f"({r['bytes_vs_baseline_jpeg']:.2f}x), {r['write_s']:.3f}"
+                for k, r in r9["rows"].items()))
+    log(f"[done] reader training {readers['phase_s']:.1f} s on {cpu}: views by phase "
+        f"{readers['train_views_by_phase']} ({readers['train_lossless_views']} lossless), "
+        f"train_mesh load {readers['load_s']:.2f} s, {readers['steps']} steps in "
+        f"{readers['train_s']:.2f} s (median {readers['step_ms_median']:.3f} ms)")
     log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} ("
         f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks over {shard['backend']} on cards "
         f"{shard['cards']}): native ACAP {acap['host_ms']:.1f} ms per call on the host "

@@ -25,6 +25,10 @@
 //   for `io/lzw.py`.
 // - gm_packbits_decode: TIFF's PackBits (compression 32773), `io/tiff.py`.
 // - gm_bmp_rle: a BMP's RLE8 / RLE4 pixel data, `io/bmp.py`.
+// - gm_tga_rle: a Targa file's run-length packets, `io/tga.py`.
+// - gm_qoi_decode: a QOI stream's ops, `io/qoi.py`.
+// - gm_sgi_rle: an SGI image's run-length rows, `io/sgi.py`.
+// - gm_pcx_rle: a PCX file's run-length rows, `io/pcx.py`.
 //
 // Integer arithmetic wraps as numpy's int32 does (built with -fwrapv), so
 // even out-of-range coefficients of a corrupt file give the plain
@@ -961,6 +965,183 @@ int gm_bmp_rle(const uint8_t* data, int64_t n, int64_t origin, int64_t width,
     }
   }
   *n_out = std::min(len, total);
+  return kOk;
+}
+
+// A Targa file's RLE packets (n bytes) -> out, `total` bytes of rows of
+// `row_bytes`, as PIL's TgaRleDecode walks them: a header byte h, then
+// (h & 127) + 1 pixels of `pixel_bytes` each, one pixel repeated (h >= 128)
+// or as many literal pixels. A literal packet may run on into the next
+// rows; a repeated one that would cross the end of its row is kOverflow
+// (PIL: buffer overrun). A packet whose bytes run past the data stops the
+// walk unwritten. Stops with out full; pixels of a literal packet past it
+// are read and dropped. *n_out: the bytes written.
+int gm_tga_rle(const uint8_t* data, int64_t n, int pixel_bytes, int64_t row_bytes,
+               int64_t total, uint8_t* out, int64_t* n_out) {
+  int64_t i = 0, o = 0;
+  *n_out = 0;
+  while (o < total && i < n) {
+    const int h = data[i];
+    const int64_t nb = static_cast<int64_t>((h & 127) + 1) * pixel_bytes;
+    if (h & 128) {
+      if (n - i < 1 + pixel_bytes) break;
+      if (o % row_bytes + nb > row_bytes) {
+        *n_out = o;
+        return kOverflow;
+      }
+      for (int64_t k = 0; k < nb; k += pixel_bytes)
+        std::memcpy(out + o + k, data + i + 1, pixel_bytes);
+      i += 1 + pixel_bytes;
+      o += nb;
+    } else {
+      if (n - i < 1 + nb) break;
+      const int64_t k = std::min(nb, total - o);
+      std::memcpy(out + o, data + i + 1, k);
+      i += 1 + nb;
+      o += k;
+    }
+  }
+  *n_out = o;
+  return kOk;
+}
+
+// A QOI stream's ops (n bytes after the 14-byte header) -> out, `pixels`
+// pixels of `channels` (3 or 4) bytes, as PIL's QoiDecoder reads them: the
+// previous pixel starts as (0, 0, 0, 255) and the 64-entry index as zeros;
+// RGB (0xFE) keeps the previous alpha, RGBA (0xFF), INDEX, DIFF and LUMA
+// (wrapping mod 256) each set the previous pixel and its index entry at
+// (3r + 5g + 7b + 11a) % 64; RUN repeats the previous pixel 1-62 times and
+// touches no index entry (the format's reference decoder writes one; PIL
+// does not, which differs only for a run before any other op). A 3-channel
+// image keeps an RGBA op's alpha for its hashes and drops it from out. The
+// pixels past a run that overfills out are dropped, and nothing after the
+// last pixel is read (the end marker included). An op cut by the end of
+// the data is kTruncated.
+int gm_qoi_decode(const uint8_t* data, int64_t n, int channels, int64_t pixels,
+                  uint8_t* out) {
+  uint8_t index[64][4] = {};
+  uint8_t px[4] = {0, 0, 0, 255};
+  int64_t i = 0, o = 0;
+  while (o < pixels) {
+    if (i >= n) return kTruncated;
+    const int b = data[i++];
+    if (b == 0xFE || b == 0xFF) {
+      const int k = b == 0xFE ? 3 : 4;
+      if (n - i < k) return kTruncated;
+      std::memcpy(px, data + i, k);
+      i += k;
+    } else if (b >> 6 == 0) {
+      std::memcpy(px, index[b], 4);
+    } else if (b >> 6 == 1) {
+      px[0] = static_cast<uint8_t>(px[0] + ((b >> 4) & 3) - 2);
+      px[1] = static_cast<uint8_t>(px[1] + ((b >> 2) & 3) - 2);
+      px[2] = static_cast<uint8_t>(px[2] + (b & 3) - 2);
+    } else if (b >> 6 == 2) {
+      if (i >= n) return kTruncated;
+      const int b2 = data[i++];
+      const int dg = (b & 63) - 32;
+      px[0] = static_cast<uint8_t>(px[0] + dg + (b2 >> 4) - 8);
+      px[1] = static_cast<uint8_t>(px[1] + dg);
+      px[2] = static_cast<uint8_t>(px[2] + dg + (b2 & 15) - 8);
+    } else {
+      for (int64_t r = std::min<int64_t>((b & 63) + 1, pixels - o); r > 0; --r, ++o)
+        std::memcpy(out + o * channels, px, channels);
+      continue;
+    }
+    std::memcpy(index[(px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64], px, 4);
+    std::memcpy(out + o * channels, px, channels);
+    ++o;
+  }
+  return kOk;
+}
+
+// An SGI image's RLE rows -> out, `ysize` rows of xsize * zsize samples of
+// `bpc` bytes (1, or 2 big-endian), interleaved, in stored order (bottom
+// first), as PIL's SgiRleDecode expands them. `data` is the file after its
+// 512-byte header (n bytes); starts / lengths are its tables, one entry a
+// row of each channel, channel after channel, offsets from the start of
+// the file. One row buffer serves every row, so a row's samples that its
+// data does not reach keep the row before's. Within a row's `length`
+// (counted as packets, one a byte of it, as PIL counts them) each packet
+// is a control byte (bpc 2: the low byte of a word) c: c & 127 == 0 ends
+// the row; c & 128 copies c & 127 samples, else repeats the next sample
+// c & 127 times. A control byte other than 0 on the last count stops the
+// decode there, the rows from that one on left 0 (PIL returns what it
+// has); a packet past the row's width, an offset before the header or a
+// read that reaches the last byte of the data (PIL's bound is one short)
+// is kOverflow.
+int gm_sgi_rle(const uint8_t* data, int64_t n, const uint32_t* starts,
+               const uint32_t* lengths, int64_t xsize, int64_t ysize, int zsize, int bpc,
+               uint8_t* out) {
+  const int64_t row = xsize * zsize * bpc;
+  std::vector<uint8_t> buf(row, 0);
+  const int64_t end = n - 1;             // the last byte, PIL's end_of_buffer
+  for (int64_t y = 0; y < ysize; ++y) {
+    for (int c = 0; c < zsize; ++c) {
+      const int64_t at = starts[y + c * ysize];
+      if (at < 512) return kOverflow;
+      int64_t src = at - 512, x = 0;
+      uint8_t* dest = buf.data() + c * bpc;
+      int status = 0;
+      // PIL passes the length on as a C int: one of 2^31 or more counts none
+      for (int64_t left = static_cast<int32_t>(lengths[y + c * ysize]); left > 0; --left) {
+        if (src + bpc - 1 > end) return kOverflow;
+        const int pixel = data[src + bpc - 1];
+        src += bpc;
+        if (left == 1 && pixel != 0) {
+          status = 1;
+          break;
+        }
+        const int count = pixel & 127;
+        if (count == 0) break;
+        if (x + count > xsize) return kOverflow;
+        x += count;
+        if (pixel & 128) {
+          if (src + int64_t{bpc} * count > end) return kOverflow;
+          for (int k = 0; k < count; ++k, src += bpc, dest += zsize * bpc)
+            std::memcpy(dest, data + src, bpc);
+        } else {
+          if (src + (bpc - 1) * 2 > end) return kOverflow;
+          for (int k = 0; k < count; ++k, dest += zsize * bpc)
+            std::memcpy(dest, data + src, bpc);
+          src += bpc;
+        }
+      }
+      if (status) return kOk;
+    }
+    std::memcpy(out + y * row, buf.data(), row);
+  }
+  return kOk;
+}
+
+// A PCX file's RLE data (n bytes) -> out, `rows` rows of `row_bytes`, as
+// PIL's PcxDecode walks it: a byte b >= 0xC0 repeats the next byte b & 63
+// times (0 writes nothing), any other byte is itself. A run that would
+// cross the end of its row is kOverflow (PIL: buffer overrun); a run cut
+// by the end of the data stops the walk. *n_out: the bytes written.
+int gm_pcx_rle(const uint8_t* data, int64_t n, int64_t row_bytes, int64_t rows,
+               uint8_t* out, int64_t* n_out) {
+  const int64_t total = row_bytes * rows;
+  int64_t i = 0, o = 0;
+  *n_out = 0;
+  while (o < total && i < n) {
+    const int b = data[i];
+    if ((b & 0xC0) == 0xC0) {
+      if (n - i < 2) break;
+      const int64_t count = b & 63;
+      if (o % row_bytes + count > row_bytes) {
+        *n_out = o;
+        return kOverflow;
+      }
+      std::memset(out + o, data[i + 1], count);
+      o += count;
+      i += 2;
+    } else {
+      out[o++] = static_cast<uint8_t>(b);
+      ++i;
+    }
+  }
+  *n_out = o;
   return kOk;
 }
 

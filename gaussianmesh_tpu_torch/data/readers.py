@@ -12,14 +12,19 @@ truncate as the JAX package's do), masks are float32.
 
 Images are read by the port's own codecs (`io/png.py::read_image`:
 `io/jpeg.py`, the PNG path, `io/bmp.py`, `io/tiff.py`, `io/gif.py`,
-`io/webp.py`) and resized by `io/resample.py`, where the JAX reader uses
-PIL: the same arrays, bit for bit, for the images PIL reads, with four
+`io/webp.py`, `io/pnm.py`, `io/qoi.py`, `io/sgi.py`, `io/pcx.py`,
+`io/tga.py`) and resized by `io/resample.py`, where the JAX reader uses
+PIL: the same arrays, bit for bit, for the images PIL reads, with these
 repairs: palette images expand to their colours (faults B6, B15), 16-bit
-gray keeps its high byte (`io/png.py`), gray + alpha (2 channels) is taken
-as PIL's `convert("RGBA")` gives it, gray in R, G and B and the alpha a
-mask (fault A2: the JAX reader keeps the two channels as colours), and a
-CMYK or YCCK JPEG or a CMYK TIFF comes as PIL's `convert("RGB")` of it, 3
-channels and no mask (fault B14: the JAX reader takes K as the alpha).
+gray keeps its high byte (`io/png.py`; a PGM of maxval over 255 too,
+fault B19: the JAX reader divides PIL's 0-65535 by 255), gray + alpha (2
+channels) is taken as PIL's `convert("RGBA")` gives it, gray in R, G and B
+and the alpha a mask (fault A2: the JAX reader keeps the two channels as
+colours), a CMYK or YCCK JPEG or a CMYK TIFF comes as PIL's
+`convert("RGB")` of it, 3 channels and no mask (fault B14: the JAX reader
+takes K as the alpha), and a TGA whose descriptor counts no alpha bits
+comes with no alpha and so no mask (fault B20: PIL takes its fourth byte
+or bit 15 as alpha, and the JAX reader masks the view with it).
 """
 
 from __future__ import annotations

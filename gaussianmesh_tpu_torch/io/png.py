@@ -8,9 +8,11 @@ and Paeth; Adam7 interlace) to uint8 arrays: (H, W) for gray, (H, W, C)
 otherwise. 16-bit samples keep their high byte and palette images expand
 to RGB or RGBA (the JAX reader's PIL path gives 16-bit gray unscaled and
 palette indices). `read_image` reads a JPEG (`io/jpeg.py`), a PNG, a BMP
-(`io/bmp.py`), a TIFF (`io/tiff.py`), a GIF (`io/gif.py`) or a WebP
-(`io/webp.py`: lossy, lossless, with alpha, an animation's first frame) by
-its first bytes. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
+(`io/bmp.py`), a TIFF (`io/tiff.py`), a GIF (`io/gif.py`), a WebP
+(`io/webp.py`: lossy, lossless, with alpha, an animation's first frame), a
+PNM (`io/pnm.py`), a QOI (`io/qoi.py`), an SGI (`io/sgi.py`), a PCX
+(`io/pcx.py`) or a TGA (`io/tga.py`) by its first bytes, TGA (no magic)
+as PIL tries it, after the others. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
 with filter type 0 on every row, and `write_png` writes what it returns.
 
 The row filters are undone by the port's C++ (`gm_png_unfilter` of
@@ -31,6 +33,11 @@ import numpy as np
 from gaussianmesh_tpu_torch.io.bmp import BMP_MAGIC, read_bmp
 from gaussianmesh_tpu_torch.io.gif import GIF_MAGICS, read_gif
 from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
+from gaussianmesh_tpu_torch.io.pcx import pcx_accept, pcx_size_ok, read_pcx
+from gaussianmesh_tpu_torch.io.pnm import is_pnm, read_pnm
+from gaussianmesh_tpu_torch.io.qoi import QOI_MAGIC, read_qoi
+from gaussianmesh_tpu_torch.io.sgi import SGI_MAGIC, read_sgi
+from gaussianmesh_tpu_torch.io.tga import read_tga, tga_header
 from gaussianmesh_tpu_torch.io.tiff import TIFF_HEADS, read_tiff
 from gaussianmesh_tpu_torch.io.webp import read_webp
 from gaussianmesh_tpu_torch.ops import _cuda
@@ -220,13 +227,32 @@ def _decode(data: bytes, path: str, unfilter) -> np.ndarray:
     return img[..., 0].copy() if c == 1 else np.ascontiguousarray(img)
 
 
+# PIL plugins tried before TGA (it has no magic) that take some headers TGA's
+# checks pass: (format, its `_accept`). CUR gives way where it finds no
+# cursor (PIL's TypeError), as PIL then goes on to the next format.
+_BEFORE_TGA = (
+    ("CUR", lambda h: h[:4] == b"\0\0\2\0" and h[4:6] != b"\0\0"),
+    ("ICO", lambda h: h[:4] == b"\0\0\1\0"),
+    ("FLI", lambda h: len(h) >= 16 and h[4:6] in (b"\x11\xaf", b"\x12\xaf")
+     and h[14:16] in (b"\0\0", b"\3\0")),
+    ("GBR", lambda h: int.from_bytes(h[:4], "big") >= 20
+     and int.from_bytes(h[4:8], "big") in (1, 2)),
+    ("MPEG", lambda h: h[:4] == b"\0\0\1\xb3"),
+)
+FORMATS = ("JPEG", "PNG", "BMP", "TIFF", "GIF", "WebP", "PNM", "QOI", "SGI", "PCX", "TGA")
+
+
 def read_image(path: str) -> np.ndarray:
-    """A dataset image, JPEG, PNG, BMP, TIFF, GIF or WebP (lossy, lossless,
-    with alpha, an animation's first frame) by its first bytes ->
-    `read_jpeg`'s, `read_png`'s, `read_bmp`'s, `read_tiff`'s, `read_gif`'s
-    or `read_webp`'s array."""
+    """A dataset image by its first bytes: JPEG, PNG, BMP, TIFF, GIF, WebP
+    (lossy, lossless, with alpha, an animation's first frame), PNM (P1-P6),
+    QOI, SGI or PCX by their magics (no two share one; PCX's as PIL takes
+    it, from 68 bytes on), then TGA, which has none, as PIL tries it: only
+    where no format PIL tries first takes the file and TGA's header checks
+    pass -> `read_jpeg`'s, `read_png`'s, `read_bmp`'s, `read_tiff`'s,
+    `read_gif`'s, `read_webp`'s, `read_pnm`'s, `read_qoi`'s, `read_sgi`'s,
+    `read_pcx`'s or `read_tga`'s array."""
     with open(path, "rb") as f:
-        head = f.read(12)
+        head = f.read(68)
     if head[:3] == JPEG_MAGIC:
         return read_jpeg(path)
     if head[:8] == PNG_MAGIC:
@@ -239,4 +265,18 @@ def read_image(path: str) -> np.ndarray:
         return read_gif(path)
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return read_webp(path)
-    raise ValueError(f"{path}: not a JPEG, PNG, BMP, TIFF, GIF or WebP")
+    if is_pnm(head):
+        return read_pnm(path)
+    if head[:4] == QOI_MAGIC:
+        return read_qoi(path)
+    if head[:2] == SGI_MAGIC:
+        return read_sgi(path)
+    if pcx_accept(head) and len(head) == 68 and pcx_size_ok(head):
+        return read_pcx(path)
+    if tga_header(head) is not None:
+        taken = [name for name, accept in _BEFORE_TGA if accept(head)]
+        if taken:
+            raise ValueError(f"{path}: a TGA header that PIL takes for a {taken[0]} file "
+                             "first; not read")
+        return read_tga(path)
+    raise ValueError(f"{path}: not a {', '.join(FORMATS[:-1])} or {FORMATS[-1]}")

@@ -95,6 +95,14 @@ HOST_LIBRARIES = {
         "gm_packbits_decode": [_P, _L, _P, _L, _P],
         # data, n, origin, width, height, rle4, out, n_out
         "gm_bmp_rle": [_P, _L, _L, _L, _L, _I, _P, _P],
+        # data, n, pixel_bytes, row_bytes, total, out, n_out
+        "gm_tga_rle": [_P, _L, _I, _L, _L, _P, _P],
+        # data, n, channels, pixels, out
+        "gm_qoi_decode": [_P, _L, _I, _L, _P],
+        # data, n, starts, lengths, xsize, ysize, zsize, bpc, out
+        "gm_sgi_rle": [_P, _L, _P, _P, _L, _L, _I, _I, _P],
+        # data, n, row_bytes, rows, out, n_out
+        "gm_pcx_rle": [_P, _L, _L, _L, _P, _P],
     },
     "vp8": {
         # frame, n, y, u, v, info

@@ -20,7 +20,8 @@ import torch
 from PIL import Image
 
 from gaussianmesh_tpu_torch.data import cameras, readers
-from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, lzw, png, resample, tiff, webp
+from gaussianmesh_tpu_torch.io import (bmp, gif, jpeg, lzw, pcx, png, pnm, qoi, resample, sgi,
+                                      tga, tiff, webp)
 from gaussianmesh_tpu_torch.ops import _cuda
 from tests.test_torch_jpeg import _image as _jpeg_image, _segment, _segments
 from tests.test_torch_readers import ADAM7, _blender_set, _chunk, _jpeg_colmap_set
@@ -430,16 +431,30 @@ def _webp_set(root):
     return root
 
 
+def _raw_set(root):
+    """`_jpeg_colmap_set` with its views as RLE TGA, QOI, RLE SGI, PCX and
+    PPM, in turn."""
+    root = _jpeg_colmap_set(root)
+    writers = (lambda p, img: tga.write_tga(p, img, rle=True), qoi.write_qoi,
+               lambda p, img: sgi.write_sgi(p, img, rle=True), pcx.write_pcx, pnm.write_pnm)
+    for i, name in enumerate(sorted(os.listdir(f"{root}/images"))):
+        path = f"{root}/images/{name}"
+        writers[i % 5](path, jpeg.read_jpeg(path))
+    return root
+
+
 def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
     resize), of the same set with progressive JPEGs, of a Blender set of
     PIL-filtered RGBA PNGs at -r 2, of the COLMAP set in LZW and PackBits
-    TIFF, GIF and RLE BMP views, and of it in lossy WebP views, with every
-    plain piece made to raise: the same scenes as before."""
+    TIFF, GIF and RLE BMP views, of it in lossy WebP views and of it in RLE
+    TGA, QOI, RLE SGI, PCX and PPM views, with every plain piece made to
+    raise: the same scenes as before."""
     colmap_root = _jpeg_colmap_set(tmp_path / "c")
     prog_root = _jpeg_colmap_set(tmp_path / "p")
     new_root = _new_forms_set(tmp_path / "n")
     webp_root = _webp_set(tmp_path / "w")
+    raw_root = _raw_set(tmp_path / "r")
     for name in os.listdir(f"{prog_root}/images"):
         path = f"{prog_root}/images/{name}"
         Image.open(path).save(path, "JPEG", quality=90, progressive=True)
@@ -452,7 +467,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
               readers.read_scene(prog_root, resolution=-1, **kw),
               readers.read_scene(blender_root, resolution=2, eval_split=True),
               readers.read_scene(new_root, resolution=-1, **kw),
-              readers.read_scene(webp_root, resolution=-1, **kw))
+              readers.read_scene(webp_root, resolution=-1, **kw),
+              readers.read_scene(raw_root, resolution=-1, **kw))
 
     def plain(*_a, **_k):
         raise AssertionError("a plain version was called")
@@ -465,14 +481,17 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
                        (tiff, ("packbits_decode_plain",)), (bmp, ("_rle_plain",)),
                        (webp, ("vp8_decode_plain", "yuv_to_rgb_plain", "decode_webp_plain",
                                "_Bits", "_coeffs_plain", "_reconstruct_plain",
-                               "_filter_plain"))):
+                               "_filter_plain")),
+                       (tga, ("_rle_plain",)), (qoi, ("_ops_plain",)), (sgi, ("_rle_plain",)),
+                       (pcx, ("_rle_plain",))):
         for name in names:
             monkeypatch.setattr(mod, name, plain)
     after = (readers.read_scene(colmap_root, resolution=-1, **kw),
              readers.read_scene(prog_root, resolution=-1, **kw),
              readers.read_scene(blender_root, resolution=2, eval_split=True),
              readers.read_scene(new_root, resolution=-1, **kw),
-             readers.read_scene(webp_root, resolution=-1, **kw))
+             readers.read_scene(webp_root, resolution=-1, **kw),
+             readers.read_scene(raw_root, resolution=-1, **kw))
     for a, b in zip(before, after):
         for ca, cb in zip(a.train_cameras + a.test_cameras, b.train_cameras + b.test_cameras):
             assert np.array_equal(ca.image, cb.image) and np.array_equal(ca.mask, cb.mask)

@@ -104,8 +104,8 @@ def test_png_decodes_every_filter_as_pil(tmp_path, c):
 def test_unsupported_images_raise(tmp_path):
     """What PIL would not read either raises with a message naming the
     cause: a bit depth the color type does not allow, a palette PNG without
-    its palette, a file that is no JPEG, PNG, BMP, TIFF, GIF or WebP (a
-    PPM), a lossless JPEG (SOF3)."""
+    its palette, a file of no format the port reads (an XBM), a lossless
+    JPEG (SOF3)."""
     bad = str(tmp_path / "bad.png")
     with open(bad, "wb") as fh:
         fh.write(png.PNG_MAGIC
@@ -122,9 +122,10 @@ def test_unsupported_images_raise(tmp_path):
         fh.write(data[:i] + data[i + 12 + struct.unpack(">I", data[i:i + 4])[0]:])
     with pytest.raises(ValueError, match="PLTE"):
         png.read_png(pal)
-    other = str(tmp_path / "x.ppm")
-    Image.fromarray(_image(3)).save(other)
-    with pytest.raises(ValueError, match="not a JPEG, PNG, BMP, TIFF, GIF or WebP"):
+    other = str(tmp_path / "x.xbm")
+    Image.fromarray(_image(3)).convert("1").save(other)
+    with pytest.raises(ValueError, match="not a JPEG, PNG, BMP, TIFF, GIF, WebP, PNM, QOI, "
+                                         "SGI, PCX or TGA"):
         png.read_image(other)
     lossless = str(tmp_path / "l.jpg")
     Image.fromarray(_image(3)).save(lossless)
