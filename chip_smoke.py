@@ -228,9 +228,30 @@ Phases (any failure raises, so the exit code is not 0):
    to phase 9's baseline JPEG in the same run, plain / C++, bytes a view and
    their ratio to phase 9's JPEG files, and write s by row beside the card's
    name and power limit and the host's CPU.
+9i. DIB, ICO, CUR, DCX and ICNS: first the fixtures of
+   `tests/data/containers/` (PIL-written files and the forms PIL reads and
+   does not write, with the SHA-256 and shape of PIL's array under the
+   port's rule: B15, B16, B23; recorded on a machine with PIL by
+   `tools/make_container_fixtures_torch.py`): `read_image` and the plain
+   route give the recorded digests, and `gm_icns_rle` its plain walk's
+   planes on the ICNS fixtures that hold run-length images (plain / C++
+   printed). Then phase 9's 24 views written in the rows of CONTAINERS_9I
+   (`io/bmp.py`, `io/ico.py`, `io/pcx.py` writers): 24-bit DIBs, 32-bit
+   BI_BITFIELDS RGBA DIBs, ICOs of a PNG frame whose directory says 0 x 0
+   (RGB and RGBA), of a 32-bit BMP frame, of a 24-bit one with an AND mask
+   (the ellipse inscribed in the view opaque), of an 8-bit palette one
+   (B15) and of a 32-bit one whose fourth bytes are 0 (B23), 24-bit CURs,
+   and DCXs of two 8 x 3 pages. Each view decodes by `read_image` to the
+   samples written (a palette view to its expansion, a masked or B23 view
+   to the mask's 0 / 255 alpha); the CROP_9F centre of one view a row
+   decodes through the plain route to the C++'s bytes; s / MP, its ratio
+   to phase 9's baseline JPEG in the same run, plain / C++, bytes a view
+   and their ratio to phase 9's JPEG files, and write s by row beside the
+   card's name and power limit and the host's CPU. ICNS holds no 1080p
+   view, so it is checked on its fixtures only.
 9h. the reader phases' shared training: one COLMAP scene of phase 9's 24
-   cameras whose view i is the file phase READER_PHASES[i % 5] (9b, 9c, 9d,
-   9f, 9g) wrote for it; `cli.train_mesh --device cuda` on it for
+   cameras whose view i is the file phase READER_PHASES[i % 6] (9b, 9c, 9d,
+   9f, 9g, 9i) wrote for it; `cli.train_mesh --device cuda` on it for
    PROGRESSIVE_ITERS steps with phase 9's shrunk schedule and capacities:
    K1, K2 and K3 once a step (counters set to 0 just before, read just
    after), finite losses and parameters, no overflow, the cameras equal to
@@ -487,9 +508,14 @@ RAW_9G = (("ppm_p6", 3), ("ppm_p3_ascii", 1), ("pgm_p5_16bit_b19", 1),
           ("tga_rle_colormapped_b15", 2), ("tga_raw32_0alpha_b20", 1), ("qoi_rgb", 4),
           ("qoi_rgba", 1), ("sgi_rle8", 2), ("sgi_verbatim16", 1), ("pcx_8x3", 2),
           ("pcx_8x1_palette_b15", 2))
+# phase 9i: phase 9's views in DIB, ICO, CUR and DCX containers, (row, views) in turn
+CONTAINERS_9I = (("dib_24bit", 3), ("dib_32bit_bitfields_rgba", 2), ("ico_png_0x0_rgb", 3),
+                 ("ico_png_0x0_rgba", 2), ("ico_bmp_32bit", 2), ("ico_bmp_24bit_and_mask", 3),
+                 ("ico_bmp_8bit_b15", 2), ("ico_bmp_32bit_zero_alpha_b23", 2),
+                 ("cur_24bit", 3), ("dcx_two_8x3_pages", 2))
 # the reader phases' shared training: view i of phase 9's scene from the file of the
-# phase READER_PHASES[i % 5] wrote for it
-READER_PHASES = ("9b", "9c", "9d", "9f", "9g")
+# phase READER_PHASES[i % 6] wrote for it
+READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i")
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -3224,6 +3250,163 @@ def phase_raw_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
     return res, expected
 
 
+# ------------------------------------------------------------------ phase 9i
+
+def container_fixtures(port):
+    """Phase 9i's fixtures (`tests/data/containers/`) -> ({name: the C++
+    decode's s}, plain / C++ of the ICNS run-length walk on the fixtures
+    that hold one): each gives its recorded digest and shape through
+    `read_image` and the plain route."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                        "containers")
+    with open(os.path.join(here, "digests.json")) as fh:
+        table = json.load(fh)
+    if len(table) < 30:
+        raise AssertionError(f"{here}: {len(table)} DIB / ICO / CUR / DCX / ICNS fixtures")
+    out, walks = {}, []
+    for name, want in sorted(table.items()):
+        path = os.path.join(here, name)
+        got, t = timed(port.png.read_image, path)
+        for route, a in (("C++", got), ("plain", decode_plain_9i(port, path))):
+            if (hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() != want["array"]
+                    or list(a.shape) != want["shape"]):
+                raise AssertionError(f"{name}: the {route} decode differs from the recorded "
+                                     "digest")
+        out[name] = t
+        with open(path, "rb") as fh:
+            data = fh.read()
+        for code, (start, length) in (port.icns.blocks(data).items() if name.endswith(
+                ".icns") else ()):
+            side = port.icns.LEGACY_SIZES.get(code)
+            if code.endswith(b"32") and length != 3 * side[0] * side[1] + 4 * (code == b"it32"):
+                start += 4 * (code == b"it32")
+                cpp, t_cpp = timed(port.icns._rle, data[start:], side[0] * side[1])
+                plain, t_plain = timed(port.icns._rle_plain, data[start:], side[0] * side[1])
+                if cpp[1:] != plain[1:] or not np.array_equal(cpp[0], plain[0]):
+                    raise AssertionError(f"{name}: gm_icns_rle differs from its plain walk")
+                walks.append(t_plain / t_cpp)
+    if not walks:
+        raise AssertionError("no ICNS fixture holds a run-length image")
+    return out, float(np.median(walks))
+
+
+def decode_plain_9i(port, path):
+    """A 9i file through the plain route."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    return {".dib": port.bmp.decode_dib_plain, ".ico": port.ico.decode_ico_plain,
+            ".cur": port.ico.decode_cur_plain, ".dcx": port.pcx.decode_dcx_plain,
+            ".icns": port.icns.decode_icns_plain}[os.path.splitext(path)[1]](data, path)
+
+
+def mask_9i(h, w):
+    """The AND mask of phase 9i's icons: 1 (transparent) outside the
+    ellipse inscribed in the view."""
+    y, x = np.mgrid[0:h, 0:w]
+    return ((x - w / 2) / (w / 2)) ** 2 + ((y - h / 2) / (h / 2)) ** 2 > 1.0
+
+
+def write_9i_view(port, row, path, img):
+    """View `img` written as row `row` of CONTAINERS_9I -> (what
+    `read_image` must give, the writer's s)."""
+    t0 = time.perf_counter()
+    h, w = img.shape[:2]
+    mask = mask_9i(h, w)
+    masked = np.concatenate([img, np.where(mask, 0, 255).astype(np.uint8)[..., None]], 2)
+    rgba = np.concatenate([img, np.where(mask, 96, 255).astype(np.uint8)[..., None]], 2)
+    want = img
+    if row == "dib_24bit":
+        port.bmp.write_dib(path, img)
+    elif row == "dib_32bit_bitfields_rgba":
+        want = rgba
+        port.bmp.write_dib(path, rgba, bitfields=True)
+    elif row.startswith("ico_png"):
+        want = rgba if row.endswith("rgba") else img
+        port.ico.write_ico(path, [dict(img=want, form="png", size=(0, 0))])
+    elif row == "ico_bmp_32bit":
+        want = rgba
+        port.ico.write_ico(path, [dict(img=rgba)])
+    elif row == "ico_bmp_24bit_and_mask":
+        want = masked
+        port.ico.write_ico(path, [dict(img=img, mask=mask)])
+    elif row == "ico_bmp_8bit_b15":
+        pal, idx = fixed_palette(LEVELS_256), quantize(img, LEVELS_256)
+        want = np.concatenate([pal[idx], masked[..., 3:]], 2)
+        port.ico.write_ico(path, [dict(img=idx, palette=pal, mask=mask)])
+    elif row == "ico_bmp_32bit_zero_alpha_b23":
+        want = masked
+        zero = np.concatenate([img, np.zeros((h, w, 1), np.uint8)], 2)
+        port.ico.write_ico(path, [dict(img=zero, mask=mask)])
+    elif row == "cur_24bit":
+        port.ico.write_ico(path, [dict(img=img, mask=mask)], cursor=True)
+    else:
+        port.pcx.write_dcx(path, [img, img[::4, ::4]])
+    return want, time.perf_counter() - t0
+
+
+def phase_container_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
+    """Phase 9i (see the module docstring) on phase 9's `scene` ->
+    (results, {view: (file, None or its decode)} for the shared training)."""
+    t_phase = time.perf_counter()
+    fixtures, icns_walk = container_fixtures(port)
+    log(f"[cont9i] {len(fixtures)} fixtures decode to their recorded digests through the "
+        f"C++ and the plain route; ICNS run-length walk plain / C++ {icns_walk:.1f}")
+    root = os.path.join(tmpdir, "cont9i_data")
+    os.makedirs(root)
+    rows = [r for r, n in CONTAINERS_9I for _ in range(n)]
+    assert len(rows) == len(scene["cams"]), (len(rows), len(scene["cams"]))
+    stats = {r: {"decode": [], "write": [], "bytes": [], "jpeg_bytes": []}
+             for r, _ in CONTAINERS_9I}
+    expected, small = {}, {}
+    for i, row in enumerate(rows):
+        src = os.path.join(scene["root"], "images", f"{i:03d}.jpg")
+        base = port.jpeg.read_jpeg(src)
+        ext = "." + row[:3]
+        path = os.path.join(root, f"{i:03d}{ext}")
+        want, t = write_9i_view(port, row, path, base)
+        st = stats[row]
+        st["write"].append(t)
+        st["bytes"].append(os.path.getsize(path))
+        st["jpeg_bytes"].append(os.path.getsize(src))
+        got, t = timed(port.png.read_image, path)
+        st["decode"].append(t)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"view {i} ({row}) decodes to other bytes than were written")
+        expected[i] = (path, None if np.array_equal(got, base) else got)
+        if row not in small:
+            cpath = os.path.join(tmpdir, "cont9i_crop" + ext)
+            write_9i_view(port, row, cpath, centre_crop(base))
+            cpp, t_cpp = timed(port.png.read_image, cpath)
+            plain, t_plain = timed(decode_plain_9i, port, cpath)
+            if cpp.shape != plain.shape or not np.array_equal(cpp, plain):
+                raise AssertionError(f"{row}: the plain decode of a {CROP_9F} crop differs "
+                                     "from the C++ one")
+            small[row] = (t_cpp, t_plain)
+    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
+    by_row = {}
+    for row, _ in CONTAINERS_9I:
+        st = stats[row]
+        dec = float(np.median(st["decode"])) / megapixels
+        by_row[row] = dict(views=len(st["bytes"]), decode_s_per_mp=dec,
+                           decode_vs_baseline_jpeg=dec / jpeg_s_per_mp,
+                           plain_vs_cpp=small[row][1] / small[row][0],
+                           bytes_mean=float(np.mean(st["bytes"])),
+                           bytes_vs_baseline_jpeg=float(np.sum(st["bytes"])
+                                                        / np.sum(st["jpeg_bytes"])),
+                           write_s=float(np.median(st["write"])))
+        r = by_row[row]
+        log(f"[cont9i] {row}: {r['views']} views at {EVAL_WIDTH}x{EVAL_HEIGHT}, "
+            f"{r['bytes_mean']:.0f} bytes each ({r['bytes_vs_baseline_jpeg']:.2f}x phase 9's "
+            f"JPEG files of the same views); decode {r['decode_s_per_mp']:.4f} s/MP "
+            f"({r['decode_vs_baseline_jpeg']:.2f}x phase 9's baseline JPEG); plain / C++ at "
+            f"{CROP_9F[0]}x{CROP_9F[1]} {r['plain_vs_cpp']:.1f}; write {r['write_s']:.3f} s "
+            "a view")
+    res = dict(rows=by_row, fixtures=len(fixtures), icns_rle_plain_vs_cpp=icns_walk,
+               phase_s=time.perf_counter() - t_phase)
+    log("[cont9i] " + json.dumps(res))
+    return res, expected
+
+
 # ------------------------------------------------------ the readers' training
 
 def loaded_target(torch, port, decoded, size):
@@ -3238,7 +3421,7 @@ def loaded_target(torch, port, decoded, size):
 
 def phase_reader_training(torch, port, scene, views, tmpdir):
     """The reader phases' shared training (see the module docstring): view i
-    of phase 9's scene from the file phase READER_PHASES[i % 5] wrote for it
+    of phase 9's scene from the file phase READER_PHASES[i % 6] wrote for it
     (`views`: {phase: {view: (file, None where it decodes to phase 9's
     baseline decode, else its decode)}}) -> (results, launches)."""
     t_phase = time.perf_counter()
@@ -4496,6 +4679,7 @@ def load_port():
     from gaussianmesh_tpu_torch.eval import lpips
     from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, resample, tiff, vp8l, webp
     from gaussianmesh_tpu_torch.io import pcx, pnm, qoi, sgi, tga
+    from gaussianmesh_tpu_torch.io import icns, ico
     from gaussianmesh_tpu_torch.train import loss
 
     from gaussianmesh_tpu_torch import viewer
@@ -4518,7 +4702,7 @@ def load_port():
         colmap=colmap, bg_trainer=bg_trainer, cli_full_eval=cli_full_eval,
         cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss,
         tiff=tiff, gif=gif, bmp=bmp, webp=webp, vp8l=vp8l, pnm=pnm, tga=tga, qoi=qoi,
-        sgi=sgi, pcx=pcx,
+        sgi=sgi, pcx=pcx, ico=ico, icns=icns,
         gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
@@ -4566,6 +4750,8 @@ def main() -> int:
                                                         jpeg_s_per_mp, tmpdir)
         raw9g, reader_views["9g"] = phase_raw_formats(torch, port, eval_scene,
                                                       jpeg_s_per_mp, tmpdir)
+        cont9i, reader_views["9i"] = phase_container_formats(torch, port, eval_scene,
+                                                             jpeg_s_per_mp, tmpdir)
         readers, readers_launches = phase_reader_training(torch, port, eval_scene,
                                                           reader_views, tmpdir)
         del eval_scene, reader_views
@@ -4649,9 +4835,12 @@ def main() -> int:
             f"{r['plain_vs_cpp']:.0f}, {r['bytes_mean']:.0f}, {r['write_s']:.3f}"
             for k, r in webp9e["rows"].items())
         + f"; the Blender set's training dataset {webp9e['load_s']:.2f} s")
-    for name, r9 in (("TIFF layouts", tiff9f), ("PNM / TGA / QOI / SGI / PCX", raw9g)):
+    for name, r9 in (("TIFF layouts", tiff9f), ("PNM / TGA / QOI / SGI / PCX", raw9g),
+                     ("DIB / ICO / CUR / DCX / ICNS", cont9i)):
+        walk = (f" (ICNS run-length walk plain / C++ {r9['icns_rle_plain_vs_cpp']:.1f})"
+                if "icns_rle_plain_vs_cpp" in r9 else "")
         log(f"[done] {name} phase {r9['phase_s']:.1f} s on {cpu}: {r9['fixtures']} "
-            f"fixtures; by row s/MP at {EVAL_WIDTH}x{EVAL_HEIGHT} (x phase 9's baseline "
+            f"fixtures{walk}; by row s/MP at {EVAL_WIDTH}x{EVAL_HEIGHT} (x phase 9's baseline "
             f"JPEG), plain / C++ at {CROP_9F[0]}x{CROP_9F[1]}, bytes a view (x the JPEG's), "
             "write s: " + ", ".join(
                 f"{k} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "

@@ -29,6 +29,7 @@
 // - gm_qoi_decode: a QOI stream's ops, `io/qoi.py`.
 // - gm_sgi_rle: an SGI image's run-length rows, `io/sgi.py`.
 // - gm_pcx_rle: a PCX file's run-length rows, `io/pcx.py`.
+// - gm_icns_rle: an icns legacy image's run-length planes, `io/icns.py`.
 //
 // Integer arithmetic wraps as numpy's int32 does (built with -fwrapv), so
 // even out-of-range coefficients of a corrupt file give the plain
@@ -57,6 +58,7 @@ constexpr int kPastTable = 7;       // an LZW code past the table's next free en
 constexpr int kOverflow = 8;        // decoded data past the size of the strip or frame
 constexpr int kBadLiteral = 9;      // an LZW encoder's input byte of min_bits or more bits
 constexpr int kNoRoom = 10;         // an LZW encoder's output past its buffer
+constexpr int kChannelLeft = 11;    // an icns plane's count not met exactly
 
 constexpr int kLzwMaxBits = 12;     // LZW codes of 12 bits, a table of 4,096 entries
 constexpr int kLzwTable = 1 << kLzwMaxBits;
@@ -1142,6 +1144,54 @@ int gm_pcx_rle(const uint8_t* data, int64_t n, int64_t row_bytes, int64_t rows,
     }
   }
   *n_out = o;
+  return kOk;
+}
+
+// An icns legacy image's three planes (R, G, B), run-length coded as
+// PIL's `IcnsImagePlugin.read_32` walks them from data[0:n): a control byte
+// c of 0x80 or more repeats the next byte c - 125 times, any other is
+// followed by c + 1 literal bytes; a plane ends once its count of `sizesq`
+// bytes is met or passed, or at the end of the data, and the next plane
+// starts at the byte after. out: 3 * sizesq bytes, plane after plane.
+// Returns kOk; kChannelLeft where a plane's count ends other than at 0
+// (PIL: "Error reading channel"; info[1] the bytes left, negative past
+// the plane's end); kTruncated where a count is met with the data ended
+// inside a run (PIL: the plane's buffer is not large enough). info[0]:
+// the plane that failed (0 on success), info[2]: the bytes walked.
+int gm_icns_rle(const uint8_t* data, int64_t n, int64_t sizesq, uint8_t* out,
+                int64_t* info) {
+  int64_t i = 0;
+  info[0] = info[1] = 0;
+  for (int plane = 0; plane < 3; ++plane) {
+    uint8_t* dest = out + plane * sizesq;
+    int64_t left = sizesq, got = 0;
+    while (left > 0 && i < n) {
+      const int c = data[i++];
+      int64_t count, have;
+      if (c & 0x80) {
+        count = c - 125;
+        have = i < n ? count : 0;
+        if (have) {
+          const int64_t room = std::max<int64_t>(0, std::min(have, sizesq - got));
+          std::memset(dest + got, data[i++], room);
+        }
+      } else {
+        count = c + 1;
+        have = std::min(count, n - i);
+        const int64_t room = std::max<int64_t>(0, std::min(have, sizesq - got));
+        std::memcpy(dest + got, data + i, room);
+        i += have;
+      }
+      got += have;
+      left -= count;
+    }
+    info[0] = plane;
+    info[1] = left;
+    info[2] = i;
+    if (left != 0) return kChannelLeft;
+    if (got != sizesq) return kTruncated;
+  }
+  info[0] = info[1] = 0;
   return kOk;
 }
 

@@ -13,7 +13,7 @@ truncate as the JAX package's do), masks are float32.
 Images are read by the port's own codecs (`io/png.py::read_image`:
 `io/jpeg.py`, the PNG path, `io/bmp.py`, `io/tiff.py`, `io/gif.py`,
 `io/webp.py`, `io/pnm.py`, `io/qoi.py`, `io/sgi.py`, `io/pcx.py`,
-`io/tga.py`) and resized by `io/resample.py`, where the JAX reader uses
+`io/ico.py`, `io/icns.py`, `io/tga.py`) and resized by `io/resample.py`, where the JAX reader uses
 PIL: the same arrays, bit for bit, for the images PIL reads, with these
 repairs: palette images expand to their colours (faults B6, B15), 16-bit
 gray keeps its high byte (`io/png.py`; a PGM of maxval over 255 too,
@@ -24,7 +24,10 @@ colours), a CMYK or YCCK JPEG or a CMYK TIFF comes as PIL's
 `convert("RGB")` of it, 3 channels and no mask (fault B14: the JAX reader
 takes K as the alpha), and a TGA whose descriptor counts no alpha bits
 comes with no alpha and so no mask (fault B20: PIL takes its fourth byte
-or bit 15 as alpha, and the JAX reader masks the view with it).
+or bit 15 as alpha, and the JAX reader masks the view with it), and a
+32-bit icon frame whose every fourth byte is 0 takes its alpha from its
+AND mask (fault B23: PIL gives it alpha 0 everywhere, and the JAX reader
+masks the whole view out).
 """
 
 from __future__ import annotations

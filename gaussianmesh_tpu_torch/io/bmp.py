@@ -3,7 +3,11 @@ JAX reader opens dataset images with PIL; the machines the port runs on
 have none).
 
 `read_bmp` reads Windows bitmaps with a 40-, 52-, 56-, 108- or 124-byte
-header, rows bottom-up or top-down, each padded to 4 bytes:
+header, rows bottom-up or top-down, each padded to 4 bytes; `read_dib` the
+same bitmaps without the 14-byte file header (PIL's DIB), the pixels
+found after the header, its bit-field masks and its palette as PIL finds
+them; `bitmap` serves both and the frames of icons and cursors
+(`io/ico.py`):
 
 - 24-bit (BI_RGB, or BI_BITFIELDS with PIL's BGR masks) -> (H, W, 3) RGB;
 - 32-bit BI_RGB -> RGB: PIL drops the fourth byte;
@@ -33,7 +37,8 @@ black-and-white palette on pixels of other widths, which PIL unpacks as
 
 `encode_bmp` / `write_bmp` write 1-, 4- and 8-bit palette bitmaps,
 uncompressed or RLE4 / RLE8, for the tests and `chip_smoke.py` (PIL writes neither RLE nor 4-bit BMPs); the training path
-does not write BMPs.
+does not write BMPs. `encode_dib` / `write_dib` write 24- and 32-bit DIBs,
+BI_RGB or (RGBA) BI_BITFIELDS, for the same callers.
 """
 
 from __future__ import annotations
@@ -44,9 +49,12 @@ import struct
 import numpy as np
 
 from gaussianmesh_tpu_torch.io import runs
+from gaussianmesh_tpu_torch.io.giveway import GiveWay
 from gaussianmesh_tpu_torch.ops import _cuda
 
 BMP_MAGIC = b"BM"
+# PIL's `_dib_accept`: the info header sizes it takes for a DIB
+DIB_HEADS = (12, 40, 52, 56, 64, 108, 124)
 
 _HEADERS = (40, 52, 56, 108, 124)
 _RLE8, _RLE4, _BITFIELDS = 1, 2, 3
@@ -80,6 +88,28 @@ def decode_bmp(data: bytes, path: str = "<bytes>") -> np.ndarray:
 def decode_bmp_plain(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """`decode_bmp` with RLE data walked by the plain version."""
     return _decode(data, path, _rle_plain)
+
+
+def dib_accept(head: bytes) -> bool:
+    """PIL's `BmpImagePlugin._dib_accept`: a first little-endian int that is
+    the size of an info header."""
+    return len(head) >= 4 and struct.unpack_from("<I", head)[0] in DIB_HEADS
+
+
+def read_dib(path: str) -> np.ndarray:
+    """A DIB (a BMP without its 14-byte file header) -> `read_bmp`'s array."""
+    with open(path, "rb") as f:
+        return decode_dib(f.read(), path)
+
+
+def decode_dib(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`read_dib` of a DIB's bytes (`path` names it in errors)."""
+    return bitmap(data, path, _rle, 0)[0]
+
+
+def decode_dib_plain(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`decode_dib` with RLE data walked by the plain version."""
+    return bitmap(data, path, _rle_plain, 0)[0]
 
 
 def _rle(data: bytes, origin: int, width: int, height: int, rle4: bool) -> np.ndarray:
@@ -169,17 +199,35 @@ def _decode(data: bytes, path: str, rle) -> np.ndarray:
     if data[:2] != BMP_MAGIC or len(data) < 18:
         raise ValueError(f"{path}: not a BMP")
     (offset,) = struct.unpack_from("<I", data, 10)
-    (hsize,) = struct.unpack_from("<I", data, 14)
+    return bitmap(data, path, rle, 14, offset)[0]
+
+
+def bitmap(data: bytes, path: str, rle, start: int, offset: int = 0, halve: str = "",
+           raw_alpha: bool = False):
+    """The bitmap whose info header starts at `start`, read as PIL's
+    `BmpImageFile._bitmap` reads it -> (the array, the file offset of its
+    pixel data, (width, height)). `offset` is the BMP file header's; where
+    it is 0 (a DIB, an icon or cursor frame) the pixels follow the header,
+    the three bit-field masks of a 40-byte BI_BITFIELDS header and the
+    palette of a 1-, 4- or 8-bit bitmap. `halve` "icon" or "cursor": the
+    rows of such a frame, half the header's height (its AND mask is the
+    other half); none left raises, and gives way for a cursor (PIL checks
+    a cursor's size after the halving, an icon's before it). `raw_alpha`:
+    a 32-bit BI_RGB bitmap is BGRA (PIL's rule for a cursor's frame at
+    byte 22). `rle` walks RLE8 / RLE4 data."""
+    if len(data) < start + 4:
+        raise GiveWay(f"{path}: BMP info header cut short")
+    (hsize,) = struct.unpack_from("<I", data, start)
     if hsize not in _HEADERS:
         raise ValueError(f"{path}: BMP header of {hsize} bytes (OS/2 or unknown); only "
                          "the Windows headers of 40, 52, 56, 108 and 124 bytes are read")
-    if len(data) < 14 + hsize:
+    if len(data) < start + hsize:
         raise ValueError(f"{path}: BMP header cut short")
-    width, height, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
-    (colors,) = struct.unpack_from("<I", data, 46)
+    width, height, _, bits, compression = struct.unpack_from("<iiHHI", data, start + 4)
+    (colors,) = struct.unpack_from("<I", data, start + 32)
     top_down = height < 0
     height = abs(height)
-    pos = 14 + hsize
+    pos = start + hsize
     if compression in _COMPRESSIONS:
         raise ValueError(f"{path}: {_COMPRESSIONS[compression]}-compressed BMP; only "
                          "uncompressed, RLE8 and RLE4 BMPs are read")
@@ -192,13 +240,15 @@ def _decode(data: bytes, path: str, rle) -> np.ndarray:
     if rle_bits is not None and bits != rle_bits:
         raise ValueError(f"{path}: {'RLE8' if rle_bits == 8 else 'RLE4'}-compressed BMP of "
                          f"{bits}-bit pixels; RLE8 codes 8-bit and RLE4 4-bit pixels")
-    order = {24: "BGR", 32: "BGRX"}.get(bits)
+    order = {24: "BGR", 32: "BGRA" if raw_alpha and compression == 0 else "BGRX"}.get(bits)
     green = 5 if bits == 16 else None
     if compression == _BITFIELDS:
         if hsize >= 52:
-            masks = struct.unpack_from("<III", data, 54) + (
-                struct.unpack_from("<I", data, 66) if hsize >= 56 else (0,))
+            masks = struct.unpack_from("<III", data, start + 40) + (
+                struct.unpack_from("<I", data, start + 52) if hsize >= 56 else (0,))
         else:
+            if len(data) < pos + 12:
+                raise GiveWay(f"{path}: BMP bit-field masks cut short")
             masks = struct.unpack_from("<III", data, pos) + (0,)
             pos += 12
         if bits == 32 and masks in _MASKS_32:
@@ -210,10 +260,16 @@ def _decode(data: bytes, path: str, rle) -> np.ndarray:
                              f"{[hex(m) for m in masks]}; only PIL's masks of 16-, 24- "
                              "and 32-bit pixels are read")
     colors = colors or 1 << bits
-    if offset == 14 + hsize and bits <= 8:      # an offset that points at the palette
+    if offset == start + hsize and bits <= 8:   # an offset that points at the palette
         offset += 4 * colors
-    if width <= 0:
-        raise ValueError(f"{path}: BMP of width {width}")
+    offset = offset or pos + (4 * colors if bits <= 8 else 0)
+    if width <= 0 or height == 0:
+        raise GiveWay(f"{path}: BMP of {width}x{height} pixels (PIL: not identified)")
+    if halve:
+        height //= 2
+        if height == 0:
+            raise (GiveWay if halve == "cursor" else ValueError)(
+                f"{path}: an {halve} bitmap of height 1: no rows above its AND mask")
     if rle_bits is not None:
         idx = rle(data[offset:], offset, width, height, compression == _RLE4)
         if len(idx) < width * height:
@@ -234,6 +290,13 @@ def _decode(data: bytes, path: str, rle) -> np.ndarray:
             px = px[:, :width * bits // 8].reshape(height, width, bits // 8)
     if not top_down:
         px = px[::-1]
+    return _pixels(data, px, pos, colors, bits, compression, order, green, path), offset, (
+        width, height)
+
+
+def _pixels(data, px, pos, colors, bits, compression, order, green, path) -> np.ndarray:
+    """Stored pixels, in display order -> the array PIL gives (palettes
+    expanded, B15 / B16)."""
     if bits <= 8:
         rgb, mode = _palette(data, pos, colors, bits, compression, path)
         px = px if px.ndim == 2 else px[..., 0]
@@ -340,6 +403,40 @@ def write_bmp(path: str, img: np.ndarray, palette: np.ndarray, **kwargs) -> None
     """`encode_bmp(img, palette, **kwargs)` written to `path` (its directory
     made if needed)."""
     data = encode_bmp(img, palette, **kwargs)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_dib(img: np.ndarray, bitfields: bool = False) -> bytes:
+    """uint8 (H, W, 3) RGB -> the bytes of a 24-bit DIB (a 40-byte header,
+    rows bottom-up, no file header); (H, W, 4) RGBA -> a 32-bit one: with
+    `bitfields`, BI_BITFIELDS with a 108-byte header whose masks name the
+    alpha (PIL reads RGBA), else BI_RGB with a 40-byte header (PIL reads
+    RGB and drops the fourth byte)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError("encode_dib takes uint8 (H, W, 3) or (H, W, 4)")
+    h, w, c = img.shape
+    if bitfields and c != 4:
+        raise ValueError("encode_dib writes bit-field masks for RGBA only")
+    bits = 8 * c
+    stride = ((w * bits + 31) >> 3) & ~3
+    out = np.zeros((h, stride), np.uint8)
+    out[:, :w * c] = img[..., [2, 1, 0, 3][:c]].reshape(h, w * c)
+    body = out[::-1].tobytes()
+    info = struct.pack("<IiiHHIIiiII", 108 if bitfields else 40, w, h, 1, bits,
+                       _BITFIELDS if bitfields else 0, len(body), 2835, 2835, 0, 0)
+    if bitfields:       # the four masks, LCS_sRGB, no end points or gamma
+        info += struct.pack("<IIIII", 0xFF0000, 0xFF00, 0xFF, 0xFF000000,
+                            0x73524742) + bytes(48)
+    return info + body
+
+
+def write_dib(path: str, img: np.ndarray, **kwargs) -> None:
+    """`encode_dib(img, **kwargs)` written to `path` (its directory made if
+    needed)."""
+    data = encode_dib(img, **kwargs)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(data)

@@ -42,9 +42,11 @@ import struct
 import numpy as np
 
 from gaussianmesh_tpu_torch.io import runs
+from gaussianmesh_tpu_torch.io.giveway import GiveWay
 from gaussianmesh_tpu_torch.ops import _cuda
 
 _GRAY = np.repeat(np.arange(256, dtype=np.uint8), 3)
+DCX_MAGIC = b"\xb1\x68\xde\x3a"          # 0x3ADE68B1, little-endian
 
 
 def pcx_accept(head: bytes) -> bool:
@@ -76,6 +78,41 @@ def decode_pcx(data: bytes, path: str = "<bytes>") -> np.ndarray:
 def decode_pcx_plain(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """`decode_pcx` with the RLE rows walked by the plain version."""
     return _decode(data, path, _rle_plain)
+
+
+def read_dcx(path: str) -> np.ndarray:
+    """A DCX -> its first page, `read_pcx`'s array."""
+    with open(path, "rb") as f:
+        return decode_dcx(f.read(), path)
+
+
+def decode_dcx(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`read_dcx` of a DCX file's bytes (`path` names it in errors)."""
+    return _decode(data, path, _rle, dcx_pages(data, path)[0])
+
+
+def decode_dcx_plain(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`decode_dcx` with the RLE rows walked by the plain version."""
+    return _decode(data, path, _rle_plain, dcx_pages(data, path)[0])
+
+
+def dcx_pages(data: bytes, path: str = "<bytes>") -> list[int]:
+    """A DCX's page offsets, read as `DcxImageFile._open` reads them: up to
+    1,024, ending at a 0 (a table the file cuts first, or one of no pages,
+    gives way)."""
+    if data[:4] != DCX_MAGIC:
+        raise ValueError(f"{path}: not a DCX")
+    pages = []
+    for i in range(1024):
+        if len(data) < 8 + 4 * i:
+            raise GiveWay(f"{path}: DCX page table cut short after {i} offsets")
+        (offset,) = struct.unpack_from("<I", data, 4 + 4 * i)
+        if not offset:
+            break
+        pages.append(offset)
+    if not pages:
+        raise GiveWay(f"{path}: a DCX of no pages (PIL: attempt to seek outside sequence)")
+    return pages
 
 
 def _rle(data: bytes, row_bytes: int, rows: int):
@@ -111,15 +148,19 @@ def _rle_plain(data: bytes, row_bytes: int, rows: int):
     return np.frombuffer(bytes(out), np.uint8), False
 
 
-def _decode(data: bytes, path: str, rle) -> np.ndarray:
-    if not pcx_accept(data) or len(data) < 68:
-        raise ValueError(f"{path}: not a PCX")
-    if not pcx_size_ok(data):
-        raise ValueError(f"{path}: PCX of no size (PIL: bad PCX image size)")
-    version, _, bits = data[1:4]
-    x0, y0, x1, y1 = struct.unpack_from("<HHHH", data, 4)
-    planes = data[65]
-    (given,) = struct.unpack_from("<H", data, 66)
+def _decode(data: bytes, path: str, rle, start: int = 0) -> np.ndarray:
+    """The PCX image whose header is at `start` (a DCX page's offset; its
+    data runs to the end of the file, and an 8 x 1 image's palette is the
+    file's last 769 bytes, as PIL seeks them)."""
+    head = data[start:start + 68]
+    if not pcx_accept(head) or len(head) < 68:
+        raise GiveWay(f"{path}: not a PCX")
+    if not pcx_size_ok(head):
+        raise GiveWay(f"{path}: PCX of no size (PIL: bad PCX image size)")
+    version, _, bits = head[1:4]
+    x0, y0, x1, y1 = struct.unpack_from("<HHHH", head, 4)
+    planes = head[65]
+    (given,) = struct.unpack_from("<H", head, 66)
     w, h = x1 + 1 - x0, y1 + 1 - y0
     if not ((bits == 1 and planes in (1, 2, 4)) or (version == 5 and bits == 8
                                                     and planes in (1, 3))):
@@ -134,7 +175,7 @@ def _decode(data: bytes, path: str, rle) -> np.ndarray:
     stride = (w * bits + 7) // 8
     if given != stride:
         stride += stride % 2
-    px, crossed = rle(data[128:], planes * stride, h)
+    px, crossed = rle(data[start + 128:], planes * stride, h)
     if crossed:
         raise ValueError(f"{path}: a PCX run crosses the end of its row (PIL: buffer "
                          "overrun)")
@@ -158,7 +199,7 @@ def _decode(data: bytes, path: str, rle) -> np.ndarray:
         return (bit[:, 0] * np.uint8(255))
     idx = (bit << np.arange(planes, dtype=np.uint8)[None, :, None]).sum(1, dtype=np.uint8)
     pal = np.zeros((256, 3), np.uint8)
-    pal[:16] = np.frombuffer(data, np.uint8, 48, 16).reshape(16, 3)
+    pal[:16] = np.frombuffer(head, np.uint8, 48, 16).reshape(16, 3)
     return pal[idx]
 
 
@@ -203,6 +244,28 @@ def write_pcx(path: str, img: np.ndarray, **kwargs) -> None:
     """`encode_pcx(img, **kwargs)` written to `path` (its directory made if
     needed)."""
     data = encode_pcx(img, **kwargs)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_dcx(pages: list) -> bytes:
+    """Pages, each an `encode_pcx` argument (an image, or (image, palette))
+    -> the bytes of a DCX: its magic, the pages' offsets ending at a 0,
+    then the PCX files in turn."""
+    files = [encode_pcx(*(p if isinstance(p, tuple) else (p,))) for p in pages]
+    offset = 8 + 4 * len(files)
+    table = b""
+    for f in files:
+        table += struct.pack("<I", offset)
+        offset += len(f)
+    return DCX_MAGIC + table + bytes(4) + b"".join(files)
+
+
+def write_dcx(path: str, pages: list) -> None:
+    """`encode_dcx(pages)` written to `path` (its directory made if
+    needed)."""
+    data = encode_dcx(pages)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(data)

@@ -8,11 +8,13 @@ and Paeth; Adam7 interlace) to uint8 arrays: (H, W) for gray, (H, W, C)
 otherwise. 16-bit samples keep their high byte and palette images expand
 to RGB or RGBA (the JAX reader's PIL path gives 16-bit gray unscaled and
 palette indices). `read_image` reads a JPEG (`io/jpeg.py`), a PNG, a BMP
-(`io/bmp.py`), a TIFF (`io/tiff.py`), a GIF (`io/gif.py`), a WebP
+or DIB (`io/bmp.py`), a TIFF (`io/tiff.py`), a GIF (`io/gif.py`), a WebP
 (`io/webp.py`: lossy, lossless, with alpha, an animation's first frame), a
-PNM (`io/pnm.py`), a QOI (`io/qoi.py`), an SGI (`io/sgi.py`), a PCX
-(`io/pcx.py`) or a TGA (`io/tga.py`) by its first bytes, TGA (no magic)
-as PIL tries it, after the others. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
+PNM (`io/pnm.py`), a QOI (`io/qoi.py`), an SGI (`io/sgi.py`), a PCX or
+DCX (`io/pcx.py`), an ICO or CUR (`io/ico.py`), an ICNS (`io/icns.py`) or
+a TGA (`io/tga.py`) by its first bytes, in PIL's order of formats, a
+container PIL gives way on handed to the next format, TGA (no magic) as
+PIL tries it, after the others. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
 with filter type 0 on every row, and `write_png` writes what it returns.
 
 The row filters are undone by the port's C++ (`gm_png_unfilter` of
@@ -30,10 +32,12 @@ import zlib
 
 import numpy as np
 
-from gaussianmesh_tpu_torch.io.bmp import BMP_MAGIC, read_bmp
+from gaussianmesh_tpu_torch.io import icns, ico
+from gaussianmesh_tpu_torch.io.bmp import BMP_MAGIC, dib_accept, read_bmp, read_dib
 from gaussianmesh_tpu_torch.io.gif import GIF_MAGICS, read_gif
+from gaussianmesh_tpu_torch.io.giveway import GiveWay
 from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
-from gaussianmesh_tpu_torch.io.pcx import pcx_accept, pcx_size_ok, read_pcx
+from gaussianmesh_tpu_torch.io.pcx import DCX_MAGIC, pcx_accept, read_dcx, read_pcx
 from gaussianmesh_tpu_torch.io.pnm import is_pnm, read_pnm
 from gaussianmesh_tpu_torch.io.qoi import QOI_MAGIC, read_qoi
 from gaussianmesh_tpu_torch.io.sgi import SGI_MAGIC, read_sgi
@@ -228,55 +232,77 @@ def _decode(data: bytes, path: str, unfilter) -> np.ndarray:
 
 
 # PIL plugins tried before TGA (it has no magic) that take some headers TGA's
-# checks pass: (format, its `_accept`). CUR gives way where it finds no
-# cursor (PIL's TypeError), as PIL then goes on to the next format.
+# checks pass, and that the port does not read: (format, its `_accept`)
 _BEFORE_TGA = (
-    ("CUR", lambda h: h[:4] == b"\0\0\2\0" and h[4:6] != b"\0\0"),
-    ("ICO", lambda h: h[:4] == b"\0\0\1\0"),
     ("FLI", lambda h: len(h) >= 16 and h[4:6] in (b"\x11\xaf", b"\x12\xaf")
      and h[14:16] in (b"\0\0", b"\3\0")),
     ("GBR", lambda h: int.from_bytes(h[:4], "big") >= 20
      and int.from_bytes(h[4:8], "big") in (1, 2)),
     ("MPEG", lambda h: h[:4] == b"\0\0\1\xb3"),
 )
-FORMATS = ("JPEG", "PNG", "BMP", "TIFF", "GIF", "WebP", "PNM", "QOI", "SGI", "PCX", "TGA")
+
+
+def _tga_accept(head: bytes) -> bool:
+    """TGA's header checks, raising where a format PIL tries first would
+    take the head."""
+    if tga_header(head) is None:
+        return False
+    taken = [name for name, accept in _BEFORE_TGA if accept(head)]
+    if taken:
+        raise ValueError(f"a TGA header that PIL takes for a {taken[0]} file first; not read")
+    return True
+
+
+# The formats the port reads, in the order `Image.open` tries them (BMP, DIB,
+# GIF, JPEG, PPM and PNG, then the others by name; only where two formats
+# could take one head does the order decide): (format, its `_accept` on the
+# first 68 bytes, its reader). A reader that raises `GiveWay` (PIL's `_open`
+# raising SyntaxError, IndexError, TypeError or struct.error) hands the file
+# on to the next format that takes it. `io/ico.py` and `io/icns.py` decode
+# PNG frames with this module, so their readers are looked up at the call.
+_ORDER = (
+    ("BMP", lambda h: h[:2] == BMP_MAGIC, read_bmp),
+    ("DIB", dib_accept, read_dib),
+    ("GIF", lambda h: h[:6] in GIF_MAGICS, read_gif),
+    ("JPEG", lambda h: h[:3] == JPEG_MAGIC, read_jpeg),
+    ("PNM", is_pnm, read_pnm),
+    ("PNG", lambda h: h[:8] == PNG_MAGIC, read_png),
+    ("CUR", lambda h: h[:4] == b"\0\0\2\0", lambda p: ico.read_cur(p)),
+    ("PCX", pcx_accept, read_pcx),
+    ("DCX", lambda h: h[:4] == DCX_MAGIC, read_dcx),
+    ("ICNS", lambda h: h[:4] == b"icns", lambda p: icns.read_icns(p)),
+    ("ICO", lambda h: h[:4] == b"\0\0\1\0", lambda p: ico.read_ico(p)),
+    ("TIFF", lambda h: h[:4] in TIFF_HEADS, read_tiff),
+    ("QOI", lambda h: h[:4] == QOI_MAGIC, read_qoi),
+    ("SGI", lambda h: h[:2] == SGI_MAGIC, read_sgi),
+    ("TGA", _tga_accept, read_tga),
+    ("WebP", lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP", read_webp),
+)
+FORMATS = ("JPEG", "PNG", "BMP", "TIFF", "GIF", "WebP", "PNM", "QOI", "SGI", "PCX", "DIB",
+           "ICO", "CUR", "DCX", "ICNS", "TGA")
 
 
 def read_image(path: str) -> np.ndarray:
-    """A dataset image by its first bytes: JPEG, PNG, BMP, TIFF, GIF, WebP
+    """A dataset image by its first bytes, tried as `Image.open` tries them:
+    JPEG, PNG, BMP, DIB (a BMP without its file header), TIFF, GIF, WebP
     (lossy, lossless, with alpha, an animation's first frame), PNM (P1-P6),
-    QOI, SGI or PCX by their magics (no two share one; PCX's as PIL takes
-    it, from 68 bytes on), then TGA, which has none, as PIL tries it: only
-    where no format PIL tries first takes the file and TGA's header checks
-    pass -> `read_jpeg`'s, `read_png`'s, `read_bmp`'s, `read_tiff`'s,
-    `read_gif`'s, `read_webp`'s, `read_pnm`'s, `read_qoi`'s, `read_sgi`'s,
-    `read_pcx`'s or `read_tga`'s array."""
+    QOI, SGI, PCX, DCX (its first page), ICO and CUR (`io/ico.py`), ICNS
+    (`io/icns.py`), and TGA, which has no magic, only where no format PIL
+    tries first takes the file and TGA's header checks pass. A container
+    PIL gives way on (`io/giveway.py`) goes on to the next format that
+    takes its head, as in PIL -> the reader's array."""
     with open(path, "rb") as f:
         head = f.read(68)
-    if head[:3] == JPEG_MAGIC:
-        return read_jpeg(path)
-    if head[:8] == PNG_MAGIC:
-        return read_png(path)
-    if head[:2] == BMP_MAGIC:
-        return read_bmp(path)
-    if head[:4] in TIFF_HEADS:
-        return read_tiff(path)
-    if head[:6] in GIF_MAGICS:
-        return read_gif(path)
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        return read_webp(path)
-    if is_pnm(head):
-        return read_pnm(path)
-    if head[:4] == QOI_MAGIC:
-        return read_qoi(path)
-    if head[:2] == SGI_MAGIC:
-        return read_sgi(path)
-    if pcx_accept(head) and len(head) == 68 and pcx_size_ok(head):
-        return read_pcx(path)
-    if tga_header(head) is not None:
-        taken = [name for name, accept in _BEFORE_TGA if accept(head)]
-        if taken:
-            raise ValueError(f"{path}: a TGA header that PIL takes for a {taken[0]} file "
-                             "first; not read")
-        return read_tga(path)
-    raise ValueError(f"{path}: not a {', '.join(FORMATS[:-1])} or {FORMATS[-1]}")
+    causes = []
+    for name, accept, read in _ORDER:
+        try:
+            if not accept(head):
+                continue
+        except ValueError as err:
+            raise ValueError(f"{path}: {err}") from None
+        try:
+            return read(path)
+        except GiveWay as err:
+            causes.append(f"{name}: {err}")
+    raise ValueError(f"{path}: not a {', '.join(FORMATS[:-1])} or {FORMATS[-1]}"
+                     + (f" ({'; '.join(causes)})" if causes else ""))

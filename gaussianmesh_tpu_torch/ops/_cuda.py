@@ -103,6 +103,8 @@ HOST_LIBRARIES = {
         "gm_sgi_rle": [_P, _L, _P, _P, _L, _L, _I, _I, _P],
         # data, n, row_bytes, rows, out, n_out
         "gm_pcx_rle": [_P, _L, _L, _L, _P, _P],
+        # data, n, sizesq, out, info
+        "gm_icns_rle": [_P, _L, _L, _P, _P],
     },
     "vp8": {
         # frame, n, y, u, v, info

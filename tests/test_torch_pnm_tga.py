@@ -383,8 +383,9 @@ def test_tga_dispatch_follows_pil_order(tmp_path):
     byte 0) goes to PCX as in PIL (which raises "unknown PCX mode"; so does
     the port), unless the file is under the 68 bytes PCX reads (PIL then
     goes on to TGA, and so does the port); one CUR's check takes with no
-    cursors goes on to TGA as in PIL; one ICO's takes is refused (PIL does
-    not open it as a TGA)."""
+    cursors goes on to TGA as in PIL; so does one ICO's takes with no
+    entries, a colour-mapped TGA without a colour map, which PIL opens as a
+    TGA and cannot load, and the port refuses."""
     px = np.arange(48, dtype=np.uint8).reshape(4, 4, 3)
     for size, pcx in ((4, True), (2, False)):
         data = _head(size, size, 2, 24, 0x20, ident=b"0123456789") + px[:size, :size].tobytes()
@@ -409,8 +410,9 @@ def test_tga_dispatch_follows_pil_order(tmp_path):
     path = str(tmp_path / "i")
     with open(path, "wb") as fh:
         fh.write(ico_like)
-    with pytest.raises(ValueError, match="ICO"):
+    with pytest.raises(ValueError, match="colour-mapped TGA without a colour map"):
         png.read_image(path)
+    assert Image.open(path).format == "TGA"
     assert isinstance(_pil(path), Exception)
 
 

@@ -125,7 +125,7 @@ def test_unsupported_images_raise(tmp_path):
     other = str(tmp_path / "x.xbm")
     Image.fromarray(_image(3)).convert("1").save(other)
     with pytest.raises(ValueError, match="not a JPEG, PNG, BMP, TIFF, GIF, WebP, PNM, QOI, "
-                                         "SGI, PCX or TGA"):
+                                         "SGI, PCX, DIB, ICO, CUR, DCX, ICNS or TGA"):
         png.read_image(other)
     lossless = str(tmp_path / "l.jpg")
     Image.fromarray(_image(3)).save(lossless)
