@@ -249,16 +249,41 @@ Phases (any failure raises, so the exit code is not 0):
    and their ratio to phase 9's JPEG files, and write s by row beside the
    card's name and power limit and the host's CPU. ICNS holds no 1080p
    view, so it is checked on its fixtures only.
+9j. SUN, MSP, XBM, XPM and PSD: first the fixtures of
+   `tests/data/rle_text/` (PIL-written files and the forms PIL reads and
+   does not write, with the SHA-256 and shape of PIL's array under the
+   port's rule: B14, B15, B16, and the oracles of B24, B25, B27, B28, B29;
+   recorded on a machine with PIL by `tools/make_rle_text_fixtures_torch.py`):
+   `read_image` and the plain route give the recorded digests, and
+   `gm_sun_rle` / `gm_msp_rle` their plain walks' bytes on the fixtures
+   that hold byte-encoded Sun rasters and MSP version 2 rows (plain / C++
+   printed). Then phase 9's 24 views written in the rows of RLE_TEXT_9J
+   (`io/sun.py`, `io/msp.py`, `io/xbm.py`, `io/xpm.py`, `io/psd.py`
+   writers): raw and byte-encoded 24-bit Sun rasters, byte-encoded 8-bit
+   ones with a colour map of 9c's fixed palette (B15), MSP versions 1 and 2
+   and XBMs of the view's green thresholded (B16), XPMs of 9c's 256-colour
+   palette (B15) and of 8,000 colours at 2 characters a pixel, raw and
+   PackBits RGB PSDs and PackBits CMYK PSDs of the view's separation (B14).
+   Each view decodes by `read_image` to the samples written (a palette
+   view to its expansion, a 1-bit view to 0 / 255, CMYK to its
+   `cmyk_to_rgb`); the CROP_9F centre of one view a row decodes through
+   the plain route to the C++'s bytes (XBM and XPM have one route); s /
+   MP, its ratio to phase 9's baseline JPEG in the same run, plain / C++,
+   bytes a view and their ratio to phase 9's JPEG files, and write s by
+   row beside the card's name and power limit and the host's CPU.
 9h. the reader phases' shared training: one COLMAP scene of phase 9's 24
-   cameras whose view i is the file phase READER_PHASES[i % 6] (9b, 9c, 9d,
-   9f, 9g, 9i) wrote for it; `cli.train_mesh --device cuda` on it for
-   PROGRESSIVE_ITERS steps with phase 9's shrunk schedule and capacities:
-   K1, K2 and K3 once a step (counters set to 0 just before, read just
-   after), finite losses and parameters, no overflow, the cameras equal to
-   phase 9's, the training target of every view that decodes to phase 9's
-   baseline decode equal to phase 9's and of every other one to the port's
-   resize of its decode (as `_load_image` makes it: gray to RGB, alpha
-   dropped). Each reader phase prints its own seconds in a `[done]` line.
+   cameras whose view i is the file phase READER_PHASES[i % 7] (9b, 9c, 9d,
+   9f, 9g, 9i, 9j) wrote for it, or phase 9's JPEG where that file decodes
+   with an alpha (an alpha makes a mask, and `DeviceDataset` stacks masks
+   only where the shuffled first view has one, as the JAX trainer does);
+   `cli.train_mesh --device cuda` on it for PROGRESSIVE_ITERS steps with
+   phase 9's shrunk schedule and capacities: K1, K2 and K3 once a step
+   (counters set to 0 just before, read just after), finite losses and
+   parameters, no overflow, the cameras equal to phase 9's, the training
+   target of every view that decodes to phase 9's baseline decode equal to
+   phase 9's and of every other one to the port's resize of its decode (as
+   `_load_image` makes it: gray to RGB). Each reader phase prints its own
+   seconds in a `[done]` line.
 10. serve and shard, at full width. (a) The host deformation-gradient
    extractor (`edit/native_acap.py`, C++ / OpenMP, built by g++) on the
    slice's icosphere-7 mesh and phase 7's largest twist frame: against the
@@ -513,9 +538,15 @@ CONTAINERS_9I = (("dib_24bit", 3), ("dib_32bit_bitfields_rgba", 2), ("ico_png_0x
                  ("ico_png_0x0_rgba", 2), ("ico_bmp_32bit", 2), ("ico_bmp_24bit_and_mask", 3),
                  ("ico_bmp_8bit_b15", 2), ("ico_bmp_32bit_zero_alpha_b23", 2),
                  ("cur_24bit", 3), ("dcx_two_8x3_pages", 2))
+# phase 9j: phase 9's views as SUN, MSP, XBM, XPM and PSD files, (row, views) in turn
+RLE_TEXT_9J = (("sun_raw24_bgr", 3), ("sun_rle24_bgr", 3), ("sun_rle8_colormap_b15", 2),
+               ("msp_v1_b16", 2), ("msp_v2_rle_b16", 2), ("xbm_b16", 2),
+               ("xpm_palette_256_b15", 3), ("xpm_rgb_2cpp", 2), ("psd_raw_rgb", 2),
+               ("psd_packbits_rgb", 2), ("psd_packbits_cmyk_b14", 1))
+LEVELS_XPM_RGB = (20, 20, 20)          # 8,000 colours: RGB to PIL, 2 characters a pixel
 # the reader phases' shared training: view i of phase 9's scene from the file of the
-# phase READER_PHASES[i % 6] wrote for it
-READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i")
+# phase READER_PHASES[i % 7] wrote for it
+READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i", "9j")
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -2569,11 +2600,17 @@ def fixed_palette(levels):
 
 
 def quantize(img, levels):
-    """(H, W, 3) uint8 -> indices into `fixed_palette(levels)`: each channel
-    rounded to its nearest step."""
+    """(H, W, 3) uint8 -> uint8 indices into `fixed_palette(levels)` of 256
+    colours or fewer (`quantize_wide`)."""
+    return quantize_wide(img, levels).astype(np.uint8)
+
+
+def quantize_wide(img, levels):
+    """(H, W, 3) uint8 -> int32 indices into `fixed_palette(levels)`: each
+    channel rounded to its nearest step."""
     q = [np.rint(img[..., k].astype(np.float32) * ((n - 1) / 255.0)).astype(np.int32)
          for k, n in enumerate(levels)]
-    return ((q[0] * levels[1] + q[1]) * levels[2] + q[2]).astype(np.uint8)
+    return (q[0] * levels[1] + q[1]) * levels[2] + q[2]
 
 
 def write_9c_view(port, kind, path, img, interlace):
@@ -3114,29 +3151,95 @@ def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
     return res, expected
 
 
-# ------------------------------------------------------------------ phase 9g
+# ------------------------------------------------ phases 9g, 9i, 9j: shared
 
-def raw_fixtures(port):
-    """Phase 9g's fixtures (`tests/data/raw/`) -> {name: the C++ decode's s}:
-    each gives its recorded digest and shape through `read_image` and the
-    plain route."""
-    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "raw")
+def fixture_digests(port, folder, decode_plain, what, each=None):
+    """The fixtures of `tests/data/<folder>/` -> {name: the C++ decode's s}:
+    each gives its recorded digest and shape through `read_image` and
+    `decode_plain(port, path)`; `each(name, data)`, where given, is then
+    called on each file's bytes."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", folder)
     with open(os.path.join(here, "digests.json")) as fh:
         table = json.load(fh)
     if len(table) < 30:
-        raise AssertionError(f"{here}: {len(table)} PNM / TGA / QOI / SGI / PCX fixtures")
+        raise AssertionError(f"{here}: {len(table)} {what} fixtures")
     out = {}
     for name, want in sorted(table.items()):
         path = os.path.join(here, name)
         got, t = timed(port.png.read_image, path)
-        for route, a in (("C++", got), ("plain", decode_plain_9g(port, path))):
+        for route, a in (("C++", got), ("plain", decode_plain(port, path))):
             if (hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() != want["array"]
                     or list(a.shape) != want["shape"]):
                 raise AssertionError(f"{name}: the {route} decode differs from the recorded "
                                      "digest")
         out[name] = t
+        if each is not None:
+            with open(path, "rb") as fh:
+                each(name, fh.read())
     return out
 
+
+def reader_views(port, scene, table, exts, write_view, decode_plain, tag, jpeg_s_per_mp,
+                 tmpdir):
+    """Phase 9's views written in the rows of `table` ((row, views) in
+    turn; a view's file extension `exts[row[:3]]`) by `write_view(port,
+    row, path, img)` -> (what `read_image` must give, write s): each read
+    back by `read_image` to the samples written, the CROP_9F centre of one
+    view a row through `decode_plain(port, path)` to the C++'s bytes ->
+    ({row: its rates}, {view: (file, None or its decode)} for the shared
+    training)."""
+    root = os.path.join(tmpdir, f"{tag}_data")
+    os.makedirs(root)
+    rows = [r for r, n in table for _ in range(n)]
+    assert len(rows) == len(scene["cams"]), (len(rows), len(scene["cams"]))
+    stats = {r: {"decode": [], "write": [], "bytes": [], "jpeg_bytes": []} for r, _ in table}
+    expected, small = {}, {}
+    for i, row in enumerate(rows):
+        src = os.path.join(scene["root"], "images", f"{i:03d}.jpg")
+        base = port.jpeg.read_jpeg(src)
+        path = os.path.join(root, f"{i:03d}" + exts[row[:3]])
+        want, t = write_view(port, row, path, base)
+        st = stats[row]
+        st["write"].append(t)
+        st["bytes"].append(os.path.getsize(path))
+        st["jpeg_bytes"].append(os.path.getsize(src))
+        got, t = timed(port.png.read_image, path)
+        st["decode"].append(t)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"view {i} ({row}) decodes to other bytes than were written")
+        expected[i] = (path, None if np.array_equal(got, base) else got)
+        if row not in small:
+            cpath = os.path.join(tmpdir, f"{tag}_crop" + exts[row[:3]])
+            write_view(port, row, cpath, centre_crop(base))
+            cpp, t_cpp = timed(port.png.read_image, cpath)
+            plain, t_plain = timed(decode_plain, port, cpath)
+            if cpp.shape != plain.shape or not np.array_equal(cpp, plain):
+                raise AssertionError(f"{row}: the plain decode of a {CROP_9F} crop differs "
+                                     "from the C++ one")
+            small[row] = (t_cpp, t_plain)
+    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
+    by_row = {}
+    for row, _ in table:
+        st = stats[row]
+        dec = float(np.median(st["decode"])) / megapixels
+        by_row[row] = dict(views=len(st["bytes"]), decode_s_per_mp=dec,
+                           decode_vs_baseline_jpeg=dec / jpeg_s_per_mp,
+                           plain_vs_cpp=small[row][1] / small[row][0],
+                           bytes_mean=float(np.mean(st["bytes"])),
+                           bytes_vs_baseline_jpeg=float(np.sum(st["bytes"])
+                                                        / np.sum(st["jpeg_bytes"])),
+                           write_s=float(np.median(st["write"])))
+        r = by_row[row]
+        log(f"[{tag}] {row}: {r['views']} views at {EVAL_WIDTH}x{EVAL_HEIGHT}, "
+            f"{r['bytes_mean']:.0f} bytes each ({r['bytes_vs_baseline_jpeg']:.2f}x phase 9's "
+            f"JPEG files of the same views); decode {r['decode_s_per_mp']:.4f} s/MP "
+            f"({r['decode_vs_baseline_jpeg']:.2f}x phase 9's baseline JPEG); plain / C++ at "
+            f"{CROP_9F[0]}x{CROP_9F[1]} {r['plain_vs_cpp']:.1f}; write {r['write_s']:.3f} s "
+            "a view")
+    return by_row, expected
+
+
+# ------------------------------------------------------------------ phase 9g
 
 def decode_plain_9g(port, path):
     """A 9g file through the plain route (PNM has one route: no C++)."""
@@ -3192,59 +3295,13 @@ def phase_raw_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
     """Phase 9g (see the module docstring) on phase 9's `scene` ->
     (results, {view: (file, None or its decode)} for the shared training)."""
     t_phase = time.perf_counter()
-    fixtures = raw_fixtures(port)
+    fixtures = fixture_digests(port, "raw", decode_plain_9g, "PNM / TGA / QOI / SGI / PCX")
     log(f"[raw9g] {len(fixtures)} fixtures decode to their recorded digests through the "
         "C++ and the plain route")
-    root = os.path.join(tmpdir, "raw9g_data")
-    os.makedirs(root)
-    rows = [r for r, n in RAW_9G for _ in range(n)]
-    assert len(rows) == len(scene["cams"]), (len(rows), len(scene["cams"]))
-    ext = {"ppm": ".ppm", "pgm": ".pgm", "tga": ".tga", "qoi": ".qoi", "sgi": ".sgi",
-           "pcx": ".pcx"}
-    stats = {r: {"decode": [], "write": [], "bytes": [], "jpeg_bytes": []} for r, _ in RAW_9G}
-    expected, small = {}, {}
-    for i, row in enumerate(rows):
-        src = os.path.join(scene["root"], "images", f"{i:03d}.jpg")
-        base = port.jpeg.read_jpeg(src)
-        path = os.path.join(root, f"{i:03d}" + ext[row[:3]])
-        want, t = write_9g_view(port, row, path, base)
-        st = stats[row]
-        st["write"].append(t)
-        st["bytes"].append(os.path.getsize(path))
-        st["jpeg_bytes"].append(os.path.getsize(src))
-        got, t = timed(port.png.read_image, path)
-        st["decode"].append(t)
-        if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"view {i} ({row}) decodes to other bytes than were written")
-        expected[i] = (path, None if np.array_equal(got, base) else got)
-        if row not in small:
-            cpath = os.path.join(tmpdir, "raw9g_crop" + ext[row[:3]])
-            write_9g_view(port, row, cpath, centre_crop(base))
-            cpp, t_cpp = timed(port.png.read_image, cpath)
-            plain, t_plain = timed(decode_plain_9g, port, cpath)
-            if cpp.shape != plain.shape or not np.array_equal(cpp, plain):
-                raise AssertionError(f"{row}: the plain decode of a {CROP_9F} crop differs "
-                                     "from the C++ one")
-            small[row] = (t_cpp, t_plain)
-    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
-    by_row = {}
-    for row, _ in RAW_9G:
-        st = stats[row]
-        dec = float(np.median(st["decode"])) / megapixels
-        by_row[row] = dict(views=len(st["bytes"]), decode_s_per_mp=dec,
-                           decode_vs_baseline_jpeg=dec / jpeg_s_per_mp,
-                           plain_vs_cpp=small[row][1] / small[row][0],
-                           bytes_mean=float(np.mean(st["bytes"])),
-                           bytes_vs_baseline_jpeg=float(np.sum(st["bytes"])
-                                                        / np.sum(st["jpeg_bytes"])),
-                           write_s=float(np.median(st["write"])))
-        r = by_row[row]
-        log(f"[raw9g] {row}: {r['views']} views at {EVAL_WIDTH}x{EVAL_HEIGHT}, "
-            f"{r['bytes_mean']:.0f} bytes each ({r['bytes_vs_baseline_jpeg']:.2f}x phase 9's "
-            f"JPEG files of the same views); decode {r['decode_s_per_mp']:.4f} s/MP "
-            f"({r['decode_vs_baseline_jpeg']:.2f}x phase 9's baseline JPEG); plain / C++ at "
-            f"{CROP_9F[0]}x{CROP_9F[1]} {r['plain_vs_cpp']:.1f}; write {r['write_s']:.3f} s "
-            "a view")
+    exts = {"ppm": ".ppm", "pgm": ".pgm", "tga": ".tga", "qoi": ".qoi", "sgi": ".sgi",
+            "pcx": ".pcx"}
+    by_row, expected = reader_views(port, scene, RAW_9G, exts, write_9g_view, decode_plain_9g,
+                                    "raw9g", jpeg_s_per_mp, tmpdir)
     res = dict(rows=by_row, fixtures=len(fixtures), phase_s=time.perf_counter() - t_phase)
     log("[raw9g] " + json.dumps(res))
     return res, expected
@@ -3252,42 +3309,19 @@ def phase_raw_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
 
 # ------------------------------------------------------------------ phase 9i
 
-def container_fixtures(port):
-    """Phase 9i's fixtures (`tests/data/containers/`) -> ({name: the C++
-    decode's s}, plain / C++ of the ICNS run-length walk on the fixtures
-    that hold one): each gives its recorded digest and shape through
-    `read_image` and the plain route."""
-    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
-                        "containers")
-    with open(os.path.join(here, "digests.json")) as fh:
-        table = json.load(fh)
-    if len(table) < 30:
-        raise AssertionError(f"{here}: {len(table)} DIB / ICO / CUR / DCX / ICNS fixtures")
-    out, walks = {}, []
-    for name, want in sorted(table.items()):
-        path = os.path.join(here, name)
-        got, t = timed(port.png.read_image, path)
-        for route, a in (("C++", got), ("plain", decode_plain_9i(port, path))):
-            if (hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() != want["array"]
-                    or list(a.shape) != want["shape"]):
-                raise AssertionError(f"{name}: the {route} decode differs from the recorded "
-                                     "digest")
-        out[name] = t
-        with open(path, "rb") as fh:
-            data = fh.read()
-        for code, (start, length) in (port.icns.blocks(data).items() if name.endswith(
-                ".icns") else ()):
-            side = port.icns.LEGACY_SIZES.get(code)
-            if code.endswith(b"32") and length != 3 * side[0] * side[1] + 4 * (code == b"it32"):
-                start += 4 * (code == b"it32")
-                cpp, t_cpp = timed(port.icns._rle, data[start:], side[0] * side[1])
-                plain, t_plain = timed(port.icns._rle_plain, data[start:], side[0] * side[1])
-                if cpp[1:] != plain[1:] or not np.array_equal(cpp[0], plain[0]):
-                    raise AssertionError(f"{name}: gm_icns_rle differs from its plain walk")
-                walks.append(t_plain / t_cpp)
-    if not walks:
-        raise AssertionError("no ICNS fixture holds a run-length image")
-    return out, float(np.median(walks))
+def icns_walk(port, name, data, walks):
+    """`gm_icns_rle` against its plain walk on each run-length image of an
+    ICNS fixture, plain / C++ appended to `walks`."""
+    for code, (start, length) in (port.icns.blocks(data).items() if name.endswith(".icns")
+                                  else ()):
+        side = port.icns.LEGACY_SIZES.get(code)
+        if code.endswith(b"32") and length != 3 * side[0] * side[1] + 4 * (code == b"it32"):
+            start += 4 * (code == b"it32")
+            cpp, t_cpp = timed(port.icns._rle, data[start:], side[0] * side[1])
+            plain, t_plain = timed(port.icns._rle_plain, data[start:], side[0] * side[1])
+            if cpp[1:] != plain[1:] or not np.array_equal(cpp[0], plain[0]):
+                raise AssertionError(f"{name}: gm_icns_rle differs from its plain walk")
+            walks.append(t_plain / t_cpp)
 
 
 def decode_plain_9i(port, path):
@@ -3348,62 +3382,117 @@ def phase_container_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
     """Phase 9i (see the module docstring) on phase 9's `scene` ->
     (results, {view: (file, None or its decode)} for the shared training)."""
     t_phase = time.perf_counter()
-    fixtures, icns_walk = container_fixtures(port)
+    walks = []
+    fixtures = fixture_digests(port, "containers", decode_plain_9i,
+                               "DIB / ICO / CUR / DCX / ICNS",
+                               lambda name, data: icns_walk(port, name, data, walks))
+    if not walks:
+        raise AssertionError("no ICNS fixture holds a run-length image")
+    icns_rle = float(np.median(walks))
     log(f"[cont9i] {len(fixtures)} fixtures decode to their recorded digests through the "
-        f"C++ and the plain route; ICNS run-length walk plain / C++ {icns_walk:.1f}")
-    root = os.path.join(tmpdir, "cont9i_data")
-    os.makedirs(root)
-    rows = [r for r, n in CONTAINERS_9I for _ in range(n)]
-    assert len(rows) == len(scene["cams"]), (len(rows), len(scene["cams"]))
-    stats = {r: {"decode": [], "write": [], "bytes": [], "jpeg_bytes": []}
-             for r, _ in CONTAINERS_9I}
-    expected, small = {}, {}
-    for i, row in enumerate(rows):
-        src = os.path.join(scene["root"], "images", f"{i:03d}.jpg")
-        base = port.jpeg.read_jpeg(src)
-        ext = "." + row[:3]
-        path = os.path.join(root, f"{i:03d}{ext}")
-        want, t = write_9i_view(port, row, path, base)
-        st = stats[row]
-        st["write"].append(t)
-        st["bytes"].append(os.path.getsize(path))
-        st["jpeg_bytes"].append(os.path.getsize(src))
-        got, t = timed(port.png.read_image, path)
-        st["decode"].append(t)
-        if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"view {i} ({row}) decodes to other bytes than were written")
-        expected[i] = (path, None if np.array_equal(got, base) else got)
-        if row not in small:
-            cpath = os.path.join(tmpdir, "cont9i_crop" + ext)
-            write_9i_view(port, row, cpath, centre_crop(base))
-            cpp, t_cpp = timed(port.png.read_image, cpath)
-            plain, t_plain = timed(decode_plain_9i, port, cpath)
-            if cpp.shape != plain.shape or not np.array_equal(cpp, plain):
-                raise AssertionError(f"{row}: the plain decode of a {CROP_9F} crop differs "
-                                     "from the C++ one")
-            small[row] = (t_cpp, t_plain)
-    megapixels = EVAL_WIDTH * EVAL_HEIGHT / 1e6
-    by_row = {}
-    for row, _ in CONTAINERS_9I:
-        st = stats[row]
-        dec = float(np.median(st["decode"])) / megapixels
-        by_row[row] = dict(views=len(st["bytes"]), decode_s_per_mp=dec,
-                           decode_vs_baseline_jpeg=dec / jpeg_s_per_mp,
-                           plain_vs_cpp=small[row][1] / small[row][0],
-                           bytes_mean=float(np.mean(st["bytes"])),
-                           bytes_vs_baseline_jpeg=float(np.sum(st["bytes"])
-                                                        / np.sum(st["jpeg_bytes"])),
-                           write_s=float(np.median(st["write"])))
-        r = by_row[row]
-        log(f"[cont9i] {row}: {r['views']} views at {EVAL_WIDTH}x{EVAL_HEIGHT}, "
-            f"{r['bytes_mean']:.0f} bytes each ({r['bytes_vs_baseline_jpeg']:.2f}x phase 9's "
-            f"JPEG files of the same views); decode {r['decode_s_per_mp']:.4f} s/MP "
-            f"({r['decode_vs_baseline_jpeg']:.2f}x phase 9's baseline JPEG); plain / C++ at "
-            f"{CROP_9F[0]}x{CROP_9F[1]} {r['plain_vs_cpp']:.1f}; write {r['write_s']:.3f} s "
-            "a view")
-    res = dict(rows=by_row, fixtures=len(fixtures), icns_rle_plain_vs_cpp=icns_walk,
+        f"C++ and the plain route; ICNS run-length walk plain / C++ {icns_rle:.1f}")
+    exts = {k: "." + k for k in ("dib", "ico", "cur", "dcx")}
+    by_row, expected = reader_views(port, scene, CONTAINERS_9I, exts, write_9i_view,
+                                    decode_plain_9i, "cont9i", jpeg_s_per_mp, tmpdir)
+    res = dict(rows=by_row, fixtures=len(fixtures), icns_rle_plain_vs_cpp=icns_rle,
                phase_s=time.perf_counter() - t_phase)
     log("[cont9i] " + json.dumps(res))
+    return res, expected
+
+
+# ------------------------------------------------------------------ phase 9j
+
+RLE_TEXT_PLAIN = {".ras": "sun", ".msp": "msp", ".psd": "psd", ".xbm": "xbm", ".xpm": "xpm"}
+
+
+def decode_plain_9j(port, path):
+    """A 9j file through the plain route (XBM and XPM have one route: no
+    C++)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    name = RLE_TEXT_PLAIN[os.path.splitext(path)[1]]
+    mod = getattr(port, name)
+    return getattr(mod, f"decode_{name}_plain", getattr(mod, f"decode_{name}"))(data, path)
+
+
+def walks_9j(port, name, data, walks):
+    """`gm_sun_rle` / `gm_msp_rle` against their plain walks on a fixture
+    that holds a byte-encoded Sun raster or MSP v2 rows, plain / C++
+    appended to `walks[ext]`."""
+    ext = os.path.splitext(name)[1]
+    if ext == ".ras" and port.sun.header(data)[3] == 2:
+        w, h, depth, _, cmap = port.sun.header(data)
+        args = (data[32 + len(cmap):], port.sun.stride(w, depth) * h)
+        walk, plain = port.sun._rle, port.sun._rle_plain
+    elif ext == ".msp" and data[:4] == b"LinS":
+        w, h, _ = port.msp.header(data)
+        args = (data[32:], h, (w + 7) // 8)
+        walk, plain = port.msp._rle, port.msp._rle_plain
+    else:
+        return
+    got, t_cpp = timed(walk, *args)
+    want, t_plain = timed(plain, *args)
+    same = (np.array_equal(got, want) if ext == ".ras"
+            else got[1:] == want[1:] and np.array_equal(got[0], want[0]))
+    if not same:
+        raise AssertionError(f"{name}: the C++ walk differs from its plain walk")
+    walks[ext].append(t_plain / t_cpp)
+
+
+def write_9j_view(port, row, path, img):
+    """View `img` written as row `row` of RLE_TEXT_9J -> (what `read_image`
+    must give, the writer's s)."""
+    t0 = time.perf_counter()
+    want = img
+    ink = img[..., 1] > 128
+    if row.startswith(("msp", "xbm")):
+        want = ink * np.uint8(255)
+    if row == "sun_raw24_bgr":
+        port.sun.write_sun(path, img)
+    elif row == "sun_rle24_bgr":
+        port.sun.write_sun(path, img, rle=True)
+    elif row == "sun_rle8_colormap_b15":
+        pal, idx = fixed_palette(LEVELS_256), quantize(img, LEVELS_256)
+        want = pal[idx]
+        port.sun.write_sun(path, idx, colormap=pal, rle=True)
+    elif row.startswith("msp"):
+        port.msp.write_msp(path, ink, version=1 if row.startswith("msp_v1") else 2)
+    elif row == "xbm_b16":
+        port.xbm.write_xbm(path, ink)
+    elif row.startswith("xpm"):
+        levels = LEVELS_256 if row == "xpm_palette_256_b15" else LEVELS_XPM_RGB
+        pal, idx = fixed_palette(levels), quantize_wide(img, levels)
+        want = pal[idx]
+        port.xpm.write_xpm(path, idx, palette=pal, cpp=2)
+    elif row == "psd_packbits_cmyk_b14":
+        cmyk = cmyk_of(img)
+        want = port.jpeg.cmyk_to_rgb(cmyk)
+        port.psd.write_psd(path, cmyk, mode=4, packbits=True)
+    else:
+        port.psd.write_psd(path, img, packbits=row == "psd_packbits_rgb")
+    return want, time.perf_counter() - t0
+
+
+def phase_rle_text_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
+    """Phase 9j (see the module docstring) on phase 9's `scene` ->
+    (results, {view: (file, None or its decode)} for the shared training)."""
+    t_phase = time.perf_counter()
+    walks = {".ras": [], ".msp": []}
+    fixtures = fixture_digests(port, "rle_text", decode_plain_9j,
+                               "SUN / MSP / XBM / XPM / PSD",
+                               lambda name, data: walks_9j(port, name, data, walks))
+    if not all(walks.values()):
+        raise AssertionError("no fixture holds a byte-encoded Sun raster or MSP v2 rows")
+    walks = {k: float(np.median(v)) for k, v in walks.items()}
+    log(f"[rle9j] {len(fixtures)} fixtures decode to their recorded digests through the "
+        f"C++ and the plain route; walks plain / C++: gm_sun_rle {walks['.ras']:.1f}, "
+        f"gm_msp_rle {walks['.msp']:.1f}")
+    exts = {"sun": ".ras", "msp": ".msp", "xbm": ".xbm", "xpm": ".xpm", "psd": ".psd"}
+    by_row, expected = reader_views(port, scene, RLE_TEXT_9J, exts, write_9j_view,
+                                    decode_plain_9j, "rle9j", jpeg_s_per_mp, tmpdir)
+    res = dict(rows=by_row, fixtures=len(fixtures), sun_rle_plain_vs_cpp=walks[".ras"],
+               msp_rle_plain_vs_cpp=walks[".msp"], phase_s=time.perf_counter() - t_phase)
+    log("[rle9j] " + json.dumps(res))
     return res, expected
 
 
@@ -3421,7 +3510,7 @@ def loaded_target(torch, port, decoded, size):
 
 def phase_reader_training(torch, port, scene, views, tmpdir):
     """The reader phases' shared training (see the module docstring): view i
-    of phase 9's scene from the file phase READER_PHASES[i % 6] wrote for it
+    of phase 9's scene from the file phase READER_PHASES[i % 7] wrote for it
     (`views`: {phase: {view: (file, None where it decodes to phase 9's
     baseline decode, else its decode)}}) -> (results, launches)."""
     t_phase = time.perf_counter()
@@ -3435,6 +3524,12 @@ def phase_reader_training(torch, port, scene, views, tmpdir):
         i = iid - 1
         phase = READER_PHASES[i % len(READER_PHASES)]
         path, decoded = views[phase][i]
+        if decoded is not None and decoded.ndim == 3 and decoded.shape[2] == 4:
+            # an alpha makes a mask, and `DeviceDataset` (as the JAX trainer's) stacks
+            # masks only where the first view has one: such a view trains from phase 9's
+            # JPEG instead, whatever the camera shuffle puts first
+            phase, path, decoded = "9", os.path.join(scene["root"], "images",
+                                                     f"{i:03d}.jpg"), None
         name = f"{i:03d}_{phase}{os.path.splitext(path)[1]}"
         shutil.copy(path, os.path.join(root, "images", name))
         images[iid] = dataclasses.replace(img, name=name)
@@ -4680,6 +4775,7 @@ def load_port():
     from gaussianmesh_tpu_torch.io import bmp, gif, jpeg, resample, tiff, vp8l, webp
     from gaussianmesh_tpu_torch.io import pcx, pnm, qoi, sgi, tga
     from gaussianmesh_tpu_torch.io import icns, ico
+    from gaussianmesh_tpu_torch.io import msp, psd, sun, xbm, xpm
     from gaussianmesh_tpu_torch.train import loss
 
     from gaussianmesh_tpu_torch import viewer
@@ -4702,7 +4798,7 @@ def load_port():
         colmap=colmap, bg_trainer=bg_trainer, cli_full_eval=cli_full_eval,
         cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss,
         tiff=tiff, gif=gif, bmp=bmp, webp=webp, vp8l=vp8l, pnm=pnm, tga=tga, qoi=qoi,
-        sgi=sgi, pcx=pcx, ico=ico, icns=icns,
+        sgi=sgi, pcx=pcx, ico=ico, icns=icns, sun=sun, msp=msp, xbm=xbm, xpm=xpm, psd=psd,
         gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
@@ -4752,6 +4848,8 @@ def main() -> int:
                                                       jpeg_s_per_mp, tmpdir)
         cont9i, reader_views["9i"] = phase_container_formats(torch, port, eval_scene,
                                                              jpeg_s_per_mp, tmpdir)
+        rle9j, reader_views["9j"] = phase_rle_text_formats(torch, port, eval_scene,
+                                                           jpeg_s_per_mp, tmpdir)
         readers, readers_launches = phase_reader_training(torch, port, eval_scene,
                                                           reader_views, tmpdir)
         del eval_scene, reader_views
@@ -4836,9 +4934,13 @@ def main() -> int:
             for k, r in webp9e["rows"].items())
         + f"; the Blender set's training dataset {webp9e['load_s']:.2f} s")
     for name, r9 in (("TIFF layouts", tiff9f), ("PNM / TGA / QOI / SGI / PCX", raw9g),
-                     ("DIB / ICO / CUR / DCX / ICNS", cont9i)):
+                     ("DIB / ICO / CUR / DCX / ICNS", cont9i),
+                     ("SUN / MSP / XBM / XPM / PSD", rle9j)):
         walk = (f" (ICNS run-length walk plain / C++ {r9['icns_rle_plain_vs_cpp']:.1f})"
                 if "icns_rle_plain_vs_cpp" in r9 else "")
+        if "sun_rle_plain_vs_cpp" in r9:
+            walk = (f" (walks plain / C++: gm_sun_rle {r9['sun_rle_plain_vs_cpp']:.1f}, "
+                    f"gm_msp_rle {r9['msp_rle_plain_vs_cpp']:.1f})")
         log(f"[done] {name} phase {r9['phase_s']:.1f} s on {cpu}: {r9['fixtures']} "
             f"fixtures{walk}; by row s/MP at {EVAL_WIDTH}x{EVAL_HEIGHT} (x phase 9's baseline "
             f"JPEG), plain / C++ at {CROP_9F[0]}x{CROP_9F[1]}, bytes a view (x the JPEG's), "

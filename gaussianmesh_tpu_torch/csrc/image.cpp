@@ -30,6 +30,9 @@
 // - gm_sgi_rle: an SGI image's run-length rows, `io/sgi.py`.
 // - gm_pcx_rle: a PCX file's run-length rows, `io/pcx.py`.
 // - gm_icns_rle: an icns legacy image's run-length planes, `io/icns.py`.
+// - gm_sun_rle: a Sun raster's byte-encoded (type 2) data, `io/sun.py`.
+// - gm_msp_rle: a Windows Paint (MSP v2) file's row map and run-length
+//   rows, `io/msp.py`.
 //
 // Integer arithmetic wraps as numpy's int32 does (built with -fwrapv), so
 // even out-of-range coefficients of a corrupt file give the plain
@@ -59,6 +62,7 @@ constexpr int kOverflow = 8;        // decoded data past the size of the strip o
 constexpr int kBadLiteral = 9;      // an LZW encoder's input byte of min_bits or more bits
 constexpr int kNoRoom = 10;         // an LZW encoder's output past its buffer
 constexpr int kChannelLeft = 11;    // an icns plane's count not met exactly
+constexpr int kRowCorrupt = 12;     // an MSP run cut by the end of its row
 
 constexpr int kLzwMaxBits = 12;     // LZW codes of 12 bits, a table of 4,096 entries
 constexpr int kLzwTable = 1 << kLzwMaxBits;
@@ -1192,6 +1196,98 @@ int gm_icns_rle(const uint8_t* data, int64_t n, int64_t sizesq, uint8_t* out,
     if (got != sizesq) return kTruncated;
   }
   info[0] = info[1] = 0;
+  return kOk;
+}
+
+// A Sun raster's byte-encoded data (RT_BYTE_ENCODED, type 2: the type-1
+// raster, rows padded to 16 bits, coded as a byte stream) from data[0:n)
+// -> out, at most `total` bytes: 0x80 0 is a literal 0x80, 0x80 c v is
+// c + 1 copies of v, any other byte is itself. Runs cross rows freely; the
+// walk stops once `total` bytes are written (the rest of a run and of the
+// data unread) or at the end of the data (a packet the data cuts is
+// dropped). info[0]: the bytes written, info[1]: the bytes consumed.
+int gm_sun_rle(const uint8_t* data, int64_t n, int64_t total, uint8_t* out,
+               int64_t* info) {
+  int64_t i = 0, o = 0;
+  while (o < total && i < n) {
+    const int b = data[i];
+    if (b != 0x80) {
+      out[o++] = static_cast<uint8_t>(b);
+      ++i;
+    } else if (i + 1 < n && data[i + 1] == 0) {
+      out[o++] = 0x80;
+      i += 2;
+    } else if (i + 2 < n) {
+      const int64_t count = std::min<int64_t>(data[i + 1] + 1, total - o);
+      std::memset(out + o, data[i + 2], count);
+      o += count;
+      i += 3;
+    } else {
+      break;
+    }
+  }
+  info[0] = o;
+  info[1] = i;
+  return kOk;
+}
+
+// A Windows Paint v2 ("LinS") file's data after its 32-byte header,
+// data[0:n): a map of `rows` little-endian 16-bit row lengths, then the
+// rows, walked as PIL's MspDecoder walks them into one stream of bytes:
+// a row of length 0 is `row_bytes` bytes of 0xFF; in a row, a byte 0 is
+// followed by a count and a value (count copies), any other byte c by c
+// literal bytes (as many of them as the row holds). The stream goes to
+// out up to `total` bytes; info[0] counts all of it (rows are not held to
+// row_bytes: a long row runs into the next, as PIL's does). Returns kOk;
+// kTruncated where the map (info[1] = -1) or row info[1] runs past the
+// data; kRowCorrupt where a run's count and value are cut by the end of
+// row info[1].
+int gm_msp_rle(const uint8_t* data, int64_t n, int64_t rows, int64_t row_bytes,
+               int64_t total, uint8_t* out, int64_t* info) {
+  int64_t o = 0;
+  info[0] = 0;
+  info[1] = -1;
+  if (n < 2 * rows) return kTruncated;
+  const auto put = [&](const uint8_t* src, int64_t count, int fill) {
+    const int64_t room = std::max<int64_t>(0, std::min(count, total - o));
+    if (room) {
+      if (src)
+        std::memcpy(out + o, src, room);
+      else
+        std::memset(out + o, fill, room);
+    }
+    o += count;
+  };
+  int64_t pos = 2 * rows;
+  for (int64_t y = 0; y < rows; ++y) {
+    const int64_t len = data[2 * y] | (data[2 * y + 1] << 8);
+    info[1] = y;
+    if (len == 0) {
+      put(nullptr, row_bytes, 0xFF);
+      continue;
+    }
+    if (pos + len > n) {
+      info[0] = o;
+      return kTruncated;
+    }
+    const uint8_t* row = data + pos;
+    pos += len;
+    for (int64_t k = 0; k < len;) {
+      const int type = row[k++];
+      if (type == 0) {
+        if (k + 2 > len) {
+          info[0] = o;
+          return kRowCorrupt;
+        }
+        put(nullptr, row[k], row[k + 1]);
+        k += 2;
+      } else {
+        put(row + k, std::min<int64_t>(type, len - k), 0);
+        k += type;
+      }
+    }
+  }
+  info[0] = o;
   return kOk;
 }
 

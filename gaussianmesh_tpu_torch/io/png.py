@@ -11,11 +11,13 @@ palette indices). `read_image` reads a JPEG (`io/jpeg.py`), a PNG, a BMP
 or DIB (`io/bmp.py`), a TIFF (`io/tiff.py`), a GIF (`io/gif.py`), a WebP
 (`io/webp.py`: lossy, lossless, with alpha, an animation's first frame), a
 PNM (`io/pnm.py`), a QOI (`io/qoi.py`), an SGI (`io/sgi.py`), a PCX or
-DCX (`io/pcx.py`), an ICO or CUR (`io/ico.py`), an ICNS (`io/icns.py`) or
-a TGA (`io/tga.py`) by its first bytes, in PIL's order of formats, a
-container PIL gives way on handed to the next format, TGA (no magic) as
-PIL tries it, after the others. `encode_png` encodes 8-bit gray, gray + alpha, RGB and RGBA
-with filter type 0 on every row, and `write_png` writes what it returns.
+DCX (`io/pcx.py`), an ICO or CUR (`io/ico.py`), an ICNS (`io/icns.py`), an
+MSP (`io/msp.py`), a PSD (`io/psd.py`), a Sun raster (`io/sun.py`), an XBM
+(`io/xbm.py`), an XPM (`io/xpm.py`) or a TGA (`io/tga.py`) by its first
+bytes, in PIL's order of formats, a file PIL gives way on handed to the
+next format, TGA (no magic) as PIL tries it. `encode_png` encodes 8-bit
+gray, gray + alpha, RGB and RGBA with filter type 0 on every row, and
+`write_png` writes what it returns.
 
 The row filters are undone by the port's C++ (`gm_png_unfilter` of
 `csrc/image.cpp`, built by `ops/_cuda.py::host_library` at first use; a
@@ -37,13 +39,18 @@ from gaussianmesh_tpu_torch.io.bmp import BMP_MAGIC, dib_accept, read_bmp, read_
 from gaussianmesh_tpu_torch.io.gif import GIF_MAGICS, read_gif
 from gaussianmesh_tpu_torch.io.giveway import GiveWay
 from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
+from gaussianmesh_tpu_torch.io.msp import MSP_MAGICS, read_msp
 from gaussianmesh_tpu_torch.io.pcx import DCX_MAGIC, pcx_accept, read_dcx, read_pcx
 from gaussianmesh_tpu_torch.io.pnm import is_pnm, read_pnm
+from gaussianmesh_tpu_torch.io.psd import PSD_MAGIC, read_psd
 from gaussianmesh_tpu_torch.io.qoi import QOI_MAGIC, read_qoi
 from gaussianmesh_tpu_torch.io.sgi import SGI_MAGIC, read_sgi
+from gaussianmesh_tpu_torch.io.sun import SUN_MAGIC, read_sun
 from gaussianmesh_tpu_torch.io.tga import read_tga, tga_header
 from gaussianmesh_tpu_torch.io.tiff import TIFF_HEADS, read_tiff
 from gaussianmesh_tpu_torch.io.webp import read_webp
+from gaussianmesh_tpu_torch.io.xbm import read_xbm, xbm_accept
+from gaussianmesh_tpu_torch.io.xpm import XPM_MAGIC, read_xpm
 from gaussianmesh_tpu_torch.ops import _cuda
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -242,6 +249,28 @@ _BEFORE_TGA = (
 )
 
 
+def _gbr_opens(head: bytes) -> bool:
+    """Whether PIL's `GbrImagePlugin` (tried before SUN and TGA, not read by
+    the port) opens a file of this head: its `_accept`, then its `_open`'s
+    checks (header size 20 or more, version 1, or 2 with "GIMP" at byte 20,
+    a size other than 0, 1 or 4 bytes a pixel)."""
+    if len(head) < 20:
+        return False
+    size, version, width, height, depth = struct.unpack_from(">5I", head)
+    return (size >= 20 and width > 0 and height > 0 and depth in (1, 4)
+            and (version == 1 or version == 2 and len(head) >= 28 and head[20:24] == b"GIMP"))
+
+
+def _sun_accept(head: bytes) -> bool:
+    """SUN's magic, raising where PIL takes the head for a GBR file first (a
+    SUN raster of width 1 whose length field is 1 or 4)."""
+    if head[:4] != SUN_MAGIC:
+        return False
+    if _gbr_opens(head):
+        raise ValueError("a SUN header that PIL takes for a GBR file first; not read")
+    return True
+
+
 def _tga_accept(head: bytes) -> bool:
     """TGA's header checks, raising where a format PIL tries first would
     take the head."""
@@ -273,13 +302,18 @@ _ORDER = (
     ("ICNS", lambda h: h[:4] == b"icns", lambda p: icns.read_icns(p)),
     ("ICO", lambda h: h[:4] == b"\0\0\1\0", lambda p: ico.read_ico(p)),
     ("TIFF", lambda h: h[:4] in TIFF_HEADS, read_tiff),
+    ("MSP", lambda h: h[:4] in MSP_MAGICS, read_msp),
+    ("PSD", lambda h: h[:4] == PSD_MAGIC, read_psd),
     ("QOI", lambda h: h[:4] == QOI_MAGIC, read_qoi),
     ("SGI", lambda h: h[:2] == SGI_MAGIC, read_sgi),
+    ("SUN", _sun_accept, read_sun),
     ("TGA", _tga_accept, read_tga),
     ("WebP", lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP", read_webp),
+    ("XBM", xbm_accept, read_xbm),
+    ("XPM", lambda h: h[:9] == XPM_MAGIC, read_xpm),
 )
 FORMATS = ("JPEG", "PNG", "BMP", "TIFF", "GIF", "WebP", "PNM", "QOI", "SGI", "PCX", "DIB",
-           "ICO", "CUR", "DCX", "ICNS", "TGA")
+           "ICO", "CUR", "DCX", "ICNS", "MSP", "PSD", "SUN", "XBM", "XPM", "TGA")
 
 
 def read_image(path: str) -> np.ndarray:
@@ -287,10 +321,12 @@ def read_image(path: str) -> np.ndarray:
     JPEG, PNG, BMP, DIB (a BMP without its file header), TIFF, GIF, WebP
     (lossy, lossless, with alpha, an animation's first frame), PNM (P1-P6),
     QOI, SGI, PCX, DCX (its first page), ICO and CUR (`io/ico.py`), ICNS
-    (`io/icns.py`), and TGA, which has no magic, only where no format PIL
-    tries first takes the file and TGA's header checks pass. A container
-    PIL gives way on (`io/giveway.py`) goes on to the next format that
-    takes its head, as in PIL -> the reader's array."""
+    (`io/icns.py`), MSP (`io/msp.py`), PSD (its merged image, `io/psd.py`),
+    SUN (`io/sun.py`), XBM and XPM (`io/xbm.py`, `io/xpm.py`), and TGA,
+    which has no magic, only where no format PIL tries first takes the file
+    and TGA's header checks pass. A file PIL gives way on (`io/giveway.py`)
+    goes on to the next format that takes its head, as in PIL -> the
+    reader's array."""
     with open(path, "rb") as f:
         head = f.read(68)
     causes = []

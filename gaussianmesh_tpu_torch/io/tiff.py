@@ -213,11 +213,18 @@ def packbits_encode(rows: np.ndarray) -> bytes:
     """(H, row bytes) uint8 -> PackBits, each row on its own (as libtiff
     writes): runs of 3 or more equal bytes as repeat packets, the bytes
     between as literal packets, 128 at most each."""
+    return packbits_rows(rows)[0]
+
+
+def packbits_rows(rows: np.ndarray) -> tuple[bytes, np.ndarray]:
+    """`packbits_encode(rows)` and the bytes of each row's packets."""
     start, length, run = runs.segments(rows, 3, 128, 128)
     x = rows.ravel()
     head = np.stack([np.where(run, (1 - length) & 0xFF, length - 1), x[start]], 1)
-    return runs.assemble(x, start, head.astype(np.uint8), np.where(run, 2, 1),
-                         np.where(run, 0, length), np.zeros_like(length)).tobytes()
+    out = runs.assemble(x, start, head.astype(np.uint8), np.where(run, 2, 1),
+                        np.where(run, 0, length), np.zeros_like(length)).tobytes()
+    size = np.where(run, 2, 1 + length)
+    return out, np.bincount(start // rows.shape[1], size, minlength=len(rows)).astype(np.int64)
 
 
 def decode_tiff(data: bytes, path: str = "<bytes>") -> np.ndarray:

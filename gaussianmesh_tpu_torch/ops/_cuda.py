@@ -105,6 +105,10 @@ HOST_LIBRARIES = {
         "gm_pcx_rle": [_P, _L, _L, _L, _P, _P],
         # data, n, sizesq, out, info
         "gm_icns_rle": [_P, _L, _L, _P, _P],
+        # data, n, total, out, info
+        "gm_sun_rle": [_P, _L, _L, _P, _P],
+        # data, n, rows, row_bytes, total, out, info
+        "gm_msp_rle": [_P, _L, _L, _L, _L, _P, _P],
     },
     "vp8": {
         # frame, n, y, u, v, info

@@ -122,10 +122,11 @@ def test_unsupported_images_raise(tmp_path):
         fh.write(data[:i] + data[i + 12 + struct.unpack(">I", data[i:i + 4])[0]:])
     with pytest.raises(ValueError, match="PLTE"):
         png.read_png(pal)
-    other = str(tmp_path / "x.xbm")
-    Image.fromarray(_image(3)).convert("1").save(other)
+    other = str(tmp_path / "x.im")
+    Image.fromarray(_image(3)).convert("1").save(other, "IM")
     with pytest.raises(ValueError, match="not a JPEG, PNG, BMP, TIFF, GIF, WebP, PNM, QOI, "
-                                         "SGI, PCX, DIB, ICO, CUR, DCX, ICNS or TGA"):
+                                         "SGI, PCX, DIB, ICO, CUR, DCX, ICNS, MSP, PSD, SUN, "
+                                         "XBM, XPM or TGA"):
         png.read_image(other)
     lossless = str(tmp_path / "l.jpg")
     Image.fromarray(_image(3)).save(lossless)
