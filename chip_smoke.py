@@ -123,8 +123,9 @@ Phases (any failure raises, so the exit code is not 0):
    kernels' wrappers recording their arguments, and K1, K2 and K3 held
    against their plain versions on those, timed and bounded as in phase 5;
    K2's rows must equal the step's.
-9b. progressive: phase 9's 24 views rendered again from the same cameras
-   and written as progressive JPEGs (`write_jpeg(..., progressive=True)`:
+9b. progressive: the views of phase 9 that 9h takes from 9b
+   (`reader_phase`: 0, 15 and 22) rendered again from the same cameras and
+   written as progressive JPEGs (`write_jpeg(..., progressive=True)`:
    quality 90, 4:2:0, libjpeg's 10-scan progression). Each view decoded by
    `read_jpeg` (C++, `gm_jpeg_scan_progressive`): equal to phase 9's
    baseline file of the view decoded again; the CROP_9F centre of view 0,
@@ -271,9 +272,33 @@ Phases (any failure raises, so the exit code is not 0):
    MP, its ratio to phase 9's baseline JPEG in the same run, plain / C++,
    bytes a view and their ratio to phase 9's JPEG files, and write s by
    row beside the card's name and power limit and the host's CPU.
+9k. FLI, IPTC, IM, IMT and GBR: first the fixtures of
+   `tests/data/raw_samples/` (PIL-written IM files and the port's writers'
+   files of the five formats, with the SHA-256 and shape of PIL's array
+   under the port's rule: A2, B7, B14, B15, B16, B30; recorded on a machine
+   with PIL by `tools/make_raw_sample_fixtures_torch.py`): `read_image` and
+   the plain route give the recorded digests, and `gm_fli_frame` its plain
+   walk's planes on the FLI fixtures (plain / C++ printed). Then phase 9's
+   24 views written in the rows of RAW_SAMPLE_9K (`io/fli.py`,
+   `io/iptc.py`, `io/im.py`, `io/imt.py`, `io/gbr.py` writers): FLIs of
+   BRUN on 9c's 256-colour palette (B15), FLCs of COPY on it at 64 levels
+   (B15), raw and JPEG gray IPTC records of the view's green, IM files of
+   RGB, of 9c's indices with a colour `Lut` (B15), of YCC samples (B30),
+   of 16 bits whose high byte is the green (B7) and of the CMYK separation
+   (B14), IMTs of the green, and GBRs of the green (version 1) and of RGBA
+   with 9i's ellipse as alpha (version 2). Each view decodes by
+   `read_image` to the samples written under the port's rule (the IPTC
+   JPEG to its own decode); the CROP_9F centre of one view a row decodes
+   through the plain route to the C++'s bytes (`gm_fli_frame` against its
+   plain walk on the FLI rows; the others have one route); s / MP, its
+   ratio to phase 9's baseline JPEG in the same run, plain / C++, bytes a
+   view and their ratio to phase 9's JPEG files, and write s by row beside
+   the card's name and power limit and the host's CPU.
 9h. the reader phases' shared training: one COLMAP scene of phase 9's 24
-   cameras whose view i is the file phase READER_PHASES[i % 7] (9b, 9c, 9d,
-   9f, 9g, 9i, 9j) wrote for it, or phase 9's JPEG where that file decodes
+   cameras whose view i is the file phase `reader_phase(i)` =
+   READER_PHASES[(i + i // 8) % 8] (9b, 9c, 9d, 9f, 9g, 9i, 9j, 9k; each
+   octet turned by one, so that the test views 0, 8 and 16 fall to three
+   phases) wrote for it, or phase 9's JPEG where that file decodes
    with an alpha (an alpha makes a mask, and `DeviceDataset` stacks masks
    only where the shuffled first view has one, as the JAX trainer does);
    `cli.train_mesh --device cuda` on it for PROGRESSIVE_ITERS steps with
@@ -296,15 +321,17 @@ Phases (any failure raises, so the exit code is not 0):
    each PNG equal to the in-process render quantised (0 levels), K1 once per
    frame (counters set to 0 just before the requests, read just after), no
    overflow, `/state` 8 frames, a 500 for a render that raises; request ms
-   split into render and encode. (c) `GM_DEVICE=cuda GM_E2E_ITERATIONS=100
+   split into render and encode. (c) `GM_DEVICE=cuda GM_E2E_ITERATIONS=10
    bash examples/synthetic_e2e_torch.sh` (E2E_ITERATIONS: the script's 400
-   cut to 100): exit 0, renders, results.json, edit frames. (d) View 0 as 4 bands (`parallel/train_step.rasterize_band`, one
-   at a time), stitched equal to the full render (2e-5). (e) A rehearsal of
+   cut to 10): exit 0, renders, results.json, edit frames; each step's
+   seconds from the script's `[e2e-step]` marks. (d) View 0 as 4 bands
+   (`parallel/train_step.rasterize_band`, one at a time), stitched equal
+   to the full render (2e-5). (e) A rehearsal of
    the (data, tile) regime: 4 ranks (2x2) on the one card over gloo from a
    FileStore, config 2 at 800x800 from the phase-6 student's state: the
    first step against a single-process reference over the same two views
    (loss 1e-4 relative, parameters 5e-4 of each leaf's largest, grad_accum
-   1e-5, denom exact), 20 more steps with a reset at 2, densify at 3 and 6
+   1e-5, denom exact), SHARD_STEPS (16) more steps with a reset at 2, densify at 3 and 6
    and a reset at 6 (the ranks' state hashes all-gathered after each event
    and at the end, equal), K1-K3 once per rank and step, finite losses that
    fall over the event-free steps; then one more step with the band
@@ -329,8 +356,9 @@ Phases (any failure raises, so the exit code is not 0):
    n_split equal to a single-process `densify_and_split` of the gathered
    table; the vertex pools' hashes equal on every rank), no overflow of
    any kind, K1 1, K2 1 and K3 2 launches per rank and step (counters set
-   to 0 just before, read just after); a per-rank checkpoint, 2 more steps,
-   and fresh trainers resumed from it for 2 steps, equal bit for bit; the
+   to 0 just before, read just after); a per-rank checkpoint, GSHARD_MORE
+   (1) more steps, and fresh trainers resumed from it for as many, equal
+   bit for bit; the
    exchange alone timed; one more step with the arguments recorded, and on
    the rank that received the most pairs K1, K2 and the receiver's K3 held
    against their plain versions and the owner's K3 against a float64
@@ -504,7 +532,7 @@ WEBP_9E = (
     ("animation_lossy_alph", 3, dict(quality_index=20, alpha_compression=1, alpha_filter=1)),
 )
 ANIM_OFFSET = (4, 2)
-DECODES_9E = 5                         # phase 9e decodes each view this many times
+DECODES_9E = 3                         # phase 9e decodes each view this many times
 WEBP_9E_PLAIN = 200                    # phase 9e's plain decodes: the centre crop of one view a row
 
 # phase 9f: phase 9's views as tiled, planar, JPEG-compressed, LZMA and CMYK TIFFs and
@@ -544,9 +572,14 @@ RLE_TEXT_9J = (("sun_raw24_bgr", 3), ("sun_rle24_bgr", 3), ("sun_rle8_colormap_b
                ("xpm_palette_256_b15", 3), ("xpm_rgb_2cpp", 2), ("psd_raw_rgb", 2),
                ("psd_packbits_rgb", 2), ("psd_packbits_cmyk_b14", 1))
 LEVELS_XPM_RGB = (20, 20, 20)          # 8,000 colours: RGB to PIL, 2 characters a pixel
-# the reader phases' shared training: view i of phase 9's scene from the file of the
-# phase READER_PHASES[i % 7] wrote for it
-READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i", "9j")
+# phase 9k: phase 9's views as FLI, IPTC, IM, IMT and GBR files, (row, views) in turn
+RAW_SAMPLE_9K = (("fli_brun_256_b15", 2), ("flc_copy_64_b15", 2), ("iptc_raw_gray", 2),
+                 ("iptc_jpeg_gray", 2), ("im_rgb", 2), ("im_lut_b15", 2), ("im_ycc_b30", 2),
+                 ("im_l16_b7", 2), ("im_cmyk_b14", 2), ("imt_gray", 2), ("gbr_v1_gray", 2),
+                 ("gbr_v2_rgba", 2))
+# the reader phases' shared training: view i of phase 9's scene from the file the phase
+# `reader_phase(i)` wrote for it
+READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i", "9j", "9k")
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -554,16 +587,16 @@ RS_F32_FLOOR = 5e-3    # float32 card path vs the float64 extractor at level 7
 RIGID_F32_BAR = 2e-3   # R vs Q on a rigid frame made in float32
 VIEWER_FRAMES = 8
 E2E_TIMEOUT_S = 600
-E2E_ITERATIONS = 100   # the end-to-end script's training (the script's default is 400)
+E2E_ITERATIONS = 10    # the end-to-end script's training (the script's default is 400)
 SHARD_WORLD = (2, 2)   # (data, tile) ranks sharing the one card over gloo
-SHARD_STEPS = 20
+SHARD_STEPS = 16       # 8 with the events, 8 free ones whose loss must fall
 SHARD_LR_SCALE = 4.4   # phase 6's spatial_lr_scale
 SHARD_GROUP_TIMEOUT_S = 300
 SHARD_JOIN_S = 900
 # phase 10g: the Gaussian-table shard, 4 ranks on the card over gloo
 GSHARD_WORLD = 4
 GSHARD_STEPS = 8       # a reset at 2, densifies at 3 and 6, a reset at 6
-GSHARD_MORE = 2        # steps after the checkpoint: uninterrupted, then resumed
+GSHARD_MORE = 1        # steps after the checkpoint: uninterrupted, then resumed
 GSHARD_HOT = 2000      # each densify's threshold: the 2,000th largest grads_avg
 EMULATED_CALLS = 5
 
@@ -572,11 +605,11 @@ QUALITY_SEEDS = (0, 1, 2)
 QUALITY_BAR_DB = 1.0   # each seed's SMALL test PSNR against the JAX package's
 QUALITY_STEP_VIEWS = 4
 
-TOOL_REPS = 3          # phase 12: calls a row of profile_raster_torch.py --prefix
+TOOL_REPS = 2          # phase 12: calls a row of profile_raster_torch.py --prefix
 TOOL_FRAMES = 8        # phase 12: bench_playback_torch.py's frames and config-4 steps
 TOOL_STEPS4 = 5
 SCALING_D = (1, 8)     # phase 13: tools/bench_scaling_torch.py's --d_list
-SCALING_STEPS = 5      # phase 13: timed steps of each item of both scaling tools
+SCALING_STEPS = 3      # phase 13: timed steps of each item of both scaling tools
 BENCH_PAIRS = 765_920  # the bench scene's live pairs (bench_torch.py, 1080p, 100,000 Gaussians)
 # the multi-rank bars of PERF.md section 2: loss 1e-4 relative, parameters
 # 5e-4 of each leaf's largest; gradients the port's 2e-4 of each leaf's largest
@@ -2514,6 +2547,15 @@ def centre_crop(img):
     return np.ascontiguousarray(img[y0:y0 + h, x0:x0 + w])
 
 
+def reader_phase(i):
+    """The reader phase whose file of phase 9's view i the shared training
+    (9h) takes: READER_PHASES in turn, each octet of views turned by one
+    more, so that the test views (every 8th: llffhold 8) fall to three
+    phases, and each phase keeps two or three of the 21 training views."""
+    n = len(READER_PHASES)
+    return READER_PHASES[(i + i // n) % n]
+
+
 def phase_progressive(torch, port, model, scene, tmpdir):
     """Phase 9b (see the module docstring) on phase 9's `scene` ->
     (results, {view: (file, None where it decodes to phase 9's baseline
@@ -2524,7 +2566,10 @@ def phase_progressive(torch, port, model, scene, tmpdir):
     white = torch.ones(3, device="cuda")
     times = {k: [] for k in ("write", "decode", "baseline")}
     views = {}
-    for i, (_, _, cam) in enumerate(scene["cams"]):
+    taken = [i for i in range(len(scene["cams"])) if reader_phase(i) == "9b"]
+    assert taken[0] == 0, taken               # view 0 gives the crop and the cut scans
+    for i in taken:
+        _, _, cam = scene["cams"][i]
         ca = cam.arrays("cuda")
         with torch.no_grad():
             out = port.render.render(port.render.mesh_model_arrays(model, ca, SH_DEGREE),
@@ -2576,9 +2621,9 @@ def phase_progressive(torch, port, model, scene, tmpdir):
         f"(quality {EVAL_QUALITY}, 4:2:0, 10 scans), {np.mean(sizes):.0f} bytes each: "
         f"decode {per_mp['decode']:.4f} s/MP (the baseline files {per_mp['baseline']:.4f}; "
         f"at {CROP_9F[0]}x{CROP_9F[1]} {t_cpp / crop_mp:.4f}, plain {t_plain / crop_mp:.4f}); "
-        f"write {np.median(times['write']):.2f} s a view; C++ = baseline bytes on every "
-        "view, C++ = plain on the crop; view 0 cut after 7 scans raises through both "
-        "decoders")
+        f"write {np.median(times['write']):.2f} s a view (views {taken}); C++ = baseline "
+        "bytes on every view, C++ = plain on the crop; view 0 cut after 7 scans raises "
+        "through both decoders")
     res = dict(views=len(sizes), bytes_mean=float(np.mean(sizes)),
                decode_s_per_mp=per_mp["decode"], crop_decode_s_per_mp=t_cpp / crop_mp,
                decode_plain_s_per_mp=t_plain / crop_mp,
@@ -3496,6 +3541,118 @@ def phase_rle_text_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
     return res, expected
 
 
+# ------------------------------------------------------------------ phase 9k
+
+RAW_SAMPLE_PLAIN = {".fli": "fli", ".flc": "fli", ".iim": "iptc", ".im": "im", ".imt": "imt",
+                    ".gbr": "gbr"}
+
+
+def decode_plain_9k(port, path):
+    """A 9k file through the plain route (FLI's plain walk; IPTC, IM, IMT
+    and GBR have one route: no C++)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    name = RAW_SAMPLE_PLAIN[os.path.splitext(path)[1]]
+    mod = getattr(port, name)
+    return getattr(mod, f"decode_{name}_plain", getattr(mod, f"decode_{name}"))(data, path)
+
+
+def fli_walk(port, name, data, walks):
+    """`gm_fli_frame` against its plain walk on an FLI fixture's frame (the
+    planes equal), plain / C++ appended to `walks`."""
+    if os.path.splitext(name)[1] not in (".fli", ".flc"):
+        return
+    w, h, _, framesize = port.fli.header(data)
+    cpp, t_cpp = timed(port.fli._load, data, w, h, framesize, port.fli._frame)
+    plain, t_plain = timed(port.fli._load, data, w, h, framesize, port.fli._frame_plain)
+    if not np.array_equal(cpp, plain):
+        raise AssertionError(f"{name}: gm_fli_frame differs from its plain walk")
+    walks.append(t_plain / t_cpp)
+
+
+def ycc_of(rgb):
+    """A view's YCbCr samples (JFIF's forward transform, rounded): the IM
+    YCC row's file content."""
+    r, g, b = (rgb[..., k].astype(np.float64) for k in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128 - 0.168736 * r - 0.331264 * g + 0.5 * b
+    cr = 128 + 0.5 * r - 0.418688 * g - 0.081312 * b
+    return np.clip(np.rint(np.stack([y, cb, cr], -1)), 0, 255).astype(np.uint8)
+
+
+def write_9k_view(port, row, path, img):
+    """View `img` written as row `row` of RAW_SAMPLE_9K -> (what
+    `read_image` must give, the writer's s)."""
+    t0 = time.perf_counter()
+    green = np.ascontiguousarray(img[..., 1])
+    want = img
+    if row.startswith(("fli", "flc", "im_lut")):
+        pal, idx = fixed_palette(LEVELS_256), quantize(img, LEVELS_256)
+        if row.startswith("fli"):
+            want = pal[idx]
+            port.fli.write_fli(path, idx, pal)
+        elif row.startswith("flc"):
+            want = (pal & 0xFC)[idx]          # 64 levels: PIL shifts them back by 2
+            port.fli.write_fli(path, idx, pal, chunk="copy", flc=True, levels=64)
+        else:
+            want = pal[idx]
+            port.im.write_im(path, idx, "P", lut=pal)
+    elif row == "iptc_raw_gray":
+        want = green
+        port.iptc.write_iptc(path, green)
+    elif row == "iptc_jpeg_gray":
+        port.iptc.write_iptc(path, green, compression="jpeg", quality=EVAL_QUALITY)
+        want = port.jpeg.decode_jpeg(port.jpeg.encode_jpeg(green, EVAL_QUALITY))
+    elif row == "im_rgb":
+        port.im.write_im(path, img, "RGB")
+    elif row == "im_ycc_b30":
+        ycc = ycc_of(img)
+        want = port.im.ycc_to_rgb(ycc)
+        port.im.write_im(path, ycc, "YCbCr")
+    elif row == "im_l16_b7":
+        want = green
+        port.im.write_im(path, green.astype(np.uint16) << 8 | img[..., 0], "I;16")
+    elif row == "im_cmyk_b14":
+        cmyk = cmyk_of(img)
+        want = port.jpeg.cmyk_to_rgb(cmyk)
+        port.im.write_im(path, cmyk, "CMYK")
+    elif row == "imt_gray":
+        want = green
+        port.imt.write_imt(path, green)
+    elif row == "gbr_v1_gray":
+        want = green
+        port.gbr.write_gbr(path, green, version=1)
+    else:
+        h, w = img.shape[:2]
+        alpha = np.where(mask_9i(h, w), 96, 255).astype(np.uint8)[..., None]
+        want = np.concatenate([img, alpha], 2)
+        port.gbr.write_gbr(path, want)
+    return want, time.perf_counter() - t0
+
+
+def phase_raw_sample_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
+    """Phase 9k (see the module docstring) on phase 9's `scene` ->
+    (results, {view: (file, None or its decode)} for the shared training)."""
+    t_phase = time.perf_counter()
+    walks = []
+    fixtures = fixture_digests(port, "raw_samples", decode_plain_9k,
+                               "FLI / IPTC / IM / IMT / GBR",
+                               lambda name, data: fli_walk(port, name, data, walks))
+    if not walks:
+        raise AssertionError("no FLI fixture")
+    fli_frame = float(np.median(walks))
+    log(f"[raw9k] {len(fixtures)} fixtures decode to their recorded digests through the "
+        f"C++ and the plain route; gm_fli_frame plain / C++ {fli_frame:.1f}")
+    exts = {"fli": ".fli", "flc": ".flc", "ipt": ".iim", "im_": ".im", "imt": ".imt",
+            "gbr": ".gbr"}
+    by_row, expected = reader_views(port, scene, RAW_SAMPLE_9K, exts, write_9k_view,
+                                    decode_plain_9k, "raw9k", jpeg_s_per_mp, tmpdir)
+    res = dict(rows=by_row, fixtures=len(fixtures), fli_frame_plain_vs_cpp=fli_frame,
+               phase_s=time.perf_counter() - t_phase)
+    log("[raw9k] " + json.dumps(res))
+    return res, expected
+
+
 # ------------------------------------------------------ the readers' training
 
 def loaded_target(torch, port, decoded, size):
@@ -3510,7 +3667,7 @@ def loaded_target(torch, port, decoded, size):
 
 def phase_reader_training(torch, port, scene, views, tmpdir):
     """The reader phases' shared training (see the module docstring): view i
-    of phase 9's scene from the file phase READER_PHASES[i % 7] wrote for it
+    of phase 9's scene from the file phase `reader_phase(i)` wrote for it
     (`views`: {phase: {view: (file, None where it decodes to phase 9's
     baseline decode, else its decode)}}) -> (results, launches)."""
     t_phase = time.perf_counter()
@@ -3522,7 +3679,7 @@ def phase_reader_training(torch, port, scene, views, tmpdir):
     taken = {}
     for iid, img in images.items():
         i = iid - 1
-        phase = READER_PHASES[i % len(READER_PHASES)]
+        phase = reader_phase(i)
         path, decoded = views[phase][i]
         if decoded is not None and decoded.ndim == 3 and decoded.shape[2] == 4:
             # an alpha makes a mask, and `DeviceDataset` (as the JAX trainer's) stacks
@@ -3687,9 +3844,9 @@ def phase_viewer(torch, port, cfg, tmpdir):
 
 
 def phase_e2e(torch, tmpdir):
-    """10c. `GM_DEVICE=cuda GM_E2E_ITERATIONS=100 bash
+    """10c. `GM_DEVICE=cuda GM_E2E_ITERATIONS=10 bash
     examples/synthetic_e2e_torch.sh`: exit 0, its renders, results.json and
-    edit frames."""
+    edit frames; each step's seconds from its `[e2e-step]` marks."""
     root = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(tmpdir, "e2e")
     t0 = time.perf_counter()
@@ -3706,11 +3863,16 @@ def phase_e2e(torch, tmpdir):
     renders = sorted(os.listdir(os.path.join(model, "test", ours, "renders")))
     results = json.load(open(os.path.join(model, "results.json")))[ours]
     frames = sorted(os.listdir(os.path.join(work, "edit_out")))
-    res = dict(seconds=wall, renders=len(renders), edit_frames=len(frames),
+    marks = [line.split()[1:] for line in proc.stdout.splitlines()
+             if line.startswith("[e2e-step] ")]
+    steps = {a[0]: float(b[1]) - float(a[1]) for a, b in zip(marks, marks[1:])}
+    res = dict(seconds=wall, step_s=steps, renders=len(renders), edit_frames=len(frames),
                psnr=results["PSNR"], ssim=results["SSIM"],
                last_lines=proc.stdout.strip().splitlines()[-3:])
     log("[e2e] " + json.dumps(res))
     assert renders == ["00000.png", "00001.png"] and len(frames) == 8, res
+    assert list(steps) == ["make_dataset", "train_mesh", "render", "metrics", "deformed_mesh",
+                           "edit"], steps
     assert math.isfinite(res["psnr"]), res
     return res
 
@@ -4776,6 +4938,7 @@ def load_port():
     from gaussianmesh_tpu_torch.io import pcx, pnm, qoi, sgi, tga
     from gaussianmesh_tpu_torch.io import icns, ico
     from gaussianmesh_tpu_torch.io import msp, psd, sun, xbm, xpm
+    from gaussianmesh_tpu_torch.io import fli, gbr, im, imt, iptc
     from gaussianmesh_tpu_torch.train import loss
 
     from gaussianmesh_tpu_torch import viewer
@@ -4799,6 +4962,7 @@ def load_port():
         cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss,
         tiff=tiff, gif=gif, bmp=bmp, webp=webp, vp8l=vp8l, pnm=pnm, tga=tga, qoi=qoi,
         sgi=sgi, pcx=pcx, ico=ico, icns=icns, sun=sun, msp=msp, xbm=xbm, xpm=xpm, psd=psd,
+        fli=fli, gbr=gbr, im=im, imt=imt, iptc=iptc,
         gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
@@ -4850,6 +5014,8 @@ def main() -> int:
                                                              jpeg_s_per_mp, tmpdir)
         rle9j, reader_views["9j"] = phase_rle_text_formats(torch, port, eval_scene,
                                                            jpeg_s_per_mp, tmpdir)
+        raw9k, reader_views["9k"] = phase_raw_sample_formats(torch, port, eval_scene,
+                                                             jpeg_s_per_mp, tmpdir)
         readers, readers_launches = phase_reader_training(torch, port, eval_scene,
                                                           reader_views, tmpdir)
         del eval_scene, reader_views
@@ -4935,12 +5101,15 @@ def main() -> int:
         + f"; the Blender set's training dataset {webp9e['load_s']:.2f} s")
     for name, r9 in (("TIFF layouts", tiff9f), ("PNM / TGA / QOI / SGI / PCX", raw9g),
                      ("DIB / ICO / CUR / DCX / ICNS", cont9i),
-                     ("SUN / MSP / XBM / XPM / PSD", rle9j)):
+                     ("SUN / MSP / XBM / XPM / PSD", rle9j),
+                     ("FLI / IPTC / IM / IMT / GBR", raw9k)):
         walk = (f" (ICNS run-length walk plain / C++ {r9['icns_rle_plain_vs_cpp']:.1f})"
                 if "icns_rle_plain_vs_cpp" in r9 else "")
         if "sun_rle_plain_vs_cpp" in r9:
             walk = (f" (walks plain / C++: gm_sun_rle {r9['sun_rle_plain_vs_cpp']:.1f}, "
                     f"gm_msp_rle {r9['msp_rle_plain_vs_cpp']:.1f})")
+        if "fli_frame_plain_vs_cpp" in r9:
+            walk = f" (gm_fli_frame plain / C++ {r9['fli_frame_plain_vs_cpp']:.1f})"
         log(f"[done] {name} phase {r9['phase_s']:.1f} s on {cpu}: {r9['fixtures']} "
             f"fixtures{walk}; by row s/MP at {EVAL_WIDTH}x{EVAL_HEIGHT} (x phase 9's baseline "
             f"JPEG), plain / C++ at {CROP_9F[0]}x{CROP_9F[1]}, bytes a view (x the JPEG's), "
@@ -4960,7 +5129,8 @@ def main() -> int:
         f"{acap['card_deform_ms']:.2f} ms; viewer request ms median "
         f"{viewer['request_ms_median']:.1f} (render {viewer['render_ms_median']:.1f}, "
         f"encode {viewer['encode_ms_median']:.1f} on the host); end-to-end script "
-        f"{e2e['seconds']:.1f} s; 4 bands max-abs {bands['max_abs']:.3g}; sharded step "
+        f"{e2e['seconds']:.1f} s (by step {({k: round(v, 1) for k, v in e2e['step_s'].items()})}); "
+        f"4 bands max-abs {bands['max_abs']:.3g}; sharded step "
         f"ms median by rank {[round(x, 1) for x in shard['step_ms_median']]}, wall "
         f"{shard['wall_s']:.1f} s; gloo on CUDA tensors: {shard['gloo_cuda']}")
     log(f"[done] Gaussian-table shard phase {gshard['phase_s']:.1f} s on {smi} ("

@@ -33,6 +33,7 @@
 // - gm_sun_rle: a Sun raster's byte-encoded (type 2) data, `io/sun.py`.
 // - gm_msp_rle: a Windows Paint (MSP v2) file's row map and run-length
 //   rows, `io/msp.py`.
+// - gm_fli_frame: an FLI / FLC frame's chunks, `io/fli.py`.
 //
 // Integer arithmetic wraps as numpy's int32 does (built with -fwrapv), so
 // even out-of-range coefficients of a corrupt file give the plain
@@ -1288,6 +1289,168 @@ int gm_msp_rle(const uint8_t* data, int64_t n, int64_t rows, int64_t row_bytes,
     }
   }
   info[0] = o;
+  return kOk;
+}
+
+
+// An FLI / FLC frame, buf[0:n): PIL's `fli` decoder's one call on the bytes
+// it has been handed so far, applied to the (height, width) plane `plane`
+// (kept across calls). The frame's size (little-endian, unsigned) must be met,
+// one pad byte aside, else kFliNeedMore; then each sub-chunk, whose reads
+// are bounded by the frame's bytes left (not by the chunk's size): SS2 (7)
+// and LC (12) deltas, BLACK (13), BRUN (15), COPY (16); palettes (4, 11)
+// and the stamp (18) skipped. Returns kOk at the frame's end; kFliConsumed
+// with info[0] the bytes before a COPY chunk the data cuts (PIL's decoder
+// returns that count, then starts again there); kFliOverrun, kFliUnknown or
+// kFliBroken where PIL's decoder fails with that code.
+int gm_fli_frame(const uint8_t* buf, int64_t n, int64_t width, int64_t height,
+                 uint8_t* plane, int64_t* info) {
+  constexpr int kFliNeedMore = 1, kFliConsumed = 2, kFliOverrun = 3, kFliUnknown = 4,
+                kFliBroken = 5;
+  const auto u16 = [](const uint8_t* p) { return static_cast<int>(p[0] | p[1] << 8); };
+  const auto i32 = [](const uint8_t* p) {
+    return static_cast<int32_t>(static_cast<uint32_t>(p[0]) | static_cast<uint32_t>(p[1]) << 8 |
+                                static_cast<uint32_t>(p[2]) << 16 |
+                                static_cast<uint32_t>(p[3]) << 24);
+  };
+  info[0] = 0;
+  if (n < 4) return kFliNeedMore;
+  if (n + n % 2 < static_cast<int64_t>(static_cast<uint32_t>(i32(buf)))) return kFliNeedMore;
+  if (n < 8) return kFliOverrun;
+  if (u16(buf + 4) != 0xF1FA) return kFliUnknown;
+  const int64_t w = width, h = height;
+  const int chunks = u16(buf + 6);
+  int64_t ptr = 16, left = n - 16;
+  for (int c = 0; c < chunks; ++c) {
+    if (left < 10) return kFliOverrun;
+    const int64_t end = ptr + left;
+    int64_t d = ptr + 6;
+    switch (u16(buf + ptr + 4)) {
+      case 4:
+      case 11:
+      case 18:
+        break;
+      case 7: {  // SS2: word deltas
+        const int64_t lines = u16(buf + d);
+        d += 2;
+        int64_t y = 0, line = 0;
+        for (; line < lines && y < h; ++line, ++y) {
+          if (d + 2 > end) return kFliOverrun;
+          int64_t packets = u16(buf + d);
+          d += 2;
+          uint8_t* row = plane + y * w;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= h) return kFliOverrun;
+              row = plane + y * w;
+            } else {
+              row[w - 1] = static_cast<uint8_t>(packets);
+            }
+            if (d + 2 > end) return kFliOverrun;
+            packets = u16(buf + d);
+            d += 2;
+          }
+          int64_t p = 0, x = 0;
+          for (; p < packets; ++p) {
+            if (d + 2 > end) return kFliOverrun;
+            x += buf[d];
+            if (buf[d + 1] >= 128) {
+              if (d + 4 > end) return kFliOverrun;
+              const int64_t i = 256 - buf[d + 1];
+              if (x + 2 * i > w) break;
+              for (int64_t j = 0; j < i; ++j) {
+                row[x++] = buf[d + 2];
+                row[x++] = buf[d + 3];
+              }
+              d += 4;
+            } else {
+              const int64_t i = 2 * static_cast<int64_t>(buf[d + 1]);
+              if (x + i > w) break;
+              if (d + 2 + i > end) return kFliOverrun;
+              std::memcpy(row + x, buf + d + 2, i);
+              d += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (line < lines) return kFliOverrun;
+        break;
+      }
+      case 12: {  // LC: byte deltas
+        int64_t y = u16(buf + d);
+        const int64_t ymax = y + u16(buf + d + 2);
+        d += 4;
+        for (; y < ymax && y < h; ++y) {
+          uint8_t* row = plane + y * w;
+          if (d + 1 > end) return kFliOverrun;
+          const int64_t packets = buf[d++];
+          int64_t p = 0, x = 0, i = 0;
+          for (; p < packets; ++p, x += i) {
+            if (d + 2 > end) return kFliOverrun;
+            x += buf[d];
+            if (buf[d + 1] & 0x80) {
+              i = 256 - buf[d + 1];
+              if (x + i > w) break;
+              if (d + 3 > end) return kFliOverrun;
+              std::memset(row + x, buf[d + 2], i);
+              d += 3;
+            } else {
+              i = buf[d + 1];
+              if (x + i > w) break;
+              if (d + 2 + i > end) return kFliOverrun;
+              std::memcpy(row + x, buf + d + 2, i);
+              d += 2 + i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return kFliOverrun;
+        break;
+      }
+      case 13:  // BLACK
+        std::memset(plane, 0, w * h);
+        break;
+      case 15:  // BRUN: byte runs
+        for (int64_t y = 0; y < h; ++y) {
+          uint8_t* row = plane + y * w;
+          d += 1;  // the packet count, unread
+          int64_t x = 0, i = 0;
+          for (; x < w; x += i) {
+            if (d + 2 > end) return kFliOverrun;
+            if (buf[d] & 0x80) {
+              i = 256 - buf[d];
+              if (x + i > w) break;
+              if (d + i + 1 > end) return kFliOverrun;
+              std::memcpy(row + x, buf + d + 1, i);
+              d += i + 1;
+            } else {
+              i = buf[d];
+              if (x + i > w) break;
+              std::memset(row + x, buf[d + 1], i);
+              d += 2;
+            }
+          }
+          if (x != w) return kFliOverrun;
+        }
+        break;
+      case 16:  // COPY
+        if (d + w * h > end) {
+          info[0] = ptr;
+          return kFliConsumed;
+        }
+        std::memcpy(plane, buf + d, w * h);
+        break;
+      default:
+        return kFliUnknown;
+    }
+    const int32_t advance = i32(buf + ptr);
+    if (advance == 0) return kFliBroken;
+    if (advance < 0 || advance > left) return kFliOverrun;
+    ptr += advance;
+    left -= advance;
+  }
   return kOk;
 }
 

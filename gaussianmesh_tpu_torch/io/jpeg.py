@@ -951,6 +951,12 @@ def _decode(data: bytes, path, native: bool, tables=None, color=None,
         pos += 1
         if marker == 0xD9:
             break
+        if 0x01 <= marker <= 0xBF and (marker != 0x01 or not scans):
+            # PIL's `_open` (before the first scan: "no marker found") and
+            # libjpeg ("unsupported marker type") refuse these; TEM after
+            # a scan libjpeg passes over, as it does RSTn
+            raise ValueError(f"{path}: corrupt JPEG: marker 0x{marker:02X} at byte "
+                             f"{pos - 1}, which PIL and libjpeg refuse")
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:
             continue
         (length,) = struct.unpack(">H", data[pos:pos + 2])

@@ -13,9 +13,11 @@ or DIB (`io/bmp.py`), a TIFF (`io/tiff.py`), a GIF (`io/gif.py`), a WebP
 PNM (`io/pnm.py`), a QOI (`io/qoi.py`), an SGI (`io/sgi.py`), a PCX or
 DCX (`io/pcx.py`), an ICO or CUR (`io/ico.py`), an ICNS (`io/icns.py`), an
 MSP (`io/msp.py`), a PSD (`io/psd.py`), a Sun raster (`io/sun.py`), an XBM
-(`io/xbm.py`), an XPM (`io/xpm.py`) or a TGA (`io/tga.py`) by its first
-bytes, in PIL's order of formats, a file PIL gives way on handed to the
-next format, TGA (no magic) as PIL tries it. `encode_png` encodes 8-bit
+(`io/xbm.py`), an XPM (`io/xpm.py`), an FLI or FLC (`io/fli.py`), a GIMP
+brush (`io/gbr.py`), an IM (`io/im.py`), an IMT (`io/imt.py`), an IPTC
+(`io/iptc.py`) or a TGA (`io/tga.py`) by its first bytes, in PIL's order
+of formats, a file PIL gives way on handed to the next format; IM, IMT and
+IPTC (no `_accept`) and TGA (no magic) as PIL tries them. `encode_png` encodes 8-bit
 gray, gray + alpha, RGB and RGBA with filter type 0 on every row, and
 `write_png` writes what it returns.
 
@@ -35,9 +37,14 @@ import zlib
 import numpy as np
 
 from gaussianmesh_tpu_torch.io import icns, ico
+from gaussianmesh_tpu_torch.io.fli import fli_accept, read_fli
+from gaussianmesh_tpu_torch.io.gbr import gbr_accept, read_gbr
 from gaussianmesh_tpu_torch.io.bmp import BMP_MAGIC, dib_accept, read_bmp, read_dib
 from gaussianmesh_tpu_torch.io.gif import GIF_MAGICS, read_gif
 from gaussianmesh_tpu_torch.io.giveway import GiveWay
+from gaussianmesh_tpu_torch.io.im import read_im
+from gaussianmesh_tpu_torch.io.imt import read_imt
+from gaussianmesh_tpu_torch.io.iptc import read_iptc
 from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
 from gaussianmesh_tpu_torch.io.msp import MSP_MAGICS, read_msp
 from gaussianmesh_tpu_torch.io.pcx import DCX_MAGIC, pcx_accept, read_dcx, read_pcx
@@ -241,34 +248,8 @@ def _decode(data: bytes, path: str, unfilter) -> np.ndarray:
 # PIL plugins tried before TGA (it has no magic) that take some headers TGA's
 # checks pass, and that the port does not read: (format, its `_accept`)
 _BEFORE_TGA = (
-    ("FLI", lambda h: len(h) >= 16 and h[4:6] in (b"\x11\xaf", b"\x12\xaf")
-     and h[14:16] in (b"\0\0", b"\3\0")),
-    ("GBR", lambda h: int.from_bytes(h[:4], "big") >= 20
-     and int.from_bytes(h[4:8], "big") in (1, 2)),
     ("MPEG", lambda h: h[:4] == b"\0\0\1\xb3"),
 )
-
-
-def _gbr_opens(head: bytes) -> bool:
-    """Whether PIL's `GbrImagePlugin` (tried before SUN and TGA, not read by
-    the port) opens a file of this head: its `_accept`, then its `_open`'s
-    checks (header size 20 or more, version 1, or 2 with "GIMP" at byte 20,
-    a size other than 0, 1 or 4 bytes a pixel)."""
-    if len(head) < 20:
-        return False
-    size, version, width, height, depth = struct.unpack_from(">5I", head)
-    return (size >= 20 and width > 0 and height > 0 and depth in (1, 4)
-            and (version == 1 or version == 2 and len(head) >= 28 and head[20:24] == b"GIMP"))
-
-
-def _sun_accept(head: bytes) -> bool:
-    """SUN's magic, raising where PIL takes the head for a GBR file first (a
-    SUN raster of width 1 whose length field is 1 or 4)."""
-    if head[:4] != SUN_MAGIC:
-        return False
-    if _gbr_opens(head):
-        raise ValueError("a SUN header that PIL takes for a GBR file first; not read")
-    return True
 
 
 def _tga_accept(head: bytes) -> bool:
@@ -282,13 +263,20 @@ def _tga_accept(head: bytes) -> bool:
     return True
 
 
+def _anything(head: bytes) -> bool:
+    """The `_accept` of a plugin PIL registers with none: every file."""
+    return True
+
+
 # The formats the port reads, in the order `Image.open` tries them (BMP, DIB,
 # GIF, JPEG, PPM and PNG, then the others by name; only where two formats
 # could take one head does the order decide): (format, its `_accept` on the
 # first 68 bytes, its reader). A reader that raises `GiveWay` (PIL's `_open`
 # raising SyntaxError, IndexError, TypeError or struct.error) hands the file
-# on to the next format that takes it. `io/ico.py` and `io/icns.py` decode
-# PNG frames with this module, so their readers are looked up at the call.
+# on to the next format that takes it; IM, IMT and IPTC, which have no
+# `_accept`, try every file that reaches them. `io/ico.py` and `io/icns.py`
+# decode PNG frames with this module, so their readers are looked up at the
+# call.
 _ORDER = (
     ("BMP", lambda h: h[:2] == BMP_MAGIC, read_bmp),
     ("DIB", dib_accept, read_dib),
@@ -299,21 +287,27 @@ _ORDER = (
     ("CUR", lambda h: h[:4] == b"\0\0\2\0", lambda p: ico.read_cur(p)),
     ("PCX", pcx_accept, read_pcx),
     ("DCX", lambda h: h[:4] == DCX_MAGIC, read_dcx),
+    ("FLI", fli_accept, read_fli),
+    ("GBR", gbr_accept, read_gbr),
     ("ICNS", lambda h: h[:4] == b"icns", lambda p: icns.read_icns(p)),
     ("ICO", lambda h: h[:4] == b"\0\0\1\0", lambda p: ico.read_ico(p)),
+    ("IM", _anything, read_im),
+    ("IMT", _anything, read_imt),
+    ("IPTC", _anything, read_iptc),
     ("TIFF", lambda h: h[:4] in TIFF_HEADS, read_tiff),
     ("MSP", lambda h: h[:4] in MSP_MAGICS, read_msp),
     ("PSD", lambda h: h[:4] == PSD_MAGIC, read_psd),
     ("QOI", lambda h: h[:4] == QOI_MAGIC, read_qoi),
     ("SGI", lambda h: h[:2] == SGI_MAGIC, read_sgi),
-    ("SUN", _sun_accept, read_sun),
+    ("SUN", lambda h: h[:4] == SUN_MAGIC, read_sun),
     ("TGA", _tga_accept, read_tga),
     ("WebP", lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP", read_webp),
     ("XBM", xbm_accept, read_xbm),
     ("XPM", lambda h: h[:9] == XPM_MAGIC, read_xpm),
 )
 FORMATS = ("JPEG", "PNG", "BMP", "TIFF", "GIF", "WebP", "PNM", "QOI", "SGI", "PCX", "DIB",
-           "ICO", "CUR", "DCX", "ICNS", "MSP", "PSD", "SUN", "XBM", "XPM", "TGA")
+           "ICO", "CUR", "DCX", "ICNS", "MSP", "PSD", "SUN", "XBM", "XPM", "FLI", "GBR", "IM",
+           "IMT", "IPTC", "TGA")
 
 
 def read_image(path: str) -> np.ndarray:
@@ -322,11 +316,14 @@ def read_image(path: str) -> np.ndarray:
     (lossy, lossless, with alpha, an animation's first frame), PNM (P1-P6),
     QOI, SGI, PCX, DCX (its first page), ICO and CUR (`io/ico.py`), ICNS
     (`io/icns.py`), MSP (`io/msp.py`), PSD (its merged image, `io/psd.py`),
-    SUN (`io/sun.py`), XBM and XPM (`io/xbm.py`, `io/xpm.py`), and TGA,
-    which has no magic, only where no format PIL tries first takes the file
-    and TGA's header checks pass. A file PIL gives way on (`io/giveway.py`)
-    goes on to the next format that takes its head, as in PIL -> the
-    reader's array."""
+    SUN (`io/sun.py`), XBM and XPM (`io/xbm.py`, `io/xpm.py`), FLI and FLC
+    (the first frame, `io/fli.py`), GBR (`io/gbr.py`), IM (`io/im.py`),
+    IMT (`io/imt.py`), IPTC (`io/iptc.py`), and TGA, which has no magic,
+    only where no format PIL tries first takes the file and TGA's header
+    checks pass. IM, IMT and IPTC, which PIL registers with no `_accept`,
+    try every file that reaches them. A file PIL gives way on
+    (`io/giveway.py`) goes on to the next format that takes its head, as in
+    PIL -> the reader's array."""
     with open(path, "rb") as f:
         head = f.read(68)
     causes = []

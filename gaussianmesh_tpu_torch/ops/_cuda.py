@@ -109,6 +109,8 @@ HOST_LIBRARIES = {
         "gm_sun_rle": [_P, _L, _L, _P, _P],
         # data, n, rows, row_bytes, total, out, info
         "gm_msp_rle": [_P, _L, _L, _L, _L, _P, _P],
+        # buf, n, width, height, plane, info
+        "gm_fli_frame": [_P, _L, _L, _L, _P, _P],
     },
     "vp8": {
         # frame, n, y, u, v, info

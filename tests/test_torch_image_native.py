@@ -20,8 +20,8 @@ import torch
 from PIL import Image
 
 from gaussianmesh_tpu_torch.data import cameras, readers
-from gaussianmesh_tpu_torch.io import (bmp, gif, jpeg, lzw, pcx, png, pnm, qoi, resample, sgi,
-                                      tga, tiff, webp)
+from gaussianmesh_tpu_torch.io import (bmp, fli, gif, jpeg, lzw, pcx, png, pnm, qoi, resample,
+                                      sgi, tga, tiff, webp)
 from gaussianmesh_tpu_torch.ops import _cuda
 from tests.test_torch_jpeg import _image as _jpeg_image, _segment, _segments
 from tests.test_torch_readers import ADAM7, _blender_set, _chunk, _jpeg_colmap_set
@@ -443,18 +443,36 @@ def _raw_set(root):
     return root
 
 
+def _fli_set(root):
+    """`_jpeg_colmap_set` with its views as FLI of BRUN and FLC of COPY (64
+    levels) on a 256-colour grid palette, in turn."""
+    root = _jpeg_colmap_set(root)
+    steps = [np.arange(n) * 255 // (n - 1) for n in (8, 8, 4)]
+    pal = np.stack(np.meshgrid(*steps, indexing="ij"), -1).reshape(-1, 3).astype(np.uint8)
+    for i, name in enumerate(sorted(os.listdir(f"{root}/images"))):
+        path = f"{root}/images/{name}"
+        img = jpeg.read_jpeg(path)
+        img = np.dstack([img] * 3) if img.ndim == 2 else img
+        q = img.astype(np.int64) * np.array([8, 8, 4]) // 256
+        idx = ((q[..., 0] * 8 + q[..., 1]) * 4 + q[..., 2]).astype(np.uint8)
+        fli.write_fli(path, idx, pal, **(dict(chunk="copy", flc=True, levels=64) if i % 2
+                                         else {}))
+    return root
+
+
 def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
     resize), of the same set with progressive JPEGs, of a Blender set of
     PIL-filtered RGBA PNGs at -r 2, of the COLMAP set in LZW and PackBits
     TIFF, GIF and RLE BMP views, of it in lossy WebP views and of it in RLE
-    TGA, QOI, RLE SGI, PCX and PPM views, with every plain piece made to
-    raise: the same scenes as before."""
+    TGA, QOI, RLE SGI, PCX and PPM views and of it in FLI and FLC views,
+    with every plain piece made to raise: the same scenes as before."""
     colmap_root = _jpeg_colmap_set(tmp_path / "c")
     prog_root = _jpeg_colmap_set(tmp_path / "p")
     new_root = _new_forms_set(tmp_path / "n")
     webp_root = _webp_set(tmp_path / "w")
     raw_root = _raw_set(tmp_path / "r")
+    fli_root = _fli_set(tmp_path / "f")
     for name in os.listdir(f"{prog_root}/images"):
         path = f"{prog_root}/images/{name}"
         Image.open(path).save(path, "JPEG", quality=90, progressive=True)
@@ -468,7 +486,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
               readers.read_scene(blender_root, resolution=2, eval_split=True),
               readers.read_scene(new_root, resolution=-1, **kw),
               readers.read_scene(webp_root, resolution=-1, **kw),
-              readers.read_scene(raw_root, resolution=-1, **kw))
+              readers.read_scene(raw_root, resolution=-1, **kw),
+              readers.read_scene(fli_root, resolution=-1, **kw))
 
     def plain(*_a, **_k):
         raise AssertionError("a plain version was called")
@@ -483,7 +502,7 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
                                "_Bits", "_coeffs_plain", "_reconstruct_plain",
                                "_filter_plain")),
                        (tga, ("_rle_plain",)), (qoi, ("_ops_plain",)), (sgi, ("_rle_plain",)),
-                       (pcx, ("_rle_plain",))):
+                       (pcx, ("_rle_plain",)), (fli, ("_frame_plain",))):
         for name in names:
             monkeypatch.setattr(mod, name, plain)
     after = (readers.read_scene(colmap_root, resolution=-1, **kw),
@@ -491,7 +510,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
              readers.read_scene(blender_root, resolution=2, eval_split=True),
              readers.read_scene(new_root, resolution=-1, **kw),
              readers.read_scene(webp_root, resolution=-1, **kw),
-             readers.read_scene(raw_root, resolution=-1, **kw))
+             readers.read_scene(raw_root, resolution=-1, **kw),
+             readers.read_scene(fli_root, resolution=-1, **kw))
     for a, b in zip(before, after):
         for ca, cb in zip(a.train_cameras + a.test_cameras, b.train_cameras + b.test_cameras):
             assert np.array_equal(ca.image, cb.image) and np.array_equal(ca.mask, cb.mask)
@@ -520,6 +540,8 @@ def _every_entry_point(tmp_path):
     yield lambda: tiff.packbits_decode(b"\xfe\x00", 3)
     yield lambda: bmp.decode_bmp(_rle_bmp())
     yield lambda: lzw.lzw_encode(bytes(4))
+    yield lambda: fli.decode_fli(fli.encode_fli(np.zeros((2, 4), np.uint8),
+                                                np.zeros((1, 3), np.uint8)))
 
 
 def _rle_bmp():
@@ -531,8 +553,8 @@ def _rle_bmp():
 
 def test_no_compiler_raises_not_falls_back(tmp_path, monkeypatch, fresh_library):
     """With no g++ to be found, each public entry point raises (the JPEG,
-    PNG, resize, LZW, PackBits and RLE ones); none falls back to its plain
-    version."""
+    PNG, resize, LZW, PackBits, RLE and FLI ones); none falls back to its
+    plain version."""
     monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
     for call in _every_entry_point(tmp_path):
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):

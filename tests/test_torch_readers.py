@@ -104,7 +104,7 @@ def test_png_decodes_every_filter_as_pil(tmp_path, c):
 def test_unsupported_images_raise(tmp_path):
     """What PIL would not read either raises with a message naming the
     cause: a bit depth the color type does not allow, a palette PNG without
-    its palette, a file of no format the port reads (an XBM), a lossless
+    its palette, a file of no format the port reads (a DDS), a lossless
     JPEG (SOF3)."""
     bad = str(tmp_path / "bad.png")
     with open(bad, "wb") as fh:
@@ -122,11 +122,12 @@ def test_unsupported_images_raise(tmp_path):
         fh.write(data[:i] + data[i + 12 + struct.unpack(">I", data[i:i + 4])[0]:])
     with pytest.raises(ValueError, match="PLTE"):
         png.read_png(pal)
-    other = str(tmp_path / "x.im")
-    Image.fromarray(_image(3)).convert("1").save(other, "IM")
+    other = str(tmp_path / "x.dds")
+    Image.fromarray(_image(3)).save(other, "DDS")
+    assert Image.open(other).format == "DDS"
     with pytest.raises(ValueError, match="not a JPEG, PNG, BMP, TIFF, GIF, WebP, PNM, QOI, "
                                          "SGI, PCX, DIB, ICO, CUR, DCX, ICNS, MSP, PSD, SUN, "
-                                         "XBM, XPM or TGA"):
+                                         "XBM, XPM, FLI, GBR, IM, IMT, IPTC or TGA"):
         png.read_image(other)
     lossless = str(tmp_path / "l.jpg")
     Image.fromarray(_image(3)).save(lossless)

@@ -12,8 +12,8 @@ to PIL's reading of the raw file; B28 (a bitmap PSD) to Adobe's polarity;
 B26 (Lab) refused; B14 (CMYK), B15 (palettes) and B16 (1 bit) to PIL's
 `convert`. The refused forms raise with their cause, `read_image`'s order
 and give-way rule hold for the new heads (a Sun raster PIL takes for a GBR
-brush raises), the fixtures of `tests/data/rle_text/` give their recorded
-digests through both routes, and a COLMAP scene of one view in each new
+brush is read as one), the fixtures of `tests/data/rle_text/` give their
+recorded digests through both routes, and a COLMAP scene of one view in each new
 form (XBM and XPM too) equals the JAX reader on PIL's conversions through
 `read_scene`, reaches no plain piece, and trains 2 iterations of
 `cli.train_mesh --device cpu`."""
@@ -570,8 +570,10 @@ def test_dispatch_heads_order_and_gbr(tmp_path):
     """Each new format by its head (PIL's format equal): MSP, PSD and SUN in
     PIL's places, XBM and XPM after WebP; none of their heads passes TGA's
     checks; a Sun raster of width 1 whose length field is 1 or 4 is a GIMP
-    brush to PIL, tried first, and raises naming GBR, while one of width 2
-    (GBR version 2, which needs "GIMP" at byte 20) is read as SUN."""
+    brush to PIL, tried first, and is read as the brush (whose pixels lie
+    past the file's end, so both raise PIL's "not enough image data"),
+    while one of width 2 (GBR version 2, which needs "GIMP" at byte 20) is
+    read as SUN."""
     names = [name for name, _, _ in png._ORDER]
     assert names.index("TIFF") < names.index("MSP") < names.index("PSD") < names.index("QOI")
     assert names.index("SGI") < names.index("SUN") < names.index("TGA")
@@ -592,8 +594,10 @@ def test_dispatch_heads_order_and_gbr(tmp_path):
         path = _write(tmp_path, bytes(data), f"g{w}{length}")
         assert Image.open(path).format == fmt
         if fmt == "GBR":
-            with pytest.raises(ValueError, match="takes for a GBR file first"):
+            with pytest.raises(ValueError, match="not enough image data"):
                 png.read_image(path)
+            with pytest.raises(ValueError, match="not enough image data"):
+                np.asarray(Image.open(path))
         else:
             assert np.array_equal(png.read_image(path), np.repeat(column, w, 1))
 
