@@ -124,7 +124,7 @@ Phases (any failure raises, so the exit code is not 0):
    against their plain versions on those, timed and bounded as in phase 5;
    K2's rows must equal the step's.
 9b. progressive: the views of phase 9 that 9h takes from 9b
-   (`reader_phase`: 0, 15 and 22) rendered again from the same cameras and
+   (`reader_phase`: 0, 10 and 20) rendered again from the same cameras and
    written as progressive JPEGs (`write_jpeg(..., progressive=True)`:
    quality 90, 4:2:0, libjpeg's 10-scan progression). Each view decoded by
    `read_jpeg` (C++, `gm_jpeg_scan_progressive`): equal to phase 9's
@@ -294,13 +294,38 @@ Phases (any failure raises, so the exit code is not 0):
    ratio to phase 9's baseline JPEG in the same run, plain / C++, bytes a
    view and their ratio to phase 9's JPEG files, and write s by row beside
    the card's name and power limit and the host's CPU.
+9l. PIXAR, MCIDAS, XV thumbnails, FITS, SPIDER and FTEX: first the
+   fixtures of `tests/data/raw_samples/` of these formats (the port's
+   writers' files, PIL's SPIDER file and FTEX textures of PIL's DXT1 DDS
+   blocks, with the SHA-256 and shape of PIL's array under the port's rule:
+   B7, B15, B32; recorded on a machine with PIL by
+   `tools/make_raw_sample_fixtures_torch.py`): `read_image` and the plain
+   route give the recorded digests, the SPIDER file (float samples: B21) is
+   refused alike through both, and `gm_bc1_decode` gives `_bc1_plain`'s
+   RGBA on the DXT1 fixtures (plain / C++ printed). Then phase 9's 24 views
+   written in the rows of SAMPLE_TEXTURE_9L (`io/pixar.py`, `io/mcidas.py`,
+   `io/fits.py`, `io/ftex.py`, `io/xvthumb.py` writers): PIXAR RGB, McIdas
+   areas of the green in 1-byte samples and in 2-byte ones whose high byte
+   is the green (B7), FITS of the green in 8 bits, in unsigned 16 bits
+   (BZERO 32768) whose high byte is the green (B32, B7) and in PIL's
+   GZIP_1 tile form, FTEX DXT1 (the port's BC1 encoder; RGBA) and raw RGB
+   textures, and XV thumbnails of the view's RGB332 levels (B15). Each view
+   decodes by `read_image` to the samples written under the port's rule
+   (a DXT1 view to its encoder's RGBA); the CROP_9F centre of one view a row
+   decodes through the plain route to the C++'s bytes (`gm_bc1_decode`
+   against `_bc1_plain` on the DXT1 row; the others have one route); s /
+   MP, its ratio to phase 9's baseline JPEG in the same run, plain / C++,
+   bytes a view and their ratio to phase 9's JPEG files, and write s by
+   row beside the card's name and power limit and the host's CPU.
 9h. the reader phases' shared training: one COLMAP scene of phase 9's 24
    cameras whose view i is the file phase `reader_phase(i)` =
-   READER_PHASES[(i + i // 8) % 8] (9b, 9c, 9d, 9f, 9g, 9i, 9j, 9k; each
-   octet turned by one, so that the test views 0, 8 and 16 fall to three
-   phases) wrote for it, or phase 9's JPEG where that file decodes
-   with an alpha (an alpha makes a mask, and `DeviceDataset` stacks masks
-   only where the shuffled first view has one, as the JAX trainer does);
+   READER_PHASES[(5 i + 6 (i // 8)) % 9] (9b, 9c, 9d, 9f, 9g, 9i, 9j, 9k,
+   9l; each view 5 phases on from the one before, each octet one phase on,
+   so that the test views 0, 8 and 16 fall to 9b, 9c and 9d and each phase
+   gives two or three training views, none of a row with an alpha) wrote
+   for it, or phase 9's JPEG where that file decodes with an alpha (an
+   alpha makes a mask, and `DeviceDataset` stacks masks only where the
+   shuffled first view has one, as the JAX trainer does);
    `cli.train_mesh --device cuda` on it for PROGRESSIVE_ITERS steps with
    phase 9's shrunk schedule and capacities: K1, K2 and K3 once a step
    (counters set to 0 just before, read just after), finite losses and
@@ -577,9 +602,14 @@ RAW_SAMPLE_9K = (("fli_brun_256_b15", 2), ("flc_copy_64_b15", 2), ("iptc_raw_gra
                  ("iptc_jpeg_gray", 2), ("im_rgb", 2), ("im_lut_b15", 2), ("im_ycc_b30", 2),
                  ("im_l16_b7", 2), ("im_cmyk_b14", 2), ("imt_gray", 2), ("gbr_v1_gray", 2),
                  ("gbr_v2_rgba", 2))
+# phase 9l: phase 9's views as PIXAR, McIdas, FITS, FTEX and XV thumbnail files, (row,
+# views) in turn (9h takes views 7, 13 and 19: a row of B7, B32 and B15 each)
+SAMPLE_TEXTURE_9L = (("pixar_rgb", 3), ("mcidas_1byte", 2), ("fits_8bit", 2),
+                     ("mcidas_2byte_b7", 2), ("fits_gzip8", 3), ("fits_16bit_unsigned_b32", 2),
+                     ("ftex_dxt1", 3), ("xvthumb_b15", 3), ("ftex_raw", 4))
 # the reader phases' shared training: view i of phase 9's scene from the file the phase
 # `reader_phase(i)` wrote for it
-READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i", "9j", "9k")
+READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i", "9j", "9k", "9l")
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -2549,11 +2579,12 @@ def centre_crop(img):
 
 def reader_phase(i):
     """The reader phase whose file of phase 9's view i the shared training
-    (9h) takes: READER_PHASES in turn, each octet of views turned by one
-    more, so that the test views (every 8th: llffhold 8) fall to three
-    phases, and each phase keeps two or three of the 21 training views."""
-    n = len(READER_PHASES)
-    return READER_PHASES[(i + i // n) % n]
+    (9h) takes: each view 5 phases on from the one before (5 is prime to
+    the 9 phases), each octet of views starting one phase on, so that the
+    test views (every 8th: llffhold 8) fall to 9b, 9c and 9d, each phase
+    keeps two or three of the 21 training views, and none of them is a
+    row that decodes with an alpha."""
+    return READER_PHASES[(5 * i + 6 * (i // 8)) % len(READER_PHASES)]
 
 
 def phase_progressive(torch, port, model, scene, tmpdir):
@@ -3196,21 +3227,37 @@ def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
     return res, expected
 
 
-# ------------------------------------------------ phases 9g, 9i, 9j: shared
+# ------------------------------------------- phases 9g, 9i, 9j, 9k, 9l: shared
 
-def fixture_digests(port, folder, decode_plain, what, each=None):
-    """The fixtures of `tests/data/<folder>/` -> {name: the C++ decode's s}:
+def fixture_digests(port, folder, decode_plain, what, each=None, exts=None, least=30):
+    """The fixtures of `tests/data/<folder>/` (those of the extensions
+    `exts`, where given; at least `least`) -> {name: the C++ decode's s}:
     each gives its recorded digest and shape through `read_image` and
-    `decode_plain(port, path)`; `each(name, data)`, where given, is then
-    called on each file's bytes."""
+    `decode_plain(port, path)`, or, where the record holds no array (a
+    form the port refuses), raises the same ValueError through both;
+    `each(name, data)`, where given, is then called on each file's bytes."""
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", folder)
     with open(os.path.join(here, "digests.json")) as fh:
         table = json.load(fh)
-    if len(table) < 30:
+    if exts is not None:
+        table = {k: v for k, v in table.items() if os.path.splitext(k)[1] in exts}
+    if len(table) < least:
         raise AssertionError(f"{here}: {len(table)} {what} fixtures")
     out = {}
     for name, want in sorted(table.items()):
         path = os.path.join(here, name)
+        if want["array"] is None:
+            causes = set()
+            for route in (port.png.read_image, lambda p: decode_plain(port, p)):
+                try:
+                    route(path)
+                except ValueError as err:
+                    causes.add(str(err))
+                else:
+                    raise AssertionError(f"{name}: decoded, where the port refuses it")
+            if len(causes) != 1:
+                raise AssertionError(f"{name}: the two routes refuse it differently: {causes}")
+            continue
         got, t = timed(port.png.read_image, path)
         for route, a in (("C++", got), ("plain", decode_plain(port, path))):
             if (hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() != want["array"]
@@ -3637,7 +3684,8 @@ def phase_raw_sample_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
     walks = []
     fixtures = fixture_digests(port, "raw_samples", decode_plain_9k,
                                "FLI / IPTC / IM / IMT / GBR",
-                               lambda name, data: fli_walk(port, name, data, walks))
+                               lambda name, data: fli_walk(port, name, data, walks),
+                               exts=RAW_SAMPLE_PLAIN)
     if not walks:
         raise AssertionError("no FLI fixture")
     fli_frame = float(np.median(walks))
@@ -3650,6 +3698,91 @@ def phase_raw_sample_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
     res = dict(rows=by_row, fixtures=len(fixtures), fli_frame_plain_vs_cpp=fli_frame,
                phase_s=time.perf_counter() - t_phase)
     log("[raw9k] " + json.dumps(res))
+    return res, expected
+
+
+# ------------------------------------------------------------------ phase 9l
+
+SAMPLE_TEXTURE_PLAIN = {".pxr": ("pixar", "decode_pixar"), ".mcidas": ("mcidas", "decode_mcidas"),
+                        ".xv": ("xvthumb", "decode_xvthumb"), ".fits": ("fits", "decode_fits"),
+                        ".spi": ("spider", "decode_spider"),
+                        ".ftc": ("ftex", "decode_ftex_plain"),
+                        ".ftu": ("ftex", "decode_ftex_plain")}
+
+
+def decode_plain_9l(port, path):
+    """A 9l file through the plain route (FTEX's BC1 in numpy; PIXAR,
+    McIdas, FITS, SPIDER and XV thumbnails have one route: no C++)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    mod, name = SAMPLE_TEXTURE_PLAIN[os.path.splitext(path)[1]]
+    return getattr(getattr(port, mod), name)(data, path)
+
+
+def bc1_walk(port, name, data, walks):
+    """`gm_bc1_decode` against `_bc1_plain` on a DXT1 FTEX fixture's mipmap
+    (equal RGBA), plain / C++ appended to `walks`."""
+    if not name.endswith(".ftc"):
+        return
+    w, h, fmt, mipmap = port.ftex.header(data)
+    cpp, t_cpp = timed(port.bcn.decode_bc1, mipmap, w, h)
+    plain, t_plain = timed(port.bcn._bc1_plain, mipmap, w, h)
+    if fmt != port.ftex.DXT1 or not np.array_equal(cpp, plain):
+        raise AssertionError(f"{name}: gm_bc1_decode differs from _bc1_plain")
+    walks.append(t_plain / t_cpp)
+
+
+def write_9l_view(port, row, path, img):
+    """View `img` written as row `row` of SAMPLE_TEXTURE_9L -> (what
+    `read_image` must give, the writer's s)."""
+    t0 = time.perf_counter()
+    green = np.ascontiguousarray(img[..., 1])
+    wide = green.astype(np.uint16) << 8 | img[..., 0]           # the high byte is the green
+    want = green
+    if row == "pixar_rgb":
+        want = img
+        port.pixar.write_pixar(path, img)
+    elif row == "mcidas_1byte":
+        port.mcidas.write_mcidas(path, green)
+    elif row == "mcidas_2byte_b7":
+        port.mcidas.write_mcidas(path, wide, size=2)
+    elif row == "xvthumb_b15":
+        idx = port.xvthumb.rgb332(img)
+        want = port.xvthumb.PALETTE[idx]
+        port.xvthumb.write_xvthumb(path, idx)
+    elif row == "fits_8bit":
+        port.fits.write_fits(path, green)
+    elif row == "fits_16bit_unsigned_b32":
+        port.fits.write_fits(path, wide)
+    elif row == "fits_gzip8":
+        port.fits.write_fits(path, green, compress=True)
+    else:
+        want = port.ftex.write_ftex(path, img, fmt=port.ftex.DXT1 if row == "ftex_dxt1"
+                                    else port.ftex.UNCOMPRESSED)
+    return want, time.perf_counter() - t0
+
+
+def phase_sample_texture_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
+    """Phase 9l (see the module docstring) on phase 9's `scene` ->
+    (results, {view: (file, None or its decode)} for the shared training)."""
+    t_phase = time.perf_counter()
+    walks = []
+    fixtures = fixture_digests(port, "raw_samples", decode_plain_9l,
+                               "PIXAR / MCIDAS / XVTHUMB / FITS / SPIDER / FTEX",
+                               lambda name, data: bc1_walk(port, name, data, walks),
+                               exts=SAMPLE_TEXTURE_PLAIN, least=15)
+    if not walks:
+        raise AssertionError("no DXT1 FTEX fixture")
+    bc1 = float(np.median(walks))
+    log(f"[tex9l] {len(fixtures)} fixtures decode to their recorded digests through the "
+        f"C++ and the plain route, SPIDER refused through both; gm_bc1_decode plain / C++ "
+        f"{bc1:.1f}")
+    exts = {"pix": ".pxr", "mci": ".mcidas", "xvt": ".xv", "fit": ".fits", "fte": ".ftc"}
+    by_row, expected = reader_views(port, scene, SAMPLE_TEXTURE_9L, exts, write_9l_view,
+                                    decode_plain_9l, "tex9l", jpeg_s_per_mp, tmpdir)
+    res = dict(rows=by_row, fixtures=len(fixtures), bc1_plain_vs_cpp=bc1,
+               phase_s=time.perf_counter() - t_phase)
+    log("[tex9l] " + json.dumps(res))
     return res, expected
 
 
@@ -4939,6 +5072,7 @@ def load_port():
     from gaussianmesh_tpu_torch.io import icns, ico
     from gaussianmesh_tpu_torch.io import msp, psd, sun, xbm, xpm
     from gaussianmesh_tpu_torch.io import fli, gbr, im, imt, iptc
+    from gaussianmesh_tpu_torch.io import bcn, fits, ftex, mcidas, pixar, spider, xvthumb
     from gaussianmesh_tpu_torch.train import loss
 
     from gaussianmesh_tpu_torch import viewer
@@ -4962,7 +5096,8 @@ def load_port():
         cli_metrics=cli_metrics, lpips=lpips, jpeg=jpeg, resample=resample, loss=loss,
         tiff=tiff, gif=gif, bmp=bmp, webp=webp, vp8l=vp8l, pnm=pnm, tga=tga, qoi=qoi,
         sgi=sgi, pcx=pcx, ico=ico, icns=icns, sun=sun, msp=msp, xbm=xbm, xpm=xpm, psd=psd,
-        fli=fli, gbr=gbr, im=im, imt=imt, iptc=iptc,
+        fli=fli, gbr=gbr, im=im, imt=imt, iptc=iptc, bcn=bcn, fits=fits, ftex=ftex,
+        mcidas=mcidas, pixar=pixar, spider=spider, xvthumb=xvthumb,
         gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
@@ -5016,6 +5151,8 @@ def main() -> int:
                                                            jpeg_s_per_mp, tmpdir)
         raw9k, reader_views["9k"] = phase_raw_sample_formats(torch, port, eval_scene,
                                                              jpeg_s_per_mp, tmpdir)
+        tex9l, reader_views["9l"] = phase_sample_texture_formats(torch, port, eval_scene,
+                                                                 jpeg_s_per_mp, tmpdir)
         readers, readers_launches = phase_reader_training(torch, port, eval_scene,
                                                           reader_views, tmpdir)
         del eval_scene, reader_views
@@ -5102,7 +5239,8 @@ def main() -> int:
     for name, r9 in (("TIFF layouts", tiff9f), ("PNM / TGA / QOI / SGI / PCX", raw9g),
                      ("DIB / ICO / CUR / DCX / ICNS", cont9i),
                      ("SUN / MSP / XBM / XPM / PSD", rle9j),
-                     ("FLI / IPTC / IM / IMT / GBR", raw9k)):
+                     ("FLI / IPTC / IM / IMT / GBR", raw9k),
+                     ("PIXAR / MCIDAS / XVTHUMB / FITS / SPIDER / FTEX", tex9l)):
         walk = (f" (ICNS run-length walk plain / C++ {r9['icns_rle_plain_vs_cpp']:.1f})"
                 if "icns_rle_plain_vs_cpp" in r9 else "")
         if "sun_rle_plain_vs_cpp" in r9:
@@ -5110,6 +5248,8 @@ def main() -> int:
                     f"gm_msp_rle {r9['msp_rle_plain_vs_cpp']:.1f})")
         if "fli_frame_plain_vs_cpp" in r9:
             walk = f" (gm_fli_frame plain / C++ {r9['fli_frame_plain_vs_cpp']:.1f})"
+        if "bc1_plain_vs_cpp" in r9:
+            walk = f" (gm_bc1_decode plain / C++ {r9['bc1_plain_vs_cpp']:.1f})"
         log(f"[done] {name} phase {r9['phase_s']:.1f} s on {cpu}: {r9['fixtures']} "
             f"fixtures{walk}; by row s/MP at {EVAL_WIDTH}x{EVAL_HEIGHT} (x phase 9's baseline "
             f"JPEG), plain / C++ at {CROP_9F[0]}x{CROP_9F[1]}, bytes a view (x the JPEG's), "

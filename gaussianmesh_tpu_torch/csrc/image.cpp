@@ -34,6 +34,8 @@
 // - gm_msp_rle: a Windows Paint (MSP v2) file's row map and run-length
 //   rows, `io/msp.py`.
 // - gm_fli_frame: an FLI / FLC frame's chunks, `io/fli.py`.
+// - gm_bc1_decode: BC1 (DXT1) blocks to RGBA as PIL's `bcn` decoder gives
+//   them, `io/bcn.py` (FTEX's DXT1 textures, `io/ftex.py`).
 //
 // Integer arithmetic wraps as numpy's int32 does (built with -fwrapv), so
 // even out-of-range coefficients of a corrupt file give the plain
@@ -1452,6 +1454,60 @@ int gm_fli_frame(const uint8_t* buf, int64_t n, int64_t width, int64_t height,
     left -= advance;
   }
   return kOk;
+}
+
+// BC1 (DXT1) blocks, data[0:n), decoded as PIL's `bcn` decoder (mode 1)
+// decodes them into a (height, width, 4) RGBA image `out`: blocks of 8
+// bytes, row-major over ceil(width / 4) x ceil(height / 4) 4 x 4 tiles;
+// in each, two little-endian 565 colours (each channel's high bits
+// replicated into its low ones), then 2-bit indices, pixel 0 in the low
+// bits. c0 > c1 gives four opaque colours (c0, c1, (2 c0 + c1) / 3,
+// (c0 + 2 c1) / 3); otherwise three and transparent black ((c0 + c1) / 2,
+// then 0 0 0 0). The pixels past the right and bottom edges are dropped.
+// Returns kOk, or kTruncated where the data holds fewer whole blocks than
+// the image needs (info[0]: the blocks decoded).
+int gm_bc1_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height,
+                  uint8_t* out, int64_t* info) {
+  const int64_t bw = (width + 3) / 4, bh = (height + 3) / 4;
+  const int64_t blocks = std::min(bw * bh, n / 8);
+  for (int64_t b = 0; b < blocks; ++b) {
+    const uint8_t* p = data + 8 * b;
+    const int c0 = p[0] | p[1] << 8, c1 = p[2] | p[3] << 8;
+    const uint32_t lut = static_cast<uint32_t>(p[4]) | static_cast<uint32_t>(p[5]) << 8 |
+                         static_cast<uint32_t>(p[6]) << 16 | static_cast<uint32_t>(p[7]) << 24;
+    int col[4][4];
+    for (int k = 0; k < 2; ++k) {
+      const int v = k ? c1 : c0;
+      const int r = v >> 11 & 31, g = v >> 5 & 63, bl = v & 31;
+      col[k][0] = r << 3 | r >> 2;
+      col[k][1] = g << 2 | g >> 4;
+      col[k][2] = bl << 3 | bl >> 2;
+      col[k][3] = 255;
+    }
+    for (int ch = 0; ch < 3; ++ch) {
+      if (c0 > c1) {
+        col[2][ch] = (2 * col[0][ch] + col[1][ch]) / 3;
+        col[3][ch] = (col[0][ch] + 2 * col[1][ch]) / 3;
+      } else {
+        col[2][ch] = (col[0][ch] + col[1][ch]) / 2;
+        col[3][ch] = 0;
+      }
+    }
+    col[2][3] = 255;
+    col[3][3] = c0 > c1 ? 255 : 0;
+    const int64_t y0 = b / bw * 4, x0 = b % bw * 4;
+    for (int j = 0; j < 4; ++j) {
+      if (y0 + j >= height) break;
+      for (int i = 0; i < 4; ++i) {
+        if (x0 + i >= width) break;
+        const int* c = col[lut >> (2 * (4 * j + i)) & 3];
+        uint8_t* d = out + 4 * ((y0 + j) * width + x0 + i);
+        for (int ch = 0; ch < 4; ++ch) d[ch] = static_cast<uint8_t>(c[ch]);
+      }
+    }
+  }
+  info[0] = blocks;
+  return blocks < bw * bh ? kTruncated : kOk;
 }
 
 }  // extern "C"

@@ -15,9 +15,12 @@ DCX (`io/pcx.py`), an ICO or CUR (`io/ico.py`), an ICNS (`io/icns.py`), an
 MSP (`io/msp.py`), a PSD (`io/psd.py`), a Sun raster (`io/sun.py`), an XBM
 (`io/xbm.py`), an XPM (`io/xpm.py`), an FLI or FLC (`io/fli.py`), a GIMP
 brush (`io/gbr.py`), an IM (`io/im.py`), an IMT (`io/imt.py`), an IPTC
-(`io/iptc.py`) or a TGA (`io/tga.py`) by its first bytes, in PIL's order
-of formats, a file PIL gives way on handed to the next format; IM, IMT and
-IPTC (no `_accept`) and TGA (no magic) as PIL tries them. `encode_png` encodes 8-bit
+(`io/iptc.py`), a PIXAR (`io/pixar.py`), a McIdas area (`io/mcidas.py`),
+an XV thumbnail (`io/xvthumb.py`), a FITS (`io/fits.py`), an FTEX
+(`io/ftex.py`) or a TGA (`io/tga.py`) by its first bytes, in PIL's order
+of formats, a file PIL gives way on handed to the next format; IM, IMT,
+IPTC and SPIDER (`io/spider.py`, refused where PIL opens it) (no
+`_accept`) and TGA (no magic) as PIL tries them. `encode_png` encodes 8-bit
 gray, gray + alpha, RGB and RGBA with filter type 0 on every row, and
 `write_png` writes what it returns.
 
@@ -37,7 +40,9 @@ import zlib
 import numpy as np
 
 from gaussianmesh_tpu_torch.io import icns, ico
+from gaussianmesh_tpu_torch.io.fits import fits_accept, read_fits
 from gaussianmesh_tpu_torch.io.fli import fli_accept, read_fli
+from gaussianmesh_tpu_torch.io.ftex import FTEX_MAGIC, read_ftex
 from gaussianmesh_tpu_torch.io.gbr import gbr_accept, read_gbr
 from gaussianmesh_tpu_torch.io.bmp import BMP_MAGIC, dib_accept, read_bmp, read_dib
 from gaussianmesh_tpu_torch.io.gif import GIF_MAGICS, read_gif
@@ -46,18 +51,22 @@ from gaussianmesh_tpu_torch.io.im import read_im
 from gaussianmesh_tpu_torch.io.imt import read_imt
 from gaussianmesh_tpu_torch.io.iptc import read_iptc
 from gaussianmesh_tpu_torch.io.jpeg import JPEG_MAGIC, read_jpeg
+from gaussianmesh_tpu_torch.io.mcidas import mcidas_accept, read_mcidas
 from gaussianmesh_tpu_torch.io.msp import MSP_MAGICS, read_msp
 from gaussianmesh_tpu_torch.io.pcx import DCX_MAGIC, pcx_accept, read_dcx, read_pcx
-from gaussianmesh_tpu_torch.io.pnm import is_pnm, read_pnm
+from gaussianmesh_tpu_torch.io.pixar import PIXAR_MAGIC, read_pixar
+from gaussianmesh_tpu_torch.io.pnm import PAM_REFUSED, is_pnm, magic_of, read_pnm
 from gaussianmesh_tpu_torch.io.psd import PSD_MAGIC, read_psd
 from gaussianmesh_tpu_torch.io.qoi import QOI_MAGIC, read_qoi
 from gaussianmesh_tpu_torch.io.sgi import SGI_MAGIC, read_sgi
+from gaussianmesh_tpu_torch.io.spider import read_spider
 from gaussianmesh_tpu_torch.io.sun import SUN_MAGIC, read_sun
 from gaussianmesh_tpu_torch.io.tga import read_tga, tga_header
 from gaussianmesh_tpu_torch.io.tiff import TIFF_HEADS, read_tiff
 from gaussianmesh_tpu_torch.io.webp import read_webp
 from gaussianmesh_tpu_torch.io.xbm import read_xbm, xbm_accept
 from gaussianmesh_tpu_torch.io.xpm import XPM_MAGIC, read_xpm
+from gaussianmesh_tpu_torch.io.xvthumb import read_xvthumb, xvthumb_accept
 from gaussianmesh_tpu_torch.ops import _cuda
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -273,8 +282,9 @@ def _anything(head: bytes) -> bool:
 # could take one head does the order decide): (format, its `_accept` on the
 # first 68 bytes, its reader). A reader that raises `GiveWay` (PIL's `_open`
 # raising SyntaxError, IndexError, TypeError or struct.error) hands the file
-# on to the next format that takes it; IM, IMT and IPTC, which have no
-# `_accept`, try every file that reaches them. `io/ico.py` and `io/icns.py`
+# on to the next format that takes it; IM, IMT, IPTC and SPIDER, which have
+# no `_accept`, try every file that reaches them (SPIDER is read by none: it
+# gives way, or refuses what PIL opens). `io/ico.py` and `io/icns.py`
 # decode PNG frames with this module, so their readers are looked up at the
 # call.
 _ORDER = (
@@ -287,27 +297,34 @@ _ORDER = (
     ("CUR", lambda h: h[:4] == b"\0\0\2\0", lambda p: ico.read_cur(p)),
     ("PCX", pcx_accept, read_pcx),
     ("DCX", lambda h: h[:4] == DCX_MAGIC, read_dcx),
+    ("FITS", fits_accept, read_fits),
     ("FLI", fli_accept, read_fli),
+    ("FTEX", lambda h: h[:4] == FTEX_MAGIC, read_ftex),
     ("GBR", gbr_accept, read_gbr),
     ("ICNS", lambda h: h[:4] == b"icns", lambda p: icns.read_icns(p)),
     ("ICO", lambda h: h[:4] == b"\0\0\1\0", lambda p: ico.read_ico(p)),
     ("IM", _anything, read_im),
     ("IMT", _anything, read_imt),
     ("IPTC", _anything, read_iptc),
+    ("MCIDAS", mcidas_accept, read_mcidas),
     ("TIFF", lambda h: h[:4] in TIFF_HEADS, read_tiff),
     ("MSP", lambda h: h[:4] in MSP_MAGICS, read_msp),
+    ("PIXAR", lambda h: h[:4] == PIXAR_MAGIC, read_pixar),
     ("PSD", lambda h: h[:4] == PSD_MAGIC, read_psd),
     ("QOI", lambda h: h[:4] == QOI_MAGIC, read_qoi),
     ("SGI", lambda h: h[:2] == SGI_MAGIC, read_sgi),
+    ("SPIDER", _anything, read_spider),
     ("SUN", lambda h: h[:4] == SUN_MAGIC, read_sun),
     ("TGA", _tga_accept, read_tga),
     ("WebP", lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP", read_webp),
     ("XBM", xbm_accept, read_xbm),
     ("XPM", lambda h: h[:9] == XPM_MAGIC, read_xpm),
+    ("XVTHUMB", xvthumb_accept, read_xvthumb),
 )
+# the formats read (SPIDER is tried, and refused where PIL opens it)
 FORMATS = ("JPEG", "PNG", "BMP", "TIFF", "GIF", "WebP", "PNM", "QOI", "SGI", "PCX", "DIB",
            "ICO", "CUR", "DCX", "ICNS", "MSP", "PSD", "SUN", "XBM", "XPM", "FLI", "GBR", "IM",
-           "IMT", "IPTC", "TGA")
+           "IMT", "IPTC", "PIXAR", "MCIDAS", "XVTHUMB", "FITS", "FTEX", "TGA")
 
 
 def read_image(path: str) -> np.ndarray:
@@ -318,12 +335,18 @@ def read_image(path: str) -> np.ndarray:
     (`io/icns.py`), MSP (`io/msp.py`), PSD (its merged image, `io/psd.py`),
     SUN (`io/sun.py`), XBM and XPM (`io/xbm.py`, `io/xpm.py`), FLI and FLC
     (the first frame, `io/fli.py`), GBR (`io/gbr.py`), IM (`io/im.py`),
-    IMT (`io/imt.py`), IPTC (`io/iptc.py`), and TGA, which has no magic,
-    only where no format PIL tries first takes the file and TGA's header
-    checks pass. IM, IMT and IPTC, which PIL registers with no `_accept`,
-    try every file that reaches them. A file PIL gives way on
-    (`io/giveway.py`) goes on to the next format that takes its head, as in
-    PIL -> the reader's array."""
+    IMT (`io/imt.py`), IPTC (`io/iptc.py`), PIXAR (`io/pixar.py`), McIdas
+    areas of 1- and 2-byte samples (B7: the high byte; `io/mcidas.py`), XV
+    thumbnails (B15: RGB332 expanded; `io/xvthumb.py`), FITS of 8 bits and
+    unsigned 16 bits, raw or GZIP_1 (B32: by the format's definition;
+    `io/fits.py`), FTEX (DXT1 through the port's BC1 decoder, or raw RGB;
+    `io/ftex.py`), and TGA, which has no magic, only where no format PIL
+    tries first takes the file and TGA's header checks pass. IM, IMT, IPTC
+    and SPIDER, which PIL registers with no `_accept`, try every file that
+    reaches them (a SPIDER image PIL opens is refused: float samples, B21).
+    A file PIL gives way on (`io/giveway.py`) goes on to the next format
+    that takes its head, as in PIL; a PAM file (`P7`), which no format
+    takes, raises naming it -> the reader's array."""
     with open(path, "rb") as f:
         head = f.read(68)
     causes = []
@@ -337,5 +360,7 @@ def read_image(path: str) -> np.ndarray:
             return read(path)
         except GiveWay as err:
             causes.append(f"{name}: {err}")
+    if magic_of(head) == b"P7" and not xvthumb_accept(head):
+        raise ValueError(f"{path}: {PAM_REFUSED}")
     raise ValueError(f"{path}: not a {', '.join(FORMATS[:-1])} or {FORMATS[-1]}"
                      + (f" ({'; '.join(causes)})" if causes else ""))

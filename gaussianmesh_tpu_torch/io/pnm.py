@@ -23,7 +23,11 @@ the digits of each token summed by place), raw ones reshaped; there is no
 per-sample loop, so no C++ route. PIL's other magics are refused with
 their cause: `Pf` (PFM, float samples, which the JAX reader trains as
 values / 255: fault B21), Pillow's own `PyP`, `PyRGBA`, `PyCMYK` and
-`P0CMYK`, and PAM's `P7`, which PIL does not read.
+`P0CMYK`, and PAM's `P7`, which PIL does not read (`is_pnm` does not take
+it, as PIL's `_accept` does not: `P7 332` is an XV thumbnail,
+`io/xvthumb.py`). A magic PIL's `_open` does not know (`P0`, `P1x`, ...)
+and a width or height under 1 give way (`io/giveway.py`), as in PIL; the
+header's numbers are read as PIL reads them, by Python's `int`.
 
 `encode_pnm` / `write_pnm` write P5 / P6 (8- or 16-bit), P2 / P3 and P4 /
 P1 files, for the tests and `chip_smoke.py`; the training path does not
@@ -38,6 +42,8 @@ import re
 
 import numpy as np
 
+from gaussianmesh_tpu_torch.io.giveway import GiveWay
+
 WHITESPACE = b" \t\n\v\f\r"
 _MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB"}
 _REFUSED = {
@@ -49,12 +55,24 @@ _REFUSED = {
     b"P0CMYK": "a CMYK PPM (P0CMYK)",
 }
 _COMMENT = re.compile(rb"#[^\r\n]*[\r\n]?")
+PAM_REFUSED = "a PAM file (P7), which PIL does not read"
 
 
 def is_pnm(head: bytes) -> bool:
     """Whether PIL's `PpmImagePlugin` takes a file with these first bytes
-    (its `_accept`), or they are PAM's `P7`."""
-    return len(head) >= 2 and head[:1] == b"P" and head[1] in b"01234567fy"
+    (its `_accept`: `P0`-`P6`, `Pf`, `Py`)."""
+    return len(head) >= 2 and head[:1] == b"P" and head[1] in b"0123456fy"
+
+
+def magic_of(data: bytes) -> bytes:
+    """The magic as PIL's `_read_magic` reads it: up to 6 bytes, to the
+    first whitespace."""
+    magic = bytearray()
+    for c in data[:6]:
+        if c in WHITESPACE:
+            break
+        magic.append(c)
+    return bytes(magic)
 
 
 def read_pnm(path: str) -> np.ndarray:
@@ -89,9 +107,12 @@ def _token(data: bytes, pos: int, path: str):
 
 
 def _number(token: bytes, what: str, path: str) -> int:
-    if not token.isdigit():
-        raise ValueError(f"{path}: PNM {what} {token!r} is not a number")
-    return int(token)
+    """A header number as PIL's `int` reads it (a sign and underscores
+    too)."""
+    try:
+        return int(token)
+    except ValueError:
+        raise ValueError(f"{path}: PNM {what} {token!r} is not a number") from None
 
 
 def _ascii_values(data: bytes, count: int, path: str) -> np.ndarray:
@@ -132,26 +153,26 @@ def _scale(v: np.ndarray, maxval: int, out_max: int) -> np.ndarray:
 
 def decode_pnm(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """`read_pnm` of a PNM file's bytes (`path` names it in errors)."""
-    magic = bytearray()
-    pos = 0
-    while pos < min(6, len(data)) and data[pos] not in WHITESPACE:
-        magic.append(data[pos])
-        pos += 1
-    pos += 1                                          # the whitespace after it
-    magic = bytes(magic)
+    magic = magic_of(data)
+    pos = len(magic) + 1                              # the whitespace after it
     if magic in _REFUSED:
         raise ValueError(f"{path}: {_REFUSED[magic]}; not read")
     if magic == b"P7":
-        raise ValueError(f"{path}: a PAM file (P7), which PIL does not read")
+        raise ValueError(f"{path}: {PAM_REFUSED}")
     if magic not in _MODES:
-        raise ValueError(f"{path}: not a PNM file (magic {magic!r})")
+        raise GiveWay(f"{path}: not a PPM file (magic {magic!r})")
     mode = _MODES[magic]
     tok, pos = _token(data, pos, path)
     w = _number(tok, "width", path)
     tok, pos = _token(data, pos, path)
     h = _number(tok, "height", path)
-    if w <= 0 or h <= 0:
-        raise ValueError(f"{path}: PNM image of {w}x{h} pixels")
+    if mode != "1":
+        tok, pos = _token(data, pos, path)
+        maxval = _number(tok, "maxval", path)
+        if not 0 < maxval < 65536:
+            raise ValueError(f"{path}: PNM maxval {maxval} is not in 1-65535")
+    if w <= 0 or h <= 0:                              # ImageFile's size check
+        raise GiveWay(f"{path}: PNM image of {w}x{h} pixels")
     c = 3 if mode == "RGB" else 1
     if mode == "1":
         if magic == b"P4":
@@ -172,10 +193,6 @@ def decode_pnm(data: bytes, path: str = "<bytes>") -> np.ndarray:
                                  "(not enough image data)")
             bits = (body - 48).reshape(h, w)
         return ((1 - bits) * 255).astype(np.uint8)
-    tok, pos = _token(data, pos, path)
-    maxval = _number(tok, "maxval", path)
-    if not 0 < maxval < 65536:
-        raise ValueError(f"{path}: PNM maxval {maxval} is not in 1-65535")
     wide = mode == "L" and maxval > 255            # PIL's mode I: 0-65535
     count = w * h * c
     if magic in (b"P2", b"P3"):

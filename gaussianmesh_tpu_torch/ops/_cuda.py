@@ -111,6 +111,8 @@ HOST_LIBRARIES = {
         "gm_msp_rle": [_P, _L, _L, _L, _L, _P, _P],
         # buf, n, width, height, plane, info
         "gm_fli_frame": [_P, _L, _L, _L, _P, _P],
+        # data, n, width, height, out, info
+        "gm_bc1_decode": [_P, _L, _L, _L, _P, _P],
     },
     "vp8": {
         # frame, n, y, u, v, info

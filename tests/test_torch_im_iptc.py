@@ -471,20 +471,36 @@ def test_a3_jpeg_markers_pil_refuses(tmp_path):
 def test_raw_sample_fixtures_digests():
     """The fixtures of `tests/data/raw_samples/` (at least 30): each gives
     its recorded digest and shape through `read_image` and through the
-    plain route (FLI's plain walk; the others have one route), and the
-    fixture tool's `digests` recomputes every record from PIL."""
+    plain route (FLI's plain walk, FTEX's plain BC1; the others have one
+    route), or, where the record has no array (SPIDER's floats: B21), both
+    raise the same cause; and the fixture tool's `digests` recomputes every
+    record from PIL."""
+    from gaussianmesh_tpu_torch.io import fits, ftex, mcidas, pixar, spider, xvthumb
+
     with open(os.path.join(RAW_SAMPLES, "digests.json")) as fh:
         table = json.load(fh)
     assert len(table) >= 30
     plain = {".fli": fli.decode_fli_plain, ".flc": fli.decode_fli_plain,
              ".gbr": gbr.decode_gbr, ".im": im.decode_im, ".imt": imt.decode_imt,
-             ".iim": iptc.decode_iptc}
+             ".iim": iptc.decode_iptc, ".pxr": pixar.decode_pixar,
+             ".mcidas": mcidas.decode_mcidas, ".xv": xvthumb.decode_xvthumb,
+             ".fits": fits.decode_fits, ".spi": spider.decode_spider,
+             ".ftc": ftex.decode_ftex_plain, ".ftu": ftex.decode_ftex_plain}
     for name, want in sorted(table.items()):
         path = os.path.join(RAW_SAMPLES, name)
         with open(path, "rb") as fh:
             data = fh.read()
         assert digests(data) == want, name
-        for a in (png.read_image(path), plain[os.path.splitext(name)[1]](data)):
+        decode = plain[os.path.splitext(name)[1]]
+        if want["array"] is None:
+            causes = set()
+            for run in (lambda: png.read_image(path), lambda: decode(data, path)):
+                with pytest.raises(ValueError) as err:
+                    run()
+                causes.add(str(err.value))
+            assert len(causes) == 1 and "B21" in causes.pop(), name
+            continue
+        for a in (png.read_image(path), decode(data)):
             assert hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() == \
                 want["array"] and list(a.shape) == want["shape"], name
 

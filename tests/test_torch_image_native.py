@@ -6,8 +6,9 @@ and the corrupt streams (the same errors); PNGs at every depth and colour
 type with rows cycling through all five filters, palettes with tRNS,
 Adam7; resize in L / LA / RGB / RGBA up, down and on the resolution ladder.
 The training path's readers never reach a plain version (the LZW,
-PackBits and RLE ones of `tests/test_torch_image_formats_lzw.py`
-included), and a build that cannot happen raises."""
+PackBits and RLE ones of `tests/test_torch_image_formats_lzw.py` and the
+BC1 one of FTEX textures included), and a build that cannot happen
+raises."""
 
 import io
 import os
@@ -20,8 +21,8 @@ import torch
 from PIL import Image
 
 from gaussianmesh_tpu_torch.data import cameras, readers
-from gaussianmesh_tpu_torch.io import (bmp, fli, gif, jpeg, lzw, pcx, png, pnm, qoi, resample,
-                                      sgi, tga, tiff, webp)
+from gaussianmesh_tpu_torch.io import (bcn, bmp, fli, ftex, gif, jpeg, lzw, pcx, png, pnm, qoi,
+                                      resample, sgi, tga, tiff, webp)
 from gaussianmesh_tpu_torch.ops import _cuda
 from tests.test_torch_jpeg import _image as _jpeg_image, _segment, _segments
 from tests.test_torch_readers import ADAM7, _blender_set, _chunk, _jpeg_colmap_set
@@ -460,19 +461,33 @@ def _fli_set(root):
     return root
 
 
+def _ftex_set(root):
+    """`_jpeg_colmap_set` with its views as FTEX textures, DXT1 (BC1) and
+    raw RGB, in turn."""
+    root = _jpeg_colmap_set(root)
+    for i, name in enumerate(sorted(os.listdir(f"{root}/images"))):
+        path = f"{root}/images/{name}"
+        img = jpeg.read_jpeg(path)
+        img = np.dstack([img] * 3) if img.ndim == 2 else img
+        ftex.write_ftex(path, img, fmt=ftex.UNCOMPRESSED if i % 2 else ftex.DXT1)
+    return root
+
+
 def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
     resize), of the same set with progressive JPEGs, of a Blender set of
     PIL-filtered RGBA PNGs at -r 2, of the COLMAP set in LZW and PackBits
     TIFF, GIF and RLE BMP views, of it in lossy WebP views and of it in RLE
-    TGA, QOI, RLE SGI, PCX and PPM views and of it in FLI and FLC views,
-    with every plain piece made to raise: the same scenes as before."""
+    TGA, QOI, RLE SGI, PCX and PPM views, of it in FLI and FLC views and
+    of it in FTEX (DXT1 and raw) views, with every plain piece made to
+    raise: the same scenes as before."""
     colmap_root = _jpeg_colmap_set(tmp_path / "c")
     prog_root = _jpeg_colmap_set(tmp_path / "p")
     new_root = _new_forms_set(tmp_path / "n")
     webp_root = _webp_set(tmp_path / "w")
     raw_root = _raw_set(tmp_path / "r")
     fli_root = _fli_set(tmp_path / "f")
+    ftex_root = _ftex_set(tmp_path / "t")
     for name in os.listdir(f"{prog_root}/images"):
         path = f"{prog_root}/images/{name}"
         Image.open(path).save(path, "JPEG", quality=90, progressive=True)
@@ -487,7 +502,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
               readers.read_scene(new_root, resolution=-1, **kw),
               readers.read_scene(webp_root, resolution=-1, **kw),
               readers.read_scene(raw_root, resolution=-1, **kw),
-              readers.read_scene(fli_root, resolution=-1, **kw))
+              readers.read_scene(fli_root, resolution=-1, **kw),
+              readers.read_scene(ftex_root, resolution=-1, **kw))
 
     def plain(*_a, **_k):
         raise AssertionError("a plain version was called")
@@ -502,7 +518,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
                                "_Bits", "_coeffs_plain", "_reconstruct_plain",
                                "_filter_plain")),
                        (tga, ("_rle_plain",)), (qoi, ("_ops_plain",)), (sgi, ("_rle_plain",)),
-                       (pcx, ("_rle_plain",)), (fli, ("_frame_plain",))):
+                       (pcx, ("_rle_plain",)), (fli, ("_frame_plain",)),
+                       (bcn, ("_bc1_plain",))):
         for name in names:
             monkeypatch.setattr(mod, name, plain)
     after = (readers.read_scene(colmap_root, resolution=-1, **kw),
@@ -511,7 +528,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
              readers.read_scene(new_root, resolution=-1, **kw),
              readers.read_scene(webp_root, resolution=-1, **kw),
              readers.read_scene(raw_root, resolution=-1, **kw),
-             readers.read_scene(fli_root, resolution=-1, **kw))
+             readers.read_scene(fli_root, resolution=-1, **kw),
+             readers.read_scene(ftex_root, resolution=-1, **kw))
     for a, b in zip(before, after):
         for ca, cb in zip(a.train_cameras + a.test_cameras, b.train_cameras + b.test_cameras):
             assert np.array_equal(ca.image, cb.image) and np.array_equal(ca.mask, cb.mask)
@@ -542,6 +560,8 @@ def _every_entry_point(tmp_path):
     yield lambda: lzw.lzw_encode(bytes(4))
     yield lambda: fli.decode_fli(fli.encode_fli(np.zeros((2, 4), np.uint8),
                                                 np.zeros((1, 3), np.uint8)))
+    texture = ftex.encode_ftex(np.zeros((4, 4, 3), np.uint8))[0]     # encoded in numpy
+    yield lambda: ftex.decode_ftex(texture)
 
 
 def _rle_bmp():
@@ -553,8 +573,8 @@ def _rle_bmp():
 
 def test_no_compiler_raises_not_falls_back(tmp_path, monkeypatch, fresh_library):
     """With no g++ to be found, each public entry point raises (the JPEG,
-    PNG, resize, LZW, PackBits, RLE and FLI ones); none falls back to its
-    plain version."""
+    PNG, resize, LZW, PackBits, RLE, FLI and FTEX ones); none falls back to
+    its plain version."""
     monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
     for call in _every_entry_point(tmp_path):
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):

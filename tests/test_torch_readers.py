@@ -127,7 +127,8 @@ def test_unsupported_images_raise(tmp_path):
     assert Image.open(other).format == "DDS"
     with pytest.raises(ValueError, match="not a JPEG, PNG, BMP, TIFF, GIF, WebP, PNM, QOI, "
                                          "SGI, PCX, DIB, ICO, CUR, DCX, ICNS, MSP, PSD, SUN, "
-                                         "XBM, XPM, FLI, GBR, IM, IMT, IPTC or TGA"):
+                                         "XBM, XPM, FLI, GBR, IM, IMT, IPTC, PIXAR, MCIDAS, "
+                                         "XVTHUMB, FITS, FTEX or TGA"):
         png.read_image(other)
     lossless = str(tmp_path / "l.jpg")
     Image.fromarray(_image(3)).save(lossless)

@@ -568,8 +568,8 @@ def test_psd_refused_forms_raise(tmp_path, case):
 # ------------------------------------------------------------------ dispatch
 def test_dispatch_heads_order_and_gbr(tmp_path):
     """Each new format by its head (PIL's format equal): MSP, PSD and SUN in
-    PIL's places, XBM and XPM after WebP; none of their heads passes TGA's
-    checks; a Sun raster of width 1 whose length field is 1 or 4 is a GIMP
+    PIL's places, XBM and XPM after WebP (and before XVTHUMB, the last);
+    none of their heads passes TGA's checks; a Sun raster of width 1 whose length field is 1 or 4 is a GIMP
     brush to PIL, tried first, and is read as the brush (whose pixels lie
     past the file's end, so both raise PIL's "not enough image data"),
     while one of width 2 (GBR version 2, which needs "GIMP" at byte 20) is
@@ -577,7 +577,8 @@ def test_dispatch_heads_order_and_gbr(tmp_path):
     names = [name for name, _, _ in png._ORDER]
     assert names.index("TIFF") < names.index("MSP") < names.index("PSD") < names.index("QOI")
     assert names.index("SGI") < names.index("SUN") < names.index("TGA")
-    assert names.index("WebP") < names.index("XBM") < names.index("XPM") == len(names) - 1
+    assert names.index("WebP") < names.index("XBM") < names.index("XPM") \
+        < names.index("XVTHUMB") == len(names) - 1
     img = _banded(5, 7, 3, 71)
     files = {"SUN": sun.encode_sun(img, rle=True), "MSP": msp.encode_msp(img[..., 0], 2),
              "PSD": psd.encode_psd(img), "XBM": xbm.encode_xbm(img[..., 0] > 99),

@@ -1,6 +1,7 @@
-"""Writes the FLI, GBR, IM, IMT and IPTC fixtures of `tests/data/raw_samples/`
-and their digests, for the tests and `chip_smoke.py`'s phase 9k (the card's
-machine has no PIL to check the port's readers against).
+"""Writes the FLI, GBR, IM, IMT, IPTC, PIXAR, MCIDAS, XV thumbnail, FITS,
+SPIDER and FTEX fixtures of `tests/data/raw_samples/` and their digests,
+for the tests and `chip_smoke.py`'s phases 9k and 9l (the card's machine
+has no PIL to check the port's readers against).
 
     python tools/make_raw_sample_fixtures_torch.py [--out tests/data/raw_samples]
 
@@ -14,14 +15,23 @@ and 64-level palettes and palette packets with skips; brushes of both
 versions, gray and RGBA; IM types PIL's writer does not write (`B2`, `B4`,
 `X 24`, `RGB3`, `L 8`, a colour `Lut` on `B2`, an inverted gray `Lut`);
 IMT headers with comments and CR LF lines; IPTC gray records, raw and
-JPEG, in one (8, 10) field or several.
+JPEG, in one (8, 10) field or several. Then PIXAR RGB; McIdas areas of 1-
+and 2-byte samples, with a line prefix, of two bands (C6); XV thumbnails
+with comments and CR LF lines; FITS of 8 bits, unsigned 16 bits (B32), a
+cube (C7), one axis, an image extension after an empty primary and the
+GZIP_1 tile form at 8 and 16 bits, each padded to 2880 bytes; PIL's own
+SPIDER file (refused: float samples, B21); FTEX textures of PIL's DDS
+writer's DXT1 blocks (a partial edge block), of random blocks (both BC1
+modes), of `io/ftex.py`'s DXT1 and raw writers.
 
 `digests.json` holds, per file, PIL's format and mode, the rule the port
 applies to PIL's array and the SHA-256 and shape of the array the rule
 gives. The rules: none; A2 LA, PA -> `convert("RGBA")`; B7 I;16 -> the
 high byte; B14 CMYK, B15 palette, B30 YCbCr -> `convert("RGB")`; B16 1-bit
 -> `convert("L")`; F8 (IM's `L 8`, mode F of byte values) -> its values as
-bytes.
+bytes; B32 (FITS `I;16`: PIL reads the big-endian samples little-endian)
+-> the samples byte-swapped back, as signed, + BZERO 32768, the high byte;
+"B21 refused" (SPIDER's float samples): no array, the port raises.
 """
 
 from __future__ import annotations
@@ -59,6 +69,11 @@ def port_array(data: bytes) -> tuple[np.ndarray, str, str, str]:
     im = Image.open(io.BytesIO(data))
     fmt, mode = im.format, im.mode
     im.load()
+    if fmt == "SPIDER":
+        return None, fmt, mode, "B21 refused"
+    if fmt == "FITS" and mode == "I;16":
+        stored = np.asarray(im).astype(np.uint16).byteswap().view(np.int16)
+        return ((stored.astype(np.int64) + 32768) >> 8).astype(np.uint8), fmt, mode, "B32"
     if mode in ("LA", "PA"):
         return np.asarray(im.convert("RGBA")), fmt, mode, "A2"
     if mode.startswith("I;16"):
@@ -81,8 +96,8 @@ def sha(a: np.ndarray) -> str:
 
 def digests(data: bytes) -> dict:
     a, fmt, mode, rule = port_array(data)
-    return {"array": sha(a), "shape": list(a.shape), "pil_format": fmt, "pil_mode": mode,
-            "rule": rule}
+    return {"array": None if a is None else sha(a), "shape": None if a is None else
+            list(a.shape), "pil_format": fmt, "pil_mode": mode, "rule": rule}
 
 
 def _chunk(kind: int, body: bytes) -> bytes:
@@ -179,7 +194,65 @@ def files() -> dict[str, bytes]:
         "hand_iptc_raw_gray_fields_23x17.iim": iptc.encode_iptc(gray, chunk=100),
         "hand_iptc_jpeg_gray_23x17.iim": iptc.encode_iptc(gray, "jpeg"),
     }
+    out.update(raw_sample_files(rgb, u16, pil))
     return out
+
+
+def raw_sample_files(rgb: np.ndarray, u16: np.ndarray, pil) -> dict[str, bytes]:
+    """The PIXAR, MCIDAS, XV thumbnail, FITS, SPIDER and FTEX fixtures of
+    the 23 x 17 `rgb` and 16-bit `u16` images (`pil(img, fmt, mode)` saves
+    through PIL)."""
+    from PIL import Image
+
+    from gaussianmesh_tpu_torch.io import fits, ftex, mcidas, pixar, xvthumb
+
+    gray = rgb[..., 0]
+    small = rgb[:6, :7]
+    dds = pil(small, "DDS", pixel_format="DXT1")
+    dds23 = pil(rgb, "DDS", pixel_format="DXT1")
+
+    def texture(w, h, fmt, body):
+        return (b"FTEX" + struct.pack("<i2i2i2i", 1, w, h, 1, 1, fmt, 32)
+                + struct.pack("<i", len(body)) + body)
+    random_blocks = np.random.default_rng(6).integers(0, 256, (12, 8), dtype=np.uint8)
+    random_blocks[::2, 2:4] = random_blocks[::2, 0:2]          # c0 == c1: three colours
+    card, unit = fits._card, fits._unit
+
+    def image_unit(first, naxes, body):
+        cards = [first, card("BITPIX", 8), card("NAXIS", len(naxes))]
+        cards += [card(f"NAXIS{k + 1}", n) for k, n in enumerate(naxes)]
+        out = unit(cards) + body
+        return out + bytes(-len(out) % 2880)
+    simple = card("SIMPLE", True)
+    planes = np.concatenate([gray[::-1], 255 - gray[::-1], gray[::-1] // 2]).tobytes()
+    empty = unit([simple, card("BITPIX", 8), card("NAXIS", 0), card("EXTEND", True)])
+    return {
+        "hand_pixar_rgb_23x17.pxr": pixar.encode_pixar(rgb),
+        "hand_mcidas_1byte_23x17.mcidas": mcidas.encode_mcidas(gray),
+        "hand_mcidas_2byte_b7_23x17.mcidas": mcidas.encode_mcidas(u16, size=2),
+        "hand_mcidas_prefix_23x17.mcidas": mcidas.encode_mcidas(gray, prefix=4),
+        "hand_mcidas_2bands_c6_23x17.mcidas": mcidas.encode_mcidas(u16, size=2, bands=2),
+        "hand_xvthumb_b15_23x17.xv": xvthumb.encode_xvthumb(xvthumb.rgb332(rgb)),
+        "hand_xvthumb_crlf_comments_23x17.xv": (
+            b"P7 332 \r\n#XVVERSION:Version 2.28\r\n#BUILTIN:STIPPLE\r\n23 17 255\r\n"
+            + xvthumb.rgb332(rgb[:, ::-1]).tobytes()),
+        "hand_fits_8bit_23x17.fits": fits.encode_fits(gray),
+        "hand_fits_16bit_unsigned_b32_23x17.fits": fits.encode_fits(u16),
+        "hand_fits_cube_c7_23x17.fits": image_unit(simple, (23, 17, 3), planes),
+        "hand_fits_naxis1_1x17.fits": image_unit(simple, (17,), gray[::-1, 0].tobytes()),
+        "hand_fits_xtension_image_23x17.fits": empty + image_unit(
+            card("XTENSION", "IMAGE"), (23, 17), gray[::-1].tobytes()),
+        "hand_fits_gzip8_23x17.fits": fits.encode_fits(gray, compress=True),
+        "hand_fits_gzip16_unsigned_b32_23x17.fits": fits.encode_fits(u16, compress=True),
+        "pil_spider_b21_23x17.spi": pil(Image.fromarray(gray).convert("F"), "SPIDER"),
+        "pil_dds_dxt1_ftex_7x6.ftc": texture(7, 6, 0, dds[128:]),
+        "pil_dds_dxt1_ftex_23x17.ftc": texture(23, 17, 0, dds23[128:]),
+        "hand_ftex_random_blocks_13x9.ftc": texture(13, 9, 0, random_blocks.tobytes()),
+        "hand_ftex_dxt1_23x17.ftc": ftex.encode_ftex(rgb)[0],
+        "hand_ftex_raw_23x17.ftu": ftex.encode_ftex(rgb, ftex.UNCOMPRESSED)[0],
+        "hand_ftex_raw_to_the_end_23x17.ftu": (  # a length of -1: the rest of the file
+            texture(23, 17, 1, b"")[:-4] + struct.pack("<i", -1) + rgb.tobytes()),
+    }
 
 
 def main(argv=None) -> None:
