@@ -29,7 +29,8 @@ Phases (any failure raises, so the exit code is not 0):
    domains with seeded cotangents, against their plain versions, twice for
    bit-identity; each timed with CUDA events, with its bound (bytes or
    operations) computed from this run's data; K2's also with the (pair,
-   warp) iterations its walk takes and the warp reductions it needs, K3's
+   warp) iterations its walk takes and the warp reductions it needs (here
+   alone: the later phases' K2 checks skip these counts), K3's
    with the segment-length statistics of each shape, its time with the
    calls queued behind a sleep of the card (`queued_ms`) and its wrapper's
    host time per call (`host_ms`). Then K3 alone on the
@@ -84,12 +85,13 @@ Phases (any failure raises, so the exit code is not 0):
    0 just before each command line, read just after); finite losses and
    parameters, no overflow. Step ms medians, dataset load seconds, and a
    profile of 3 more background steps (device operations, idle share).
-   The host codecs on config 2's PNGs: each decoded by the C++ path
-   (`csrc/image.cpp`) and by the plain numpy version, equal bytes; then
-   each re-written with its rows cycling through filters 1-4 (the port's
-   writer uses filter 0 alone) and decoded both ways again, equal to the
-   view, its rows unfiltered both ways on their own: equal bytes, ms per
-   view.
+   The host codecs on PNG_CODEC_VIEWS (3) of config 2's PNGs: each
+   decoded by the C++ path (`csrc/image.cpp`) and by the plain numpy
+   version, equal bytes; then each re-written with its rows cycling through
+   filters 1-4 (the port's writer uses filter 0 alone) and decoded both
+   ways again, equal to the view, its rows unfiltered both ways on their
+   own: equal bytes, ms per view. (The training runs decode every view by
+   the C++ path.)
    Then one more background step with the kernels' wrappers recording
    their arguments (the concatenated ~0.9 M-row table, background rows
    first, its pair domain, cotangents from the real loss), and K1, K2 and
@@ -114,8 +116,9 @@ Phases (any failure raises, so the exit code is not 0):
    PSNR and SSIM equal to an in-process computation on the written PNGs
    (1e-5); `LPIPS` null and `LPIPS_uncalibrated` finite. The share of each
    test view the object covers, beside that of phase 8's config-2 test
-   views. Every JPEG decoded by the C++ path and by the plain numpy
-   version (equal bytes), each test view resized both ways (equal bytes).
+   views. Every JPEG decoded by the C++ path and the first EVAL_PLAIN_VIEWS
+   (3) by the plain numpy version too (equal bytes), each test view
+   resized both ways (equal bytes).
    JPEG decode s / MP and resample ms per image (C++ and plain), dataset
    load s, the
    step median and LPIPS ms per view at 1600x900, beside the card's name
@@ -124,7 +127,7 @@ Phases (any failure raises, so the exit code is not 0):
    against their plain versions on those, timed and bounded as in phase 5;
    K2's rows must equal the step's.
 9b. progressive: the views of phase 9 that 9h takes from 9b
-   (`reader_phase`: 0, 10 and 20) rendered again from the same cameras and
+   (`reader_phase`: 0, 15 and 21) rendered again from the same cameras and
    written as progressive JPEGs (`write_jpeg(..., progressive=True)`:
    quality 90, 4:2:0, libjpeg's 10-scan progression). Each view decoded by
    `read_jpeg` (C++, `gm_jpeg_scan_progressive`): equal to phase 9's
@@ -317,11 +320,31 @@ Phases (any failure raises, so the exit code is not 0):
    MP, its ratio to phase 9's baseline JPEG in the same run, plain / C++,
    bytes a view and their ratio to phase 9's JPEG files, and write s by
    row beside the card's name and power limit and the host's CPU.
+9m. DDS and BLP: first the fixtures of `tests/data/textures/` (PIL's DDS
+   and BLP writers' files, the port's writers' and hand-made blocks, with
+   the SHA-256 and shape of PIL's array under the port's rule: A2, B15,
+   B35-B37; recorded on a machine with PIL by
+   `tools/make_texture_fixtures_torch.py`): `read_image` and the plain
+   route give the recorded digests, the BC6H, B34 and raw BGRA fixtures are
+   refused alike through both, and `gm_bcn_decode` gives `decode_plain`'s
+   bytes on every fixture's blocks (BC1-BC5, BC5S, BC7 and BLP's DXT1,
+   DXT3 and DXT5; plain / C++ printed by kind). Then phase 9's 24 views
+   written in the rows of TEXTURE_9M (`io/dds.py`, `io/blp.py` writers):
+   DDS DXT1 (RGBA), DXT5 with 9i's ellipse as the alpha, DX10 BC7 of mode
+   6, BC4 of the view's `convert("L")`, BC5 (R, G) and 16-bit 565 masks;
+   BLP1 JPEG of three components, BLP2 DXT1 of alpha depth 0 and BLP2
+   palette on 9c's 256 colours. Each view decodes by `read_image` to what
+   its writer says; the CROP_9F centre of one view a row decodes through
+   the plain route to the C++'s bytes; s / MP, its ratio to phase 9's
+   baseline JPEG in the same run, plain / C++, bytes a view and their
+   ratio to phase 9's JPEG files, and write s by row beside the card's name
+   and power limit and the host's CPU.
 9h. the reader phases' shared training: one COLMAP scene of phase 9's 24
-   cameras whose view i is the file phase `reader_phase(i)` =
-   READER_PHASES[(5 i + 6 (i // 8)) % 9] (9b, 9c, 9d, 9f, 9g, 9i, 9j, 9k,
-   9l; each view 5 phases on from the one before, each octet one phase on,
-   so that the test views 0, 8 and 16 fall to 9b, 9c and 9d and each phase
+   cameras whose view i is the file phase `reader_phase(i)` (9m for the
+   views of READER_9M, 11, 13 and 18; otherwise READER_PHASES[(5 i + 6 (i
+   // 8)) % 9] over 9b, 9c, 9d, 9f, 9g, 9i, 9j, 9k and 9l: each view 5
+   phases on from the one before, each octet one phase on, so that the
+   test views 0, 8 and 16 fall to 9b, 9c and 9d and each of the ten phases
    gives two or three training views, none of a row with an alpha) wrote
    for it, or phase 9's JPEG where that file decodes with an alpha (an
    alpha makes a mask, and `DeviceDataset` stacks masks only where the
@@ -364,16 +387,18 @@ Phases (any failure raises, so the exit code is not 0):
    versions there, timed and bounded as in phase 5 (the `band_*` keys). An
    nccl world of 4 ranks on one card raises. On a host with a card per rank
    the same ranks run over nccl instead, rank r on card r (`rank_plan`),
-   and the parent checks that nccl initialised. (f) Config-3 playback at
+   and the parent checks that nccl initialised. The ranks of (e) and (f) go
+   on to (g) in the same processes, each phase in its own process group
+   (one process start a rank for both). (f) Config-3 playback at
    1080p through `make_sharded_playback_fn` on the same ranks, 2 frames a
    call, 2 bands each, every frame within 2e-5 of the single-process
    frame. The parent joins each rank with a timeout and fails on any
    rank's failure; its wall times are a rehearsal, not a multi-card speed.
    (g) The Gaussian-table shard: the phase-6 student's table dealt over 4
    shards, one emulated rank (`emulate_d=4`: forward and backward in this
-   process) timed; then 4 ranks on the card over gloo (or one card per
-   rank over nccl, as in (e)), spawned as in (e),
-   each with its shard and one band: step 1 against a single-process step
+   process) timed; then, in (e)'s 4 rank processes once (e) and (f) are
+   done, a new group over gloo (or nccl, as in (e)),
+   each rank with its shard and one band: step 1 against a single-process step
    on the dealt table (loss 1e-4 relative, parameters 5e-4 of each leaf's
    largest, grad_accum 1e-5, denom exact), 8 steps with resets at 2 and 6
    and densifies at 3 and 6 (each threshold the 2,000th largest grads_avg
@@ -384,7 +409,8 @@ Phases (any failure raises, so the exit code is not 0):
    to 0 just before, read just after); a per-rank checkpoint, GSHARD_MORE
    (1) more steps, and fresh trainers resumed from it for as many, equal
    bit for bit; the
-   exchange alone timed; one more step with the arguments recorded, and on
+   exchange alone timed (EXCHANGE_REPS: once); one more step with the
+   arguments recorded, and on
    the rank that received the most pairs K1, K2 and the receiver's K3 held
    against their plain versions and the owner's K3 against a float64
    `index_add_` (the `gshard_*` keys). Prints the bytes sent per rank and
@@ -425,7 +451,9 @@ Phases (any failure raises, so the exit code is not 0):
 13. scaling: the two scaling tools in-process on the card at full width
    (1080p, 100,000 Gaussians), artifacts in the phase's directory:
    `tools/bench_scaling_torch.py` at D = 1 and 8 (SCALING_STEPS steps an
-   item) and `tools/bench_sharded_torch.py`. Their JSON lines and artifacts
+   item; `--profile critical`: device busy ms of the plain and training
+   steps and each D's critical band and emulated ranks, the ones printed)
+   and `tools/bench_sharded_torch.py`. Their JSON lines and artifacts
    parse; the D = 1 band renders the bench's 765,920 pairs and at every D
    the bands' live pairs sum to them and equal the histogram; no band
    overflows at the timed capacities and no emulated rank's send overflows;
@@ -456,6 +484,7 @@ import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -506,6 +535,7 @@ BG_ITERS = 500         # train_bg: one densify (every 500 iterations)
 BG_DENSIFY_FROM = 100
 BG_PRUNE_AT = 50       # the neighbour prune
 BG_SURFACE_POINTS = 1000
+PNG_CODEC_VIEWS = 3    # config 2's views also decoded (and unfiltered) by the plain PNG route
 
 # eval phase: the quality protocol (full_eval) on a JPEG COLMAP scene
 EVAL_WIDTH, EVAL_HEIGHT = 1920, 1080   # -r -1 caps the width: 1600x900
@@ -514,6 +544,7 @@ EVAL_VIEWS = 24                        # llffhold 8: 21 train, 3 test
 EVAL_QUALITY = 90
 EVAL_ITERS = 100
 EVAL_MIN_PSNR = 35.0                   # the JPEG round trip against the render
+EVAL_PLAIN_VIEWS = 3                   # the views also decoded by the plain JPEG route
 PROGRESSIVE_ITERS = 20                 # 9h: the reader phases' shared train_mesh
 # phase 9c: phase 9's views written again, (format, views) in turn
 FORMATS_9C = (("tiff_lzw_p2", 6), ("tiff_lzw_p1", 3), ("tiff_packbits", 3),
@@ -607,9 +638,15 @@ RAW_SAMPLE_9K = (("fli_brun_256_b15", 2), ("flc_copy_64_b15", 2), ("iptc_raw_gra
 SAMPLE_TEXTURE_9L = (("pixar_rgb", 3), ("mcidas_1byte", 2), ("fits_8bit", 2),
                      ("mcidas_2byte_b7", 2), ("fits_gzip8", 3), ("fits_16bit_unsigned_b32", 2),
                      ("ftex_dxt1", 3), ("xvthumb_b15", 3), ("ftex_raw", 4))
+# phase 9m: phase 9's views as DDS and BLP textures, (row, views) in turn (9h takes views
+# 11, 13 and 18: BC5, 565 masks and BLP2 DXT1, none with an alpha)
+TEXTURE_9M = (("dds_dxt1_rgba", 3), ("dds_dxt5_ellipse_alpha", 3), ("dds_dx10_bc7_mode6", 3),
+              ("dds_bc4_luma", 2), ("dds_bc5_rg", 2), ("dds_rgb565_masks", 2),
+              ("blp1_jpeg_bgr", 3), ("blp2_dxt1_alpha0", 2), ("blp2_palette_256", 4))
 # the reader phases' shared training: view i of phase 9's scene from the file the phase
 # `reader_phase(i)` wrote for it
-READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i", "9j", "9k", "9l")
+READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i", "9j", "9k", "9l", "9m")
+READER_9M = (11, 13, 18)               # 9m's views: one each of 9k's, 9l's and 9f's before 9m
 
 # phase 10: serve and shard
 ACAP_CALLS = 5
@@ -628,6 +665,7 @@ GSHARD_WORLD = 4
 GSHARD_STEPS = 8       # a reset at 2, densifies at 3 and 6, a reset at 6
 GSHARD_MORE = 1        # steps after the checkpoint: uninterrupted, then resumed
 GSHARD_HOT = 2000      # each densify's threshold: the 2,000th largest grads_avg
+EXCHANGE_REPS = 1      # the exchange alone, timed this many times (a reported figure)
 EMULATED_CALLS = 5
 
 # phase 11: the config-2 quality protocol (tools/quality_run_torch.py)
@@ -663,6 +701,19 @@ K2_REL, K3_REL = 1e-5, 1e-6
 
 def log(*a):
     print(*a, flush=True)
+
+
+class Laps:
+    """A phase's sub-steps timed on the host clock: each call logs
+    `[<tag>-s] <step> <s>` since the call before (or the start)."""
+
+    def __init__(self, tag):
+        self.tag, self.t = tag, time.perf_counter()
+
+    def __call__(self, step):
+        now = time.perf_counter()
+        log(f"[{self.tag}-s] {step} {now - self.t:.1f}")
+        self.t = now
 
 
 def icosphere(subdiv: int):
@@ -783,8 +834,9 @@ def walk_counts(torch, tile_blend, feat, sorted_gid, starts, counts, grid_x,
     pixels outside the image need none) and the blended (pair, pixel)
     events among them. K2 evaluates each pixel's pairs before its last
     blended one: the sum of n_contrib."""
+    # pairs past the largest tile's count are padding: they count nothing
     lists = tile_blend.tile_id_lists(sorted_gid, starts, counts,
-                                     feat.shape[0] - 1)
+                                     feat.shape[0] - 1)[:, :int(counts.max())]
     tf = feat[lists]                                          # (T, K, FEAT)
     num_tiles = tf.shape[0]
     px, py = tile_blend._pixel_coords(torch.arange(num_tiles, device=feat.device),
@@ -1190,11 +1242,14 @@ def fullscreen_case(torch, seg, gid_counts, tiles_total, seed):
 
 
 def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
-                step_rows=None):
+                step_rows=None, warp_walk=False):
     """K2 on its arguments (feat, sorted_gid, starts, counts, final_t,
     n_contrib, g_color, g_final_t) and K3 on K2's rows: against their plain
     versions, bit-identical over two runs (and to the rows a training step
-    produced, where given), timed, bounded by this data's work."""
+    produced, where given), timed, bounded by this data's work; with
+    `warp_walk`, K2's (pair, warp) walk counts too (`k2_walk_counts`: a
+    figure of K2's design that no check or bound reads, taken at the
+    slice's shapes in phase 5)."""
     tb, seg = port.tile_blend, port.segsum
     feat, _, starts, counts, final_t, n_contrib, _, _ = k2_args
     height, width = final_t.shape
@@ -1219,8 +1274,9 @@ def check_k2_k3(torch, port, k2_args, grouped_pos, seg_starts, blended,
     # walk its pixels' largest n_contrib; rows past it are written as zeros
     staged = int(tb._tile_blocks(n_contrib[None], gx)[:, 0].amax(1).sum())
     evals = int(n_contrib.sum())      # pairs each pixel walks back over
-    k2.update(k2_walk_counts(torch, tb, k2_args,
-                             port._cuda.occupancy("tile_blend_bwd")["threads"] // 32))
+    if warp_walk:
+        k2.update(k2_walk_counts(torch, tb, k2_args,
+                                 port._cuda.occupancy("tile_blend_bwd")["threads"] // 32))
     k2.update(evaluations=evals, blended=blended, staged_pairs=staged, **bound(
         staged * (4 + 36) + 4 * (counts.shape[0] + 1)
         + 24 * width * height + 64 * m,
@@ -1264,7 +1320,7 @@ def phase_kernels(torch, port, model, cam, cfg):
                        final_t, n_contrib, g_color, g_final_t)
             k2, k3 = check_k2_k3(torch, port, k2_args, tiles.grouped_pos,
                                  port.segsum.segment_starts(tiles.gid_counts),
-                                 blended)
+                                 blended, warp_walk=True)
             log(f"[kernels] K2 {label}: " + json.dumps(k2))
             log(f"[kernels] K3 {label}: " + json.dumps(k3))
             results[label] = (k1, k2, k3)
@@ -2076,6 +2132,7 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
     card; see the module docstring. -> (results, launches, (K1, K2, K3
     checks at a background step's shapes))."""
     res, launches, failures = {}, {}, []
+    lap = Laps("pipeline")
     poses = pipeline_cameras(port)
     sched = ["--densify_from_iter", "10", "--densification_interval", "10",
              "--densify_until_iter", "35", "--opacity_reset_interval", "20",
@@ -2099,6 +2156,7 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
         max(2 * cfg.row_capacity_per_gaussian, train_rt.row_capacity_per_gaussian))
     log(f"[pipeline] largest tile of the object in the background {max(largest)}; "
         f"{cfg}")
+    lap("capacities")
 
     # ---- config 2 from disk: uninterrupted, then resumed from the checkpoint
     data2 = os.path.join(tmpdir, "blender")
@@ -2108,9 +2166,11 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
         f"written in {time.perf_counter() - t0:.1f} s")
     views = sorted(os.path.join(data2, "views", n) for n in os.listdir(os.path.join(
         data2, "views")))
-    res["png_codecs"] = png_codecs(port, views)
+    lap("config 2 dataset")
+    res["png_codecs"] = png_codecs(port, views[:PNG_CODEC_VIEWS])
     log("[pipeline] host PNG codecs (C++ and plain, ms per view): "
         + json.dumps(res["png_codecs"]))
+    lap("png codecs")
     base = ["-s", data2, "--input_mesh", proxy, "--init_target", str(INIT_TARGET),
             "--eval", "--iterations", str(PIPE_ITERS), "--save_iterations",
             str(PIPE_ITERS), "--test_iterations", str(PIPE_ITERS), *sched,
@@ -2119,9 +2179,11 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
     half = PIPE_ITERS // 2
     tr_a, la, rows_a = run_cli(torch, port, port.cli_train_mesh.main, base + [
         "-m", model_a, "--checkpoint_iterations", str(half)], port.trainer.MeshTrainer)
+    lap("config 2 run")
     ckpt = os.path.join(model_a, f"chkpnt{half}.ckpt")
     tr_b, lb, rows_b = run_cli(torch, port, port.cli_train_mesh.main, base + [
         "-m", model_b, "--start_checkpoint", ckpt], port.trainer.MeshTrainer)
+    lap("config 2 resumed run")
     resume_max_abs = state_max_abs(torch, tr_a, tr_b)
     res["config2"] = dict(
         **step_summary(rows_a["steps"], "config 2"), gaussians=int(tr_a.model.alive.sum()),
@@ -2155,6 +2217,7 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
     log(f"[pipeline] config 4 dataset: {len(poses)} RGB PNGs + masks at "
         f"{PIPE_SIZE}x{PIPE_SIZE}, {n_points} SfM points, written in "
         f"{time.perf_counter() - t0:.1f} s")
+    lap("config 4 dataset")
     n_test4 = len(range(0, len(poses), 8))                   # llffhold 8
     tr_c, lc, rows_c = run_cli(torch, port, port.cli_train_mesh.main, [
         "-s", data4, "-m", model4, "--input_mesh", proxy, "--is_exist_bg",
@@ -2162,6 +2225,7 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
         "--save_iterations", str(PIPE_ITERS), "--test_iterations", str(PIPE_ITERS),
         *sched, *pipeline_flags(cfg)], port.trainer.MeshTrainer)
     assert lc == {"K1": PIPE_ITERS + n_test4, "K2": PIPE_ITERS, "K3": PIPE_ITERS}, lc
+    lap("config 4 mesh run")
 
     # The background: the default threshold 2e-4 is set for 30K-step runs;
     # grads_avg here is taken over BG_ITERS steps of a fresh model, so the
@@ -2188,6 +2252,7 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
     finally:
         port.bg_trainer.BgTrainer.densify = densify
     assert ld == {"K1": BG_ITERS, "K2": BG_ITERS, "K3": BG_ITERS}, ld
+    lap("config 4 background run")
     for name, p in list(tr_c.model.named_parameters()) + list(
             tr_d.model.named_parameters()):
         assert torch.isfinite(p).all(), name
@@ -2203,6 +2268,7 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
         failures.append(f"the prune retired or the densify added nothing: {events}")
     prof = phase_profile(torch, lambda i: tr_d.train(1, log_every=10 ** 9), 3, "step",
                          "bg profile")
+    lap("background profile")
 
     # the kernels on the arguments of one more background step: the
     # concatenated table (background capacity rows, then the frozen
@@ -2217,6 +2283,7 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
     log("[pipeline] K2 at the background step's shapes: " + json.dumps(k2))
     log("[pipeline] K3 at the background step's shapes: " + json.dumps(k3))
     del seen, rows, grouped_pos, seg_starts
+    lap("background step kernels")
 
     # render --with_bg at the background's iteration: the foreground's PLY
     # of iteration PIPE_ITERS copied beside it (the two runs' lengths differ)
@@ -2257,6 +2324,7 @@ def phase_pipeline(torch, port, model, train_rt, tmpdir):
                 device_operations=prof["launches"], events=events),
         render_views=n_test4, render_png_max_levels=levels)
     log("[pipeline] config 4: " + json.dumps(res["config4"]))
+    lap("render --with_bg")
     launches["config4"] = {k: lc[k] + ld[k] + lr[k] for k in lc}
     if max(levels) != 0:
         failures.append(f"--with_bg PNGs differ from the in-process render by {levels}")
@@ -2307,9 +2375,11 @@ def write_eval_set(torch, port, model, root, cams, cfg):
         path = os.path.join(root, "images", name)
         port.jpeg.write_jpeg(path, u8, quality=EVAL_QUALITY, subsampling="4:2:0")
         back, t = timed(port.jpeg.read_jpeg, path)
-        plain, t_plain = timed(port.jpeg.read_jpeg_plain, path)
-        if not np.array_equal(back, plain):
-            raise AssertionError(f"{name}: the C++ JPEG decode differs from the plain one")
+        t_plain = None
+        if i < EVAL_PLAIN_VIEWS:
+            plain, t_plain = timed(port.jpeg.read_jpeg_plain, path)
+            if not np.array_equal(back, plain):
+                raise AssertionError(f"{name}: the C++ JPEG decode differs from the plain one")
         decode_s.append((t, t_plain))
         mse = np.mean((back.astype(np.float64) - u8) ** 2)
         psnrs.append(float(10 * np.log10(255.0 ** 2 / mse)))
@@ -2385,8 +2455,9 @@ def phase_eval(torch, port, model, train_rt, tmpdir):
                    base, "s", "images", n)) for n in sorted(os.listdir(
                        os.path.join(base, "s", "images")))])),
                jpeg_decode_s_per_mp=float(np.median([t for t, _ in decode_s])) / megapixels,
-               jpeg_decode_plain_s_per_mp=float(np.median([t for _, t in decode_s]))
-               / megapixels, dataset_write_s=time.perf_counter() - t0)
+               jpeg_decode_plain_s_per_mp=float(np.median(
+                   [t for _, t in decode_s if t is not None])) / megapixels,
+               dataset_write_s=time.perf_counter() - t0)
     log(f"[eval] {EVAL_VIEWS} JPEGs at {EVAL_WIDTH}x{EVAL_HEIGHT} (quality "
         f"{EVAL_QUALITY}, 4:2:0): round-trip PSNR min {min(psnrs):.2f} dB, mean "
         f"{np.mean(psnrs):.2f}; decode {res['jpeg_decode_s_per_mp']:.4f} s/MP (plain "
@@ -2579,12 +2650,17 @@ def centre_crop(img):
 
 def reader_phase(i):
     """The reader phase whose file of phase 9's view i the shared training
-    (9h) takes: each view 5 phases on from the one before (5 is prime to
-    the 9 phases), each octet of views starting one phase on, so that the
-    test views (every 8th: llffhold 8) fall to 9b, 9c and 9d, each phase
-    keeps two or three of the 21 training views, and none of them is a
-    row that decodes with an alpha."""
-    return READER_PHASES[(5 * i + 6 * (i // 8)) % len(READER_PHASES)]
+    (9h) takes: READER_9M's three views are 9m's (one each taken from 9k,
+    9l and 9f, which had three); the others rotate over the nine phases
+    before 9m, each view 5 phases on from the one before (5 is prime to 9),
+    each octet of views starting one phase on. So the test views (every
+    8th: llffhold 8) fall to 9b, 9c and 9d, each phase keeps two or three of
+    the 21 training views, and none of them is a row that decodes with an
+    alpha. (No rotation of this form over all ten phases meets the last
+    two conditions.)"""
+    if i in READER_9M:
+        return "9m"
+    return READER_PHASES[(5 * i + 6 * (i // 8)) % (len(READER_PHASES) - 1)]
 
 
 def phase_progressive(torch, port, model, scene, tmpdir):
@@ -3786,6 +3862,99 @@ def phase_sample_texture_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
     return res, expected
 
 
+# ------------------------------------------------------------------ phase 9m
+
+def decode_plain_9m(port, path):
+    """A 9m file through the plain route (the BCn blocks in numpy, BLP1's
+    JPEG in Python)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if path.endswith(".dds"):
+        return port.dds.decode_dds_plain(data, path)
+    return port.blp.decode_blp_plain(data, path)
+
+
+def bcn_walks(port, name, data, walks):
+    """`gm_bcn_decode` against `bcn.decode_plain` on a DDS or BLP fixture's
+    blocks (equal bytes), plain / C++ appended to `walks` by kind."""
+    if name.endswith(".dds"):
+        w, h, form, where, args = port.dds.header(data)
+        if form != "bcn":
+            return
+        (kind, signed), shift, body = args, False, data[where:]
+    else:
+        hd = port.blp.header(data)
+        if hd["magic"] != b"BLP2" or hd["encoding"] != port.blp.DXT:
+            return
+        w, h, signed, shift = hd["width"], hd["height"], False, True
+        kind = port.blp.DXT_KINDS[hd["alpha_encoding"]]
+        offset = struct.unpack_from("<I", data, hd["head"])[0]
+        body = data[offset:offset + port.bcn.BLOCK_BYTES[kind] * port.bcn.bc1_blocks(w, h)]
+    kw = dict(signed=signed, shift565=shift)
+    cpp, t_cpp = timed(lambda: port.bcn.decode(kind, body, w, h, **kw))
+    plain, t_plain = timed(lambda: port.bcn.decode_plain(kind, body, w, h, **kw))
+    if not np.array_equal(cpp, plain):
+        raise AssertionError(f"{name}: gm_bcn_decode differs from bcn.decode_plain")
+    label = ("BLP DXT" if shift else "BC") + str({1: 1, 2: 3, 3: 5}[kind] if shift else kind)
+    walks.setdefault(label + ("S" if signed else ""), []).append(t_plain / t_cpp)
+
+
+def luma(img):
+    """PIL's `convert("L")` of an RGB image (ITU-R 601-2, 16-bit fixed
+    point)."""
+    c = img.astype(np.uint32)
+    return ((c[..., 0] * 19595 + c[..., 1] * 38470 + c[..., 2] * 7471 + 0x8000) >> 16).astype(
+        np.uint8)
+
+
+def write_9m_view(port, row, path, img):
+    """View `img` written as row `row` of TEXTURE_9M -> (what `read_image`
+    must give, the writer's s)."""
+    t0 = time.perf_counter()
+    h, w = img.shape[:2]
+    opaque = np.dstack([img, np.full((h, w), 255, np.uint8)])
+    if row.startswith("dds"):
+        arg, form = {"dds_dxt1_rgba": (img, "DXT1"),
+                     "dds_dxt5_ellipse_alpha": (np.dstack(
+                         [img, np.where(mask_9i(h, w), 0, 255).astype(np.uint8)]), "DXT5"),
+                     "dds_dx10_bc7_mode6": (opaque, "BC7"), "dds_bc4_luma": (luma(img), "BC4"),
+                     "dds_bc5_rg": (img, "BC5"), "dds_rgb565_masks": (img, "RGB565")}[row]
+        want = port.dds.write_dds(path, arg, form)
+    elif row == "blp2_palette_256":
+        want = port.blp.write_blp(path, quantize(img, LEVELS_256), "BLP2_PALETTE",
+                                  palette=fixed_palette(LEVELS_256))
+    else:
+        want = port.blp.write_blp(path, img, "BLP1_JPEG" if row == "blp1_jpeg_bgr"
+                                  else "BLP2_DXT1", quality=EVAL_QUALITY)
+    return want, time.perf_counter() - t0
+
+
+def phase_texture_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
+    """Phase 9m (see the module docstring) on phase 9's `scene` ->
+    (results, {view: (file, None or its decode)} for the shared training)."""
+    t_phase = time.perf_counter()
+    walks = {}
+    fixtures = fixture_digests(port, "textures", decode_plain_9m, "DDS / BLP",
+                               lambda name, data: bcn_walks(port, name, data, walks),
+                               least=40)
+    want = {"BC1", "BC2", "BC3", "BC4", "BC5", "BC5S", "BC7", "BLP DXT1", "BLP DXT3",
+            "BLP DXT5"}
+    if set(walks) != want:
+        raise AssertionError(f"the fixtures' block kinds {sorted(walks)}, not {sorted(want)}")
+    ratios = {k: float(np.median(v)) for k, v in sorted(walks.items())}
+    log(f"[tex9m] {len(fixtures)} fixtures decode to their recorded digests through the "
+        "C++ and the plain route, BC6H, B34 and raw BGRA refused through both; "
+        "gm_bcn_decode = decode_plain, plain / C++ by kind " + json.dumps(
+            {k: round(v, 1) for k, v in ratios.items()}))
+    by_row, expected = reader_views(port, scene, TEXTURE_9M, {"dds": ".dds", "blp": ".blp"},
+                                    write_9m_view, decode_plain_9m, "tex9m", jpeg_s_per_mp,
+                                    tmpdir)
+    res = dict(rows=by_row, fixtures=len(fixtures), bcn_plain_vs_cpp=ratios,
+               phase_s=time.perf_counter() - t_phase)
+    log("[tex9m] " + json.dumps(res))
+    return res, expected
+
+
 # ------------------------------------------------------ the readers' training
 
 def loaded_target(torch, port, decoded, size):
@@ -4072,13 +4241,11 @@ def reference_step(torch, port, trainer, cams, bg):
                 grad_accum=accum.detach().cpu(), denom=denom.cpu())
 
 
-def phase_shard(torch, port, trainer, playback_cfg, cam, tmpdir):
-    """10e and 10f: the (data, tile) regime on SHARD_WORLD ranks that share
-    the one card over gloo (a rehearsal: it checks, it measures no
-    multi-card speed). The parent writes the phase-6 student's state, its
-    dataset and the single-process reference of the first step; spawns the
-    ranks (`shard_rank`), joins each with a timeout and checks their
-    reports. -> (results, launches summed over the ranks, band kernels)."""
+def shard_inputs(torch, port, trainer, playback_cfg, cam, tmpdir):
+    """10e and 10f's inputs: the phase-6 student's state, its dataset and
+    the single-process reference of the first step, written for the ranks;
+    nccl refused for 4 ranks on one card. -> (the directory, s, nccl's
+    refusal)."""
     work = os.path.join(tmpdir, "shard")
     os.makedirs(work)
     ds = trainer.ds
@@ -4096,6 +4263,7 @@ def phase_shard(torch, port, trainer, playback_cfg, cam, tmpdir):
     torch.save(reference_step(torch, port, trainer, cams, trainer.bg_const),
                os.path.join(work, "reference.pt"))
     prep_s = time.perf_counter() - t0
+    log(f"[shard-s] inputs and reference {prep_s:.1f}")
 
     world = SHARD_WORLD[0] * SHARD_WORLD[1]
     backend, cards = rank_plan(world, torch.cuda.device_count())
@@ -4113,21 +4281,13 @@ def phase_shard(torch, port, trainer, playback_cfg, cam, tmpdir):
         finally:
             for k, v in kept.items():
                 os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+    return work, prep_s, nccl_refused
 
-    # the ranks need the card's memory that earlier phases left cached here
-    import gc
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-rank",
-                               str(r), str(world), work, backend, str(cards[r])],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    outs = join_ranks(procs, SHARD_JOIN_S)
-    wall = time.perf_counter() - t0
-    for r, out in enumerate(outs):
-        for line in out.strip().splitlines()[-12:]:
-            log(f"[shard] rank {r}: {line}")
+
+def shard_checks(work, backend, cards, prep_s, nccl_refused, wall):
+    """10e and 10f's rank reports checked -> (results, launches summed over
+    the ranks, band kernels)."""
+    world = SHARD_WORLD[0] * SHARD_WORLD[1]
     reports = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(world)]
     r0 = reports[0]
     for rep in reports:
@@ -4147,6 +4307,54 @@ def phase_shard(torch, port, trainer, playback_cfg, cam, tmpdir):
     log("[shard] " + json.dumps({k: v for k, v in res.items() if k != "losses"}))
     log(f"[shard] losses {[round(x, 5) for x in r0['losses']]}")
     return res, launches, tuple(r0["band_kernels"])
+
+
+def phase_shards(torch, port, trainer, playback_cfg, cam, tmpdir):
+    """10e, 10f and 10g: the (data, tile) regime on SHARD_WORLD ranks and the
+    Gaussian-table shard on GSHARD_WORLD that share the one card over gloo
+    (a rehearsal: it checks, it measures no multi-card speed). The parent
+    writes both phases' inputs, spawns the ranks once (`shard_rank`, then
+    `gshard_rank` in the same processes: one start for both), joins each
+    with a timeout and checks their reports. -> (10e / 10f's results,
+    launches and band kernels; 10g's results, launches, received band
+    kernels and owner K3)."""
+    import gc
+
+    world = SHARD_WORLD[0] * SHARD_WORLD[1]
+    assert world == GSHARD_WORLD, (world, GSHARD_WORLD)
+    shard_work, shard_prep, nccl_refused = shard_inputs(torch, port, trainer, playback_cfg,
+                                                        cam, tmpdir)
+    gshard = gshard_inputs(torch, port, trainer, tmpdir)
+    backend, cards = rank_plan(world, torch.cuda.device_count())
+    # the ranks need the card's memory that earlier phases left cached here
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ranks", str(r),
+                               str(world), shard_work, gshard["work"], backend, str(cards[r])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = join_ranks(procs, SHARD_JOIN_S)
+    wall = time.perf_counter() - t0
+    log(f"[shards-s] ranks of 10e-10g {wall:.1f}")
+    for r, out in enumerate(outs):
+        for line in out.strip().splitlines()[-100:]:
+            log(f"[shards] rank {r}: {line}")
+    return (*shard_checks(shard_work, backend, cards, shard_prep, nccl_refused, wall),
+            *gshard_checks(gshard, backend, cards, wall))
+
+
+def ranks_main(rank, world, shard_work, gshard_work, backend, card):
+    """One rank process of 10e / 10f (`shard_rank`), then of 10g
+    (`gshard_rank`), each in its own process group."""
+    import gc
+
+    import torch
+
+    shard_rank(rank, world, shard_work, backend, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gshard_rank(rank, world, gshard_work, backend, card)
 
 
 def rank_plan(world, n_cards):
@@ -4223,6 +4431,7 @@ def shard_rank(rank, world, work, backend, card):
     import torch
     import torch.distributed as dist
 
+    lap = Laps("shard")
     join_group(rank, world, work, backend, card)
     port = load_port()
     inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
@@ -4258,6 +4467,7 @@ def shard_rank(rank, world, work, backend, card):
         except RuntimeError as e:
             report["gloo_cuda"][name] = f"refused: {str(e).splitlines()[0][:120]}"
     port.multihost.barrier()
+    lap("join, load, gloo probes")
 
     # step 1 against the single-process reference
     reset_launches(port)
@@ -4279,6 +4489,7 @@ def shard_rank(rank, world, work, backend, card):
     assert s1["loss_rel"] <= 1e-4 and s1["param_rel"] <= 5e-4, s1
     assert s1["grad_accum_abs"] <= 1e-5 and s1["denom_equal"], s1
     assert step1_launches == {"K1": 1, "K2": 1, "K3": 1}, step1_launches
+    lap("step 1")
 
     # 20 more steps: a white-background reset and a densify early, then 15
     # steps without an event; hashes after every event and at the end
@@ -4316,6 +4527,7 @@ def shard_rank(rank, world, work, backend, card):
     assert all(math.isfinite(x) for x in losses), losses
     free = losses[8:]
     assert np.mean(free[-4:]) < np.mean(free[:4]), losses
+    lap(f"{SHARD_STEPS} steps")
     report.update(hashes=hashes, losses=losses, events=tr.events,
                   launches={k: launches[k] + step1_launches[k] for k in launches},
                   step_ms_median=float(np.median(times[8:])),
@@ -4334,6 +4546,7 @@ def shard_rank(rank, world, work, backend, card):
             log(f"[band] {key} at a band step's shapes: " + json.dumps(r))
     report["band_kernels"] = band
     port.multihost.barrier()
+    lap("band kernels")
 
     # 10f: sharded config-3 playback against the single-process frames
     pcfg = port.rasterize.RasterizerConfig(**inp["playback_cfg"])
@@ -4364,6 +4577,7 @@ def shard_rank(rank, world, work, backend, card):
                               launches=report["playback_launches"])
     assert max(errs) <= 2e-5, errs
     assert report["playback_launches"] == {"K1": len(calls), "K2": 0, "K3": 0}
+    lap("sharded playback")
     report["ok"] = True
     with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
         json.dump(report, fh)
@@ -4418,18 +4632,12 @@ def emulated_rank(torch, port, shard, rt, ds, cam_idx, bg):
     return res
 
 
-def phase_gshard(torch, port, trainer, tmpdir):
-    """10g: the Gaussian-table shard on GSHARD_WORLD ranks that share the one
-    card over gloo (a rehearsal: it checks, it measures no multi-card speed).
-    The parent deals the phase-6 student's table over the shards, computes
-    the single-process step 1 on it, times one emulated rank, spawns the
-    ranks (`gshard_rank`), joins each with a timeout and checks their
-    reports. -> (results, launches summed over the ranks, the received band
-    kernels of the rank that received the most pairs (K1, K2, the
-    receiver's K3), that rank's owner K3)."""
-    import gc
-
+def gshard_inputs(torch, port, trainer, tmpdir):
+    """10g's inputs: the phase-6 student's table dealt over GSHARD_WORLD
+    shards, the single-process step 1 on it, written for the ranks; one
+    emulated rank timed. -> {work, emulated, prep_s}."""
     t_phase = time.perf_counter()
+    lap = Laps("gshard")
     work = os.path.join(tmpdir, "gshard")
     os.makedirs(work)
     d, ds, bg = GSHARD_WORLD, trainer.ds, trainer.bg_const
@@ -4448,6 +4656,7 @@ def phase_gshard(torch, port, trainer, tmpdir):
                grad_accum=single.model.state.grad_accum.cpu(),
                denom=single.model.state.denom.cpu())
     del single
+    lap("deal and single step")
     torch.save(dict(state=dealt, opt=dataclasses.asdict(trainer.opt),
                     rt=dataclasses.asdict(rt), cam=0,
                     data={k: getattr(ds, k).cpu() for k in ("view", "proj", "campos",
@@ -4455,23 +4664,20 @@ def phase_gshard(torch, port, trainer, tmpdir):
                                                             "images")},
                     size=(ds.width, ds.height)), os.path.join(work, "inputs.pt"))
     torch.save(ref, os.path.join(work, "reference.pt"))
+    lap("inputs saved")
     emulated = emulated_rank(torch, port, port.checkpoint.shard_rows(dealt, 0, d), rt,
                              ds, 0, bg)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("emulated rank")
+    return dict(work=work, emulated=emulated, prep_s=time.perf_counter() - t_phase)
 
-    backend, cards = rank_plan(d, torch.cuda.device_count())
+
+def gshard_checks(g, backend, cards, wall):
+    """10g's rank reports checked -> (results, launches summed over the
+    ranks, the received band kernels of the rank that received the most
+    pairs (K1, K2, the receiver's K3), that rank's owner K3)."""
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gshard-rank",
-                               str(r), str(d), work, backend, str(cards[r])],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(d)]
-    outs = join_ranks(procs, SHARD_JOIN_S)
-    wall = time.perf_counter() - t0
-    for r, out in enumerate(outs):
-        for line in out.strip().splitlines()[-12:]:
-            log(f"[gshard] rank {r}: {line}")
-    reports = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(d)]
+    d = GSHARD_WORLD
+    reports = [json.load(open(os.path.join(g["work"], f"rank{r}.json"))) for r in range(d)]
     r0 = reports[0]
     for rep in reports:
         assert rep["ok"], rep
@@ -4479,7 +4685,7 @@ def phase_gshard(torch, port, trainer, tmpdir):
         assert rep["pool_hashes"] == r0["pool_hashes"], rep
         assert (rep["backend"], rep["card"]) == (backend, cards[rep["rank"]]), rep
     launches = {k: sum(rep["launches"][k] for rep in reports) for k in ("K1", "K2", "K3")}
-    res = dict(world=d, backend=backend, cards=cards, wall_s=wall, emulated=emulated,
+    res = dict(world=d, backend=backend, cards=cards, wall_s=wall, emulated=g["emulated"],
                step1=[rep["step1"] for rep in reports], losses=r0["losses"],
                events=r0["events"], densify=r0["densify"],
                pool_hashes_equal=True, resume_equal=[rep["resume_equal"] for rep in reports],
@@ -4487,7 +4693,7 @@ def phase_gshard(torch, port, trainer, tmpdir):
                exchange_ms=[rep["exchange_ms"] for rep in reports],
                traffic=r0["traffic"], received_live=[rep["received_live"] for rep in reports],
                rank_launches=[rep["launches"] for rep in reports])
-    res["phase_s"] = time.perf_counter() - t_phase
+    res["phase_s"] = g["prep_s"] + time.perf_counter() - t0
     log("[gshard] " + json.dumps({k: v for k, v in res.items() if k != "losses"}))
     log(f"[gshard] losses {[round(x, 5) for x in r0['losses']]}")
     res["kernel_rank"] = r0["kernel_rank"]
@@ -4511,6 +4717,7 @@ def gshard_rank(rank, world, work, backend, card):
     import torch
     import torch.distributed as dist
 
+    lap = Laps("gshard")
     join_group(rank, world, work, backend, card)
     port = load_port()
     inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
@@ -4564,6 +4771,7 @@ def gshard_rank(rank, world, work, backend, card):
     assert s1["grad_accum_abs"] <= 1e-5 and s1["denom_equal"], s1
     assert step1_launches == {"K1": 1, "K2": 1, "K3": 2}, step1_launches
     assert s1["overflow"] == 0, s1
+    lap("join, load, step 1")
     slots = world * tr.send_capacity()
     # per step: the metadata (2 int32) and the feature rows (16 f32) forward,
     # the feature cotangents back
@@ -4621,6 +4829,7 @@ def gshard_rank(rank, world, work, backend, card):
     assert kinds == [(2, "opacity_reset"), (3, "densify"), (6, "densify"),
                      (6, "opacity_reset")], kinds
     assert all(math.isfinite(x) for x in losses), losses
+    lap(f"{GSHARD_STEPS} steps")
 
     # a per-rank checkpoint; GSHARD_MORE more steps; a fresh trainer resumed
     path = tr.save_ckpt(os.path.join(work, "ckpt", "chkpnt.ckpt"))
@@ -4637,6 +4846,7 @@ def gshard_rank(rank, world, work, backend, card):
     equal = state_hash(resumed) == state_hash(tr)
     assert all(gather_equal(equal)), "a resumed shard differs from the uninterrupted run"
     del resumed
+    lap("checkpoint and resume")
     report.update(losses=losses, events=tr.events, densify=checks, pool_hashes=pool_hashes,
                   resume_equal=equal, checkpoint=sorted(os.listdir(path)),
                   launches={k: launches[k] + step1_launches[k] for k in launches},
@@ -4647,7 +4857,7 @@ def gshard_rank(rank, world, work, backend, card):
     meta = torch.zeros((slots, 2), dtype=torch.int32, device="cuda")
     feat = torch.zeros((slots, 16), device="cuda")
     ex = []
-    for _ in range(3):
+    for _ in range(EXCHANGE_REPS):
         port.multihost.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4658,6 +4868,7 @@ def gshard_rank(rank, world, work, backend, card):
         ex.append((time.perf_counter() - t0) * 1e3)
     report["exchange_ms"] = float(np.median(ex))
     del meta, feat
+    lap("exchange alone")
 
     # one more step recording the kernels' arguments; the rank whose band
     # received the most pairs checks them (a band may hold none of the object)
@@ -4678,6 +4889,7 @@ def gshard_rank(rank, world, work, backend, card):
             log(f"[gshard] {key} at a received band's shapes: " + json.dumps(r))
     report["kernels"] = kernels
     port.multihost.barrier()
+    lap("kernels")
     report["ok"] = True
     with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
         json.dump(report, fh)
@@ -4938,8 +5150,9 @@ def phase_scaling(torch, port, tmpdir):
     torch.cuda.synchronize()
     reset_launches(port)                                 # main path starts
     sc, sc_line = run_tool(scaling, steps + [
-        "--d_list", *map(str, SCALING_D),
+        "--d_list", *map(str, SCALING_D), "--profile", "critical",
         "--out", os.path.join(tmpdir, "scaling_torch.json")], "bench_scaling_torch.py")
+    log(f"[scaling-s] bench_scaling_torch.py {time.perf_counter() - t_phase:.1f}")
     sh, sh_line = run_tool(sharded, steps + [
         "--out", os.path.join(tmpdir, "sharded_bench_torch.json")],
         "bench_sharded_torch.py")
@@ -5013,6 +5226,8 @@ def phase_scaling(torch, port, tmpdir):
             log(f"[scaling] {key} at the {label}'s shapes: " + json.dumps(kr))
     res.update(kernel_check_s=time.perf_counter() - t0,
                phase_s=time.perf_counter() - t_phase)
+    log(f"[scaling-s] both tools {t0 - t_phase:.1f}; kernel checks "
+        f"{res['kernel_check_s']:.1f}")
     return res, launches, kernels_band, kernels_gshard, (None, None, k3_owner)
 
 
@@ -5073,6 +5288,7 @@ def load_port():
     from gaussianmesh_tpu_torch.io import msp, psd, sun, xbm, xpm
     from gaussianmesh_tpu_torch.io import fli, gbr, im, imt, iptc
     from gaussianmesh_tpu_torch.io import bcn, fits, ftex, mcidas, pixar, spider, xvthumb
+    from gaussianmesh_tpu_torch.io import blp, dds
     from gaussianmesh_tpu_torch.train import loss
 
     from gaussianmesh_tpu_torch import viewer
@@ -5097,17 +5313,14 @@ def load_port():
         tiff=tiff, gif=gif, bmp=bmp, webp=webp, vp8l=vp8l, pnm=pnm, tga=tga, qoi=qoi,
         sgi=sgi, pcx=pcx, ico=ico, icns=icns, sun=sun, msp=msp, xbm=xbm, xpm=xpm, psd=psd,
         fli=fli, gbr=gbr, im=im, imt=imt, iptc=iptc, bcn=bcn, fits=fits, ftex=ftex,
-        mcidas=mcidas, pixar=pixar, spider=spider, xvthumb=xvthumb,
+        mcidas=mcidas, pixar=pixar, spider=spider, xvthumb=xvthumb, dds=dds, blp=blp,
         gauss_shard=gauss_shard, checkpoint=checkpoint)
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--shard-rank"]:        # a rank of phase 10e / 10f
-        return shard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
-                          int(sys.argv[6]))
-    if sys.argv[1:2] == ["--gshard-rank"]:       # a rank of phase 10g
-        return gshard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
-                           int(sys.argv[6]))
+    if sys.argv[1:2] == ["--ranks"]:             # a rank of phases 10e / 10f, then 10g
+        return ranks_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                          sys.argv[6], int(sys.argv[7]))
     if sys.argv[1:2] == ["--quality-step"]:      # the quality step on a run's table
         return quality_step_main(sys.argv[2])
     import torch
@@ -5153,20 +5366,27 @@ def main() -> int:
                                                              jpeg_s_per_mp, tmpdir)
         tex9l, reader_views["9l"] = phase_sample_texture_formats(torch, port, eval_scene,
                                                                  jpeg_s_per_mp, tmpdir)
+        tex9m, reader_views["9m"] = phase_texture_formats(torch, port, eval_scene,
+                                                          jpeg_s_per_mp, tmpdir)
         readers, readers_launches = phase_reader_training(torch, port, eval_scene,
                                                           reader_views, tmpdir)
         del eval_scene, reader_views
         t_serve = time.perf_counter()
+        lap = Laps("serve")
         acap = phase_acap(torch, port)
+        lap("acap")
         viewer, serve_launches = phase_viewer(torch, port, cfg, tmpdir)
+        lap("viewer")
         e2e = phase_e2e(torch, tmpdir)
+        lap("e2e")
         bands = phase_bands(torch, port, model, cam, cfg)
-        shard, shard_launches, results["band"] = phase_shard(
+        lap("bands")
+        (shard, shard_launches, results["band"], gshard, gshard_launches, results["gshard"],
+         results["gshard_owner"]) = phase_shards(
             torch, port, student,
             dataclasses.replace(cfg, max_per_tile=2 * cfg.max_per_tile), cam, tmpdir)
+        lap("10e-10g")
         t_serve = time.perf_counter() - t_serve
-        gshard, gshard_launches, results["gshard"], results["gshard_owner"] = phase_gshard(
-            torch, port, student, tmpdir)
         quality, quality_launches, results["quality"] = phase_quality(torch, port, tmpdir)
         tools, tools_launches, results["bench"] = phase_tools(torch, port, tmpdir)
         (scaling, scaling_launches, results["scaling_band"], results["scaling_gshard"],
@@ -5240,7 +5460,8 @@ def main() -> int:
                      ("DIB / ICO / CUR / DCX / ICNS", cont9i),
                      ("SUN / MSP / XBM / XPM / PSD", rle9j),
                      ("FLI / IPTC / IM / IMT / GBR", raw9k),
-                     ("PIXAR / MCIDAS / XVTHUMB / FITS / SPIDER / FTEX", tex9l)):
+                     ("PIXAR / MCIDAS / XVTHUMB / FITS / SPIDER / FTEX", tex9l),
+                     ("DDS / BLP", tex9m)):
         walk = (f" (ICNS run-length walk plain / C++ {r9['icns_rle_plain_vs_cpp']:.1f})"
                 if "icns_rle_plain_vs_cpp" in r9 else "")
         if "sun_rle_plain_vs_cpp" in r9:
@@ -5250,6 +5471,9 @@ def main() -> int:
             walk = f" (gm_fli_frame plain / C++ {r9['fli_frame_plain_vs_cpp']:.1f})"
         if "bc1_plain_vs_cpp" in r9:
             walk = f" (gm_bc1_decode plain / C++ {r9['bc1_plain_vs_cpp']:.1f})"
+        if "bcn_plain_vs_cpp" in r9:
+            walk = " (gm_bcn_decode plain / C++ " + ", ".join(
+                f"{k} {v:.1f}" for k, v in r9["bcn_plain_vs_cpp"].items()) + ")"
         log(f"[done] {name} phase {r9['phase_s']:.1f} s on {cpu}: {r9['fixtures']} "
             f"fixtures{walk}; by row s/MP at {EVAL_WIDTH}x{EVAL_HEIGHT} (x phase 9's baseline "
             f"JPEG), plain / C++ at {CROP_9F[0]}x{CROP_9F[1]}, bytes a view (x the JPEG's), "
@@ -5262,7 +5486,7 @@ def main() -> int:
         f"{readers['train_views_by_phase']} ({readers['train_lossless_views']} lossless), "
         f"train_mesh load {readers['load_s']:.2f} s, {readers['steps']} steps in "
         f"{readers['train_s']:.2f} s (median {readers['step_ms_median']:.3f} ms)")
-    log(f"[done] serve-and-shard phase {t_serve:.1f} s on {smi} ("
+    log(f"[done] serve-and-shard phase (10a-10g) {t_serve:.1f} s on {smi} ("
         f"{SHARD_WORLD[0]}x{SHARD_WORLD[1]} ranks over {shard['backend']} on cards "
         f"{shard['cards']}): native ACAP {acap['host_ms']:.1f} ms per call on the host "
         f"({acap['threads']} threads) beside the card's deformation "
@@ -5271,9 +5495,10 @@ def main() -> int:
         f"encode {viewer['encode_ms_median']:.1f} on the host); end-to-end script "
         f"{e2e['seconds']:.1f} s (by step {({k: round(v, 1) for k, v in e2e['step_s'].items()})}); "
         f"4 bands max-abs {bands['max_abs']:.3g}; sharded step "
-        f"ms median by rank {[round(x, 1) for x in shard['step_ms_median']]}, wall "
-        f"{shard['wall_s']:.1f} s; gloo on CUDA tensors: {shard['gloo_cuda']}")
-    log(f"[done] Gaussian-table shard phase {gshard['phase_s']:.1f} s on {smi} ("
+        f"ms median by rank {[round(x, 1) for x in shard['step_ms_median']]}, the 10e-10g "
+        f"ranks' wall {shard['wall_s']:.1f} s; gloo on CUDA tensors: {shard['gloo_cuda']}")
+    log(f"[done] Gaussian-table shard phase (the parent's part; its ranks run in 10e-10g's "
+        f"processes) {gshard['phase_s']:.1f} s on {smi} ("
         f"{GSHARD_WORLD} ranks over {gshard['backend']} on cards {gshard['cards']}): "
         f"step ms median by "
         f"rank {[round(x, 1) for x in gshard['step_ms_median']]}; sent "

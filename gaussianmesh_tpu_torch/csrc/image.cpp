@@ -34,8 +34,9 @@
 // - gm_msp_rle: a Windows Paint (MSP v2) file's row map and run-length
 //   rows, `io/msp.py`.
 // - gm_fli_frame: an FLI / FLC frame's chunks, `io/fli.py`.
-// - gm_bc1_decode: BC1 (DXT1) blocks to RGBA as PIL's `bcn` decoder gives
-//   them, `io/bcn.py` (FTEX's DXT1 textures, `io/ftex.py`).
+// - gm_bc1_decode / gm_bcn_decode: BC1-BC5 and BC7 blocks as PIL's `bcn`
+//   decoder gives them, and BLP's own DXT1 / DXT3 / DXT5 rules, `io/bcn.py`
+//   (FTEX, DDS and BLP textures).
 //
 // Integer arithmetic wraps as numpy's int32 does (built with -fwrapv), so
 // even out-of-range coefficients of a corrupt file give the plain
@@ -358,6 +359,211 @@ inline int lzw_width(int next, int min_bits, int early) {
   return w;
 }
 
+
+// ---- BCn blocks (io/bcn.py)
+
+constexpr int kBc7Modes[8][10] = {  // subsets, partition, rotation, index selection,
+    {3, 4, 0, 0, 4, 0, 1, 0, 3, 0},  // colour and alpha bits, unique and shared
+    {2, 6, 0, 0, 6, 0, 0, 1, 3, 0},  // p-bits, index bits, second index bits
+    {3, 6, 0, 0, 5, 0, 0, 0, 2, 0}, {2, 6, 0, 0, 7, 0, 1, 0, 2, 0},
+    {1, 0, 2, 1, 5, 6, 0, 0, 2, 3}, {1, 0, 2, 0, 7, 8, 0, 0, 2, 2},
+    {1, 0, 0, 0, 7, 7, 1, 0, 4, 0}, {2, 6, 0, 0, 5, 5, 1, 0, 2, 0}};
+constexpr uint16_t kBc7Part2[64] = {
+    0xCCCC, 0x8888, 0xEEEE, 0xECC8, 0xC880, 0xFEEC, 0xFEC8, 0xEC80, 0xC800, 0xFFEC, 0xFE80,
+    0xE800, 0xFFE8, 0xFF00, 0xFFF0, 0xF000, 0xF710, 0x008E, 0x7100, 0x08CE, 0x008C, 0x7310,
+    0x3100, 0x8CCE, 0x088C, 0x3110, 0x6666, 0x366C, 0x17E8, 0x0FF0, 0x718E, 0x399C, 0xAAAA,
+    0xF0F0, 0x5A5A, 0x33CC, 0x3C3C, 0x55AA, 0x9696, 0xA55A, 0x73CE, 0x13C8, 0x324C, 0x3BDC,
+    0x6996, 0xC33C, 0x9966, 0x0660, 0x0272, 0x04E4, 0x4E40, 0x2720, 0xC936, 0x936C, 0x39C6,
+    0x639C, 0x9336, 0x9CC6, 0x817E, 0xE718, 0xCCF0, 0x0FCC, 0x7744, 0xEE22};
+constexpr uint32_t kBc7Part3[64] = {
+    0xAA685050, 0x6A5A5040, 0x5A5A4200, 0x5450A0A8, 0xA5A50000, 0xA0A05050, 0x5555A0A0,
+    0x5A5A5050, 0xAA550000, 0xAA555500, 0xAAAA5500, 0x90909090, 0x94949494, 0xA4A4A4A4,
+    0xA9A59450, 0x2A0A4250, 0xA5945040, 0x0A425054, 0xA5A5A500, 0x55A0A0A0, 0xA8A85454,
+    0x6A6A4040, 0xA4A45000, 0x1A1A0500, 0x0050A4A4, 0xAAA59090, 0x14696914, 0x69691400,
+    0xA08585A0, 0xAA821414, 0x50A4A450, 0x6A5A0200, 0xA9A58000, 0x5090A0A8, 0xA8A09050,
+    0x24242424, 0x00AA5500, 0x24924924, 0x24499224, 0x50A50A50, 0x500AA550, 0xAAAA4444,
+    0x66660000, 0xA5A0A5A0, 0x50A050A0, 0x69286928, 0x44AAAA44, 0x66666600, 0xAA444444,
+    0x54A854A8, 0x95809580, 0x96969600, 0xA85454A8, 0x80959580, 0xAA141414, 0x96960000,
+    0xAAAA1414, 0xA05050A0, 0xA0A5A5A0, 0x96000000, 0x40804080, 0xA9A8A9A8, 0xAAAAAA44,
+    0x2A4A5254};
+constexpr uint8_t kBc7Anchor2[64] = {
+    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 2, 8, 2, 2, 8, 8, 15,
+    2, 8, 2, 2, 8, 8, 2, 2, 15, 15, 6, 8, 2, 8, 15, 15, 2, 8, 2, 2, 2, 15, 15, 6, 6, 2, 6, 8,
+    15, 15, 2, 2, 15, 15, 15, 15, 15, 2, 2, 15};
+constexpr uint8_t kBc7Anchor3a[64] = {
+    3, 3, 15, 15, 8, 3, 15, 15, 8, 8, 6, 6, 6, 5, 3, 3, 3, 3, 8, 15, 3, 3, 6, 10, 5, 8, 8, 6,
+    8, 5, 15, 15, 8, 15, 3, 5, 6, 10, 8, 15, 15, 3, 15, 5, 15, 15, 15, 15, 3, 15, 5, 5, 5, 8,
+    5, 10, 5, 10, 8, 13, 15, 12, 3, 3};
+constexpr uint8_t kBc7Anchor3b[64] = {
+    15, 8, 8, 3, 15, 15, 3, 8, 15, 15, 15, 15, 15, 15, 15, 8, 15, 8, 15, 3, 15, 8, 15, 8, 3,
+    15, 6, 10, 15, 15, 10, 8, 15, 3, 15, 10, 10, 8, 9, 10, 6, 15, 8, 15, 3, 6, 6, 8, 15, 3,
+    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 3, 15, 15, 8};
+constexpr uint8_t kBc7Weights2[4] = {0, 21, 43, 64};
+constexpr uint8_t kBc7Weights3[8] = {0, 9, 18, 27, 37, 46, 55, 64};
+constexpr uint8_t kBc7Weights4[16] = {0, 4, 9, 13, 17, 21, 26, 30,
+                                      34, 38, 43, 47, 51, 55, 60, 64};
+
+inline const uint8_t* bc7_weights(int bits) {
+  return bits == 2 ? kBc7Weights2 : bits == 3 ? kBc7Weights3 : kBc7Weights4;
+}
+
+// `count` bits of a 16-byte block from bit `at`, the lowest first
+inline int block_bits(const uint8_t* p, int at, int count) {
+  int v = 0;
+  for (int k = 0; k < count; ++k) v |= (p[(at + k) >> 3] >> ((at + k) & 7) & 1) << k;
+  return v;
+}
+
+// A BC1 colour block -> px[16][4] RGBA: 565 channels replicated (or shifted
+// up, BLP's rule); four colours where c0 > c1 or `four`, else three and
+// transparent black.
+void bc1_colour(const uint8_t* p, bool four, bool shift, int px[16][4]) {
+  const int c0 = p[0] | p[1] << 8, c1 = p[2] | p[3] << 8;
+  const uint32_t lut = static_cast<uint32_t>(p[4]) | static_cast<uint32_t>(p[5]) << 8 |
+                       static_cast<uint32_t>(p[6]) << 16 | static_cast<uint32_t>(p[7]) << 24;
+  four = four || c0 > c1;
+  int col[4][4];
+  for (int k = 0; k < 2; ++k) {
+    const int v = k ? c1 : c0;
+    const int r = v >> 11 & 31, g = v >> 5 & 63, b = v & 31;
+    col[k][0] = shift ? r << 3 : r << 3 | r >> 2;
+    col[k][1] = shift ? g << 2 : g << 2 | g >> 4;
+    col[k][2] = shift ? b << 3 : b << 3 | b >> 2;
+    col[k][3] = 255;
+  }
+  for (int ch = 0; ch < 3; ++ch) {
+    col[2][ch] = four ? (2 * col[0][ch] + col[1][ch]) / 3 : (col[0][ch] + col[1][ch]) / 2;
+    col[3][ch] = four ? (col[0][ch] + 2 * col[1][ch]) / 3 : 0;
+  }
+  col[2][3] = 255;
+  col[3][3] = four ? 255 : 0;
+  for (int i = 0; i < 16; ++i)
+    for (int ch = 0; ch < 4; ++ch) px[i][ch] = col[lut >> (2 * i) & 3][ch];
+}
+
+// A BC4 block -> px[16][ch]: two ends (int8 + 128 where `sign`), eight
+// levels (a0 > a1) or six, 0 and 255, each pixel's 3-bit index.
+void bc4_channel(const uint8_t* p, bool sign, int ch, int px[16][4]) {
+  const int a0 = sign ? static_cast<int8_t>(p[0]) + 128 : p[0];
+  const int a1 = sign ? static_cast<int8_t>(p[1]) + 128 : p[1];
+  int lv[8] = {a0, a1};
+  for (int k = 2; k < 8; ++k) {
+    if (a0 > a1) lv[k] = ((8 - k) * a0 + (k - 1) * a1) / 7;
+    else lv[k] = k == 6 ? 0 : k == 7 ? 255 : ((6 - k) * a0 + (k - 1) * a1) / 5;
+  }
+  uint64_t bits = 0;
+  for (int k = 0; k < 6; ++k) bits |= static_cast<uint64_t>(p[2 + k]) << (8 * k);
+  for (int i = 0; i < 16; ++i) px[i][ch] = lv[bits >> (3 * i) & 7];
+}
+
+// A BC7 block -> px[16][4] RGBA, as PIL's `decode_bc7_block`.
+void bc7_block(const uint8_t* p, int px[16][4]) {
+  if (p[0] == 0) {                          // the reserved mode: opaque black
+    for (int i = 0; i < 16; ++i) px[i][0] = px[i][1] = px[i][2] = 0, px[i][3] = 255;
+    return;
+  }
+  int m = 0;
+  while (!(p[0] >> m & 1)) ++m;
+  const int* md = kBc7Modes[m];
+  const int ns = md[0], cb = md[4], ab = md[5], ib = md[8], ib2 = md[9];
+  int at = m + 1;
+  const int part = block_bits(p, at, md[1]);
+  at += md[1];
+  const int rot = block_bits(p, at, md[2]);
+  at += md[2];
+  const int sel = block_bits(p, at, md[3]);
+  at += md[3];
+  const int ne = 2 * ns;
+  int ep[6][4];
+  for (int ch = 0; ch < 4; ++ch)
+    for (int e = 0; e < ne; ++e) {
+      const int b = ch < 3 ? cb : ab;
+      ep[e][ch] = b ? block_bits(p, at, b) : 255;
+      at += b;
+    }
+  const int nch = ab ? 4 : 3;
+  int cbits = cb, abits = ab;
+  if (md[6] || md[7]) {
+    ++cbits;
+    if (ab) ++abits;
+    for (int e = 0; e < ne; e += md[6] ? 1 : 2) {
+      const int bit = block_bits(p, at++, 1);
+      for (int f = e; f < e + (md[6] ? 1 : 2); ++f)
+        for (int ch = 0; ch < nch; ++ch) ep[f][ch] = ep[f][ch] << 1 | bit;
+    }
+  }
+  for (int e = 0; e < ne; ++e)
+    for (int ch = 0; ch < nch; ++ch) {
+      const int b = ch < 3 ? cbits : abits;
+      const int v = ep[e][ch] << (8 - b) & 255;
+      ep[e][ch] = v | v >> b;
+    }
+  const uint8_t* cw = bc7_weights(ib);
+  const uint8_t* aw = bc7_weights(ib2 ? ib2 : ib);
+  int ci = at, ai = at + 16 * ib - ns;
+  for (int i = 0; i < 16; ++i) {
+    const int s = ns == 2 ? kBc7Part2[part] >> i & 1
+                          : ns == 3 ? kBc7Part3[part] >> (2 * i) & 3 : 0;
+    const bool anchor = i == 0 || (ns == 2 && i == kBc7Anchor2[part]) ||
+                        (ns == 3 && (i == kBc7Anchor3a[part] || i == kBc7Anchor3b[part]));
+    const int w0 = ib - anchor;
+    const int i0 = block_bits(p, ci, w0);
+    ci += w0;
+    int wc = cw[i0], wa = cw[i0];
+    if (ab && ib2) {
+      const int w1 = ib2 - (i == 0);
+      const int i1 = block_bits(p, ai, w1);
+      ai += w1;
+      wc = sel ? aw[i1] : cw[i0];
+      wa = sel ? cw[i0] : aw[i1];
+    }
+    for (int ch = 0; ch < 4; ++ch) {
+      const int w = ch < 3 ? wc : wa;
+      px[i][ch] = ((64 - w) * ep[2 * s][ch] + w * ep[2 * s + 1][ch] + 32) >> 6;
+    }
+    if (rot) std::swap(px[i][rot - 1], px[i][3]);
+  }
+}
+
+int bcn_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height, int kind,
+               int flags, uint8_t* out, int64_t* info) {
+  const bool sign = flags & 1, shift = flags & 2;
+  const int size = kind == 1 || kind == 4 ? 8 : 16;
+  const int c = kind == 4 ? 1 : kind == 5 ? 3 : 4;
+  const int64_t bw = (width + 3) / 4, bh = (height + 3) / 4;
+  const int64_t blocks = std::min(bw * bh, n / size);
+  int px[16][4];
+  for (int64_t b = 0; b < blocks; ++b) {
+    const uint8_t* p = data + size * b;
+    switch (kind) {
+      case 1: bc1_colour(p, false, shift, px); break;
+      case 2:
+        bc1_colour(p + 8, true, shift, px);
+        for (int i = 0; i < 16; ++i) px[i][3] = (p[i >> 1] >> (4 * (i & 1)) & 15) * 17;
+        break;
+      case 3:
+        bc1_colour(p + 8, true, shift, px);
+        bc4_channel(p, false, 3, px);
+        break;
+      case 4: bc4_channel(p, false, 0, px); break;
+      case 5:
+        bc4_channel(p, sign, 0, px);
+        bc4_channel(p + 8, sign, 1, px);
+        for (int i = 0; i < 16; ++i) px[i][2] = sign ? 128 : 0;
+        break;
+      default: bc7_block(p, px);
+    }
+    const int64_t y0 = b / bw * 4, x0 = b % bw * 4;
+    for (int j = 0; j < 4 && y0 + j < height; ++j)
+      for (int i = 0; i < 4 && x0 + i < width; ++i) {
+        uint8_t* d = out + c * ((y0 + j) * width + x0 + i);
+        for (int ch = 0; ch < c; ++ch) d[ch] = static_cast<uint8_t>(px[4 * j + i][ch]);
+      }
+  }
+  info[0] = blocks;
+  return blocks < bw * bh ? kTruncated : kOk;
+}
+
 }  // namespace
 
 extern "C" {
@@ -548,8 +754,8 @@ int gm_jpeg_scan_progressive(const uint8_t* data, int64_t n, int n_mcus, int int
 // nbx[c], zig-zag) start at coef[offset[c] * 64] with its table
 // q[c * 64 ...] (zig-zag order); its samples are its (rows[c], cols[c])
 // corner, upsampled by (ry[c], rx[c]) and cropped to height x width.
-// color: 0 one gray plane -> (H, W); 1 YCbCr -> RGB; 2 the three planes as
-// they are -> (H, W, 3); four planes to CMYK, then RGB -> (H, W, 3): 3 CMYK
+// color: 0 one gray plane -> (H, W); 1 YCbCr -> RGB; 2 the n_comp (3 or 4)
+// planes as they are -> (H, W, n_comp); four planes to CMYK, then RGB -> (H, W, 3): 3 CMYK
 // as stored, 4 inverted (PIL's `CMYK;I`), 5 YCCK (libjpeg's
 // `ycck_cmyk_convert`, C = 255 - R of the YCbCr tables and so on, K as it
 // is, which PIL then inverts: C = R, K = 255 - K). CMYK -> RGB is Pillow's
@@ -586,9 +792,10 @@ int gm_jpeg_planes(const int32_t* coef, int n_comp, const int64_t* offset,
       uint8_t* o = out + y * w;
       for (int64_t x = 0; x < w; ++x) o[x] = static_cast<uint8_t>(line[0][x]);
     } else if (color == 2) {
-      uint8_t* o = out + y * w * 3;
+      uint8_t* o = out + y * w * n_comp;
       for (int64_t x = 0; x < w; ++x)
-        for (int c = 0; c < 3; ++c) o[3 * x + c] = static_cast<uint8_t>(line[c][x]);
+        for (int c = 0; c < n_comp; ++c)
+          o[n_comp * x + c] = static_cast<uint8_t>(line[c][x]);
     } else if (color == 1) {
       const int32_t *yy = line[0].data(), *cb = line[1].data(), *cr = line[2].data();
       uint8_t* o = out + y * w * 3;
@@ -1468,46 +1675,21 @@ int gm_fli_frame(const uint8_t* buf, int64_t n, int64_t width, int64_t height,
 // the image needs (info[0]: the blocks decoded).
 int gm_bc1_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height,
                   uint8_t* out, int64_t* info) {
-  const int64_t bw = (width + 3) / 4, bh = (height + 3) / 4;
-  const int64_t blocks = std::min(bw * bh, n / 8);
-  for (int64_t b = 0; b < blocks; ++b) {
-    const uint8_t* p = data + 8 * b;
-    const int c0 = p[0] | p[1] << 8, c1 = p[2] | p[3] << 8;
-    const uint32_t lut = static_cast<uint32_t>(p[4]) | static_cast<uint32_t>(p[5]) << 8 |
-                         static_cast<uint32_t>(p[6]) << 16 | static_cast<uint32_t>(p[7]) << 24;
-    int col[4][4];
-    for (int k = 0; k < 2; ++k) {
-      const int v = k ? c1 : c0;
-      const int r = v >> 11 & 31, g = v >> 5 & 63, bl = v & 31;
-      col[k][0] = r << 3 | r >> 2;
-      col[k][1] = g << 2 | g >> 4;
-      col[k][2] = bl << 3 | bl >> 2;
-      col[k][3] = 255;
-    }
-    for (int ch = 0; ch < 3; ++ch) {
-      if (c0 > c1) {
-        col[2][ch] = (2 * col[0][ch] + col[1][ch]) / 3;
-        col[3][ch] = (col[0][ch] + 2 * col[1][ch]) / 3;
-      } else {
-        col[2][ch] = (col[0][ch] + col[1][ch]) / 2;
-        col[3][ch] = 0;
-      }
-    }
-    col[2][3] = 255;
-    col[3][3] = c0 > c1 ? 255 : 0;
-    const int64_t y0 = b / bw * 4, x0 = b % bw * 4;
-    for (int j = 0; j < 4; ++j) {
-      if (y0 + j >= height) break;
-      for (int i = 0; i < 4; ++i) {
-        if (x0 + i >= width) break;
-        const int* c = col[lut >> (2 * (4 * j + i)) & 3];
-        uint8_t* d = out + 4 * ((y0 + j) * width + x0 + i);
-        for (int ch = 0; ch < 4; ++ch) d[ch] = static_cast<uint8_t>(c[ch]);
-      }
-    }
-  }
-  info[0] = blocks;
-  return blocks < bw * bh ? kTruncated : kOk;
+  return bcn_decode(data, n, width, height, 1, 0, out, info);
+}
+
+// BCn blocks of `kind` (PIL's `bcn` decoder numbers: 1-5, 7) decoded as
+// `gm_bc1_decode` decodes BC1 into out (height, width, c): RGBA for BC1-BC3
+// and BC7, L for BC4, RGB for BC5 (B 0, or 128 where signed). BC2: 4-bit
+// alphas x 17 then a four-colour BC1 block; BC3: a BC4 alpha block then
+// the same; BC4: two ends, eight levels or six with 0 and 255, 3-bit
+// indices; BC5: two BC4 blocks (R, G), their ends int8 + 128 where signed;
+// BC7: its eight modes as PIL's `decode_bc7_block` reads them. flags: bit
+// 0 BC5 signed, bit 1 the 565 channels shifted up (BLP's own decoders).
+// Returns kOk or kTruncated (info[0]: the blocks decoded).
+int gm_bcn_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height, int kind,
+                  int flags, uint8_t* out, int64_t* info) {
+  return bcn_decode(data, n, width, height, kind, flags, out, info);
 }
 
 }  // extern "C"

@@ -807,8 +807,9 @@ def _scan_native_progressive(frame: _Frame, scan: _Scan, arr: np.ndarray, restar
 
 
 # gm_jpeg_planes' colour modes: one gray plane; YCbCr -> RGB; the three
-# planes as they are; CMYK as stored, inverted (PIL's `CMYK;I`) or from YCCK,
-# each then to RGB by `cmyk_to_rgb`
+# planes as they are (three, or four where the caller asks for them); CMYK as
+# stored, inverted (PIL's `CMYK;I`) or from YCCK, each then to RGB by
+# `cmyk_to_rgb`
 GRAY, YCC, PLANES, CMYK, CMYK_INVERTED, YCCK = range(6)
 
 
@@ -862,7 +863,8 @@ def _planes_native(frame: _Frame, mode: int) -> np.ndarray:
     rx = i32([frame.hmax // h for h in frame.h])
     q = i32(np.stack(frame.q))
     offset = np.ascontiguousarray(frame.offset[:n], np.int64)
-    out = np.empty((frame.height, frame.width) + (() if mode == GRAY else (3,)), np.uint8)
+    c = n if mode == PLANES else 3
+    out = np.empty((frame.height, frame.width) + (() if mode == GRAY else (c,)), np.uint8)
     status = _cuda.host_library("image").gm_jpeg_planes(
         frame.blocks.ctypes.data, n, offset.ctypes.data, nby.ctypes.data,
         nbx.ctypes.data, rows.ctypes.data, cols.ctypes.data, ry.ctypes.data,
@@ -1010,8 +1012,12 @@ def _decode(data: bytes, path, native: bool, tables=None, color=None,
 def _color_mode(nf, color, jfif, adobe, ids, path) -> int:
     """libjpeg's colour space of `nf` components (`default_decompress_parms`),
     or the one the caller fixes -> gm_jpeg_planes' mode."""
-    if color not in (None, "as_is", "ycc"):
-        raise ValueError(f"color {color!r}: None, 'as_is' or 'ycc'")
+    if color not in (None, "as_is", "ycc", "raw_cmyk"):
+        raise ValueError(f"color {color!r}: None, 'as_is', 'ycc' or 'raw_cmyk'")
+    if color == "raw_cmyk":
+        if nf == 4:
+            return PLANES
+        color = None
     if color == "ycc":
         if nf != 3:
             raise ValueError(f"{path}: {nf} components where YCbCr needs 3")
@@ -1035,8 +1041,10 @@ def decode_jpeg(data: bytes, path="<bytes>", *, native: bool = True, tables=None
     (`jpeg_tables`' result) seed the tables of an abbreviated stream; `color`
     fixes the colour space as libtiff does: "as_is" takes the components as
     they are (1 gray, 3 the planes, 4 CMYK as stored, then `cmyk_to_rgb`),
-    "ycc" three components as YCbCr; `on_frame(frame)` sees the frame header
-    before the scans (it raises to refuse one)."""
+    "ycc" three components as YCbCr; "raw_cmyk" gives four components as
+    stored, with no CMYK conversion ((H, W, 4): BLP1's B, G, R and alpha,
+    `io/blp.py`), and one or three as by default; `on_frame(frame)` sees
+    the frame header before the scans (it raises to refuse one)."""
     return _decode(data, path, native, tables, color, on_frame)
 
 

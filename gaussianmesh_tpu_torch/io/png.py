@@ -17,7 +17,8 @@ MSP (`io/msp.py`), a PSD (`io/psd.py`), a Sun raster (`io/sun.py`), an XBM
 brush (`io/gbr.py`), an IM (`io/im.py`), an IMT (`io/imt.py`), an IPTC
 (`io/iptc.py`), a PIXAR (`io/pixar.py`), a McIdas area (`io/mcidas.py`),
 an XV thumbnail (`io/xvthumb.py`), a FITS (`io/fits.py`), an FTEX
-(`io/ftex.py`) or a TGA (`io/tga.py`) by its first bytes, in PIL's order
+(`io/ftex.py`), a DDS (`io/dds.py`), a BLP (`io/blp.py`) or a TGA
+(`io/tga.py`) by its first bytes, in PIL's order
 of formats, a file PIL gives way on handed to the next format; IM, IMT,
 IPTC and SPIDER (`io/spider.py`, refused where PIL opens it) (no
 `_accept`) and TGA (no magic) as PIL tries them. `encode_png` encodes 8-bit
@@ -40,6 +41,8 @@ import zlib
 import numpy as np
 
 from gaussianmesh_tpu_torch.io import icns, ico
+from gaussianmesh_tpu_torch.io.blp import BLP_MAGICS, read_blp
+from gaussianmesh_tpu_torch.io.dds import DDS_MAGIC, read_dds
 from gaussianmesh_tpu_torch.io.fits import fits_accept, read_fits
 from gaussianmesh_tpu_torch.io.fli import fli_accept, read_fli
 from gaussianmesh_tpu_torch.io.ftex import FTEX_MAGIC, read_ftex
@@ -294,9 +297,11 @@ _ORDER = (
     ("JPEG", lambda h: h[:3] == JPEG_MAGIC, read_jpeg),
     ("PNM", is_pnm, read_pnm),
     ("PNG", lambda h: h[:8] == PNG_MAGIC, read_png),
+    ("BLP", lambda h: h[:4] in BLP_MAGICS, read_blp),
     ("CUR", lambda h: h[:4] == b"\0\0\2\0", lambda p: ico.read_cur(p)),
     ("PCX", pcx_accept, read_pcx),
     ("DCX", lambda h: h[:4] == DCX_MAGIC, read_dcx),
+    ("DDS", lambda h: h[:4] == DDS_MAGIC, read_dds),
     ("FITS", fits_accept, read_fits),
     ("FLI", fli_accept, read_fli),
     ("FTEX", lambda h: h[:4] == FTEX_MAGIC, read_ftex),
@@ -324,7 +329,7 @@ _ORDER = (
 # the formats read (SPIDER is tried, and refused where PIL opens it)
 FORMATS = ("JPEG", "PNG", "BMP", "TIFF", "GIF", "WebP", "PNM", "QOI", "SGI", "PCX", "DIB",
            "ICO", "CUR", "DCX", "ICNS", "MSP", "PSD", "SUN", "XBM", "XPM", "FLI", "GBR", "IM",
-           "IMT", "IPTC", "PIXAR", "MCIDAS", "XVTHUMB", "FITS", "FTEX", "TGA")
+           "IMT", "IPTC", "PIXAR", "MCIDAS", "XVTHUMB", "FITS", "FTEX", "DDS", "BLP", "TGA")
 
 
 def read_image(path: str) -> np.ndarray:
@@ -340,10 +345,16 @@ def read_image(path: str) -> np.ndarray:
     thumbnails (B15: RGB332 expanded; `io/xvthumb.py`), FITS of 8 bits and
     unsigned 16 bits, raw or GZIP_1 (B32: by the format's definition;
     `io/fits.py`), FTEX (DXT1 through the port's BC1 decoder, or raw RGB;
-    `io/ftex.py`), and TGA, which has no magic, only where no format PIL
-    tries first takes the file and TGA's header checks pass. IM, IMT, IPTC
-    and SPIDER, which PIL registers with no `_accept`, try every file that
-    reaches them (a SPIDER image PIL opens is refused: float samples, B21).
+    `io/ftex.py`), DDS (RGB masks, L, LA, P (B15), DXT1 / 3 / 5, BC4, BC5,
+    BC5S, DX10 BC1-BC5, BC7 and R8G8B8A8 through the port's BCn decoders;
+    B34: data short of the image raises; BC6H refused; `io/dds.py`), BLP
+    (BLP1 JPEG, B35: four components as B, G, R, alpha; BLP1 and BLP2
+    palettes; BLP2 DXT1 / 3 / 5 by BLP's own 565 rule, B36 and B37:
+    each pixel's own bytes; `io/blp.py`), and TGA, which has no magic, only
+    where no format PIL tries first takes the file and TGA's header checks
+    pass. IM, IMT, IPTC and SPIDER, which PIL registers with no `_accept`,
+    try every file that reaches them (a SPIDER image PIL opens is refused:
+    float samples, B21).
     A file PIL gives way on (`io/giveway.py`) goes on to the next format
     that takes its head, as in PIL; a PAM file (`P7`), which no format
     takes, raises naming it -> the reader's array."""

@@ -113,6 +113,8 @@ HOST_LIBRARIES = {
         "gm_fli_frame": [_P, _L, _L, _L, _P, _P],
         # data, n, width, height, out, info
         "gm_bc1_decode": [_P, _L, _L, _L, _P, _P],
+        # data, n, width, height, kind, flags, out, info
+        "gm_bcn_decode": [_P, _L, _L, _L, _I, _I, _P, _P],
     },
     "vp8": {
         # frame, n, y, u, v, info

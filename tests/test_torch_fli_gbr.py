@@ -328,7 +328,7 @@ def test_order_is_pils():
                          check=True).stdout.split()
     ours = [name for name, _, _ in png._ORDER]
     assert [NAMES.get(i, i) for i in ids if NAMES.get(i, i) in ours] == ours
-    assert sorted(png.FORMATS) == sorted(set(ours) - {"SPIDER"}) and len(png.FORMATS) == 31
+    assert sorted(png.FORMATS) == sorted(set(ours) - {"SPIDER"}) and len(png.FORMATS) == 33
     assert [name for name, _ in png._BEFORE_TGA] == ["MPEG"]
 
 

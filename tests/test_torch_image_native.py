@@ -6,9 +6,9 @@ and the corrupt streams (the same errors); PNGs at every depth and colour
 type with rows cycling through all five filters, palettes with tRNS,
 Adam7; resize in L / LA / RGB / RGBA up, down and on the resolution ladder.
 The training path's readers never reach a plain version (the LZW,
-PackBits and RLE ones of `tests/test_torch_image_formats_lzw.py` and the
-BC1 one of FTEX textures included), and a build that cannot happen
-raises."""
+PackBits and RLE ones of `tests/test_torch_image_formats_lzw.py`, the
+BC1 one of FTEX textures and the BCn ones of DDS and BLP textures
+included), and a build that cannot happen raises."""
 
 import io
 import os
@@ -21,8 +21,8 @@ import torch
 from PIL import Image
 
 from gaussianmesh_tpu_torch.data import cameras, readers
-from gaussianmesh_tpu_torch.io import (bcn, bmp, fli, ftex, gif, jpeg, lzw, pcx, png, pnm, qoi,
-                                      resample, sgi, tga, tiff, webp)
+from gaussianmesh_tpu_torch.io import (bcn, blp, bmp, dds, fli, ftex, gif, jpeg, lzw, pcx, png,
+                                      pnm, qoi, resample, sgi, tga, tiff, webp)
 from gaussianmesh_tpu_torch.ops import _cuda
 from tests.test_torch_jpeg import _image as _jpeg_image, _segment, _segments
 from tests.test_torch_readers import ADAM7, _blender_set, _chunk, _jpeg_colmap_set
@@ -473,14 +473,33 @@ def _ftex_set(root):
     return root
 
 
+def _texture_set(root):
+    """`_jpeg_colmap_set` with its six views rewritten as DDS (BC4, DX10
+    BC7, 565 masks) and BLP (BLP1 JPEG, BLP2 palette, BLP2 DXT1)
+    textures."""
+    root = _jpeg_colmap_set(root)
+    pal = np.random.default_rng(0).integers(0, 256, (256, 3), dtype=np.uint8)
+    for i, name in enumerate(sorted(os.listdir(f"{root}/images"))):
+        path = f"{root}/images/{name}"
+        img = jpeg.read_jpeg(path)
+        img = np.dstack([img] * 3) if img.ndim == 2 else img
+        k = i % 6
+        if k < 3:
+            arg = (img[..., 1], np.dstack([img, img[..., :1]]), img)[k]
+            dds.write_dds(path, arg, ("BC4", "BC7", "RGB565")[k])
+        else:
+            blp.write_blp(path, img[..., 0] if k == 4 else img, blp.FORMS[k - 3], palette=pal)
+    return root
+
+
 def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
     resize), of the same set with progressive JPEGs, of a Blender set of
     PIL-filtered RGBA PNGs at -r 2, of the COLMAP set in LZW and PackBits
     TIFF, GIF and RLE BMP views, of it in lossy WebP views and of it in RLE
     TGA, QOI, RLE SGI, PCX and PPM views, of it in FLI and FLC views and
-    of it in FTEX (DXT1 and raw) views, with every plain piece made to
-    raise: the same scenes as before."""
+    of it in FTEX (DXT1 and raw) views and of it in DDS and BLP views, with
+    every plain piece made to raise: the same scenes as before."""
     colmap_root = _jpeg_colmap_set(tmp_path / "c")
     prog_root = _jpeg_colmap_set(tmp_path / "p")
     new_root = _new_forms_set(tmp_path / "n")
@@ -488,6 +507,7 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     raw_root = _raw_set(tmp_path / "r")
     fli_root = _fli_set(tmp_path / "f")
     ftex_root = _ftex_set(tmp_path / "t")
+    texture_root = _texture_set(tmp_path / "x")
     for name in os.listdir(f"{prog_root}/images"):
         path = f"{prog_root}/images/{name}"
         Image.open(path).save(path, "JPEG", quality=90, progressive=True)
@@ -503,7 +523,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
               readers.read_scene(webp_root, resolution=-1, **kw),
               readers.read_scene(raw_root, resolution=-1, **kw),
               readers.read_scene(fli_root, resolution=-1, **kw),
-              readers.read_scene(ftex_root, resolution=-1, **kw))
+              readers.read_scene(ftex_root, resolution=-1, **kw),
+              readers.read_scene(texture_root, resolution=-1, **kw))
 
     def plain(*_a, **_k):
         raise AssertionError("a plain version was called")
@@ -519,7 +540,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
                                "_filter_plain")),
                        (tga, ("_rle_plain",)), (qoi, ("_ops_plain",)), (sgi, ("_rle_plain",)),
                        (pcx, ("_rle_plain",)), (fli, ("_frame_plain",)),
-                       (bcn, ("_bc1_plain",))):
+                       (bcn, ("_bc1_plain", "decode_plain", "_bc7", "_bc4", "_colour")),
+                       (dds, ("decode_dds_plain",)), (blp, ("decode_blp_plain",))):
         for name in names:
             monkeypatch.setattr(mod, name, plain)
     after = (readers.read_scene(colmap_root, resolution=-1, **kw),
@@ -529,7 +551,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
              readers.read_scene(webp_root, resolution=-1, **kw),
              readers.read_scene(raw_root, resolution=-1, **kw),
              readers.read_scene(fli_root, resolution=-1, **kw),
-             readers.read_scene(ftex_root, resolution=-1, **kw))
+             readers.read_scene(ftex_root, resolution=-1, **kw),
+             readers.read_scene(texture_root, resolution=-1, **kw))
     for a, b in zip(before, after):
         for ca, cb in zip(a.train_cameras + a.test_cameras, b.train_cameras + b.test_cameras):
             assert np.array_equal(ca.image, cb.image) and np.array_equal(ca.mask, cb.mask)
@@ -562,6 +585,10 @@ def _every_entry_point(tmp_path):
                                                 np.zeros((1, 3), np.uint8)))
     texture = ftex.encode_ftex(np.zeros((4, 4, 3), np.uint8))[0]     # encoded in numpy
     yield lambda: ftex.decode_ftex(texture)
+    dxt5 = dds.encode_dds(np.zeros((4, 4, 4), np.uint8), "DXT5")[0]
+    yield lambda: dds.decode_dds(dxt5)
+    dxt1 = blp.encode_blp(np.zeros((4, 4, 3), np.uint8), "BLP2_DXT1")[0]
+    yield lambda: blp.decode_blp(dxt1)
 
 
 def _rle_bmp():
@@ -573,8 +600,8 @@ def _rle_bmp():
 
 def test_no_compiler_raises_not_falls_back(tmp_path, monkeypatch, fresh_library):
     """With no g++ to be found, each public entry point raises (the JPEG,
-    PNG, resize, LZW, PackBits, RLE, FLI and FTEX ones); none falls back to
-    its plain version."""
+    PNG, resize, LZW, PackBits, RLE, FLI, FTEX, DDS and BLP ones); none
+    falls back to its plain version."""
     monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
     for call in _every_entry_point(tmp_path):
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):

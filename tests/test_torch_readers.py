@@ -104,8 +104,8 @@ def test_png_decodes_every_filter_as_pil(tmp_path, c):
 def test_unsupported_images_raise(tmp_path):
     """What PIL would not read either raises with a message naming the
     cause: a bit depth the color type does not allow, a palette PNG without
-    its palette, a file of no format the port reads (a DDS), a lossless
-    JPEG (SOF3)."""
+    its palette, a file of no format the port reads (a JPEG 2000 file),
+    a lossless JPEG (SOF3)."""
     bad = str(tmp_path / "bad.png")
     with open(bad, "wb") as fh:
         fh.write(png.PNG_MAGIC
@@ -122,13 +122,13 @@ def test_unsupported_images_raise(tmp_path):
         fh.write(data[:i] + data[i + 12 + struct.unpack(">I", data[i:i + 4])[0]:])
     with pytest.raises(ValueError, match="PLTE"):
         png.read_png(pal)
-    other = str(tmp_path / "x.dds")
-    Image.fromarray(_image(3)).save(other, "DDS")
-    assert Image.open(other).format == "DDS"
+    other = str(tmp_path / "x.jp2")
+    Image.fromarray(_image(3)).save(other, "JPEG2000")
+    assert Image.open(other).format == "JPEG2000"
     with pytest.raises(ValueError, match="not a JPEG, PNG, BMP, TIFF, GIF, WebP, PNM, QOI, "
                                          "SGI, PCX, DIB, ICO, CUR, DCX, ICNS, MSP, PSD, SUN, "
                                          "XBM, XPM, FLI, GBR, IM, IMT, IPTC, PIXAR, MCIDAS, "
-                                         "XVTHUMB, FITS, FTEX or TGA"):
+                                         "XVTHUMB, FITS, FTEX, DDS, BLP or TGA"):
         png.read_image(other)
     lossless = str(tmp_path / "l.jpg")
     Image.fromarray(_image(3)).save(lossless)

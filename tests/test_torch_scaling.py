@@ -289,3 +289,28 @@ def test_tools_raise_without_a_card(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             run()
     assert not os.path.exists(out) and not dist.is_initialized()
+
+
+def test_profile_critical_keeps_each_ds_critical_items():
+    """`--profile critical` drops the queued profiles of every band and
+    emulated rank but each D's largest host ms, and keeps the plain and
+    training steps'; `summarize_items` then reads the profiled item's busy
+    ms as the D's critical one."""
+    def item(ms):
+        return {"host_ms": ms, "busy_ms": None}
+    tile = {"1": {"bands": [item(5.0)]}, "8": {"bands": [item(1.0), item(3.0), item(2.0)]}}
+    gauss = {d: {"design": {"ranks": [item(1.0), item(4.0)]},
+                 "jax_live": {"ranks": [item(6.0), item(2.0)]}} for d in ("1", "8")}
+    plain, step = item(9.0), item(7.0)
+    queued = [(r, None, "host_ms") for r in [plain, step]
+              + [b for rec in tile.values() for b in rec["bands"]]
+              + [r for rec in gauss.values() for lab in rec.values() for r in lab["ranks"]]]
+    kept = [e[0] for e in bench_scaling_torch.critical_only(queued, tile, gauss)]
+    assert kept[:2] == [plain, step] and len(kept) == 2 + 2 + 4
+    assert tile["8"]["bands"][1] in kept and tile["8"]["bands"][2] not in kept
+    for r in kept:
+        r["busy_ms"] = r["host_ms"] / 2
+    rec = dict(tile["8"])
+    bench_scaling_torch.summarize_items(rec, rec["bands"], "per_band_ms")
+    assert rec["critical_index"] == 1 and rec["critical_busy_ms"] == 1.5
+    assert rec["per_busy_ms"] == [None, 1.5, None]

@@ -3,13 +3,16 @@ collective moves and a model of D cards (the port of `tools/bench_scaling.py`).
 
     python3 tools/bench_scaling_torch.py [--device cpu] [--out PATH]
         [--width W --height H --n_gauss N --steps S --warm K --d_list D ...]
+        [--profile all|critical]
 
 `bench_torch.py`'s scene (100,000 random Gaussians at 1080p, `max_per_tile`
 1024, 9 pairs and 3 rows per Gaussian, white, loss sum(color^2) over the
 image's rows, the gradients of all four inputs); every step timed as the
 bench times its own (median host ms of S synchronized steps after K warm
 ones; device busy ms and operations from torch.profiler once every host time
-is taken). Five parts:
+is taken: of every item, or with `--profile critical` of the plain and
+training steps and each D's critical band and emulated ranks alone, whose
+busy ms the model reads). Five parts:
 
 (a) the plain step, `bench_torch.fwd_bwd`.
 (b) the tile axis at each D of --d_list (1, 2, 4, 8): each band of the grid
@@ -222,9 +225,21 @@ def summarize_items(rec: dict, items: list, key: str) -> None:
     and its index, `mean_ms`) and busy ms (`per_busy_ms`, `critical_busy_ms`)."""
     ms = [r["host_ms"] for r in items]
     busy = [r["busy_ms"] for r in items]
+    profiled = [b for b in busy if b is not None]
     rec.update({key: ms}, critical_ms=max(ms), critical_index=int(np.argmax(ms)),
                mean_ms=float(np.mean(ms)), per_busy_ms=busy,
-               critical_busy_ms=None if None in busy else max(busy))
+               critical_busy_ms=max(profiled) if profiled else None)
+
+
+def critical_only(deferred: list, tile: dict, gauss: dict) -> list:
+    """The queued profiles less those of the bands and emulated ranks that
+    are not their D's critical one (the largest host ms); with only the
+    critical item profiled, its busy ms is the D's `critical_busy_ms`."""
+    groups = [rec["bands"] for rec in tile.values()] + [
+        rec[label]["ranks"] for rec in gauss.values() for label in ("design", "jax_live")]
+    items = {id(r) for g in groups for r in g}
+    keep = {id(max(g, key=lambda r: r["host_ms"])) for g in groups}
+    return [e for e in deferred if id(e[0]) not in items or id(e[0]) in keep]
 
 
 
@@ -382,6 +397,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=bench_torch.STEPS)
     p.add_argument("--warm", type=int, default=bench_torch.WARM)
     p.add_argument("--d_list", type=int, nargs="+", default=list(D_LIST))
+    p.add_argument("--profile", choices=("all", "critical"), default="all",
+                   help="profile every band and emulated rank, or each D's critical ones")
     return p
 
 
@@ -401,6 +418,7 @@ def main(argv=None) -> dict:
     out = dict(tool="tools/bench_scaling_torch.py", device=str(dev), card=card["name"],
                power_limit=card["power_limit"], n_gauss=n, width=args.width,
                height=args.height, steps=args.steps, warm=args.warm, d_list=d_list,
+               profile=args.profile,
                links=sharded.LINKS, factors=sharded.FACTORS)
     deferred = []
 
@@ -419,6 +437,8 @@ def main(argv=None) -> dict:
     with sharded.world_of_one(dev) as mesh:
         # (e), then every profile (after every host time)
         trainer = trainer_1x1(w, mesh, args.steps, args.warm, deferred)
+        if args.profile == "critical":
+            deferred = critical_only(deferred, tile, gauss)
         playback.run_profiles(deferred, dev)
         # (d): the bench step's all-reduce and the exchange's slots, from one
         # (1, 1) step of each regime
