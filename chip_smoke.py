@@ -126,17 +126,31 @@ Phases (any failure raises, so the exit code is not 0):
    kernels' wrappers recording their arguments, and K1, K2 and K3 held
    against their plain versions on those, timed and bounded as in phase 5;
    K2's rows must equal the step's.
-9b. progressive: the views of phase 9 that 9h takes from 9b
-   (`reader_phase`: 0, 15 and 21) rendered again from the same cameras and
-   written as progressive JPEGs (`write_jpeg(..., progressive=True)`:
-   quality 90, 4:2:0, libjpeg's 10-scan progression). Each view decoded by
-   `read_jpeg` (C++, `gm_jpeg_scan_progressive`): equal to phase 9's
-   baseline file of the view decoded again; the CROP_9F centre of view 0,
-   written the same way, decoded by `read_jpeg` and `read_jpeg_plain` to
-   equal bytes; decode s / MP of both and of the baseline in the same run,
-   beside the card's name and power limit and the host's CPU. A crafted file
-   (view 0 with its last three scans, the AC refinements to bit 0, dropped)
-   must raise "coefficients left unrefined" through both decoders.
+9b. progressive and lossless JPEGs: first the fixtures of
+   `tests/data/jpeg_lossless/` (lossless JPEGs of every predictor, point
+   transforms 0 and 2, restarts, gray / RGB / CMYK, one scan a component,
+   subsampled components, with the SHA-256 and shape of PIL's array under
+   the port's rule, recorded on a machine with PIL by
+   `tools/make_jpeg_lossless_fixtures_torch.py`): `read_image` and
+   `read_jpeg_plain` give the recorded digests, and the files PIL cannot
+   load (JFIF or Adobe 1 RGB, Adobe 2 CMYK, a cut stream, restarts inside
+   MCU rows) raise alike through both. Then the views of phase 9 that 9h
+   takes from 9b (`reader_phase`: 0, 15 and 21) rendered again from the same
+   cameras and written as progressive JPEGs (`write_jpeg(...,
+   progressive=True)`: quality 90, 4:2:0, libjpeg's 10-scan progression).
+   Each view decoded by `read_jpeg` (C++, `gm_jpeg_scan_progressive`):
+   equal to phase 9's baseline file of the view decoded again; the CROP_9F
+   centre of view 0, written the same way, decoded by `read_jpeg` and
+   `read_jpeg_plain` to equal bytes; decode s / MP of both and of the
+   baseline in the same run, beside the card's name and power limit and
+   the host's CPU. A crafted file (view 0 with its last three scans, the AC
+   refinements to bit 0, dropped) must raise "coefficients left unrefined"
+   through both decoders. The rows of LOSSLESS_9B: view 0 at predictor 1
+   and view 21 at predictor 7 as lossless JPEGs (`encode_jpeg_lossless`,
+   RGB, point transform 0) decode by `read_jpeg` (C++, `gm_jpeg_lossless`)
+   to exactly the rendered bytes, and their CROP_9F centres written the
+   same way through both routes to the crop; s / MP beside the baseline
+   files', plain / C++, bytes. 9h trains view 21 from its lossless file.
 9c. new formats: phase 9's 24 views as the baseline JPEG files decode
    (1920x1080) written again: 6 LZW TIFFs with predictor 2, 3 with
    predictor 1, 3 PackBits TIFFs, 4 16-bit LZW TIFFs (each sample x 257,
@@ -323,17 +337,19 @@ Phases (any failure raises, so the exit code is not 0):
 9m. DDS and BLP: first the fixtures of `tests/data/textures/` (PIL's DDS
    and BLP writers' files, the port's writers' and hand-made blocks, with
    the SHA-256 and shape of PIL's array under the port's rule: A2, B15,
-   B35-B37; recorded on a machine with PIL by
+   B35-B37, B38's oracle; recorded on a machine with PIL by
    `tools/make_texture_fixtures_torch.py`): `read_image` and the plain
-   route give the recorded digests, the BC6H, B34 and raw BGRA fixtures are
-   refused alike through both, and `gm_bcn_decode` gives `decode_plain`'s
-   bytes on every fixture's blocks (BC1-BC5, BC5S, BC7 and BLP's DXT1,
-   DXT3 and DXT5; plain / C++ printed by kind). Then phase 9's 24 views
-   written in the rows of TEXTURE_9M (`io/dds.py`, `io/blp.py` writers):
-   DDS DXT1 (RGBA), DXT5 with 9i's ellipse as the alpha, DX10 BC7 of mode
-   6, BC4 of the view's `convert("L")`, BC5 (R, G) and 16-bit 565 masks;
-   BLP1 JPEG of three components, BLP2 DXT1 of alpha depth 0 and BLP2
-   palette on 9c's 256 colours. Each view decodes by `read_image` to what
+   route give the recorded digests (DX10 BC6H of every mode, unsigned and
+   signed, included), the B34 and raw BGRA fixtures are refused alike
+   through both, and `gm_bcn_decode` gives `decode_plain`'s bytes on every
+   fixture's blocks (BC1-BC5, BC5S, BC6H, BC6HS, BC7 and BLP's DXT1, DXT3
+   and DXT5; plain / C++ printed by kind). Then phase 9's 24 views written
+   in the rows of TEXTURE_9M (`io/dds.py`, `io/blp.py` writers): DDS DXT1
+   (RGBA), DXT5 with 9i's ellipse as the alpha, DX10 BC7 of mode 6, BC4 of
+   the view's `convert("L")`, BC5 (R, G), DX10 BC6H unsigned and signed
+   (`encode_bc6h`, mode 0x03) and 16-bit 565 masks; BLP1 JPEG of three
+   components, BLP2 DXT1 of alpha depth 0 and BLP2 palette on 9c's 256
+   colours. Each view decodes by `read_image` to what
    its writer says; the CROP_9F centre of one view a row decodes through
    the plain route to the C++'s bytes; s / MP, its ratio to phase 9's
    baseline JPEG in the same run, plain / C++, bytes a view and their
@@ -346,8 +362,9 @@ Phases (any failure raises, so the exit code is not 0):
    phases on from the one before, each octet one phase on, so that the
    test views 0, 8 and 16 fall to 9b, 9c and 9d and each of the ten phases
    gives two or three training views, none of a row with an alpha) wrote
-   for it, or phase 9's JPEG where that file decodes with an alpha (an
-   alpha makes a mask, and `DeviceDataset` stacks masks only where the
+   for it (among the training views a BC6H texture of 9m and 9b's lossless
+   JPEG at least), or phase 9's JPEG where that file decodes with an alpha
+   (an alpha makes a mask, and `DeviceDataset` stacks masks only where the
    shuffled first view has one, as the JAX trainer does);
    `cli.train_mesh --device cuda` on it for PROGRESSIVE_ITERS steps with
    phase 9's shrunk schedule and capacities: K1, K2 and K3 once a step
@@ -611,6 +628,10 @@ LAYOUTS_9F = (
     ("ycck_jpeg_420", 2, dict(quality=EVAL_QUALITY, ycck=True)),
 )
 CROP_9F = (480, 272)                   # 9b, 9f, 9g: the plain decodes' centre crop of a view
+# phase 9b's lossless JPEG rows: (predictor, view) in turn, RGB at point transform 0; 9h
+# takes view LOSSLESS_9B_TRAIN's lossless file in place of its progressive one
+LOSSLESS_9B = ((1, 0), (7, 21))
+LOSSLESS_9B_TRAIN = 21
 # phase 9g: phase 9's views as PNM, TGA, QOI, SGI and PCX files, (row, views) in turn
 RAW_9G = (("ppm_p6", 3), ("ppm_p3_ascii", 1), ("pgm_p5_16bit_b19", 1),
           ("tga_raw24_bottom_up", 2), ("tga_rle32_top_left_8alpha", 2),
@@ -639,10 +660,11 @@ SAMPLE_TEXTURE_9L = (("pixar_rgb", 3), ("mcidas_1byte", 2), ("fits_8bit", 2),
                      ("mcidas_2byte_b7", 2), ("fits_gzip8", 3), ("fits_16bit_unsigned_b32", 2),
                      ("ftex_dxt1", 3), ("xvthumb_b15", 3), ("ftex_raw", 4))
 # phase 9m: phase 9's views as DDS and BLP textures, (row, views) in turn (9h takes views
-# 11, 13 and 18: BC5, 565 masks and BLP2 DXT1, none with an alpha)
+# 11, 13 and 18: BC5 and BC6H unsigned and signed, none with an alpha)
 TEXTURE_9M = (("dds_dxt1_rgba", 3), ("dds_dxt5_ellipse_alpha", 3), ("dds_dx10_bc7_mode6", 3),
-              ("dds_bc4_luma", 2), ("dds_bc5_rg", 2), ("dds_rgb565_masks", 2),
-              ("blp1_jpeg_bgr", 3), ("blp2_dxt1_alpha0", 2), ("blp2_palette_256", 4))
+              ("dds_bc4_luma", 2), ("dds_bc5_rg", 2), ("dds_dx10_bc6h_uf16", 1),
+              ("dds_rgb565_masks", 2), ("blp1_jpeg_bgr", 2), ("dds_dx10_bc6h_sf16", 1),
+              ("blp2_dxt1_alpha0", 2), ("blp2_palette_256", 3))
 # the reader phases' shared training: view i of phase 9's scene from the file the phase
 # `reader_phase(i)` wrote for it
 READER_PHASES = ("9b", "9c", "9d", "9f", "9g", "9i", "9j", "9k", "9l", "9m")
@@ -2668,13 +2690,18 @@ def phase_progressive(torch, port, model, scene, tmpdir):
     (results, {view: (file, None where it decodes to phase 9's baseline
     decode, else its decode)} for the shared training)."""
     t_phase = time.perf_counter()
+    fixtures = fixture_digests(port, "jpeg_lossless",
+                               lambda port, p: port.jpeg.read_jpeg_plain(p), "lossless JPEG",
+                               least=20)
     root = os.path.join(tmpdir, "progressive_data")
     os.makedirs(root)
     white = torch.ones(3, device="cuda")
     times = {k: [] for k in ("write", "decode", "baseline")}
+    lossless = {}
     views = {}
     taken = [i for i in range(len(scene["cams"])) if reader_phase(i) == "9b"]
     assert taken[0] == 0, taken               # view 0 gives the crop and the cut scans
+    assert {v for _, v in LOSSLESS_9B} <= set(taken) and LOSSLESS_9B_TRAIN in taken, taken
     for i in taken:
         _, _, cam = scene["cams"][i]
         ca = cam.arrays("cuda")
@@ -2696,6 +2723,10 @@ def phase_progressive(torch, port, model, scene, tmpdir):
                 f"{name}: the progressive file decodes to other bytes than the baseline "
                 f"one, by {int(np.abs(got.astype(int) - base).max())} levels")
         views[i] = (path, None)
+        for predictor in (p for p, v in LOSSLESS_9B if v == i):
+            lossless[predictor] = lossless_row(port, predictor, u8, root, i, tmpdir)
+            if i == LOSSLESS_9B_TRAIN:
+                views[i] = (lossless[predictor]["path"], u8)
         if i == 0:                        # the plain decoder on the centre crop
             crop = os.path.join(tmpdir, "progressive_crop.jpg")
             port.jpeg.write_jpeg(crop, centre_crop(u8), EVAL_QUALITY, "4:2:0", True)
@@ -2731,14 +2762,52 @@ def phase_progressive(torch, port, model, scene, tmpdir):
         f"write {np.median(times['write']):.2f} s a view (views {taken}); C++ = baseline "
         "bytes on every view, C++ = plain on the crop; view 0 cut after 7 scans raises "
         "through both decoders")
+    for p, r in lossless.items():
+        r.pop("path")
+        r["decode_vs_baseline_jpeg"] = r["decode_s_per_mp"] / per_mp["baseline"]
+        log(f"[progressive] lossless JPEG, predictor {p}, view {r['view']}: "
+            f"{r['bytes']} bytes ({r['bytes'] / np.mean(sizes):.2f}x the progressive file); "
+            f"decode {r['decode_s_per_mp']:.4f} s/MP ({r['decode_vs_baseline_jpeg']:.2f}x the "
+            f"baseline files); at {CROP_9F[0]}x{CROP_9F[1]} plain / C++ "
+            f"{r['plain_vs_cpp']:.1f}; write {r['write_s']:.2f} s; C++ = the rendered bytes "
+            "on the view, C++ = plain = the crop on the crop")
     res = dict(views=len(sizes), bytes_mean=float(np.mean(sizes)),
                decode_s_per_mp=per_mp["decode"], crop_decode_s_per_mp=t_cpp / crop_mp,
                decode_plain_s_per_mp=t_plain / crop_mp,
                baseline_decode_s_per_mp=per_mp["baseline"],
                write_s_per_view=float(np.median(times["write"])),
+               lossless_fixtures=len(fixtures), lossless=lossless,
                phase_s=time.perf_counter() - t_phase)
     log("[progressive] " + json.dumps(res))
     return res, views
+
+
+def lossless_row(port, predictor, u8, root, i, tmpdir):
+    """Rendered view `i` (`u8`) as a lossless JPEG of `predictor` (RGB, point
+    transform 0): `read_jpeg` must give the rendered bytes; its CROP_9F
+    centre, written the same way, decodes through `read_jpeg` and
+    `read_jpeg_plain` to the crop itself -> the row's figures and the
+    file's path."""
+    path = os.path.join(root, f"{i:03d}_lossless_p{predictor}.jpg")
+    data, t_write = timed(port.jpeg.encode_jpeg_lossless, u8, predictor)
+    with open(path, "wb") as fh:
+        fh.write(data)
+    got, t = timed(port.jpeg.read_jpeg, path)
+    if not np.array_equal(got, u8):
+        raise AssertionError(f"view {i}'s lossless JPEG (predictor {predictor}) decodes to "
+                             "other bytes than were rendered")
+    crop = centre_crop(u8)
+    cpath = os.path.join(tmpdir, f"lossless_crop_p{predictor}.jpg")
+    with open(cpath, "wb") as fh:
+        fh.write(port.jpeg.encode_jpeg_lossless(crop, predictor))
+    small, t_cpp = timed(port.jpeg.read_jpeg, cpath)
+    plain, t_plain = timed(port.jpeg.read_jpeg_plain, cpath)
+    if not (np.array_equal(small, crop) and np.array_equal(plain, crop)):
+        raise AssertionError(f"the lossless crop (predictor {predictor}) decodes to other "
+                             "bytes than were written")
+    return dict(path=path, view=i, bytes=len(data),
+                decode_s_per_mp=t / (u8.shape[0] * u8.shape[1] / 1e6),
+                plain_vs_cpp=t_plain / t_cpp, write_s=t_write)
 
 
 # ------------------------------------------------------------------ phase 9c
@@ -3895,7 +3964,8 @@ def bcn_walks(port, name, data, walks):
     plain, t_plain = timed(lambda: port.bcn.decode_plain(kind, body, w, h, **kw))
     if not np.array_equal(cpp, plain):
         raise AssertionError(f"{name}: gm_bcn_decode differs from bcn.decode_plain")
-    label = ("BLP DXT" if shift else "BC") + str({1: 1, 2: 3, 3: 5}[kind] if shift else kind)
+    label = ("BLP DXT" if shift else "BC") + str({1: 1, 2: 3, 3: 5}[kind] if shift else
+                                                 "6H" if kind == port.bcn.BC6H else kind)
     walks.setdefault(label + ("S" if signed else ""), []).append(t_plain / t_cpp)
 
 
@@ -3918,7 +3988,9 @@ def write_9m_view(port, row, path, img):
                      "dds_dxt5_ellipse_alpha": (np.dstack(
                          [img, np.where(mask_9i(h, w), 0, 255).astype(np.uint8)]), "DXT5"),
                      "dds_dx10_bc7_mode6": (opaque, "BC7"), "dds_bc4_luma": (luma(img), "BC4"),
-                     "dds_bc5_rg": (img, "BC5"), "dds_rgb565_masks": (img, "RGB565")}[row]
+                     "dds_bc5_rg": (img, "BC5"), "dds_rgb565_masks": (img, "RGB565"),
+                     "dds_dx10_bc6h_uf16": (img, "BC6H"),
+                     "dds_dx10_bc6h_sf16": (img, "BC6HS")}[row]
         want = port.dds.write_dds(path, arg, form)
     elif row == "blp2_palette_256":
         want = port.blp.write_blp(path, quantize(img, LEVELS_256), "BLP2_PALETTE",
@@ -3937,14 +4009,15 @@ def phase_texture_formats(torch, port, scene, jpeg_s_per_mp, tmpdir):
     fixtures = fixture_digests(port, "textures", decode_plain_9m, "DDS / BLP",
                                lambda name, data: bcn_walks(port, name, data, walks),
                                least=40)
-    want = {"BC1", "BC2", "BC3", "BC4", "BC5", "BC5S", "BC7", "BLP DXT1", "BLP DXT3",
-            "BLP DXT5"}
+    want = {"BC1", "BC2", "BC3", "BC4", "BC5", "BC5S", "BC6H", "BC6HS", "BC7", "BLP DXT1",
+            "BLP DXT3", "BLP DXT5"}
     if set(walks) != want:
         raise AssertionError(f"the fixtures' block kinds {sorted(walks)}, not {sorted(want)}")
     ratios = {k: float(np.median(v)) for k, v in sorted(walks.items())}
     log(f"[tex9m] {len(fixtures)} fixtures decode to their recorded digests through the "
-        "C++ and the plain route, BC6H, B34 and raw BGRA refused through both; "
-        "gm_bcn_decode = decode_plain, plain / C++ by kind " + json.dumps(
+        "C++ and the plain route (BC6H of every mode and both signs, B38's oracle), B34 and "
+        "raw BGRA refused through both; gm_bcn_decode = decode_plain, plain / C++ by kind "
+        + json.dumps(
             {k: round(v, 1) for k, v in ratios.items()}))
     by_row, expected = reader_views(port, scene, TEXTURE_9M, {"dds": ".dds", "blp": ".blp"},
                                     write_9m_view, decode_plain_9m, "tex9m", jpeg_s_per_mp,
@@ -3967,6 +4040,19 @@ def loaded_target(torch, port, decoded, size):
     return torch.from_numpy((arr[..., :3].transpose(2, 0, 1) * 255).astype(np.uint8))
 
 
+def texture_or_lossless(port, path):
+    """"BC6H" for a DX10 BC6H texture, "lossless JPEG" for an SOF3 file,
+    else None."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if path.endswith(".dds"):
+        _, _, form, _, args = port.dds.header(data)
+        return "BC6H" if form == "bcn" and args[0] == port.bcn.BC6H else None
+    if data[:2] == b"\xff\xd8" and b"\xff\xc3" in data[:jpeg_scan_starts(data)[0]]:
+        return "lossless JPEG"
+    return None
+
+
 def phase_reader_training(torch, port, scene, views, tmpdir):
     """The reader phases' shared training (see the module docstring): view i
     of phase 9's scene from the file phase `reader_phase(i)` wrote for it
@@ -3978,11 +4064,14 @@ def phase_reader_training(torch, port, scene, views, tmpdir):
     os.makedirs(os.path.join(root, "images"))
     cams, images, (xyz, rgb, err) = port.colmap.read_model(
         os.path.join(scene["root"], "sparse", "0"))
-    taken = {}
+    taken, forms = {}, {"BC6H": 0, "lossless JPEG": 0}
     for iid, img in images.items():
         i = iid - 1
         phase = reader_phase(i)
         path, decoded = views[phase][i]
+        form = texture_or_lossless(port, path)
+        if form and i % 8:                  # a training view (llffhold 8 holds out the rest)
+            forms[form] += 1
         if decoded is not None and decoded.ndim == 3 and decoded.shape[2] == 4:
             # an alpha makes a mask, and `DeviceDataset` (as the JAX trainer's) stacks
             # masks only where the first view has one: such a view trains from phase 9's
@@ -4004,6 +4093,9 @@ def phase_reader_training(torch, port, scene, views, tmpdir):
         *scene["sched"]], port.trainer.MeshTrainer)
     want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
     assert launches == want, launches
+    if min(forms.values()) < 1:
+        raise AssertionError(f"the training views hold {forms}: a BC6H and a lossless JPEG "
+                             "view at least")
     steps = step_summary(rows["steps"], "readers")
     for name, p in trainer.model.named_parameters():
         assert torch.isfinite(p).all(), name
@@ -4027,7 +4119,7 @@ def phase_reader_training(torch, port, scene, views, tmpdir):
                                  f"from {which}")
         by_phase[phase] = by_phase.get(phase, 0) + 1
     res = dict(train_views_by_phase=by_phase, train_views=int(ds.images.shape[0]),
-               train_lossless_views=n_lossless,
+               train_lossless_views=n_lossless, train_views_by_new_form=forms,
                load_s=(rows["scene"][0][0] + rows["upload"][0][0]) / 1e3,
                train_s=sum(t for t, _ in rows["steps"]) / 1e3, **steps,
                phase_s=time.perf_counter() - t_phase)
@@ -5439,7 +5531,12 @@ def main() -> int:
         f"{progressive['baseline_decode_s_per_mp']:.4f}); at {CROP_9F[0]}x{CROP_9F[1]} C++ "
         f"{progressive['crop_decode_s_per_mp']:.4f}, plain "
         f"{progressive['decode_plain_s_per_mp']:.4f}; write "
-        f"{progressive['write_s_per_view']:.3f} s a view")
+        f"{progressive['write_s_per_view']:.3f} s a view; {progressive['lossless_fixtures']} "
+        "lossless JPEG fixtures; lossless rows s/MP (x the baseline files), plain / C++ at "
+        f"{CROP_9F[0]}x{CROP_9F[1]}, bytes: " + ", ".join(
+            f"predictor {p} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "
+            f"{r['plain_vs_cpp']:.1f}, {r['bytes']}" for p, r in
+            progressive["lossless"].items()))
     log(f"[done] formats phase {formats['phase_s']:.1f} s on {cpu}: s/MP C++ / plain by "
         "format " + ", ".join(f"{k} {r['decode_s_per_mp']:.4f} / {r['plain_s_per_mp']:.4f}"
                               for k, r in formats["formats"].items()))
@@ -5483,7 +5580,8 @@ def main() -> int:
                 f"({r['bytes_vs_baseline_jpeg']:.2f}x), {r['write_s']:.3f}"
                 for k, r in r9["rows"].items()))
     log(f"[done] reader training {readers['phase_s']:.1f} s on {cpu}: views by phase "
-        f"{readers['train_views_by_phase']} ({readers['train_lossless_views']} lossless), "
+        f"{readers['train_views_by_phase']} ({readers['train_lossless_views']} decode to "
+        f"phase 9's bytes; {readers['train_views_by_new_form']}), "
         f"train_mesh load {readers['load_s']:.2f} s, {readers['steps']} steps in "
         f"{readers['train_s']:.2f} s (median {readers['step_ms_median']:.3f} ms)")
     log(f"[done] serve-and-shard phase (10a-10g) {t_serve:.1f} s on {smi} ("

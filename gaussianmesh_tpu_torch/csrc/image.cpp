@@ -14,6 +14,8 @@
 // - gm_jpeg_scan_progressive: one scan of a progressive (SOF2) file, the
 //   four decoders of libjpeg's `jdphuff.c` (DC first, DC refine, AC first,
 //   AC refine), added into the coefficients of the scans before it.
+// - gm_jpeg_lossless: one scan of a lossless (SOF3) file: Huffman-coded
+//   differences, restart markers and `jdpred.c`'s predictors in one walk.
 // - gm_jpeg_planes: dequantisation, libjpeg-turbo's islow IDCT
 //   (`jidctint.c`), fancy upsampling (`jdsample.c`) and the fixed-point
 //   YCbCr -> RGB tables (`jdcolor.c`), cropped to the frame; four
@@ -34,9 +36,9 @@
 // - gm_msp_rle: a Windows Paint (MSP v2) file's row map and run-length
 //   rows, `io/msp.py`.
 // - gm_fli_frame: an FLI / FLC frame's chunks, `io/fli.py`.
-// - gm_bc1_decode / gm_bcn_decode: BC1-BC5 and BC7 blocks as PIL's `bcn`
-//   decoder gives them, and BLP's own DXT1 / DXT3 / DXT5 rules, `io/bcn.py`
-//   (FTEX, DDS and BLP textures).
+// - gm_bc1_decode / gm_bcn_decode: BC1-BC7 blocks as PIL's `bcn` decoder
+//   gives them (BC6H but for fault B38), and BLP's own DXT1 / DXT3 / DXT5
+//   rules, `io/bcn.py` (FTEX, DDS and BLP textures).
 //
 // Integer arithmetic wraps as numpy's int32 does (built with -fwrapv), so
 // even out-of-range coefficients of a corrupt file give the plain
@@ -46,6 +48,7 @@
 // g++, loaded with ctypes (which releases the GIL around each call).
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -525,11 +528,149 @@ void bc7_block(const uint8_t* p, int px[16][4]) {
   }
 }
 
+// ---- BC6H (io/bcn.py's _BC6H_MODES: the same table)
+
+struct Bc6Mode {
+  int value, mode_bits, regions, transformed, bits, delta[3];
+  const char* layout;  // endpoint fields after the mode bits, in stream order
+};
+constexpr Bc6Mode kBc6Modes[14] = {
+    {0x00, 2, 2, 1, 10, {5, 5, 5}, "gy4 by4 bz4 rw0:9 gw0:9 bw0:9 rx0:4 gz4 gy0:3 gx0:4 bz0 "
+                                   "gz0:3 bx0:4 bz1 by0:3 ry0:4 bz2 rz0:4 bz3"},
+    {0x01, 2, 2, 1, 7, {6, 6, 6}, "gy5 gz4 gz5 rw0:6 bz0 bz1 by4 gw0:6 by5 bz2 gy4 bw0:6 bz3 "
+                                  "bz5 bz4 rx0:5 gy0:3 gx0:5 gz0:3 bx0:5 by0:3 ry0:5 rz0:5"},
+    {0x02, 5, 2, 1, 11, {5, 4, 4}, "rw0:9 gw0:9 bw0:9 rx0:4 rw10 gy0:3 gx0:3 gw10 bz0 gz0:3 "
+                                   "bx0:3 bw10 bz1 by0:3 ry0:4 bz2 rz0:4 bz3"},
+    {0x06, 5, 2, 1, 11, {4, 5, 4}, "rw0:9 gw0:9 bw0:9 rx0:3 rw10 gz4 gy0:3 gx0:4 gw10 gz0:3 "
+                                   "bx0:3 bw10 bz1 by0:3 ry0:3 bz0 bz2 rz0:3 gy4 bz3"},
+    {0x0A, 5, 2, 1, 11, {4, 4, 5}, "rw0:9 gw0:9 bw0:9 rx0:3 rw10 by4 gy0:3 gx0:3 gw10 bz0 "
+                                   "gz0:3 bx0:4 bw10 by0:3 ry0:3 bz1 bz2 rz0:3 bz4 bz3"},
+    {0x0E, 5, 2, 1, 9, {5, 5, 5}, "rw0:8 by4 gw0:8 gy4 bw0:8 bz4 rx0:4 gz4 gy0:3 gx0:4 bz0 "
+                                  "gz0:3 bx0:4 bz1 by0:3 ry0:4 bz2 rz0:4 bz3"},
+    {0x12, 5, 2, 1, 8, {6, 5, 5}, "rw0:7 gz4 by4 gw0:7 bz2 gy4 bw0:7 bz3 bz4 rx0:5 gy0:3 "
+                                  "gx0:4 bz0 gz0:3 bx0:4 bz1 by0:3 ry0:5 rz0:5"},
+    {0x16, 5, 2, 1, 8, {5, 6, 5}, "rw0:7 bz0 by4 gw0:7 gy5 gy4 bw0:7 gz5 bz4 rx0:4 gz4 gy0:3 "
+                                  "gx0:5 gz0:3 bx0:4 bz1 by0:3 ry0:4 bz2 rz0:4 bz3"},
+    {0x1A, 5, 2, 1, 8, {5, 5, 6}, "rw0:7 bz1 by4 gw0:7 by5 gy4 bw0:7 bz5 bz4 rx0:4 gz4 gy0:3 "
+                                  "gx0:4 bz0 gz0:3 bx0:5 by0:3 ry0:4 bz2 rz0:4 bz3"},
+    {0x1E, 5, 2, 0, 6, {6, 6, 6}, "rw0:5 gz4 bz0 bz1 by4 gw0:5 gy5 by5 bz2 gy4 bw0:5 gz5 bz3 "
+                                  "bz5 bz4 rx0:5 gy0:3 gx0:5 gz0:3 bx0:5 by0:3 ry0:5 rz0:5"},
+    {0x03, 5, 1, 0, 10, {10, 10, 10}, "rw0:9 gw0:9 bw0:9 rx0:9 gx0:9 bx0:9"},
+    {0x07, 5, 1, 1, 11, {9, 9, 9}, "rw0:9 gw0:9 bw0:9 rx0:8 rw10 gx0:8 gw10 bx0:8 bw10"},
+    {0x0B, 5, 1, 1, 12, {8, 8, 8}, "rw0:9 gw0:9 bw0:9 rx0:7 rw11:10 gx0:7 gw11:10 bx0:7 "
+                                   "bw11:10"},
+    {0x0F, 5, 1, 1, 16, {4, 4, 4}, "rw0:9 gw0:9 bw0:9 rx0:3 rw15:10 gx0:3 gw15:10 bx0:3 "
+                                   "bw15:10"},
+};
+
+// Each mode's layout as (endpoint slot 3 e + channel, bit) pairs, parsed once.
+struct Bc6Fields {
+  int n[14] = {};
+  uint8_t slot[14][82], bit[14][82];
+  Bc6Fields() {
+    for (int m = 0; m < 14; ++m) {
+      const char* c = kBc6Modes[m].layout;
+      while (*c) {
+        const int ch = c[0] == 'r' ? 0 : c[0] == 'g' ? 1 : 2;
+        const int e = c[1] == 'w' ? 0 : c[1] == 'x' ? 1 : c[1] == 'y' ? 2 : 3;
+        char* end;
+        const int a = static_cast<int>(std::strtol(c + 2, &end, 10));
+        int b = a;
+        if (*end == ':') b = static_cast<int>(std::strtol(end + 1, &end, 10));
+        for (int k = a;; k += b >= a ? 1 : -1) {
+          slot[m][n[m]] = static_cast<uint8_t>(3 * e + ch);
+          bit[m][n[m]++] = static_cast<uint8_t>(k);
+          if (k == b) break;
+        }
+        c = *end ? end + 1 : end;
+      }
+    }
+  }
+};
+
+inline int32_t sign_extend(int32_t v, int bits) {
+  return v & (1 << (bits - 1)) ? v - (1 << bits) : v;
+}
+
+int32_t bc6_unquantize(int32_t v, int bits, bool sign) {
+  if (!sign) {
+    if (bits >= 15) return v;
+    if (v == 0) return 0;
+    if (v == (1 << bits) - 1) return 0xFFFF;
+    return ((v << 15) + 0x4000) >> (bits - 1);
+  }
+  if (bits >= 16) return v;
+  int32_t m = v < 0 ? -v : v;
+  if (m != 0) m = m >= (1 << (bits - 1)) - 1 ? 0x7FFF : ((m << 15) + 0x4000) >> (bits - 1);
+  return v < 0 ? -m : m;
+}
+
+// A half float's bits -> PIL's 8 bits: floor(255 h) in float32, h clamped
+// to [0, 1] (a negative half reads 0).
+struct HalfTo8 {
+  uint8_t v[1 << 16];
+  HalfTo8() {
+    for (uint32_t h = 0; h < (1u << 16); ++h) {
+      const uint32_t e = h >> 10 & 31, m = h & 1023;
+      const float f = e == 0 ? std::ldexp(static_cast<float>(m), -24)
+                             : std::ldexp(static_cast<float>(m | 1024), static_cast<int>(e) - 25);
+      v[h] = h & 0x8000 ? 0 : e == 31 || f > 1.0f ? 255 : static_cast<uint8_t>(f * 255.0f);
+    }
+  }
+};
+
+// A blended value -> its half float, the definition's last step.
+inline uint32_t bc6_half(int32_t v, bool sign) {
+  if (sign) return v < 0 ? 0x8000u | static_cast<uint32_t>((-v * 31) >> 5) : (v * 31) >> 5;
+  return static_cast<uint32_t>((v * 31) >> 6) & 0xFFFF;
+}
+
+// A BC6H block -> px[16][0..2] RGB, as io/bcn.py's _bc6h: PIL's `bcn`
+// decoder (no + 32 in the blend, C11) but for fault B38 (the transformed
+// endpoints sign-extended under BC6HS, as the definition says).
+void bc6h_block(const uint8_t* p, bool sign, int px[16][4]) {
+  static const Bc6Fields fields;
+  static const HalfTo8 to8;
+  const int two = p[0] & 3, value = two < 2 ? two : p[0] & 31;
+  int m = 0;
+  while (m < 14 && kBc6Modes[m].value != value) ++m;
+  if (m == 14) {                            // a reserved mode: black
+    for (int i = 0; i < 16; ++i) px[i][0] = px[i][1] = px[i][2] = 0;
+    return;
+  }
+  const Bc6Mode& md = kBc6Modes[m];
+  uint64_t word[2] = {0, 0};
+  for (int k = 0; k < 16; ++k) word[k >> 3] |= static_cast<uint64_t>(p[k]) << (8 * (k & 7));
+  int32_t ep[12] = {0};
+  for (int f = 0, at = md.mode_bits; f < fields.n[m]; ++f, ++at)
+    ep[fields.slot[m][f]] |= static_cast<int32_t>(word[at >> 6] >> (at & 63) & 1)
+                             << fields.bit[m][f];
+  const int ne = 6 * md.regions, mask = (1 << md.bits) - 1;
+  if (md.transformed)
+    for (int e = 3; e < ne; ++e) ep[e] = (ep[e % 3] + sign_extend(ep[e], md.delta[e % 3])) & mask;
+  for (int e = 0; e < ne; ++e) {
+    if (sign) ep[e] = sign_extend(ep[e], md.bits);
+    ep[e] = bc6_unquantize(ep[e], md.bits, sign);
+  }
+  const int part = md.regions == 2 ? block_bits(p, 77, 5) : 0;
+  const int ib = md.regions == 2 ? 3 : 4;
+  const uint8_t* wt = bc7_weights(ib);
+  int ci = md.regions == 2 ? 82 : 65;
+  for (int i = 0; i < 16; ++i) {
+    const int s = md.regions == 2 ? kBc7Part2[part] >> i & 1 : 0;
+    const bool anchor = i == 0 || (md.regions == 2 && i == kBc7Anchor2[part]);
+    const int w = wt[block_bits(p, ci, ib - anchor)];
+    ci += ib - anchor;
+    for (int ch = 0; ch < 3; ++ch)
+      px[i][ch] = to8.v[bc6_half((ep[6 * s + ch] * (64 - w) + ep[6 * s + 3 + ch] * w) >> 6, sign)];
+  }
+}
+
 int bcn_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height, int kind,
                int flags, uint8_t* out, int64_t* info) {
   const bool sign = flags & 1, shift = flags & 2;
   const int size = kind == 1 || kind == 4 ? 8 : 16;
-  const int c = kind == 4 ? 1 : kind == 5 ? 3 : 4;
+  const int c = kind == 4 ? 1 : kind == 5 || kind == 6 ? 3 : 4;
   const int64_t bw = (width + 3) / 4, bh = (height + 3) / 4;
   const int64_t blocks = std::min(bw * bh, n / size);
   int px[16][4];
@@ -551,6 +692,7 @@ int bcn_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height, in
         bc4_channel(p + 8, sign, 1, px);
         for (int i = 0; i < 16; ++i) px[i][2] = sign ? 128 : 0;
         break;
+      case 6: bc6h_block(p, sign, px); break;
       default: bc7_block(p, px);
     }
     const int64_t y0 = b / bw * 4, x0 = b % bw * 4;
@@ -627,6 +769,88 @@ int gm_jpeg_scan(const uint8_t* data, int64_t n, int n_mcus, int interval, int p
       }
     const int64_t p = in.p;
     if (p > 8 * len) return kTruncated;
+  }
+  return kOk;
+}
+
+// One lossless (SOF3) scan: `data`, `n` and its restart intervals as
+// gm_jpeg_scan's, an interval `rows_per` MCU rows of `mcux` MCUs (of mcuy).
+// Each MCU holds per_mcu samples: sample j of scan component comp[j], at row
+// dy[j] and column dx[j] of the component's hs x vs samples in the MCU,
+// coded with table tab[j] of `tables` / `vals` (gm_jpeg_scan's packing).
+// A difference is a category (16: 32768 with no bits; over 16 is
+// kBadMagnitude), then its bits, extended; it goes to planes[c] (row
+// stride stride[c], int32) at MCU row * vs + dy, MCU column * hs + dx. At
+// the end of each MCU row its rows are undifferenced as `jdpred.c` does,
+// mod 2^16: the first row of the scan and of each interval from
+// 2^(7 - pt) then Ra; other rows' first sample from Rb, the rest by
+// `predictor` (1 Ra, 2 Rb, 3 Rc, 4 Ra + Rb - Rc, 5 Ra + ((Rb - Rc) >> 1),
+// 6 Rb + ((Ra - Rc) >> 1), 7 (Ra + Rb) >> 1). Truncated intervals and bad
+// codes as gm_jpeg_scan's (io/jpeg.py's _lossless_plain).
+int gm_jpeg_lossless(const uint8_t* data, int64_t n, int mcux, int mcuy, int rows_per,
+                     int per_mcu, const int32_t* comp, const int32_t* dy, const int32_t* dx,
+                     const int32_t* tab, const int32_t* tables, const uint8_t* vals,
+                     int vals_stride, int n_tables, int n_comp, const int32_t* hs,
+                     const int32_t* vs, int32_t* const* planes, const int64_t* stride,
+                     int predictor, int pt, int64_t* used, int32_t* n_found) {
+  std::vector<int64_t> cuts;
+  *used = split_intervals(data, n, &cuts);
+  const int n_seg = static_cast<int>(cuts.size() / 2);
+  if (rows_per <= 0) rows_per = mcuy;
+  const int n_int = mcuy > 0 ? (mcuy + rows_per - 1) / rows_per : 0;
+  *n_found = n_seg;
+  if (n_seg < n_int) return kFewIntervals;
+
+  const std::vector<Huffman> huff = huffman_tables(tables, vals, vals_stride, n_tables);
+  std::vector<uint8_t> seg;
+  for (int it = 0; it < n_int; ++it) {
+    unstuff(data, cuts, it, &seg);
+    const int64_t len = static_cast<int64_t>(seg.size());
+    Bits in(seg.data(), len);
+    const int y_end = std::min(mcuy, (it + 1) * rows_per);
+    for (int my = it * rows_per; my < y_end; ++my) {
+      for (int mx = 0; mx < mcux; ++mx)
+        for (int j = 0; j < per_mcu; ++j) {
+          int sym, st;
+          if ((st = symbol(in, huff[tab[j]], &sym)) != kOk) return st;
+          if (sym > 16) return kBadMagnitude;
+          const int c = comp[j];
+          planes[c][(static_cast<int64_t>(my) * vs[c] + dy[j]) * stride[c] +
+                    static_cast<int64_t>(mx) * hs[c] + dx[j]] =
+              sym == 16 ? 32768 : sym ? value(in, sym) : 0;
+        }
+      // the MCU row's sample rows, each component's
+      for (int c = 0; c < n_comp; ++c) {
+        const int64_t width = static_cast<int64_t>(mcux) * hs[c];
+        for (int r = 0; r < vs[c]; ++r) {
+          int32_t* row = planes[c] + (static_cast<int64_t>(my) * vs[c] + r) * stride[c];
+          if (my == it * rows_per && r == 0) {       // a first row: 1-D
+            int32_t ra = 1 << (7 - pt);
+            for (int64_t x = 0; x < width; ++x) row[x] = ra = (row[x] + ra) & 0xFFFF;
+            continue;
+          }
+          const int32_t* prev = row - stride[c];
+          int32_t rb = prev[0], ra = (row[0] + rb) & 0xFFFF;
+          row[0] = ra;
+          for (int64_t x = 1; x < width; ++x) {
+            const int32_t rc = rb;
+            rb = prev[x];
+            int32_t p;
+            switch (predictor) {
+              case 1: p = ra; break;
+              case 2: p = rb; break;
+              case 3: p = rc; break;
+              case 4: p = ra + rb - rc; break;
+              case 5: p = ra + ((rb - rc) >> 1); break;
+              case 6: p = rb + ((ra - rc) >> 1); break;
+              default: p = (ra + rb) >> 1;
+            }
+            row[x] = ra = (row[x] + p) & 0xFFFF;
+          }
+        }
+      }
+    }
+    if (in.p > 8 * len) return kTruncated;
   }
   return kOk;
 }
@@ -1678,14 +1902,16 @@ int gm_bc1_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height,
   return bcn_decode(data, n, width, height, 1, 0, out, info);
 }
 
-// BCn blocks of `kind` (PIL's `bcn` decoder numbers: 1-5, 7) decoded as
+// BCn blocks of `kind` (PIL's `bcn` decoder numbers: 1-7) decoded as
 // `gm_bc1_decode` decodes BC1 into out (height, width, c): RGBA for BC1-BC3
-// and BC7, L for BC4, RGB for BC5 (B 0, or 128 where signed). BC2: 4-bit
+// and BC7, L for BC4, RGB for BC5 (B 0, or 128 where signed) and BC6H
+// (its 14 modes, unsigned or signed, to 8 bits as io/bcn.py says). BC2: 4-bit
 // alphas x 17 then a four-colour BC1 block; BC3: a BC4 alpha block then
 // the same; BC4: two ends, eight levels or six with 0 and 255, 3-bit
 // indices; BC5: two BC4 blocks (R, G), their ends int8 + 128 where signed;
 // BC7: its eight modes as PIL's `decode_bc7_block` reads them. flags: bit
-// 0 BC5 signed, bit 1 the 565 channels shifted up (BLP's own decoders).
+// 0 BC5 / BC6H signed, bit 1 the 565 channels shifted up (BLP's own
+// decoders).
 // Returns kOk or kTruncated (info[0]: the blocks decoded).
 int gm_bcn_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height, int kind,
                   int flags, uint8_t* out, int64_t* info) {

@@ -29,6 +29,31 @@ decoder numbers (`Image.frombytes(mode, size, data, "bcn", (n, format))`):
   replicating their high bits, then the 2-, 3- or 4-bit weights (modes 4
   and 5 with a second index set for the alpha), ((64 - w) e0 + w e1 + 32)
   >> 6. A first byte of 0 (the reserved mode) reads opaque black.
+- BC6H, 16 bytes, to RGB, unsigned (`BC6H`) or signed (`BC6HS`,
+  `signed=True`): the mode is the first 2 bits, or 5 where those are 10 or
+  11 (14 modes; 0x13, 0x17, 0x1B and 0x1F are reserved and read black).
+  Each mode scatters its endpoint fields over the block in its own order
+  (`_BC6H_MODES`, the definition's table: Microsoft's D3D11 BC6H format
+  description, Khronos' Data Format Specification; some fields run from
+  their high bit down). Two regions (a 5-bit partition of BC7's 32 first
+  two-subset ones, 3-bit weights, region 1's anchor from BC7's table) or
+  one (4-bit weights); an anchor index is one bit shorter. Transformed
+  modes store the endpoints after the first as deltas, sign-extended and
+  added modulo the endpoint precision. Unsigned endpoints unquantize as
+  0 -> 0, the largest -> 0xFFFF, else ((e << 15) + 0x4000) >> (bits - 1);
+  signed ones by their magnitude, at or over 2^(bits - 1) - 1 -> 0x7FFF.
+  The weights blend as (e0 (64 - w) + e1 w) >> 6, with no + 32 (PIL's
+  `bc6_lerp`; the definition rounds: C11, at most one 8-bit level), then
+  the half float is (v 31) >> 6 unsigned, or the sign and (|v| 31) >> 5.
+  PIL brings each half h down to 8 bits as floor(255 h) in float32 with h
+  clamped to [0, 1]: a negative half reads 0, 1.0 (0x3C00) and over 255,
+  0x1C05 the first 1 (settled on every half of both signs through mode
+  0x0F, whose 16-bit endpoints unquantize as they are:
+  `tests/test_torch_bc6h.py::test_half_to_8_bits_is_pils_rule`). Under
+  BC6HS PIL sign-extends the first endpoint but reads the transformed
+  ones unsigned, so a negative one reads as a large positive (255 where
+  the definition gives 0): fault B38; the port sign-extends them, as the
+  definition says.
 
 `shift565=True` reads BC1-BC3 as BLP's own Python decoders
 (`BlpImagePlugin.decode_dxt1` / `3` / `5`): the 565 channels shifted up
@@ -45,7 +70,8 @@ the training path never calls them.
 corners as its two colours, every pixel the nearest of the four along
 the line between them); `encode_bc2`, `encode_bc3`, `encode_bc4`,
 `encode_bc5` and `encode_bc7` (mode 6: one subset, the RGBA box corners
-as the endpoints) write the others in the same style. They are for the
+as the endpoints) write the others in the same style, and `encode_bc6h`
+BC6H of mode 0x03 (one region, 10-bit endpoints, 4-bit weights). They are for the
 tests and `chip_smoke.py`; the training path does not write textures.
 """
 
@@ -55,9 +81,9 @@ import numpy as np
 
 from gaussianmesh_tpu_torch.ops import _cuda
 
-BC1, BC2, BC3, BC4, BC5, BC7 = 1, 2, 3, 4, 5, 7
-BLOCK_BYTES = {BC1: 8, BC2: 16, BC3: 16, BC4: 8, BC5: 16, BC7: 16}
-CHANNELS = {BC1: 4, BC2: 4, BC3: 4, BC4: 1, BC5: 3, BC7: 4}
+BC1, BC2, BC3, BC4, BC5, BC6H, BC7 = 1, 2, 3, 4, 5, 6, 7
+BLOCK_BYTES = {BC1: 8, BC2: 16, BC3: 16, BC4: 8, BC5: 16, BC6H: 16, BC7: 16}
+CHANNELS = {BC1: 4, BC2: 4, BC3: 4, BC4: 1, BC5: 3, BC6H: 3, BC7: 4}
 
 
 def bc1_blocks(width: int, height: int) -> int:
@@ -76,9 +102,9 @@ def _args(kind: int, signed: bool, shift565: bool) -> int:
     """The flags of `gm_bcn_decode` (bit 0 signed, bit 1 shifted 565),
     checked against the kind."""
     if kind not in BLOCK_BYTES:
-        raise ValueError(f"BC{kind}: not a block kind the port decodes (1-5, 7)")
-    if signed and kind != BC5:
-        raise ValueError("only BC5 has a signed form")
+        raise ValueError(f"BC{kind}: not a block kind the port decodes (1-7)")
+    if signed and kind not in (BC5, BC6H):
+        raise ValueError("only BC5 and BC6H have a signed form")
     if shift565 and kind not in (BC1, BC2, BC3):
         raise ValueError("the shifted 565 colours are BC1-BC3's")
     return int(signed) | int(shift565) << 1
@@ -106,7 +132,7 @@ def decode_bc1(data: bytes, width: int, height: int, path: str = "<bytes>") -> n
 def decode(kind: int, data: bytes, width: int, height: int, path: str = "<bytes>", *,
            signed: bool = False, shift565: bool = False) -> np.ndarray:
     """Blocks of `kind` -> uint8 (height, width, 4) RGBA (BC1-BC3, BC7),
-    (height, width) L (BC4) or (height, width, 3) RGB (BC5), by
+    (height, width) L (BC4) or (height, width, 3) RGB (BC5, BC6H), by
     `gm_bcn_decode`."""
     flags = _args(kind, signed, shift565)
     _check(data, width, height, path, kind)
@@ -325,6 +351,169 @@ def _bc7(blocks: np.ndarray) -> np.ndarray:
     return out
 
 
+# BC6H's modes: the mode's value, its bits, regions, whether the endpoints
+# after the first are deltas, the endpoint bits, the delta bits of R, G and
+# B, then its endpoint fields in the order they follow the mode bits: a
+# channel (r, g, b), an endpoint (w, x: region 0's two; y, z: region 1's)
+# and its bits, low to high or (as in rw15:10) high to low. Two regions end
+# at bit 77 and a 5-bit partition follows; their weights start at bit 82,
+# one region's at bit 65.
+_BC6H_MODES = (
+    (0x00, 2, 2, 1, 10, (5, 5, 5), "gy4 by4 bz4 rw0:9 gw0:9 bw0:9 rx0:4 gz4 gy0:3 gx0:4 bz0 "
+     "gz0:3 bx0:4 bz1 by0:3 ry0:4 bz2 rz0:4 bz3"),
+    (0x01, 2, 2, 1, 7, (6, 6, 6), "gy5 gz4 gz5 rw0:6 bz0 bz1 by4 gw0:6 by5 bz2 gy4 bw0:6 bz3 "
+     "bz5 bz4 rx0:5 gy0:3 gx0:5 gz0:3 bx0:5 by0:3 ry0:5 rz0:5"),
+    (0x02, 5, 2, 1, 11, (5, 4, 4), "rw0:9 gw0:9 bw0:9 rx0:4 rw10 gy0:3 gx0:3 gw10 bz0 gz0:3 "
+     "bx0:3 bw10 bz1 by0:3 ry0:4 bz2 rz0:4 bz3"),
+    (0x06, 5, 2, 1, 11, (4, 5, 4), "rw0:9 gw0:9 bw0:9 rx0:3 rw10 gz4 gy0:3 gx0:4 gw10 gz0:3 "
+     "bx0:3 bw10 bz1 by0:3 ry0:3 bz0 bz2 rz0:3 gy4 bz3"),
+    (0x0A, 5, 2, 1, 11, (4, 4, 5), "rw0:9 gw0:9 bw0:9 rx0:3 rw10 by4 gy0:3 gx0:3 gw10 bz0 "
+     "gz0:3 bx0:4 bw10 by0:3 ry0:3 bz1 bz2 rz0:3 bz4 bz3"),
+    (0x0E, 5, 2, 1, 9, (5, 5, 5), "rw0:8 by4 gw0:8 gy4 bw0:8 bz4 rx0:4 gz4 gy0:3 gx0:4 bz0 "
+     "gz0:3 bx0:4 bz1 by0:3 ry0:4 bz2 rz0:4 bz3"),
+    (0x12, 5, 2, 1, 8, (6, 5, 5), "rw0:7 gz4 by4 gw0:7 bz2 gy4 bw0:7 bz3 bz4 rx0:5 gy0:3 "
+     "gx0:4 bz0 gz0:3 bx0:4 bz1 by0:3 ry0:5 rz0:5"),
+    (0x16, 5, 2, 1, 8, (5, 6, 5), "rw0:7 bz0 by4 gw0:7 gy5 gy4 bw0:7 gz5 bz4 rx0:4 gz4 gy0:3 "
+     "gx0:5 gz0:3 bx0:4 bz1 by0:3 ry0:4 bz2 rz0:4 bz3"),
+    (0x1A, 5, 2, 1, 8, (5, 5, 6), "rw0:7 bz1 by4 gw0:7 by5 gy4 bw0:7 bz5 bz4 rx0:4 gz4 gy0:3 "
+     "gx0:4 bz0 gz0:3 bx0:5 by0:3 ry0:4 bz2 rz0:4 bz3"),
+    (0x1E, 5, 2, 0, 6, (6, 6, 6), "rw0:5 gz4 bz0 bz1 by4 gw0:5 gy5 by5 bz2 gy4 bw0:5 gz5 bz3 "
+     "bz5 bz4 rx0:5 gy0:3 gx0:5 gz0:3 bx0:5 by0:3 ry0:5 rz0:5"),
+    (0x03, 5, 1, 0, 10, (10, 10, 10), "rw0:9 gw0:9 bw0:9 rx0:9 gx0:9 bx0:9"),
+    (0x07, 5, 1, 1, 11, (9, 9, 9), "rw0:9 gw0:9 bw0:9 rx0:8 rw10 gx0:8 gw10 bx0:8 bw10"),
+    (0x0B, 5, 1, 1, 12, (8, 8, 8), "rw0:9 gw0:9 bw0:9 rx0:7 rw11:10 gx0:7 gw11:10 bx0:7 "
+     "bw11:10"),
+    (0x0F, 5, 1, 1, 16, (4, 4, 4), "rw0:9 gw0:9 bw0:9 rx0:3 rw15:10 gx0:3 gw15:10 bx0:3 "
+     "bw15:10"))
+BC6H_MODES = tuple(m[0] for m in _BC6H_MODES)
+BC6H_RESERVED = (0x13, 0x17, 0x1B, 0x1F)
+
+
+def _bc6h_fields(layout: str) -> list:
+    """A mode's layout -> [(endpoint slot 3 e + channel, bit)] in stream
+    order."""
+    out = []
+    for tok in layout.split():
+        slot = 3 * "wxyz".index(tok[1]) + "rgb".index(tok[0])
+        lo, _, hi = tok[2:].partition(":")
+        a, b = int(lo), int(hi or lo)
+        out += [(slot, bit) for bit in range(a, b + (1 if b >= a else -1), 1 if b >= a else -1)]
+    return out
+
+
+def _sign_extend(v: np.ndarray, bits) -> np.ndarray:
+    return np.where(v & (1 << (np.asarray(bits) - 1)), v - (1 << np.asarray(bits)), v)
+
+
+def _bc6h_unquantize(v: np.ndarray, bits: int, signed: bool) -> np.ndarray:
+    if not signed:
+        if bits >= 15:
+            return v
+        return np.where(v == 0, 0, np.where(v == (1 << bits) - 1, 0xFFFF,
+                                            ((v << 15) + 0x4000) >> (bits - 1)))
+    if bits >= 16:
+        return v
+    m = np.abs(v)
+    m = np.where(m == 0, 0, np.where(m >= (1 << (bits - 1)) - 1, 0x7FFF,
+                                     ((m << 15) + 0x4000) >> (bits - 1)))
+    return np.where(v < 0, -m, m)
+
+
+def _half_to_8(v: np.ndarray, signed: bool) -> np.ndarray:
+    """Blended values -> the 8-bit samples PIL gives: the half of the
+    definition's last step, floor(255 h) in float32, h clamped to [0, 1]."""
+    if signed:
+        m = (np.abs(v) * 31) >> 5
+        h = np.where(v < 0, 0x8000 | m, m)
+    else:
+        h = (v * 31) >> 6
+    f = h.astype(np.uint16).view(np.float16).astype(np.float32)
+    return np.floor(np.clip(f, 0, 1) * np.float32(255)).astype(np.int32)
+
+
+def bc6h_stored(blocks: np.ndarray, mode: int) -> np.ndarray:
+    """BC6H blocks (k, 16) of one mode -> their endpoint fields as stored
+    (k, 12) int64 (r, g, b of w, x, y, z; deltas where the mode transforms
+    them): `bc6h_block`'s `fields`."""
+    _, mbits, _, _, _, _, layout = _BC6H_MODES[BC6H_MODES.index(mode)]
+    raw = np.unpackbits(blocks, axis=1, bitorder="little").astype(np.int64)
+    ep = np.zeros((len(blocks), 12), np.int64)
+    for i, (slot, bit) in enumerate(_bc6h_fields(layout)):
+        ep[:, slot] |= raw[:, mbits + i] << bit
+    return ep
+
+
+def bc6h_endpoints(blocks: np.ndarray, mode: int, signed: bool) -> np.ndarray:
+    """BC6H blocks (k, 16) of one mode -> their endpoints (k, 12) int64 (r,
+    g, b of w, x, y, z) as the definition reads them: deltas added modulo
+    the endpoint bits and, signed, every endpoint sign-extended."""
+    _, _, ns, transformed, bits, delta, _ = _BC6H_MODES[BC6H_MODES.index(mode)]
+    ep = bc6h_stored(blocks, mode)
+    n = 6 * ns
+    if transformed:
+        d = np.array(delta * 4)[3:n]
+        ep[:, 3:n] = (np.tile(ep[:, :3], ns * 2 - 1) + _sign_extend(ep[:, 3:n], d)) & (
+            (1 << bits) - 1)
+    if signed:
+        ep[:, :n] = _sign_extend(ep[:, :n], bits)
+    return ep
+
+
+def bc6h_block(mode: int, fields: np.ndarray, part, idx: np.ndarray) -> np.ndarray:
+    """BC6H blocks of one mode from their stored fields: `fields` (k, 12)
+    the endpoint fields as stored (r, g, b of w, x, y, z: deltas where the
+    mode transforms them), `part` (k,) the partition (two regions), `idx`
+    (k, 16) the weights' indices (an anchor's high bit left out) -> (k, 16)
+    uint8."""
+    value, mbits, ns, _, _, _, layout = _BC6H_MODES[BC6H_MODES.index(mode)]
+    fields, idx = np.asarray(fields, np.int64), np.asarray(idx, np.int64)
+    k = len(fields)
+    bits = np.zeros((k, 128), np.uint8)
+    bits[:, :mbits] = (value >> np.arange(mbits)) & 1
+    for i, (slot, bit) in enumerate(_bc6h_fields(layout)):
+        bits[:, mbits + i] = (fields[:, slot] >> bit) & 1
+    part = np.broadcast_to(np.asarray(part, np.int64), (k,))
+    if ns == 2:
+        bits[:, 77:82] = (part[:, None] >> np.arange(5)) & 1
+    widths = (3 if ns == 2 else 4) - _anchor(ns, part)
+    at = (82 if ns == 2 else 65) + np.cumsum(widths, 1) - widths
+    for t in range(4):
+        on = t < widths
+        rows = np.nonzero(on)[0]
+        bits[rows, at[on] + t] = (idx[on] >> t) & 1
+    return np.packbits(bits, axis=1, bitorder="little")
+
+
+def _bc6h(blocks: np.ndarray, signed: bool) -> np.ndarray:
+    """BC6H blocks (n, 16) -> int32 (n, 16, 3) RGB as PIL gives them but
+    for B38 (every endpoint sign-extended under BC6HS)."""
+    out = np.zeros((len(blocks), 16, 3), np.int32)       # the reserved modes: black
+    two = blocks[:, 0] & 3
+    mode = np.where(two < 2, two, blocks[:, 0] & 31)
+    raw = np.unpackbits(blocks, axis=1, bitorder="little").astype(np.int64)
+    i = np.arange(16)
+    for value, _, ns, _, bits, _, _ in _BC6H_MODES:
+        sel = mode == value
+        if not sel.any():
+            continue
+        k = int(sel.sum())
+        ep = _bc6h_unquantize(bc6h_endpoints(blocks[sel], value, signed), bits, signed)
+        if ns == 2:
+            part = _read(raw[sel], np.full((k, 1), 77), np.full((k, 1), 5))[:, 0]
+            sub = (np.array(BC7_PARTITIONS2, np.int64)[part][:, None] >> i) & 1
+        else:
+            part, sub = np.zeros(k, np.int64), np.zeros((k, 16), np.int64)
+        ib = 3 if ns == 2 else 4
+        widths = ib - _anchor(ns, part)
+        idx = _read(raw[sel], (82 if ns == 2 else 65) + np.cumsum(widths, 1) - widths, widths)
+        w = np.array(BC7_WEIGHTS[ib])[idx][..., None]
+        ends = ep.reshape(k, 4, 3)
+        e0 = np.take_along_axis(ends, (2 * sub)[..., None], 1)
+        e1 = np.take_along_axis(ends, (2 * sub + 1)[..., None], 1)
+        out[sel] = _half_to_8((e0 * (64 - w) + e1 * w) >> 6, signed)
+    return out
+
+
 def decode_plain(kind: int, data: bytes, width: int, height: int, path: str = "<bytes>", *,
                  signed: bool = False, shift565: bool = False) -> np.ndarray:
     """`decode` in numpy (the plain version)."""
@@ -347,6 +536,8 @@ def decode_plain(kind: int, data: bytes, width: int, height: int, path: str = "<
     elif kind == BC5:
         px = np.stack([_bc4(blocks[:, :8], signed), _bc4(blocks[:, 8:], signed),
                        np.full((len(blocks), 16), 128 if signed else 0, np.int32)], 2)
+    elif kind == BC6H:
+        px = _bc6h(blocks, signed)
     else:
         px = _bc7(blocks)
     c = px.shape[-1]
@@ -518,3 +709,36 @@ def encode_bc7(img: np.ndarray) -> tuple[bytes, np.ndarray]:
     wt = weights[idx][..., None]
     px = ((64 - wt) * full[:, None, 0] + wt * full[:, None, 1] + 32) >> 6
     return _finish(np.packbits(bits, axis=1, bitorder="little"), px, h, w)
+
+
+def encode_bc6h(img: np.ndarray, signed: bool = False) -> tuple[bytes, np.ndarray]:
+    """uint8 (H, W, 3) RGB -> (its BC6H blocks of mode 0x03, unsigned or
+    signed, the RGB they decode to). Each channel's endpoints are the
+    10-bit values whose own 8-bit reading is the tile's smallest value or
+    under it, and its largest or over it (under PIL's rule, `_half_to_8`:
+    a flat tile comes back as it was wherever an endpoint reads its value),
+    each pixel the nearest of the sixteen blends, the endpoints swapped
+    where pixel 0's index would need its fourth bit."""
+    img = _image(img, 3, "encode_bc6h")
+    h, w = img.shape[:2]
+    tiles = _tiles_of(img)
+    top = 512 if signed else 1024                   # signed: the endpoints >= 0
+    q = np.arange(top)
+    level = _half_to_8(_bc6h_unquantize(q, 10, signed), signed)      # non-decreasing
+    lo = np.searchsorted(level, tiles.min(1), "right") - 1
+    hi = np.minimum(np.searchsorted(level, tiles.max(1), "left"), top - 1)
+    u0, u1 = (_bc6h_unquantize(e, 10, signed) for e in (lo, hi))
+    wt = np.array(BC7_WEIGHTS[4])[None, :, None]
+    blend = _half_to_8((u0[:, None] * (64 - wt) + u1[:, None] * wt) >> 6, signed)
+    idx, best = np.zeros(tiles.shape[:2], np.int64), np.full(tiles.shape[:2], 1 << 30)
+    for k in range(16):                         # the nearest blend, the first of ties
+        err = ((tiles - blend[:, k, None]) ** 2).sum(2)
+        idx = np.where(err < best, k, idx)
+        best = np.minimum(err, best)
+    px = np.take_along_axis(blend, idx[..., None], 1)
+    swap = idx[:, 0] >= 8
+    idx[swap] = 15 - idx[swap]
+    ends = np.where(swap[:, None, None], np.stack([hi, lo], 1), np.stack([lo, hi], 1))
+    fields = np.zeros((len(tiles), 12), np.int64)
+    fields[:, :6] = ends.reshape(-1, 6) & 1023
+    return _finish(bc6h_block(0x03, fields, 0, idx), px, h, w)

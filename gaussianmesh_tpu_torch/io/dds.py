@@ -20,9 +20,11 @@ format. PIL's branches, in its order:
   to L), `BC5U` and `ATI2` (BC5 to RGB), `BC5S` (BC5 signed), through
   `io/bcn.py` (`gm_bcn_decode`); `DX10` with the DXGI
   formats BC1-BC5 (typeless and unorm; BC5 snorm) and BC7 (typeless, unorm
-  and sRGB) the same way, and R8G8B8A8 (typeless, unorm and sRGB) raw.
-  DX10 BC6H (unsigned and signed half floats, which PIL brings down to 8
-  bits) is refused naming that cause.
+  and sRGB) the same way, and R8G8B8A8 (typeless, unorm and sRGB) raw;
+  DX10 BC6H (DXGI 95 unsigned, 96 signed half floats) to RGB, brought
+  down to 8 bits by PIL's rule (`io/bcn.py`; the signed form read by the
+  definition where PIL is not: fault B38). BC6H typeless (94), which PIL
+  does not implement, fails as PIL's `_open` does.
 
 An alpha becomes the training mask. The data is read from where PIL's
 `_open` leaves the file (byte 128, 148 after a DX10 header, or past the
@@ -35,14 +37,15 @@ file is truncated"); where PIL's `DdsRgbDecoder` reads zeros past the end
 of the file instead (fault B34: the JAX reader trains them), it raises
 naming the bytes found and needed.
 
-`encode_dds` / `write_dds` write DXT1, DXT5, BC4, BC5, DX10 BC7 and
-16-bit 565 textures (`io/bcn.py`'s writers), and `dds_head` any header,
-for the tests and `chip_smoke.py`; the training path does not write
-textures.
+`encode_dds` / `write_dds` write DXT1, DXT5, BC4, BC5, DX10 BC7, DX10
+BC6H (unsigned and signed) and 16-bit 565 textures (`io/bcn.py`'s
+writers), and `dds_head` any header, for the tests and `chip_smoke.py`;
+the training path does not write textures.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import struct
 
@@ -63,8 +66,8 @@ DXGI = {70: (bcn.BC1, False), 71: (bcn.BC1, False), 73: (bcn.BC2, False),
         74: (bcn.BC2, False), 76: (bcn.BC3, False), 77: (bcn.BC3, False),
         79: (bcn.BC4, False), 80: (bcn.BC4, False), 82: (bcn.BC5, False),
         83: (bcn.BC5, False), 84: (bcn.BC5, True), 97: (bcn.BC7, False),
-        98: (bcn.BC7, False), 99: (bcn.BC7, False), 27: "raw", 28: "raw", 29: "raw"}
-BC6H = {95: "unsigned", 96: "signed"}
+        98: (bcn.BC7, False), 99: (bcn.BC7, False), 95: (bcn.BC6H, False),
+        96: (bcn.BC6H, True), 27: "raw", 28: "raw", 29: "raw"}
 HEAD = 128
 
 
@@ -78,8 +81,8 @@ def header(data: bytes, path: str = "<bytes>") -> tuple:
     """PIL's `DdsImageFile._open` on a texture's bytes -> (width, height,
     form, where the data starts, the form's arguments); form is "masks"
     (bit count, masks), "L", "LA", "P" (the palette's bytes), "bcn" (kind,
-    signed), "raw" (RGBA) or "bc6h" (its sign). Gives way or raises where
-    `_open` does."""
+    signed: BC6H too) or "raw" (RGBA). Gives way or raises where `_open`
+    does."""
     if not data.startswith(DDS_MAGIC):
         raise GiveWay(f"{path}: not a DDS file")
     if len(data) < 8:
@@ -114,11 +117,9 @@ def header(data: bytes, path: str = "<bytes>") -> tuple:
                 raise GiveWay(f"{path}: DDS DX10 header cut short")
             (dxgi,) = struct.unpack_from("<I", data, HEAD)
             where = HEAD + 20
-            if dxgi in BC6H:
-                form, args = "bc6h", (BC6H[dxgi],)
-            elif dxgi not in DXGI:
+            if dxgi not in DXGI:
                 raise ValueError(f"{path}: Unimplemented DXGI format {dxgi} (DDS)")
-            elif DXGI[dxgi] == "raw":
+            if DXGI[dxgi] == "raw":
                 form = "raw"
             else:
                 args = DXGI[dxgi]
@@ -185,9 +186,6 @@ def _decode(data: bytes, path: str, bcn_decode) -> np.ndarray:
         return np.ascontiguousarray(pal[idx, :3])
     if form == "raw":
         return np.frombuffer(_need(body, 4 * w * h, path), np.uint8).reshape(h, w, 4).copy()
-    if form == "bc6h":
-        raise ValueError(f"{path}: a DDS of DX10 BC6H ({args[0]} half floats), which PIL "
-                         "brings down to 8 bits; BC6H is not read")
     kind, signed = args
     return bcn_decode(kind, body, w, h, path, signed=signed)
 
@@ -205,13 +203,14 @@ def dds_head(width: int, height: int, pfflags: int, fourcc: bytes = b"\0\0\0\0",
     return head
 
 
-FORMS = ("DXT1", "DXT5", "BC4", "BC5", "BC7", "RGB565")
+FORMS = ("DXT1", "DXT5", "BC4", "BC5", "BC7", "BC6H", "BC6HS", "RGB565")
 
 
 def encode_dds(img: np.ndarray, form: str) -> tuple[bytes, np.ndarray]:
     """An image -> (the bytes of a DDS texture of `form`, what it decodes
     to): DXT1 and BC5 of (H, W, 3) RGB, DXT5 and DX10 BC7 of (H, W, 4) RGBA,
-    BC4 (`BC4U`) of (H, W) gray, RGB565 (16-bit masks) of RGB."""
+    BC4 (`BC4U`) of (H, W) gray, DX10 BC6H (DXGI 95) and BC6HS (96, signed)
+    of RGB, RGB565 (16-bit masks) of RGB."""
     img = np.ascontiguousarray(img, np.uint8)
     h, w = img.shape[:2]
     if form == "RGB565":
@@ -228,7 +227,10 @@ def encode_dds(img: np.ndarray, form: str) -> tuple[bytes, np.ndarray]:
                             "DXT5": (bcn.encode_bc3, b"DXT5", None),
                             "BC4": (bcn.encode_bc4, b"BC4U", None),
                             "BC5": (bcn.encode_bc5, b"BC5U", None),
-                            "BC7": (bcn.encode_bc7, b"DX10", 98)}.get(form, (None,) * 3)
+                            "BC7": (bcn.encode_bc7, b"DX10", 98),
+                            "BC6H": (bcn.encode_bc6h, b"DX10", 95),
+                            "BC6HS": (functools.partial(bcn.encode_bc6h, signed=True),
+                                      b"DX10", 96)}.get(form, (None,) * 3)
     if encode is None:
         raise ValueError(f"encode_dds writes {', '.join(FORMS)}, not {form!r}")
     body, want = encode(img)

@@ -2,8 +2,8 @@
 (the JAX package reads JPEGs with PIL).
 
 `read_jpeg` decodes 8-bit Huffman JPEGs, sequential (SOF0 baseline and
-SOF1 extended) and progressive (SOF2), with 1, 3 or 4 components,
-sampling factors 1-2 on each axis (4:4:4, 4:2:2, 4:2:0, 4:4:0), restart
+SOF1 extended), progressive (SOF2) and lossless (SOF3), with 1, 3 or 4
+components, sampling factors 1-2 on each axis (4:4:4, 4:2:2, 4:2:0, 4:4:0), restart
 intervals, interleaved or single-component scans, to the arrays
 `np.asarray(PIL.Image.open(p))` gives: (H, W) uint8 for gray, (H, W, 3) RGB
 otherwise, and for 4 components (CMYK, YCCK) PIL's `convert("RGB")` of the
@@ -38,9 +38,23 @@ that the bits agree:
   CMYK channels and takes K as an alpha mask (fault B14); the port reads
   the RGB PIL converts to.
 
+- a lossless file (SOF3, `jdlhuff.c`, `jdpred.c`, `jddiffct.c`) holds
+  samples, not DCT blocks: each scan's Huffman-coded differences (category
+  16 is 32768, with no bits) are added, mod 2^16, to a prediction, the
+  scan's predictor Ss (1-7) of the samples left (Ra), above (Rb) and
+  above-left (Rc); the first row of the scan and of each restart interval
+  (which must be whole MCU rows) is predicted from 2^(7 - Pt) then Ra, the
+  first column from Rb. Each sample comes out shifted up by its scan's
+  point transform Pt, in 8 bits; a component sampled less than the largest
+  is replicated, not filtered. libjpeg-turbo converts no colour in
+  lossless mode: one component is gray, three with no marker (or Adobe
+  transform 0) RGB as stored, four CMYK (PIL's `CMYK;I`, then
+  `cmyk_to_rgb`); three under JFIF or another Adobe transform, and four
+  under an Adobe transform other than 0, make PIL fail and raise.
+
 EXIF orientation is ignored, as a plain `Image.open` ignores it.
-Arithmetic-coded, lossless and hierarchical files and 12-bit samples raise
-with the cause.
+Arithmetic-coded and hierarchical files and 12-bit samples raise with the
+cause.
 
 `decode_jpeg` also reads the abbreviated streams of a JPEG-compressed TIFF
 (`io/tiff.py`): the tables come from the TIFF's `JPEGTables` stream
@@ -58,6 +72,10 @@ value when code and value bits fit in 16 bits (a second table and a bit
 read otherwise); dequantisation, the IDCT, upsampling and colour
 conversion run vectorised over all blocks. The training path never calls
 it.
+
+`encode_jpeg_lossless` writes lossless JPEGs (any predictor and point
+transform, restart intervals, interleaved or one scan a component) for the
+tests and `chip_smoke.py`.
 
 `write_jpeg` writes baseline JPEGs (one interleaved scan): the Annex K
 quantisation and Huffman tables scaled by libjpeg's quality rule, 4:2:0 or
@@ -94,7 +112,7 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 _SOF_KINDS = {
-    0xC3: "lossless", 0xC5: "differential sequential",
+    0xC5: "differential sequential",
     0xC6: "differential progressive", 0xC7: "differential lossless",
     0xC9: "arithmetic-coded", 0xCA: "progressive arithmetic-coded",
     0xCB: "lossless arithmetic-coded", 0xCD: "differential arithmetic-coded",
@@ -343,8 +361,8 @@ def _ycc_to_rgb(y, cb, cr):
 
 
 class _Frame:
-    def __init__(self, seg: bytes, path, progressive: bool = False):
-        self.progressive = progressive
+    def __init__(self, seg: bytes, path, progressive: bool = False, lossless: bool = False):
+        self.progressive, self.lossless = progressive, lossless
         precision, self.height, self.width, nf = struct.unpack(">BHHB", seg[:6])
         if precision != 8:
             raise ValueError(f"{path}: {precision}-bit JPEG; only 8-bit samples are read")
@@ -363,8 +381,16 @@ class _Frame:
         if any(s not in (1, 2) for s in self.h + self.v):
             raise ValueError(f"{path}: sampling factors {list(zip(self.h, self.v))}; "
                              "only 1 and 2 are read")
-        self.mcux = -(-self.width // (8 * self.hmax))
-        self.mcuy = -(-self.height // (8 * self.vmax))
+        unit = 1 if lossless else 8     # a lossless data unit is one sample
+        self.mcux = -(-self.width // (unit * self.hmax))
+        self.mcuy = -(-self.height // (unit * self.vmax))
+        if lossless:
+            # each component's samples over the MCU-padded grid (mod 2^16),
+            # and the point transform of the scan that sent them
+            self.planes = [np.zeros((self.mcuy * v, self.mcux * h), np.int32)
+                           for h, v in zip(self.h, self.v)]
+            self.pt = [None] * nf
+            return
         # coefficient blocks of each component over the MCU-padded grid, all
         # in one buffer: component c's (nby, nbx) blocks from block offset[c]
         self.grid = [(self.mcuy * v, self.mcux * h) for h, v in zip(self.h, self.v)]
@@ -422,14 +448,20 @@ class _Scan:
         ns = seg[0]
         self.ss, self.se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
         self.ah, self.al = ahl >> 4, ahl & 15
-        if not frame.progressive:
+        if frame.lossless:
+            self.kind = "lossless"
+            if not (1 <= self.ss <= 7 and self.se == 0 and self.ah == 0 and self.al < 8):
+                raise ValueError(f"{path}: lossless JPEG scan of Ss {self.ss}, Se {self.se}, "
+                                 f"Ah {self.ah}, Al {self.al}: libjpeg-turbo takes a predictor "
+                                 "Ss of 1-7, Se 0, Ah 0 and Al under 8 (PIL cannot load it)")
+        elif not frame.progressive:
             self.kind = "sequential"
         elif self.ss == 0:
             self.kind = "dc_refine" if self.ah else "dc_first"
         else:
             self.kind = "ac_refine" if self.ah else "ac_first"
         # a progressive scan needs the tables of its kind alone
-        need_dc = self.kind in ("sequential", "dc_first")
+        need_dc = self.kind in ("sequential", "dc_first", "lossless")
         need_ac = self.kind in ("sequential", "ac_first", "ac_refine")
         comps, tabs = [], []
         for i in range(ns):
@@ -445,12 +477,20 @@ class _Scan:
                 ac[t & 15] = (_AC_LUMA, _AC_CHROMA)[t & 15]
             if (need_dc and (t >> 4) not in dc) or (need_ac and (t & 15) not in ac):
                 raise ValueError(f"{path}: scan uses a Huffman table that is not defined")
-            if frame.tq[c] not in qt:
+            if frame.lossless:
+                if frame.pt[c] is not None:
+                    raise ValueError(f"{path}: component {cid} in two lossless scans")
+                frame.pt[c] = self.al
+            elif frame.tq[c] not in qt:
                 raise ValueError(f"{path}: quantisation table {frame.tq[c]} not defined")
-            if frame.q[c] is None:          # latched at the component's first scan
+            elif frame.q[c] is None:        # latched at the component's first scan
                 frame.q[c] = qt[frame.tq[c]]
             comps.append(c)
             tabs.append((t >> 4, t & 15))
+        if frame.lossless:
+            self.comps = comps
+            self._lossless_order(frame, comps, tabs)
+            return
         if frame.progressive:
             self._progression(frame, comps, path)
         elif (self.ss, self.se, ahl) != (0, 63, 0):
@@ -466,6 +506,28 @@ class _Scan:
         self.comps = comps
         self.tables = [tabs[0]] if len(comps) == 1 else [
             t for c, t in zip(comps, tabs) for _ in range(frame.v[c] * frame.h[c])]
+
+    def _lossless_order(self, frame: _Frame, comps, tabs):
+        """A lossless scan's MCUs: one sample of a lone component, else h x
+        v samples of each -> `mcux`, `mcuy`, and per sample of an MCU its
+        component, row and column in it, and DC table."""
+        if len(comps) == 1:
+            self.mcuy, self.mcux = frame.comp_size(comps[0])
+            hv = {comps[0]: (1, 1)}
+        else:
+            self.mcuy, self.mcux = frame.mcuy, frame.mcux
+            hv = {c: (frame.h[c], frame.v[c]) for c in comps}
+        self.n_mcus = self.mcux * self.mcuy
+        self.hv = [hv[c] for c in comps]
+        self.comp, self.dy, self.dx, self.tables = [], [], [], []
+        for j, (c, t) in enumerate(zip(comps, tabs)):
+            h, v = hv[c]
+            for y in range(v):
+                for x in range(h):
+                    self.comp.append(j)
+                    self.dy.append(y)
+                    self.dx.append(x)
+                    self.tables.append(t[0])
 
     def _progression(self, frame: _Frame, comps, path):
         """`start_pass_phuff_decoder`'s checks (JERR_BAD_PROGRESSION), then
@@ -806,6 +868,162 @@ def _scan_native_progressive(frame: _Frame, scan: _Scan, arr: np.ndarray, restar
     return int(used[0])
 
 
+# ------------------------------------------------------- lossless scans
+
+def _restart_rows(scan: _Scan, restart: int, path) -> int:
+    """The MCU rows of a lossless scan's restart interval: libjpeg-turbo
+    (`jddiffct.c`) takes only intervals of whole MCU rows."""
+    if not restart:
+        return scan.mcuy
+    if restart % scan.mcux:
+        raise ValueError(f"{path}: lossless JPEG restart interval of {restart} MCUs, not a "
+                         f"whole number of {scan.mcux}-MCU rows (libjpeg-turbo refuses it; "
+                         "PIL cannot load the file)")
+    return restart // scan.mcux
+
+
+def _undifference(plane: np.ndarray, rows: range, first: bool, predictor: int, pt: int):
+    """`jdpred.c` on plane rows (in place, the differences -> the samples,
+    mod 2^16): a first row (the scan's, or a restart interval's) from
+    2^(7 - pt) then Ra; the others' first sample from Rb, the rest by the
+    scan's predictor of Ra, Rb and Rc."""
+    for y in rows:
+        row = plane[y]
+        if first:
+            ra = 1 << (7 - pt)
+            for x in range(len(row)):
+                ra = (int(row[x]) + ra) & 0xFFFF
+                row[x] = ra
+            first = False
+            continue
+        prev = plane[y - 1]
+        rb = int(prev[0])
+        ra = (int(row[0]) + rb) & 0xFFFF
+        row[0] = ra
+        for x in range(1, len(row)):
+            rc, rb = rb, int(prev[x])
+            if predictor == 1:
+                p = ra
+            elif predictor == 2:
+                p = rb
+            elif predictor == 3:
+                p = rc
+            elif predictor == 4:
+                p = ra + rb - rc
+            elif predictor == 5:
+                p = ra + ((rb - rc) >> 1)
+            elif predictor == 6:
+                p = rb + ((ra - rc) >> 1)
+            else:
+                p = (ra + rb) >> 1
+            ra = (int(row[x]) + p) & 0xFFFF
+            row[x] = ra
+
+
+def _lossless_plain(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, ac,
+                    path):
+    """One lossless scan's entropy-coded data (`arr` onwards) -> its
+    components' samples in frame.planes, in Python: each difference (a DC
+    table's category, its bits; 16: 32768 with none) into its place, then
+    each row undifferenced. -> bytes of entropy-coded data consumed."""
+    rows_per = _restart_rows(scan, restart, path)
+    tables = [(_decode_tables(*dc[t], False)[0], _peek_table(*dc[t])) for t in scan.tables]
+    segs, used = _entropy_segments(arr)
+    interval = rows_per * scan.mcux
+    n_int = -(-scan.n_mcus // interval)
+    if len(segs) < n_int:
+        raise ValueError(f"{path}: {len(segs)} restart intervals, {n_int} expected")
+    per = len(tables)
+    diffs = np.zeros((scan.n_mcus, per), np.int64)
+    truncated = f"{path}: entropy-coded data ends early (truncated JPEG)"
+    for i in range(n_int):
+        W, p = _windows(segs[i]), 0
+        try:
+            for m in range(i * interval, min((i + 1) * interval, scan.n_mcus)):
+                for j, (fast, slow) in enumerate(tables):
+                    e = fast[(W[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+                    if e & 31:
+                        p += e & 31
+                        diffs[m, j] = e >> 12
+                        continue
+                    e = slow[(W[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+                    length, size = e & 31, e >> 5
+                    if not length:
+                        raise ValueError("corrupt JPEG data: no Huffman code matches")
+                    if size > 16:
+                        raise ValueError(f"{path}: corrupt JPEG data: a difference category "
+                                         "over 16")
+                    p += length
+                    if size == 16:
+                        diffs[m, j] = 32768
+                    elif size:
+                        diffs[m, j] = _extend_bits(_read_bits(W, p, size), size)
+                        p += size
+        except IndexError:
+            p = None
+        if p is None or p > 8 * len(segs[i]):
+            raise ValueError(truncated)
+    my, mx = np.divmod(np.arange(scan.n_mcus), scan.mcux)
+    for j, c in enumerate(scan.comp):
+        comp = scan.comps[c]
+        h, v = scan.hv[c]
+        frame.planes[comp][my * v + scan.dy[j], mx * h + scan.dx[j]] = diffs[:, j]
+    for c, comp in enumerate(scan.comps):
+        v = scan.hv[c][1]
+        plane = frame.planes[comp][:scan.mcuy * v, :scan.mcux * scan.hv[c][0]]
+        for r0 in range(0, scan.mcuy, rows_per):
+            _undifference(plane, range(r0 * v, min(r0 + rows_per, scan.mcuy) * v), True,
+                          scan.ss, scan.al)
+    return used
+
+
+def _lossless_native(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, ac,
+                     path):
+    """`_lossless_plain` in `csrc/image.cpp` (`gm_jpeg_lossless`): the same
+    samples, the same errors. -> bytes of entropy-coded data consumed."""
+    rows_per = _restart_rows(scan, restart, path)
+    keys = sorted(set(scan.tables))
+    tables, vals = _packed_tables([dc[k] for k in keys])
+    i32 = lambda v: np.ascontiguousarray(v, np.int32)  # noqa: E731
+    comp, dy, dx = i32(scan.comp), i32(scan.dy), i32(scan.dx)
+    tab = i32([keys.index(t) for t in scan.tables])
+    hs, vs = i32([h for h, _ in scan.hv]), i32([v for _, v in scan.hv])
+    planes = [frame.planes[c] for c in scan.comps]
+    ptrs = np.array([p.ctypes.data for p in planes], np.uint64)
+    stride = np.array([p.shape[1] for p in planes], np.int64)
+    used, found = np.zeros(1, np.int64), np.zeros(1, np.int32)
+    status = _cuda.host_library("image").gm_jpeg_lossless(
+        arr.ctypes.data, len(arr), scan.mcux, scan.mcuy, rows_per, len(scan.comp),
+        comp.ctypes.data, dy.ctypes.data, dx.ctypes.data, tab.ctypes.data, tables.ctypes.data,
+        vals.ctypes.data, vals.shape[1], len(keys), len(planes), hs.ctypes.data,
+        vs.ctypes.data, ptrs.ctypes.data, stride.ctypes.data, scan.ss, scan.al,
+        used.ctypes.data, found.ctypes.data)
+    if status == 4:
+        raise ValueError(f"{path}: corrupt JPEG data: a difference category over 16")
+    _native_status(status, "gm_jpeg_lossless", path, scan, rows_per * scan.mcux, found)
+    return int(used[0])
+
+
+def _lossless_image(frame: _Frame, mode: int) -> np.ndarray:
+    """A lossless frame's planes -> the image: each sample shifted up by
+    its scan's point transform (its low 8 bits, as libjpeg-turbo's 8-bit
+    samples keep them), cropped, upsampled by replication (libjpeg-turbo
+    does no fancy upsampling of lossless samples) and put in colour mode
+    `mode`'s order."""
+    planes = []
+    for c, p in enumerate(frame.planes):
+        rows, cols = frame.comp_size(c)
+        x = ((p[:rows, :cols] << frame.pt[c]) & 0xFF).astype(np.uint8)
+        x = x.repeat(frame.vmax // frame.v[c], 0).repeat(frame.hmax // frame.h[c], 1)
+        planes.append(x[:frame.height, :frame.width])
+    if mode == GRAY:
+        return np.ascontiguousarray(planes[0])
+    img = np.stack(planes, -1)
+    if mode in (CMYK, CMYK_INVERTED):
+        return cmyk_to_rgb(255 - img if mode == CMYK_INVERTED else img)
+    return img
+
+
 # gm_jpeg_planes' colour modes: one gray plane; YCbCr -> RGB; the three
 # planes as they are (three, or four where the caller asks for them); CMYK as
 # stored, inverted (PIL's `CMYK;I`) or from YCCK, each then to RGB by
@@ -968,14 +1186,14 @@ def _decode(data: bytes, path, native: bool, tables=None, color=None,
             _read_dqt(seg, qt, path)
         elif marker == 0xC4:
             _read_dht(seg, dc, ac)
-        elif marker in (0xC0, 0xC1, 0xC2):
-            frame = _Frame(seg, path, progressive=marker == 0xC2)
+        elif marker in (0xC0, 0xC1, 0xC2, 0xC3):
+            frame = _Frame(seg, path, progressive=marker == 0xC2, lossless=marker == 0xC3)
             if on_frame is not None:
                 on_frame(frame)
         elif marker in _SOF_KINDS:
             raise ValueError(f"{path}: {_SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}); "
-                             "only baseline, extended sequential and progressive "
-                             "Huffman JPEGs are read")
+                             "only baseline, extended sequential, progressive and "
+                             "lossless Huffman JPEGs are read")
         elif marker == 0xCC:
             raise ValueError(f"{path}: arithmetic-coded JPEG; only Huffman coding is read")
         elif marker == 0xDD:
@@ -988,13 +1206,29 @@ def _decode(data: bytes, path, native: bool, tables=None, color=None,
             if frame is None:
                 raise ValueError(f"{path}: scan before the frame header")
             scan = _Scan(frame, seg, qt, dc, ac, path)
-            decoder = ((_scan_native_progressive if native else _scan_plain_progressive)
-                       if frame.progressive else _scan_native if native else _scan_plain)
+            if frame.lossless:
+                decoder = _lossless_native if native else _lossless_plain
+            elif frame.progressive:
+                decoder = _scan_native_progressive if native else _scan_plain_progressive
+            else:
+                decoder = _scan_native if native else _scan_plain
             pos += decoder(frame, scan, np.frombuffer(data, np.uint8, offset=pos), restart,
                            dc, ac, path)
             scans += 1
     if frame is None or not scans:
         raise ValueError(f"{path}: no frame or no scan")
+    if frame.lossless:
+        for c in range(len(frame.ids)):
+            if frame.pt[c] is None:
+                raise ValueError(f"{path}: component {frame.ids[c]} has no scan")
+        mode = _color_mode(len(frame.ids), color, jfif, adobe, frame.ids, path, lossless=True)
+        if mode in (YCC, YCCK):
+            raise ValueError(
+                f"{path}: a lossless JPEG of {len(frame.ids)} components whose markers "
+                f"({'JFIF' if jfif else f'Adobe transform {adobe}'}) call for a "
+                f"{'YCbCr' if mode == YCC else 'YCCK'} -> RGB conversion; libjpeg-turbo "
+                "converts no colour in lossless mode, so PIL cannot load the file")
+        return _lossless_image(frame, mode)
 
     for c in range(len(frame.ids)):
         if frame.q[c] is None:
@@ -1009,9 +1243,11 @@ def _decode(data: bytes, path, native: bool, tables=None, color=None,
         frame, _color_mode(len(frame.ids), color, jfif, adobe, frame.ids, path))
 
 
-def _color_mode(nf, color, jfif, adobe, ids, path) -> int:
+def _color_mode(nf, color, jfif, adobe, ids, path, lossless: bool = False) -> int:
     """libjpeg's colour space of `nf` components (`default_decompress_parms`),
-    or the one the caller fixes -> gm_jpeg_planes' mode."""
+    or the one the caller fixes -> gm_jpeg_planes' mode. Three components
+    with no JFIF or Adobe marker are RGB in a lossless frame whatever their
+    ids (libjpeg-turbo 3)."""
     if color not in (None, "as_is", "ycc", "raw_cmyk"):
         raise ValueError(f"color {color!r}: None, 'as_is', 'ycc' or 'raw_cmyk'")
     if color == "raw_cmyk":
@@ -1032,7 +1268,7 @@ def _color_mode(nf, color, jfif, adobe, ids, path) -> int:
         return YCC
     if adobe is not None:
         return PLANES if adobe == 0 else YCC
-    return PLANES if tuple(ids) == (82, 71, 66) else YCC
+    return PLANES if lossless or tuple(ids) == (82, 71, 66) else YCC
 
 
 def decode_jpeg(data: bytes, path="<bytes>", *, native: bool = True, tables=None,
@@ -1049,10 +1285,10 @@ def decode_jpeg(data: bytes, path="<bytes>", *, native: bool = True, tables=None
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """A baseline, extended sequential or progressive 8-bit Huffman JPEG ->
-    uint8 (H, W) gray or (H, W, 3) RGB, the bits PIL 12 (libjpeg-turbo)
-    decodes (a CMYK or YCCK file: PIL's `convert("RGB")` of it); decoded by
-    `csrc/image.cpp`."""
+    """A baseline, extended sequential, progressive or lossless 8-bit Huffman
+    JPEG -> uint8 (H, W) gray or (H, W, 3) RGB, the bits PIL 12
+    (libjpeg-turbo) decodes (a CMYK or YCCK file: PIL's `convert("RGB")` of
+    it); decoded by `csrc/image.cpp`."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode(data, path, native=True)
@@ -1107,16 +1343,28 @@ def _magnitude(v):
 
 
 def _pack(val, ln) -> bytes:
-    """Code words `val` of `ln` bits each, in order -> the entropy-coded
-    bytes: MSB first, padded with 1 bits, 0xFF stuffed."""
+    """Code words `val` of `ln` bits each (up to 33), in order -> the
+    entropy-coded bytes: MSB first, padded with 1 bits, 0xFF stuffed. Each
+    word lands in the 64-bit word its first bit falls in and, past its end,
+    the next; the words' parts are ORed together word by word."""
     val, ln = np.asarray(val, np.int64), np.asarray(ln, np.int64)
     total = int(ln.sum())
-    starts = np.cumsum(ln) - ln
-    owner = np.repeat(np.arange(len(ln)), ln)
-    j = np.arange(total) - starts[owner]
-    bits = ((val[owner] >> (ln[owner] - 1 - j)) & 1).astype(np.uint8)
-    bits = np.concatenate([bits, np.ones(-total % 8, np.uint8)])
-    by = np.packbits(bits)
+    words = np.zeros(total // 64 + 2, np.uint64)
+    if total:
+        starts = np.cumsum(ln) - ln
+        at, end = starts >> 6, (starts & 63) + ln
+        v = (val & ((1 << ln) - 1)).astype(np.uint64)
+        over = end > 64
+        high = np.where(over, v >> np.where(over, end - 64, 0).astype(np.uint64),
+                        v << np.where(over, 0, 64 - end).astype(np.uint64))
+        low = np.where(over, v << np.where(over, 128 - end, 0).astype(np.uint64),
+                       np.uint64(0))
+        word, first = np.unique(at, return_index=True)
+        words[word] |= np.bitwise_or.reduceat(high, first)
+        words[word + 1] |= np.bitwise_or.reduceat(low, first)
+    by = words.byteswap().view(np.uint8)[:-(-total // 8)].copy()
+    if total % 8:
+        by[-1] |= (1 << (8 - total % 8)) - 1
     ff = by == 0xFF
     stuffed = np.repeat(by, 1 + ff)
     stuffed[np.flatnonzero(ff) + np.arange(int(ff.sum())) + 1] = 0
@@ -1456,6 +1704,130 @@ def _progressive(h, w, qs, samp, qsel, grids) -> list:
             bytes([c + 1, t]) for c, t in zip(comps, td_ta)) + bytes([ss, se, ah << 4 | al])))
         out.append(_pack(code << elens | (extras & ((1 << elens) - 1)), clen + elens))
     return out
+
+
+# ------------------------------------------------------- lossless (SOF3)
+
+def _predict(plane: np.ndarray, predictor: int, pt: int, rows_per_interval: int) -> np.ndarray:
+    """The encoder's side of `_undifference`: each sample's prediction
+    from the samples before it (H.1.2.1), the first row of the scan and of
+    each restart interval by 2^(7 - pt) then Ra, the first column by Rb.
+    -> int64 predictions, the plane's shape."""
+    x = plane.astype(np.int64)
+    ra = np.pad(x, ((0, 0), (1, 0)))[:, :-1]
+    rb = np.pad(x, ((1, 0), (0, 0)))[:-1]
+    rc = np.pad(x, ((1, 0), (1, 0)))[:-1, :-1]
+    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor].copy()
+    pred[:, 0] = rb[:, 0]
+    first = np.arange(len(x)) % rows_per_interval == 0
+    pred[first] = ra[first]
+    pred[first, 0] = 1 << (7 - pt)
+    return pred
+
+
+def _lossless_scan(planes, samp, comps, predictor, pt, restart, tables) -> list:
+    """One SOF3 scan of the components `comps` (their planes already
+    shifted down by `pt`): a DHT of one optimal DC table a component (ids
+    `tables[c]`), the SOS, the entropy-coded data with RSTn markers between
+    restart intervals."""
+    if len(comps) > 1:                  # interleaved: MCUs of h x v samples each
+        rows, cols = planes[comps[0]].shape
+        mcuy, mcux = -(-rows // samp[comps[0]][1]), -(-cols // samp[comps[0]][0])
+    else:
+        c = comps[0]
+        mcuy, mcux = planes[c].shape
+    if restart and restart % mcux:
+        raise ValueError(f"a restart interval of {restart} MCUs is not whole MCU rows of "
+                         f"{mcux} (libjpeg-turbo's lossless coder refuses it)")
+    rows = restart // mcux if restart else mcuy
+    parts, comp_of = [], []
+    for c in comps:
+        sh, sv = samp[c] if len(comps) > 1 else (1, 1)
+        p = planes[c]
+        p = np.pad(p, ((0, mcuy * sv - p.shape[0]), (0, mcux * sh - p.shape[1])), mode="edge")
+        d = (p.astype(np.int64) - _predict(p, predictor, pt, rows * sv)) & 0xFFFF
+        d = np.where(d >= 1 << 15, d - (1 << 16), d)
+        parts.append(d.reshape(mcuy, sv, mcux, sh).transpose(0, 2, 1, 3).reshape(
+            mcuy * mcux, sv * sh))
+        comp_of += [c] * (sv * sh)
+    return lossless_entropy(np.concatenate(parts, 1), comp_of, tables, predictor, pt, restart)
+
+
+def lossless_entropy(diffs: np.ndarray, comp_of, tables, predictor: int, pt: int,
+                     restart: int = 0) -> list:
+    """A lossless scan's differences (MCUs, samples an MCU; -32768 or 32768
+    coded as category 16, with no bits) and the component of each sample of
+    an MCU -> [its DHT (one optimal table a component, id `tables[c]`), its
+    SOS, the entropy-coded data with an RSTn marker every `restart` MCUs]."""
+    comp_of = np.asarray(comp_of)
+    comps = list(dict.fromkeys(comp_of.tolist()))
+    size, extra = _magnitude(diffs)
+    elen = np.where(size == 16, 0, size)
+    dht, code, clen = b"", np.zeros_like(size), np.zeros_like(size)
+    for c in comps:
+        sel = comp_of == c
+        bits, vals = _optimal_table(np.bincount(size[:, sel].ravel(), minlength=256))
+        dht += bytes([tables[c]]) + bytes(bits) + vals
+        cw, cl = _encode_tables(bits, vals)
+        code[:, sel], clen[:, sel] = cw[size[:, sel]], cl[size[:, sel]]
+    words = code << elen | (extra & ((1 << elen) - 1))
+    per = restart or len(diffs)
+    data = b""
+    for i, a in enumerate(range(0, len(diffs), per)):
+        if i:
+            data += bytes([0xFF, 0xD0 + (i - 1) % 8])
+        data += _pack(words[a:a + per].ravel(), (clen + elen)[a:a + per].ravel())
+    sos = _segment(0xDA, bytes([len(comps)]) + b"".join(
+        bytes([c + 1, tables[c] << 4]) for c in comps) + bytes([predictor, 0, pt]))
+    return [_segment(0xC4, dht), sos, data]
+
+
+_LOSSLESS_MARKERS = {"none": b"", "jfif": _JFIF, "adobe0": _adobe(0), "adobe1": _adobe(1),
+                     "adobe2": _adobe(2)}
+
+
+def encode_jpeg_lossless(img: np.ndarray, predictor: int, point_transform: int = 0,
+                         restart: int = 0, interleave: bool = True, *,
+                         marker: str = "none", sampling=None) -> bytes:
+    """(H, W) gray, (H, W, 3) or (H, W, 4) uint8 -> an 8-bit lossless JPEG
+    (SOF3, Huffman): the components as they are (no colour transform),
+    shifted down by `point_transform`, predicted by `predictor` (1-7), the
+    differences coded with one optimal DC table a component; one
+    interleaved scan, or one scan a component; a DRI of `restart` MCUs
+    (whole MCU rows) where given; `marker` "none", "jfif" or "adobe0" /
+    "adobe1" / "adobe2" before the frame. `sampling` [(h, v)] a component
+    writes each component's samples at that share of the largest (its plane
+    taken every hmax / h, vmax / v samples), for the tests."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] not in (3, 4)):
+        raise ValueError(f"encode_jpeg_lossless takes uint8 (H, W), (H, W, 3) or (H, W, 4), "
+                         f"not {img.dtype} {img.shape}")
+    if not 1 <= predictor <= 7 or not 0 <= point_transform <= 7:
+        raise ValueError(f"predictor {predictor} (1-7), point transform {point_transform} "
+                         "(0-7)")
+    h, w = img.shape[:2]
+    chans = [img] if img.ndim == 2 else [img[..., i] for i in range(img.shape[2])]
+    samp = list(sampling or [(1, 1)] * len(chans))
+    hmax, vmax = max(s[0] for s in samp), max(s[1] for s in samp)
+    planes = []
+    for ch, (sh, sv) in zip(chans, samp):
+        rows, cols = -(-h * sv // vmax), -(-w * sh // hmax)
+        pad = np.pad(ch, ((0, rows * (vmax // sv) - h), (0, cols * (hmax // sh) - w)),
+                     mode="edge")
+        planes.append(pad[::vmax // sv, ::hmax // sh][:rows, :cols] >> point_transform)
+    out = [b"\xff\xd8", _LOSSLESS_MARKERS[marker]]
+    out.append(_segment(0xC3, struct.pack(">BHHB", 8, h, w, len(chans)) + b"".join(
+        bytes([i + 1, sh << 4 | sv, 0]) for i, (sh, sv) in enumerate(samp))))
+    if restart:
+        out.append(_segment(0xDD, struct.pack(">H", restart)))
+    every = list(range(len(chans)))
+    for comps in ([every] if interleave else [[c] for c in every]):
+        out += _lossless_scan(planes, samp, comps, predictor, point_transform, restart,
+                              every)
+    out.append(b"\xff\xd9")
+    return b"".join(out)
 
 
 def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0",

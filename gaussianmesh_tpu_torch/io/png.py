@@ -346,8 +346,9 @@ def read_image(path: str) -> np.ndarray:
     unsigned 16 bits, raw or GZIP_1 (B32: by the format's definition;
     `io/fits.py`), FTEX (DXT1 through the port's BC1 decoder, or raw RGB;
     `io/ftex.py`), DDS (RGB masks, L, LA, P (B15), DXT1 / 3 / 5, BC4, BC5,
-    BC5S, DX10 BC1-BC5, BC7 and R8G8B8A8 through the port's BCn decoders;
-    B34: data short of the image raises; BC6H refused; `io/dds.py`), BLP
+    BC5S, DX10 BC1-BC5, BC6H (B38: signed endpoints as the definition
+    reads them), BC7 and R8G8B8A8 through the port's BCn decoders; B34:
+    data short of the image raises; `io/dds.py`), BLP
     (BLP1 JPEG, B35: four components as B, G, R, alpha; BLP1 and BLP2
     palettes; BLP2 DXT1 / 3 / 5 by BLP's own 565 rule, B36 and B37:
     each pixel's own bytes; `io/blp.py`), and TGA, which has no magic, only

@@ -437,6 +437,9 @@ def _decode_jpeg(data, tags, path, width, height, photometric, spp, bits, extra,
 
     def check(where, rows, last):
         def on_frame(frame):
+            if frame.lossless:
+                raise ValueError(f"{where}: a lossless JPEG (SOF3) in a JPEG-compressed "
+                                 "TIFF; not read")
             n = len(frame.ids)
             if n != spp:
                 raise ValueError(f"{where}: a JPEG of {n} components in a TIFF of {spp} "

@@ -115,6 +115,11 @@ HOST_LIBRARIES = {
         "gm_bc1_decode": [_P, _L, _L, _L, _P, _P],
         # data, n, width, height, kind, flags, out, info
         "gm_bcn_decode": [_P, _L, _L, _L, _I, _I, _P, _P],
+        # data, n, mcux, mcuy, rows_per, per_mcu, comp, dy, dx, tab, tables, vals,
+        # vals_stride, n_tables, n_comp, hs, vs, planes, stride, predictor, pt, used,
+        # n_found
+        "gm_jpeg_lossless": [_P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                             _P, _P, _P, _I, _I, _P, _P],
     },
     "vp8": {
         # frame, n, y, u, v, info

@@ -7,9 +7,10 @@ sizes with partial edge tiles; BC7 mode by mode (random bytes reach mode 7
 once in 256 blocks), the reserved mode included; the port's BCn writers
 decode as they claim. Every DDS fixture of `tests/data/textures/` equals
 PIL through `read_image` and the plain route, with the port's rule where
-one applies (A2, B15), or is refused through both with its cause (BC6H,
-B34). DDS headers give way where PIL's `_open` gives way and fail where it
-fails. B34: a texture of masks cut short, which PIL reads with zeros past
+one applies (A2, B15, B38's oracle), or is refused through both with its
+cause (B34); BC6H, unsigned and signed, is read (`tests/test_torch_bc6h.py`
+holds its blocks). DDS headers give way where PIL's `_open` gives way and
+fail where it fails. B34: a texture of masks cut short, which PIL reads with zeros past
 the end of the file, raises, where the complete file reads as PIL reads
 it."""
 
@@ -26,6 +27,7 @@ from PIL import Image
 from gaussianmesh_tpu_torch.io import bcn, dds, png
 from gaussianmesh_tpu_torch.io.giveway import GiveWay
 from tools.make_raw_sample_fixtures_torch import natural, port_array, sha
+from tools.make_texture_fixtures_torch import b38_oracle, random_bc6h
 
 torch.set_num_threads(2)
 
@@ -114,10 +116,11 @@ def test_bcn_writers_decode_as_claimed(size):
 
 
 def test_bcn_argument_checks():
-    """Kinds the port does not decode, a signed form other than BC5 and the
+    """Kinds the port does not decode (BC6H is read since it has a decoder:
+    kind 8 stands for them), a signed form other than BC5 and BC6H, and the
     shifted 565 rule outside BC1-BC3 are refused by both routes."""
     for decode in (bcn.decode, bcn.decode_plain):
-        for kw, match in (({"kind": 6}, "BC6"), ({"kind": 4, "signed": True}, "signed"),
+        for kw, match in (({"kind": 8}, "BC8"), ({"kind": 4, "signed": True}, "signed"),
                           ({"kind": 7, "shift565": True}, "565")):
             k = kw.pop("kind")
             with pytest.raises(ValueError, match=match):
@@ -132,35 +135,41 @@ DDS_FIXTURES = sorted(n for n in DIGESTS if n.endswith(".dds"))
 def test_dds_fixture_equals_pil(name):
     """Each DDS fixture: PIL's format and mode as recorded; `read_image` and
     `decode_dds_plain` give the recorded digest, which is PIL's array under
-    the port's rule (computed again here), or both refuse it naming its
-    cause (BC6H's half floats, B34's cut data)."""
+    the port's rule (computed again here: B38's through PIL's reading of
+    mode-0x0F blocks), or both refuse it naming its cause (B34's cut
+    data)."""
     path = os.path.join(DATA, name)
     data = open(path, "rb").read()
     want = DIGESTS[name]
     im = Image.open(path)
     assert (im.format, im.mode) == (want["pil_format"], want["pil_mode"])
     if want["array"] is None:
-        cause = "BC6H" if "bc6h" in name else "B34"
         for run in (lambda: png.read_image(path), lambda: dds.decode_dds_plain(data, path)):
-            with pytest.raises(ValueError, match=cause):
+            with pytest.raises(ValueError, match="B34"):
                 run()
         return
-    assert sha(port_array(data)[0]) == want["array"]
+    if want["rule"] == "B38":
+        w, h = im.size
+        blocks = np.frombuffer(data, np.uint8, offset=148).reshape(-1, 16)
+        assert sha(b38_oracle(blocks, w, h)) == want["array"]
+    else:
+        assert sha(port_array(data)[0]) == want["array"]
     for got in (png.read_image(path), dds.decode_dds_plain(data, path)):
         assert sha(got) == want["array"] and list(got.shape) == want["shape"], name
 
 
 def test_dds_fixtures_cover_every_form():
     """The fixtures hold every form the reader takes: each FourCC, each
-    DXGI format class, masks with and without alpha, L, LA, P, BC6H."""
+    DXGI format class, masks with and without alpha, L, LA, P, BC6H of
+    both signs."""
     forms = set()
     for name in DDS_FIXTURES:
         _, _, form, _, args = dds.header(open(os.path.join(DATA, name), "rb").read())
         forms.add((form,) + (tuple(args) if form == "bcn" else
                              (len(args[1]),) if form == "masks" else ()))
-    want = {("bcn", k, False) for k in (1, 2, 3, 4, 5, 7)} | {("bcn", 5, True)}
-    assert want | {("L",), ("LA",), ("P",), ("raw",), ("bc6h",), ("masks", 3),
-                   ("masks", 4)} <= forms
+    want = {("bcn", k, False) for k in (1, 2, 3, 4, 5, 6, 7)} | {("bcn", 5, True),
+                                                                ("bcn", 6, True)}
+    assert want | {("L",), ("LA",), ("P",), ("raw",), ("masks", 3), ("masks", 4)} <= forms
 
 
 # ------------------------------------------------------------------ headers
@@ -186,6 +195,8 @@ DDS_CASES = {
     "dx10_bc3": _dds(fourcc=b"DX10", dxgi=77, body=bytes(range(16))),
     "dx10_rgba8_cut": _dds(fourcc=b"DX10", dxgi=29, body=bytes(63)),
     "dx10_rgba8": _dds(fourcc=b"DX10", dxgi=27, body=bytes(range(64))),
+    "dx10_bc6h_typeless": _dds(fourcc=b"DX10", dxgi=94, body=bytes(16)),
+    "dx10_bc6h_sf16_cut": _dds(fourcc=b"DX10", dxgi=96, body=bytes(15)),
     "dxt1_cut": _dds(body=bytes(7)),
     "dxt1_longer": _dds(w=5, h=5, body=bytes(40)),
     "l": _dds(pfflags=_L, bitcount=8, body=bytes(range(16))),
@@ -270,17 +281,20 @@ def test_b34_masks_cut_short_raise(tmp_path):
 @pytest.mark.parametrize("dxgi", [95, 96], ids=["uf16", "sf16"])
 def test_bc6h_refused_naming_it(tmp_path, dxgi):
     """DX10 BC6H, which PIL opens (mode RGB, its half floats brought down to
-    8 bits), is refused through `read_image` and the plain route naming
-    BC6H; of width 0 it gives way, as in PIL."""
-    data = _dds(8, 8, fourcc=b"DX10", dxgi=dxgi, body=bytes(64))
-    assert Image.open(io.BytesIO(data)).mode == "RGB"
+    8 bits), was refused before the port had a BC6H decoder (hence the
+    name); both DXGI codes are now read through `read_image` and the plain
+    route as PIL reads them, blocks of every mode (an 8 x 12 texture, the
+    signed transformed modes with no negative endpoint: B38 is
+    `tests/test_torch_bc6h.py`'s). Of width 0 it gives way, as in PIL."""
+    body = random_bc6h(6, dxgi, dxgi == 96, first=dxgi % 18).tobytes()
+    data = _dds(8, 12, fourcc=b"DX10", dxgi=dxgi, body=body)
+    want = np.asarray(Image.open(io.BytesIO(data)))
+    assert want.shape == (12, 8, 3) and len(np.unique(want)) > 8
     path = str(tmp_path / "h.dds")
     with open(path, "wb") as fh:
         fh.write(data)
-    sign = "unsigned" if dxgi == 95 else "signed"
-    for run in (lambda: png.read_image(path), lambda: dds.decode_dds_plain(data, path)):
-        with pytest.raises(ValueError, match=f"BC6H \\({sign} half floats\\)"):
-            run()
+    assert np.array_equal(png.read_image(path), want)
+    assert np.array_equal(dds.decode_dds_plain(data, path), want)
     with pytest.raises(GiveWay):
         dds.decode_dds(_dds(0, 8, fourcc=b"DX10", dxgi=dxgi, body=bytes(64)))
 
@@ -293,7 +307,8 @@ def test_dds_writer_read_by_pil(tmp_path, size, form):
     w, h = size
     rgba = natural(h, w, 4, w * 3 + h)
     img = {"DXT1": rgba[..., :3], "DXT5": rgba, "BC4": rgba[..., 0], "BC5": rgba[..., :3],
-           "BC7": rgba, "RGB565": rgba[..., :3]}[form]
+           "BC7": rgba, "BC6H": rgba[..., :3], "BC6HS": rgba[..., :3],
+           "RGB565": rgba[..., :3]}[form]
     data, want = dds.encode_dds(img, form)
     path = str(tmp_path / "w.dds")
     with open(path, "wb") as fh:

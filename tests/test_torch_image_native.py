@@ -7,8 +7,9 @@ type with rows cycling through all five filters, palettes with tRNS,
 Adam7; resize in L / LA / RGB / RGBA up, down and on the resolution ladder.
 The training path's readers never reach a plain version (the LZW,
 PackBits and RLE ones of `tests/test_torch_image_formats_lzw.py`, the
-BC1 one of FTEX textures and the BCn ones of DDS and BLP textures
-included), and a build that cannot happen raises."""
+BC1 one of FTEX textures, the BCn ones of DDS and BLP textures, BC6H's
+and the lossless JPEG walk included), and a build that cannot happen
+raises."""
 
 import io
 import os
@@ -492,14 +493,32 @@ def _texture_set(root):
     return root
 
 
+def _bc6h_lossless_sets(tmp_path):
+    """`_jpeg_colmap_set` with its six views rewritten as DX10 BC6H textures
+    (unsigned and signed), and again as lossless JPEGs (gray and RGB, every
+    scan layout)."""
+    bc6h, lossless = _jpeg_colmap_set(tmp_path / "h"), _jpeg_colmap_set(tmp_path / "l")
+    for i, name in enumerate(sorted(os.listdir(f"{bc6h}/images"))):
+        path = f"{bc6h}/images/{name}"
+        img = jpeg.read_jpeg(path)
+        dds.write_dds(path, np.dstack([img] * 3) if img.ndim == 2 else img,
+                      ("BC6H", "BC6HS")[i % 2])
+        path = f"{lossless}/images/{name}"
+        data = jpeg.encode_jpeg_lossless(jpeg.read_jpeg(path), 1 + i, i % 3, 0, i % 2 == 0)
+        with open(path, "wb") as fh:
+            fh.write(data)
+    return bc6h, lossless
+
+
 def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
     resize), of the same set with progressive JPEGs, of a Blender set of
     PIL-filtered RGBA PNGs at -r 2, of the COLMAP set in LZW and PackBits
     TIFF, GIF and RLE BMP views, of it in lossy WebP views and of it in RLE
     TGA, QOI, RLE SGI, PCX and PPM views, of it in FLI and FLC views and
-    of it in FTEX (DXT1 and raw) views and of it in DDS and BLP views, with
-    every plain piece made to raise: the same scenes as before."""
+    of it in FTEX (DXT1 and raw) views, of it in DDS and BLP views, of it in
+    DX10 BC6H views and of it in lossless JPEG views, with every plain piece
+    made to raise: the same scenes as before."""
     colmap_root = _jpeg_colmap_set(tmp_path / "c")
     prog_root = _jpeg_colmap_set(tmp_path / "p")
     new_root = _new_forms_set(tmp_path / "n")
@@ -508,6 +527,7 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     fli_root = _fli_set(tmp_path / "f")
     ftex_root = _ftex_set(tmp_path / "t")
     texture_root = _texture_set(tmp_path / "x")
+    bc6h_root, lossless_root = _bc6h_lossless_sets(tmp_path)
     for name in os.listdir(f"{prog_root}/images"):
         path = f"{prog_root}/images/{name}"
         Image.open(path).save(path, "JPEG", quality=90, progressive=True)
@@ -524,14 +544,16 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
               readers.read_scene(raw_root, resolution=-1, **kw),
               readers.read_scene(fli_root, resolution=-1, **kw),
               readers.read_scene(ftex_root, resolution=-1, **kw),
-              readers.read_scene(texture_root, resolution=-1, **kw))
+              readers.read_scene(texture_root, resolution=-1, **kw),
+              readers.read_scene(bc6h_root, resolution=-1, **kw),
+              readers.read_scene(lossless_root, resolution=-1, **kw))
 
     def plain(*_a, **_k):
         raise AssertionError("a plain version was called")
     for mod, names in ((jpeg, ("_scan_plain", "_planes_plain", "_huffman", "_idct",
                                "_upsample", "_ycc_to_rgb", "_decode_tables",
                                "_scan_plain_progressive", "_progressive_plain",
-                               "_peek_table")),
+                               "_peek_table", "_lossless_plain", "_undifference")),
                        (png, ("_unfilter_plain",)), (resample, ("_pass_plain",)),
                        (lzw, ("lzw_decode_plain", "lzw_encode_plain")),
                        (tiff, ("packbits_decode_plain",)), (bmp, ("_rle_plain",)),
@@ -540,7 +562,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
                                "_filter_plain")),
                        (tga, ("_rle_plain",)), (qoi, ("_ops_plain",)), (sgi, ("_rle_plain",)),
                        (pcx, ("_rle_plain",)), (fli, ("_frame_plain",)),
-                       (bcn, ("_bc1_plain", "decode_plain", "_bc7", "_bc4", "_colour")),
+                       (bcn, ("_bc1_plain", "decode_plain", "_bc7", "_bc4", "_colour",
+                              "_bc6h", "_half_to_8", "bc6h_endpoints")),
                        (dds, ("decode_dds_plain",)), (blp, ("decode_blp_plain",))):
         for name in names:
             monkeypatch.setattr(mod, name, plain)
@@ -552,7 +575,9 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
              readers.read_scene(raw_root, resolution=-1, **kw),
              readers.read_scene(fli_root, resolution=-1, **kw),
              readers.read_scene(ftex_root, resolution=-1, **kw),
-             readers.read_scene(texture_root, resolution=-1, **kw))
+             readers.read_scene(texture_root, resolution=-1, **kw),
+             readers.read_scene(bc6h_root, resolution=-1, **kw),
+             readers.read_scene(lossless_root, resolution=-1, **kw))
     for a, b in zip(before, after):
         for ca, cb in zip(a.train_cameras + a.test_cameras, b.train_cameras + b.test_cameras):
             assert np.array_equal(ca.image, cb.image) and np.array_equal(ca.mask, cb.mask)
@@ -589,6 +614,10 @@ def _every_entry_point(tmp_path):
     yield lambda: dds.decode_dds(dxt5)
     dxt1 = blp.encode_blp(np.zeros((4, 4, 3), np.uint8), "BLP2_DXT1")[0]
     yield lambda: blp.decode_blp(dxt1)
+    bc6h = dds.encode_dds(np.zeros((4, 4, 3), np.uint8), "BC6HS")[0]
+    yield lambda: dds.decode_dds(bc6h)
+    lossless = jpeg.encode_jpeg_lossless(np.zeros((4, 4, 3), np.uint8), 7)
+    yield lambda: jpeg.decode_jpeg(lossless)
 
 
 def _rle_bmp():
@@ -600,8 +629,8 @@ def _rle_bmp():
 
 def test_no_compiler_raises_not_falls_back(tmp_path, monkeypatch, fresh_library):
     """With no g++ to be found, each public entry point raises (the JPEG,
-    PNG, resize, LZW, PackBits, RLE, FLI, FTEX, DDS and BLP ones); none
-    falls back to its plain version."""
+    PNG, resize, LZW, PackBits, RLE, FLI, FTEX, DDS (BC6H too), BLP and
+    lossless JPEG ones); none falls back to its plain version."""
     monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
     for call in _every_entry_point(tmp_path):
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):

@@ -11,21 +11,29 @@ and RGBA (masked) textures; its BLP writer's BLP1 and BLP2 palettes. The
 `io/dds.py`, `io/blp.py`) or from random blocks here: DDS BC4 under each
 of its names, BC5 and BC5S, DX10 BC1 / BC4 / BC5 snorm, BC7 of mode 6 and
 of random blocks forced into each of the eight modes and the reserved one,
-16-bit masks with and without alpha, a palette, R8G8B8A8; the BC6H forms
-(refused); a 565 texture cut short (B34, refused); BLP1 JPEGs of one,
+16-bit masks with and without alpha, a palette, R8G8B8A8; DX10 BC6H
+unsigned and signed (DXGI 95, 96) of random blocks (`random_bc6h`: every
+mode and the reserved ones, the signed transformed ones made so that no
+endpoint is negative, where PIL reads them right), of `encode_bc6h`, and
+of fault B38 (signed blocks whose weights each take one endpoint); a 565
+texture cut short (B34, refused); BLP1 JPEGs of one,
 three and four (B35) components, BLP2 DXT1 / DXT3 / DXT5 of both alpha
 depths (B36), of width 2 (B37), and BLP2's raw BGRA (refused).
 
 `digests.json` holds, per file, PIL's format and mode, the rule the port
 applies and the SHA-256 and shape of the array the rule gives. The rules:
-none; A2 LA -> `convert("RGBA")`; B15 P -> `convert("RGB")`; B35 a
+none; A2 LA -> `convert("RGBA")`; B15 P -> `convert("RGB")`; B38 BC6HS
+blocks of a transformed mode whose every weight is 0 or 64 -> each pixel
+PIL's reading of a signed mode-0x0F block (16-bit endpoints, which PIL
+sign-extends right, and which unquantize as they are) holding that
+pixel's endpoint as the definition unquantizes it; B35 a
 four-component BLP1 JPEG -> the JPEG's components as stored (255 minus
 PIL's samples of the JPEG alone, which PIL opens inverted, `CMYK;I`)
 taken as B, G, R, A; B36 BLP2 DXT3 / DXT5 of alpha depth 0 -> PIL's
 reading of the file at alpha depth 8, the alpha dropped; B37 BLP2 DXT of a width not a
 multiple of 4 -> PIL's reading of the same blocks at the width rounded up,
-cropped; "B34 refused" and "refused" (BC6H, BLP2's raw BGRA): no array,
-the port raises.
+cropped; "B34 refused" and "refused" (BLP2's raw BGRA): no array, the
+port raises.
 """
 
 from __future__ import annotations
@@ -54,6 +62,100 @@ def random_bc7(n: int, seed: int) -> np.ndarray:
         m = k % 9
         blocks[k, 0] = 0 if m == 8 else (int(blocks[k, 0]) << (m + 1) | 1 << m) & 255
     return blocks
+
+
+def random_bc6h(n: int, seed: int, signed: bool, first: int = 0) -> np.ndarray:
+    """n random BC6H blocks, block k forced into mode pattern (first + k) %
+    18 of `bcn.BC6H_MODES + bcn.BC6H_RESERVED`. Signed blocks of a
+    transformed mode of under 16 bits are built field by field so that no
+    endpoint is negative (PIL reads the others unsigned: fault B38); the
+    rest are random bytes under the mode's bits."""
+    from gaussianmesh_tpu_torch.io import bcn
+
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    patterns = bcn.BC6H_MODES + bcn.BC6H_RESERVED
+    for k in range(n):
+        value = patterns[(first + k) % len(patterns)]
+        blocks[k, 0] = (blocks[k, 0] & (0xFC if value < 2 else 0xE0)) | value
+        if not signed or value not in bcn.BC6H_MODES:
+            continue
+        _, _, ns, transformed, bits, delta, _ = bcn._BC6H_MODES[bcn.BC6H_MODES.index(value)]
+        if not transformed or bits >= 16:
+            continue
+        fields = np.zeros(12, np.int64)
+        fields[:3] = rng.integers(0, 1 << (bits - 1), 3)
+        for e in range(3, 6 * ns):
+            d, w = delta[e % 3], int(fields[e % 3])
+            lo, hi = max(-w, -(1 << (d - 1))), min((1 << (bits - 1)) - 1 - w, (1 << (d - 1)) - 1)
+            fields[e] = int(rng.integers(lo, hi + 1)) & ((1 << d) - 1)
+        part = int(rng.integers(0, 32))
+        idx = rng.integers(0, 8 if ns == 2 else 16, 16)
+        idx[bcn._anchor(ns, np.array([part]))[0]] &= 3 if ns == 2 else 7
+        blocks[k] = bcn.bc6h_block(value, fields[None], part, idx[None])[0]
+    return blocks
+
+
+def _bc6h_parts(b: np.ndarray):
+    """A BC6H block of a defined mode -> (its mode's row of
+    `bcn._BC6H_MODES`, its stored fields (1, 12), partition, indices (16,))."""
+    from gaussianmesh_tpu_torch.io import bcn
+
+    two = b[0] & 3
+    mode = bcn._BC6H_MODES[bcn.BC6H_MODES.index(int(two if two < 2 else b[0] & 31))]
+    raw = np.unpackbits(b[None], axis=1, bitorder="little").astype(np.int64)
+    fields = bcn.bc6h_stored(b[None], mode[0])
+    ns = mode[2]
+    part = int(bcn._read(raw, np.full((1, 1), 77), np.full((1, 1), 5))[0, 0]) if ns == 2 else 0
+    widths = (3 if ns == 2 else 4) - bcn._anchor(ns, np.array([part]))
+    idx = bcn._read(raw, (82 if ns == 2 else 65) + np.cumsum(widths, 1) - widths, widths)[0]
+    return mode, fields, part, idx
+
+
+def b38_blocks(blocks: np.ndarray) -> np.ndarray:
+    """BC6H blocks of defined modes -> the same blocks with each index made
+    0 or the largest at random (anchors 0), so that each pixel takes one
+    endpoint: fault B38's blocks."""
+    from gaussianmesh_tpu_torch.io import bcn
+
+    rng = np.random.default_rng(38)
+    out = blocks.copy()
+    for k, b in enumerate(blocks):
+        mode, fields, part, _ = _bc6h_parts(b)
+        ns = mode[2]
+        top = rng.integers(0, 2, 16).astype(bool) & ~bcn._anchor(ns, np.array([part]))[0]
+        out[k] = bcn.bc6h_block(mode[0], fields, part, np.where(top, 7 if ns == 2 else 15,
+                                                                  0)[None])[0]
+    return out
+
+
+def b38_oracle(blocks: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Signed BC6H blocks whose indices are each 0 or the largest, as a w x
+    h texture -> fault B38's oracle: each pixel PIL's reading of a signed
+    mode-0x0F block (16-bit endpoints, which unquantize as they are and
+    which PIL sign-extends right) holding that pixel's endpoint as the
+    definition unquantizes it."""
+    from PIL import Image
+
+    from gaussianmesh_tpu_torch.io import bcn
+
+    n = len(blocks)
+    ends, slots = np.zeros((n, 12), np.int64), np.zeros((n, 16, 3), np.int64)
+    for k, b in enumerate(blocks):
+        mode, _, part, idx = _bc6h_parts(b)
+        ends[k] = bcn._bc6h_unquantize(bcn.bc6h_endpoints(b[None], mode[0], True)[0],
+                                       mode[4], True)
+        region = (bcn.BC7_PARTITIONS2[part] >> np.arange(16)) & 1 if mode[2] == 2 else 0
+        slots[k] = 3 * (2 * region + (idx > 0))[:, None] + np.arange(3)
+    fields = np.zeros((12 * n, 12), np.int64)
+    fields[:, :3] = (ends.reshape(-1, 1) & 0xFFFF).repeat(3, 1)
+    one = bcn.bc6h_block(0x0F, fields, 0, np.zeros((12 * n, 16), np.int64))
+    read = np.asarray(Image.frombytes("RGB", (48 * n, 4), one.tobytes(), "bcn", (6, "BC6HS")))
+    level = read[0, ::4, 0].reshape(n, 12)              # each endpoint's 8-bit reading
+    px = np.take_along_axis(np.repeat(level[:, None, :], 16, 1), slots, 2)
+    bw = (w + 3) // 4
+    tiles = px.reshape(-1, bw, 4, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 4 * bw, 3)
+    return np.ascontiguousarray(tiles[:h, :w].astype(np.uint8))
 
 
 def blp2_head(w: int, h: int, encoding: int, alpha: int, alpha_encoding: int, body: bytes,
@@ -154,11 +256,28 @@ def files() -> dict[str, tuple[bytes, dict | None]]:
         + rgba.tobytes(),
     })
     b16 = rng.integers(0, 256, bcn.bc1_blocks(8, 8) * 16, dtype=np.uint8).tobytes()
+    out["hand_dds_dx10_bc6h_uf16_8x8.dds"] = head(8, 8, fourcc, b"DX10", dxgi=95) + b16
+    out["hand_dds_dx10_bc6h_sf16_8x8.dds"] = head(8, 8, fourcc, b"DX10", dxgi=96) + \
+        random_bc6h(4, 6, True, first=9).tobytes()
+    for (w, h), first in (((13, 9), 6), ((23, 17), 0)):
+        for dxgi, sign in ((95, "uf16"), (96, "sf16")):
+            out[f"hand_dds_dx10_bc6h_{sign}_every_mode_{w}x{h}.dds"] = head(
+                w, h, fourcc, b"DX10", dxgi=dxgi) + random_bc6h(
+                bcn.bc1_blocks(w, h), w + dxgi, dxgi == 96, first).tobytes()
+    out["hand_dds_dx10_bc6h_uf16_writer_23x17.dds"] = dds.encode_dds(rgb, "BC6H")[0]
+    out["hand_dds_dx10_bc6h_sf16_writer_23x17.dds"] = dds.encode_dds(rgb, "BC6HS")[0]
+    # B38: random signed blocks of the transformed modes, each weight 0 or 64
+    transformed = [v for v, _, _, t, bits, _, _ in bcn._BC6H_MODES if t and bits < 16]
+    raw = np.random.default_rng(38).integers(0, 256, (bcn.bc1_blocks(23, 17), 16),
+                                             dtype=np.uint8)
+    for k in range(len(raw)):
+        value = transformed[k % len(transformed)]
+        raw[k, 0] = (raw[k, 0] & (0xFC if value < 2 else 0xE0)) | value
+    b38 = b38_blocks(raw)
+    out["hand_dds_dx10_bc6h_sf16_b38_23x17.dds"] = (
+        head(23, 17, fourcc, b"DX10", dxgi=96) + b38.tobytes(),
+        oracle(b38_oracle(b38, 23, 17), "DDS", "RGB", "B38"))
     rules = {
-        "hand_dds_dx10_bc6h_uf16_8x8.dds": (head(8, 8, fourcc, b"DX10", dxgi=95) + b16,
-                                            "refused"),
-        "hand_dds_dx10_bc6h_sf16_8x8.dds": (head(8, 8, fourcc, b"DX10", dxgi=96) + b16,
-                                            "refused"),
         "hand_dds_rgb565_cut_b34_23x17.dds": (dds.encode_dds(rgb, "RGB565")[0][:-101],
                                               "B34 refused"),
     }
