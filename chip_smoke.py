@@ -151,6 +151,20 @@ Phases (any failure raises, so the exit code is not 0):
    to exactly the rendered bytes, and their CROP_9F centres written the
    same way through both routes to the crop; s / MP beside the baseline
    files', plain / C++, bytes. 9h trains view 21 from its lossless file.
+   Then arithmetic-coded JPEGs: the fixtures of `tests/data/jpeg_arith/`
+   (SOF9 and SOF10 of every sampling, gray, Adobe-0 RGB, CMYK, YCCK,
+   quality 100, restarts, DAC tables 0-3, one scan a component, refinements
+   from Al 3; recorded by `tools/make_jpeg_arith_fixtures_torch.py`) give
+   their digests through `read_image` and `read_jpeg_plain`, and the bad
+   arithmetic code, the cut stream and the SOF11 files raise alike through
+   both. The rows of ARITH_9B: view 0 as SOF9 and view 15 as SOF10
+   (`write_jpeg(..., arithmetic=True)`: the coefficients of the view's
+   Huffman files, quality 90, 4:2:0) decode by `read_jpeg` (C++,
+   `gm_jpeg_arith_scan`) to exactly phase 9's baseline decode of the view,
+   and their ARITH_CROP_9B centres written the same way through both
+   routes to the same bytes as the crop's Huffman file; s / MP beside the
+   baseline files', plain / C++, bytes against the Huffman file, write s.
+   9h trains view 15 from its SOF10 file.
 9c. new formats: phase 9's 24 views as the baseline JPEG files decode
    (1920x1080) written again: 6 LZW TIFFs with predictor 2, 3 with
    predictor 1, 3 PackBits TIFFs, 4 16-bit LZW TIFFs (each sample x 257,
@@ -363,7 +377,8 @@ Phases (any failure raises, so the exit code is not 0):
    test views 0, 8 and 16 fall to 9b, 9c and 9d and each of the ten phases
    gives two or three training views, none of a row with an alpha) wrote
    for it (among the training views a BC6H texture of 9m and 9b's lossless
-   JPEG at least), or phase 9's JPEG where that file decodes with an alpha
+   and arithmetic-coded JPEGs at least), or phase 9's JPEG where that file
+   decodes with an alpha
    (an alpha makes a mask, and `DeviceDataset` stacks masks only where the
    shuffled first view has one, as the JAX trainer does);
    `cli.train_mesh --device cuda` on it for PROGRESSIVE_ITERS steps with
@@ -632,6 +647,11 @@ CROP_9F = (480, 272)                   # 9b, 9f, 9g: the plain decodes' centre c
 # takes view LOSSLESS_9B_TRAIN's lossless file in place of its progressive one
 LOSSLESS_9B = ((1, 0), (7, 21))
 LOSSLESS_9B_TRAIN = 21
+# phase 9b's arithmetic-coded JPEG rows: (frame, view) in turn, the coefficients of the
+# view's Huffman files; 9h takes view ARITH_9B_TRAIN's file in place of its progressive one
+ARITH_9B = (("sof9", 0), ("sof10", 15))
+ARITH_9B_TRAIN = 15
+ARITH_CROP_9B = (320, 180)             # the plain arithmetic walk's centre crop of a view
 # phase 9g: phase 9's views as PNM, TGA, QOI, SGI and PCX files, (row, views) in turn
 RAW_9G = (("ppm_p6", 3), ("ppm_p3_ascii", 1), ("pgm_p5_16bit_b19", 1),
           ("tga_raw24_bottom_up", 2), ("tga_rle32_top_left_8alpha", 2),
@@ -2663,9 +2683,9 @@ def jpeg_scan_starts(data: bytes) -> list:
     return starts
 
 
-def centre_crop(img):
-    """The CROP_9F (width, height) centre of an image, contiguous."""
-    w, h = CROP_9F
+def centre_crop(img, size=CROP_9F):
+    """The (width, height) centre of an image, contiguous."""
+    w, h = size
     y0, x0 = (img.shape[0] - h) // 2, (img.shape[1] - w) // 2
     return np.ascontiguousarray(img[y0:y0 + h, x0:x0 + w])
 
@@ -2693,15 +2713,19 @@ def phase_progressive(torch, port, model, scene, tmpdir):
     fixtures = fixture_digests(port, "jpeg_lossless",
                                lambda port, p: port.jpeg.read_jpeg_plain(p), "lossless JPEG",
                                least=20)
+    arith_fixtures = fixture_digests(port, "jpeg_arith",
+                                     lambda port, p: port.jpeg.read_jpeg_plain(p),
+                                     "arithmetic JPEG", least=20)
     root = os.path.join(tmpdir, "progressive_data")
     os.makedirs(root)
     white = torch.ones(3, device="cuda")
     times = {k: [] for k in ("write", "decode", "baseline")}
-    lossless = {}
+    lossless, arith = {}, {}
     views = {}
     taken = [i for i in range(len(scene["cams"])) if reader_phase(i) == "9b"]
     assert taken[0] == 0, taken               # view 0 gives the crop and the cut scans
     assert {v for _, v in LOSSLESS_9B} <= set(taken) and LOSSLESS_9B_TRAIN in taken, taken
+    assert {v for _, v in ARITH_9B} <= set(taken) and ARITH_9B_TRAIN in taken, taken
     for i in taken:
         _, _, cam = scene["cams"][i]
         ca = cam.arrays("cuda")
@@ -2723,6 +2747,11 @@ def phase_progressive(torch, port, model, scene, tmpdir):
                 f"{name}: the progressive file decodes to other bytes than the baseline "
                 f"one, by {int(np.abs(got.astype(int) - base).max())} levels")
         views[i] = (path, None)
+        for kind in (k for k, v in ARITH_9B if v == i):
+            huffman = path if kind == "sof10" else os.path.join(scene["root"], "images", name)
+            arith[kind] = arith_row(port, kind, u8, base, huffman, root, i, tmpdir)
+            if i == ARITH_9B_TRAIN:
+                views[i] = (arith[kind]["path"], None)
         for predictor in (p for p, v in LOSSLESS_9B if v == i):
             lossless[predictor] = lossless_row(port, predictor, u8, root, i, tmpdir)
             if i == LOSSLESS_9B_TRAIN:
@@ -2771,12 +2800,23 @@ def phase_progressive(torch, port, model, scene, tmpdir):
             f"baseline files); at {CROP_9F[0]}x{CROP_9F[1]} plain / C++ "
             f"{r['plain_vs_cpp']:.1f}; write {r['write_s']:.2f} s; C++ = the rendered bytes "
             "on the view, C++ = plain = the crop on the crop")
+    for kind, r in arith.items():
+        r.pop("path")
+        r["decode_vs_baseline_jpeg"] = r["decode_s_per_mp"] / per_mp["baseline"]
+        log(f"[progressive] arithmetic JPEG, {kind}, view {r['view']}: {r['bytes']} bytes "
+            f"({r['bytes_vs_huffman']:.3f}x its Huffman file); decode "
+            f"{r['decode_s_per_mp']:.4f} s/MP ({r['decode_vs_baseline_jpeg']:.2f}x the "
+            f"baseline files); at {ARITH_CROP_9B[0]}x{ARITH_CROP_9B[1]} plain "
+            f"{r['crop_plain_s_per_mp']:.3f} s/MP, plain / C++ {r['plain_vs_cpp']:.1f}; write "
+            f"{r['write_s']:.2f} s; C++ = phase 9's baseline bytes on the view, C++ = plain = "
+            "the Huffman crop on the crop")
     res = dict(views=len(sizes), bytes_mean=float(np.mean(sizes)),
                decode_s_per_mp=per_mp["decode"], crop_decode_s_per_mp=t_cpp / crop_mp,
                decode_plain_s_per_mp=t_plain / crop_mp,
                baseline_decode_s_per_mp=per_mp["baseline"],
                write_s_per_view=float(np.median(times["write"])),
                lossless_fixtures=len(fixtures), lossless=lossless,
+               arith_fixtures=len(arith_fixtures), arith=arith,
                phase_s=time.perf_counter() - t_phase)
     log("[progressive] " + json.dumps(res))
     return res, views
@@ -2808,6 +2848,39 @@ def lossless_row(port, predictor, u8, root, i, tmpdir):
     return dict(path=path, view=i, bytes=len(data),
                 decode_s_per_mp=t / (u8.shape[0] * u8.shape[1] / 1e6),
                 plain_vs_cpp=t_plain / t_cpp, write_s=t_write)
+
+
+def arith_row(port, kind, u8, base, huffman, root, i, tmpdir):
+    """Rendered view `i` (`u8`) as an arithmetic-coded JPEG of `kind` (SOF9,
+    or SOF10 in the 10-scan progression), the coefficients of its Huffman
+    file `huffman` (quality 90, 4:2:0; baseline for SOF9, progressive for
+    SOF10): `read_jpeg` must give `base`, phase 9's baseline decode of the
+    view; its ARITH_CROP_9B centre, written the same way, decodes through
+    `read_jpeg` and `read_jpeg_plain` to the bytes of the crop's Huffman
+    file -> the row's figures and the file's path."""
+    progressive = kind == "sof10"
+    path = os.path.join(root, f"{i:03d}_arith_{kind}.jpg")
+    _, t_write = timed(port.jpeg.write_jpeg, path, u8, EVAL_QUALITY, "4:2:0", progressive,
+                       False, True)
+    got, t = timed(port.jpeg.read_jpeg, path)
+    if not np.array_equal(got, base):
+        raise AssertionError(f"view {i}'s {kind} JPEG decodes to other bytes than phase 9's "
+                             "baseline file of the same coefficients")
+    crop = centre_crop(u8, ARITH_CROP_9B)
+    cpath = os.path.join(tmpdir, f"arith_crop_{kind}.jpg")
+    port.jpeg.write_jpeg(cpath, crop, EVAL_QUALITY, "4:2:0", progressive, False, True)
+    want = port.jpeg.decode_jpeg(port.jpeg.encode_jpeg(crop, EVAL_QUALITY, "4:2:0",
+                                                       progressive))
+    small, t_cpp = timed(port.jpeg.read_jpeg, cpath)
+    plain, t_plain = timed(port.jpeg.read_jpeg_plain, cpath)
+    if not (np.array_equal(small, want) and np.array_equal(plain, want)):
+        raise AssertionError(f"the {kind} crop decodes to other bytes than its Huffman file")
+    size = os.path.getsize(path)
+    crop_mp = ARITH_CROP_9B[0] * ARITH_CROP_9B[1] / 1e6
+    return dict(path=path, view=i, bytes=size, bytes_vs_huffman=size / os.path.getsize(huffman),
+                decode_s_per_mp=t / (u8.shape[0] * u8.shape[1] / 1e6),
+                crop_plain_s_per_mp=t_plain / crop_mp, plain_vs_cpp=t_plain / t_cpp,
+                write_s=t_write)
 
 
 # ------------------------------------------------------------------ phase 9c
@@ -4042,14 +4115,17 @@ def loaded_target(torch, port, decoded, size):
 
 def texture_or_lossless(port, path):
     """"BC6H" for a DX10 BC6H texture, "lossless JPEG" for an SOF3 file,
-    else None."""
+    "arithmetic JPEG" for an SOF9 or SOF10 one, else None."""
     with open(path, "rb") as fh:
         data = fh.read()
     if path.endswith(".dds"):
         _, _, form, _, args = port.dds.header(data)
         return "BC6H" if form == "bcn" and args[0] == port.bcn.BC6H else None
-    if data[:2] == b"\xff\xd8" and b"\xff\xc3" in data[:jpeg_scan_starts(data)[0]]:
+    head = data[:jpeg_scan_starts(data)[0]] if data[:2] == b"\xff\xd8" else b""
+    if b"\xff\xc3" in head:
         return "lossless JPEG"
+    if b"\xff\xc9" in head or b"\xff\xca" in head:
+        return "arithmetic JPEG"
     return None
 
 
@@ -4064,7 +4140,7 @@ def phase_reader_training(torch, port, scene, views, tmpdir):
     os.makedirs(os.path.join(root, "images"))
     cams, images, (xyz, rgb, err) = port.colmap.read_model(
         os.path.join(scene["root"], "sparse", "0"))
-    taken, forms = {}, {"BC6H": 0, "lossless JPEG": 0}
+    taken, forms = {}, {"BC6H": 0, "lossless JPEG": 0, "arithmetic JPEG": 0}
     for iid, img in images.items():
         i = iid - 1
         phase = reader_phase(i)
@@ -4094,8 +4170,8 @@ def phase_reader_training(torch, port, scene, views, tmpdir):
     want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
     assert launches == want, launches
     if min(forms.values()) < 1:
-        raise AssertionError(f"the training views hold {forms}: a BC6H and a lossless JPEG "
-                             "view at least")
+        raise AssertionError(f"the training views hold {forms}: a BC6H, a lossless JPEG and "
+                             "an arithmetic JPEG view at least")
     steps = step_summary(rows["steps"], "readers")
     for name, p in trainer.model.named_parameters():
         assert torch.isfinite(p).all(), name
@@ -5536,7 +5612,14 @@ def main() -> int:
         f"{CROP_9F[0]}x{CROP_9F[1]}, bytes: " + ", ".join(
             f"predictor {p} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "
             f"{r['plain_vs_cpp']:.1f}, {r['bytes']}" for p, r in
-            progressive["lossless"].items()))
+            progressive["lossless"].items())
+        + f"; {progressive['arith_fixtures']} arithmetic JPEG fixtures; arithmetic rows s/MP "
+        f"(x the baseline files), plain s/MP and plain / C++ at {ARITH_CROP_9B[0]}x"
+        f"{ARITH_CROP_9B[1]}, bytes (x the Huffman file), write s: " + ", ".join(
+            f"{k} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "
+            f"{r['crop_plain_s_per_mp']:.3f}, {r['plain_vs_cpp']:.1f}, {r['bytes']} "
+            f"({r['bytes_vs_huffman']:.3f}x), {r['write_s']:.2f}"
+            for k, r in progressive["arith"].items()))
     log(f"[done] formats phase {formats['phase_s']:.1f} s on {cpu}: s/MP C++ / plain by "
         "format " + ", ".join(f"{k} {r['decode_s_per_mp']:.4f} / {r['plain_s_per_mp']:.4f}"
                               for k, r in formats["formats"].items()))

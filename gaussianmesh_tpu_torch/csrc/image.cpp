@@ -16,6 +16,11 @@
 //   AC refine), added into the coefficients of the scans before it.
 // - gm_jpeg_lossless: one scan of a lossless (SOF3) file: Huffman-coded
 //   differences, restart markers and `jdpred.c`'s predictors in one walk.
+// - gm_jpeg_arith_scan / gm_jpeg_arith_encode: one scan of an
+//   arithmetic-coded file (SOF9 sequential, SOF10 progressive), decoded
+//   into the coefficients gm_jpeg_scan fills, or coded from them: T.81
+//   Annex D's QM coder and the models of F.1.4.4 / G.1.3, step for step as
+//   libjpeg-turbo's `jdarith.c` and `jcarith.c`.
 // - gm_jpeg_planes: dequantisation, libjpeg-turbo's islow IDCT
 //   (`jidctint.c`), fancy upsampling (`jdsample.c`) and the fixed-point
 //   YCbCr -> RGB tables (`jdcolor.c`), cropped to the frame; four
@@ -70,6 +75,9 @@ constexpr int kBadLiteral = 9;      // an LZW encoder's input byte of min_bits o
 constexpr int kNoRoom = 10;         // an LZW encoder's output past its buffer
 constexpr int kChannelLeft = 11;    // an icns plane's count not met exactly
 constexpr int kRowCorrupt = 12;     // an MSP run cut by the end of its row
+constexpr int kArithMagnitude = 13; // an arithmetic-coded magnitude past 2^15
+constexpr int kArithRun = 14;       // an arithmetic-coded run of zeros past Se
+constexpr int kArithRange = 15;     // an encoder's value past 16 magnitude bits
 
 constexpr int kLzwMaxBits = 12;     // LZW codes of 12 bits, a table of 4,096 entries
 constexpr int kLzwTable = 1 << kLzwMaxBits;
@@ -706,6 +714,442 @@ int bcn_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height, in
   return blocks < bw * bh ? kTruncated : kOk;
 }
 
+// ---------------------------------------------------------------- QM coder
+
+// T.81 Table D.2, packed as libjpeg's `jpeg_aritab`: Qe << 16 |
+// Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS. Entry 113 is the
+// fixed estimate of 0.5 (T.851) that signs and DC refinements are coded at.
+constexpr int32_t kQe[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171};
+
+constexpr int kFixedBin = 113;
+constexpr int kDcBins = 64, kAcBins = 256;
+
+// The statistics of a scan: a DC area and an AC area for each of the four
+// conditioning tables, and the fixed 0.5 bin (which never leaves state 113).
+struct ArithStats {
+  uint8_t dc[4][kDcBins];
+  uint8_t ac[4][kAcBins];
+  uint8_t fixed;
+  void clear() {
+    std::memset(dc, 0, sizeof(dc));
+    std::memset(ac, 0, sizeof(ac));
+    fixed = kFixedBin;
+  }
+};
+
+// T.81 D.2 (`jdarith.c`'s arith_decode): one restart interval's unstuffed
+// bytes, then zero bytes (the marker that ends the interval: D.2.6). Where
+// the interval runs to the end of the data (no marker after it), a byte
+// fetched past it sets `truncated` (libjpeg's source would have to wait for
+// more data; PIL's cannot) and reads as zero.
+class QmDecoder {
+ public:
+  QmDecoder(const uint8_t* seg, int64_t n, bool at_end) : seg_(seg), n_(n), at_end_(at_end) {}
+
+  int decode(uint8_t* st) {
+    while (a_ < 0x8000) {               // renormalisation and byte input (D.2.6)
+      if (--ct_ < 0) {
+        int data = 0;
+        if (pos_ < n_) {
+          data = seg_[pos_++];
+        } else if (at_end_) {
+          truncated = true;
+        }
+        c_ = (c_ << 8) | data;
+        if ((ct_ += 8) < 0 && ++ct_ == 0) a_ = 0x8000;   // the two first bytes
+      }
+      a_ <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kQe[sv & 0x7F];
+    const int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+    qe >>= 16;
+    int64_t temp = a_ - qe;             // D.2.4 / D.2.5, the conditional exchanges
+    a_ = temp;
+    temp <<= ct_;
+    if (c_ >= temp) {
+      c_ -= temp;
+      if (a_ < qe) {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a_ < 0x8000) {
+      if (a_ < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  bool truncated = false;
+
+ private:
+  const uint8_t* seg_;
+  int64_t n_, pos_ = 0;
+  bool at_end_;
+  int64_t c_ = 0, a_ = 0;
+  int ct_ = -16;                        // two bytes to fetch before the first decision
+};
+
+// T.81 D.1 (`jcarith.c`'s arith_encode and finish_pass): the C register
+// with its carry into the byte before a run of 0xFF bytes, each 0xFF
+// stuffed with 0x00, and a flush that drops trailing zero bytes.
+class QmEncoder {
+ public:
+  explicit QmEncoder(std::vector<uint8_t>* out) : out_(out) {}
+
+  void encode(uint8_t* st, int val) {
+    const int sv = *st;
+    int64_t qe = kQe[sv & 0x7F];
+    const int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+    qe >>= 16;
+    a_ -= qe;
+    if (val != (sv >> 7)) {             // the less probable symbol
+      if (a_ >= qe) {
+        c_ += a_;
+        a_ = qe;
+      }
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+    } else {                            // the more probable one
+      if (a_ >= 0x8000) return;
+      if (a_ < qe) {
+        c_ += a_;
+        a_ = qe;
+      }
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    }
+    do {                                // renormalisation and byte output (D.1.6)
+      a_ <<= 1;
+      c_ <<= 1;
+      if (--ct_ == 0) {
+        const int64_t temp = c_ >> 19;
+        if (temp > 0xFF) {              // a carry over the stacked 0xFF bytes
+          if (buffer_ >= 0) {
+            zeros();
+            emit(buffer_ + 1);
+          }
+          zc_ += sc_;
+          sc_ = 0;
+          buffer_ = static_cast<int>(temp & 0xFF);
+        } else if (temp == 0xFF) {
+          ++sc_;
+        } else {
+          release();
+          buffer_ = static_cast<int>(temp);
+        }
+        c_ &= 0x7FFFF;
+        ct_ += 8;
+      }
+    } while (a_ < 0x8000);
+  }
+
+  void finish() {
+    // the value in the interval with the most trailing zero bits (D.1.8)
+    const int64_t temp = (a_ - 1 + c_) & 0xFFFF0000LL;
+    c_ = temp < c_ ? temp + 0x8000 : temp;
+    c_ <<= ct_;
+    if (c_ & 0xF8000000LL) {            // one last carry
+      if (buffer_ >= 0) {
+        zeros();
+        emit(buffer_ + 1);
+      }
+      zc_ += sc_;
+      sc_ = 0;
+    } else {
+      release();
+    }
+    if (c_ & 0x7FFF800LL) {             // the last bytes, unless zero
+      zeros();
+      emit(static_cast<int>((c_ >> 19) & 0xFF));
+      if (c_ & 0x7F800LL) emit(static_cast<int>((c_ >> 11) & 0xFF));
+    }
+  }
+
+ private:
+  void emit(int v) {                    // a byte, and the 0x00 that stuffs a 0xFF
+    out_->push_back(static_cast<uint8_t>(v));
+    if (v == 0xFF) out_->push_back(0);
+  }
+  void zeros() {                        // the pending zero bytes
+    for (; zc_ > 0; --zc_) out_->push_back(0);
+  }
+  // the buffered byte (a zero one stays pending) and the stacked 0xFF bytes
+  void release() {
+    if (buffer_ == 0) {
+      ++zc_;
+    } else if (buffer_ > 0) {
+      zeros();
+      emit(buffer_);
+    }
+    if (sc_) {
+      zeros();
+      for (; sc_ > 0; --sc_) emit(0xFF);
+    }
+  }
+
+  std::vector<uint8_t>* out_;
+  int64_t c_ = 0, a_ = 0x10000, sc_ = 0, zc_ = 0;
+  int ct_ = 11, buffer_ = -1;
+};
+
+// One DC difference (F.1.4.4.1; Figures F.19-F.24) at the statistics `dc`
+// of its table, in the component's context (0 zero, 4 / 8 small + / -,
+// 12 / 16 large + / -, by the magnitude class against the table's L and U).
+int arith_dc(QmDecoder& d, uint8_t* dc, int* context, int lo, int hi, int32_t* diff) {
+  uint8_t* st = dc + *context;
+  if (d.decode(st) == 0) {
+    *context = 0;
+    *diff = 0;
+    return kOk;
+  }
+  const int sign = d.decode(st + 1);
+  st += 2 + sign;
+  int m = d.decode(st);
+  if (m) {
+    st = dc + 20;                       // X1
+    while (d.decode(st)) {
+      if ((m <<= 1) == 0x8000) return kArithMagnitude;
+      ++st;
+    }
+  }
+  if (m < ((1 << lo) >> 1))
+    *context = 0;
+  else if (m > ((1 << hi) >> 1))
+    *context = 12 + 4 * sign;
+  else
+    *context = 4 + 4 * sign;
+  int32_t v = m;
+  st += 14;                             // M_k of the last X_k
+  while (m >>= 1)
+    if (d.decode(st)) v |= m;
+  v += 1;
+  *diff = sign ? -v : v;
+  return kOk;
+}
+
+// The rest of an AC value after its sign (Figures F.23 / F.24): `st` is
+// the bin of the zero / nonzero decision at k; the magnitude chain's second
+// set is by k against the table's Kx.
+int arith_ac_value(QmDecoder& d, uint8_t* ac, uint8_t* st, int k, int kx, int sign,
+                   int32_t* value) {
+  st += 2;
+  int m = d.decode(st);
+  if (m && d.decode(st)) {
+    m <<= 1;
+    st = ac + (k <= kx ? 189 : 217);
+    while (d.decode(st)) {
+      if ((m <<= 1) == 0x8000) return kArithMagnitude;
+      ++st;
+    }
+  }
+  int32_t v = m;
+  st += 14;
+  while (m >>= 1)
+    if (d.decode(st)) v |= m;
+  v += 1;
+  *value = sign ? -v : v;
+  return kOk;
+}
+
+// An AC band k0..k1 of one block (F.1.4.4.2 / G.1.3.2's first scans): an
+// end-of-block decision at 3 (k - 1), the zeros before the next value,
+// its sign at the fixed bin, its magnitude; values shifted up by `al`.
+int arith_ac_band(QmDecoder& d, ArithStats& s, int tab, int kx, int k0, int k1, int al,
+                  int32_t* zz) {
+  uint8_t* ac = s.ac[tab];
+  for (int k = k0; k <= k1; ++k) {
+    uint8_t* st = ac + 3 * (k - 1);
+    if (d.decode(st)) break;            // end of block
+    while (d.decode(st + 1) == 0) {
+      st += 3;
+      if (++k > k1) return kArithRun;
+    }
+    const int sign = d.decode(&s.fixed);
+    int32_t v;
+    const int status = arith_ac_value(d, ac, st, k, kx, sign, &v);
+    if (status != kOk) return status;
+    zz[k] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+  }
+  return kOk;
+}
+
+// An AC refinement (G.1.3.3, `decode_mcu_AC_refine`): past the previous
+// passes' last nonzero coefficient (EOBx) an end-of-block decision at each
+// k; a coefficient nonzero before takes a correction bit, a zero one a
+// decision whether it becomes +-2^al (its sign at the fixed bin).
+int arith_ac_refine(QmDecoder& d, ArithStats& s, int tab, int ss, int se, int al,
+                    int32_t* zz) {
+  uint8_t* ac = s.ac[tab];
+  const int32_t p1 = 1 << al, m1 = -p1;
+  int kex = se;
+  for (; kex > 0; --kex)
+    if (zz[kex]) break;
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* st = ac + 3 * (k - 1);
+    if (k > kex && d.decode(st)) break;
+    for (;;) {
+      int32_t* c = zz + k;
+      if (*c) {
+        if (d.decode(st + 2)) *c = static_cast<int16_t>(*c + (*c < 0 ? m1 : p1));
+        break;
+      }
+      if (d.decode(st + 1)) {
+        *c = d.decode(&s.fixed) ? m1 : p1;
+        break;
+      }
+      st += 3;
+      if (++k > se) return kArithRun;
+    }
+  }
+  return kOk;
+}
+
+// The encoder's side of arith_dc: difference v (0 codes as zero).
+void encode_dc(QmEncoder& e, uint8_t* dc, int* context, int lo, int hi, int32_t v) {
+  uint8_t* st = dc + *context;
+  if (v == 0) {
+    e.encode(st, 0);
+    *context = 0;
+    return;
+  }
+  e.encode(st, 1);
+  if (v > 0) {
+    e.encode(st + 1, 0);
+    st += 2;
+    *context = 4;
+  } else {
+    v = -v;
+    e.encode(st + 1, 1);
+    st += 3;
+    *context = 8;
+  }
+  int m = 0;
+  if (v -= 1) {
+    e.encode(st, 1);
+    m = 1;
+    int32_t v2 = v;
+    st = dc + 20;
+    while (v2 >>= 1) {
+      e.encode(st, 1);
+      m <<= 1;
+      ++st;
+    }
+  }
+  e.encode(st, 0);
+  if (m < ((1 << lo) >> 1))
+    *context = 0;
+  else if (m > ((1 << hi) >> 1))
+    *context += 8;
+  st += 14;
+  while (m >>= 1) e.encode(st, (m & v) ? 1 : 0);
+}
+
+// The encoder's side of arith_ac_value: magnitude v >= 1 at k.
+void encode_ac_value(QmEncoder& e, uint8_t* ac, uint8_t* st, int k, int kx, int32_t v) {
+  st += 2;
+  int m = 0;
+  if (v -= 1) {
+    e.encode(st, 1);
+    m = 1;
+    int32_t v2 = v;
+    if (v2 >>= 1) {
+      e.encode(st, 1);
+      m <<= 1;
+      st = ac + (k <= kx ? 189 : 217);
+      while (v2 >>= 1) {
+        e.encode(st, 1);
+        m <<= 1;
+        ++st;
+      }
+    }
+  }
+  e.encode(st, 0);
+  st += 14;
+  while (m >>= 1) e.encode(st, (m & v) ? 1 : 0);
+}
+
+// The encoder's side of arith_ac_band (`encode_mcu_AC_first`; k0 1, k1 63,
+// al 0 for a sequential block): the magnitudes |zz[k]| >> al.
+void encode_ac_band(QmEncoder& e, ArithStats& s, int tab, int kx, int k0, int k1, int al,
+                    const int32_t* zz) {
+  uint8_t* ac = s.ac[tab];
+  auto mag = [&](int k) { return (zz[k] < 0 ? -zz[k] : zz[k]) >> al; };
+  int ke = k1;
+  for (; ke > 0; --ke)
+    if (mag(ke)) break;
+  int k = k0;
+  for (; k <= ke; ++k) {
+    uint8_t* st = ac + 3 * (k - 1);
+    e.encode(st, 0);
+    while (mag(k) == 0) {
+      e.encode(st + 1, 0);
+      st += 3;
+      ++k;
+    }
+    e.encode(st + 1, 1);
+    e.encode(&s.fixed, zz[k] < 0);
+    encode_ac_value(e, ac, st, k, kx, mag(k));
+  }
+  if (k <= k1) e.encode(ac + 3 * (k - 1), 1);
+}
+
+// The encoder's side of arith_ac_refine (`encode_mcu_AC_refine`).
+void encode_ac_refine(QmEncoder& e, ArithStats& s, int tab, int ss, int se, int ah, int al,
+                      const int32_t* zz) {
+  uint8_t* ac = s.ac[tab];
+  auto mag = [&](int k, int shift) { return (zz[k] < 0 ? -zz[k] : zz[k]) >> shift; };
+  int ke = se;
+  for (; ke > 0; --ke)
+    if (mag(ke, al)) break;
+  int kex = ke;
+  for (; kex > 0; --kex)
+    if (mag(kex, ah)) break;
+  int k = ss;
+  for (; k <= ke; ++k) {
+    uint8_t* st = ac + 3 * (k - 1);
+    if (k > kex) e.encode(st, 0);
+    for (;;) {
+      const int32_t v = mag(k, al);
+      if (v) {
+        if (v >> 1) {
+          e.encode(st + 2, v & 1);      // a correction bit
+        } else {
+          e.encode(st + 1, 1);          // newly nonzero, then its sign
+          e.encode(&s.fixed, zz[k] < 0);
+        }
+        break;
+      }
+      e.encode(st + 1, 0);
+      st += 3;
+      ++k;
+    }
+  }
+  if (k <= se) e.encode(ac + 3 * (k - 1), 1);
+}
+
 }  // namespace
 
 extern "C" {
@@ -971,6 +1415,134 @@ int gm_jpeg_scan_progressive(const uint8_t* data, int64_t n, int n_mcus, int int
       }
     if (in.p > 8 * len) return kTruncated;
   }
+  return kOk;
+}
+
+// One scan of an arithmetic-coded file: sequential (SOF9) where
+// `progressive` is 0, else the SOF10 decoder that ss, se, ah and al name.
+// `data`, `n`, the intervals, `per_mcu`, `comp` and `dest` are as
+// gm_jpeg_scan's; block j of an MCU is coded with DC conditioning table
+// dc_tab[j] and AC table ac_tab[j] (0-3) under `cond` (L[4], U[4], Kx[4]).
+// A sequential block is zeroed and set; a progressive scan adds to the
+// coefficients of the scans before it. The statistics, the DC predictions
+// and contexts and the coder restart with each interval. Each value is
+// kept to 16 bits, as libjpeg's JCOEF keeps it. Where libjpeg warns ("bad
+// arithmetic code") and leaves the rest of the interval zero, this returns
+// kArithMagnitude (a magnitude past 2^15) or kArithRun (a run of zeros past
+// Se); where an interval runs to the end of the data and the coder fetches
+// a byte past it, kTruncated.
+int gm_jpeg_arith_scan(const uint8_t* data, int64_t n, int n_mcus, int interval, int per_mcu,
+                       const int32_t* comp, const int32_t* dc_tab, const int32_t* ac_tab,
+                       const int32_t* dest, int progressive, int ss, int se, int ah, int al,
+                       const int32_t* cond, int32_t* coef, int64_t* used, int32_t* n_found) {
+  std::vector<int64_t> cuts;
+  *used = split_intervals(data, n, &cuts);
+  const int n_seg = static_cast<int>(cuts.size() / 2);
+  if (interval <= 0) interval = n_mcus;
+  const int n_int = n_mcus > 0 ? (n_mcus + interval - 1) / interval : 0;
+  *n_found = n_seg;
+  if (n_seg < n_int) return kFewIntervals;
+
+  const int32_t *lo = cond, *hi = cond + 4, *kx = cond + 8;
+  const int32_t p1 = static_cast<int32_t>(1u << al);
+  ArithStats stats;
+  std::vector<uint8_t> seg;
+  int64_t block = 0;
+  for (int it = 0; it < n_int; ++it) {
+    unstuff(data, cuts, it, &seg);
+    QmDecoder d(seg.data(), static_cast<int64_t>(seg.size()), cuts[2 * it + 1] == n);
+    stats.clear();
+    int32_t last[4] = {0, 0, 0, 0};     // DC predictions and contexts by component slot
+    int context[4] = {0, 0, 0, 0};
+    const int m = std::min(interval, n_mcus - it * interval);
+    for (int mcu = 0; mcu < m; ++mcu)
+      for (int j = 0; j < per_mcu; ++j, ++block) {
+        int32_t* zz = coef + static_cast<int64_t>(dest[block]) * 64;
+        const int c = comp[j], dt = dc_tab[j], at = ac_tab[j];
+        int status = kOk;
+        int32_t diff;
+        if (!progressive) {
+          std::memset(zz, 0, 64 * sizeof(int32_t));
+          status = arith_dc(d, stats.dc[dt], &context[c], lo[dt], hi[dt], &diff);
+          if (status == kOk) {
+            last[c] = (last[c] + diff) & 0xFFFF;
+            zz[0] = static_cast<int16_t>(last[c]);
+            status = arith_ac_band(d, stats, at, kx[at], 1, 63, 0, zz);
+          }
+        } else if (ss == 0 && ah == 0) {        // DC first
+          status = arith_dc(d, stats.dc[dt], &context[c], lo[dt], hi[dt], &diff);
+          if (status == kOk) {
+            last[c] = (last[c] + diff) & 0xFFFF;
+            zz[0] = static_cast<int16_t>(static_cast<uint32_t>(last[c]) << al);
+          }
+        } else if (ss == 0) {                   // DC refinement: a bit at the fixed bin
+          if (d.decode(&stats.fixed)) zz[0] = static_cast<int16_t>(zz[0] | p1);
+        } else if (ah == 0) {                   // AC first
+          status = arith_ac_band(d, stats, at, kx[at], ss, se, al, zz);
+        } else {                                // AC refinement
+          status = arith_ac_refine(d, stats, at, ss, se, al, zz);
+        }
+        if (d.truncated) return kTruncated;
+        if (status != kOk) return status;
+      }
+  }
+  return kOk;
+}
+
+// The encoder's side of gm_jpeg_arith_scan (`jcarith.c`): `blocks`
+// ((n_mcus * per_mcu, 64) zig-zag int32, in the scan's order) with
+// `comp`, `dc_tab`, `ac_tab`, `progressive`, `ss`, `se`, `ah`, `al` and
+// `cond` as there -> the scan's entropy-coded data, with an RSTn marker
+// (numbered 0-7 in turn) after each interval of `interval` MCUs but the
+// last, into `out` (`cap` bytes). *n_out: its length (kNoRoom where that
+// is past `cap`). A coefficient outside +-32767 is kArithRange.
+int gm_jpeg_arith_encode(const int32_t* blocks, int n_mcus, int per_mcu, const int32_t* comp,
+                         const int32_t* dc_tab, const int32_t* ac_tab, int progressive, int ss,
+                         int se, int ah, int al, int interval, const int32_t* cond,
+                         uint8_t* out, int64_t cap, int64_t* n_out) {
+  const int64_t n_blocks = static_cast<int64_t>(n_mcus) * per_mcu;
+  for (int64_t i = 0; i < 64 * n_blocks; ++i)
+    if (blocks[i] > 32767 || blocks[i] < -32767) return kArithRange;
+  if (interval <= 0) interval = n_mcus;
+  const int32_t *lo = cond, *hi = cond + 4, *kx = cond + 8;
+  ArithStats stats;
+  std::vector<uint8_t> buf;
+  int64_t block = 0;
+  for (int it = 0; static_cast<int64_t>(it) * interval < n_mcus; ++it) {
+    if (it) {
+      buf.push_back(0xFF);
+      buf.push_back(static_cast<uint8_t>(0xD0 + (it - 1) % 8));
+    }
+    stats.clear();
+    int32_t last[4] = {0, 0, 0, 0};
+    int context[4] = {0, 0, 0, 0};
+    QmEncoder e(&buf);
+    const int m = std::min(interval, n_mcus - it * interval);
+    for (int mcu = 0; mcu < m; ++mcu)
+      for (int j = 0; j < per_mcu; ++j, ++block) {
+        const int32_t* zz = blocks + block * 64;
+        const int c = comp[j], dt = dc_tab[j], at = ac_tab[j];
+        if (!progressive) {
+          encode_dc(e, stats.dc[dt], &context[c], lo[dt], hi[dt], zz[0] - last[c]);
+          last[c] = zz[0];
+          encode_ac_band(e, stats, at, kx[at], 1, 63, 0, zz);
+        } else if (ss == 0 && ah == 0) {
+          const int32_t v = zz[0] >> al;        // an arithmetic shift, as IRIGHT_SHIFT
+          encode_dc(e, stats.dc[dt], &context[c], lo[dt], hi[dt], v - last[c]);
+          last[c] = v;
+        } else if (ss == 0) {
+          e.encode(&stats.fixed, (zz[0] >> al) & 1);
+        } else if (ah == 0) {
+          encode_ac_band(e, stats, at, kx[at], ss, se, al, zz);
+        } else {
+          encode_ac_refine(e, stats, at, ss, se, ah, al, zz);
+        }
+      }
+    e.finish();
+  }
+  *n_out = static_cast<int64_t>(buf.size());
+  if (*n_out > cap) return kNoRoom;
+  std::memcpy(out, buf.data(), buf.size());
   return kOk;
 }
 

@@ -2,7 +2,8 @@
 (the JAX package reads JPEGs with PIL).
 
 `read_jpeg` decodes 8-bit Huffman JPEGs, sequential (SOF0 baseline and
-SOF1 extended), progressive (SOF2) and lossless (SOF3), with 1, 3 or 4
+SOF1 extended), progressive (SOF2) and lossless (SOF3), and arithmetic-coded
+ones, sequential (SOF9) and progressive (SOF10), with 1, 3 or 4
 components, sampling factors 1-2 on each axis (4:4:4, 4:2:2, 4:2:0, 4:4:0), restart
 intervals, interleaved or single-component scans, to the arrays
 `np.asarray(PIL.Image.open(p))` gives: (H, W) uint8 for gray, (H, W, 3) RGB
@@ -52,9 +53,31 @@ that the bits agree:
   `cmyk_to_rgb`); three under JFIF or another Adobe transform, and four
   under an Adobe transform other than 0, make PIL fail and raise.
 
+- an arithmetic-coded file (T.81 Annex D's QM coder; `jdarith.c` step for
+  step) holds the DCT blocks a Huffman file holds, coded as binary
+  decisions at adaptive statistics bins: a DC difference conditioned on the
+  previous one's class against the table's L and U, an AC band's
+  end-of-block, zero-run, sign (at the fixed 0.5 bin) and magnitude
+  decisions, the magnitude's second bin set chosen by k <= Kx; a
+  progressive file's four kinds of scan as G.1.3 codes them, with no EOB
+  runs. DAC segments set L / U (DC) and Kx (AC) of conditioning tables 0-3;
+  each SOI resets every table to L 0, U 1, Kx 5, as libjpeg's marker reader
+  does; DHT is not needed. The statistics, DC predictions and coder restart
+  with each scan and each restart interval. Where an interval's bytes end
+  at a marker the decoder reads zero bytes on (D.2.6: encoders drop the
+  trailing zeros at their flush); where they end at the end of the file, a
+  byte needed past it means the file is cut, and raises. Where libjpeg
+  only warns ("bad arithmetic code": a magnitude past 2^15, a run of zeros
+  past the band's end) and leaves the rest of the interval zero, this
+  raises naming it. A DAC of L over U, of Kx outside 1-63 or of a table
+  past 3, and a scan of a table past 3, raise (libjpeg takes tables 0-15
+  and any Kx). PIL cannot load an arithmetic file past its 65,536-byte
+  read block (fault B39: libjpeg-turbo's arithmetic decoder cannot wait for
+  PIL's next block); the port reads it. Lossless arithmetic files (SOF11)
+  raise: PIL's libjpeg-turbo cannot decode them either.
+
 EXIF orientation is ignored, as a plain `Image.open` ignores it.
-Arithmetic-coded and hierarchical files and 12-bit samples raise with the
-cause.
+Hierarchical files and 12-bit samples raise with the cause.
 
 `decode_jpeg` also reads the abbreviated streams of a JPEG-compressed TIFF
 (`io/tiff.py`): the tables come from the TIFF's `JPEGTables` stream
@@ -69,9 +92,9 @@ decoder in Python and numpy, the version the C++ is held to byte for byte:
 entropy decoding is one Python loop over the symbols, each decoded by one
 lookup in a 16-bit peek table that holds the code length, the run and the
 value when code and value bits fit in 16 bits (a second table and a bit
-read otherwise); dequantisation, the IDCT, upsampling and colour
-conversion run vectorised over all blocks. The training path never calls
-it.
+read otherwise), or for arithmetic coding one Python call a decision;
+dequantisation, the IDCT, upsampling and colour conversion run vectorised
+over all blocks. The training path never calls it.
 
 `encode_jpeg_lossless` writes lossless JPEGs (any predictor and point
 transform, restart intervals, interleaved or one scan a component) for the
@@ -86,6 +109,10 @@ libjpeg writes PIL's CMYK) or YCCK with transform 2. With
 `progressive=True` it writes the same coefficients as a progressive file
 in libjpeg's `jpeg_simple_progression` script, each scan with its own
 Huffman tables (Annex K.2) and EOB runs, vectorised over the blocks too.
+With `arithmetic=True` the same coefficients are arithmetic-coded (SOF9, or
+SOF10 in the same progression) by the C++ QM encoder (`arith_scans`,
+`gm_jpeg_arith_encode`, `jcarith.c` step for step), with restart intervals
+and DAC segments where asked (`arith_scans` codes any scan script).
 `encode_jpeg` and `encode_jpeg_tables` give the bytes, abbreviated streams
 and their tables included, for `io/tiff.py`'s writer.
 """
@@ -114,10 +141,13 @@ ZIGZAG = np.array([
 _SOF_KINDS = {
     0xC5: "differential sequential",
     0xC6: "differential progressive", 0xC7: "differential lossless",
-    0xC9: "arithmetic-coded", 0xCA: "progressive arithmetic-coded",
     0xCB: "lossless arithmetic-coded", 0xCD: "differential arithmetic-coded",
     0xCE: "differential progressive arithmetic-coded",
     0xCF: "differential lossless arithmetic-coded"}
+
+# the arithmetic conditioning each SOI resets every table to (libjpeg's
+# `get_soi`): DC L 0 and U 1, AC Kx 5
+_DAC_DEFAULT = ((0,) * 4, (1,) * 4, (5,) * 4)
 
 # Annex K.1 quantisation tables (natural order) and K.3 Huffman tables
 # (code counts per length 1-16, then the symbols)
@@ -361,8 +391,9 @@ def _ycc_to_rgb(y, cb, cr):
 
 
 class _Frame:
-    def __init__(self, seg: bytes, path, progressive: bool = False, lossless: bool = False):
-        self.progressive, self.lossless = progressive, lossless
+    def __init__(self, seg: bytes, path, progressive: bool = False, lossless: bool = False,
+                 arithmetic: bool = False):
+        self.progressive, self.lossless, self.arithmetic = progressive, lossless, arithmetic
         precision, self.height, self.width, nf = struct.unpack(">BHHB", seg[:6])
         if precision != 8:
             raise ValueError(f"{path}: {precision}-bit JPEG; only 8-bit samples are read")
@@ -469,14 +500,20 @@ class _Scan:
             if cid not in frame.ids:
                 raise ValueError(f"{path}: scan names component {cid}, not in the frame")
             c = frame.ids.index(cid)
-            # libjpeg-turbo takes the Annex K table for an undefined table 0
-            # or 1 (`jpeg_std_huff_table`: Motion-JPEG frames carry no DHT)
-            if need_dc and (t >> 4) not in dc and (t >> 4) < 2:
-                dc[t >> 4] = (_DC_LUMA, _DC_CHROMA)[t >> 4]
-            if need_ac and (t & 15) not in ac and (t & 15) < 2:
-                ac[t & 15] = (_AC_LUMA, _AC_CHROMA)[t & 15]
-            if (need_dc and (t >> 4) not in dc) or (need_ac and (t & 15) not in ac):
-                raise ValueError(f"{path}: scan uses a Huffman table that is not defined")
+            if frame.arithmetic:
+                # conditioning tables 0-3 (T.81 B.2.3; libjpeg-turbo takes 0-15)
+                if (need_dc and (t >> 4) > 3) or (need_ac and (t & 15) > 3):
+                    raise ValueError(f"{path}: scan uses arithmetic conditioning tables "
+                                     f"{t >> 4} / {t & 15}; T.81 has 0-3")
+            else:
+                # libjpeg-turbo takes the Annex K table for an undefined table 0
+                # or 1 (`jpeg_std_huff_table`: Motion-JPEG frames carry no DHT)
+                if need_dc and (t >> 4) not in dc and (t >> 4) < 2:
+                    dc[t >> 4] = (_DC_LUMA, _DC_CHROMA)[t >> 4]
+                if need_ac and (t & 15) not in ac and (t & 15) < 2:
+                    ac[t & 15] = (_AC_LUMA, _AC_CHROMA)[t & 15]
+                if (need_dc and (t >> 4) not in dc) or (need_ac and (t & 15) not in ac):
+                    raise ValueError(f"{path}: scan uses a Huffman table that is not defined")
             if frame.lossless:
                 if frame.pt[c] is not None:
                     raise ValueError(f"{path}: component {cid} in two lossless scans")
@@ -868,6 +905,269 @@ def _scan_native_progressive(frame: _Frame, scan: _Scan, arr: np.ndarray, restar
     return int(used[0])
 
 
+# ------------------------------------------------ arithmetic-coded scans
+
+# T.81 Table D.2 as libjpeg's `jpeg_aritab` (`csrc/image.cpp`'s kQe): Qe
+# << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113
+# is the fixed estimate of 0.5 that signs and DC refinements are coded at
+_QE = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171)
+_FIXED_BIN = 113
+
+
+def _i16(v: int) -> int:
+    """`v` kept to 16 bits, as libjpeg's JCOEF keeps a coefficient."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _qm_decoder(seg: list, at_end: bool, path):
+    """T.81 D.2's decoder (`jdarith.c`'s arith_decode) over one restart
+    interval's unstuffed bytes `seg`, then zero bytes (the marker that ends
+    the interval, D.2.6); where the interval runs to the end of the data
+    (`at_end`), a byte fetched past it raises: the file is cut. -> decode(st,
+    i), the decision coded at bin st[i] (which it updates)."""
+    n = len(seg)
+    a = c = pos = 0
+    ct = -16                            # two bytes to fetch before the first decision
+
+    def decode(st, i):
+        nonlocal a, c, ct, pos
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                if pos < n:
+                    c = (c << 8) | seg[pos]
+                    pos += 1
+                elif at_end:
+                    raise ValueError(f"{path}: entropy-coded data ends early (truncated JPEG)")
+                else:
+                    c <<= 8
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        e = _QE[sv & 0x7F]
+        qe = e >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ ((e >> 8) & 0xFF)
+            else:
+                st[i] = (sv & 0x80) ^ (e & 0xFF)
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ (e & 0xFF)
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ ((e >> 8) & 0xFF)
+        return sv >> 7
+    return decode
+
+
+def _bad_magnitude(path):
+    return ValueError(f"{path}: corrupt JPEG data: bad arithmetic code (a magnitude past "
+                      "2^15; libjpeg warns and zeroes the rest of the restart interval)")
+
+
+def _bad_run(path):
+    return ValueError(f"{path}: corrupt JPEG data: bad arithmetic code (a run of zeros past "
+                      "the band's end; libjpeg warns and zeroes the rest of the restart "
+                      "interval)")
+
+
+def _arith_dc(decode, dc, ctx, ci, lo, hi, path) -> int:
+    """One DC difference (F.1.4.4.1, Figures F.19-F.24) at its table's bins
+    `dc`, in component slot ci's context ctx[ci] (0 zero, 4 / 8 small + /
+    -, 12 / 16 large + / -: the magnitude class against L and U), which it
+    updates."""
+    st = ctx[ci]
+    if not decode(dc, st):
+        ctx[ci] = 0
+        return 0
+    sign = decode(dc, st + 1)
+    st += 2 + sign
+    m = decode(dc, st)
+    if m:
+        st = 20                         # X1
+        while decode(dc, st):
+            m <<= 1
+            if m == 0x8000:
+                raise _bad_magnitude(path)
+            st += 1
+    if m < (1 << lo) >> 1:
+        ctx[ci] = 0
+    elif m > (1 << hi) >> 1:
+        ctx[ci] = 12 + 4 * sign
+    else:
+        ctx[ci] = 4 + 4 * sign
+    v, st = m, st + 14                  # M_k of the last X_k
+    m >>= 1
+    while m:
+        if decode(dc, st):
+            v |= m
+        m >>= 1
+    return -(v + 1) if sign else v + 1
+
+
+def _arith_ac_value(decode, ac, st, k, kx, sign, path) -> int:
+    """The rest of an AC value after its sign (Figures F.23 / F.24): `st` is
+    the bin of its zero / nonzero decision; the magnitude chain's second
+    set by k against Kx."""
+    st += 2
+    m = decode(ac, st)
+    if m and decode(ac, st):
+        m, st = 2, 189 if k <= kx else 217
+        while decode(ac, st):
+            m <<= 1
+            if m == 0x8000:
+                raise _bad_magnitude(path)
+            st += 1
+    v, st = m, st + 14
+    m >>= 1
+    while m:
+        if decode(ac, st):
+            v |= m
+        m >>= 1
+    return -(v + 1) if sign else v + 1
+
+
+def _arith_ac_band(decode, ac, fixed, kx, k0, k1, al, zz, path) -> None:
+    """An AC band k0..k1 of block `zz` (F.1.4.4.2; G.1.3.2's first scans):
+    an end-of-block decision at 3 (k - 1), the zeros before the next value,
+    its sign at the fixed bin, its magnitude, shifted up by `al`."""
+    k = k0
+    while k <= k1:
+        st = 3 * (k - 1)
+        if decode(ac, st):
+            return
+        while not decode(ac, st + 1):
+            st += 3
+            k += 1
+            if k > k1:
+                raise _bad_run(path)
+        sign = decode(fixed, 0)
+        zz[k] = _i16(_arith_ac_value(decode, ac, st, k, kx, sign, path) << al)
+        k += 1
+
+
+def _arith_ac_refine(decode, ac, fixed, ss, se, al, zz, path) -> None:
+    """An AC refinement of block `zz` (G.1.3.3): past the previous passes'
+    last nonzero coefficient an end-of-block decision at each k; a
+    coefficient nonzero before takes a correction bit, a zero one a
+    decision whether it becomes +-2^al (its sign at the fixed bin)."""
+    p1 = 1 << al
+    kex = se
+    while kex > 0 and not zz[kex]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        st = 3 * (k - 1)
+        if k > kex and decode(ac, st):
+            return
+        while True:
+            if zz[k]:
+                if decode(ac, st + 2):
+                    zz[k] = _i16(zz[k] + (-p1 if zz[k] < 0 else p1))
+                break
+            if decode(ac, st + 1):
+                zz[k] = -p1 if decode(fixed, 0) else p1
+                break
+            st += 3
+            k += 1
+            if k > se:
+                raise _bad_run(path)
+        k += 1
+
+
+def _arith_plain(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, ac, path,
+                 cond):
+    """One arithmetic-coded scan's entropy-coded data (`arr` onwards) into
+    frame.blocks in Python, one decision at a time: the plain version of
+    `_arith_native`, the same coefficients and the same errors. `cond`: [L,
+    U, Kx] of each conditioning table. -> bytes of entropy-coded data
+    consumed."""
+    segs, used = _entropy_segments(arr)
+    interval = restart or scan.n_mcus
+    n_int = -(-scan.n_mcus // interval)
+    if len(segs) < n_int:
+        raise ValueError(f"{path}: {len(segs)} restart intervals, {n_int} expected")
+    lo, hi, kx = cond
+    kind, ss, se, al, per_mcu = scan.kind, scan.ss, scan.se, scan.al, len(scan.tables)
+    rows = (frame.blocks[scan.dest].tolist() if frame.progressive
+            else [[0] * 64 for _ in range(len(scan.dest))])
+    b = 0
+    for i in range(n_int):
+        decode = _qm_decoder(segs[i].tolist(), i == len(segs) - 1 and used == len(arr), path)
+        dcs, acs, fixed = [[0] * 64 for _ in range(4)], [[0] * 256 for _ in range(4)], [
+            _FIXED_BIN]
+        last, ctx = [0] * 4, [0] * 4
+        for _ in range(min(interval, scan.n_mcus - i * interval)):
+            for ci, (dt, at) in zip(scan.comp, scan.tables):
+                zz = rows[b]
+                b += 1
+                if kind in ("sequential", "dc_first"):
+                    diff = _arith_dc(decode, dcs[dt], ctx, ci, lo[dt], hi[dt], path)
+                    last[ci] = (last[ci] + diff) & 0xFFFF
+                    zz[0] = _i16(last[ci] << (al if kind == "dc_first" else 0))
+                    if kind == "sequential":
+                        _arith_ac_band(decode, acs[at], fixed, kx[at], 1, 63, 0, zz, path)
+                elif kind == "dc_refine":
+                    if decode(fixed, 0):
+                        zz[0] = _i16(zz[0] | 1 << al)
+                elif kind == "ac_first":
+                    _arith_ac_band(decode, acs[at], fixed, kx[at], ss, se, al, zz, path)
+                else:
+                    _arith_ac_refine(decode, acs[at], fixed, ss, se, al, zz, path)
+    if rows:
+        frame.blocks[scan.dest] = np.array(rows, np.int32)
+    return used
+
+
+def _arith_native(frame: _Frame, scan: _Scan, arr: np.ndarray, restart: int, dc, ac, path,
+                  cond):
+    """`_arith_plain` in `csrc/image.cpp` (`gm_jpeg_arith_scan`): the same
+    coefficients, the same errors. -> bytes of entropy-coded data
+    consumed."""
+    i32 = lambda v: np.ascontiguousarray(v, np.int32)  # noqa: E731
+    comp, dest, cond = i32(scan.comp), i32(scan.dest), i32(cond).ravel()
+    dc_tab, ac_tab = i32([d for d, _ in scan.tables]), i32([a for _, a in scan.tables])
+    used, found = np.zeros(1, np.int64), np.zeros(1, np.int32)
+    status = _cuda.host_library("image").gm_jpeg_arith_scan(
+        arr.ctypes.data, len(arr), scan.n_mcus, restart, len(scan.tables), comp.ctypes.data,
+        dc_tab.ctypes.data, ac_tab.ctypes.data, dest.ctypes.data, int(frame.progressive),
+        scan.ss, scan.se, scan.ah, scan.al, cond.ctypes.data, frame.blocks.ctypes.data,
+        used.ctypes.data, found.ctypes.data)
+    if status == 13:
+        raise _bad_magnitude(path)
+    if status == 14:
+        raise _bad_run(path)
+    _native_status(status, "gm_jpeg_arith_scan", path, scan, restart, found)
+    return int(used[0])
+
+
 # ------------------------------------------------------- lossless scans
 
 def _restart_rows(scan: _Scan, restart: int, path) -> int:
@@ -1117,6 +1417,30 @@ def _read_dht(seg: bytes, dc: dict, ac: dict) -> int:
     return i - len(seg)
 
 
+def _read_dac(seg: bytes, cond, path) -> None:
+    """A DAC segment (T.81 B.2.4.3) into `cond` ([L, U, Kx], each by table):
+    pairs of Tc / Tb and a value, DC (Tc 0) L in the low nibble and U in the
+    high one with L <= U, AC (Tc 1) Kx of 1-63; tables 0-3. A bad index or
+    value raises naming it, as libjpeg's "Bogus DAC index / value" (which
+    takes tables 0-15 and any Kx)."""
+    if len(seg) % 2:
+        raise ValueError(f"{path}: DAC segment of {len(seg)} bytes, not pairs (bogus marker "
+                         "length)")
+    for index, val in zip(seg[::2], seg[1::2]):
+        tc, tb = index >> 4, index & 15
+        if tc > 1 or tb > 3:
+            raise ValueError(f"{path}: bogus DAC index {index:#04x}: Tc 0-1 and Tb 0-3")
+        if tc:
+            if not 1 <= val <= 63:
+                raise ValueError(f"{path}: bogus DAC value {val} for AC table {tb}: Kx is 1-63")
+            cond[2][tb] = val
+        else:
+            if (val & 15) > val >> 4:
+                raise ValueError(f"{path}: bogus DAC value {val:#04x} for DC table {tb}: "
+                                 f"L {val & 15} over U {val >> 4}")
+            cond[0][tb], cond[1][tb] = val & 15, val >> 4
+
+
 def jpeg_tables(data: bytes, path="<bytes>") -> tuple:
     """A tables-only JPEG stream (SOI, DQT and DHT segments, EOI: a TIFF's
     `JPEGTables`) -> (quantisation, DC and AC tables) for `decode_jpeg`.
@@ -1159,6 +1483,7 @@ def _decode(data: bytes, path, native: bool, tables=None, color=None,
         raise ValueError(f"{path}: not a JPEG")
     qt, dc, ac = ({}, {}, {}) if tables is None else (dict(t) for t in tables)
     frame, restart, jfif, adobe, scans = None, 0, False, None, 0
+    cond = [list(t) for t in _DAC_DEFAULT]
     pos = 2
     while pos < len(data):
         if data[pos] != 0xFF:
@@ -1186,16 +1511,22 @@ def _decode(data: bytes, path, native: bool, tables=None, color=None,
             _read_dqt(seg, qt, path)
         elif marker == 0xC4:
             _read_dht(seg, dc, ac)
-        elif marker in (0xC0, 0xC1, 0xC2, 0xC3):
-            frame = _Frame(seg, path, progressive=marker == 0xC2, lossless=marker == 0xC3)
+        elif marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
+            frame = _Frame(seg, path, progressive=marker in (0xC2, 0xCA),
+                           lossless=marker == 0xC3, arithmetic=marker in (0xC9, 0xCA))
             if on_frame is not None:
                 on_frame(frame)
+        elif marker == 0xCB:
+            raise ValueError(f"{path}: lossless arithmetic-coded JPEG (SOF11); PIL's "
+                             "libjpeg-turbo cannot decode it either (PIL fails to load the "
+                             "file), so the JAX reader cannot load it")
         elif marker in _SOF_KINDS:
             raise ValueError(f"{path}: {_SOF_KINDS[marker]} JPEG (SOF{marker - 0xC0}); "
                              "only baseline, extended sequential, progressive and "
-                             "lossless Huffman JPEGs are read")
+                             "lossless Huffman JPEGs and sequential and progressive "
+                             "arithmetic-coded ones are read")
         elif marker == 0xCC:
-            raise ValueError(f"{path}: arithmetic-coded JPEG; only Huffman coding is read")
+            _read_dac(seg, cond, path)
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", seg[:2])
         elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
@@ -1206,7 +1537,10 @@ def _decode(data: bytes, path, native: bool, tables=None, color=None,
             if frame is None:
                 raise ValueError(f"{path}: scan before the frame header")
             scan = _Scan(frame, seg, qt, dc, ac, path)
-            if frame.lossless:
+            if frame.arithmetic:
+                decoder = functools.partial(_arith_native if native else _arith_plain,
+                                            cond=[list(t) for t in cond])
+            elif frame.lossless:
                 decoder = _lossless_native if native else _lossless_plain
             elif frame.progressive:
                 decoder = _scan_native_progressive if native else _scan_plain_progressive
@@ -1286,7 +1620,8 @@ def decode_jpeg(data: bytes, path="<bytes>", *, native: bool = True, tables=None
 
 def read_jpeg(path: str) -> np.ndarray:
     """A baseline, extended sequential, progressive or lossless 8-bit Huffman
-    JPEG -> uint8 (H, W) gray or (H, W, 3) RGB, the bits PIL 12
+    JPEG, or a sequential or progressive arithmetic-coded one -> uint8 (H,
+    W) gray or (H, W, 3) RGB, the bits PIL 12
     (libjpeg-turbo) decodes (a CMYK or YCCK file: PIL's `convert("RGB")` of
     it); decoded by `csrc/image.cpp`."""
     with open(path, "rb") as f:
@@ -1637,37 +1972,47 @@ def _ac_events(t, sign, refine: bool):
     return [np.concatenate(a).astype(np.int64) for a in (keys, syms, extras, elens)]
 
 
+def simple_progression(nc: int) -> list:
+    """libjpeg's `jpeg_simple_progression` script for `nc` components:
+    [(components, Ss, Se, Ah, Al)]."""
+    if nc == 3:     # Cr before Cb, as libjpeg
+        return [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                ((0,), 1, 63, 1, 0)]
+    every = tuple(range(nc))        # the all-purpose script: each AC band by component
+    return ([(every, 0, 0, 0, 1)]
+            + [((c,), ss, se, ah, al) for ss, se, ah, al in
+               ((1, 5, 0, 2), (6, 63, 0, 2), (1, 63, 2, 1)) for c in every]
+            + [(every, 0, 0, 1, 0)] + [((c,), 1, 63, 1, 0) for c in every])
+
+
+def _scan_blocks(h, w, samp, grids, comps):
+    """A scan's blocks in its order -> ((n, 64) zig-zag coefficients, the
+    component of each): interleaved, the MCUs of every component's h x v
+    blocks; one component alone, its own blocks over its sampled size."""
+    hmax, vmax = samp[0]
+    if len(comps) > 1:
+        mcuy, mcux = grids[0].shape[0] // vmax, grids[0].shape[1] // hmax
+        parts = [grids[c].reshape(mcuy, samp[c][1], mcux, samp[c][0], 64)
+                 .transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, -1, 64) for c in comps]
+        blocks = np.concatenate(parts, 1).reshape(-1, 64)
+        comp = np.tile(np.concatenate([np.full(p.shape[1], c) for c, p in
+                                       zip(comps, parts)]), mcuy * mcux)
+        return blocks, comp
+    c = comps[0]
+    rows = -(-h * samp[c][1] // vmax)
+    cols = -(-w * samp[c][0] // hmax)
+    blocks = grids[c][:-(-rows // 8), :-(-cols // 8)].reshape(-1, 64)
+    return blocks, np.full(len(blocks), c)
+
+
 def _progressive(h, w, qs, samp, qsel, grids) -> list:
     """The coefficients as `jpeg_simple_progression`'s scans, each after a
     DHT of its own optimal tables."""
-    nc = len(samp)
-    hmax, vmax = samp[0]
-    if nc == 3:     # (components, Ss, Se, Ah, Al); Cr before Cb, as libjpeg
-        script = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
-                  ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
-                  ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
-                  ((0,), 1, 63, 1, 0)]
-    else:           # the all-purpose script: each AC band component by component
-        every = tuple(range(nc))
-        script = ([(every, 0, 0, 0, 1)]
-                  + [((c,), ss, se, ah, al) for ss, se, ah, al in
-                     ((1, 5, 0, 2), (6, 63, 0, 2), (1, 63, 2, 1)) for c in every]
-                  + [(every, 0, 0, 1, 0)] + [((c,), 1, 63, 1, 0) for c in every])
     out = []
-    for comps, ss, se, ah, al in script:
-        if len(comps) > 1:              # interleaved: the MCU order
-            mcuy, mcux = grids[0].shape[0] // vmax, grids[0].shape[1] // hmax
-            parts = [grids[c].reshape(mcuy, samp[c][1], mcux, samp[c][0], 64)
-                     .transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, -1, 64) for c in comps]
-            blocks = np.concatenate(parts, 1).reshape(-1, 64)
-            comp = np.tile(np.concatenate([np.full(p.shape[1], c) for c, p in
-                                           zip(comps, parts)]), mcuy * mcux)
-        else:                           # the component's own blocks
-            c = comps[0]
-            rows = -(-h * samp[c][1] // vmax)
-            cols = -(-w * samp[c][0] // hmax)
-            blocks = grids[c][:-(-rows // 8), :-(-cols // 8)].reshape(-1, 64)
-            comp = np.full(len(blocks), c)
+    for comps, ss, se, ah, al in simple_progression(len(samp)):
+        blocks, comp = _scan_blocks(h, w, samp, grids, comps)
         tab = np.array(qsel)[comp]
         if ss == 0 and ah:              # DC refinement: a raw bit a block
             keys, syms = np.arange(len(blocks)), np.full(len(blocks), -1)
@@ -1703,6 +2048,64 @@ def _progressive(h, w, qs, samp, qsel, grids) -> list:
         out.append(_segment(0xDA, bytes([len(comps)]) + b"".join(
             bytes([c + 1, t]) for c, t in zip(comps, td_ta)) + bytes([ss, se, ah << 4 | al])))
         out.append(_pack(code << elens | (extras & ((1 << elens) - 1)), clen + elens))
+    return out
+
+
+def _dac(comps, dc_used: bool, ac_used: bool, tabs, cond) -> bytes:
+    """A DAC segment of the conditioning of the tables a scan of `comps`
+    uses (libjpeg's `emit_dac`), b"" where it uses none."""
+    body = b""
+    for t in sorted({tabs[c] for c in comps}):
+        if dc_used:
+            body += bytes([t, cond[0][t] | cond[1][t] << 4])
+        if ac_used:
+            body += bytes([0x10 | t, cond[2][t]])
+    return _segment(0xCC, body) if body else b""
+
+
+def arith_scans(h, w, samp, grids, script, tabs, restart: int = 0, dac=None) -> list:
+    """Coefficient grids (`_coefficients`' layout) as arithmetic-coded scans
+    (`gm_jpeg_arith_encode`, `jcarith.c`): `script` [(components, Ss, Se,
+    Ah, Al)], all (0, 63, 0, 0) for an SOF9 frame's sequential scans, else
+    an SOF10 frame's; component c coded with conditioning table tabs[c]
+    (0-3); an RSTn marker every `restart` MCUs; with `dac`
+    ((L, U, Kx), each of 4 tables) a DAC segment before each scan for the
+    tables it uses, and that conditioning (else the defaults L 0, U 1, Kx 5
+    and no DAC). -> [DAC, SOS, entropy-coded data] of each scan."""
+    progressive = any((ss, se, ah, al) != (0, 63, 0, 0) for _, ss, se, ah, al in script)
+    cond = _DAC_DEFAULT if dac is None else tuple(tuple(int(x) for x in t) for t in dac)
+    flat = np.array(cond, np.int32).ravel()
+    lib = _cuda.host_library("image")
+    out = []
+    for comps, ss, se, ah, al in script:
+        blocks, comp = _scan_blocks(h, w, samp, grids, comps)
+        per_mcu = sum(samp[c][0] * samp[c][1] for c in comps) if len(comps) > 1 else 1
+        blocks = np.ascontiguousarray(blocks, np.int32)
+        slot = np.ascontiguousarray(comp[:per_mcu], np.int32)
+        tab = np.ascontiguousarray(np.asarray(tabs)[slot], np.int32)
+        dc_used = not progressive or (ss == 0 and ah == 0)
+        ac_used = not progressive or ss > 0
+        if dac is not None:
+            out.append(_dac(comps, dc_used, ac_used, tabs, cond))
+        td_ta = [(tabs[c] << 4 if ss == 0 else 0) | (tabs[c] if ss or not progressive else 0)
+                 for c in comps]
+        out.append(_segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([c + 1, t]) for c, t in zip(comps, td_ta)) + bytes([ss, se, ah << 4 | al])))
+        cap, n_out = 1024 + blocks.size, np.zeros(1, np.int64)
+        while True:
+            buf = np.empty(cap, np.uint8)
+            status = lib.gm_jpeg_arith_encode(
+                blocks.ctypes.data, len(blocks) // per_mcu, per_mcu, slot.ctypes.data,
+                tab.ctypes.data, tab.ctypes.data, int(progressive), ss, se, ah, al, restart,
+                flat.ctypes.data, buf.ctypes.data, cap, n_out.ctypes.data)
+            if status != 10:
+                break
+            cap = int(n_out[0])
+        if status == 15:
+            raise ValueError("a coefficient outside +-32767 (more than 16 bits)")
+        if status:
+            raise RuntimeError(f"gm_jpeg_arith_encode returned {status}")
+        out.append(buf[:int(n_out[0])].tobytes())
     return out
 
 
@@ -1832,14 +2235,20 @@ def encode_jpeg_lossless(img: np.ndarray, predictor: int, point_transform: int =
 
 def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0",
                 progressive: bool = False, *, color: str = "auto",
-                tables: bool = True) -> bytes:
+                tables: bool = True, arithmetic: bool = False, restart: int = 0,
+                dac=None) -> bytes:
     """`write_jpeg`'s bytes. `color` as `_coefficients` takes it: "auto"
     (gray or YCbCr with a JFIF marker, four channels as inverted CMYK with an
     Adobe marker of transform 0), "ycck" (four channels, an Adobe marker of
     transform 2) or "as_is" (the channels with no marker: libtiff's
     JCS_UNKNOWN). `tables=False` writes an abbreviated baseline stream (no
     DQT, DHT or marker segment: a JPEG-compressed TIFF's strip or tile, its
-    tables in `encode_jpeg_tables`)."""
+    tables in `encode_jpeg_tables`). `arithmetic` codes the same
+    coefficients with the QM coder (`arith_scans`): SOF9, one interleaved
+    scan, or with `progressive` SOF10 in `jpeg_simple_progression`'s scans; each
+    component with the conditioning table of its quantisation table, an
+    RSTn marker every `restart` MCUs and, with `dac` ((L, U, Kx), each of 4
+    tables), DAC segments of that conditioning."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_jpeg takes uint8, not {img.dtype}")
@@ -1853,16 +2262,26 @@ def encode_jpeg(img: np.ndarray, quality: int = 90, subsampling: str = "4:2:0",
             color == "ycck" and (img.ndim == 2 or img.shape[2] != 4)):
         raise ValueError(f"color {color!r} of a {img.shape} image: 'auto', 'as_is', or "
                          "'ycck' for four channels")
-    if progressive and not tables:
+    if (progressive or arithmetic) and not tables:
         raise ValueError("an abbreviated stream is baseline")
+    if (restart or dac is not None) and not arithmetic:
+        raise ValueError("restart intervals and DAC segments are written in arithmetic-coded "
+                         "files only")
     h, w = img.shape[:2]
     qs, samp, qsel, grids = _coefficients(img, quality, subsampling, color)
     app = (b"" if color == "as_is" else _adobe(2) if color == "ycck" else
            _adobe(0) if len(samp) == 4 else _JFIF)
-    out = _headers(h, w, qs, samp, qsel, 0xC2 if progressive else 0xC0,
-                   app if tables else b"", tables)
-    out += (_progressive(h, w, qs, samp, qsel, grids) if progressive else
-            _baseline(h, w, qs, samp, qsel, grids, tables))
+    sof = (0xC8 if arithmetic else 0xC0) + (2 if progressive else 1 if arithmetic else 0)
+    out = _headers(h, w, qs, samp, qsel, sof, app if tables else b"", tables)
+    if arithmetic:
+        script = (simple_progression(len(samp)) if progressive else
+                  [(tuple(range(len(samp))), 0, 63, 0, 0)])
+        if restart:
+            out.append(_segment(0xDD, struct.pack(">H", restart)))
+        out += arith_scans(h, w, samp, grids, script, qsel, restart, dac)
+    else:
+        out += (_progressive(h, w, qs, samp, qsel, grids) if progressive else
+                _baseline(h, w, qs, samp, qsel, grids, tables))
     out.append(b"\xff\xd9")
     return b"".join(out)
 
@@ -1877,7 +2296,7 @@ def encode_jpeg_tables(quality: int = 90, n_tables: int = 2) -> bytes:
 
 def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
                subsampling: str = "4:2:0", progressive: bool = False,
-               ycck: bool = False) -> None:
+               ycck: bool = False, arithmetic: bool = False) -> None:
     """(H, W) gray, (H, W, 3) RGB or (H, W, 4) CMYK (PIL's mode CMYK) uint8
     -> a JPEG with the Annex K quantisation tables at libjpeg's `quality`.
     Gray and RGB (as YCbCr) with a JFIF marker, chroma subsampled 4:2:0,
@@ -1885,9 +2304,10 @@ def write_jpeg(path: str, img: np.ndarray, quality: int = 90,
     marker of transform 0 (as libjpeg writes PIL's CMYK), or with `ycck` as
     YCCK, Cb and Cr subsampled. Baseline (one interleaved scan, the Annex K
     Huffman tables), or with `progressive` the same coefficients in
-    `jpeg_simple_progression`'s scans (SOF2)."""
+    `jpeg_simple_progression`'s scans (SOF2); with `arithmetic` the same
+    coefficients arithmetic-coded (SOF9, or SOF10 with `progressive`)."""
     data = encode_jpeg(img, quality, subsampling, progressive,
-                       color="ycck" if ycck else "auto")
+                       color="ycck" if ycck else "auto", arithmetic=arithmetic)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(data)

@@ -120,6 +120,14 @@ HOST_LIBRARIES = {
         # n_found
         "gm_jpeg_lossless": [_P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                              _P, _P, _P, _I, _I, _P, _P],
+        # data, n, n_mcus, interval, per_mcu, comp, dc_tab, ac_tab, dest, progressive, ss,
+        # se, ah, al, cond, coef, used, n_found
+        "gm_jpeg_arith_scan": [_P, _L, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                               _P, _P, _P],
+        # blocks, n_mcus, per_mcu, comp, dc_tab, ac_tab, progressive, ss, se, ah, al,
+        # interval, cond, out, cap, n_out
+        "gm_jpeg_arith_encode": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _L,
+                                 _P],
     },
     "vp8": {
         # frame, n, y, u, v, info

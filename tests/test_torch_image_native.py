@@ -553,7 +553,9 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     for mod, names in ((jpeg, ("_scan_plain", "_planes_plain", "_huffman", "_idct",
                                "_upsample", "_ycc_to_rgb", "_decode_tables",
                                "_scan_plain_progressive", "_progressive_plain",
-                               "_peek_table", "_lossless_plain", "_undifference")),
+                               "_peek_table", "_lossless_plain", "_undifference",
+                               "_arith_plain", "_qm_decoder", "_arith_dc", "_arith_ac_value",
+                               "_arith_ac_band", "_arith_ac_refine")),
                        (png, ("_unfilter_plain",)), (resample, ("_pass_plain",)),
                        (lzw, ("lzw_decode_plain", "lzw_encode_plain")),
                        (tiff, ("packbits_decode_plain",)), (bmp, ("_rle_plain",)),
@@ -618,6 +620,9 @@ def _every_entry_point(tmp_path):
     yield lambda: dds.decode_dds(bc6h)
     lossless = jpeg.encode_jpeg_lossless(np.zeros((4, 4, 3), np.uint8), 7)
     yield lambda: jpeg.decode_jpeg(lossless)
+    arith = os.path.join(os.path.dirname(__file__), "data", "jpeg_arith", "ycc420_prog_23x17.jpg")
+    yield lambda: jpeg.read_jpeg(arith)
+    yield lambda: jpeg.encode_jpeg(np.zeros((8, 8), np.uint8), arithmetic=True)
 
 
 def _rle_bmp():
@@ -629,8 +634,9 @@ def _rle_bmp():
 
 def test_no_compiler_raises_not_falls_back(tmp_path, monkeypatch, fresh_library):
     """With no g++ to be found, each public entry point raises (the JPEG,
-    PNG, resize, LZW, PackBits, RLE, FLI, FTEX, DDS (BC6H too), BLP and
-    lossless JPEG ones); none falls back to its plain version."""
+    PNG, resize, LZW, PackBits, RLE, FLI, FTEX, DDS (BC6H too), BLP,
+    lossless JPEG and arithmetic-coded JPEG ones, its QM encoder too); none
+    falls back to its plain version."""
     monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
     for call in _every_entry_point(tmp_path):
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):

@@ -156,10 +156,13 @@ def test_read_jpeg_non_interleaved_scans(tmp_path, size, sampling):
 
 @pytest.mark.parametrize("kind", ["arithmetic", "lossless", "not_a_jpeg", "truncated"])
 def test_unread_jpegs_raise(tmp_path, kind):
-    """Arithmetic-coded (a SOF0 marker patched to SOF9) and lossless (SOF3)
-    files raise naming the cause; so do a file that is no JPEG and a
-    truncated one. (CMYK and YCCK files are read:
-    tests/test_torch_jpeg_cmyk.py.)"""
+    """A lossless (SOF3) file whose scan is Huffman-coded DCT data raises
+    naming the cause; so do a file that is no JPEG and a truncated one. A
+    Huffman file's SOF0 marker patched to SOF9 (arithmetic-coded) is read
+    as PIL reads it: its Huffman bytes decoded as arithmetic-coded data, to
+    PIL's array. (CMYK and YCCK files are read:
+    tests/test_torch_jpeg_cmyk.py; arithmetic-coded ones:
+    tests/test_torch_jpeg_arith.py.)"""
     path = str(tmp_path / "x.jpg")
     img = _image(40, 24, 3, seed=2)
     if kind == "arithmetic":
@@ -167,8 +170,12 @@ def test_unread_jpegs_raise(tmp_path, kind):
         data = open(path, "rb").read()
         with open(path, "wb") as fh:
             fh.write(data.replace(b"\xff\xc0", b"\xff\xc9", 1))
-        match = "arithmetic-coded"
-    elif kind == "lossless":
+        want = np.asarray(Image.open(path))
+        assert want.shape == (24, 40, 3)
+        assert np.array_equal(jpeg.read_jpeg(path), want)
+        assert np.array_equal(jpeg.read_jpeg_plain(path), want)
+        return
+    if kind == "lossless":
         Image.fromarray(img).save(path, "JPEG")
         data = open(path, "rb").read()
         with open(path, "wb") as fh:

@@ -208,13 +208,23 @@ def test_scan_parameters_checked(params):
 @pytest.mark.parametrize("marker", [0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF],
                          ids=lambda m: f"sof{m - 0xC0}")
 def test_arithmetic_and_hierarchical_still_refused(marker):
-    """SOF5-SOF7 and SOF9-SOF15 (hierarchical and arithmetic-coded) are
-    still refused, naming their kind, on a lossless file's frame patched to
-    them."""
+    """SOF5-SOF7, SOF11 and SOF13-SOF15 (hierarchical and lossless
+    arithmetic-coded) are still refused, naming their kind, on a lossless
+    file's frame patched to them. SOF9 and SOF10 (sequential and progressive
+    arithmetic-coded) are read, and this file, whose frame names
+    quantisation table 0 and defines none, is refused as PIL fails to load
+    it."""
     data = jpeg.encode_jpeg_lossless(natural(5, 6, 3, 4), 1).replace(
         b"\xff\xc3", bytes([0xFF, marker]), 1)
+    if marker in (0xC9, 0xCA):
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(data)).load()
+        match = "quantisation table 0 not defined"
+    else:
+        match = "SOF11.*libjpeg-turbo cannot decode" if marker == 0xCB else jpeg._SOF_KINDS[
+            marker]
     for native in (True, False):
-        with pytest.raises(ValueError, match=jpeg._SOF_KINDS[marker]):
+        with pytest.raises(ValueError, match=match):
             jpeg.decode_jpeg(data, native=native)
 
 
