@@ -223,23 +223,29 @@ Phases (any failure raises, so the exit code is not 0):
    loaded as `cli.train_mesh` loads it (its flags, `Scene`,
    `DeviceDataset.from_cameras` on the card; `training_dataset`): every
    training target, mask and camera centre equal to phase 8's from its PNGs.
-9f. TIFF layouts and CMYK: first the fixtures of `tests/data/tiff/` (PIL-
-   and writer-written JPEG-in-TIFF, LZMA, tiled, planar and CMYK TIFFs and
-   CMYK / YCCK JPEGs, with the SHA-256 and shape of PIL's array, of its
-   `convert("RGB")` for CMYK, recorded on a machine with PIL): `read_image`
-   and the plain route give the recorded digests. Then phase 9's 24 views
-   written in the rows of LAYOUTS_9F: tiled 256x256 LZW with predictor 2,
-   tiled 16-bit Deflate with predictor 2, planar LZW with predictor 2,
-   planar PackBits, JPEG-in-TIFF YCbCr 4:2:0 in strips of 16 rows and in
-   256x256 tiles, JPEG-in-TIFF RGB, LZMA, CMYK LZW TIFFs of each view's
-   CMYK separation (`cmyk_of`), CMYK JPEGs (Adobe, inverted) and YCCK
-   JPEGs at 4:2:0. Each lossless view decodes by `read_image` to exactly
-   the samples written (CMYK: their `cmyk_to_rgb`), each JPEG view to the
-   plain route's decode; the CROP_9F centre of one view a row, written with
-   the row's settings, decodes through the plain route to the C++'s bytes; s /
-   MP, its ratio to phase 9's baseline JPEG in the same run, plain / C++,
-   bytes and write s by row beside the card's name and power limit and the
-   host's CPU.
+9f. TIFF layouts, CMYK and Zstandard: first the fixtures of `tests/data/tiff/`
+   (PIL- and writer-written JPEG-in-TIFF, LZMA, tiled, planar and CMYK TIFFs
+   and CMYK / YCCK JPEGs, with the SHA-256 and shape of PIL's array, of its
+   `convert("RGB")` for CMYK, recorded on a machine with PIL) and of
+   `tests/data/tiff_zstd/` (PIL's Zstandard TIFFs of every mode, libzstd's
+   frames at levels -5 to 22 and window logs 10-27, and the forms libtiff
+   reads or fails on, recorded by `tools/make_tiff_zstd_fixtures_torch.py`):
+   `read_image` and the plain route give the recorded digests, or raise
+   alike where PIL fails. Then phase 9's 24 views written in the rows of
+   LAYOUTS_9F: tiled 256x256 LZW with predictor 2, tiled 16-bit Deflate
+   with predictor 2, planar LZW with predictor 2, Zstandard strips with
+   predictor 2 (`gm_zstd_encode`), planar PackBits, tiled 16-bit Zstandard
+   with predictor 2, planar Zstandard, JPEG-in-TIFF YCbCr 4:2:0 in strips of
+   16 rows and in 256x256 tiles, JPEG-in-TIFF RGB, LZMA, CMYK LZW TIFFs of
+   each view's CMYK separation (`cmyk_of`), CMYK JPEGs (Adobe, inverted) and
+   YCCK JPEGs at 4:2:0. Each lossless view decodes by `read_image` to
+   exactly the samples written (CMYK: their `cmyk_to_rgb`), each JPEG view
+   to the plain route's decode; the CROP_9F centre of one view a row,
+   written with the row's settings, decodes through the plain route to the
+   C++'s bytes; s / MP, its ratio to phase 9's baseline JPEG in the same
+   run, plain / C++, bytes (Zstandard rows: also as a multiple of the same
+   view's Deflate file with the row's settings) and write s by row beside
+   the card's name and power limit and the host's CPU.
 9g. PNM, TGA, QOI, SGI and PCX: first the fixtures of `tests/data/raw/`
    (PIL-written files and the forms PIL reads and does not write, with the
    SHA-256 and shape of PIL's array under the port's rule: B15, B16, B19,
@@ -376,8 +382,9 @@ Phases (any failure raises, so the exit code is not 0):
    phases on from the one before, each octet one phase on, so that the
    test views 0, 8 and 16 fall to 9b, 9c and 9d and each of the ten phases
    gives two or three training views, none of a row with an alpha) wrote
-   for it (among the training views a BC6H texture of 9m and 9b's lossless
-   and arithmetic-coded JPEGs at least), or phase 9's JPEG where that file
+   for it (among the training views a BC6H texture of 9m, 9b's lossless
+   and arithmetic-coded JPEGs and 9f's Zstandard TIFF at least), or phase
+   9's JPEG where that file
    decodes with an alpha
    (an alpha makes a mask, and `DeviceDataset` stacks masks only where the
    shuffled first view has one, as the JAX trainer does);
@@ -623,16 +630,20 @@ ANIM_OFFSET = (4, 2)
 DECODES_9E = 3                         # phase 9e decodes each view this many times
 WEBP_9E_PLAIN = 200                    # phase 9e's plain decodes: the centre crop of one view a row
 
-# phase 9f: phase 9's views as tiled, planar, JPEG-compressed, LZMA and CMYK TIFFs and
-# CMYK / YCCK JPEGs, (row, views, the writer's settings) in turn; "tiff16" rows write
-# 16-bit samples (each 8-bit one times 257), "cmyk" rows the view's CMYK separation
+# phase 9f: phase 9's views as tiled, planar, JPEG-compressed, LZMA, Zstandard and CMYK
+# TIFFs and CMYK / YCCK JPEGs, (row, views, the writer's settings) in turn; "tiff16" rows
+# write 16-bit samples (each 8-bit one times 257), "cmyk" rows the view's CMYK separation;
+# 9h takes view 6 (zstd_p2) and view 12 (jpeg_ycbcr420_strips16)
 TILE_9F = (256, 256)
 LAYOUTS_9F = (
-    ("tiled_lzw_p2", 4, dict(compression="lzw", predictor=2, tile=TILE_9F)),
+    ("tiled_lzw_p2", 2, dict(compression="lzw", predictor=2, tile=TILE_9F)),
     ("tiled_tiff16_deflate_p2", 2, dict(compression="deflate", predictor=2, tile=TILE_9F)),
     ("planar_lzw_p2", 2, dict(compression="lzw", predictor=2, planar=True)),
+    ("zstd_p2", 2, dict(compression="zstd", predictor=2)),
     ("planar_packbits", 1, dict(compression="packbits", planar=True)),
-    ("jpeg_ycbcr420_strips16", 4, dict(compression="jpeg", ycbcr=True, rows_per_strip=16,
+    ("tiled_tiff16_zstd_p2", 1, dict(compression="zstd", predictor=2, tile=TILE_9F)),
+    ("planar_zstd", 1, dict(compression="zstd", planar=True)),
+    ("jpeg_ycbcr420_strips16", 2, dict(compression="jpeg", ycbcr=True, rows_per_strip=16,
                                        quality=EVAL_QUALITY)),
     ("jpeg_ycbcr420_tiles", 2, dict(compression="jpeg", ycbcr=True, tile=TILE_9F,
                                     quality=EVAL_QUALITY)),
@@ -3382,13 +3393,16 @@ def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
     (results, {view: (file, None or its decode)} for the shared training)."""
     t_phase = time.perf_counter()
     fixtures = tiff_fixtures(port)
-    log(f"[tiff9f] {len(fixtures)} fixtures decode to their recorded digests through the "
-        "C++ and the plain route")
+    zstd_fixtures = fixture_digests(port, "tiff_zstd", decode_plain_9f, "Zstandard TIFF",
+                                    least=40)
+    log(f"[tiff9f] {len(fixtures)} fixtures and {len(zstd_fixtures)} Zstandard ones decode "
+        "to their recorded digests through the C++ and the plain route (the Zstandard "
+        "forms PIL fails on raise alike)")
     root = os.path.join(tmpdir, "tiff9f_data")
     os.makedirs(root)
     rows = [(r, kw) for r, n, kw in LAYOUTS_9F for _ in range(n)]
     assert len(rows) == len(scene["cams"]), (len(rows), len(scene["cams"]))
-    stats = {r: {"decode": [], "write": [], "bytes": [], "jpeg_bytes": []}
+    stats = {r: {"decode": [], "write": [], "bytes": [], "jpeg_bytes": [], "deflate_bytes": []}
              for r, _, _ in LAYOUTS_9F}
     expected, small = {}, {}
     for i, (row, kw) in enumerate(rows):
@@ -3401,6 +3415,10 @@ def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
         st["write"].append(t)
         st["bytes"].append(os.path.getsize(path))
         st["jpeg_bytes"].append(os.path.getsize(src))
+        if "zstd" in row:               # the same view as Deflate, the row's settings
+            dpath = os.path.join(tmpdir, "tiff9f_deflate.tif")
+            write_9f_view(port, row, dict(kw, compression="deflate"), dpath, base)
+            st["deflate_bytes"].append(os.path.getsize(dpath))
         got, t = timed(port.png.read_image, path)
         st["decode"].append(t)
         if want is None:                # lossy: the plain route decides
@@ -3432,15 +3450,20 @@ def phase_tiff_layouts(torch, port, scene, jpeg_s_per_mp, tmpdir):
                            bytes_vs_baseline_jpeg=float(np.sum(st["bytes"])
                                                         / np.sum(st["jpeg_bytes"])),
                            write_s=float(np.median(st["write"])))
+        if st["deflate_bytes"]:
+            by_row[row]["bytes_vs_deflate"] = float(np.sum(st["bytes"])
+                                                    / np.sum(st["deflate_bytes"]))
         r = by_row[row]
         log(f"[tiff9f] {row}: {r['views']} views at {EVAL_WIDTH}x{EVAL_HEIGHT}, "
             f"{r['bytes_mean']:.0f} bytes each ({r['bytes_vs_baseline_jpeg']:.2f}x phase 9's "
             f"JPEG files of the same views); decode {r['decode_s_per_mp']:.4f} s/MP "
             f"({r['decode_vs_baseline_jpeg']:.2f}x phase 9's baseline JPEG); plain / C++ at "
             f"{CROP_9F[0]}x{CROP_9F[1]} {r['plain_vs_cpp']:.1f}; write {r['write_s']:.3f} s "
-            "a view")
+            "a view" + (f"; bytes {r['bytes_vs_deflate']:.3f}x the Deflate file of the same "
+                        "settings" if "bytes_vs_deflate" in r else ""))
 
-    res = dict(rows=by_row, fixtures=len(fixtures), phase_s=time.perf_counter() - t_phase)
+    res = dict(rows=by_row, fixtures=len(fixtures) + len(zstd_fixtures),
+               phase_s=time.perf_counter() - t_phase)
     log("[tiff9f] " + json.dumps(res))
     return res, expected
 
@@ -4115,9 +4138,12 @@ def loaded_target(torch, port, decoded, size):
 
 def texture_or_lossless(port, path):
     """"BC6H" for a DX10 BC6H texture, "lossless JPEG" for an SOF3 file,
-    "arithmetic JPEG" for an SOF9 or SOF10 one, else None."""
+    "arithmetic JPEG" for an SOF9 or SOF10 one, "Zstandard TIFF" for a TIFF
+    of compression 50000, else None."""
     with open(path, "rb") as fh:
         data = fh.read()
+    if path.endswith(".tif"):
+        return "Zstandard TIFF" if port.tiff._tags(data, path).get(259) == [50000] else None
     if path.endswith(".dds"):
         _, _, form, _, args = port.dds.header(data)
         return "BC6H" if form == "bcn" and args[0] == port.bcn.BC6H else None
@@ -4140,7 +4166,8 @@ def phase_reader_training(torch, port, scene, views, tmpdir):
     os.makedirs(os.path.join(root, "images"))
     cams, images, (xyz, rgb, err) = port.colmap.read_model(
         os.path.join(scene["root"], "sparse", "0"))
-    taken, forms = {}, {"BC6H": 0, "lossless JPEG": 0, "arithmetic JPEG": 0}
+    taken, forms = {}, {"BC6H": 0, "lossless JPEG": 0, "arithmetic JPEG": 0,
+                        "Zstandard TIFF": 0}
     for iid, img in images.items():
         i = iid - 1
         phase = reader_phase(i)
@@ -4170,8 +4197,8 @@ def phase_reader_training(torch, port, scene, views, tmpdir):
     want = {"K1": PROGRESSIVE_ITERS, "K2": PROGRESSIVE_ITERS, "K3": PROGRESSIVE_ITERS}
     assert launches == want, launches
     if min(forms.values()) < 1:
-        raise AssertionError(f"the training views hold {forms}: a BC6H, a lossless JPEG and "
-                             "an arithmetic JPEG view at least")
+        raise AssertionError(f"the training views hold {forms}: a BC6H, a lossless JPEG, "
+                             "an arithmetic JPEG and a Zstandard TIFF view at least")
     steps = step_summary(rows["steps"], "readers")
     for name, p in trainer.model.named_parameters():
         assert torch.isfinite(p).all(), name
@@ -5660,8 +5687,9 @@ def main() -> int:
             "write s: " + ", ".join(
                 f"{k} {r['decode_s_per_mp']:.4f} ({r['decode_vs_baseline_jpeg']:.2f}x), "
                 f"{r['plain_vs_cpp']:.1f}, {r['bytes_mean']:.0f} "
-                f"({r['bytes_vs_baseline_jpeg']:.2f}x), {r['write_s']:.3f}"
-                for k, r in r9["rows"].items()))
+                f"({r['bytes_vs_baseline_jpeg']:.2f}x"
+                + (f"; {r['bytes_vs_deflate']:.3f}x Deflate" if "bytes_vs_deflate" in r else "")
+                + f"), {r['write_s']:.3f}" for k, r in r9["rows"].items()))
     log(f"[done] reader training {readers['phase_s']:.1f} s on {cpu}: views by phase "
         f"{readers['train_views_by_phase']} ({readers['train_lossless_views']} decode to "
         f"phase 9's bytes; {readers['train_views_by_new_form']}), "

@@ -32,9 +32,15 @@ sample:
 
 Strips and tiles are uncompressed (`Compression` 1), Deflate (8, and the
 older 32946, by `zlib`), LZMA (34925, by the standard library's `lzma`,
-the xz container libtiff writes), LZW (5, `io/lzw.py`: `gm_lzw_decode`) or
-PackBits (32773, `gm_packbits_decode`), each to its size: LZW or PackBits
-that stops short or runs past it raises. After Deflate, LZMA or LZW,
+the xz container libtiff writes), Zstandard (50000, `io/zstd.py`:
+`gm_zstd_decode`), LZW (5, `io/lzw.py`: `gm_lzw_decode`) or PackBits
+(32773, `gm_packbits_decode`), each to its size: LZW or PackBits that stops
+short or runs past it raises. Zstandard follows libtiff's `ZSTDDecode`: the
+strip's first frame only, bytes after it and what it gives past the size
+dropped; a frame that gives fewer bytes (two frames of half a strip each, a
+skippable frame first, a frame cut short) raises naming the strip, as PIL
+fails on it ("Not enough data"), and so do a bad checksum and the other
+faults libzstd refuses. After Deflate, LZMA, Zstandard or LZW,
 `Predictor` 2 is undone as libtiff undoes it, a cumulative sum along each
 row of the strip or tile per sample (a tile's rows start at its own left
 edge), mod 256 or mod 65,536 on 16-bit samples (libtiff ignores the
@@ -57,17 +63,19 @@ otherwise, the others' 1, 1 ("Improper JPEG sampling factors").
 Associated alpha, 12-bit and floating-point samples, 16-bit white-is-zero,
 `FillOrder` 2, libtiff's old-style LZW (LSB first, which libtiff tells by
 a strip's first two bytes), CCITT, old-style JPEG (6), planar JPEG,
-YCbCr that is not JPEG-compressed (subsampled samples), Zstandard, WebP,
-BigTIFF and every other compression raise with the cause.
-`decode_tiff_plain` decodes LZW and PackBits data with the plain versions
-(`io/lzw.py::lzw_decode_plain`, `packbits_decode_plain`) and JPEG streams
-with `read_jpeg_plain`'s decoder, which the C++ is held to byte for byte;
-the training path never calls them.
+YCbCr that is not JPEG-compressed (subsampled samples), WebP, BigTIFF and
+every other compression raise with the cause. `decode_tiff_plain` decodes
+LZW, PackBits and Zstandard data with the plain versions
+(`io/lzw.py::lzw_decode_plain`, `packbits_decode_plain`,
+`io/zstd.py::decode_plain`) and JPEG streams with `read_jpeg_plain`'s
+decoder, which the C++ is held to byte for byte; the training path never
+calls them.
 
 `encode_tiff` / `write_tiff` write 8- or 16-bit gray, gray + alpha, RGB,
 RGBA and CMYK in either byte order, in strips or tiles, interleaved or
 planar, uncompressed, LZW (predictor 1 or 2; the LZW encoder in C++,
-`gm_lzw_encode`), PackBits, Deflate or LZMA (predictor 1 or 2), or JPEG
+`gm_lzw_encode`), PackBits, Deflate, LZMA or Zstandard (predictor 1 or 2;
+`gm_zstd_encode`, a frame a strip or tile), or JPEG
 (Photometric 1, 2 or 5 as they are, or RGB as YCbCr, Photometric 6 with
 its `YCbCrSubsampling`; a `JPEGTables` tag and abbreviated streams), for
 the tests and `chip_smoke.py`; the training path does not write TIFFs.
@@ -81,7 +89,7 @@ import zlib
 
 import numpy as np
 
-from gaussianmesh_tpu_torch.io import jpeg, lzw, runs
+from gaussianmesh_tpu_torch.io import jpeg, lzw, runs, zstd
 from gaussianmesh_tpu_torch.ops import _cuda
 
 TIFF_MAGICS = (b"II*\x00", b"MM\x00*")
@@ -95,11 +103,10 @@ _TYPES = {1: "B", 3: "H", 4: "I"}
 _UNDEFINED = 7
 _BYTE_TAGS = (347,)                    # JPEGTables
 _COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT fax 3", 4: "CCITT fax 4",
-                 6: "old-style JPEG", 34712: "JPEG 2000", 50000: "Zstandard",
-                 50001: "WebP"}
-_NONE, _LZW, _JPEG, _PACKBITS, _LZMA = 1, 5, 7, 32773, 34925
+                 6: "old-style JPEG", 34712: "JPEG 2000", 50001: "WebP"}
+_NONE, _LZW, _JPEG, _PACKBITS, _LZMA, _ZSTD = 1, 5, 7, 32773, 34925, 50000
 _DEFLATE = (8, 32946)
-_READ = (_NONE, _LZW, _JPEG, _PACKBITS, _LZMA) + _DEFLATE
+_READ = (_NONE, _LZW, _JPEG, _PACKBITS, _LZMA, _ZSTD) + _DEFLATE
 # (Photometric, samples, ExtraSamples) -> the samples kept and whether they
 # are inverted (PIL's OPEN_INFO for 8-bit samples, without associated alpha)
 _LAYOUTS = {
@@ -120,7 +127,7 @@ _LAYOUTS_16 = {
 _LAYOUTS_SUB = {(0, 1, ()): (1, True), (1, 1, ()): (1, False), (3, 1, ()): (1, False)}
 # JPEG compression: (Photometric, samples) read, 8-bit, no ExtraSamples
 _JPEG_LAYOUTS = ((1, 1), (2, 3), (5, 4), (6, 3))
-_PREDICTED = (_LZW, _LZMA) + _DEFLATE
+_PREDICTED = (_LZW, _LZMA, _ZSTD) + _DEFLATE
 _STATUS_OVERFLOW = 8                   # csrc/image.cpp's kOverflow
 
 
@@ -229,13 +236,14 @@ def packbits_rows(rows: np.ndarray) -> tuple[bytes, np.ndarray]:
 
 def decode_tiff(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """`read_tiff` of a TIFF's bytes (`path` names it in errors)."""
-    return _decode(data, path, lzw.lzw_decode, packbits_decode, True)
+    return _decode(data, path, lzw.lzw_decode, packbits_decode, zstd.decode, True)
 
 
 def decode_tiff_plain(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """`decode_tiff` with LZW and PackBits data decoded by the plain
-    versions, and JPEG streams by `read_jpeg_plain`'s decoder."""
-    return _decode(data, path, lzw.lzw_decode_plain, packbits_decode_plain, False)
+    """`decode_tiff` with LZW, PackBits and Zstandard data decoded by the
+    plain versions, and JPEG streams by `read_jpeg_plain`'s decoder."""
+    return _decode(data, path, lzw.lzw_decode_plain, packbits_decode_plain,
+                   zstd.decode_plain, False)
 
 
 def _layout(path, photometric, spp, bits, extra):
@@ -267,7 +275,7 @@ def _layout(path, photometric, spp, bits, extra):
     return (bits[0],) + table[(photometric, spp, extra)]
 
 
-def _strip(raw, where, size, compression, path, decode_lzw, decode_packbits):
+def _strip(raw, where, size, compression, path, decode_lzw, decode_packbits, decode_zstd):
     """The stored bytes of `where` (strip or tile i) -> `size` bytes,
     uint8."""
     if compression in _DEFLATE:
@@ -288,6 +296,15 @@ def _strip(raw, where, size, compression, path, decode_lzw, decode_packbits):
             raise ValueError(f"{path}: TIFF {where} fails to decompress (LZMA): "
                              f"{err}") from None
         out = np.frombuffer(raw, np.uint8)
+    elif compression == _ZSTD:
+        try:        # as libtiff's ZSTDDecode: the first frame, to the size
+            out = decode_zstd(raw, size)
+        except ValueError as err:
+            raise ValueError(f"{path}: TIFF {where}: {err}") from None
+        if len(out) < size:
+            raise ValueError(f"{path}: TIFF {where}: its first Zstandard frame gives "
+                             f"{len(out)} of its {size} bytes (libtiff reads no further "
+                             "frame: not enough data)")
     elif compression in (_LZW, _PACKBITS):
         if compression == _LZW and raw[:1] == b"\x00" and raw[1:2] and raw[1] & 1:
             raise ValueError(f"{path}: TIFF {where} is old-style LZW (LSB first, "
@@ -346,7 +363,8 @@ def _samples(raw, rows, cols, n, depth, e):
     return raw.reshape(rows, cols, n)
 
 
-def _decode(data: bytes, path: str, decode_lzw, decode_packbits, native: bool) -> np.ndarray:
+def _decode(data: bytes, path: str, decode_lzw, decode_packbits, decode_zstd,
+            native: bool) -> np.ndarray:
     tags = _tags(data, path)
     if 256 not in tags or 257 not in tags:
         raise ValueError(f"{path}: TIFF without its width or height")
@@ -367,7 +385,8 @@ def _decode(data: bytes, path: str, decode_lzw, decode_packbits, native: bool) -
         raise ValueError(f"{path}: TIFF with FillOrder 2; not read")
     if compression in _COMPRESSIONS:
         raise ValueError(f"{path}: {_COMPRESSIONS[compression]}-compressed TIFF; only "
-                         "uncompressed, LZW, PackBits, Deflate, LZMA and JPEG TIFFs are read")
+                         "uncompressed, LZW, PackBits, Deflate, LZMA, Zstandard and JPEG "
+                         "TIFFs are read")
     if compression not in _READ:
         raise ValueError(f"{path}: TIFF compression {compression} is unknown")
     if photometric == 5 and tags.get(332, [1])[0] != 1:
@@ -392,7 +411,7 @@ def _decode(data: bytes, path: str, decode_lzw, decode_packbits, native: bool) -
                    np.uint16 if depth == 16 else np.uint8)
     for i, (off, count, p, x0, y0, rows) in enumerate(chunks):
         raw = _strip(data[off:off + count], f"{kind} {i}", rows * row_bytes, compression,
-                     path, decode_lzw, decode_packbits)
+                     path, decode_lzw, decode_packbits, decode_zstd)
         s = _samples(raw, rows, cw, per, depth, e)
         if predictor == 2:
             s = np.cumsum(s, axis=1, dtype=s.dtype)
@@ -474,7 +493,7 @@ def _decode_jpeg(data, tags, path, width, height, photometric, spp, bits, extra,
 
 # ------------------------------------------------------------------ writer
 _WRITE_COMPRESSION = {"none": _NONE, "lzw": _LZW, "packbits": _PACKBITS, "deflate": 8,
-                      "lzma": _LZMA, "jpeg": _JPEG}
+                      "lzma": _LZMA, "zstd": _ZSTD, "jpeg": _JPEG}
 # YCbCrSubsampling of write_jpeg's chroma subsamplings
 _YCBCR_SUBSAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2), "4:4:0": (1, 2)}
 _WRITE_TYPES = {3: "H", 4: "I", _UNDEFINED: "B"}
@@ -498,6 +517,8 @@ def _encode_chunk(s, comp, predictor, byteorder, jpeg_kw):
     if comp == _LZMA:
         import lzma
         return lzma.compress(raw.tobytes(), lzma.FORMAT_XZ, lzma.CHECK_NONE)
+    if comp == _ZSTD:
+        return zstd.encode(raw)
     return raw.tobytes()
 
 
@@ -514,12 +535,12 @@ def encode_tiff(img: np.ndarray, compression: str = "lzw", predictor: int = 1,
     height), or in `tile` (width, height) tiles, edge tiles padded with
     their edge samples; `planar` writes each sample's plane in turn
     (PlanarConfiguration 2). `compression` "none", "lzw", "packbits",
-    "deflate", "lzma" or "jpeg" (uint8; gray, RGB or CMYK as they are at
+    "deflate", "lzma", "zstd" or "jpeg" (uint8; gray, RGB or CMYK as they are at
     4:4:4, or with `ycbcr` RGB as YCbCr, Photometric 6, chroma subsampled by
     `subsampling`, at libjpeg's `quality`; a JPEGTables tag and abbreviated
     streams, the last strip's frame its own height, as libtiff writes
     them); `predictor` 2 (horizontal differencing, along each strip's or
-    tile's rows) with LZW, Deflate or LZMA, or 1."""
+    tile's rows) with LZW, Deflate, LZMA or Zstandard, or 1."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
         raise ValueError(f"encode_tiff takes uint8 or uint16, not {img.dtype}")

@@ -10,7 +10,7 @@ and a stale library never loads.
 
 Host code (`csrc/<name>.cpp`, C++: the deformation-gradient extractor with
 OpenMP, the image codecs of the training path, lossy WebP's VP8 codec,
-lossless WebP's VP8L codec and the alpha plane)
+lossless WebP's VP8L codec and the alpha plane, Zstandard)
 builds the same way with `g++` (`host_library`). A missing compiler or a
 failed build raises with the compiler's output: nothing falls back.
 """
@@ -145,6 +145,14 @@ HOST_LIBRARIES = {
         # argb, width, height, cache_bits, lz77, meta_bits, groups, flags, out,
         # cap, bitpos, stats
         "gm_vp8l_encode_image": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _L, _P, _P],
+    },
+    "zstd": {
+        # data, n, out, size, info
+        "gm_zstd_decode": [_P, _L, _P, _L, _P],
+        # data, n, seed, out
+        "gm_xxh64": [_P, _L, ctypes.c_uint64, _P],
+        # data, n, checksum, out, cap, n_out
+        "gm_zstd_encode": [_P, _L, _I, _P, _L, _P],
     },
 }
 

@@ -582,30 +582,29 @@ def test_tiff_forms_once_refused_equal_pil(tmp_path, kind):
     _check_tiff(path, open(path, "rb").read(), want)
 
 
-@pytest.mark.parametrize("kind", ["old_style_lzw", "ccitt", "zstd", "12-bit",
+@pytest.mark.parametrize("kind", ["old_style_lzw", "ccitt", "webp_in_tiff", "12-bit",
                                   "old_style_jpeg", "planar_jpeg", "associated",
                                   "float_predictor", "fill_order", "ycbcr_uncompressed",
                                   "truncated", "bigtiff"])
 def test_tiff_refused_forms_raise(tmp_path, kind):
-    """libtiff's old-style LZW (LSB first), CCITT and Zstandard compression,
+    """libtiff's old-style LZW (LSB first), CCITT and WebP compression,
     12-bit samples, old-style JPEG (6), planar JPEG-compressed data,
     associated alpha, the floating-point predictor, FillOrder 2, YCbCr that
     is not JPEG-compressed (subsampled samples), a strip cut short and
     BigTIFF raise a ValueError naming the cause, through the C++ and the
     plain route. (Tiled, planar, JPEG and CMYK TIFFs are read:
-    tests/test_torch_tiff_layouts.py.)"""
+    tests/test_torch_tiff_layouts.py; Zstandard ones:
+    tests/test_torch_tiff_zstd.py.)"""
     rng = np.random.default_rng(1)
     img = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
     path = str(tmp_path / "x.tif")
-    words = {"old_style_lzw": "old-style LZW", "ccitt": "CCITT", "zstd": "Zstandard",
+    words = {"old_style_lzw": "old-style LZW", "ccitt": "CCITT", "webp_in_tiff": "WebP",
              "12-bit": "12", "old_style_jpeg": "old-style JPEG",
              "planar_jpeg": "planar JPEG", "associated": "associated",
              "float_predictor": "predictor 3", "fill_order": "FillOrder",
              "ycbcr_uncompressed": "YCbCr", "truncated": "truncated",
              "bigtiff": "BigTIFF"}[kind]
-    if kind == "zstd":
-        Image.fromarray(img).save(path, compression="zstd")
-    elif kind == "ccitt":
+    if kind == "ccitt":
         Image.fromarray(img[..., 0] > 128).save(path, compression="group4")
     else:
         data = {
@@ -614,6 +613,7 @@ def test_tiff_refused_forms_raise(tmp_path, kind):
                 lzw.lzw_encode_plain(img.tobytes(), "gif", 8)),
             "12-bit": lambda: _tiff(img[..., 0], more=[]).replace(
                 struct.pack("<HHIHH", 258, 3, 1, 8, 0), struct.pack("<HHIHH", 258, 3, 1, 12, 0)),
+            "webp_in_tiff": lambda: _tiff(img, compression=50001),
             "old_style_jpeg": lambda: _tiff(img, compression=6),
             "planar_jpeg": lambda: _tiff(img, compression=7, more=[(284, 3, [2])]),
             "associated": lambda: _tiff(np.concatenate([img, img[..., :1]], -1), extra=[1]),

@@ -7,6 +7,7 @@ type with rows cycling through all five filters, palettes with tRNS,
 Adam7; resize in L / LA / RGB / RGBA up, down and on the resolution ladder.
 The training path's readers never reach a plain version (the LZW,
 PackBits and RLE ones of `tests/test_torch_image_formats_lzw.py`, the
+Zstandard walk of `io/zstd.py`, the
 BC1 one of FTEX textures, the BCn ones of DDS and BLP textures, BC6H's
 and the lossless JPEG walk included), and a build that cannot happen
 raises."""
@@ -23,7 +24,7 @@ from PIL import Image
 
 from gaussianmesh_tpu_torch.data import cameras, readers
 from gaussianmesh_tpu_torch.io import (bcn, blp, bmp, dds, fli, ftex, gif, jpeg, lzw, pcx, png,
-                                      pnm, qoi, resample, sgi, tga, tiff, webp)
+                                      pnm, qoi, resample, sgi, tga, tiff, webp, zstd)
 from gaussianmesh_tpu_torch.ops import _cuda
 from tests.test_torch_jpeg import _image as _jpeg_image, _segment, _segments
 from tests.test_torch_readers import ADAM7, _blender_set, _chunk, _jpeg_colmap_set
@@ -399,12 +400,15 @@ def test_resize_native_equals_plain_and_pil(c):
 
 def _new_forms_set(root):
     """`_jpeg_colmap_set` with its views as LZW TIFF (predictor 2), PackBits
-    TIFF, GIF, RLE8 and RLE4 BMP, in turn."""
+    TIFF, GIF, RLE8 and RLE4 BMP and Zstandard TIFF (predictor 2), in turn."""
     root = _jpeg_colmap_set(root)
     for i, name in enumerate(sorted(os.listdir(f"{root}/images"))):
         path = f"{root}/images/{name}"
         img = jpeg.read_jpeg(path)
-        kind = i % 5
+        kind = i % 6
+        if kind == 5:
+            tiff.write_tiff(path, img, compression="zstd", predictor=2)
+            continue
         if kind < 2:
             tiff.write_tiff(path, img, compression=("lzw", "packbits")[kind],
                             predictor=2 - kind)
@@ -514,8 +518,8 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
     """`read_scene` of a JPEG COLMAP set on the -r -1 ladder (decode and
     resize), of the same set with progressive JPEGs, of a Blender set of
     PIL-filtered RGBA PNGs at -r 2, of the COLMAP set in LZW and PackBits
-    TIFF, GIF and RLE BMP views, of it in lossy WebP views and of it in RLE
-    TGA, QOI, RLE SGI, PCX and PPM views, of it in FLI and FLC views and
+    TIFF, GIF, RLE BMP and Zstandard TIFF views, of it in lossy WebP views
+    and of it in RLE TGA, QOI, RLE SGI, PCX and PPM views, of it in FLI and FLC views and
     of it in FTEX (DXT1 and raw) views, of it in DDS and BLP views, of it in
     DX10 BC6H views and of it in lossless JPEG views, with every plain piece
     made to raise: the same scenes as before."""
@@ -566,7 +570,11 @@ def test_training_readers_never_call_a_plain_version(tmp_path, monkeypatch):
                        (pcx, ("_rle_plain",)), (fli, ("_frame_plain",)),
                        (bcn, ("_bc1_plain", "decode_plain", "_bc7", "_bc4", "_colour",
                               "_bc6h", "_half_to_8", "bc6h_endpoints")),
-                       (dds, ("decode_dds_plain",)), (blp, ("decode_blp_plain",))):
+                       (dds, ("decode_dds_plain",)), (blp, ("decode_blp_plain",)),
+                       (zstd, ("decode_plain", "xxh64_plain", "_header", "_frame_size",
+                               "_block", "_literals", "_huffman_table", "_fse_weights",
+                               "_huffman_stream", "_huffman_fast", "_ncount", "_seq_table",
+                               "_Back"))):
         for name in names:
             monkeypatch.setattr(mod, name, plain)
     after = (readers.read_scene(colmap_root, resolution=-1, **kw),

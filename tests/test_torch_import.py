@@ -1,5 +1,6 @@
 """The port stands alone: no module of it imports JAX or the JAX package,
-nor an imaging package (PIL, imageio): the machines it runs on have none."""
+nor an imaging package (PIL, imageio) or a Zstandard one (zstandard): the
+machines it runs on have none."""
 
 import ast
 import pathlib
@@ -27,8 +28,8 @@ def test_importing_every_module_leaves_out_jax():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'gaussianmesh_tpu', "
-            "'PIL', 'imageio') or m.startswith(('jax.', 'flax', 'gaussianmesh_tpu.', "
-            "'PIL.', 'imageio.')))\n"
+            "'PIL', 'imageio', 'zstandard') or m.startswith(('jax.', 'flax', "
+            "'gaussianmesh_tpu.', 'PIL.', 'imageio.', 'zstandard.')))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -55,7 +56,7 @@ def test_no_source_names_jax_or_the_jax_package():
         for name in _imported_names(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "gaussianmesh_tpu", "PIL",
-                               "imageio"), (path, name)
+                               "imageio", "zstandard"), (path, name)
 
 
 def _loads_webp(path) -> list:
